@@ -1,0 +1,55 @@
+"""Carry the JAX package's parameters over to the port.
+
+The port keeps the JAX layouts (HWIO convolution kernels, ``[in, out]``
+dense kernels), so a flax parameter tree maps onto the port's named leaves
+by name alone: ``{"Conv_0": {"kernel": ..., "bias": ...}, ...}`` becomes
+``{"Conv_0/kernel": ..., "Conv_0/bias": ...}``, then one flat row per node.
+The arrays come in as numpy (``np.asarray`` of each JAX leaf); nothing here
+imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.nn import ParamLayout
+
+
+def flatten_names(tree: dict, prefix: str = "") -> dict:
+    """``{"Dense_0": {"kernel": a}}`` -> ``{"Dense_0/kernel": a}``."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_names(v, name))
+        else:
+            out[name] = v
+    return out
+
+
+def params_from_jax(tree: dict, layout: ParamLayout, stacked: bool = True,
+                    device="cpu") -> torch.Tensor:
+    """A (stacked) flax parameter tree of numpy arrays -> the port's flat
+    rows: ``[N, stride]`` when ``stacked`` (leaves ``[N, ...]``), else
+    ``[stride]``. Raises when a leaf is missing, extra or misshapen."""
+    named = flatten_names(tree)
+    want = {name for name, _ in layout.leaves}
+    if set(named) != want:
+        raise ValueError(f"leaf names differ: got {sorted(named)}, "
+                         f"want {sorted(want)}")
+    leaves = {}
+    for name, shape in layout.leaves:
+        a = np.asarray(named[name], dtype=np.float32)
+        got = a.shape[1:] if stacked else a.shape
+        if tuple(got) != shape:
+            raise ValueError(f"{name}: shape {a.shape}, want "
+                             f"{'[N] + ' if stacked else ''}{list(shape)}")
+        leaves[name] = torch.from_numpy(a.copy())
+    return layout.flatten(leaves).to(device)
+
+
+def params_to_numpy(flat: torch.Tensor, layout: ParamLayout) -> dict:
+    """The port's flat rows -> ``{name: numpy array}`` in the JAX layouts
+    (for holding a port run against a JAX one)."""
+    return {k: v.detach().cpu().numpy() for k, v in layout.views(flat).items()}

@@ -1,0 +1,148 @@
+"""The port's models and loss against the JAX package's.
+
+Forwards run on parameters converted from a flax init (two nodes, three
+inputs each, each node its own weights). Tolerance 1e-5: the im2col
+products reduce in another order than XLA's.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gossipy_tpu.handlers import losses
+from gossipy_tpu.models import CIFAR10Net, LogisticRegression
+from gossipy_tpu_torch import convert
+from gossipy_tpu_torch.handlers import losses as tlosses
+from gossipy_tpu_torch.models import CIFAR10Net as TCIFAR10Net
+from gossipy_tpu_torch.models import LogisticRegression as TLogReg
+from gossipy_tpu_torch.models import ParamLayout
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def stacked_init(model, x_shape, n=2):
+    keys = jax.random.split(jax.random.PRNGKey(4), n)
+    dummy = jnp.zeros((1,) + x_shape, jnp.float32)
+    return jax.vmap(lambda k: model.init(k, dummy)["params"])(keys)
+
+
+def run_both(jmodel, tmodel, x):
+    """x: numpy [N, B, ...]; returns (port, JAX) forwards."""
+    jparams = stacked_init(jmodel, x.shape[2:], n=x.shape[0])
+    want = jax.vmap(lambda p, xb: jmodel.apply({"params": p}, xb))(
+        jparams, jnp.asarray(x))
+    layout = ParamLayout(tmodel.leaves)
+    flat = convert.params_from_jax(jax.tree.map(np.asarray, jparams), layout)
+    got = tmodel.forward(layout.views(flat), torch.from_numpy(x))
+    return got.detach().numpy(), np.asarray(want)
+
+
+def test_logistic_regression_forward():
+    x = np.random.default_rng(0).normal(size=(2, 3, 7)).astype(np.float32)
+    got, want = run_both(LogisticRegression(7, 2), TLogReg(7, 2), x)
+    assert got.shape == (2, 3, 2)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_cifar10net_forward(layout):
+    x = np.random.default_rng(1).normal(size=(2, 3, 32, 32, 3)) \
+        .astype(np.float32)
+    jparams = stacked_init(CIFAR10Net(), (32, 32, 3))
+    want = np.asarray(jax.vmap(
+        lambda p, xb: CIFAR10Net().apply({"params": p}, xb))(
+            jparams, jnp.asarray(x)))
+    tmodel = TCIFAR10Net()
+    lay = ParamLayout(tmodel.leaves)
+    flat = convert.params_from_jax(jax.tree.map(np.asarray, jparams), lay)
+    xin = x if layout == "nhwc" else np.ascontiguousarray(
+        x.transpose(0, 1, 4, 2, 3))
+    got = tmodel.forward(lay.views(flat), torch.from_numpy(xin)).numpy()
+    assert got.shape == (2, 3, 10)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_cifar10net_leaves_match_flax_tree():
+    jparams = CIFAR10Net().init(jax.random.PRNGKey(0),
+                                jnp.zeros((1, 32, 32, 3)))["params"]
+    want = {n: tuple(np.shape(v)) for n, v in
+            convert.flatten_names(jax.tree.map(np.asarray, jparams)).items()}
+    assert dict(TCIFAR10Net().leaves) == want
+    lay = ParamLayout(TCIFAR10Net().leaves)
+    assert lay.width == 73418 and lay.stride % 4 == 0
+
+
+def test_layout_round_trip_and_padding():
+    lay = ParamLayout(TCIFAR10Net().leaves)
+    rng = np.random.default_rng(2)
+    leaves = {n: torch.from_numpy(rng.normal(size=(3,) + s).astype(np.float32))
+              for n, s in lay.leaves}
+    flat = lay.flatten(leaves)
+    assert flat.shape == (3, lay.stride)
+    assert (flat[:, lay.width:] == 0).all()
+    for n, v in lay.views(flat).items():
+        np.testing.assert_array_equal(v.numpy(), leaves[n].numpy())
+
+
+def test_convert_rejects_wrong_tree():
+    lay = ParamLayout(TLogReg(7, 2).leaves)
+    good = {"Dense_0": {"kernel": np.zeros((2, 7, 2), np.float32),
+                        "bias": np.zeros((2, 2), np.float32)}}
+    assert convert.params_from_jax(good, lay).shape == (2, lay.stride)
+    with pytest.raises(ValueError, match="names"):
+        convert.params_from_jax({"Dense_1": good["Dense_0"]}, lay)
+    bad = {"Dense_0": dict(good["Dense_0"],
+                           kernel=np.zeros((2, 2, 7), np.float32))}
+    with pytest.raises(ValueError, match="shape"):
+        convert.params_from_jax(bad, lay)
+
+
+@pytest.mark.parametrize("labels", ["int", "onehot"])
+@pytest.mark.parametrize("mask_kind", ["partial", "empty", "none"])
+def test_cross_entropy_value_and_gradient(labels, mask_kind):
+    rng = np.random.default_rng(3)
+    scores = rng.normal(size=(6, 4)).astype(np.float32)
+    y = rng.integers(0, 4, 6)
+    if labels == "onehot":
+        y = np.eye(4, dtype=np.float32)[y]
+    mask = {"partial": np.array([1, 1, 0, 1, 0, 1], np.float32),
+            "empty": np.zeros(6, np.float32), "none": None}[mask_kind]
+    jm = None if mask is None else jnp.asarray(mask)
+    want, want_g = jax.value_and_grad(
+        lambda s: losses.cross_entropy(s, jnp.asarray(y), jm))(
+            jnp.asarray(scores))
+    s = torch.from_numpy(scores).requires_grad_(True)
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = tlosses.cross_entropy(s, torch.from_numpy(y), tm)
+    (got_g,) = torch.autograd.grad(got, s)
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **TOL)
+    if mask_kind == "empty":
+        assert got.item() == 0.0 and not got_g.any()
+
+
+@pytest.mark.parametrize("which", ["logreg", "cifar"])
+def test_init_distributions_match_flax(which):
+    """The port draws its own initial weights (a torch.Generator cannot
+    replay flax's keys); each leaf's scale matches flax's initialiser."""
+    if which == "logreg":
+        jmodel, tmodel, shape = LogisticRegression(300, 40), TLogReg(300, 40), (300,)
+    else:
+        jmodel, tmodel, shape = CIFAR10Net(), TCIFAR10Net(), (32, 32, 3)
+    jp = convert.flatten_names(jax.tree.map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1,) + shape))["params"]))
+    tp = tmodel.init(torch.Generator().manual_seed(0))
+    assert sorted(tp) == sorted(jp)
+    for name, want in jp.items():
+        got = tp[name].numpy()
+        assert got.shape == want.shape, name
+        if name.endswith("bias"):
+            assert not got.any() and not want.any(), name
+            continue
+        np.testing.assert_allclose(got.std(), want.std(), rtol=0.1,
+                                   err_msg=name)
+        np.testing.assert_allclose(np.abs(got).max(), np.abs(want).max(),
+                                   rtol=0.15, err_msg=name)
