@@ -10,20 +10,32 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``), the CUDA and
    PyTorch versions; TF32 is switched off for matrix products and
    convolutions, so every fp32 product is full fp32.
-2. build: ``nvcc`` builds every kernel of the port from ``csrc/``.
+2. build: ``nvcc`` builds every kernel source of the port from ``csrc/``,
+   one compiler per source, all at once.
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs, at the shapes the main path gives it and at ragged shapes;
-   the device time of one call of the kernel and of the plain version
-   (CUDA graph of 20 calls, replayed between CUDA events, median of 50),
-   and the least time the card could take.
-4. main path: a 64-node CIFAR10Net gossip run on the card (clique, PUSH,
-   MERGE_UPDATE, 4-slot mailbox, single-pass fused deliver, SGD 0.05,
-   batch 32, synthetic 32x32x3 data with 64 images per node), launch
-   counts set to 0 just before the timed rounds and read just after;
-   then one more round under torch.profiler (device time by kernel, idle
-   share) and the host-clock time of each phase.
-5. reference: the same small run on the CPU (plain versions) and on the
-   card (kernels), from the same seeds: equal accounting, close params.
+   inputs, at the shapes the main path gives it (64 receivers, a 2 x 64
+   ring, rows of 73,420 columns, the 10 CIFAR10Net leaves, K = 4 or one
+   slot) and at ragged shapes (F not a multiple of 4; leaf edges inside a
+   4-column word); ring rows (or int8 scales) behind empty slots are NaN
+   or Inf where the kernel must not read them. For each: the max abs
+   error, the device time of one call of the kernel and of the plain
+   version (CUDA graph of 20 calls, replayed between CUDA events, median
+   of 50), and the least time the card could take, with what bounds it.
+4. paths: a 64-node CIFAR10Net gossip run on the card (clique, PUSH,
+   MERGE_UPDATE, 4-slot mailbox, SGD 0.05, batch 32, synthetic 32x32x3
+   data with 64 images per node), on each deliver path: the single-pass
+   fused deliver with an fp32 ring (the first slice's main path: 5 timed
+   rounds, then one profiled round and the host-clock time of each
+   phase), then the plain deliver with compaction (auto), the per-slot
+   fused deliver with fp32, bf16 and int8 rings and the single-pass one
+   with bf16 and int8 rings (a warm-up round, 3 timed rounds and the
+   phase times each). Launch counts are set to 0 just before each path's
+   timed rounds and read just after: the multi-slot kernels launch once
+   per round with messages, the single-slot ones once per occupied slot,
+   and the plain path launches none.
+5. reference: the same small run of each path on the CPU (plain versions)
+   and on the card (kernels), from the same seeds: equal accounting, close
+   params (within one encoding step more for the bf16 and int8 rings).
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -39,19 +51,29 @@ import time
 
 import numpy as np
 
-ROUNDS = 5          # timed rounds of the main path
+ROUNDS = 5          # timed rounds of the fp32 single-pass path
+LEG_ROUNDS = 3      # timed rounds of each other path
 N_NODES = 64
 SLOTS = 4
-KERNEL_TOL = 0.0    # --fmad=false: the kernel rounds as the plain version
+KERNEL_TOL = 0.0    # --fmad=false: the kernels round as the plain versions
 REF_TOL = 1e-4      # card vs CPU params: matmul reduction order differs
 
 # Device memory rate of each H100 part (NVIDIA data sheets), by a
 # substring of torch.cuda.get_device_name().
 MEMORY_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                       ("H100", 3.35e12))
-# fp32 outside the tensor cores, H100 SXM (NVIDIA's data sheet); the fold
-# is elementwise, so no tensor-core rate applies.
+# fp32 outside the tensor cores, H100 SXM (NVIDIA's data sheet); the folds
+# are elementwise, so no tensor-core rate applies.
 FP32_FLOPS = 67e12
+
+# The paths of phase 4 after the first: (label, fused_merge, history_dtype).
+LEGS = (("plain", False, "float32"),
+        ("per_slot", "per_slot", "float32"),
+        ("per_slot-bf16", "per_slot", "bfloat16"),
+        ("per_slot-int8", "per_slot", "int8"),
+        ("multi-bf16", "multi", "bfloat16"),
+        ("multi-int8", "multi", "int8"))
+ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
 
 
 def log(msg: str) -> None:
@@ -116,6 +138,13 @@ def call_ms(torch, fn, iters: int = 50) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: int, flops: int, rate: float):
+    """The least time for ``nbytes`` and ``flops``, and which bounds it."""
+    bytes_ms, flops_ms = nbytes / rate * 1e3, flops / FP32_FLOPS * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
+
+
 def merge_tables(rng, n: int, d: int, k: int):
     """Tables as one round of the main path builds them: each of ``n``
     senders picks one peer of a clique; slots fill in sender order; an
@@ -168,9 +197,7 @@ def check_merge(torch, merge, n, d, f, k, seed, rate):
     plain_ms = time_ms(torch,
                        lambda: merge.gather_merge_multi_reference(*args))
     eager_ms = call_ms(torch, lambda: merge.gather_merge_multi_cuda(*args))
-    bytes_ms, flops_ms = nbytes / rate * 1e3, flops / FP32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    bound_ms, bound_by = bound(nbytes, flops, rate)
     log(f"[kernels] gather_merge_multi n={n} m={d * n} f={f} k={k} "
         f"live_slots={live} max_abs_err={err} ms={ms:.5f} "
         f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
@@ -180,8 +207,106 @@ def check_merge(torch, merge, n, d, f, k, seed, rate):
                 bound_by=bound_by)
 
 
+def wire_ring(torch, rng, m, f, n_leaves, wire, dev):
+    """A ``[m, f]`` ring in ``wire`` format and, for int8, its ``[m, L]``
+    scales (else None), on ``dev``."""
+    if wire == "int8":
+        q = rng.integers(-127, 128, (m, f)).astype(np.int8)
+        scale = rng.uniform(0.001, 0.02, (m, n_leaves)).astype(np.float32)
+        return torch.from_numpy(q).to(dev), scale
+    h = torch.from_numpy(rng.normal(size=(m, f)).astype(np.float32))
+    return h.to(dev, getattr(torch, wire)), None
+
+
+def check_wire_kernel(torch, merge, slots, wire, n, d, f, k, starts, seed,
+                      rate):
+    """K2 (``slots="multi"``), K3 or K4 (``slots="single"``) against its
+    plain version; times and bound at this shape. For K2 every ring row
+    (bfloat16) or scale (int8) that only empty slots name is NaN or Inf."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    m = d * n
+    p = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
+    h, scale = wire_ring(torch, rng, m, f, len(starts), wire, dev)
+    idx, ws, wp = merge_tables(rng, n, d, k)
+    if slots == "multi":
+        if scale is not None:
+            scale[n:] = np.nan
+            scale[n::5] = np.inf
+        else:
+            h[n:] = float("nan")
+            h[n::5] = float("inf")
+    else:
+        idx, ws, wp = idx[:, :1], ws[:, :1], wp[:, :1]
+    scale_t = None if scale is None else torch.from_numpy(scale).to(dev)
+    starts_t = None if scale is None else torch.tensor(
+        starts, dtype=torch.int32, device=dev)
+    tabs = [torch.from_numpy(a).to(dev) for a in (idx, ws, wp)]
+    if slots == "multi":
+        name = merge.KERNEL_MULTI_DQ
+        args = (p, h, *tabs)
+
+        def kernel():
+            return merge.gather_merge_multi_dq_cuda(*args, scale_t, starts_t)
+
+        def plain():
+            return merge.gather_merge_multi_reference(*args, scale_t,
+                                                      starts_t)
+    else:
+        name = merge.KERNEL_FLAT_DQ if (wire != "float32") \
+            else merge.KERNEL_FLAT
+        args = (p, h, *(t[:, 0] for t in tabs))
+
+        def kernel():
+            return merge.gather_merge_flat_cuda(*args, scale_t, starts_t)
+
+        def plain():
+            return merge.gather_merge_reference(*args, scale_t, starts_t)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name} [{wire}] output is not finite")
+    err = float((got - want).abs().max())
+    shape = (n, m, f, k, len(starts))
+    if err > KERNEL_TOL:
+        raise RuntimeError(f"{name} [{wire}] disagrees with its plain "
+                           f"version: max abs err {err} > {KERNEL_TOL} at "
+                           f"{shape}")
+    # Least work: p read once, out written once, each ring row the
+    # function reads once at wire width (the live ones for K2; every
+    # receiver's for K3/K4, which have no zero-weight mask), the tables
+    # and the gathered scales once. Per element: a live slot is a multiply
+    # (the scale, int8 only), a multiply and the blend's multiply and add;
+    # an empty slot of K2 the blend's multiply and add.
+    isz = ITEMSIZE[wire]
+    n_scales = 0 if scale is None else len(starts)
+    live = int((wp != 0).sum())
+    if slots == "multi":
+        rows = len(np.unique(idx[wp != 0]))
+        reads = live
+        flops = f * (3 * live + 2 * (n * k - live))
+    else:
+        rows = len(np.unique(idx))
+        reads = n
+        flops = f * 3 * n
+    if scale is not None:
+        flops += f * reads
+    nbytes = (4 * f * 2 * n + isz * f * rows + n * k * (8 + 4 + 4)
+              + 4 * n * k * n_scales + 4 * n_scales)
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain)
+    bound_ms, bound_by = bound(nbytes, flops, rate)
+    log(f"[kernels] {name} [{wire}] n={n} m={m} f={f} k={k} "
+        f"leaves={len(starts)} live_slots={live} max_abs_err={err} "
+        f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
+        f"({nbytes} bytes, {flops} flops, bound by {bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
-              seed: int = 0):
+              seed: int = 0, fused_merge="multi", history_dtype="float32",
+              compact_deliver=None):
     from gossipy_tpu_torch.core import AntiEntropyProtocol, Topology
     from gossipy_tpu_torch.data import (ClassificationDataHandler,
                                         DataDispatcher)
@@ -201,7 +326,9 @@ def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
                          input_shape=(32, 32, 3))
     sim = GossipSimulator(handler, Topology.clique(n), disp.stacked(),
                           delta=100, protocol=AntiEntropyProtocol.PUSH,
-                          eval_every=eval_every, fused_merge="multi",
+                          eval_every=eval_every, fused_merge=fused_merge,
+                          compact_deliver=compact_deliver,
+                          history_dtype=history_dtype,
                           mailbox_slots=SLOTS, draws=TorchDraws(seed),
                           device=device)
     state = sim.init_nodes(torch.Generator().manual_seed(seed),
@@ -241,10 +368,10 @@ def profile_round(torch, sim, state) -> None:
             f"{e.key[:90]}")
 
 
-def phase_times(torch, sim, state, rounds: int = 3) -> None:
-    """Host-clock ms of each phase of a main-path round, synchronised
-    around each phase, averaged over ``rounds`` rounds (eval every round
-    here, where the main path evaluates once per run)."""
+def phase_times(torch, sim, state, label: str, rounds: int = 3) -> None:
+    """Host-clock ms of each phase of a round, synchronised around each
+    phase, averaged over ``rounds`` rounds (eval every round here, where
+    the timed runs evaluate once per run)."""
     tot = {"snapshot": 0.0, "send": 0.0, "deliver": 0.0, "eval": 0.0}
     for _ in range(rounds):
         r = state.round
@@ -259,8 +386,100 @@ def phase_times(torch, sim, state, rounds: int = 3) -> None:
             torch.cuda.synchronize()
             tot[name] += (time.perf_counter() - t0) * 1e3
         state.round = r + 1
-    log("[phases] ms per round: " + ", ".join(
+    log(f"[phases] {label}: ms per round: " + ", ".join(
         f"{k} {v / rounds:.3f}" for k, v in tot.items()))
+
+
+def check_path_output(torch, sim, state, rep, label: str) -> None:
+    stride = sim.handler.layout.stride
+    acc = rep.final("accuracy")
+    if not torch.isfinite(state.model.params).all():
+        raise RuntimeError(f"{label}: non-finite params")
+    if state.model.params.shape != (N_NODES, stride) or not np.isfinite(acc):
+        raise RuntimeError(f"{label}: output has the wrong shape or a "
+                           "non-finite accuracy")
+
+
+def run_leg(torch, merge, label: str, fused, wire: str) -> dict:
+    """One path of phase 4 after the first: a warm-up round, LEG_ROUNDS
+    timed rounds with the launch counts checked against the path, the
+    phase times. Returns the launches per kernel of the timed rounds."""
+    sim, state = cifar_sim(torch, N_NODES, 64, 32, "cuda", LEG_ROUNDS + 1,
+                           fused_merge=fused, history_dtype=wire)
+    state, _ = sim.start(state, n_rounds=1)     # warm-up round
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=LEG_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    compact, wide = rep.compact_slots_per_round, rep.wide_slots_per_round
+    occupied = int((compact + wide).sum())
+    with_msgs = int(((compact + wide) > 0).sum())
+    log(f"[path] {label}: {N_NODES}-node CIFAR10Net, fused_merge={fused!r}, "
+        f"history_dtype={wire}, compaction cap {sim._compact_cap}, "
+        f"{LEG_ROUNDS} rounds: {wall / LEG_ROUNDS * 1e3:.3f} ms/round; sent "
+        f"{rep.sent_per_round.tolist()} failed {rep.failed_per_round.tolist()}"
+        f"; compact_slots {compact.tolist()} wide_slots {wide.tolist()}; "
+        f"launches {launches}; final global accuracy "
+        f"{rep.final('accuracy')}")
+    if fused is False:
+        want = {}
+        if sim._compact_cap is None or int(compact.sum()) == 0:
+            raise RuntimeError(f"{label}: compaction did not run")
+    elif fused == "per_slot":
+        kernel = merge.KERNEL_FLAT if wire == "float32" \
+            else merge.KERNEL_FLAT_DQ
+        want = {kernel: occupied}
+    else:
+        want = {merge.KERNEL_MULTI_DQ: with_msgs}
+    if launches != want or (fused and occupied == 0):
+        raise RuntimeError(f"{label}: launches {launches}, the path must "
+                           f"make {want}")
+    check_path_output(torch, sim, state, rep, label)
+    phase_times(torch, sim, state, label)
+    return launches
+
+
+def card_vs_cpu(torch, merge, label: str, fused, wire: str) -> None:
+    """The same 8-node, 3-round run on the CPU and on the card: equal
+    accounting and launch counts as the path needs, params within
+    REF_TOL plus one encoding step of the ring (half a bf16 step of the
+    value, or half an int8 quantum of the leaf, after the 0.5 blend)."""
+    runs = {}
+    # The plain path takes an explicit capacity here (auto compaction
+    # needs N >= 48), so the compacted pass runs in the comparison too.
+    compact = 3 if fused is False else None
+    for dev in ("cpu", "cuda"):
+        merge.reset_launch_counts()
+        s_sim, s_state = cifar_sim(torch, 8, 8, 4, dev, 3, seed=7,
+                                   fused_merge=fused, history_dtype=wire,
+                                   compact_deliver=compact)
+        s_state, s_rep = s_sim.start(s_state, n_rounds=3)
+        runs[dev] = (s_sim, s_state, s_rep, sum(merge.LAUNCHES.values()))
+    (sim, st_c, r_c, l_c), (_, st_g, r_g, l_g) = runs["cpu"], runs["cuda"]
+    for field in ("sent_per_round", "failed_per_round",
+                  "compact_slots_per_round", "wide_slots_per_round"):
+        if not np.array_equal(getattr(r_c, field), getattr(r_g, field)):
+            raise RuntimeError(f"{label}: card and CPU runs differ in "
+                               f"{field}")
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    tol = torch.full_like(p_c, REF_TOL)
+    if wire == "bfloat16":
+        tol = tol + 2.0 ** -8 * p_c.abs()
+    elif wire == "int8":
+        quantum = 0.5 * st_c.history_scale.amax(dim=(0, 1))
+        tol = tol + quantum[sim._col_leaf.cpu()]
+    diff = (p_c - p_g).abs()
+    worst = float((diff - tol).max())
+    log(f"[reference] {label}: 8-node CIFAR10Net, 3 rounds, card vs CPU: max "
+        f"abs param diff {float(diff.max()):.3e}, worst margin to the "
+        f"tolerance {worst:.3e} (<= 0 passes); launches card {l_g}, CPU "
+        f"{l_c}; slots {(r_g.compact_slots_per_round + r_g.wide_slots_per_round).tolist()}")
+    if worst > 0 or l_c != 0 or (l_g == 0) != (fused is False):
+        raise RuntimeError(f"{label}: card run does not agree with the CPU "
+                           "run")
 
 
 def main() -> int:
@@ -284,23 +503,43 @@ def main() -> int:
     log(f"[device] memory rate for the bound: {rate / 1e12} TB/s ({name})")
 
     # 2. build
+    sources = sorted(set(merge.SOURCES.values()))
     t0 = time.perf_counter()
-    _build.build([merge.KERNEL])
-    log(f"[build] {merge.KERNEL} built in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log(merge.KERNEL).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    _build.build(sources)
+    log(f"[build] {', '.join(sources)} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for src in sources:
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
+                log(f"[build]   {src}: {line.strip()}")
 
     # 3. kernels against their plain versions
     from gossipy_tpu_torch.handlers import SGDHandler, losses
     from gossipy_tpu_torch.models import CIFAR10Net
-    stride = SGDHandler(CIFAR10Net(), losses.cross_entropy,
-                        input_shape=(32, 32, 3)).layout.stride
+    layout = SGDHandler(CIFAR10Net(), losses.cross_entropy,
+                        input_shape=(32, 32, 3)).layout
+    stride = layout.stride
+    starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
     k1 = check_merge(torch, merge, N_NODES, 2, stride, SLOTS, 1, rate)
     check_merge(torch, merge, N_NODES, 2, stride - 2, SLOTS, 2, rate)
     check_merge(torch, merge, 5, 2, 37, 3, 3, rate)
+    # Ragged shapes: F = 37 (the scalar form) and F = 44 with leaf edges at
+    # columns 5, 6, 13 and 30, inside 4-column words (the vector form).
+    ragged = ((5, 37, [0, 5, 6, 17]), (6, 44, [0, 5, 6, 13, 30]))
+    numbers = {}
+    for slots, wire in (("multi", "bfloat16"), ("multi", "int8"),
+                        ("single", "float32"), ("single", "bfloat16"),
+                        ("single", "int8")):
+        k = SLOTS if slots == "multi" else 1
+        numbers[(slots, wire)] = check_wire_kernel(
+            torch, merge, slots, wire, N_NODES, 2, stride, k, starts, 11,
+            rate)
+        for seed, (n, f, st) in enumerate(ragged, start=12):
+            check_wire_kernel(torch, merge, slots, wire, n, 2, f, 3 if k > 1
+                              else 1, st, seed, rate)
 
-    # 4. the main path
+    # 4. the paths: first the fp32 single-pass fused deliver
     sim, state = cifar_sim(torch, N_NODES, 64, 32, "cuda", ROUNDS + 1)
     state, _ = sim.start(state, n_rounds=1)     # warm-up round
     torch.cuda.synchronize()
@@ -311,56 +550,62 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = merge.LAUNCHES[merge.KERNEL]
+    others = sum(merge.LAUNCHES.values()) - launches
     rounds_with_msgs = int((rep.wide_slots_per_round > 0).sum())
-    acc = rep.final("accuracy")
     log(f"[main] {N_NODES}-node CIFAR10Net, {ROUNDS} rounds: "
         f"{wall / ROUNDS * 1e3:.3f} ms/round; sent "
         f"{rep.sent_per_round.tolist()} failed {rep.failed_per_round.tolist()}"
-        f"; final global accuracy {acc}; K1 launches {launches} for "
-        f"{rounds_with_msgs} rounds with messages; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches != rounds_with_msgs or launches == 0:
+        f"; final global accuracy {rep.final('accuracy')}; K1 launches "
+        f"{launches} for {rounds_with_msgs} rounds with messages; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != rounds_with_msgs or launches == 0 or others:
         raise RuntimeError(f"K1 launched {launches} times for "
-                           f"{rounds_with_msgs} rounds with messages")
-    if not torch.isfinite(state.model.params).all():
-        raise RuntimeError("non-finite params after the main path")
-    if state.model.params.shape != (N_NODES, stride) or not np.isfinite(acc):
-        raise RuntimeError("main path output has the wrong shape or a "
-                           "non-finite accuracy")
+                           f"{rounds_with_msgs} rounds with messages "
+                           f"({others} other launches)")
+    check_path_output(torch, sim, state, rep, "multi")
 
     # Where a round's time goes (after the checks: it runs more rounds).
     profile_round(torch, sim, state)
-    phase_times(torch, sim, state)
+    phase_times(torch, sim, state, "multi")
+    del sim, state
+
+    leg_launches = {}
+    for label, fused, wire in LEGS:
+        leg_launches[label] = run_leg(torch, merge, label, fused, wire)
+        torch.cuda.empty_cache()
 
     # 5. the card against the CPU on a small run from the same seeds
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        merge.reset_launch_counts()
-        s_sim, s_state = cifar_sim(torch, 8, 8, 4, dev, 3, seed=7)
-        s_state, s_rep = s_sim.start(s_state, n_rounds=3)
-        runs[dev] = (s_state.model.params.cpu(), s_rep,
-                     merge.LAUNCHES[merge.KERNEL])
-    (p_cpu, r_cpu, l_cpu), (p_gpu, r_gpu, l_gpu) = runs["cpu"], runs["cuda"]
-    for field in ("sent_per_round", "failed_per_round",
-                  "wide_slots_per_round"):
-        if not np.array_equal(getattr(r_cpu, field), getattr(r_gpu, field)):
-            raise RuntimeError(f"card and CPU runs differ in {field}")
-    ref_err = float((p_cpu - p_gpu).abs().max())
-    log(f"[reference] 8-node CIFAR10Net, 3 rounds, card vs CPU: max abs "
-        f"param diff {ref_err:.3e} (tolerance {REF_TOL}); K1 launches "
-        f"card {l_gpu}, CPU {l_cpu}")
-    if ref_err > REF_TOL or l_cpu != 0 or l_gpu == 0:
-        raise RuntimeError("card run does not agree with the CPU run")
+    card_vs_cpu(torch, merge, "multi", "multi", "float32")
+    for label, fused, wire in LEGS:
+        card_vs_cpu(torch, merge, label, fused, wire)
 
+    def entry(kernel, wire, source, replaces, nums, launched):
+        return {"name": kernel if wire is None else f"{kernel}[{wire}]",
+                "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
+                "replaces": f"gossipy_tpu/ops/merge.py:{replaces}",
+                "launches": launched, "max_abs_err": nums["max_abs_err"],
+                "ms": nums["ms"], "plain_ms": nums["plain_ms"],
+                "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
+                "library_ms": None}
+
+    kernels = [entry(merge.KERNEL, None, "gather_merge_multi.cu", 76, k1,
+                     launches)]
+    for slots, wire, label, kernel, source, line in (
+            ("multi", "bfloat16", "multi-bf16", merge.KERNEL_MULTI_DQ,
+             "gather_merge_multi_dq.cu", 100),
+            ("multi", "int8", "multi-int8", merge.KERNEL_MULTI_DQ,
+             "gather_merge_multi_dq.cu", 100),
+            ("single", "float32", "per_slot", merge.KERNEL_FLAT,
+             "gather_merge_flat.cu", 60),
+            ("single", "bfloat16", "per_slot-bf16", merge.KERNEL_FLAT_DQ,
+             "gather_merge_flat.cu", 65),
+            ("single", "int8", "per_slot-int8", merge.KERNEL_FLAT_DQ,
+             "gather_merge_flat.cu", 65)):
+        kernels.append(entry(kernel, None if wire == "float32" else wire,
+                             source, line, numbers[(slots, wire)],
+                             leg_launches[label][kernel]))
     log(smi)
-    print(json.dumps({"kernels": [{
-        "name": merge.KERNEL, "route": "cuda",
-        "source": "gossipy_tpu_torch/csrc/gather_merge_multi.cu",
-        "replaces": "gossipy_tpu/ops/merge.py:76",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 """Model handlers over stacked per-node state."""
 
 from . import losses
-from .base import ModelState, PeerModel
+from .base import BaseHandler, ModelState, PeerModel
 from .sgd import SGDHandler
 
-__all__ = ["ModelState", "PeerModel", "SGDHandler", "losses"]
+__all__ = ["BaseHandler", "ModelState", "PeerModel", "SGDHandler", "losses"]

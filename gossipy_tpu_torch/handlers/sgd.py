@@ -23,17 +23,19 @@ from .. import resolve_device
 from ..core import CreateModelMode
 from ..models.nn import ParamLayout, init_flat
 from ..utils import classification_metrics
-from .base import ModelState
+from .base import BaseHandler, ModelState, PeerModel
 
 
-class SGDHandler:
+class SGDHandler(BaseHandler):
     """Train/merge/eval for a stacked model under plain SGD.
 
     - ``update``: ``local_epochs`` passes of permuted minibatch SGD over
       each node's padded shard; a batch with no real row is a no-op and
       does not count in ``n_updates``.
-    - merge: the uniform parameter average (``merge_peer_weight = 0.5``),
-      age = max; the engine applies it through the gather-merge kernel.
+    - ``merge``: the uniform parameter average, age = max
+      (``merge_peer_weight = 0.5``); the engine's plain deliver applies it
+      through ``call``, its fused deliver through the gather-merge
+      kernels.
     - ``evaluate``: accuracy and macro precision/recall/F1 (plus AUC for
       two classes), one value per node.
     """
@@ -121,6 +123,15 @@ class SGDHandler:
                 params, n_updates = self._sgd_step(
                     params, n_updates, X[rows, idx], y[rows, idx], mb)
         return ModelState(params, n_updates)
+
+    # -- merging -----------------------------------------------------------
+
+    def merge(self, state: ModelState, peer: PeerModel) -> ModelState:
+        """Row-wise uniform average, age = max (sgd.py:29-30, 163-166),
+        written as the JAX package writes it, ``(a + b) / 2.0``, so it
+        rounds the same."""
+        return ModelState((state.params + peer.params) / 2.0,
+                          torch.maximum(state.n_updates, peer.n_updates))
 
     # -- evaluation --------------------------------------------------------
 

@@ -1,9 +1,10 @@
 """Build the CUDA kernels in ``csrc/`` at first use and load them.
 
-Each ``csrc/<name>.cu`` is a file with a plain C interface. It is compiled
-by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``_build/`` (listed in ``.gitignore``), named by a hash of the source and
-the flags, and loaded with ``ctypes``. Nothing is built at import: the
+Each ``csrc/<name>.cu`` is a file with a plain C interface; the headers
+beside it (``csrc/*.cuh``) hold device code the sources share. A source is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``_build/`` (listed in ``.gitignore``), named by a hash of the source, the
+headers and the flags, and loaded with ``ctypes``. Nothing is built at import: the
 first wrapper call on a CUDA tensor builds what it needs. :func:`build`
 starts one ``nvcc`` per source, all at once, and waits for them together.
 
@@ -47,7 +48,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,26 +1,51 @@
-"""Multi-slot gather-merge: the deliver phase's one kernel.
+"""Gather-merge: blend peer snapshots from the history ring into receivers.
 
-Counterpart of ``gossipy_tpu/ops/merge.py``'s multi-slot form. For every
-receiver row ``i`` the K slots of its mailbox cell fold left to right,
+Counterpart of ``gossipy_tpu/ops/merge.py``. ``h`` is the flat
+``[D*N, F]`` snapshot ring, in float32 or in a wire format (bfloat16, or
+int8 with a float32 scale per (ring row, leaf)); a peer row is widened to
+float32, times its scale, before it is blended:
 
-    ``out = p[i]``; for each slot ``k``:
-    ``out = w_self[i, k] * out + (w_peer[i, k] != 0 ? w_peer[i, k] * h[idx[i, k]] : 0)``
+- single slot (:func:`gather_merge_flat`, the ``fused_merge="per_slot"``
+  path):
+  ``out[i] = w_self[i] * p[i] + w_peer[i] * peer(idx[i])``, with no
+  zero-weight mask, as the JAX kernel;
+- multi slot (:func:`gather_merge_multi`, the single-pass deliver): for
+  every receiver row the K slots of its mailbox cell fold left to right,
+  ``out = p[i]``; for each slot ``k``:
+  ``out = w_self[i, k] * out + (w_peer[i, k] != 0 ? w_peer[i, k] * peer(idx[i, k]) : 0)``.
+  Empty slots carry ``(w_self, w_peer) = (1, 0)``; the ring row (and scale)
+  behind their index is never used, even when it is not finite.
 
-with ``h`` the flat ``[D*N, F]`` snapshot ring. Empty slots carry
-``(w_self, w_peer) = (1, 0)``; the ring row behind their index is never
-used, even when it is not finite.
+Scales. ``scale`` is ``[M]`` (one per ring row) or ``[M, L]`` (one per
+ring row and leaf, the port's int8 sidecar); ``leaf_starts`` gives the
+``L`` leaves' start columns (``leaf_starts[0] == 0``, increasing). A
+column belongs to the last leaf that starts at or before it, so padding
+columns past the last leaf take its scale. The wrappers gather the scales
+of the rows they read (``[N, L]`` or ``[N, K, L]``) outside the kernels,
+as the JAX package does (merge.py:155-156, 366-368).
 
-- :func:`gather_merge_multi_reference` is the plain PyTorch version.
-- :func:`gather_merge_multi` is the wrapper: on CPU tensors it runs the
-  plain version; on CUDA tensors it launches the kernel
-  ``csrc/gather_merge_multi.cu`` (built at first use) or raises. It never
-  falls back from the card to the plain version.
-- :func:`gather_merge_multi_pytree` takes per-leaf dicts, as the JAX
-  package's pytree form does, and makes one launch over their
-  concatenation. The engine does not need it: it keeps each node's
-  parameters in one flat row already.
+Four kernels, each a CUDA C++ source in ``csrc/`` built at first use:
 
-Every launch adds one to ``LAUNCHES["gather_merge_multi"]``.
+=====  ==========================  ======================  ======================
+id     replaces (JAX merge.py)     launched for            source
+=====  ==========================  ======================  ======================
+K1     ``_multi_kernel``           multi, float32 ring     ``gather_merge_multi.cu``
+K2     ``_multi_dq_kernel``        multi, wire format      ``gather_merge_multi_dq.cu``
+K3     ``_kernel``                 single, float32 ring    ``gather_merge_flat.cu``
+K4     ``_dq_kernel``              single, wire format     ``gather_merge_flat.cu``
+=====  ==========================  ======================  ======================
+
+"Wire format" means a bfloat16 or int8 ring, or any ring with a scale. Each
+public function runs the plain PyTorch version (``*_reference``) on CPU
+tensors, and on CUDA tensors launches its kernel or raises: it never falls
+back from the card to the plain version. Every launch adds one to
+``LAUNCHES[<kernel>]``.
+
+The ``*_pytree`` forms take per-leaf dicts, as the JAX package's pytree
+forms do, and make one launch over their concatenation (the JAX package's
+single-slot pytree form launches once per leaf; one launch over the
+concatenated row computes the same thing). The engine does not need them:
+it keeps each node's parameters in one flat row already.
 """
 
 from __future__ import annotations
@@ -28,15 +53,30 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
+from typing import Optional, Sequence, Union
 
 import torch
 
 from . import _build
 
-KERNEL = "gather_merge_multi"
-MAX_SLOTS = 64  # kMaxSlots in the CUDA source
+KERNEL = "gather_merge_multi"             # K1
+KERNEL_MULTI_DQ = "gather_merge_multi_dq"  # K2
+KERNEL_FLAT = "gather_merge_flat"         # K3
+KERNEL_FLAT_DQ = "gather_merge_flat_dq"   # K4
+# The csrc/ source (without .cu) that holds each kernel's entry point.
+SOURCES = {KERNEL: "gather_merge_multi",
+           KERNEL_MULTI_DQ: "gather_merge_multi_dq",
+           KERNEL_FLAT: "gather_merge_flat",
+           KERNEL_FLAT_DQ: "gather_merge_flat"}
+MAX_SLOTS = 64     # kMaxSlots in the CUDA sources
+MAX_LEAVES = 256   # wire::kMaxLeaves
+MAX_SCALES = 8192  # K x L scale floats of the multi-slot kernel's block
+# Ring storage types and their codes in the CUDA sources (wire_rows.cuh).
+WIRE_FORMATS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# Kernel launches per wrapper, counted where the wrapper launches and
+LeafStarts = Union[Sequence[int], torch.Tensor, None]
+
+# Kernel launches per kernel, counted where the wrapper launches and
 # nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -45,21 +85,128 @@ def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
+# -- scales and leaves -------------------------------------------------------
+
+def _scale_table(scale: Optional[torch.Tensor], leaf_starts: LeafStarts,
+                 m: int, f: int):
+    """``scale`` as ``[M, L]`` and the leaf starts as a list or tensor
+    (``None`` when there is no scale). Raises on a table that does not fit
+    the ring."""
+    if scale is None:
+        if leaf_starts is not None:
+            raise ValueError("leaf_starts without a scale")
+        return None, None
+    if scale.dim() == 1:
+        scale = scale[:, None]
+    if scale.dim() != 2 or scale.shape[0] != m:
+        raise ValueError(f"scale must be [M] or [M, L] with M = {m}, got "
+                         f"{tuple(scale.shape)}")
+    n_leaves = scale.shape[1]
+    if leaf_starts is None:
+        if n_leaves != 1:
+            raise ValueError("a scale with several leaves needs leaf_starts")
+        leaf_starts = [0]
+    if isinstance(leaf_starts, torch.Tensor):
+        if leaf_starts.dim() != 1 or leaf_starts.shape[0] != n_leaves:
+            raise ValueError("leaf_starts must be [L] like scale's columns")
+    else:
+        leaf_starts = [int(s) for s in leaf_starts]
+        if len(leaf_starts) != n_leaves or leaf_starts[0] != 0 or any(
+                b <= a for a, b in zip(leaf_starts, leaf_starts[1:])) \
+                or leaf_starts[-1] >= f:
+            raise ValueError(f"leaf_starts {leaf_starts} must be L = "
+                             f"{n_leaves} increasing columns from 0 below "
+                             f"F = {f}")
+    return scale, leaf_starts
+
+
+def column_leaves(leaf_starts: LeafStarts, f: int,
+                  device) -> torch.Tensor:
+    """The leaf index of each of ``f`` columns: the last leaf starting at
+    or before it."""
+    starts = torch.as_tensor(leaf_starts, dtype=torch.int64, device=device)
+    cols = torch.arange(f, device=device)
+    return torch.bucketize(cols, starts, right=True) - 1
+
+
+def _widen(rows: torch.Tensor, dtype, scale_g: Optional[torch.Tensor],
+           leaf_starts: LeafStarts) -> torch.Tensor:
+    """Ring rows ``[R, F]`` widened to ``dtype``, times their ``[R, L]``
+    scales by column leaf."""
+    peer = rows.to(dtype)
+    if scale_g is not None:
+        cols = column_leaves(leaf_starts, peer.shape[1], peer.device)
+        peer = peer * scale_g.to(dtype)[:, cols]
+    return peer
+
+
+def _starts_on(leaf_starts: LeafStarts, device) -> torch.Tensor:
+    return torch.as_tensor(leaf_starts, dtype=torch.int32,
+                           device=device).contiguous()
+
+
+def _check_devices(*tensors) -> None:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"all operands must be on one device, got {devices}")
+
+
+def _check_kernel_operands(caller: str, p: torch.Tensor, h: torch.Tensor):
+    if not p.is_cuda:
+        raise ValueError(f"{caller} takes CUDA tensors")
+    if p.dtype != torch.float32:
+        raise TypeError("the kernels merge into float32 params")
+    if h.dtype not in WIRE_FORMATS:
+        raise TypeError(f"ring dtype {h.dtype} is not a wire format "
+                        f"({sorted(str(d) for d in WIRE_FORMATS)})")
+    if not (p.is_contiguous() and h.is_contiguous()):
+        raise ValueError("p and h must be contiguous")
+
+
+def _function(source: str, entry: str, argtypes: list):
+    """The C entry point ``entry`` of ``csrc/<source>.cu``, built and
+    loaded at first use, with its ctypes signature."""
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_if_failed(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+
+
+# -- multi slot: K1 and K2 ---------------------------------------------------
+
 def gather_merge_multi_reference(p: torch.Tensor, h: torch.Tensor,
                                  idx: torch.Tensor, w_self: torch.Tensor,
-                                 w_peer: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: the same fold, one slot at a time, with the
-    peer rows gathered (``p [N, F]``, ``h [M, F]``, tables ``[N, K]``)."""
+                                 w_peer: torch.Tensor,
+                                 scale: Optional[torch.Tensor] = None,
+                                 leaf_starts: LeafStarts = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of K1/K2: the same fold, one slot at a time,
+    with the peer rows gathered and widened (``p [N, F]``, ``h [M, F]``,
+    tables ``[N, K]``)."""
+    scale, leaf_starts = _scale_table(scale, leaf_starts, h.shape[0],
+                                      p.shape[1])
     out = p
     for k in range(idx.shape[1]):
-        peer = h[idx[:, k].long()]
+        rows = idx[:, k].long()
+        peer = _widen(h[rows], p.dtype,
+                      None if scale is None else scale[rows], leaf_starts)
         wp = w_peer[:, k].to(p.dtype)[:, None]
         contrib = torch.where(wp != 0, wp * peer, torch.zeros_like(peer))
         out = w_self[:, k].to(p.dtype)[:, None] * out + contrib
     return out
 
 
-def _check(p, h, idx, w_self, w_peer):
+def _check_multi(p, h, idx, w_self, w_peer):
     if idx.dim() != 2:
         raise ValueError(f"idx must be [N, K], got shape {tuple(idx.shape)}")
     n, k = idx.shape
@@ -69,26 +216,22 @@ def _check(p, h, idx, w_self, w_peer):
                          f"h {tuple(h.shape)}, idx {tuple(idx.shape)}")
     if tuple(w_self.shape) != (n, k) or tuple(w_peer.shape) != (n, k):
         raise ValueError("w_self and w_peer must be [N, K] like idx")
-    devices = {t.device for t in (p, h, idx, w_self, w_peer)}
-    if len(devices) != 1:
-        raise ValueError(f"all operands must be on one device, got {devices}")
+    _check_devices(p, h, idx, w_self, w_peer)
 
 
 def gather_merge_multi_cuda(p: torch.Tensor, h: torch.Tensor,
                             idx: torch.Tensor, w_self: torch.Tensor,
                             w_peer: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel; returns a new ``[N, F]`` tensor.
+    """Launch K1 (float32 ring); returns a new ``[N, F]`` tensor.
 
     Live indices must lie in ``[0, M)``. Raises on an operand the kernel
     does not take and when the launch reports an error.
     """
-    _check(p, h, idx, w_self, w_peer)
-    if not p.is_cuda:
-        raise ValueError("gather_merge_multi_cuda takes CUDA tensors")
-    if p.dtype != torch.float32 or h.dtype != torch.float32:
-        raise TypeError("the kernel merges float32 params and ring rows")
-    if not (p.is_contiguous() and h.is_contiguous()):
-        raise ValueError("p and h must be contiguous")
+    _check_multi(p, h, idx, w_self, w_peer)
+    _check_kernel_operands("gather_merge_multi_cuda", p, h)
+    if h.dtype != torch.float32:
+        raise TypeError("K1 merges a float32 ring; gather_merge_multi_dq_cuda "
+                        "takes the wire formats")
     n, k = idx.shape
     if k > MAX_SLOTS:
         raise ValueError(f"at most {MAX_SLOTS} slots, got {k}")
@@ -97,48 +240,196 @@ def gather_merge_multi_cuda(p: torch.Tensor, h: torch.Tensor,
     ws = w_self.to(torch.float32).contiguous()
     wp = w_peer.to(torch.float32).contiguous()
     out = torch.empty_like(p)
-    fn = _kernel()
+    fn = _function(SOURCES[KERNEL], "gather_merge_multi",
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+                   + [ctypes.c_void_p])
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
         rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(), ws.data_ptr(),
-                wp.data_ptr(), out.data_ptr(), n, f, k, stream)
-    if rc != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")
+                wp.data_ptr(), out.data_ptr(), n, f, k, _stream(p))
+    _raise_if_failed(KERNEL, rc)
     LAUNCHES[KERNEL] += 1
     return out
 
 
-def _kernel():
-    lib = _build.load(KERNEL)
-    fn = lib.gather_merge_multi
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def gather_merge_multi_dq_cuda(p: torch.Tensor, h: torch.Tensor,
+                               idx: torch.Tensor, w_self: torch.Tensor,
+                               w_peer: torch.Tensor,
+                               scale: Optional[torch.Tensor] = None,
+                               leaf_starts: LeafStarts = None
+                               ) -> torch.Tensor:
+    """Launch K2 (ring in a wire format, or any ring with a scale); returns
+    a new ``[N, F]`` tensor. The scales of the rows each slot names are
+    gathered here, to ``[N, K, L]``."""
+    _check_multi(p, h, idx, w_self, w_peer)
+    _check_kernel_operands("gather_merge_multi_dq_cuda", p, h)
+    scale, leaf_starts = _scale_table(scale, leaf_starts, h.shape[0],
+                                      p.shape[1])
+    _check_devices(p, scale)
+    n, k = idx.shape
+    if k > MAX_SLOTS:
+        raise ValueError(f"at most {MAX_SLOTS} slots, got {k}")
+    f = p.shape[1]
+    idx32 = idx.to(torch.int32).contiguous()
+    ws = w_self.to(torch.float32).contiguous()
+    wp = w_peer.to(torch.float32).contiguous()
+    scale_g = starts = None
+    n_leaves = 0
+    if scale is not None:
+        n_leaves = scale.shape[1]
+        if n_leaves > MAX_LEAVES or k * n_leaves > MAX_SCALES:
+            raise ValueError(f"at most {MAX_LEAVES} leaves and {MAX_SCALES} "
+                             f"slot x leaf scales, got {k} x {n_leaves}")
+        # Gathered outside the kernel, as merge.py:366-368 does: an empty
+        # slot's index is in range, so its (unused) scales are too.
+        scale_g = scale.to(torch.float32)[idx.long()].contiguous()
+        starts = _starts_on(leaf_starts, p.device)
+    out = torch.empty_like(p)
+    fn = _function(SOURCES[KERNEL_MULTI_DQ], "gather_merge_multi_dq",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]
+                   + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(p.device):
+        rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
+                idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
+                None if scale_g is None else scale_g.data_ptr(),
+                None if starts is None else starts.data_ptr(), n_leaves,
+                out.data_ptr(), n, f, k, _stream(p))
+    _raise_if_failed(KERNEL_MULTI_DQ, rc)
+    LAUNCHES[KERNEL_MULTI_DQ] += 1
+    return out
 
 
 def gather_merge_multi(p: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
-                       w_self: torch.Tensor,
-                       w_peer: torch.Tensor) -> torch.Tensor:
-    """K-slot gather-merge in one pass: the kernel on CUDA tensors, the
-    plain version on CPU tensors. Returns a new tensor; ``p`` is not
-    modified."""
-    _check(p, h, idx, w_self, w_peer)
+                       w_self: torch.Tensor, w_peer: torch.Tensor,
+                       scale: Optional[torch.Tensor] = None,
+                       leaf_starts: LeafStarts = None) -> torch.Tensor:
+    """K-slot gather-merge in one pass: on CUDA tensors K1 (float32 ring,
+    no scale) or K2 (otherwise), on CPU tensors the plain version. Returns
+    a new tensor; ``p`` is not modified."""
+    _check_multi(p, h, idx, w_self, w_peer)
     if p.device.type == "cpu":
-        return gather_merge_multi_reference(p, h, idx, w_self, w_peer)
+        return gather_merge_multi_reference(p, h, idx, w_self, w_peer, scale,
+                                            leaf_starts)
     if p.device.type != "cuda":
         raise ValueError(f"no gather_merge_multi for device {p.device}")
-    return gather_merge_multi_cuda(p, h, idx, w_self, w_peer)
+    if h.dtype == torch.float32 and scale is None:
+        return gather_merge_multi_cuda(p, h, idx, w_self, w_peer)
+    return gather_merge_multi_dq_cuda(p, h, idx, w_self, w_peer, scale,
+                                      leaf_starts)
 
 
-def gather_merge_multi_pytree(params: dict, history: dict,
-                              flat_idx: torch.Tensor, w_self: torch.Tensor,
-                              w_peer: torch.Tensor) -> dict:
-    """:func:`gather_merge_multi` over named leaves in one launch:
-    ``params`` leaves are ``[N, ...]``, ``history`` leaves ``[D, N', ...]``
-    (the snapshot ring, addressed as a flat ``[D*N', F]`` table by
-    ``flat_idx[i, k] = (send_round % D) * N' + sender``). Leaves are
-    concatenated, merged and split back."""
+# -- single slot: K3 and K4 --------------------------------------------------
+
+def gather_merge_reference(p: torch.Tensor, h: torch.Tensor,
+                           idx: torch.Tensor, w_self: torch.Tensor,
+                           w_peer: torch.Tensor,
+                           scale: Optional[torch.Tensor] = None,
+                           leaf_starts: LeafStarts = None) -> torch.Tensor:
+    """Plain PyTorch version of K3/K4, as the JAX package's
+    ``gather_merge_reference``: gather, widen, blend; no zero-weight
+    mask."""
+    scale, leaf_starts = _scale_table(scale, leaf_starts, h.shape[0],
+                                      p.shape[1])
+    rows = idx.long()
+    peer = _widen(h[rows], p.dtype, None if scale is None else scale[rows],
+                  leaf_starts)
+    return (w_self.to(p.dtype)[:, None] * p
+            + w_peer.to(p.dtype)[:, None] * peer)
+
+
+def _check_flat(p, h, idx, w_self, w_peer):
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be [N], got shape {tuple(idx.shape)}")
+    n = idx.shape[0]
+    if p.dim() != 2 or h.dim() != 2 or p.shape[0] != n \
+            or h.shape[1] != p.shape[1]:
+        raise ValueError(f"shapes do not fit: p {tuple(p.shape)}, "
+                         f"h {tuple(h.shape)}, idx {tuple(idx.shape)}")
+    if tuple(w_self.shape) != (n,) or tuple(w_peer.shape) != (n,):
+        raise ValueError("w_self and w_peer must be [N] like idx")
+    _check_devices(p, h, idx, w_self, w_peer)
+
+
+def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
+                           idx: torch.Tensor, w_self: torch.Tensor,
+                           w_peer: torch.Tensor,
+                           scale: Optional[torch.Tensor] = None,
+                           leaf_starts: LeafStarts = None) -> torch.Tensor:
+    """Launch K3 (float32 ring, no scale) or K4 (otherwise); returns a new
+    ``[N, F]`` tensor. Every index must lie in ``[0, M)``; the scales of the
+    named rows are gathered here, to ``[N, L]``."""
+    _check_flat(p, h, idx, w_self, w_peer)
+    kernel = KERNEL_FLAT if (h.dtype == torch.float32 and scale is None) \
+        else KERNEL_FLAT_DQ
+    _check_kernel_operands("gather_merge_flat_cuda", p, h)
+    scale, leaf_starts = _scale_table(scale, leaf_starts, h.shape[0],
+                                      p.shape[1])
+    _check_devices(p, scale)
+    n, f = p.shape
+    idx32 = idx.to(torch.int32).contiguous()
+    ws = w_self.to(torch.float32).contiguous()
+    wp = w_peer.to(torch.float32).contiguous()
+    out = torch.empty_like(p)
+    stream = _stream(p)
+    if kernel == KERNEL_FLAT:
+        fn = _function(SOURCES[KERNEL_FLAT], "gather_merge_flat",
+                       [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+                       + [ctypes.c_void_p])
+        with torch.cuda.device(p.device):
+            rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(),
+                    ws.data_ptr(), wp.data_ptr(), out.data_ptr(), n, f,
+                    stream)
+    else:
+        scale_g = starts = None
+        n_leaves = 0
+        if scale is not None:
+            n_leaves = scale.shape[1]
+            if n_leaves > MAX_LEAVES:
+                raise ValueError(f"at most {MAX_LEAVES} leaves, got "
+                                 f"{n_leaves}")
+            # Per-receiver scales gathered outside the kernel, as
+            # merge.py:155-156 does.
+            scale_g = scale.to(torch.float32)[idx.long()].contiguous()
+            starts = _starts_on(leaf_starts, p.device)
+        fn = _function(SOURCES[KERNEL_FLAT_DQ], "gather_merge_flat_dq",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int64, ctypes.c_void_p]
+                       + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
+        with torch.cuda.device(p.device):
+            rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
+                    idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
+                    None if scale_g is None else scale_g.data_ptr(),
+                    None if starts is None else starts.data_ptr(), n_leaves,
+                    out.data_ptr(), n, f, stream)
+    _raise_if_failed(kernel, rc)
+    LAUNCHES[kernel] += 1
+    return out
+
+
+def gather_merge_flat(p: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
+                      w_self: torch.Tensor, w_peer: torch.Tensor,
+                      scale: Optional[torch.Tensor] = None,
+                      leaf_starts: LeafStarts = None) -> torch.Tensor:
+    """``out[i] = w_self[i] * p[i] + w_peer[i] * peer(idx[i])``: on CUDA
+    tensors K3 (float32 ring, no scale) or K4 (otherwise), on CPU tensors
+    the plain version. ``idx`` is ``[N]``, the weights ``[N]``."""
+    _check_flat(p, h, idx, w_self, w_peer)
+    if p.device.type == "cpu":
+        return gather_merge_reference(p, h, idx, w_self, w_peer, scale,
+                                      leaf_starts)
+    if p.device.type != "cuda":
+        raise ValueError(f"no gather_merge_flat for device {p.device}")
+    return gather_merge_flat_cuda(p, h, idx, w_self, w_peer, scale,
+                                  leaf_starts)
+
+
+# -- pytree forms ------------------------------------------------------------
+
+def _concat_leaves(params: dict, history: dict, scales: Optional[dict]):
+    """Leaves concatenated into ``[N, F]`` rows and a ``[D*N', F]`` ring
+    (in the ring's own dtype), the ``[D*N', L]`` scale table and the leaf
+    start columns."""
     names = list(params)
     n = params[names[0]].shape[0]
     h0 = history[names[0]]
@@ -146,6 +437,46 @@ def gather_merge_multi_pytree(params: dict, history: dict,
     widths = [math.prod(params[k].shape[1:]) for k in names]
     p_cat = torch.cat([params[k].reshape(n, -1) for k in names], dim=1)
     h_cat = torch.cat([history[k].reshape(m, -1) for k in names], dim=1)
-    out = gather_merge_multi(p_cat, h_cat, flat_idx, w_self, w_peer)
+    scale = starts = None
+    if scales is not None:
+        scale = torch.stack([scales[k].reshape(m) for k in names], dim=1)
+        starts = [0]
+        for w in widths[:-1]:
+            starts.append(starts[-1] + w)
+    return names, widths, p_cat, h_cat, scale, starts
+
+
+def _split_leaves(out: torch.Tensor, params: dict, names, widths) -> dict:
     parts = torch.split(out, widths, dim=1)
     return {k: part.reshape(params[k].shape) for k, part in zip(names, parts)}
+
+
+def gather_merge_multi_pytree(params: dict, history: dict,
+                              flat_idx: torch.Tensor, w_self: torch.Tensor,
+                              w_peer: torch.Tensor,
+                              scales: Optional[dict] = None) -> dict:
+    """:func:`gather_merge_multi` over named leaves in one launch:
+    ``params`` leaves are ``[N, ...]``, ``history`` leaves ``[D, N', ...]``
+    (the snapshot ring, addressed as a flat ``[D*N', F]`` table by
+    ``flat_idx[i, k] = (send_round % D) * N' + sender``) and ``scales``
+    leaves, for a scaled ring, ``[D, N']``. Leaves are concatenated,
+    merged and split back."""
+    names, widths, p_cat, h_cat, scale, starts = _concat_leaves(
+        params, history, scales)
+    out = gather_merge_multi(p_cat, h_cat, flat_idx, w_self, w_peer, scale,
+                             starts)
+    return _split_leaves(out, params, names, widths)
+
+
+def gather_merge_pytree(params: dict, history: dict, flat_idx: torch.Tensor,
+                        w_self: torch.Tensor, w_peer: torch.Tensor,
+                        scales: Optional[dict] = None) -> dict:
+    """:func:`gather_merge_flat` over named leaves in one launch (the JAX
+    package launches once per leaf); layouts as
+    :func:`gather_merge_multi_pytree` with ``flat_idx`` and the weights
+    ``[N]``."""
+    names, widths, p_cat, h_cat, scale, starts = _concat_leaves(
+        params, history, scales)
+    out = gather_merge_flat(p_cat, h_cat, flat_idx, w_self, w_peer, scale,
+                            starts)
+    return _split_leaves(out, params, names, widths)

@@ -1,29 +1,40 @@
-"""The gossip simulation engine: the sync PUSH round with the single-pass
-fused deliver.
+"""The gossip simulation engine: the sync PUSH round.
 
 Counterpart of ``gossipy_tpu/simulation/engine.py``. The JAX engine traces
 a round into one XLA program; here a round is eager PyTorch on the run's
 device, phase by phase:
 
     snapshot  the round-start params go into the ``[D, N, stride]``
-              history ring (``_snapshot``)
+              history ring, encoded in its wire format (``_snapshot``)
     send      every node draws one peer; drop draw; message metadata is
               scattered into the ``[D, N, K]`` mailbox (``_send_phase``)
-    deliver   the cell's K slots become ``[N, K]`` tables; ONE launch of
-              the gather-merge kernel blends every live peer snapshot into
-              its receiver, then ONE local update trains every node that
-              received something (``_deliver_phase``)
+    deliver   the cell's K slots are drained (``_deliver_phase``) by one of
+              three paths, chosen by ``fused_merge``:
+              - ``"multi"`` (the default): ONE launch of the multi-slot
+                gather-merge kernel blends every live peer snapshot into
+                its receiver, then ONE local update trains every node that
+                received something;
+              - ``"per_slot"``: per occupied slot, one launch of the
+                single-slot gather-merge kernel, then one local update;
+              - ``False`` (plain): per occupied slot, the peer snapshots
+                are gathered and decoded, and the handler's ``call``
+                (merge, then update) runs over the population, or, with
+                compaction, over a gathered batch of the slot's live
+                receivers;
+              an empty slot skips its whole pass
     eval      local and global metrics, averaged over nodes (``_eval_phase``)
 
 Messages carry node indices, not models: a message's payload is the
-sender's row of the ring at its send round.
+sender's row of the ring at its send round. The ring is stored in float32,
+bfloat16 or int8 (``history_dtype``); an int8 ring keeps one float32 scale
+per (ring cell, node, leaf) in ``history_scale``.
 
 The state is updated in place: :meth:`GossipSimulator.start` mutates the
 :class:`SimState` it is given and returns it.
 
-Ported: ``fused_merge="multi"`` over the wide population, PUSH, sync
-nodes, no delay, an fp32 ring. Every other option of the JAX engine raises
-``NotImplementedError``.
+Ported: PUSH, sync nodes, no delay, the three deliver paths with wide and
+compact dispatch, the three ring formats. Every other option of the JAX
+engine raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,8 +51,8 @@ from .. import resolve_device
 from ..core import AntiEntropyProtocol, ConstantDelay, CreateModelMode, \
     Delay, MessageType, Topology
 from ..data import to_device
-from ..handlers.base import ModelState
-from ..ops.merge import gather_merge_multi
+from ..handlers.base import ModelState, PeerModel
+from ..ops.merge import column_leaves, gather_merge_flat, gather_merge_multi
 from ..random import K_CALL, K_DROP, K_ONLINE, DrawProvider, TorchDraws
 from ..telemetry import FailureCounts
 from .report import SimulationReport
@@ -80,10 +91,30 @@ class SimState:
 
     model: ModelState              # params [N, stride], n_updates [N]
     phase: torch.Tensor            # [N] int32 send offset within a round
-    history_params: torch.Tensor   # [D, N, stride] round-start snapshots
+    history_params: torch.Tensor   # [D, N, stride] round-start snapshots,
+                                   # in the wire format
     history_ages: torch.Tensor     # [D, N] int32 snapshot ages
     mailbox: Mailbox
     round: int = 0
+    history_scale: Optional[torch.Tensor] = None  # [D, N, L] f32, int8 only
+
+
+def select_nodes(mask: torch.Tensor, a: ModelState,
+                 b: ModelState) -> ModelState:
+    """``mask ? a : b`` row by row."""
+    return ModelState(torch.where(mask[:, None], a.params, b.params),
+                      torch.where(mask, a.n_updates, b.n_updates))
+
+
+def _take_rows(model: ModelState, idx: torch.Tensor) -> ModelState:
+    return ModelState(model.params[idx], model.n_updates[idx])
+
+
+def _put_rows(model: ModelState, idx: torch.Tensor,
+              part: ModelState) -> ModelState:
+    """``model`` with rows ``idx`` replaced by ``part`` (a new state)."""
+    return ModelState(model.params.index_copy(0, idx, part.params),
+                      model.n_updates.index_copy(0, idx, part.n_updates))
 
 
 def _rank_within_group(key: torch.Tensor) -> torch.Tensor:
@@ -102,12 +133,21 @@ def _rank_within_group(key: torch.Tensor) -> torch.Tensor:
 
 
 class GossipSimulator:
-    """Vanilla gossip simulator, fused single-pass deliver.
+    """Vanilla gossip simulator.
 
     Parameters follow ``gossipy_tpu.simulation.GossipSimulator``; those the
     port has not taken over raise ``NotImplementedError`` when set to
-    anything but their default. Beyond them:
+    anything but their default. Differences:
 
+    fused_merge : False | "multi" | True | "per_slot"
+        The deliver path (``True`` means ``"multi"``). The default is
+        ``"multi"``, where the JAX engine's is ``False``.
+    compact_deliver : None | bool | int
+        As in the JAX engine: ``None`` turns compaction on for the plain
+        path at N >= 48 with K > 1; ``True`` derives the capacity; an int
+        sets it. The ``"per_slot"`` path takes no compaction.
+    history_dtype : "float32" | "bfloat16" | "int8"
+        The ring's wire format.
     draws : DrawProvider | None
         Source of every random draw of the run (default
         :class:`~gossipy_tpu_torch.random.TorchDraws` seeded with 42).
@@ -117,6 +157,8 @@ class GossipSimulator:
 
     _SLOT_FLOOR = 6
     _SLOT_CAP = 64
+    _HISTORY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                       "int8": torch.int8}
 
     def __init__(self,
                  handler,
@@ -133,7 +175,7 @@ class GossipSimulator:
                  mailbox_slots: Optional[int] = None,
                  message_size: Optional[int] = None,
                  fused_merge: Union[bool, str] = "multi",
-                 compact_deliver: Optional[bool] = None,
+                 compact_deliver: Union[None, bool, int] = None,
                  mesh=None,
                  max_fires_per_round: Optional[int] = None,
                  history_dtype: str = "float32",
@@ -149,23 +191,22 @@ class GossipSimulator:
                  device=None):
         if not (0 <= drop_prob < 1 and 0 < online_prob <= 1):
             raise ValueError("need 0 <= drop_prob < 1 and 0 < online_prob <= 1")
+        if history_dtype not in self._HISTORY_DTYPES:
+            raise ValueError(f"unknown history_dtype {history_dtype!r}; "
+                             "options: " + ", ".join(self._HISTORY_DTYPES))
         unported = {"mesh": mesh, "probes": probes, "sentinels": sentinels,
                     "chaos": chaos, "perf": perf, "metrics": metrics,
-                    "cohort": cohort, "tracing": tracing, "ledger": ledger,
-                    "compact_deliver": compact_deliver or None}
+                    "cohort": cohort, "tracing": tracing, "ledger": ledger}
         for name, val in unported.items():
             if val is not None:
                 raise NotImplementedError(f"{name}= is not ported yet")
-        if history_dtype != "float32":
-            raise NotImplementedError(
-                f"history_dtype={history_dtype!r} is not ported yet (fp32 "
-                "ring only)")
         if fused_merge is True:
             fused_merge = "multi"
-        if fused_merge != "multi":
-            raise NotImplementedError(
-                f"fused_merge={fused_merge!r} is not ported yet: the port "
-                "runs the single-pass fused deliver (fused_merge='multi')")
+        elif not fused_merge:
+            fused_merge = False
+        elif fused_merge not in ("multi", "per_slot"):
+            raise ValueError(f"unknown fused_merge mode {fused_merge!r}; "
+                             "options: False, True/'multi', 'per_slot'")
         if protocol != AntiEntropyProtocol.PUSH:
             raise NotImplementedError(f"{protocol!r} is not ported yet (PUSH)")
         if not sync or (max_fires_per_round not in (None, 1)):
@@ -177,17 +218,23 @@ class GossipSimulator:
             raise NotImplementedError("sampling_eval is not ported yet")
         if eval_every < 1:
             raise ValueError("eval_every must be >= 1")
-        # The fused kernel replaces the merge with a fixed two-way blend:
-        # only a uniform-average MERGE_UPDATE handler that declares its
-        # blend coefficient may take it.
-        if not getattr(handler, "uniform_avg_merge", False):
-            raise ValueError("fused_merge requires a uniform-average merge "
-                             "handler")
-        if getattr(handler, "merge_peer_weight", None) is None:
-            raise ValueError("fused_merge requires the handler to declare "
-                             "its blend coefficient (merge_peer_weight)")
-        if handler.mode != CreateModelMode.MERGE_UPDATE:
-            raise ValueError("fused_merge only fuses the MERGE_UPDATE path")
+        if fused_merge:
+            # The fused kernels replace the merge with a fixed two-way
+            # blend: only a uniform-average MERGE_UPDATE handler that
+            # declares its blend coefficient may take them.
+            if not getattr(handler, "uniform_avg_merge", False):
+                raise ValueError("fused_merge requires a uniform-average "
+                                 "merge handler")
+            if getattr(handler, "merge_peer_weight", None) is None:
+                raise ValueError("fused_merge requires the handler to "
+                                 "declare its blend coefficient "
+                                 "(merge_peer_weight)")
+            if handler.mode != CreateModelMode.MERGE_UPDATE:
+                raise ValueError("fused_merge only fuses the MERGE_UPDATE "
+                                 "path")
+        elif handler.mode == CreateModelMode.UPDATE_MERGE:
+            raise NotImplementedError(
+                "CreateModelMode.UPDATE_MERGE is not ported yet")
 
         self.device = resolve_device(device)
         self.handler = handler
@@ -198,10 +245,14 @@ class GossipSimulator:
         self.online_prob = float(online_prob)
         self.delay = delay
         self.eval_every = int(eval_every)
+        self.fused_merge = fused_merge
+        self.history_dtype = history_dtype
         self.F = 1
+        self._lam_vec: Optional[np.ndarray] = None
         self.K = (self._derive_mailbox_slots(self._lam_max())
                   if mailbox_slots is None else int(mailbox_slots))
         self._warn_if_mailbox_undersized()
+        self._compact_cap = self._compact_capacity(compact_deliver)
         self._message_size = message_size
         self.draws = draws if draws is not None else TorchDraws(42)
         self.data = to_device(data, self.device)
@@ -209,16 +260,32 @@ class GossipSimulator:
         self.has_global_eval = "x_eval" in self.data
         self._adj = topology.adjacency_on(self.device)
         self._metric_names: Optional[list] = None
+        # The leaves of the flat row: start columns (the kernels' leaf
+        # table) and each column's leaf (the int8 codec's scale lookup;
+        # padding columns take the last leaf's).
+        layout = handler.layout
+        starts = [layout.offsets[name] for name, _ in layout.leaves]
+        self._leaf_spans = [(layout.offsets[name], math.prod(shape))
+                            for name, shape in layout.leaves]
+        self._leaf_starts = torch.tensor(starts, dtype=torch.int32,
+                                         device=self.device)
+        self._col_leaf = column_leaves(starts, layout.stride, self.device)
 
-    # -- mailbox sizing ----------------------------------------------------
+    # -- mailbox sizing and compaction ------------------------------------
+
+    def _lam_vector(self) -> np.ndarray:
+        """Per-node expected same-round fan-in under uniform peer draws:
+        ``lam_i = sum_{j -> i} F / deg_j`` (computed once)."""
+        if self._lam_vec is None:
+            deg = np.maximum(self.topology.degrees.astype(np.float64), 1.0)
+            self._lam_vec = np.asarray((self.F / deg)
+                                       @ self.topology.adjacency,
+                                       dtype=np.float64)
+        return self._lam_vec
 
     def _lam_max(self) -> float:
-        """Worst-case expected same-round fan-in under uniform peer draws:
-        ``max_i sum_{j -> i} F / deg_j``."""
-        if self.n_nodes == 0:
-            return 0.0
-        deg = np.maximum(self.topology.degrees.astype(np.float64), 1.0)
-        return float(((self.F / deg) @ self.topology.adjacency).max())
+        """Worst-case expected same-round fan-in."""
+        return float(self._lam_vector().max()) if self.n_nodes else 0.0
 
     @staticmethod
     def _poisson_tail(lam: float, k: int) -> float:
@@ -248,6 +315,101 @@ class GossipSimulator:
                 f"worst-case expected same-round fan-in {lam_max:.1f} gives "
                 f"~{p_over:.1%} per-node-round message loss (counted as "
                 "'failed'). Raise mailbox_slots to silence.")
+
+    def _compact_capacity(self, compact_deliver) -> Optional[int]:
+        """The compacted pass's static receiver capacity, or None when
+        compaction is off (the rules of engine.py:659-709)."""
+        if compact_deliver is None:
+            compact_deliver = (not self.fused_merge and self.n_nodes >= 48
+                               and self.K > 1)
+        elif compact_deliver and self.fused_merge == "per_slot":
+            raise ValueError("compact_deliver composes with the single-pass "
+                             "fused deliver (fused_merge='multi') but not "
+                             "the per-slot fused path")
+        if not compact_deliver:
+            return None
+        if not isinstance(compact_deliver, bool):
+            # An explicit capacity: overflow still falls back to the wide
+            # pass, so any positive value is correct.
+            if int(compact_deliver) < 1:
+                raise ValueError("compact_deliver capacity must be >= 1, got "
+                                 f"{compact_deliver} (use False/None to "
+                                 "disable)")
+            return min(int(compact_deliver), self.n_nodes)
+        if self.K == 1:
+            warnings.warn("compact_deliver=True has no effect with "
+                          "mailbox_slots=1 (slot 0 always overflows the "
+                          "derived capacity); disabled. Pass an explicit "
+                          "integer capacity to force it.")
+            return None
+        return self._derive_compact_cap()
+
+    def _derive_compact_cap(self) -> Optional[int]:
+        """Receiver capacity of the compacted pass, sized for slots >= 1:
+        the count of nodes with a second same-round arrival, mean + 3
+        sigma + 4 of independent indicators with ``p2_i = P(Poisson(lam_i)
+        >= 2)`` (thinned by drops, times the online rate), rounded up to a
+        multiple of 8. None when it would not beat the wide pass."""
+        n = self.n_nodes
+        lam = self._lam_vector() * (1.0 - self.drop_prob)
+        p2 = np.clip(-np.expm1(-lam) - lam * np.exp(-lam), 0.0, 1.0)
+        p2 *= self.online_prob
+        cap = p2.sum() + 3.0 * float(np.sqrt((p2 * (1.0 - p2)).sum())) + 4.0
+        cap = int(-(-cap // 8) * 8)
+        cap = max(cap, 8)
+        if cap >= 0.75 * n:
+            return None
+        return cap
+
+    # -- history wire format ------------------------------------------------
+
+    def _wire_itemsize(self) -> int:
+        """Bytes per stored history scalar under the configured format."""
+        return {"float32": 4, "bfloat16": 2, "int8": 1}[self.history_dtype]
+
+    def _encode_history_rows(self, params: torch.Tensor):
+        """Encode flat rows ``[..., N, stride]`` into the wire format.
+        Returns ``(stored, scales)``: ``scales`` is ``[..., N, L]`` float32
+        for int8 (one per row and leaf), else None. float32 is the
+        identity.
+
+        int8 is symmetric, as in the JAX package (engine.py:1179-1192):
+        ``s = amax / 127`` over the leaf (1 for an all-zero leaf),
+        ``q = clip(round(x / s), -127, 127)`` with a true division and
+        round-half-to-even. Padding columns are 0 and stay 0."""
+        if self.history_dtype == "float32":
+            return params, None
+        if self.history_dtype == "bfloat16":
+            return params.to(torch.bfloat16), None
+        amax = torch.stack([params[..., o:o + w].abs().amax(dim=-1)
+                            for o, w in self._leaf_spans], dim=-1)
+        scales = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        q = torch.round(params.to(torch.float32) / scales[..., self._col_leaf])
+        return q.clamp(-127, 127).to(torch.int8), scales
+
+    def _decode_history_rows(self, stored: torch.Tensor,
+                             scales: Optional[torch.Tensor]) -> torch.Tensor:
+        """Inverse of :meth:`_encode_history_rows`, float32 out."""
+        if self.history_dtype == "float32":
+            return stored
+        if self.history_dtype == "bfloat16":
+            return stored.to(torch.float32)
+        return stored.to(torch.float32) * scales[..., self._col_leaf]
+
+    def _wire_roundtrip(self, params: torch.Tensor) -> torch.Tensor:
+        """What a receiver sees of ``params`` after transport: encode, then
+        decode."""
+        return self._decode_history_rows(*self._encode_history_rows(params))
+
+    def wire_bytes_per_message(self) -> int:
+        """Bytes one model-carrying message moves under the wire format:
+        the payload plus, for int8, one float32 scale per leaf (the
+        scalars the JAX package counts; the port's row padding is not
+        sent)."""
+        layout = self.handler.layout
+        sidecar = 4 * len(layout.leaves) if self.history_dtype == "int8" \
+            else 0
+        return layout.width * self._wire_itemsize() + sidecar
 
     # -- state -------------------------------------------------------------
 
@@ -294,25 +456,32 @@ class GossipSimulator:
 
     def init_state(self, model: ModelState, phase: torch.Tensor) -> SimState:
         """A round-0 state around given node models: the ring holds
-        ``model``'s params in every cell and the mailbox is empty."""
+        ``model``'s params, encoded, in every cell and the mailbox is
+        empty."""
         n = self.n_nodes
         params = model.params.to(self.device, torch.float32).contiguous()
         n_updates = model.n_updates.to(self.device, torch.int32)
         D = self._history_depth(self._model_size())
+        stored, scales = self._encode_history_rows(params)
         return SimState(
             model=ModelState(params, n_updates),
             phase=phase.to(self.device, torch.int32),
-            history_params=params.unsqueeze(0).repeat(D, 1, 1),
+            history_params=stored.unsqueeze(0).repeat(D, 1, 1),
             history_ages=n_updates.unsqueeze(0).repeat(D, 1),
             mailbox=Mailbox.empty(D, n, self.K, self.device),
+            history_scale=(None if scales is None
+                           else scales.unsqueeze(0).repeat(D, 1, 1)),
         )
 
     # -- per-round phases --------------------------------------------------
 
     def _snapshot(self, state: SimState, r: int) -> None:
         b = r % state.history_ages.shape[0]
-        state.history_params[b].copy_(state.model.params)
+        stored, scales = self._encode_history_rows(state.model.params)
+        state.history_params[b].copy_(stored)
         state.history_ages[b].copy_(state.model.n_updates)
+        if scales is not None:
+            state.history_scale[b].copy_(scales)
 
     def _scatter_messages(self, box: Mailbox, active, dr, recv, sender_ids,
                           send_round: int, msg_type: int, extra, r: int,
@@ -357,8 +526,137 @@ class GossipSimulator:
         fails = fails._replace(overflow=n_overflow)
         return n_sent, fails, n_sent * size
 
+    # -- deliver: the ring ----------------------------------------------------
+
+    def _ring(self, state: SimState):
+        """The ring as the kernels address it: ``[D*N, stride]`` rows in
+        the wire format, and for int8 the ``[D*N, L]`` scales and the leaf
+        start columns (else None, None)."""
+        h = state.history_params
+        ring = h.view(-1, h.shape[-1])
+        if state.history_scale is None:
+            return ring, None, None
+        sc = state.history_scale
+        return ring, sc.view(-1, sc.shape[-1]), self._leaf_starts
+
+    def _gather_peer(self, state: SimState, send_round: torch.Tensor,
+                     sender: torch.Tensor) -> PeerModel:
+        """The snapshots messages carry: ``history[send_round % D][sender]``,
+        decoded from the ring's wire format to float32."""
+        D = state.history_ages.shape[0]
+        cell = send_round.long() % D
+        s = sender.long().clamp(0, self.n_nodes - 1)
+        scales = (None if state.history_scale is None
+                  else state.history_scale[cell, s])
+        params = self._decode_history_rows(state.history_params[cell, s],
+                                           scales)
+        return PeerModel(params, state.history_ages[cell, s])
+
+    # -- deliver: the plain and per-slot paths (the slot loop) ---------------
+
+    def _delivery_path_counts(self, n_live: int) -> tuple[int, int]:
+        """(compact, wide) 0/1 indicators of one slot's pass, from the
+        slot's live receiver count, as :meth:`_receive_slot_apply`
+        dispatches it."""
+        if n_live == 0:
+            return 0, 0
+        if self._compact_cap is not None and n_live <= self._compact_cap:
+            return 1, 0
+        return 0, 1
+
+    def _slot_loop(self, state: SimState, r: int, sr_t, sender_t,
+                   apply_t) -> tuple[int, int]:
+        """One pass per occupied mailbox slot, in slot order; slot ``k``
+        trains every node under purpose ``K_CALL * 101 + k``. Returns the
+        (compact, wide) slot counts."""
+        n = self.n_nodes
+        live = apply_t.sum(dim=0).tolist()
+        first_k = torch.zeros(n, dtype=torch.int64, device=self.device)
+        n_compact = n_wide = 0
+        for k, n_live in enumerate(live):
+            dc, dw = self._delivery_path_counts(n_live)
+            n_compact += dc
+            n_wide += dw
+            if n_live == 0:
+                continue
+            perms = self.draws.update_permutations(
+                r, [K_CALL * 101 + k], first_k, self.handler.local_epochs,
+                self.data["mtr"].shape[1])
+            self._receive_slot_apply(state, sr_t[:, k], sender_t[:, k],
+                                     apply_t[:, k], perms, n_live)
+        return n_compact, n_wide
+
+    def _receive_slot_apply(self, state: SimState, send_round, sender, valid,
+                            perms, n_live: int) -> None:
+        """One mailbox slot: the per-slot fused kernel, the compacted pass
+        when every live receiver fits the capacity, else the wide pass."""
+        if self.fused_merge:
+            self._fused_receive(state, send_round, sender, valid, perms)
+        elif self._compact_cap is not None and n_live <= self._compact_cap:
+            self._apply_receive_compact(state, send_round, sender, valid,
+                                        perms)
+        else:
+            self._apply_receive_wide(state, send_round, sender, valid, perms)
+
+    def _apply_receive_wide(self, state: SimState, send_round, sender, valid,
+                            perms) -> None:
+        peer = self._gather_peer(state, send_round, sender)
+        self._apply_receive(state, peer, valid, perms)
+
+    def _apply_receive(self, state: SimState, peer: PeerModel, valid,
+                       perms) -> None:
+        """Population-wide :meth:`_receive_rows`, kept where ``valid``."""
+        new_model = self._receive_rows(state.model, peer, self._local_data(),
+                                       perms)
+        state.model = select_nodes(valid, new_model, state.model)
+
+    def _apply_receive_compact(self, state: SimState, send_round, sender,
+                               valid, perms) -> None:
+        """The receive pass over a gathered batch of ``cap`` rows that holds
+        every live receiver (the stable valid-first argsort), with each
+        node's own shard orders; only called when the live count fits."""
+        idx = torch.argsort((~valid).to(torch.int32),
+                            stable=True)[:self._compact_cap]
+        sub_valid = valid[idx]
+        peer = self._gather_peer(state, send_round[idx], sender[idx])
+        sub_model = _take_rows(state.model, idx)
+        data = tuple(d[idx] for d in self._local_data())
+        new_sub = self._receive_rows(sub_model, peer, data, perms[idx])
+        new_sub = select_nodes(sub_valid, new_sub, sub_model)
+        state.model = _put_rows(state.model, idx, new_sub)
+
+    def _receive_rows(self, models: ModelState, peer: PeerModel, data,
+                      perms) -> ModelState:
+        """The handler's receive over row-aligned batches (the population,
+        or a gathered subset)."""
+        return self.handler.call(models, peer, data, perms)
+
+    def _fused_receive(self, state: SimState, send_round, sender, valid,
+                       perms) -> None:
+        """MERGE_UPDATE through the single-slot gather-merge kernel (one
+        launch over the flat row, where the JAX engine launches once per
+        leaf), then the local update of every node; rows without a live
+        message keep their state."""
+        n = self.n_nodes
+        D = state.history_ages.shape[0]
+        s = sender.long().clamp(0, n - 1)
+        cell = send_round.long() % D
+        w_peer = torch.where(valid, float(self.handler.merge_peer_weight),
+                             0.0).to(torch.float32)
+        w_self = 1.0 - w_peer
+        ring, scale, starts = self._ring(state)
+        model = state.model
+        merged = gather_merge_flat(model.params, ring, cell * n + s, w_self,
+                                   w_peer, scale, starts)
+        ages = torch.maximum(model.n_updates, state.history_ages[cell, s])
+        updated = self.handler.update(ModelState(merged, ages),
+                                      self._local_data(), perms)
+        state.model = select_nodes(valid, updated, model)
+
+    # -- deliver: the single-pass fused path ----------------------------------
+
     def _fused_multi_tables(self, state: SimState, sr_t, sender_t, apply_t):
-        """The ``[N, K]`` kernel tables of one mailbox cell: flat ring
+        """The ``[rows, K]`` kernel tables of one mailbox cell: flat ring
         indices, blend weights (``(1, 0)`` for empty slots) and peer
         ages."""
         n = self.n_nodes
@@ -372,30 +670,76 @@ class GossipSimulator:
         peer_ages = state.history_ages[cell, s]
         return flat_idx, w_self, w_peer, peer_ages
 
-    def _fused_multi_apply(self, state: SimState, sr_t, sender_t, apply_t,
-                           perms, any_msg) -> None:
-        """One kernel launch and one update over all N receivers: the
+    def _fused_multi_merge_update(self, state: SimState, model: ModelState,
+                                  sr_t, sender_t, apply_t, perms, row_valid,
+                                  data) -> ModelState:
+        """One kernel launch and one update over ``model``'s rows: the
         compound left-to-right K-slot blend, age = max over the live
         peers, then the local update; rows without a live message keep
         their state."""
         flat_idx, w_self, w_peer, peer_ages = self._fused_multi_tables(
             state, sr_t, sender_t, apply_t)
-        model = state.model
-        ring = state.history_params.view(-1, state.history_params.shape[-1])
+        ring, scale, starts = self._ring(state)
         merged = gather_merge_multi(model.params, ring, flat_idx, w_self,
-                                    w_peer)
+                                    w_peer, scale, starts)
         live_ages = torch.where(apply_t, peer_ages,
                                 torch.zeros_like(peer_ages)).amax(dim=1)
         ages = torch.maximum(model.n_updates, live_ages)
-        updated = self.handler.update(ModelState(merged, ages),
-                                      self._local_data(), perms)
-        state.model = ModelState(
-            torch.where(any_msg[:, None], updated.params, model.params),
-            torch.where(any_msg, updated.n_updates, model.n_updates))
+        updated = self.handler.update(ModelState(merged, ages), data, perms)
+        return select_nodes(row_valid, updated, model)
+
+    def _fused_multi_apply(self, state: SimState, sr_t, sender_t, apply_t,
+                           perms, any_msg) -> None:
+        state.model = self._fused_multi_merge_update(
+            state, state.model, sr_t, sender_t, apply_t, perms, any_msg,
+            self._local_data())
+
+    def _fused_multi_apply_compact(self, state: SimState, sr_t, sender_t,
+                                   apply_t, perms, any_msg) -> None:
+        """The single pass over ``cap`` gathered rows holding every
+        receiver with a live message (the stable valid-first argsort)."""
+        idx = torch.argsort((~any_msg).to(torch.int32),
+                            stable=True)[:self._compact_cap]
+        data = tuple(d[idx] for d in self._local_data())
+        new_sub = self._fused_multi_merge_update(
+            state, _take_rows(state.model, idx), sr_t[idx], sender_t[idx],
+            apply_t[idx], perms[idx], any_msg[idx], data)
+        state.model = _put_rows(state.model, idx, new_sub)
+
+    def _fused_multi_dispatch(self, state: SimState, sr_t, sender_t, apply_t,
+                              perms, any_msg, n_live: int,
+                              occ_slots: int) -> tuple[int, int]:
+        """The compacted single pass when every receiver fits the capacity,
+        else the wide one; returns ``(compact, wide)`` with the cell's
+        occupied-slot count on the path taken."""
+        if self._compact_cap is not None and n_live <= self._compact_cap:
+            self._fused_multi_apply_compact(state, sr_t, sender_t, apply_t,
+                                            perms, any_msg)
+            return occ_slots, 0
+        self._fused_multi_apply(state, sr_t, sender_t, apply_t, perms,
+                                any_msg)
+        return 0, occ_slots
+
+    def _fused_deliver_all(self, state: SimState, r: int, sr_t, sender_t,
+                           apply_t) -> tuple[int, int]:
+        """Single-pass fused deliver of one mailbox cell; each node trains
+        under its first live slot's stream. Returns the (compact, wide)
+        slot counts."""
+        any_msg = apply_t.any(dim=1)
+        n_live, occ_slots = torch.stack(
+            [any_msg.sum(), apply_t.any(dim=0).sum()]).tolist()
+        if n_live == 0:
+            return 0, 0
+        first_k = torch.argmax(apply_t.to(torch.int32), dim=1)
+        perms = self.draws.update_permutations(
+            r, [K_CALL * 101 + k for k in range(self.K)], first_k,
+            self.handler.local_epochs, self.data["mtr"].shape[1])
+        return self._fused_multi_dispatch(state, sr_t, sender_t, apply_t,
+                                          perms, any_msg, n_live, occ_slots)
 
     def _deliver_phase(self, state: SimState, r: int):
-        """Single-pass fused deliver of this round's mailbox cell; returns
-        the failure counts and the diagnostics of the cell."""
+        """Deliver this round's mailbox cell; returns the failure counts
+        and the diagnostics of the cell."""
         n = self.n_nodes
         D = state.history_ages.shape[0]
         b = r % D
@@ -407,25 +751,19 @@ class GossipSimulator:
         ty_t = box.msg_type[b]
         occupied_t = sender_t >= 0
         hwm = occupied_t.sum(dim=1).max()
-        apply_t = occupied_t & online[:, None]
         carries = ((ty_t == MessageType.PUSH) | (ty_t == MessageType.PUSH_PULL)
                    | (ty_t == MessageType.REPLY))
-        apply_t = apply_t & carries
+        apply_t = occupied_t & online[:, None] & carries
         fails = FailureCounts(offline=(occupied_t & ~online[:, None]).sum())
-        any_msg = apply_t.any(dim=1)
-        occ_slots = apply_t.any(dim=0).sum()
-        has_any = bool(any_msg.any())
-        if has_any:
-            # Each node trains under its first live slot's stream.
-            first_k = torch.argmax(apply_t.to(torch.int32), dim=1)
-            perms = self.draws.update_permutations(
-                r, [K_CALL * 101 + k for k in range(self.K)], first_k,
-                self.handler.local_epochs, self.data["mtr"].shape[1])
-            self._fused_multi_apply(state, sr_t, sender_t, apply_t, perms,
-                                    any_msg)
+        if self.fused_merge == "multi":
+            n_compact, n_wide = self._fused_deliver_all(state, r, sr_t,
+                                                        sender_t, apply_t)
+        else:
+            n_compact, n_wide = self._slot_loop(state, r, sr_t, sender_t,
+                                                apply_t)
         box.clear_cell(b)
-        wide = occ_slots if has_any else torch.zeros_like(occ_slots)
-        return fails, {"mailbox_hwm": hwm, "wide_slots": wide}
+        return fails, {"mailbox_hwm": hwm, "compact_slots": n_compact,
+                       "wide_slots": n_wide}
 
     # -- evaluation --------------------------------------------------------
 
@@ -505,7 +843,7 @@ class GossipSimulator:
             "failed_offline": fails.offline,
             "failed_overflow": fails.overflow,
             "mailbox_hwm": diag["mailbox_hwm"],
-            "compact_slots": 0,
+            "compact_slots": diag["compact_slots"],
             "wide_slots": diag["wide_slots"],
             "size": size,
             "local": local,

@@ -1,10 +1,20 @@
-"""The port's round, held against the JAX engine's (fused_merge="multi").
+"""The port's round, held against the JAX engine's.
 
 Both engines start from the same state (the JAX ``init_nodes`` result,
 converted) and consume the same draws (the JAX draw oracle). Per round:
-sent and failed-by-cause counts and the mailbox written by the send phase
-are equal exactly; parameters within 1e-5 (fp32, reduction order of the
-local SGD differs); ages exactly; metrics within 1e-6.
+sent and failed-by-cause counts, the compact/wide slot counts and the
+mailbox written by the send phase are equal exactly; parameters within
+1e-5 (fp32, reduction order of the local SGD differs); ages exactly;
+metrics within 1e-6. Each deliver path (``fused_merge`` False, "per_slot"
+and "multi", wide and compact) is held against the same path of the JAX
+engine, never against another: at fan-in > 1 the paths differ by design.
+
+Quantized rings: the first encode is bit-equal (``test_torch_wire.py``),
+but after an update the two frameworks' params differ by about 1e-7, and
+a value that close to a rounding boundary encodes one step apart. So a
+bfloat16 run is held within 1e-5 plus half a bfloat16 step of the value
+(2^-8 |x|), and an int8 run within 1e-5 plus half an int8 quantum of the
+leaf (0.5 amax / 127, the step after the 0.5 blend).
 
 The JAX CNN round program is a compile the suite marks slow, so the
 engine is held on LogisticRegression here; the CNN's forward is held in
@@ -20,7 +30,7 @@ import optax
 import pytest
 import torch
 
-from gossipy_tpu.core import AntiEntropyProtocol, Topology
+from gossipy_tpu.core import AntiEntropyProtocol, CreateModelMode, Topology
 from gossipy_tpu.data import ClassificationDataHandler, DataDispatcher
 from gossipy_tpu.handlers import SGDHandler, losses
 from gossipy_tpu.models import LogisticRegression
@@ -32,6 +42,7 @@ from gossipy_tpu_torch.handlers import ModelState as TModelState
 from gossipy_tpu_torch.handlers import SGDHandler as TSGDHandler
 from gossipy_tpu_torch.handlers import losses as tlosses
 from gossipy_tpu_torch.models import LogisticRegression as TLogReg
+from gossipy_tpu_torch.random import TorchDraws
 from gossipy_tpu_torch.simulation import GossipSimulator as TGossipSimulator
 from torch_oracle import JaxDraws
 
@@ -57,7 +68,7 @@ def data():
     return disp.stacked()
 
 
-def make_pair(adjacency, key, **kw):
+def make_pair(adjacency, key, fused="multi", **kw):
     stacked = data()
     jh = SGDHandler(model=LogisticRegression(D_FEAT, 2),
                     loss=losses.cross_entropy, optimizer=optax.sgd(0.1),
@@ -71,9 +82,9 @@ def make_pair(adjacency, key, **kw):
                                 message=r"mailbox_slots=\d+ may overflow")
         jsim = GossipSimulator(jh, Topology(adjacency), stacked, delta=100,
                                protocol=AntiEntropyProtocol.PUSH,
-                               fused_merge="multi", mailbox_slots=K, **kw)
+                               fused_merge=fused, mailbox_slots=K, **kw)
         tsim = TGossipSimulator(th, tcore.Topology(adjacency), stacked,
-                                delta=100, mailbox_slots=K,
+                                delta=100, mailbox_slots=K, fused_merge=fused,
                                 draws=JaxDraws(key, init_key=key),
                                 device="cpu", **kw)
     return jsim, tsim
@@ -87,13 +98,16 @@ def to_port_state(tsim, jst):
                            torch.as_tensor(np.array(jst.phase)))
 
 
-def assert_params_close(tst, jst, layout, atol=1e-5):
+def assert_params_close(tst, jst, layout, atol=1e-5, quantum=None):
+    """Params within ``atol``, plus per element ``quantum(name, want)``
+    where a quantized ring allows one encoding step."""
     got = params_to_numpy(tst.model.params, layout)
     want = {"Dense_0/" + k: np.asarray(v)
             for k, v in jst.model.params["Dense_0"].items()}
     for name in want:
-        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=atol,
-                                   err_msg=name)
+        tol = atol if quantum is None else atol + quantum(name, want[name])
+        assert (np.abs(got[name] - want[name]) <= tol).all(), \
+            (name, float(np.abs(got[name] - want[name]).max()))
     np.testing.assert_array_equal(tst.model.n_updates.numpy(),
                                   np.asarray(jst.model.n_updates))
 
@@ -162,13 +176,18 @@ def test_rounds_match_jax_engine(topology, drop, online):
 
 
 def test_cpu_run_launches_no_kernel():
+    """On CPU tensors every path takes the plain versions: no kernel
+    launch is counted."""
     tops.reset_launch_counts()
     key = jax.random.PRNGKey(0)
-    _, tsim = make_pair(np.ones((N, N), dtype=bool), key)
-    st = tsim.init_nodes(common_init=True)
-    st, rep = tsim.start(st, n_rounds=2)
-    assert rep.sent_messages > 0
-    assert tops.LAUNCHES["gather_merge_multi"] == 0
+    for fused in ("multi", "per_slot"):
+        for history_dtype in ("float32", "int8"):
+            _, tsim = make_pair(np.ones((N, N), dtype=bool), key,
+                                fused=fused, history_dtype=history_dtype)
+            st = tsim.init_nodes(common_init=True)
+            st, rep = tsim.start(st, n_rounds=2)
+            assert rep.sent_messages > 0
+    assert sum(tops.LAUNCHES.values()) == 0
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
@@ -188,11 +207,11 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"fused_merge": False}, {"fused_merge": "per_slot"},
-    {"history_dtype": "bfloat16"}, {"protocol": tcore.AntiEntropyProtocol.PULL},
+    {"sampling_eval": 0.5}, {"max_fires_per_round": 2},
+    {"tracing": True}, {"protocol": tcore.AntiEntropyProtocol.PULL},
     {"sync": False}, {"delay": tcore.ConstantDelay(5)}, {"mesh": object()},
     {"chaos": {}}, {"probes": True}, {"sentinels": True},
-    {"compact_deliver": True}, {"cohort": 4},
+    {"protocol": tcore.AntiEntropyProtocol.PUSH_PULL}, {"cohort": 4},
 ])
 def test_unported_options_raise(option):
     th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
@@ -239,3 +258,213 @@ def test_init_nodes_state(common):
     trained = tsim.init_nodes(common_init=common)
     # 18 real rows per node in batches of 8: three counted updates.
     assert (trained.model.n_updates == 3).all()
+
+
+# -- the other deliver paths and the quantized rings -------------------------
+
+def bf16_quantum(name, want):
+    return 2.0 ** -8 * np.abs(want)
+
+
+def int8_quantum(jst):
+    """Half an int8 step of each leaf: 0.5 * the largest scale the ring
+    has held for it (amax / 127), over cells and nodes."""
+    def q(name, want):
+        leaf = name.split("/")[1]
+        return 0.5 * float(np.asarray(
+            jst.history_scale["Dense_0"][leaf]).max())
+    return q
+
+
+# (name, topology, fused_merge, extra options, drop, online)
+LEGS = [
+    ("plain-wide", "clique", False, {"compact_deliver": False}, 0.0, 1.0),
+    # cap 3: slot 0 (about 8 live receivers) takes the wide pass, the
+    # higher slots the compacted one.
+    ("plain-compact", "clique", False, {"compact_deliver": 3}, 0.2, 0.8),
+    ("per_slot-float32", "clique", "per_slot", {}, 0.2, 0.8),
+    ("per_slot-int8", "clique", "per_slot", {"history_dtype": "int8"},
+     0.0, 1.0),
+    ("multi-bfloat16", "clique", "multi", {"history_dtype": "bfloat16"},
+     0.0, 1.0),
+    ("multi-int8", "clique", "multi", {"history_dtype": "int8"}, 0.2, 0.8),
+    # The hub's cell holds 2 live receivers a round: cap 4 compacts.
+    ("multi-compact", "hub", "multi", {"compact_deliver": 4}, 0.0, 1.0),
+]
+
+
+@pytest.mark.parametrize("leg", LEGS, ids=[leg[0] for leg in LEGS])
+def test_deliver_paths_match_jax_engine(leg):
+    name, topology, fused, opts, drop, online = leg
+    adjacency = (np.ones((N, N), dtype=bool) if topology == "clique"
+                 else hub_adjacency(N))
+    key = jax.random.PRNGKey(4)
+    jsim, tsim = make_pair(adjacency, key, fused=fused, drop_prob=drop,
+                           online_prob=online, **opts)
+    assert tsim._compact_cap == jsim._compact_cap
+    layout = tsim.handler.layout
+    jst = jsim.init_nodes(key, common_init=True)
+    tst = to_port_state(tsim, jst)
+    jst, jrep = jsim.start(jst, n_rounds=ROUNDS, key=key, donate_state=False)
+    tst, trep = tsim.start(tst, n_rounds=ROUNDS)
+
+    for field in ("sent_per_round", "failed_per_round",
+                  "compact_slots_per_round", "wide_slots_per_round",
+                  "mailbox_hwm_per_round"):
+        np.testing.assert_array_equal(getattr(trep, field),
+                                      getattr(jrep, field), err_msg=field)
+    for cause in ("drop", "offline", "overflow"):
+        np.testing.assert_array_equal(trep.failed_per_cause[cause],
+                                      jrep.failed_per_cause[cause])
+    assert trep.total_size == jrep.total_size
+    dtype = opts.get("history_dtype", "float32")
+    quantum = {"float32": None, "bfloat16": bf16_quantum,
+               "int8": int8_quantum(jst) if dtype == "int8" else None}[dtype]
+    assert_params_close(tst, jst, layout, quantum=quantum)
+    np.testing.assert_array_equal(tst.history_ages.numpy(),
+                                  np.asarray(jst.history_ages))
+    if dtype == "float32":
+        tc, jc = trep.curves(False), jrep.curves(False)
+        for m in jc:
+            np.testing.assert_allclose(tc[m], jc[m], rtol=0, atol=1e-6,
+                                       err_msg=m)
+    # Every leg exercises what it is there for.
+    compact = int(trep.compact_slots_per_round.sum())
+    wide = int(trep.wide_slots_per_round.sum())
+    if "compact" in name:
+        assert compact > 0
+    else:
+        assert compact == 0 and wide > 0
+    if name == "plain-compact":
+        assert wide > 0
+    if fused != "multi":  # the slot loop drains more than one slot a round
+        assert (trep.wide_slots_per_round + trep.compact_slots_per_round
+                > 1).any()
+
+
+def port_run(fused, compact, adjacency, seed=1, rounds=ROUNDS, **kw):
+    _, tsim = make_pair(adjacency, jax.random.PRNGKey(0), fused=fused,
+                        compact_deliver=compact, **kw)
+    tsim.draws = TorchDraws(seed)
+    st = tsim.init_nodes(torch.Generator().manual_seed(seed))
+    return tsim.start(st, n_rounds=rounds)
+
+
+@pytest.mark.parametrize("fused,cap,topology", [
+    (False, 2, "clique"), (False, 5, "clique"), ("multi", 4, "hub"),
+    ("multi", 6, "clique")])
+def test_compaction_on_equals_off(fused, cap, topology):
+    """As tests/test_compact_deliver.py holds it in the reference: the same
+    run with compaction off and on (any capacity, overflow falling back to
+    the wide pass) gives the same trajectory."""
+    adjacency = (np.ones((N, N), dtype=bool) if topology == "clique"
+                 else hub_adjacency(N))
+    s_off, r_off = port_run(fused, False, adjacency, drop_prob=0.1)
+    s_on, r_on = port_run(fused, cap, adjacency, drop_prob=0.1)
+    assert int(r_on.compact_slots_per_round.sum()) > 0
+    assert int(r_off.compact_slots_per_round.sum()) == 0
+    np.testing.assert_allclose(s_on.model.params.numpy(),
+                               s_off.model.params.numpy(), rtol=0, atol=1e-6)
+    assert torch.equal(s_on.model.n_updates, s_off.model.n_updates)
+    np.testing.assert_array_equal(r_on.sent_per_round, r_off.sent_per_round)
+    np.testing.assert_array_equal(r_on.failed_per_round,
+                                  r_off.failed_per_round)
+    np.testing.assert_array_equal(
+        r_on.compact_slots_per_round + r_on.wide_slots_per_round,
+        r_off.wide_slots_per_round)
+    np.testing.assert_allclose(r_on.curves(False)["accuracy"],
+                               r_off.curves(False)["accuracy"], atol=1e-6)
+
+
+def big_data(n):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(4 * n, D_FEAT)).astype(np.float32)
+    y = rng.integers(0, 2, 4 * n)
+    return DataDispatcher(ClassificationDataHandler(X, y, test_size=0.25,
+                                                    seed=1), n=n).stacked()
+
+
+@pytest.mark.parametrize("fused,compact", [
+    (False, None), ("multi", None), ("per_slot", None), (False, True),
+    ("multi", True), (False, 7), (False, 100), (False, False)])
+def test_compaction_rules_match_jax(fused, compact):
+    """The capacity the constructor settles on, at 64 nodes and K = 4
+    (auto: on for the plain path only), as in the JAX engine."""
+    n = 64
+    stacked = big_data(n)
+    jh = SGDHandler(model=LogisticRegression(D_FEAT, 2),
+                    loss=losses.cross_entropy, optimizer=optax.sgd(0.1),
+                    n_classes=2, input_shape=(D_FEAT,))
+    th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy, n_classes=2,
+                     input_shape=(D_FEAT,))
+    jsim = GossipSimulator(jh, Topology.clique(n), stacked, mailbox_slots=K,
+                           fused_merge=fused, compact_deliver=compact)
+    tsim = TGossipSimulator(th, tcore.Topology.clique(n), stacked,
+                            mailbox_slots=K, fused_merge=fused,
+                            compact_deliver=compact, device="cpu")
+    assert tsim._compact_cap == jsim._compact_cap
+    np.testing.assert_allclose(tsim._lam_vector(), jsim._lam_vector())
+    if fused is False and compact is None:
+        assert tsim._compact_cap == 32
+
+
+def test_compaction_misuse_rejected():
+    th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
+                     input_shape=(D_FEAT,))
+    topo = tcore.Topology.clique(N)
+    with pytest.raises(ValueError, match="per-slot"):
+        TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                         fused_merge="per_slot", compact_deliver=True,
+                         device="cpu")
+    with pytest.raises(ValueError, match=">= 1"):
+        TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                         fused_merge=False, compact_deliver=-2, device="cpu")
+    with pytest.warns(UserWarning, match="no effect"):
+        sim = TGossipSimulator(th, topo, data(), mailbox_slots=1,
+                               fused_merge=False, compact_deliver=True,
+                               device="cpu")
+    assert sim._compact_cap is None
+    sim = TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                           fused_merge=False, compact_deliver=100,
+                           device="cpu")
+    assert sim._compact_cap == N
+
+
+@pytest.mark.parametrize("mode", [CreateModelMode.UPDATE,
+                                  CreateModelMode.PASS])
+def test_plain_path_other_modes_match_jax_engine(mode):
+    """The plain path runs the handler's ``call``: UPDATE and PASS too."""
+    key = jax.random.PRNGKey(6)
+    adjacency = np.ones((N, N), dtype=bool)
+    jsim, tsim = make_pair(adjacency, key, fused=False, compact_deliver=3)
+    jsim.handler.mode = mode
+    tsim.handler.mode = mode
+    jst = jsim.init_nodes(key, common_init=False)
+    tst = to_port_state(tsim, jst)
+    jst, jrep = jsim.start(jst, n_rounds=2, key=key, donate_state=False)
+    tst, trep = tsim.start(tst, n_rounds=2)
+    np.testing.assert_array_equal(trep.compact_slots_per_round,
+                                  jrep.compact_slots_per_round)
+    assert_params_close(tst, jst, tsim.handler.layout)
+
+
+def test_mode_and_path_rules():
+    th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
+                     input_shape=(D_FEAT,),
+                     create_model_mode=CreateModelMode.UPDATE)
+    topo = tcore.Topology.clique(N)
+    for fused in ("multi", "per_slot"):  # the kernels fuse MERGE_UPDATE only
+        with pytest.raises(ValueError, match="MERGE_UPDATE"):
+            TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                             fused_merge=fused, device="cpu")
+    th.mode = CreateModelMode.UPDATE_MERGE
+    with pytest.raises(NotImplementedError, match="UPDATE_MERGE"):
+        TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                         fused_merge=False, device="cpu")
+    th.mode = CreateModelMode.MERGE_UPDATE
+    with pytest.raises(ValueError, match="fused_merge"):
+        TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                         fused_merge="both", device="cpu")
+    sim = TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                           fused_merge=True, device="cpu")
+    assert sim.fused_merge == "multi"

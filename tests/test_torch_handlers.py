@@ -1,8 +1,8 @@
 """The port's SGD handler and metrics against the JAX package's.
 
-``SGDHandler.update`` runs 4 nodes under the JAX draw oracle's shard
-orders (the permutations ``jax.vmap(handler.update)`` draws from the same
-keys); params within 1e-5, ages exactly. The metrics run on shared scores
+``SGDHandler.update`` and ``call`` run 4 nodes under the JAX draw oracle's
+shard orders (the permutations ``jax.vmap(handler.update)`` draws from the
+same keys); params within 1e-5, ages exactly. The metrics run on shared scores
 and masks, within 1e-6.
 """
 
@@ -13,11 +13,14 @@ import optax
 import pytest
 import torch
 
+from gossipy_tpu.core import CreateModelMode
 from gossipy_tpu.handlers import SGDHandler, losses
+from gossipy_tpu.handlers.base import PeerModel as JPeerModel
 from gossipy_tpu.models import LogisticRegression
 from gossipy_tpu.utils import classification_metrics
 from gossipy_tpu_torch import convert
 from gossipy_tpu_torch.handlers import ModelState as TModelState
+from gossipy_tpu_torch.handlers import PeerModel as TPeerModel
 from gossipy_tpu_torch.handlers import SGDHandler as TSGDHandler
 from gossipy_tpu_torch.handlers import losses as tlosses
 from gossipy_tpu_torch.models import LogisticRegression as TLogReg
@@ -134,3 +137,62 @@ def test_metrics_batch_over_nodes():
         one = tclassification_metrics(scores[i], y[i], 2, mask[i])
         for k in one:
             assert torch.allclose(batched[k][i], one[k], atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", [CreateModelMode.UPDATE,
+                                  CreateModelMode.MERGE_UPDATE,
+                                  CreateModelMode.PASS])
+def test_call_matches_vmapped_jax_call(mode):
+    """The receive-time dispatch over every node at once, under the
+    oracle's shard orders: merge as ``(a + b) / 2.0`` with age = max."""
+    X, y, mask = shards()
+    kw = dict(local_epochs=1, batch_size=4, n_classes=2, input_shape=(D,),
+              create_model_mode=mode)
+    jh = SGDHandler(model=LogisticRegression(D, 2), loss=losses.cross_entropy,
+                    optimizer=optax.sgd(0.3), **kw)
+    th = TSGDHandler(TLogReg(D, 2), tlosses.cross_entropy, learning_rate=0.3,
+                     **kw)
+    own = jax.vmap(jh.init)(jax.random.split(jax.random.PRNGKey(1), N))
+    own = own._replace(n_updates=jnp.array([0, 3, 5, 1], jnp.int32))
+    peer = jax.vmap(jh.init)(jax.random.split(jax.random.PRNGKey(2), N))
+    peer_ages = jnp.array([2, 2, 4, 0], jnp.int32)
+    keys = jax.random.split(jax.random.PRNGKey(9), N)
+    want = jax.vmap(jh.call)(own, JPeerModel(peer.params, peer_ages),
+                             (jnp.asarray(X), jnp.asarray(y),
+                              jnp.asarray(mask)), keys)
+
+    def flat(tree):
+        return convert.params_from_jax(jax.tree.map(np.asarray, tree),
+                                       th.layout)
+    perms = torch.from_numpy(perms_from_keys(keys, 1, S)).long()
+    got = th.call(TModelState(flat(own.params),
+                              torch.from_numpy(np.array(own.n_updates))),
+                  TPeerModel(flat(peer.params),
+                             torch.from_numpy(np.array(peer_ages))),
+                  (torch.from_numpy(X), torch.from_numpy(y),
+                   torch.from_numpy(mask)), perms)
+    views = convert.params_to_numpy(got.params, th.layout)
+    for leaf in ("kernel", "bias"):
+        np.testing.assert_allclose(views[f"Dense_0/{leaf}"],
+                                   np.asarray(want.params["Dense_0"][leaf]),
+                                   rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.n_updates.numpy(),
+                                  np.asarray(want.n_updates))
+
+
+def test_merge_is_the_rounded_average():
+    th = TSGDHandler(TLogReg(D, 2), tlosses.cross_entropy, input_shape=(D,))
+    a = torch.tensor([[1.0, 3.0, 1e-45, 3.4e38]])
+    b = torch.tensor([[2.0, -1.0, 1e-45, 3.4e38]])
+    got = th.merge(TModelState(a, torch.tensor([4])),
+                   TPeerModel(b, torch.tensor([7])))
+    assert torch.equal(got.params, (a + b) / 2.0)
+    assert got.n_updates.tolist() == [7]
+
+
+def test_update_merge_is_not_ported():
+    th = TSGDHandler(TLogReg(D, 2), tlosses.cross_entropy, input_shape=(D,),
+                     create_model_mode=CreateModelMode.UPDATE_MERGE)
+    st = TModelState(torch.zeros(1, 4), torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="UPDATE_MERGE"):
+        th.call(st, TPeerModel(*st), None, None)
