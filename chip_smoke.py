@@ -274,10 +274,10 @@ def check_wire_kernel(torch, merge, slots, wire, n, d, f, k, starts, seed,
                            f"{shape}")
     # Least work: p read once, out written once, each ring row the
     # function reads once at wire width (the live ones for K2; every
-    # receiver's for K3/K4, which have no zero-weight mask), the tables
-    # and the gathered scales once. Per element: a live slot is a multiply
-    # (the scale, int8 only), a multiply and the blend's multiply and add;
-    # an empty slot of K2 the blend's multiply and add.
+    # receiver's for K3/K4, which have no zero-weight mask) with its L
+    # scales, the tables and leaf starts once. Per element: a live slot is
+    # a multiply (the scale, int8 only), a multiply and the blend's
+    # multiply and add; an empty slot of K2 the blend's multiply and add.
     isz = ITEMSIZE[wire]
     n_scales = 0 if scale is None else len(starts)
     live = int((wp != 0).sum())
@@ -292,7 +292,7 @@ def check_wire_kernel(torch, merge, slots, wire, n, d, f, k, starts, seed,
     if scale is not None:
         flops += f * reads
     nbytes = (4 * f * 2 * n + isz * f * rows + n * k * (8 + 4 + 4)
-              + 4 * n * k * n_scales + 4 * n_scales)
+              + 4 * n_scales * rows + 4 * n_scales)
     ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, plain)
     bound_ms, bound_by = bound(nbytes, flops, rate)
@@ -592,9 +592,9 @@ def main() -> int:
                      launches)]
     for slots, wire, label, kernel, source, line in (
             ("multi", "bfloat16", "multi-bf16", merge.KERNEL_MULTI_DQ,
-             "gather_merge_multi_dq.cu", 100),
+             "gather_merge_multi.cu", 100),
             ("multi", "int8", "multi-int8", merge.KERNEL_MULTI_DQ,
-             "gather_merge_multi_dq.cu", 100),
+             "gather_merge_multi.cu", 100),
             ("single", "float32", "per_slot", merge.KERNEL_FLAT,
              "gather_merge_flat.cu", 60),
             ("single", "bfloat16", "per_slot-bf16", merge.KERNEL_FLAT_DQ,

@@ -11,9 +11,10 @@
 //
 // where h is the flat [D*N, F] snapshot ring. Without a scale table the
 // peer is the widened row (the TPU kernel's scale of 1). With one, the
-// scale of a column is that of (receiver i, the column's leaf): the wrapper
-// gathers the [N, L] table from the ring's [M, L] sidecar, and the kernel
-// looks the leaf up in the [L] table of leaf start columns. As in the TPU
+// scale of a column is that of (ring row idx[i], the column's leaf): the
+// kernel reads the row's scales straight from the ring's [M, L] sidecar
+// (the TPU kernel takes them gathered outside it) and looks the leaf up in
+// the [L] table of leaf start columns. As in the TPU
 // kernel there is no zero-weight mask: a receiver without a message
 // (wp = 0) is blended all the same, and the caller discards its row.
 //
@@ -55,12 +56,12 @@ constexpr int kThreads = 256;
 template <bool kScaled>
 __device__ __forceinline__ void load_leaf_tables(const float* scale,
                                                  const int32_t* start, int L,
-                                                 int64_t row, int32_t* s_start,
+                                                 int64_t peer, int32_t* s_start,
                                                  float* s_scale) {
   if (kScaled) {
     for (int t = threadIdx.x; t < L; t += blockDim.x) {
       s_start[t] = start[t];
-      s_scale[t] = scale[row * L + t];
+      s_scale[t] = scale[peer * L + t];
     }
     __syncthreads();
   }
@@ -79,7 +80,7 @@ __global__ void flat_vec4(const float4* __restrict__ p,
   __shared__ int32_t s_start[wire::kMaxLeaves];
   __shared__ float s_scale[wire::kMaxLeaves];
   const int64_t row = blockIdx.x;
-  load_leaf_tables<kScaled>(scale, start, L, row, s_start, s_scale);
+  load_leaf_tables<kScaled>(scale, start, L, idx[row], s_start, s_scale);
   const int64_t cols = f / 4;
   const int64_t col = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
   if (col >= cols) return;
@@ -114,7 +115,7 @@ __global__ void flat_scalar(const float* __restrict__ p,
   __shared__ int32_t s_start[wire::kMaxLeaves];
   __shared__ float s_scale[wire::kMaxLeaves];
   const int64_t row = blockIdx.x;
-  load_leaf_tables<kScaled>(scale, start, L, row, s_start, s_scale);
+  load_leaf_tables<kScaled>(scale, start, L, idx[row], s_start, s_scale);
   const int64_t col = (int64_t)blockIdx.y * blockDim.x + threadIdx.x;
   if (col >= f) return;
   float v = wire::widen(h[(int64_t)idx[row] * f + col]);
@@ -166,10 +167,11 @@ extern "C" int gather_merge_flat(const void* p, const void* h, const void* idx,
                               f, static_cast<cudaStream_t>(stream));
 }
 
-// K4. As gather_merge_flat with h: [m, f] in wire format `format`
-// (wire::kFloat32, kBFloat16 or kInt8). scale: null (peer = the widened
-// row) or [n, L] float32, one scale per (receiver, leaf), with start: [L]
-// int32 leaf start columns (start[0] == 0, increasing, each < f).
+// K4. As gather_merge_flat with h: [m, f] in wire format `format`: a
+// bfloat16 ring with no scale (scale null), or a float32, bfloat16 or int8
+// ring with scale: [m, L] float32, one scale per (ring row, leaf), and
+// start: [L] int32 leaf start columns (start[0] == 0, increasing, each
+// < f). The float32 ring with no scale is K3's.
 extern "C" int gather_merge_flat_dq(const void* p, const void* h, int format,
                                     const void* idx, const void* ws,
                                     const void* wp, const void* scale,
@@ -177,28 +179,25 @@ extern "C" int gather_merge_flat_dq(const void* p, const void* h, int format,
                                     void* out, int64_t n, int64_t f,
                                     void* stream) {
   if (bad_shape(n, f)) return (int)cudaErrorInvalidValue;
-  const bool scaled = scale != nullptr;
-  if (scaled && (start == nullptr || n_leaves < 1 ||
-                 n_leaves > wire::kMaxLeaves))
-    return (int)cudaErrorInvalidValue;
-  const int L = scaled ? (int)n_leaves : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scale == nullptr) {
+    if (format != wire::kBFloat16) return (int)cudaErrorInvalidValue;
+    return launch<uint16_t, false>(p, h, idx, ws, wp, nullptr, nullptr, 0,
+                                   out, n, f, st);
+  }
+  if (start == nullptr || n_leaves < 1 || n_leaves > wire::kMaxLeaves)
+    return (int)cudaErrorInvalidValue;
+  const int L = (int)n_leaves;
   switch (format) {
     case wire::kFloat32:
-      return scaled ? launch<float, true>(p, h, idx, ws, wp, scale, start, L,
-                                          out, n, f, st)
-                    : launch<float, false>(p, h, idx, ws, wp, nullptr,
-                                           nullptr, 0, out, n, f, st);
+      return launch<float, true>(p, h, idx, ws, wp, scale, start, L, out, n,
+                                 f, st);
     case wire::kBFloat16:
-      return scaled ? launch<uint16_t, true>(p, h, idx, ws, wp, scale, start,
-                                             L, out, n, f, st)
-                    : launch<uint16_t, false>(p, h, idx, ws, wp, nullptr,
-                                              nullptr, 0, out, n, f, st);
+      return launch<uint16_t, true>(p, h, idx, ws, wp, scale, start, L, out,
+                                    n, f, st);
     case wire::kInt8:
-      return scaled ? launch<int8_t, true>(p, h, idx, ws, wp, scale, start, L,
-                                           out, n, f, st)
-                    : launch<int8_t, false>(p, h, idx, ws, wp, nullptr,
-                                            nullptr, 0, out, n, f, st);
+      return launch<int8_t, true>(p, h, idx, ws, wp, scale, start, L, out, n,
+                                  f, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

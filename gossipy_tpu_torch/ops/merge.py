@@ -20,22 +20,23 @@ Scales. ``scale`` is ``[M]`` (one per ring row) or ``[M, L]`` (one per
 ring row and leaf, the port's int8 sidecar); ``leaf_starts`` gives the
 ``L`` leaves' start columns (``leaf_starts[0] == 0``, increasing). A
 column belongs to the last leaf that starts at or before it, so padding
-columns past the last leaf take its scale. The wrappers gather the scales
-of the rows they read (``[N, L]`` or ``[N, K, L]``) outside the kernels,
-as the JAX package does (merge.py:155-156, 366-368).
+columns past the last leaf take its scale. The kernels read the scales of
+the rows they name straight from the ``[M, L]`` table; the JAX package
+gathers them outside its kernels (merge.py:155-156, 366-368).
 
-Four kernels, each a CUDA C++ source in ``csrc/`` built at first use:
+Four kernels in two CUDA C++ sources in ``csrc/``, built at first use:
 
 =====  ==========================  ======================  ======================
 id     replaces (JAX merge.py)     launched for            source
 =====  ==========================  ======================  ======================
 K1     ``_multi_kernel``           multi, float32 ring     ``gather_merge_multi.cu``
-K2     ``_multi_dq_kernel``        multi, wire format      ``gather_merge_multi_dq.cu``
+K2     ``_multi_dq_kernel``        multi, wire format      ``gather_merge_multi.cu``
 K3     ``_kernel``                 single, float32 ring    ``gather_merge_flat.cu``
 K4     ``_dq_kernel``              single, wire format     ``gather_merge_flat.cu``
 =====  ==========================  ======================  ======================
 
-"Wire format" means a bfloat16 or int8 ring, or any ring with a scale. Each
+"Wire format" means a bfloat16 ring, or any ring with a scale (an int8
+ring always has one). Each
 public function runs the plain PyTorch version (``*_reference``) on CPU
 tensors, and on CUDA tensors launches its kernel or raises: it never falls
 back from the card to the plain version. Every launch adds one to
@@ -65,7 +66,7 @@ KERNEL_FLAT = "gather_merge_flat"         # K3
 KERNEL_FLAT_DQ = "gather_merge_flat_dq"   # K4
 # The csrc/ source (without .cu) that holds each kernel's entry point.
 SOURCES = {KERNEL: "gather_merge_multi",
-           KERNEL_MULTI_DQ: "gather_merge_multi_dq",
+           KERNEL_MULTI_DQ: "gather_merge_multi",
            KERNEL_FLAT: "gather_merge_flat",
            KERNEL_FLAT_DQ: "gather_merge_flat"}
 MAX_SLOTS = 64     # kMaxSlots in the CUDA sources
@@ -163,6 +164,13 @@ def _check_kernel_operands(caller: str, p: torch.Tensor, h: torch.Tensor):
         raise ValueError("p and h must be contiguous")
 
 
+def _check_wire_scale(caller: str, h: torch.Tensor, scale) -> None:
+    """The dequantizing kernels (K2, K4) take a bfloat16 ring with no scale
+    or any ring with one; a float32 ring with none is K1's or K3's."""
+    if scale is None and h.dtype != torch.bfloat16:
+        raise TypeError(f"{caller}: a {h.dtype} ring needs a scale")
+
+
 def _function(source: str, entry: str, argtypes: list):
     """The C entry point ``entry`` of ``csrc/<source>.cu``, built and
     loaded at first use, with its ctypes signature."""
@@ -257,11 +265,12 @@ def gather_merge_multi_dq_cuda(p: torch.Tensor, h: torch.Tensor,
                                scale: Optional[torch.Tensor] = None,
                                leaf_starts: LeafStarts = None
                                ) -> torch.Tensor:
-    """Launch K2 (ring in a wire format, or any ring with a scale); returns
-    a new ``[N, F]`` tensor. The scales of the rows each slot names are
-    gathered here, to ``[N, K, L]``."""
+    """Launch K2 (a bfloat16 ring, or any ring with a scale); returns a new
+    ``[N, F]`` tensor. The kernel reads the scales of the rows live slots
+    name from the ``[M, L]`` table."""
     _check_multi(p, h, idx, w_self, w_peer)
     _check_kernel_operands("gather_merge_multi_dq_cuda", p, h)
+    _check_wire_scale("gather_merge_multi_dq_cuda", h, scale)
     scale, leaf_starts = _scale_table(scale, leaf_starts, h.shape[0],
                                       p.shape[1])
     _check_devices(p, scale)
@@ -272,16 +281,14 @@ def gather_merge_multi_dq_cuda(p: torch.Tensor, h: torch.Tensor,
     idx32 = idx.to(torch.int32).contiguous()
     ws = w_self.to(torch.float32).contiguous()
     wp = w_peer.to(torch.float32).contiguous()
-    scale_g = starts = None
+    starts = None
     n_leaves = 0
     if scale is not None:
         n_leaves = scale.shape[1]
         if n_leaves > MAX_LEAVES or k * n_leaves > MAX_SCALES:
             raise ValueError(f"at most {MAX_LEAVES} leaves and {MAX_SCALES} "
                              f"slot x leaf scales, got {k} x {n_leaves}")
-        # Gathered outside the kernel, as merge.py:366-368 does: an empty
-        # slot's index is in range, so its (unused) scales are too.
-        scale_g = scale.to(torch.float32)[idx.long()].contiguous()
+        scale = scale.to(torch.float32).contiguous()
         starts = _starts_on(leaf_starts, p.device)
     out = torch.empty_like(p)
     fn = _function(SOURCES[KERNEL_MULTI_DQ], "gather_merge_multi_dq",
@@ -291,7 +298,7 @@ def gather_merge_multi_dq_cuda(p: torch.Tensor, h: torch.Tensor,
     with torch.cuda.device(p.device):
         rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
                 idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
-                None if scale_g is None else scale_g.data_ptr(),
+                None if scale is None else scale.data_ptr(),
                 None if starts is None else starts.data_ptr(), n_leaves,
                 out.data_ptr(), n, f, k, _stream(p))
     _raise_if_failed(KERNEL_MULTI_DQ, rc)
@@ -356,8 +363,8 @@ def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
                            scale: Optional[torch.Tensor] = None,
                            leaf_starts: LeafStarts = None) -> torch.Tensor:
     """Launch K3 (float32 ring, no scale) or K4 (otherwise); returns a new
-    ``[N, F]`` tensor. Every index must lie in ``[0, M)``; the scales of the
-    named rows are gathered here, to ``[N, L]``."""
+    ``[N, F]`` tensor. Every index must lie in ``[0, M)``; the kernel reads
+    the named rows' scales from the ``[M, L]`` table."""
     _check_flat(p, h, idx, w_self, w_peer)
     kernel = KERNEL_FLAT if (h.dtype == torch.float32 and scale is None) \
         else KERNEL_FLAT_DQ
@@ -380,16 +387,15 @@ def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
                     ws.data_ptr(), wp.data_ptr(), out.data_ptr(), n, f,
                     stream)
     else:
-        scale_g = starts = None
+        _check_wire_scale("gather_merge_flat_cuda", h, scale)
+        starts = None
         n_leaves = 0
         if scale is not None:
             n_leaves = scale.shape[1]
             if n_leaves > MAX_LEAVES:
                 raise ValueError(f"at most {MAX_LEAVES} leaves, got "
                                  f"{n_leaves}")
-            # Per-receiver scales gathered outside the kernel, as
-            # merge.py:155-156 does.
-            scale_g = scale.to(torch.float32)[idx.long()].contiguous()
+            scale = scale.to(torch.float32).contiguous()
             starts = _starts_on(leaf_starts, p.device)
         fn = _function(SOURCES[KERNEL_FLAT_DQ], "gather_merge_flat_dq",
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
@@ -399,7 +405,7 @@ def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
         with torch.cuda.device(p.device):
             rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
                     idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
-                    None if scale_g is None else scale_g.data_ptr(),
+                    None if scale is None else scale.data_ptr(),
                     None if starts is None else starts.data_ptr(), n_leaves,
                     out.data_ptr(), n, f, stream)
     _raise_if_failed(kernel, rc)

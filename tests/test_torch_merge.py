@@ -20,6 +20,7 @@ from gossipy_tpu.ops.merge import (gather_merge_flat, gather_merge_multi,
                                    gather_merge_pytree,
                                    gather_merge_reference)
 from gossipy_tpu_torch import ops as tops
+from gossipy_tpu_torch.ops import merge as tmerge
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -305,6 +306,17 @@ def test_new_kernels_count_nothing_on_cpu_and_need_cuda():
         tops.gather_merge_multi_dq_cuda(p, hq, idx, ws, wp, scale=scale)
     with pytest.raises(ValueError, match="CUDA"):
         tops.gather_merge_flat_cuda(p, h, idx[:, 0], ws[:, 0], wp[:, 0])
+
+
+def test_dq_kernels_take_no_unscaled_float32_or_int8_ring():
+    # K2/K4 take a bfloat16 ring bare and any ring with a scale; the
+    # float32 ring with no scale is K1's/K3's, and int8 always has one.
+    h = torch.zeros(4, 8)
+    for dtype in (torch.float32, torch.int8):
+        with pytest.raises(TypeError, match="needs a scale"):
+            tmerge._check_wire_scale("k", h.to(dtype), None)
+    tmerge._check_wire_scale("k", h.to(torch.bfloat16), None)
+    tmerge._check_wire_scale("k", h.to(torch.int8), torch.ones(4))
 
 
 def test_rejects_bad_scale_tables():
