@@ -36,6 +36,20 @@ Phases, each printed as it runs; any failure exits non-zero:
 5. reference: the same small run of each path on the CPU (plain versions)
    and on the card (kernels), from the same seeds: equal accounting, close
    params (within one encoding step more for the bf16 and int8 rings).
+6. attention: the flash-attention hop kernel K5 (``csrc/flash_hop.cu``,
+   built in phase 2) against its plain version at the JAX bench's regime
+   (S = 8192, one head, D = 128, causal, bf16 and f32), on mid-stream hops
+   (a random carry; a chunk wholly in the past, one across the diagonal),
+   at ragged shapes (1000 x 777 rows, D = 72) and with wholly masked rows
+   whose m is _NEG; then at the bench shape the device times of K5, of the
+   plain version and of ``scaled_dot_product_attention`` beside the bound;
+   ``flash_attention``'s forward and gradient against dense attention
+   through autograd (the JAX bench's ``_attention_parity`` rule); and the
+   training demo (``gossipy_tpu_torch.examples.demo_ring_attention``), the
+   path's main run, at its defaults with K5's launches counted (one per
+   step, none from the backward), then 3 steps at S = 8192, D = 128 with K5
+   and with the plain version, whose losses must agree (host-clock time
+   per step and peak memory of each), and one profiled step with K5.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -65,6 +79,13 @@ MEMORY_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
 # fp32 outside the tensor cores, H100 SXM (NVIDIA's data sheet); the folds
 # are elementwise, so no tensor-core rate applies.
 FP32_FLOPS = 67e12
+# Dense bf16 tensor-core rate of each H100 part (NVIDIA data sheets), the
+# bound of attention's two products: a bf16 x bf16 product is exact in f32.
+TENSOR_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
+                ("H100", 989e12))
+ATTN_S = 8192       # the JAX bench's flash-attention regime:
+ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
+ATTN_NEG = -1e30    # attention's finite -inf (ops/attention.py::_NEG)
 
 # The paths of phase 4 after the first: (label, fused_merge, history_dtype).
 LEGS = (("plain", False, "float32"),
@@ -336,16 +357,16 @@ def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
     return sim, state
 
 
-def profile_round(torch, sim, state) -> None:
-    """One main-path round (no eval) under torch.profiler: the kernels
-    that take the card's time, in order, and the card's idle share of the
-    round's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, fn, label: str) -> None:
+    """``fn`` once under torch.profiler: the kernels that take the card's
+    time, in order, and the card's idle share of the call's wall time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim._round(state)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -360,7 +381,7 @@ def profile_round(torch, sim, state) -> None:
     if busy <= 0:
         log("[profile] the profiler recorded no device time")
         return
-    log(f"[profile] one round without eval: wall {wall_us / 1e3:.3f} ms, "
+    log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / wall_us:.3f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
@@ -482,12 +503,269 @@ def card_vs_cpu(torch, merge, label: str, fused, wire: str) -> None:
                            "run")
 
 
+def tensor_rate(name: str) -> float:
+    for key, rate in TENSOR_FLOPS:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no tensor-core rate known for {name!r}")
+
+
+def hop_operands(torch, sl_q, sl_k, dim, dv, dtype, carry, seed,
+                 masked_rows=0):
+    """q, k_c, v_c in ``dtype`` and an f32 carry on the card, from
+    ``default_rng(seed)``: the initial carry (m = _NEG, l = 0, acc = 0) or
+    a mid-stream one (normal m, softplus l, normal acc), whose first
+    ``masked_rows`` rows enter with m = _NEG, l = 0, acc = 0."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((sl_q, dim), (sl_k, dim), (sl_k, dv)))
+    if carry == "initial":
+        m = np.full(sl_q, ATTN_NEG, np.float32)
+        l = np.zeros(sl_q, np.float32)
+        acc = np.zeros((sl_q, dv), np.float32)
+    else:
+        m = rng.normal(size=sl_q).astype(np.float32)
+        l = np.log1p(np.exp(rng.normal(size=sl_q))).astype(np.float32)
+        acc = rng.normal(size=(sl_q, dv)).astype(np.float32)
+        m[:masked_rows] = ATTN_NEG
+        l[:masked_rows] = 0.0
+        acc[:masked_rows] = 0.0
+    dev = torch.device("cuda")
+    qkv = [torch.from_numpy(a).to(dev, dtype) for a in (q, k, v)]
+    return qkv + [torch.from_numpy(a).to(dev) for a in (m, l, acc)]
+
+
+def bf16_steps(torch, a, b):
+    """The largest ``|a - b|`` of two ``[rows, cols]`` bf16 outputs in
+    units of the bf16 step (the spacing of bf16 values) at the row's
+    largest magnitude. An element near 0 has a far finer step of its own,
+    below the rounding of the f32 sums that precede the cast."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).amax(dim=1, keepdim=True)
+    step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                      - 7)
+    return float(((a - b).abs() / step).max())
+
+
+def check_hop(torch, attn, label, sl_q, sl_k, dim, dv, dtype, causal, offs,
+              carry, seed, masked_rows=0) -> dict:
+    """K5 against its plain version on the same operands: m within
+    1e-5 max(1, |m|); l, acc and the normalized f32 output within 1e-4 of
+    their largest magnitude; the bf16 output within one bf16 step at each
+    row's largest magnitude."""
+    ops = hop_operands(torch, sl_q, sl_k, dim, dv, dtype, carry, seed,
+                       masked_rows)
+    scale = 1.0 / float(np.sqrt(dim))
+    got = attn.flash_hop_update_cuda(*ops, *offs, scale, causal)
+    want = attn.flash_hop_update_reference(*ops, *offs, scale, causal)
+    torch.cuda.synchronize()
+    (m_g, l_g, a_g), (m_w, l_w, a_w) = got, want
+    if not all(torch.isfinite(t).all() for t in got):
+        raise RuntimeError(f"K5 {label}: output is not finite")
+    m_err = float(((m_g - m_w).abs() / m_w.abs().clamp_min(1.0)).max())
+    out_g = a_g / l_g.clamp_min(1e-30)[:, None]
+    out_w = a_w / l_w.clamp_min(1e-30)[:, None]
+    errs = {name: float((g - w).abs().max()) for name, g, w in
+            (("l", l_g, l_w), ("acc", a_g, a_w), ("out", out_g, out_w))}
+    mags = {name: max(float(w.abs().max()), 1e-30) for name, w in
+            (("l", l_w), ("acc", a_w), ("out", out_w))}
+    out_bf16 = bf16_steps(torch, out_g.to(torch.bfloat16),
+                          out_w.to(torch.bfloat16))
+    log(f"[attention] K5 {label}: sl_q={sl_q} sl_k={sl_k} D={dim} Dv={dv} "
+        f"{str(dtype).split('.')[-1]} causal={causal} offs={offs} "
+        f"carry={carry}: m rel err {m_err:.3e}, "
+        + ", ".join(f"{n} err {errs[n]:.3e} (of {mags[n]:.3e})"
+                    for n in errs)
+        + f", bf16 output steps {out_bf16}")
+    if m_err > 1e-5 or any(errs[n] > 1e-4 * mags[n] for n in errs) \
+            or out_bf16 > 1.0:
+        raise RuntimeError(f"K5 {label} disagrees with its plain version")
+    if masked_rows:
+        if not (bool((l_g[:masked_rows] == 0).all())
+                and bool((m_g[:masked_rows] == ATTN_NEG).all())):
+            raise RuntimeError(f"K5 {label}: a wholly masked row with m = "
+                               "_NEG did not keep l = 0 and m = _NEG")
+    return dict(max_abs_err=errs["out"])
+
+
+def dense_attention(torch, q, k, v, causal):
+    """softmax(q k^T / sqrt(D)) v in f32 with the -1e30 causal mask, the
+    JAX bench's dense yardstick (bench.py::bench_ring_attention)."""
+    s = (q @ k.T) / float(np.sqrt(q.shape[1]))
+    if causal:
+        i = torch.arange(q.shape[0], device=q.device)
+        s = torch.where(i[None, :] > i[:, None], -1e30, s)
+    return torch.softmax(s, dim=-1) @ v
+
+
+def attention_parity(torch, attn, q, k, v, tol: float = 5e-3) -> dict:
+    """``bench.py::_attention_parity``'s rule, in f32 through autograd:
+    forward max abs error < tol; gradient max abs error of mean(out^2)
+    w.r.t. q, k, v < max(2 tol * grad scale, 1e-7), the scale being the
+    dense gradients' largest magnitude."""
+    def grads(fn):
+        inputs = [t.float().detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*inputs)
+        g = torch.autograd.grad((out.float() ** 2).mean(), inputs)
+        return out.detach().float(), g
+
+    attn.LAUNCHES.clear()
+    o_f, g_f = grads(lambda a, b, c: attn.flash_attention(a, b, c,
+                                                          causal=True))
+    torch.cuda.synchronize()
+    launches = attn.LAUNCHES[attn.KERNEL]
+    o_d, g_d = grads(lambda a, b, c: dense_attention(torch, a, b, c, True))
+    fwd_err = float((o_d - o_f).abs().max())
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(g_d, g_f))
+    g_scale = max(float(g.abs().max()) for g in g_d)
+    ok = (np.isfinite(fwd_err) and np.isfinite(grad_err) and fwd_err < tol
+          and grad_err < max(2 * tol * g_scale, 1e-7))
+    log(f"[attention] gradient check, flash_attention vs dense through "
+        f"autograd, S={q.shape[0]} D={q.shape[1]} f32 causal: fwd max abs "
+        f"err {fwd_err:.3e}, grad max abs err {grad_err:.3e}, grad scale "
+        f"{g_scale:.3e}, K5 launches in forward + backward {launches}: "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok or launches != 1:
+        raise RuntimeError("flash_attention's gradient check failed (or K5 "
+                           "did not launch exactly once)")
+    return dict(fwd_err=fwd_err, grad_err=grad_err)
+
+
+def attention_phase(torch, rate: float, name: str) -> dict:
+    """Phase 6: K5 against its plain version, its times beside SDPA and its
+    bound, the gradient check, and the training demo (the main path)."""
+    import torch.nn.functional as F
+
+    from gossipy_tpu_torch.examples import demo_ring_attention as demo
+    from gossipy_tpu_torch.ops import attention as attn
+
+    s_len, dim = ATTN_S, ATTN_D
+    bench = check_hop(torch, attn, "bench", s_len, s_len, dim, dim,
+                      torch.bfloat16, True, (0, 0), "initial", 21)
+    check_hop(torch, attn, "bench-f32", s_len, s_len, dim, dim,
+              torch.float32, True, (0, 0), "initial", 22)
+    for seed, offs in ((23, (s_len, 0)), (24, (4096, 2048))):
+        check_hop(torch, attn, f"mid-stream {offs}", s_len, s_len, dim, dim,
+                  torch.bfloat16, True, offs, "mid", seed)
+    for seed, (causal, offs) in enumerate(((False, (0, 0)),
+                                           (True, (300, 0))), start=25):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_hop(torch, attn, "ragged", 1000, 777, 72, 72, dtype,
+                      causal, offs, "mid", seed)
+    check_hop(torch, attn, "masked rows", 256, 256, dim, dim, torch.float32,
+              True, (0, 128), "mid", 27, masked_rows=128)
+
+    # Times at the bench shape: the hop with the initial carry, and
+    # flash_attention beside SDPA, which computes the same function.
+    q, k, v, m, l, acc = hop_operands(torch, s_len, s_len, dim, dim,
+                                      torch.bfloat16, "initial", 21)
+    scale = 1.0 / float(np.sqrt(dim))
+    hop_ms = time_ms(torch, lambda: attn.flash_hop_update_cuda(
+        q, k, v, m, l, acc, 0, 0, scale, True))
+    hop_plain_ms = time_ms(torch, lambda: attn.flash_hop_update_reference(
+        q, k, v, m, l, acc, 0, 0, scale, True))
+    fa_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True))
+    # Non-causal does twice the pairs: against the causal time it shows
+    # what the causal blocks' unequal work costs.
+    fa_full_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v))
+    fa_plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(
+        q, k, v, causal=True))
+    q4, k4, v4 = (t[None, None] for t in (q, k, v))
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    sdpa_full_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0, 0]
+    fa = attn.flash_attention(q, k, v, causal=True)
+    sdpa_diff = float((fa.float() - sdpa.float()).abs().max())
+    # Least work: the unmasked (q, k) pairs' 2 (D + Dv) flops at the bf16
+    # tensor-core rate (a bf16 product is exact in f32); q, k, v read once
+    # at input width, the f32 carry read and written once.
+    pairs = s_len * (s_len + 1) // 2
+    flops = 2 * pairs * (dim + dim)
+    nbytes = 3 * s_len * dim * 2 + 2 * 4 * (2 * s_len + s_len * dim)
+    bytes_ms, flops_ms = nbytes / rate * 1e3, flops / tensor_rate(name) * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    f32_bound_ms = flops / FP32_FLOPS * 1e3
+    log(f"[attention] bench shape S={s_len} D=Dv={dim} bf16 causal: K5 hop "
+        f"{hop_ms:.5f} ms, plain hop {hop_plain_ms:.5f} ms; flash_attention "
+        f"(K5) {fa_ms:.5f} ms, through the plain hop {fa_plain_ms:.5f} ms, "
+        f"SDPA {sdpa_ms:.5f} ms (K5 output vs SDPA: max abs diff "
+        f"{sdpa_diff:.3e}); bound {bound_ms:.5f} ms ({nbytes} bytes, "
+        f"{flops} flops, bound by {bound_by}; {f32_bound_ms:.5f} ms at the "
+        f"f32 CUDA-core rate); K5 reaches {bound_ms / fa_ms:.4f} of its "
+        f"bound; non-causal (twice the pairs): flash_attention (K5) "
+        f"{fa_full_ms:.5f} ms, SDPA {sdpa_full_ms:.5f} ms")
+
+    # The gradient check, at the bench shape in f32.
+    attention_parity(torch, attn, q, k, v)
+    del q, k, v, m, l, acc, q4, k4, v4, sdpa, fa
+    torch.cuda.empty_cache()
+
+    # The main path: the training demo at its defaults, K5 once per step.
+    attn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rec = demo.run(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = attn.LAUNCHES[attn.KERNEL]
+    log(f"[attention] demo at its defaults (S=256, D=32, 60 adam steps): "
+        f"{json.dumps(rec)}; {wall:.3f} s; K5 launches {launches}")
+    if not rec["learned"] or launches != 60 or not (
+            np.isfinite(rec["loss_first"]) and np.isfinite(rec["loss_last"])):
+        raise RuntimeError("the demo did not learn, or K5 did not launch once "
+                           "per step")
+
+    # 3 training steps at the bench width in f32, with K5 and with the
+    # plain version: the same losses within 1e-4 relative.
+    x_np, tgt_np, rng = demo.make_task(s_len, dim, 5)
+    start = demo.params_from_numpy(demo.init_params(dim, rng), "cuda")
+    x = torch.from_numpy(x_np).cuda()
+    tgt = torch.from_numpy(tgt_np).cuda()
+
+    def steps(attention):
+        """3 steps; host-clock ms per step and peak device GiB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, _ = demo.train(start, x, tgt, 3, attention=attention)
+        torch.cuda.synchronize()
+        return (losses, (time.perf_counter() - t0) / 3 * 1e3,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # In turns, plain, K5, K5, plain, so neither side alone pays the first
+    # use of the backward's shapes.
+    runs = [steps(attn.flash_attention_reference),
+            steps(attn.flash_attention), steps(attn.flash_attention),
+            steps(attn.flash_attention_reference)]
+    lp, lk = runs[0][0], runs[1][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log(f"[attention] 3 steps at S={s_len} D={dim} f32: losses with K5 {lk}, "
+        f"with the plain version {lp}; max rel diff {rel:.3e}; host-clock "
+        f"ms/step (forward, backward and adam) in turns plain, K5, K5, "
+        f"plain: {', '.join(f'{r[1]:.3f}' for r in runs)}; peak memory "
+        f"{', '.join(f'{r[2]:.2f}' for r in runs)} GiB")
+    profile(torch, lambda: demo.train(start, x, tgt, 1),
+            f"one training step with K5 at S={s_len} D={dim} f32")
+    if rel > 1e-4 or not all(np.isfinite(lk)):
+        raise RuntimeError("training losses with K5 and with the plain "
+                           "version disagree")
+    return {"name": attn.KERNEL, "route": "cuda",
+            "source": "gossipy_tpu_torch/csrc/flash_hop.cu",
+            "replaces": "gossipy_tpu/ops/attention.py:77",
+            "launches": launches, "max_abs_err": bench["max_abs_err"],
+            "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": sdpa_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    from gossipy_tpu_torch import ops
     from gossipy_tpu_torch.ops import _build, merge
 
     # 1. device
@@ -503,7 +781,7 @@ def main() -> int:
     log(f"[device] memory rate for the bound: {rate / 1e12} TB/s ({name})")
 
     # 2. build
-    sources = sorted(set(merge.SOURCES.values()))
+    sources = ops.SOURCES
     t0 = time.perf_counter()
     _build.build(sources)
     log(f"[build] {', '.join(sources)} built in "
@@ -565,7 +843,7 @@ def main() -> int:
     check_path_output(torch, sim, state, rep, "multi")
 
     # Where a round's time goes (after the checks: it runs more rounds).
-    profile_round(torch, sim, state)
+    profile(torch, lambda: sim._round(state), "one round without eval")
     phase_times(torch, sim, state, "multi")
     del sim, state
 
@@ -578,6 +856,9 @@ def main() -> int:
     card_vs_cpu(torch, merge, "multi", "multi", "float32")
     for label, fused, wire in LEGS:
         card_vs_cpu(torch, merge, label, fused, wire)
+
+    # 6. attention: K5, its gradient and the training demo
+    k5 = attention_phase(torch, rate, name)
 
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
@@ -604,6 +885,7 @@ def main() -> int:
         kernels.append(entry(kernel, None if wire == "float32" else wire,
                              source, line, numbers[(slots, wire)],
                              leg_launches[label][kernel]))
+    kernels.append(k5)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ A port of :mod:`gossipy_tpu` (JAX, TPU) to PyTorch on an NVIDIA Hopper
 card. The module names mirror the JAX package's so each piece has an
 obvious counterpart; inside, the code is plain PyTorch: stacked per-node
 tensors with a leading node axis, an explicit ``device=`` everywhere and
-an explicit ``torch.Generator`` for every random draw. The one TPU kernel
-on the ported path (the multi-slot gather-merge) is a CUDA C++ kernel in
-``csrc/``, built with ``nvcc`` at first use.
+an explicit ``torch.Generator`` for every random draw. The JAX package's
+TPU kernels (the gather-merges of ``ops/merge.py`` and the flash-attention
+hop of ``ops/attention.py``) are CUDA C++ kernels in ``csrc/``, built with
+``nvcc`` at first use.
 
 This package imports nothing of JAX and nothing of :mod:`gossipy_tpu`.
 

@@ -8,6 +8,11 @@ headers and the flags, and loaded with ``ctypes``. Nothing is built at import: t
 first wrapper call on a CUDA tensor builds what it needs. :func:`build`
 starts one ``nvcc`` per source, all at once, and waits for them together.
 
+The wrappers bind an entry point with :func:`function`, launch on
+PyTorch's current stream (:func:`stream`), raise on a launch error
+(:func:`raise_if_failed`) and count each launch in :data:`LAUNCHES`, one
+counter per kernel, shared by every kernel of the package.
+
 Flags: ``-O3 --fmad=false`` (no multiply-add contraction, so a kernel
 rounds as its plain PyTorch version does) and ``-Xptxas -v`` (registers,
 shared memory and spills per kernel, kept in ``_build/<name>.log``).
@@ -15,12 +20,15 @@ shared memory and spills per kernel, kept in ``_build/<name>.log``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -31,6 +39,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC"]
 
 _LOADED: dict = {}
+
+# Kernel launches per kernel, counted where a wrapper launches its kernel
+# and nowhere else.
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
 
 
 def nvcc_path() -> str:
@@ -96,3 +112,24 @@ def build_log(name: str) -> str:
     """What ``nvcc`` printed for ``name`` when it was last built here."""
     path = BUILD_DIR / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+def function(source: str, entry: str, argtypes: list):
+    """The C entry point ``entry`` of ``csrc/<source>.cu``, built and
+    loaded at first use, with its ctypes signature (returns a CUDA error
+    code)."""
+    fn = getattr(load(source), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the kernels take it
+    (so a launch can be captured in a CUDA graph)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raise_if_failed(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")

@@ -51,7 +51,6 @@ it keeps each node's parameters in one flat row already.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import math
 from typing import Optional, Sequence, Union
@@ -59,6 +58,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from . import _build
+from ._build import LAUNCHES, reset_launch_counts
 
 KERNEL = "gather_merge_multi"             # K1
 KERNEL_MULTI_DQ = "gather_merge_multi_dq"  # K2
@@ -76,15 +76,6 @@ MAX_SCALES = 8192  # K x L scale floats of the multi-slot kernel's block
 WIRE_FORMATS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 LeafStarts = Union[Sequence[int], torch.Tensor, None]
-
-# Kernel launches per kernel, counted where the wrapper launches and
-# nowhere else.
-LAUNCHES: collections.Counter = collections.Counter()
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES.clear()
-
 
 # -- scales and leaves -------------------------------------------------------
 
@@ -171,25 +162,6 @@ def _check_wire_scale(caller: str, h: torch.Tensor, scale) -> None:
         raise TypeError(f"{caller}: a {h.dtype} ring needs a scale")
 
 
-def _function(source: str, entry: str, argtypes: list):
-    """The C entry point ``entry`` of ``csrc/<source>.cu``, built and
-    loaded at first use, with its ctypes signature."""
-    lib = _build.load(source)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_if_failed(kernel: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
-
-
 # -- multi slot: K1 and K2 ---------------------------------------------------
 
 def gather_merge_multi_reference(p: torch.Tensor, h: torch.Tensor,
@@ -248,13 +220,13 @@ def gather_merge_multi_cuda(p: torch.Tensor, h: torch.Tensor,
     ws = w_self.to(torch.float32).contiguous()
     wp = w_peer.to(torch.float32).contiguous()
     out = torch.empty_like(p)
-    fn = _function(SOURCES[KERNEL], "gather_merge_multi",
-                   [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
-                   + [ctypes.c_void_p])
+    fn = _build.function(SOURCES[KERNEL], "gather_merge_multi",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+                         + [ctypes.c_void_p])
     with torch.cuda.device(p.device):
         rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(), ws.data_ptr(),
-                wp.data_ptr(), out.data_ptr(), n, f, k, _stream(p))
-    _raise_if_failed(KERNEL, rc)
+                wp.data_ptr(), out.data_ptr(), n, f, k, _build.stream(p))
+    _build.raise_if_failed(KERNEL, rc)
     LAUNCHES[KERNEL] += 1
     return out
 
@@ -291,17 +263,18 @@ def gather_merge_multi_dq_cuda(p: torch.Tensor, h: torch.Tensor,
         scale = scale.to(torch.float32).contiguous()
         starts = _starts_on(leaf_starts, p.device)
     out = torch.empty_like(p)
-    fn = _function(SOURCES[KERNEL_MULTI_DQ], "gather_merge_multi_dq",
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p]
-                   + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+    fn = _build.function(SOURCES[KERNEL_MULTI_DQ], "gather_merge_multi_dq",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                         + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int64, ctypes.c_void_p]
+                         + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(p.device):
         rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
                 idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
                 None if scale is None else scale.data_ptr(),
                 None if starts is None else starts.data_ptr(), n_leaves,
-                out.data_ptr(), n, f, k, _stream(p))
-    _raise_if_failed(KERNEL_MULTI_DQ, rc)
+                out.data_ptr(), n, f, k, _build.stream(p))
+    _build.raise_if_failed(KERNEL_MULTI_DQ, rc)
     LAUNCHES[KERNEL_MULTI_DQ] += 1
     return out
 
@@ -377,11 +350,11 @@ def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
     ws = w_self.to(torch.float32).contiguous()
     wp = w_peer.to(torch.float32).contiguous()
     out = torch.empty_like(p)
-    stream = _stream(p)
+    stream = _build.stream(p)
     if kernel == KERNEL_FLAT:
-        fn = _function(SOURCES[KERNEL_FLAT], "gather_merge_flat",
-                       [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
-                       + [ctypes.c_void_p])
+        fn = _build.function(SOURCES[KERNEL_FLAT], "gather_merge_flat",
+                             [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+                             + [ctypes.c_void_p])
         with torch.cuda.device(p.device):
             rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(),
                     ws.data_ptr(), wp.data_ptr(), out.data_ptr(), n, f,
@@ -397,18 +370,19 @@ def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
                                  f"{n_leaves}")
             scale = scale.to(torch.float32).contiguous()
             starts = _starts_on(leaf_starts, p.device)
-        fn = _function(SOURCES[KERNEL_FLAT_DQ], "gather_merge_flat_dq",
-                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int64, ctypes.c_void_p]
-                       + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
+        fn = _build.function(SOURCES[KERNEL_FLAT_DQ],
+                             "gather_merge_flat_dq",
+                             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                             + [ctypes.c_void_p] * 5
+                             + [ctypes.c_int64, ctypes.c_void_p]
+                             + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
         with torch.cuda.device(p.device):
             rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
                     idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
                     None if scale is None else scale.data_ptr(),
                     None if starts is None else starts.data_ptr(), n_leaves,
                     out.data_ptr(), n, f, stream)
-    _raise_if_failed(kernel, rc)
+    _build.raise_if_failed(kernel, rc)
     LAUNCHES[kernel] += 1
     return out
 

@@ -60,7 +60,9 @@ def test_package_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import gossipy_tpu_torch, gossipy_tpu_torch.simulation, "
         "gossipy_tpu_torch.ops, gossipy_tpu_torch.convert, "
-        "gossipy_tpu_torch.models, gossipy_tpu_torch.handlers\n"
+        "gossipy_tpu_torch.models, gossipy_tpu_torch.handlers, "
+        "gossipy_tpu_torch.ops.attention, gossipy_tpu_torch.optim, "
+        "gossipy_tpu_torch.examples.demo_ring_attention\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
