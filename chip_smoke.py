@@ -40,16 +40,19 @@ Phases, each printed as it runs; any failure exits non-zero:
    built in phase 2) against its plain version at the JAX bench's regime
    (S = 8192, one head, D = 128, causal, bf16 and f32), on mid-stream hops
    (a random carry; a chunk wholly in the past, one across the diagonal),
-   at ragged shapes (1000 x 777 rows, D = 72) and with wholly masked rows
-   whose m is _NEG; then at the bench shape the device times of K5, of the
-   plain version and of ``scaled_dot_product_attention`` beside the bound;
-   ``flash_attention``'s forward and gradient against dense attention
-   through autograd (the JAX bench's ``_attention_parity`` rule); and the
-   training demo (``gossipy_tpu_torch.examples.demo_ring_attention``), the
-   path's main run, at its defaults with K5's launches counted (one per
-   step, none from the backward), then 3 steps at S = 8192, D = 128 with K5
-   and with the plain version, whose losses must agree (host-clock time
-   per step and peak memory of each), and one profiled step with K5.
+   at ragged shapes (1000 x 777 rows, D = 72), with wholly masked rows
+   whose m is _NEG, and on every instance of the kernel (f32 and bf16 at
+   the demo's own shape, Dv = 32, and at Dv = 150 and 256); then at the
+   bench shape the device times of ``flash_attention`` with K5 and through
+   the plain version and of ``scaled_dot_product_attention`` beside the
+   bound; ``flash_attention``'s forward and gradient against dense
+   attention through autograd (the JAX bench's ``_attention_parity``
+   rule); and the training demo
+   (``gossipy_tpu_torch.examples.demo_ring_attention``), the path's main
+   run, at its defaults with K5's launches counted (one per step, none
+   from the backward), then 3 steps at S = 8192, D = 128 with K5 and with
+   the plain version, whose losses must agree. ``attention_diagnostics``
+   (not run here) breaks K5's time down further.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -85,7 +88,6 @@ TENSOR_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
                 ("H100", 989e12))
 ATTN_S = 8192       # the JAX bench's flash-attention regime:
 ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
-ATTN_NEG = -1e30    # attention's finite -inf (ops/attention.py::_NEG)
 
 # The paths of phase 4 after the first: (label, fused_merge, history_dtype).
 LEGS = (("plain", False, "float32"),
@@ -510,29 +512,37 @@ def tensor_rate(name: str) -> float:
     raise RuntimeError(f"no tensor-core rate known for {name!r}")
 
 
-def hop_operands(torch, sl_q, sl_k, dim, dv, dtype, carry, seed,
-                 masked_rows=0):
-    """q, k_c, v_c in ``dtype`` and an f32 carry on the card, from
-    ``default_rng(seed)``: the initial carry (m = _NEG, l = 0, acc = 0) or
-    a mid-stream one (normal m, softplus l, normal acc), whose first
-    ``masked_rows`` rows enter with m = _NEG, l = 0, acc = 0."""
+def hop_arrays(sl_q, sl_k, dim, dv, carry, seed, neg, masked_rows=0):
+    """float32 numpy operands of one attention hop from
+    ``default_rng(seed)``: q, k_c, v_c and the initial carry (m = ``neg``,
+    l = 0, acc = 0) or a mid-stream one (normal m, softplus l, normal acc),
+    whose first ``masked_rows`` rows enter with m = ``neg``, l = 0,
+    acc = 0. ``tests/test_torch_attention.py`` builds its cases with it."""
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(size=s).astype(np.float32)
                for s in ((sl_q, dim), (sl_k, dim), (sl_k, dv)))
     if carry == "initial":
-        m = np.full(sl_q, ATTN_NEG, np.float32)
+        m = np.full(sl_q, neg, np.float32)
         l = np.zeros(sl_q, np.float32)
         acc = np.zeros((sl_q, dv), np.float32)
     else:
         m = rng.normal(size=sl_q).astype(np.float32)
         l = np.log1p(np.exp(rng.normal(size=sl_q))).astype(np.float32)
         acc = rng.normal(size=(sl_q, dv)).astype(np.float32)
-        m[:masked_rows] = ATTN_NEG
+        m[:masked_rows] = neg
         l[:masked_rows] = 0.0
         acc[:masked_rows] = 0.0
+    return q, k, v, m, l, acc
+
+
+def hop_operands(torch, attn, sl_q, sl_k, dim, dv, dtype, carry, seed,
+                 masked_rows=0):
+    """:func:`hop_arrays` on the card, q, k_c, v_c in ``dtype``."""
+    arrays = hop_arrays(sl_q, sl_k, dim, dv, carry, seed, attn._NEG,
+                        masked_rows)
     dev = torch.device("cuda")
-    qkv = [torch.from_numpy(a).to(dev, dtype) for a in (q, k, v)]
-    return qkv + [torch.from_numpy(a).to(dev) for a in (m, l, acc)]
+    return ([torch.from_numpy(a).to(dev, dtype) for a in arrays[:3]]
+            + [torch.from_numpy(a).to(dev) for a in arrays[3:]])
 
 
 def bf16_steps(torch, a, b):
@@ -553,7 +563,7 @@ def check_hop(torch, attn, label, sl_q, sl_k, dim, dv, dtype, causal, offs,
     1e-5 max(1, |m|); l, acc and the normalized f32 output within 1e-4 of
     their largest magnitude; the bf16 output within one bf16 step at each
     row's largest magnitude."""
-    ops = hop_operands(torch, sl_q, sl_k, dim, dv, dtype, carry, seed,
+    ops = hop_operands(torch, attn, sl_q, sl_k, dim, dv, dtype, carry, seed,
                        masked_rows)
     scale = 1.0 / float(np.sqrt(dim))
     got = attn.flash_hop_update_cuda(*ops, *offs, scale, causal)
@@ -582,7 +592,7 @@ def check_hop(torch, attn, label, sl_q, sl_k, dim, dv, dtype, causal, offs,
         raise RuntimeError(f"K5 {label} disagrees with its plain version")
     if masked_rows:
         if not (bool((l_g[:masked_rows] == 0).all())
-                and bool((m_g[:masked_rows] == ATTN_NEG).all())):
+                and bool((m_g[:masked_rows] == attn._NEG).all())):
             raise RuntimeError(f"K5 {label}: a wholly masked row with m = "
                                "_NEG did not keep l = 0 and m = _NEG")
     return dict(max_abs_err=errs["out"])
@@ -654,27 +664,28 @@ def attention_phase(torch, rate: float, name: str) -> dict:
                       causal, offs, "mid", seed)
     check_hop(torch, attn, "masked rows", 256, 256, dim, dim, torch.float32,
               True, (0, 128), "mid", 27, masked_rows=128)
+    # Every instance of the kernel (input type x Dv in groups of 64): the
+    # demo's own shape (Dv = 32, one group), Dv = 150 (three groups, with
+    # D not a multiple of 4, so scalar loads) and Dv = 256 (four groups,
+    # the most shared memory).
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16), start=28):
+        check_hop(torch, attn, "demo shape", 256, 256, 32, 32, dtype, False,
+                  (0, 0), "initial", seed)
+        check_hop(torch, attn, "Dv 150", 1000, 777, 150, 150, dtype, False,
+                  (0, 0), "mid", seed + 2)
+        check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, dtype, True,
+                  (300, 0), "mid", seed + 4)
 
-    # Times at the bench shape: the hop with the initial carry, and
-    # flash_attention beside SDPA, which computes the same function.
-    q, k, v, m, l, acc = hop_operands(torch, s_len, s_len, dim, dim,
-                                      torch.bfloat16, "initial", 21)
-    scale = 1.0 / float(np.sqrt(dim))
-    hop_ms = time_ms(torch, lambda: attn.flash_hop_update_cuda(
-        q, k, v, m, l, acc, 0, 0, scale, True))
-    hop_plain_ms = time_ms(torch, lambda: attn.flash_hop_update_reference(
-        q, k, v, m, l, acc, 0, 0, scale, True))
+    # flash_attention at the bench shape, with K5 and through the plain
+    # version, beside SDPA, which computes the same function.
+    q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim,
+                           torch.bfloat16, "initial", 21)[:3]
     fa_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True))
-    # Non-causal does twice the pairs: against the causal time it shows
-    # what the causal blocks' unequal work costs.
-    fa_full_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v))
     fa_plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(
         q, k, v, causal=True))
     q4, k4, v4 = (t[None, None] for t in (q, k, v))
     sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True))
-    sdpa_full_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4))
     sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0, 0]
     fa = attn.flash_attention(q, k, v, causal=True)
     sdpa_diff = float((fa.float() - sdpa.float()).abs().max())
@@ -688,19 +699,17 @@ def attention_phase(torch, rate: float, name: str) -> dict:
     bound_ms = max(bytes_ms, flops_ms)
     bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
     f32_bound_ms = flops / FP32_FLOPS * 1e3
-    log(f"[attention] bench shape S={s_len} D=Dv={dim} bf16 causal: K5 hop "
-        f"{hop_ms:.5f} ms, plain hop {hop_plain_ms:.5f} ms; flash_attention "
-        f"(K5) {fa_ms:.5f} ms, through the plain hop {fa_plain_ms:.5f} ms, "
-        f"SDPA {sdpa_ms:.5f} ms (K5 output vs SDPA: max abs diff "
-        f"{sdpa_diff:.3e}); bound {bound_ms:.5f} ms ({nbytes} bytes, "
-        f"{flops} flops, bound by {bound_by}; {f32_bound_ms:.5f} ms at the "
-        f"f32 CUDA-core rate); K5 reaches {bound_ms / fa_ms:.4f} of its "
-        f"bound; non-causal (twice the pairs): flash_attention (K5) "
-        f"{fa_full_ms:.5f} ms, SDPA {sdpa_full_ms:.5f} ms")
+    log(f"[attention] bench shape S={s_len} D=Dv={dim} bf16 causal: "
+        f"flash_attention (K5) {fa_ms:.5f} ms, through the plain hop "
+        f"{fa_plain_ms:.5f} ms, SDPA {sdpa_ms:.5f} ms (K5 output vs SDPA: "
+        f"max abs diff {sdpa_diff:.3e}); bound {bound_ms:.5f} ms ({nbytes} "
+        f"bytes, {flops} flops, bound by {bound_by}; {f32_bound_ms:.5f} ms "
+        f"at the f32 CUDA-core rate); K5 reaches {bound_ms / fa_ms:.4f} of "
+        f"its bound")
 
     # The gradient check, at the bench shape in f32.
     attention_parity(torch, attn, q, k, v)
-    del q, k, v, m, l, acc, q4, k4, v4, sdpa, fa
+    del q, k, v, q4, k4, v4, sdpa, fa
     torch.cuda.empty_cache()
 
     # The main path: the training demo at its defaults, K5 once per step.
@@ -719,35 +728,13 @@ def attention_phase(torch, rate: float, name: str) -> dict:
 
     # 3 training steps at the bench width in f32, with K5 and with the
     # plain version: the same losses within 1e-4 relative.
-    x_np, tgt_np, rng = demo.make_task(s_len, dim, 5)
-    start = demo.params_from_numpy(demo.init_params(dim, rng), "cuda")
-    x = torch.from_numpy(x_np).cuda()
-    tgt = torch.from_numpy(tgt_np).cuda()
-
-    def steps(attention):
-        """3 steps; host-clock ms per step and peak device GiB."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        losses, _ = demo.train(start, x, tgt, 3, attention=attention)
-        torch.cuda.synchronize()
-        return (losses, (time.perf_counter() - t0) / 3 * 1e3,
-                torch.cuda.max_memory_allocated() / 2 ** 30)
-
-    # In turns, plain, K5, K5, plain, so neither side alone pays the first
-    # use of the backward's shapes.
-    runs = [steps(attn.flash_attention_reference),
-            steps(attn.flash_attention), steps(attn.flash_attention),
-            steps(attn.flash_attention_reference)]
-    lp, lk = runs[0][0], runs[1][0]
+    start, x, tgt = bench_task(torch, demo)
+    lk, _ = demo.train(start, x, tgt, 3, attention=attn.flash_attention)
+    lp, _ = demo.train(start, x, tgt, 3,
+                       attention=attn.flash_attention_reference)
     rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     log(f"[attention] 3 steps at S={s_len} D={dim} f32: losses with K5 {lk}, "
-        f"with the plain version {lp}; max rel diff {rel:.3e}; host-clock "
-        f"ms/step (forward, backward and adam) in turns plain, K5, K5, "
-        f"plain: {', '.join(f'{r[1]:.3f}' for r in runs)}; peak memory "
-        f"{', '.join(f'{r[2]:.2f}' for r in runs)} GiB")
-    profile(torch, lambda: demo.train(start, x, tgt, 1),
-            f"one training step with K5 at S={s_len} D={dim} f32")
+        f"with the plain version {lp}; max rel diff {rel:.3e}")
     if rel > 1e-4 or not all(np.isfinite(lk)):
         raise RuntimeError("training losses with K5 and with the plain "
                            "version disagree")
@@ -757,6 +744,74 @@ def attention_phase(torch, rate: float, name: str) -> dict:
             "launches": launches, "max_abs_err": bench["max_abs_err"],
             "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": sdpa_ms}
+
+
+def bench_task(torch, demo):
+    """The demo's task and initial params at the bench width (S = 8192,
+    D = 128, f32) on the card: ``(params, x, target)``."""
+    x_np, tgt_np, rng = demo.make_task(ATTN_S, ATTN_D, 5)
+    start = demo.params_from_numpy(demo.init_params(ATTN_D, rng), "cuda")
+    return start, torch.from_numpy(x_np).cuda(), torch.from_numpy(tgt_np).cuda()
+
+
+def attention_diagnostics(torch) -> None:
+    """Where K5's time goes, at the bench shape; not part of the smoke run.
+    Run on the card after :func:`attention_phase` has held K5 to its plain
+    version (``python3 -c "import torch, chip_smoke as cs;
+    cs.attention_diagnostics(torch)"``). Prints the device time of the bare
+    hop (K5 and plain), of non-causal ``flash_attention`` and SDPA (twice
+    the pairs: against the causal times they show what unequal causal
+    blocks cost), the host-clock time and peak memory of 3 training steps
+    at S = 8192, D = 128, f32, in turns plain, K5, K5, plain (so neither
+    side alone pays the first use of the backward's shapes), and one
+    profiled step with K5."""
+    import torch.nn.functional as F
+
+    from gossipy_tpu_torch.examples import demo_ring_attention as demo
+    from gossipy_tpu_torch.ops import attention as attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s_len, dim = ATTN_S, ATTN_D
+    log(f"[diagnostics] {nvidia_smi_line()}")
+    q, k, v, m, l, acc = hop_operands(torch, attn, s_len, s_len, dim, dim,
+                                      torch.bfloat16, "initial", 21)
+    scale = 1.0 / float(np.sqrt(dim))
+    hop_ms = time_ms(torch, lambda: attn.flash_hop_update_cuda(
+        q, k, v, m, l, acc, 0, 0, scale, True))
+    hop_plain_ms = time_ms(torch, lambda: attn.flash_hop_update_reference(
+        q, k, v, m, l, acc, 0, 0, scale, True))
+    fa_full_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v))
+    q4, k4, v4 = (t[None, None] for t in (q, k, v))
+    sdpa_full_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4))
+    log(f"[diagnostics] S={s_len} D=Dv={dim} bf16: causal hop alone, K5 "
+        f"{hop_ms:.5f} ms, plain {hop_plain_ms:.5f} ms; non-causal "
+        f"flash_attention (K5) {fa_full_ms:.5f} ms, SDPA {sdpa_full_ms:.5f} "
+        f"ms")
+    del q, k, v, m, l, acc, q4, k4, v4
+    torch.cuda.empty_cache()
+
+    start, x, tgt = bench_task(torch, demo)
+
+    def steps(attention):
+        """3 steps; host-clock ms per step and peak device GiB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        demo.train(start, x, tgt, 3, attention=attention)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) / 3 * 1e3,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    runs = [steps(f) for f in (attn.flash_attention_reference,
+                               attn.flash_attention, attn.flash_attention,
+                               attn.flash_attention_reference)]
+    log(f"[diagnostics] 3 steps at S={s_len} D={dim} f32, host-clock ms/step "
+        f"(forward, backward and adam) in turns plain, K5, K5, plain: "
+        f"{', '.join(f'{r[0]:.3f}' for r in runs)}; peak memory "
+        f"{', '.join(f'{r[1]:.2f}' for r in runs)} GiB")
+    profile(torch, lambda: demo.train(start, x, tgt, 1),
+            f"one training step with K5 at S={s_len} D={dim} f32")
 
 
 def main() -> int:

@@ -298,11 +298,12 @@ def flash_hop_update(q, k_c, v_c, m, l, acc, q_off: Offset, k_off: Offset,
     and ``acc`` ``[sl_q, Dv]`` the float32 carry; ``q_off``/``k_off`` the
     chunks' global row offsets, Python ints or 0-d tensors read once (a
     0-d CUDA tensor costs a synchronisation). Returns the updated
-    ``(m, l, acc)``. ``block_q``/``block_k`` are the TPU kernel's tiles:
-    ``block_k`` sets the plain version's key blocks (``block_q`` changes no
-    result, as query tiling changes no row's arithmetic); K5 tiles by its
-    own sizes. An operand K5 does not take raises; nothing falls back from
-    the card to the plain version.
+    ``(m, l, acc)``. ``block_q`` and ``block_k`` are there to match the
+    JAX function's signature: ``block_q`` is ignored (query tiling changes
+    no row's arithmetic), ``block_k`` sets only the plain version's key
+    blocks, and on the card K5 ignores both and tiles by its own sizes. An
+    operand K5 does not take raises; nothing falls back from the card to
+    the plain version.
     """
     if block_q < 1:
         raise ValueError(f"block_q must be positive, got {block_q}")
@@ -328,7 +329,9 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = BLOCK_Q,
     """Single-device attention, ``softmax(q k^T / sqrt(D)) v``, as one hop
     over the whole sequence: one K5 launch on CUDA tensors, the plain
     version on CPU tensors. One head, ``[S, D]`` inputs (a head or batch
-    axis is not ported yet); returns ``[S, Dv]`` in ``q``'s type."""
+    axis is not ported yet); returns ``[S, Dv]`` in ``q``'s type.
+    ``block_q`` and ``block_k`` match the JAX signature and act as in
+    :func:`flash_hop_update`: ignored on the card."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash_attention for device {q.device}")
     if block_q < 1:

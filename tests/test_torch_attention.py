@@ -21,6 +21,7 @@ import optax
 import pytest
 import torch
 
+from chip_smoke import hop_arrays
 from gossipy_tpu.ops import attention as jattn
 from gossipy_tpu_torch import ops as tops
 from gossipy_tpu_torch.examples import demo_ring_attention as demo
@@ -34,25 +35,12 @@ ATOL = 1e-5
 
 
 def hop_case(sl_q, sl_k, dim, dv, seed=0, carry="initial", masked_rows=0):
-    """Operands of one hop: q, k_c, v_c and the carry (m, l, acc). The
-    carry is the initial one (m = _NEG, l = 0, acc = 0) or a mid-stream one
-    (random m, softplus l, random acc); with ``masked_rows`` the first rows
-    of a mid-stream carry enter with m = _NEG."""
-    rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=s).astype(np.float32)
-               for s in ((sl_q, dim), (sl_k, dim), (sl_k, dv)))
-    if carry == "initial":
-        m = np.full(sl_q, NEG, np.float32)
-        l = np.zeros(sl_q, np.float32)
-        acc = np.zeros((sl_q, dv), np.float32)
-    else:
-        m = rng.normal(size=sl_q).astype(np.float32)
-        l = np.log1p(np.exp(rng.normal(size=sl_q))).astype(np.float32)
-        acc = rng.normal(size=(sl_q, dv)).astype(np.float32)
-        m[:masked_rows] = NEG
-        l[:masked_rows] = 0.0
-        acc[:masked_rows] = 0.0
-    return q, k, v, m, l, acc
+    """Operands of one hop, as ``chip_smoke.py`` builds them on the card:
+    q, k_c, v_c and the initial carry (m = _NEG, l = 0, acc = 0) or a
+    mid-stream one (random m, softplus l, random acc); with
+    ``masked_rows`` the first rows of a mid-stream carry enter with
+    m = _NEG."""
+    return hop_arrays(sl_q, sl_k, dim, dv, carry, seed, NEG, masked_rows)
 
 
 def to_torch(arrays, dtype=None):
