@@ -36,23 +36,28 @@ Phases, each printed as it runs; any failure exits non-zero:
 5. reference: the same small run of each path on the CPU (plain versions)
    and on the card (kernels), from the same seeds: equal accounting, close
    params (within one encoding step more for the bf16 and int8 rings).
-6. attention: the flash-attention hop kernel K5 (``csrc/flash_hop.cu``,
-   built in phase 2) against its plain version at the JAX bench's regime
-   (S = 8192, one head, D = 128, causal, bf16 and f32), on mid-stream hops
-   (a random carry; a chunk wholly in the past, one across the diagonal),
-   at ragged shapes (1000 x 777 rows, D = 72), with wholly masked rows
-   whose m is _NEG, and on every instance of the kernel (f32 and bf16 at
-   the demo's own shape, Dv = 32, and at Dv = 150 and 256); then at the
-   bench shape the device times of ``flash_attention`` with K5 and through
-   the plain version and of ``scaled_dot_product_attention`` beside the
-   bound; ``flash_attention``'s forward and gradient against dense
-   attention through autograd (the JAX bench's ``_attention_parity``
-   rule); and the training demo
-   (``gossipy_tpu_torch.examples.demo_ring_attention``), the path's main
-   run, at its defaults with K5's launches counted (one per step, none
-   from the backward), then 3 steps at S = 8192, D = 128 with K5 and with
-   the plain version, whose losses must agree. ``attention_diagnostics``
-   (not run here) breaks K5's time down further.
+6. attention: the flash-attention hop kernel K5 in its two routes, built
+   in phase 2: bf16 operands run ``csrc/flash_hop_sm90.cu`` (tensor
+   cores, TMA, a balanced causal work list), f32 ones ``csrc/flash_hop.cu``.
+   K5 against its plain version at the JAX bench's regime (S = 8192, one
+   head, D = 128, causal, bf16 and f32), on mid-stream hops (a random
+   carry; a chunk wholly in the past, one across the diagonal), at ragged
+   shapes (1000 x 777 rows, D = 72), with wholly masked rows whose m is
+   _NEG (f32 and bf16), on a bf16 hop whose query tiles are cut into many
+   pieces merged in the launch, and on every instance of each route (f32
+   and bf16 at the demo's own shape, Dv = 32, and at Dv = 150 and 256);
+   then the bf16 route's main run: ``flash_attention`` at the bench shape
+   with its launches counted, its device time beside the plain version,
+   ``scaled_dot_product_attention`` (SDPA) and the bound; the f32 route's
+   time at the training shape (S = 8192, D = 128, non-causal) beside the
+   plain version, SDPA in f32 and its bound; ``flash_attention``'s forward
+   and gradient against dense attention through autograd (the JAX bench's
+   ``_attention_parity`` rule); and the training demo
+   (``gossipy_tpu_torch.examples.demo_ring_attention``, f32), at its
+   defaults with K5's launches counted (one per step, none from the
+   backward), then 3 steps at S = 8192, D = 128 with K5 and with the plain
+   version, whose losses must agree. ``attention_diagnostics`` (not run
+   here) breaks K5's time down further.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -581,7 +586,8 @@ def check_hop(torch, attn, label, sl_q, sl_k, dim, dv, dtype, causal, offs,
             (("l", l_w), ("acc", a_w), ("out", out_w))}
     out_bf16 = bf16_steps(torch, out_g.to(torch.bfloat16),
                           out_w.to(torch.bfloat16))
-    log(f"[attention] K5 {label}: sl_q={sl_q} sl_k={sl_k} D={dim} Dv={dv} "
+    log(f"[attention] K5 {attn.ROUTES[dtype]} {label}: sl_q={sl_q} "
+        f"sl_k={sl_k} D={dim} Dv={dv} "
         f"{str(dtype).split('.')[-1]} causal={causal} offs={offs} "
         f"carry={carry}: m rel err {m_err:.3e}, "
         + ", ".join(f"{n} err {errs[n]:.3e} (of {mags[n]:.3e})"
@@ -641,34 +647,99 @@ def attention_parity(torch, attn, q, k, v, tol: float = 5e-3) -> dict:
     return dict(fwd_err=fwd_err, grad_err=grad_err)
 
 
-def attention_phase(torch, rate: float, name: str) -> dict:
-    """Phase 6: K5 against its plain version, its times beside SDPA and its
-    bound, the gradient check, and the training demo (the main path)."""
+def attention_bound(rate, flop_rate, s_len, dim, causal, itemsize):
+    """Least time of one ``flash_attention`` call at ``[s_len, dim]``: the
+    unmasked (q, k) pairs' 2 (D + Dv) flops at ``flop_rate``; q, k, v read
+    once at input width, the f32 carry read and written once."""
+    pairs = s_len * (s_len + 1) // 2 if causal else s_len * s_len
+    flops = 2 * pairs * (dim + dim)
+    nbytes = 3 * s_len * dim * itemsize + 2 * 4 * (2 * s_len + s_len * dim)
+    bytes_ms, flops_ms = nbytes / rate * 1e3, flops / flop_rate * 1e3
+    return (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms
+            else "operations", nbytes, flops)
+
+
+def f32_route_times(torch, attn, rate) -> dict:
+    """The f32 route at the training shape (S = 8192, D = 128, non-causal,
+    the demo's width): ``flash_attention`` with K5, through the plain
+    version and SDPA in f32 (TF32 off), beside the bound at the f32 rate
+    outside the tensor cores."""
+    import torch.nn.functional as F
+    q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
+                           torch.float32, "initial", 40)[:3]
+    ms = time_ms(torch, lambda: attn.flash_attention(q, k, v), iters=10)
+    plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(q, k, v),
+                       iters=10)
+    q4, k4, v4 = (t[None, None] for t in (q, k, v))
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4), iters=10)
+    bound_ms, bound_by, nbytes, flops = attention_bound(
+        rate, FP32_FLOPS, ATTN_S, ATTN_D, False, 4)
+    log(f"[attention] f32 route at the training shape S={ATTN_S} "
+        f"D=Dv={ATTN_D} f32 non-causal: flash_attention (K5 "
+        f"{attn.ROUTES[torch.float32]}) {ms:.5f} ms, through the plain hop "
+        f"{plain_ms:.5f} ms, SDPA f32 {sdpa_ms:.5f} ms; bound "
+        f"{bound_ms:.5f} ms ({nbytes} bytes, {flops} flops at the f32 "
+        f"rate, bound by {bound_by}); K5 reaches {bound_ms / ms:.4f} of its "
+        f"bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_split(torch, attn, seed) -> dict:
+    """A bf16 hop whose query tiles are each cut into at least 3 pieces,
+    merged in the launch: 256 query rows (2 tiles) after a 4096-key chunk
+    wholly in their past (offsets (4096, 0), causal), a mid-stream
+    carry."""
+    sched = attn.hop_schedule(256, 4096, 4096, 0, True,
+                              attn.sm90_tiles(ATTN_D, ATTN_D)[1],
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    pieces = min(it[4] for it in sched.items)
+    log(f"[attention] split case: {len(sched.items)} items on "
+        f"{sched.n_cta} CTAs, at least {pieces} pieces per query tile")
+    if pieces < 3:
+        raise RuntimeError("the split case cut a query tile into fewer than "
+                           "3 pieces")
+    return check_hop(torch, attn, "split", 256, 4096, ATTN_D, ATTN_D,
+                     torch.bfloat16, True, (4096, 0), "mid", seed)
+
+
+def attention_phase(torch, rate: float, name: str):
+    """Phase 6: K5's routes against their plain version, their times beside
+    SDPA and their bounds, the bf16 route's main run, the gradient check
+    and the training demo. Returns the ``kernels`` entries of the two
+    routes."""
     import torch.nn.functional as F
 
     from gossipy_tpu_torch.examples import demo_ring_attention as demo
     from gossipy_tpu_torch.ops import attention as attn
 
+    bf16, bf16_route = torch.bfloat16, attn.ROUTES[torch.bfloat16]
+    f32_route = attn.ROUTES[torch.float32]
     s_len, dim = ATTN_S, ATTN_D
-    bench = check_hop(torch, attn, "bench", s_len, s_len, dim, dim,
-                      torch.bfloat16, True, (0, 0), "initial", 21)
-    check_hop(torch, attn, "bench-f32", s_len, s_len, dim, dim,
-              torch.float32, True, (0, 0), "initial", 22)
+    bench = check_hop(torch, attn, "bench", s_len, s_len, dim, dim, bf16,
+                      True, (0, 0), "initial", 21)
+    bench_f32 = check_hop(torch, attn, "bench-f32", s_len, s_len, dim, dim,
+                          torch.float32, True, (0, 0), "initial", 22)
     for seed, offs in ((23, (s_len, 0)), (24, (4096, 2048))):
         check_hop(torch, attn, f"mid-stream {offs}", s_len, s_len, dim, dim,
-                  torch.bfloat16, True, offs, "mid", seed)
+                  bf16, True, offs, "mid", seed)
     for seed, (causal, offs) in enumerate(((False, (0, 0)),
                                            (True, (300, 0))), start=25):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, bf16):
             check_hop(torch, attn, "ragged", 1000, 777, 72, 72, dtype,
                       causal, offs, "mid", seed)
-    check_hop(torch, attn, "masked rows", 256, 256, dim, dim, torch.float32,
-              True, (0, 128), "mid", 27, masked_rows=128)
-    # Every instance of the kernel (input type x Dv in groups of 64): the
-    # demo's own shape (Dv = 32, one group), Dv = 150 (three groups, with
-    # D not a multiple of 4, so scalar loads) and Dv = 256 (four groups,
-    # the most shared memory).
-    for seed, dtype in enumerate((torch.float32, torch.bfloat16), start=28):
+    for dtype in (torch.float32, bf16):
+        check_hop(torch, attn, "masked rows", 256, 256, dim, dim, dtype,
+                  True, (0, 128), "mid", 27, masked_rows=128)
+    check_split(torch, attn, 34)
+    # Every instance of each route: the f32 route's input x Dv in groups of
+    # 64, the bf16 route's 64-column groups G = 1-4 (128-key tiles up to
+    # G = 2, 64-key tiles above): the demo's own shape (Dv = 32, one
+    # group), Dv = 150 (three groups, D not a multiple of 8: padded
+    # columns) and Dv = 256 (four groups, the most shared memory).
+    for seed, dtype in enumerate((torch.float32, bf16), start=28):
         check_hop(torch, attn, "demo shape", 256, 256, 32, 32, dtype, False,
                   (0, 0), "initial", seed)
         check_hop(torch, attn, "Dv 150", 1000, 777, 150, 150, dtype, False,
@@ -676,10 +747,22 @@ def attention_phase(torch, rate: float, name: str) -> dict:
         check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, dtype, True,
                   (300, 0), "mid", seed + 4)
 
-    # flash_attention at the bench shape, with K5 and through the plain
-    # version, beside SDPA, which computes the same function.
-    q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim,
-                           torch.bfloat16, "initial", 21)[:3]
+    # The bf16 route's main run: flash_attention at the bench shape, as the
+    # JAX bench calls it, with the launches counted; then its device time
+    # beside the plain version and SDPA, which computes the same function.
+    q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim, bf16,
+                           "initial", 21)[:3]
+    attn.LAUNCHES.clear()
+    outs = [attn.flash_attention(q, k, v, causal=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    main_launches = attn.LAUNCHES[bf16_route]
+    if main_launches != 3 or attn.LAUNCHES[f32_route] or not all(
+            o.shape == (s_len, dim) and o.dtype == bf16
+            and bool(torch.isfinite(o).all()) for o in outs):
+        raise RuntimeError(f"the bf16 route's main run launched "
+                           f"{dict(attn.LAUNCHES)} for 3 calls, or its "
+                           "output is not finite [S, D] bf16")
+    del outs
     fa_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True))
     fa_plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(
         q, k, v, causal=True))
@@ -689,39 +772,42 @@ def attention_phase(torch, rate: float, name: str) -> dict:
     sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)[0, 0]
     fa = attn.flash_attention(q, k, v, causal=True)
     sdpa_diff = float((fa.float() - sdpa.float()).abs().max())
-    # Least work: the unmasked (q, k) pairs' 2 (D + Dv) flops at the bf16
-    # tensor-core rate (a bf16 product is exact in f32); q, k, v read once
-    # at input width, the f32 carry read and written once.
-    pairs = s_len * (s_len + 1) // 2
-    flops = 2 * pairs * (dim + dim)
-    nbytes = 3 * s_len * dim * 2 + 2 * 4 * (2 * s_len + s_len * dim)
-    bytes_ms, flops_ms = nbytes / rate * 1e3, flops / tensor_rate(name) * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-    f32_bound_ms = flops / FP32_FLOPS * 1e3
-    log(f"[attention] bench shape S={s_len} D=Dv={dim} bf16 causal: "
+    # Least work at the bf16 tensor-core rate (a bf16 product is exact in
+    # f32).
+    bound_ms, bound_by, nbytes, flops = attention_bound(
+        rate, tensor_rate(name), s_len, dim, True, 2)
+    f32_core_ms = flops / FP32_FLOPS * 1e3
+    log(f"[attention] bench shape S={s_len} D=Dv={dim} bf16 causal, main "
+        f"run: {main_launches} launches of {bf16_route} in 3 calls; "
         f"flash_attention (K5) {fa_ms:.5f} ms, through the plain hop "
         f"{fa_plain_ms:.5f} ms, SDPA {sdpa_ms:.5f} ms (K5 output vs SDPA: "
         f"max abs diff {sdpa_diff:.3e}); bound {bound_ms:.5f} ms ({nbytes} "
-        f"bytes, {flops} flops, bound by {bound_by}; {f32_bound_ms:.5f} ms "
+        f"bytes, {flops} flops, bound by {bound_by}; {f32_core_ms:.5f} ms "
         f"at the f32 CUDA-core rate); K5 reaches {bound_ms / fa_ms:.4f} of "
         f"its bound")
-
-    # The gradient check, at the bench shape in f32.
-    attention_parity(torch, attn, q, k, v)
     del q, k, v, q4, k4, v4, sdpa, fa
     torch.cuda.empty_cache()
+    f32 = f32_route_times(torch, attn, rate)
 
-    # The main path: the training demo at its defaults, K5 once per step.
+    # The gradient check, at the bench shape in f32.
+    q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim, bf16,
+                           "initial", 21)[:3]
+    attention_parity(torch, attn, q, k, v)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # The training demo at its defaults (f32), K5 once per step.
     attn.LAUNCHES.clear()
     t0 = time.perf_counter()
     rec = demo.run(device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = attn.LAUNCHES[attn.KERNEL]
+    launches, demo_launches = (attn.LAUNCHES[attn.KERNEL],
+                               attn.LAUNCHES[f32_route])
     log(f"[attention] demo at its defaults (S=256, D=32, 60 adam steps): "
-        f"{json.dumps(rec)}; {wall:.3f} s; K5 launches {launches}")
-    if not rec["learned"] or launches != 60 or not (
+        f"{json.dumps(rec)}; {wall:.3f} s; K5 launches {launches} "
+        f"({demo_launches} of {f32_route})")
+    if not rec["learned"] or launches != 60 or demo_launches != 60 or not (
             np.isfinite(rec["loss_first"]) and np.isfinite(rec["loss_last"])):
         raise RuntimeError("the demo did not learn, or K5 did not launch once "
                            "per step")
@@ -738,12 +824,19 @@ def attention_phase(torch, rate: float, name: str) -> dict:
     if rel > 1e-4 or not all(np.isfinite(lk)):
         raise RuntimeError("training losses with K5 and with the plain "
                            "version disagree")
-    return {"name": attn.KERNEL, "route": "cuda",
-            "source": "gossipy_tpu_torch/csrc/flash_hop.cu",
-            "replaces": "gossipy_tpu/ops/attention.py:77",
-            "launches": launches, "max_abs_err": bench["max_abs_err"],
-            "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": sdpa_ms}
+    replaces = "gossipy_tpu/ops/attention.py:77"
+    return [{"name": bf16_route, "route": "cuda",
+             "source": "gossipy_tpu_torch/csrc/flash_hop_sm90.cu",
+             "replaces": replaces, "launches": main_launches,
+             "max_abs_err": bench["max_abs_err"], "ms": fa_ms,
+             "plain_ms": fa_plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": sdpa_ms},
+            {"name": f32_route, "route": "cuda",
+             "source": "gossipy_tpu_torch/csrc/flash_hop.cu",
+             "replaces": replaces, "launches": demo_launches,
+             "max_abs_err": bench_f32["max_abs_err"], "ms": f32["ms"],
+             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"]}]
 
 
 def bench_task(torch, demo):
@@ -759,12 +852,14 @@ def attention_diagnostics(torch) -> None:
     Run on the card after :func:`attention_phase` has held K5 to its plain
     version (``python3 -c "import torch, chip_smoke as cs;
     cs.attention_diagnostics(torch)"``). Prints the device time of the bare
-    hop (K5 and plain), of non-causal ``flash_attention`` and SDPA (twice
-    the pairs: against the causal times they show what unequal causal
-    blocks cost), the host-clock time and peak memory of 3 training steps
-    at S = 8192, D = 128, f32, in turns plain, K5, K5, plain (so neither
-    side alone pays the first use of the backward's shapes), and one
-    profiled step with K5."""
+    bf16 hop (K5 and plain), of causal and non-causal ``flash_attention``
+    with the bf16 route and SDPA, and their non-causal/causal ratios (twice
+    the pairs: a balanced causal schedule takes about half the non-causal
+    time); the f32 route at the training shape beside SDPA in f32; the
+    host-clock time and peak memory of 3 training steps at S = 8192,
+    D = 128, f32, in turns plain, K5, K5, plain (so neither side alone pays
+    the first use of the backward's shapes); and one profiled step with
+    K5."""
     import torch.nn.functional as F
 
     from gossipy_tpu_torch.examples import demo_ring_attention as demo
@@ -772,6 +867,7 @@ def attention_diagnostics(torch) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     s_len, dim = ATTN_S, ATTN_D
+    name = torch.cuda.get_device_name(0)
     log(f"[diagnostics] {nvidia_smi_line()}")
     q, k, v, m, l, acc = hop_operands(torch, attn, s_len, s_len, dim, dim,
                                       torch.bfloat16, "initial", 21)
@@ -780,16 +876,27 @@ def attention_diagnostics(torch) -> None:
         q, k, v, m, l, acc, 0, 0, scale, True))
     hop_plain_ms = time_ms(torch, lambda: attn.flash_hop_update_reference(
         q, k, v, m, l, acc, 0, 0, scale, True))
-    fa_full_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v))
     q4, k4, v4 = (t[None, None] for t in (q, k, v))
-    sdpa_full_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4))
+    times = {}
+    for causal in (True, False):
+        times[causal] = (
+            time_ms(torch, lambda: attn.flash_attention(q, k, v,
+                                                        causal=causal)),
+            time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal)))
+    (fa_c, sd_c), (fa_n, sd_n) = times[True], times[False]
+    bound_n = attention_bound(memory_rate(name), tensor_rate(name), s_len,
+                              dim, False, 2)[0]
     log(f"[diagnostics] S={s_len} D=Dv={dim} bf16: causal hop alone, K5 "
-        f"{hop_ms:.5f} ms, plain {hop_plain_ms:.5f} ms; non-causal "
-        f"flash_attention (K5) {fa_full_ms:.5f} ms, SDPA {sdpa_full_ms:.5f} "
-        f"ms")
+        f"{hop_ms:.5f} ms, plain {hop_plain_ms:.5f} ms; flash_attention "
+        f"(K5 {attn.ROUTES[torch.bfloat16]}) causal {fa_c:.5f} ms, "
+        f"non-causal {fa_n:.5f} ms (bound {bound_n:.5f}, reaches "
+        f"{bound_n / fa_n:.4f}), non-causal/causal {fa_n / fa_c:.3f}; SDPA "
+        f"causal {sd_c:.5f} ms, non-causal {sd_n:.5f} ms, ratio "
+        f"{sd_n / sd_c:.3f}")
     del q, k, v, m, l, acc, q4, k4, v4
     torch.cuda.empty_cache()
+    f32_route_times(torch, attn, memory_rate(name))
 
     start, x, tgt = bench_task(torch, demo)
 
@@ -940,7 +1047,7 @@ def main() -> int:
         kernels.append(entry(kernel, None if wire == "float32" else wire,
                              source, line, numbers[(slots, wire)],
                              leg_launches[label][kernel]))
-    kernels.append(k5)
+    kernels.extend(k5)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

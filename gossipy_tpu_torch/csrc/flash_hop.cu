@@ -1,8 +1,12 @@
-// Flash-attention hop: absorb one key/value chunk into the per-query
-// streaming-softmax carry (m, l, acc), with the score block kept on chip.
+// Flash-attention hop, float32 route: absorb one key/value chunk into the
+// per-query streaming-softmax carry (m, l, acc), with the score block kept
+// on chip.
 //
-// Replaces the TPU kernel gossipy_tpu/ops/attention.py::_hop_kernel (K5),
-// entry point flash_hop. For each query row i and key row j of the chunk,
+// Replaces the TPU kernel gossipy_tpu/ops/attention.py::_hop_kernel (K5)
+// for float32 q, k and v, entry point flash_hop. bfloat16 operands go to
+// flash_hop_sm90.cu, the Hopper route (tensor cores, TMA, a balanced causal
+// schedule), which replaced this file's bfloat16 instances. For each query
+// row i and key row j of the chunk,
 //
 //     s[i,j] = scale * (q[i] . k[j]),  masked (-> kNeg) where j >= sl_k or,
 //              when causal, where k_off + j > q_off + i (global positions);
@@ -21,12 +25,12 @@
 // Bound: operations. Per (query, key) pair the kernel does D + Dv
 // multiply-adds against q, k and v read once (D=128: a few hundred
 // operations per byte), far above what the card's memory needs; its least
-// time is the pairs' 2 (D + Dv) flops at the bf16 tensor-core rate, since a
-// bf16 x bf16 product is exact in float32. This first kernel runs on the
-// CUDA cores in float32 (no tensor cores, TMA or wgmma) and keeps the
+// time is the pairs' 2 (D + Dv) flops at the float32 rate outside the
+// tensor cores (which would round float32 operands). This kernel runs on
+// the CUDA cores in float32 (no tensor cores, TMA or wgmma) and keeps the
 // score block out of device memory, which is the point of the TPU kernel:
-//   - a block of 128 threads owns 32 query rows: it widens its q tile to
-//     float32 in shared memory once, then streams 64-row k and v tiles
+//   - a block of 128 threads owns 32 query rows: it loads its q tile into
+//     shared memory once, then streams 64-row k and v tiles
 //     through shared memory;
 //   - each thread holds a 4 x 4 patch of the score tile (rows 4ty..4ty+3,
 //     keys tx, tx+16, tx+32, tx+48) in registers; row max and row sum are
@@ -44,7 +48,7 @@
 // Numerics: the dot products and the p v sums use explicit fmaf (the
 // build's --fmad=false only stops the compiler from contracting), expf
 // (not __expf, whose error grows for arguments near kNeg), float32
-// throughout; bfloat16 inputs are widened exactly.
+// throughout.
 //
 // C interface for ctypes. The launch goes on the caller's stream and does
 // not synchronise; the function returns cudaGetLastError() after it.
@@ -328,7 +332,6 @@ int launch(const void* q, const void* k, const void* v, const void* m,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_dv(const void* q, const void* k, const void* v, const void* m,
               const void* l, const void* acc, void* m_out, void* l_out,
               void* acc_out, int sl_q, int sl_k, int dim, int dv,
@@ -336,17 +339,17 @@ int launch_dv(const void* q, const void* k, const void* v, const void* m,
               cudaStream_t st) {
   switch ((dv + 63) / 64) {
     case 1:
-      return launch<T, 1>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
-                          sl_k, dim, dv, q_off, k_off, scale, causal, st);
+      return launch<float, 1>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
+                              sl_k, dim, dv, q_off, k_off, scale, causal, st);
     case 2:
-      return launch<T, 2>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
-                          sl_k, dim, dv, q_off, k_off, scale, causal, st);
+      return launch<float, 2>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
+                              sl_k, dim, dv, q_off, k_off, scale, causal, st);
     case 3:
-      return launch<T, 3>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
-                          sl_k, dim, dv, q_off, k_off, scale, causal, st);
+      return launch<float, 3>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
+                              sl_k, dim, dv, q_off, k_off, scale, causal, st);
     case 4:
-      return launch<T, 4>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
-                          sl_k, dim, dv, q_off, k_off, scale, causal, st);
+      return launch<float, 4>(q, k, v, m, l, acc, m_out, l_out, acc_out, sl_q,
+                              sl_k, dim, dv, q_off, k_off, scale, causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -354,33 +357,21 @@ int launch_dv(const void* q, const void* k, const void* v, const void* m,
 
 }  // namespace
 
-// K5. q: [sl_q, dim], k: [sl_k, dim], v: [sl_k, dv], all float32
-// (format 0) or all bfloat16 (format 1); m, l, m_out, l_out: [sl_q]
-// float32; acc, acc_out: [sl_q, dv] float32. All row-major and contiguous;
-// 1 <= dim, dv <= 256. q_off, k_off: the chunks' global row offsets;
-// causal: 0 or 1.
+// K5, float32 route. q: [sl_q, dim], k: [sl_k, dim], v: [sl_k, dv],
+// m, l, m_out, l_out: [sl_q]; acc, acc_out: [sl_q, dv]; all float32,
+// row-major and contiguous; 1 <= dim, dv <= 256. q_off, k_off: the chunks'
+// global row offsets; causal: 0 or 1.
 extern "C" int flash_hop(const void* q, const void* k, const void* v,
-                         int format, const void* m, const void* l,
-                         const void* acc, void* m_out, void* l_out,
-                         void* acc_out, int64_t sl_q, int64_t sl_k,
-                         int64_t dim, int64_t dv, int64_t q_off,
-                         int64_t k_off, float scale, int causal,
-                         void* stream) {
+                         const void* m, const void* l, const void* acc,
+                         void* m_out, void* l_out, void* acc_out,
+                         int64_t sl_q, int64_t sl_k, int64_t dim, int64_t dv,
+                         int64_t q_off, int64_t k_off, float scale,
+                         int causal, void* stream) {
   if (sl_q < 1 || sl_k < 1 || sl_q > 0x7fffffff - kBlockQ ||
       sl_k > 0x7fffffff - kBlockK || dim < 1 || dim > kMaxDim || dv < 1 ||
       dv > kMaxDim)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (format) {
-    case 0:
-      return launch_dv<float>(q, k, v, m, l, acc, m_out, l_out, acc_out,
-                              (int)sl_q, (int)sl_k, (int)dim, (int)dv, q_off,
-                              k_off, scale, causal, st);
-    case 1:
-      return launch_dv<uint16_t>(q, k, v, m, l, acc, m_out, l_out, acc_out,
-                                 (int)sl_q, (int)sl_k, (int)dim, (int)dv,
-                                 q_off, k_off, scale, causal, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_dv(q, k, v, m, l, acc, m_out, l_out, acc_out, (int)sl_q,
+                   (int)sl_k, (int)dim, (int)dv, q_off, k_off, scale, causal,
+                   static_cast<cudaStream_t>(stream));
 }

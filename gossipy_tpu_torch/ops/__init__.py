@@ -4,7 +4,9 @@ from . import attention, merge
 from ._build import LAUNCHES, reset_launch_counts
 from .attention import (flash_attention, flash_attention_reference,
                         flash_hop_update, flash_hop_update_cuda,
-                        flash_hop_update_reference, hop_update_reference)
+                        flash_hop_update_reference,
+                        flash_hop_update_split_reference, hop_schedule,
+                        hop_update_reference)
 from .merge import (column_leaves, gather_merge_flat, gather_merge_flat_cuda,
                     gather_merge_multi, gather_merge_multi_cuda,
                     gather_merge_multi_dq_cuda, gather_merge_multi_pytree,
@@ -18,9 +20,10 @@ SOURCES = sorted(set(merge.SOURCES.values()) | set(attention.SOURCES.values()))
 __all__ = ["LAUNCHES", "SOURCES", "column_leaves", "flash_attention",
            "flash_attention_reference", "flash_hop_update",
            "flash_hop_update_cuda", "flash_hop_update_reference",
+           "flash_hop_update_split_reference",
            "gather_merge_flat", "gather_merge_flat_cuda",
            "gather_merge_multi", "gather_merge_multi_cuda",
            "gather_merge_multi_dq_cuda", "gather_merge_multi_pytree",
            "gather_merge_multi_reference", "gather_merge_pytree",
-           "gather_merge_reference", "hop_update_reference",
+           "gather_merge_reference", "hop_schedule", "hop_update_reference",
            "reset_launch_counts"]

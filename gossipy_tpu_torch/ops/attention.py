@@ -18,11 +18,19 @@ whose whole chunk is masked while its incoming ``m`` is ``_NEG``: there the
 plain body adds ``exp(0) = 1`` to ``l`` per masked key and the kernel adds
 nothing.
 
-K5 is CUDA C++ in ``csrc/flash_hop.cu``, built at first use. On CPU
-tensors :func:`flash_hop_update` runs the plain version of the kernel,
-:func:`flash_hop_update_reference`, which streams over key blocks of
-``block_k`` as the TPU kernel does. On CUDA tensors it launches K5 or
-raises. Every launch adds one to ``LAUNCHES["flash_hop"]``.
+K5 is CUDA C++, built at first use, in two routes by the operands' type:
+bfloat16 q, k, v go to ``csrc/flash_hop_sm90.cu`` (tensor cores through
+``wgmma``, TMA loads, a persistent grid walking the work list of
+:func:`hop_schedule`), float32 ones to ``csrc/flash_hop.cu`` (CUDA cores);
+any other type raises. On CPU tensors :func:`flash_hop_update` runs the
+plain version of the kernel, :func:`flash_hop_update_reference`, which
+streams over key blocks of ``block_k`` as the TPU kernel does.
+:func:`flash_hop_update_split_reference` is a plain model of the bf16
+route's own arithmetic (its work list, 128-key tiles, P split into bf16
+high and low parts, partial carries merged); the CPU tests use it, the
+card's path does not. On CUDA tensors K5 launches or raises. Every launch
+adds one to ``LAUNCHES["flash_hop"]`` and one to its route's count,
+``LAUNCHES["flash_hop[bf16]"]`` or ``LAUNCHES["flash_hop[f32]"]``.
 
 The gradient is the JAX package's hand-derived backward (``_hop_bwd_math``)
 in plain PyTorch under :class:`torch.autograd.Function`: it recomputes the
@@ -33,10 +41,13 @@ matrices, as the JAX backward does. No backward kernel launches.
 from __future__ import annotations
 
 import ctypes
+import heapq
 import math
-from typing import Union
+from typing import NamedTuple, Union
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from ._build import LAUNCHES
@@ -46,15 +57,22 @@ _NEG = -1e30
 # The TPU kernel's tiles: query rows per program, key rows per streamed
 # block. The plain version streams over key blocks of BLOCK_K, so its carry
 # is rescaled where the TPU kernel's is; K5 has its own, smaller tiles
-# (csrc/flash_hop.cu), which changes rounding only.
+# (csrc/), which changes rounding only.
 BLOCK_Q = 128
 BLOCK_K = 512
 
 KERNEL = "flash_hop"
-# The csrc/ source (without .cu) that holds each kernel's entry point.
-SOURCES = {KERNEL: "flash_hop"}
-MAX_DIM = 256      # kMaxDim in csrc/flash_hop.cu: D and Dv up to this
-INPUT_FORMATS = {torch.float32: 0, torch.bfloat16: 1}
+# K5's route for each input type: the launch count of the route, beside the
+# count of every hop under KERNEL.
+ROUTES = {torch.bfloat16: "flash_hop[bf16]", torch.float32: "flash_hop[f32]"}
+# The csrc/ source (without .cu) that holds each route's entry point.
+SOURCES = {"flash_hop[bf16]": "flash_hop_sm90", "flash_hop[f32]": "flash_hop"}
+MAX_DIM = 256      # D and Dv up to this, on both routes
+# The bf16 route's tiles (csrc/flash_hop_sm90.cu): 128 query rows per work
+# item; key tiles of 128 rows while D and Dv fit two 64-column groups, of 64
+# above.
+SM90_BLOCK_Q = 128
+H100_SMS = 132
 
 Offset = Union[int, torch.Tensor]
 
@@ -162,47 +180,261 @@ def flash_hop_update_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
     return m, l, acc
 
 
+# -- the bf16 route's work list and its plain model ---------------------------
+
+def sm90_tiles(dim: int, dv: int):
+    """``(groups, block_k)`` of the bf16 route for head dims ``dim`` and
+    ``dv``: the 64-column groups its tiles hold (the wider of the two,
+    each rounded up to 8 columns) and its key-tile rows."""
+    groups = -(-max(-(-dim // 8) * 8, -(-dv // 8) * 8) // 64)
+    return groups, (128 if groups <= 2 else 64)
+
+
+class HopSchedule(NamedTuple):
+    """The bf16 route's work list. ``items``: ``(q_tile, kt0, kt1, slot0,
+    pieces, slot)`` in table order, key tiles ``[kt0, kt1)`` of query tile
+    ``q_tile``; a tile cut into ``pieces > 1`` pieces has its partial
+    carries in slots ``slot0 ..`` (``slot`` this piece's), else both are
+    -1. ``table``: int32, ``n_cta + 1`` offsets into the items (CTA ``c``
+    runs items ``[off[c], off[c + 1])``) then 6 ints per item. ``loads``:
+    key tiles per CTA."""
+    table: np.ndarray
+    items: list
+    loads: list
+    n_cta: int
+    n_slots: int
+    n_q_tiles: int
+
+
+def tiles_needed(sl_q: int, sl_k: int, q_off: int, k_off: int, causal: bool,
+                 block_k: int, block_q: int = SM90_BLOCK_Q) -> list:
+    """Key tiles each query tile reads: all of them, or when causal those
+    holding a key at or before the tile's last query."""
+    n_kt = -(-sl_k // block_k)
+    need = []
+    for q0 in range(0, sl_q, block_q):
+        last = q_off + min(q0 + block_q, sl_q) - 1 - k_off
+        need.append(n_kt if not causal else
+                    0 if last < 0 else min(n_kt, last // block_k + 1))
+    return need
+
+
+def hop_schedule(sl_q: int, sl_k: int, q_off: int, k_off: int, causal: bool,
+                 block_k: int = 128, n_sm: int = H100_SMS) -> HopSchedule:
+    """The bf16 route's balanced work list for a card of ``n_sm`` SMs.
+    The key range of each query tile is cut into pieces of the mean load
+    per SM (rounded up) and a shorter last one; a query tile that needs no
+    key tile gets one empty item, which applies the skipped tiles. Items go
+    longest first to the least loaded of ``min(n_sm, items)`` CTAs."""
+    need = tiles_needed(sl_q, sl_k, q_off, k_off, causal, block_k)
+    cap = max(1, -(-sum(need) // n_sm))
+    pieces, n_slots = [], 0
+    for qt, n in enumerate(need):
+        parts = max(1, -(-n // cap))
+        slot0 = n_slots if parts > 1 else -1
+        bounds = [min(n, cap * i) for i in range(parts)] + [n]
+        for i in range(parts):
+            pieces.append((qt, bounds[i], bounds[i + 1], slot0, parts,
+                           slot0 + i if parts > 1 else -1))
+        if parts > 1:
+            n_slots += parts
+    pieces.sort(key=lambda it: (it[1] - it[2], it[0], it[1]))
+    n_cta = min(n_sm, len(pieces))
+    heap = [(0.0, c) for c in range(n_cta)]
+    per_cta = [[] for _ in range(n_cta)]
+    loads = [0] * n_cta
+    for it in pieces:
+        load, c = heapq.heappop(heap)
+        per_cta[c].append(it)
+        loads[c] += it[2] - it[1]
+        # An empty item costs its epilogue: a little, so they spread.
+        heapq.heappush(heap, (load + max(it[2] - it[1], 0.25), c))
+    items = [it for cta in per_cta for it in cta]
+    offs = np.cumsum([0] + [len(cta) for cta in per_cta])
+    table = np.concatenate([offs, np.asarray(items, np.int64).ravel()])
+    return HopSchedule(table.astype(np.int32), items, loads, n_cta, n_slots,
+                       len(need))
+
+
+def flash_hop_update_split_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
+                                     k_off: Offset, scale: float,
+                                     causal: bool = False,
+                                     n_sm: int = H100_SMS):
+    """Plain PyTorch model of the bf16 route's arithmetic: it walks the
+    work list of :func:`hop_schedule` for ``n_sm`` SMs, streams each
+    piece's key tiles (of the route's ``block_k`` rows) into a partial
+    carry started at ``m = _NEG``, ``l = 0``, ``acc = 0`` with ``p`` split
+    into a bf16 high part and a bf16 low part for the ``p v`` product, and
+    merges the incoming carry, the pieces in slot order and, where key
+    tiles were skipped, a ``(_NEG, 0, 0)`` term:
+    ``m = max m_i``, ``l = sum l_i exp(m_i - m)``, ``acc`` likewise. A
+    ragged last tile counts its padded keys as masked (``_NEG`` in the row
+    max). Float32; returns ``(m, l, acc)``."""
+    _check_hop(q, k_c, v_c, m, l, acc)
+    q_off, k_off = _offset(q_off), _offset(k_off)
+    sl_q, dim = q.shape
+    sl_k, dv = v_c.shape
+    _, bk = sm90_tiles(dim, dv)
+    sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, bk, n_sm)
+    qf, kf, vf = (t.float() for t in (q, k_c, v_c))
+    m, l, acc = (t.float() for t in (m, l, acc))
+    n_kt = -(-sl_k // bk)
+    parts, need = {}, {}
+    for qt, kt0, kt1, _, _, slot in sched.items:
+        r0, r1 = qt * SM90_BLOCK_Q, min((qt + 1) * SM90_BLOCK_Q, sl_q)
+        pm = torch.full((r1 - r0,), _NEG, device=q.device)
+        pl = torch.zeros(r1 - r0, device=q.device)
+        pa = torch.zeros(r1 - r0, dv, device=q.device)
+        for kt in range(kt0, kt1):
+            c0, c1 = kt * bk, min((kt + 1) * bk, sl_k)
+            s = (qf[r0:r1] @ kf[c0:c1].T) * scale
+            masked = torch.zeros_like(s, dtype=torch.bool)
+            if causal:
+                masked = _causal_mask(r1 - r0, c1 - c0, q_off + r0,
+                                      k_off + c0, q.device)
+                s = torch.where(masked, _NEG, s)
+            mx = s.amax(dim=1)
+            if c1 - c0 < bk:
+                mx = torch.clamp(mx, min=_NEG)
+            m_new = torch.maximum(pm, mx)
+            alpha = torch.exp(pm - m_new)
+            p = torch.where(masked, 0.0, torch.exp(s - m_new[:, None]))
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            pa = pa * alpha[:, None] + hi @ vf[c0:c1] + lo @ vf[c0:c1]
+            pl = pl * alpha + p.sum(dim=1)
+            pm = m_new
+        parts.setdefault(qt, []).append((slot, pm, pl, pa))
+        need[qt] = max(need.get(qt, 0), kt1)
+    m_out, l_out, acc_out = m.clone(), l.clone(), acc.clone()
+    for qt, terms in parts.items():
+        r0, r1 = qt * SM90_BLOCK_Q, min((qt + 1) * SM90_BLOCK_Q, sl_q)
+        m0 = m[r0:r1]
+        top = m0 if need[qt] == n_kt else torch.clamp(m0, min=_NEG)
+        for _, pm, _, _ in terms:
+            top = torch.maximum(top, pm)
+        e0 = torch.exp(m0 - top)
+        l_new, a_new = l[r0:r1] * e0, acc[r0:r1] * e0[:, None]
+        for _, pm, pl, pa in sorted(terms, key=lambda t: t[0]):
+            w = torch.exp(pm - top)
+            l_new = l_new + pl * w
+            a_new = a_new + pa * w[:, None]
+        m_out[r0:r1], l_out[r0:r1], acc_out[r0:r1] = top, l_new, a_new
+    return m_out, l_out, acc_out
+
+
 # -- K5 -----------------------------------------------------------------------
 
 def flash_hop_update_cuda(q, k_c, v_c, m, l, acc, q_off: Offset,
                           k_off: Offset, scale: float, causal: bool = False):
     """Launch K5; returns new float32 tensors ``(m, l, acc)``.
 
-    ``q``, ``k_c``, ``v_c`` are float32 or bfloat16 (one type), widened to
-    float32 in the kernel; the carry is float32. ``D`` and ``Dv`` are at
-    most :data:`MAX_DIM`. Raises on an operand the kernel does not take and
-    when the launch reports an error."""
+    ``q``, ``k_c``, ``v_c`` are one type: bfloat16 runs the Hopper route
+    (``csrc/flash_hop_sm90.cu``), float32 the CUDA-core route
+    (``csrc/flash_hop.cu``); the carry is float32. ``D`` and ``Dv`` are at
+    most :data:`MAX_DIM`. Raises on an operand K5 does not take and when
+    the launch reports an error."""
     _check_hop(q, k_c, v_c, m, l, acc)
-    if q.dtype not in INPUT_FORMATS or k_c.dtype != q.dtype \
+    if q.dtype not in ROUTES or k_c.dtype != q.dtype \
             or v_c.dtype != q.dtype:
         raise TypeError(f"K5 takes q, k_c and v_c of one type, float32 or "
                         f"bfloat16; got {q.dtype}, {k_c.dtype}, {v_c.dtype}")
     if any(t.dtype != torch.float32 for t in (m, l, acc)):
         raise TypeError("K5 takes a float32 carry (m, l, acc)")
-    sl_q, dim = q.shape
-    sl_k, dv = v_c.shape
+    dim, dv = q.shape[1], v_c.shape[1]
     if dim > MAX_DIM or dv > MAX_DIM:
         raise ValueError(f"K5 takes D and Dv up to {MAX_DIM}, got {dim} and "
                          f"{dv}")
     if not q.is_cuda:
         raise ValueError("flash_hop_update_cuda takes CUDA tensors")
     q_off, k_off = _offset(q_off), _offset(k_off)
-    q, k_c, v_c, m, l, acc = (t.contiguous() for t in (q, k_c, v_c, m, l,
-                                                       acc))
+    m, l, acc = (t.contiguous() for t in (m, l, acc))
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
-    fn = _build.function(SOURCES[KERNEL], "flash_hop",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                         + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6
-                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    launch = _launch_sm90 if q.dtype == torch.bfloat16 else _launch_f32
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),
-                INPUT_FORMATS[q.dtype], m.data_ptr(), l.data_ptr(),
-                acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
-                acc_out.data_ptr(), sl_q, sl_k, dim, dv, q_off, k_off,
-                float(scale), int(bool(causal)), _build.stream(q))
-    _build.raise_if_failed(KERNEL, rc)
+        rc = launch(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off,
+                    k_off, float(scale), int(bool(causal)))
+    _build.raise_if_failed(ROUTES[q.dtype], rc)
     LAUNCHES[KERNEL] += 1
+    LAUNCHES[ROUTES[q.dtype]] += 1
     return m_out, l_out, acc_out
+
+
+def _launch_f32(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
+                scale, causal) -> int:
+    q, k_c, v_c = (t.contiguous() for t in (q, k_c, v_c))
+    fn = _build.function(SOURCES[ROUTES[torch.float32]], "flash_hop",
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn(q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), m.data_ptr(),
+              l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
+              acc_out.data_ptr(), q.shape[0], k_c.shape[0], q.shape[1],
+              v_c.shape[1], q_off, k_off, scale, causal, _build.stream(q))
+
+
+def _tma_operand(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """``t`` as TMA reads it: contiguous, ``cols`` columns (a copy padded
+    with zero columns when its width is not a multiple of 8, so that rows
+    start on 16 bytes) and a 16-byte-aligned base (a copy if not)."""
+    t = t.contiguous()
+    if t.shape[1] != cols:
+        t = F.pad(t, (0, cols - t.shape[1]))
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+# Work lists on the card, by (device, shape, offsets, causal, tiles, SMs).
+# A launch being captured in a CUDA graph reads the list cached by an
+# earlier call of the same hop; building one needs a host-to-device copy,
+# which a capture cannot hold.
+_SCHEDULES: dict = {}
+
+
+def _device_schedule(dev, sl_q, sl_k, q_off, k_off, causal, bk):
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    key = (dev, sl_q, sl_k, q_off, k_off, bool(causal), bk, n_sm)
+    hit = _SCHEDULES.get(key)
+    if hit is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K5's work list for this hop is not on the card "
+                               "yet: call the hop once before capturing it")
+        sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, bk, n_sm)
+        if len(_SCHEDULES) >= 64:
+            _SCHEDULES.clear()
+        hit = (torch.from_numpy(sched.table).to(dev), sched)
+        _SCHEDULES[key] = hit
+    return hit
+
+
+def _launch_sm90(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
+                 scale, causal) -> int:
+    (sl_q, dim), (sl_k, dv) = q.shape, v_c.shape
+    groups, bk = sm90_tiles(dim, dv)
+    ld_qk, ld_v = -(-dim // 8) * 8, -(-dv // 8) * 8
+    q, k_c = (_tma_operand(t, ld_qk) for t in (q, k_c))
+    v_c = _tma_operand(v_c, ld_v)
+    table, sched = _device_schedule(q.device, sl_q, sl_k, q_off, k_off,
+                                    causal, bk)
+    # The partial carries and the tickets of split query tiles. Freed when
+    # this returns: the caching allocator hands the blocks only to work
+    # queued after the kernel on the same stream.
+    part = torch.empty(max(1, sched.n_slots * SM90_BLOCK_Q * (2 + 64 * groups)),
+                       dtype=torch.float32, device=q.device)
+    tickets = (torch.zeros(sched.n_q_tiles, dtype=torch.int32,
+                           device=q.device) if sched.n_slots
+               else torch.empty(1, dtype=torch.int32, device=q.device))
+    fn = _build.function(SOURCES[ROUTES[torch.bfloat16]], "flash_hop_sm90",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                         + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_void_p])
+    return fn(q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), ld_qk, ld_v, dv,
+              m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
+              l_out.data_ptr(), acc_out.data_ptr(), sl_q, sl_k, q_off, k_off,
+              scale, causal, table.data_ptr(), sched.n_cta, part.data_ptr(),
+              tickets.data_ptr(), bk, _build.stream(q))
 
 
 # -- gradient -----------------------------------------------------------------

@@ -10,8 +10,12 @@ against ``optax.adam``, and the demo twin against the JAX demo's loss and
 step. Inputs are made with ``numpy.random.default_rng``. Tolerances: 1e-5
 absolute in float32 (both sides compute in float32 and differ only in the
 order of the sums), 1e-6 for adam (elementwise, same operation order).
-The CUDA kernel is held against the plain version on the card by
-``chip_smoke.py``.
+The bf16 route's work list (``hop_schedule``) is checked for coverage and
+balance, and its plain model (``flash_hop_update_split_reference``)
+against the JAX kernel at ``chip_smoke.check_hop``'s tolerances (the
+route rounds ``p`` to a bf16 high and low part and merges partial
+carries, so it is not held to 1e-5). The CUDA kernels are held against
+the plain version on the card by ``chip_smoke.py``.
 """
 
 import jax
@@ -21,6 +25,7 @@ import optax
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import hop_arrays
 from gossipy_tpu.ops import attention as jattn
 from gossipy_tpu_torch import ops as tops
@@ -234,7 +239,161 @@ def test_cuda_wrapper_refuses_what_k5_cannot_take():
 def test_sources_name_every_kernel_source():
     built = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert tops.SOURCES == built
-    assert "flash_hop" in tops.SOURCES
+    assert {"flash_hop", "flash_hop_sm90"} <= set(tops.SOURCES)
+    assert set(tattn.SOURCES) == set(tattn.ROUTES.values())
+
+
+# -- the bf16 route: work list and plain model --------------------------------
+
+# (sl_q, sl_k, q_off, k_off, causal, block_k, n_sm); with more SMs than
+# tile pairs every needed key tile is a piece of its own.
+SCHEDULE_CASES = {
+    "causal": (1000, 1000, 0, 0, True, 128, 132),
+    "noncausal-ragged": (300, 777, 0, 0, False, 128, 132),
+    "few-sms": (700, 900, 100, 300, True, 64, 7),
+    "split-every-tile": (256, 640, 640, 0, True, 128, 132),
+    # Keys 512.. lie after every query 0..255: no tile needs a key tile.
+    "chunk-after-queries": (256, 300, 0, 512, True, 128, 132),
+    # Tile 0 needs none, tile 1 two key tiles; one SM.
+    "partly-after": (256, 256, 0, 128, True, 64, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULE_CASES))
+def test_hop_schedule_covers_every_needed_pair_once(name):
+    sl_q, sl_k, qo, ko, causal, bk, n_sm = SCHEDULE_CASES[name]
+    sched = tattn.hop_schedule(sl_q, sl_k, qo, ko, causal, bk, n_sm)
+    need = tattn.tiles_needed(sl_q, sl_k, qo, ko, causal, bk)
+    cap = max(1, -(-sum(need) // n_sm))
+    assert len(need) == sched.n_q_tiles == -(-sl_q // 128)
+    # Needed pairs from the masks themselves: tile t needs key tile j iff
+    # some key of j is at or before some query of t.
+    q_pos = qo + np.arange(sl_q)
+    k_pos = ko + np.arange(sl_k)
+    want = set()
+    for t in range(len(need)):
+        last = q_pos[t * 128:(t + 1) * 128].max()
+        for j in range(-(-sl_k // bk)):
+            if not causal or k_pos[j * bk] <= last:
+                want.add((t, j))
+    got = [(it[0], kt) for it in sched.items for kt in range(it[1], it[2])]
+    assert len(got) == len(set(got)) and set(got) == want
+    assert sum(sched.loads) == len(want) == sum(need)
+    # A tile needing nothing gets one empty item; pieces of a split tile
+    # own the consecutive slots slot0 .. slot0 + pieces - 1.
+    by_tile = {}
+    for it in sched.items:
+        by_tile.setdefault(it[0], []).append(it)
+    assert sorted(by_tile) == list(range(len(need)))
+    slots = []
+    for t, its in by_tile.items():
+        if need[t] == 0:
+            assert [it[1:3] for it in its] == [(0, 0)]
+        assert all(it[4] == len(its) for it in its)
+        if len(its) > 1:
+            assert sorted(it[5] for it in its) == list(
+                range(its[0][3], its[0][3] + len(its)))
+            slots += [it[5] for it in its]
+        else:
+            assert its[0][3] == its[0][5] == -1
+        assert all(it[2] - it[1] <= cap for it in its)
+    assert sorted(slots) == list(range(sched.n_slots))
+    # The table is the offsets then the items, CTA by CTA, longest first.
+    n = sched.n_cta
+    assert n == min(n_sm, len(sched.items))
+    offs = sched.table[:n + 1]
+    assert offs[0] == 0 and offs[-1] == len(sched.items)
+    assert sched.table.dtype == np.int32
+    rows = sched.table[n + 1:].reshape(-1, 6)
+    assert [tuple(r) for r in rows] == [tuple(it) for it in sched.items]
+    for c in range(n):
+        lens = [it[2] - it[1] for it in sched.items[offs[c]:offs[c + 1]]]
+        assert lens == sorted(lens, reverse=True) and sum(lens) == \
+            sched.loads[c]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_hop_schedule_balances_the_bench_shape(causal):
+    """S = 8192, 128-row tiles, 132 SMs: the longest CTA load is within 1.5
+    times the mean (causal: 2,080 tile pairs, 15.8 per SM)."""
+    sched = tattn.hop_schedule(8192, 8192, 0, 0, causal, 128, 132)
+    mean = sum(sched.loads) / 132
+    assert sched.n_cta == min(132, len(sched.items))
+    assert max(sched.loads) <= 1.5 * mean
+    assert sum(sched.loads) == (2080 if causal else 4096)
+
+
+def test_sm90_tiles_and_tma_operands():
+    assert tattn.sm90_tiles(128, 128) == (2, 128)
+    assert tattn.sm90_tiles(32, 32) == (1, 128)
+    assert tattn.sm90_tiles(72, 150) == (3, 64)
+    assert tattn.sm90_tiles(256, 8) == (4, 64)
+    t = torch.arange(12, dtype=torch.bfloat16).reshape(4, 3)
+    padded = tattn._tma_operand(t, 8)
+    assert padded.shape == (4, 8) and padded.data_ptr() % 16 == 0
+    assert torch.equal(padded[:, :3], t) and not padded[:, 3:].any()
+    assert tattn._tma_operand(padded, 8).data_ptr() == padded.data_ptr()
+
+
+def assert_within_check_hop(got, want, dv):
+    """``chip_smoke.check_hop``'s rule: m within 1e-5 max(1, |m|); l, acc
+    and the normalized output within 1e-4 of their largest magnitude; the
+    bf16 output within one bf16 step at each row's largest magnitude."""
+    m_g, l_g, a_g = (t.detach().double().numpy() for t in got)
+    m_w, l_w, a_w = (np.asarray(t, np.float64) for t in want)
+    assert np.all(np.abs(m_g - m_w) <= 1e-5 * np.maximum(1.0, np.abs(m_w)))
+    out_g = a_g / np.maximum(l_g, 1e-30)[:, None]
+    out_w = a_w / np.maximum(l_w, 1e-30)[:, None]
+    for g, w in ((l_g, l_w), (a_g, a_w), (out_g, out_w)):
+        assert np.abs(g - w).max() <= 1e-4 * max(np.abs(w).max(), 1e-30)
+    steps = chip_smoke.bf16_steps(torch, torch.from_numpy(out_g).to(
+        torch.bfloat16), torch.from_numpy(out_w).to(torch.bfloat16))
+    assert steps <= 1.0
+
+
+# (sl_q, sl_k, D, Dv, causal, (q_off, k_off), carry, masked rows, n_sm);
+# 132 SMs and more tile pairs than SMs: query tiles whole; 1000 SMs: every
+# key tile a piece of its own, the pieces merged.
+SPLIT_CASES = {
+    "initial-noncausal": (200, 300, 40, 24, False, (0, 0), "initial", 0,
+                          132),
+    "mid-causal-split": (256, 384, 32, 32, True, (300, 0), "mid", 16, 1000),
+    "few-sms": (300, 500, 48, 40, True, (200, 0), "mid", 0, 3),
+    "one-tile-pieces": (100, 520, 64, 64, True, (600, 0), "mid", 8, 1000),
+    "wide-64key-tiles": (130, 200, 150, 72, True, (60, 0), "mid", 0, 1000),
+    # Rows 0..63 see only keys after them and enter at m = _NEG: they keep
+    # l = 0; tile 1 is cut into pieces across the diagonal.
+    "masked-rows": (256, 256, 16, 16, True, (0, 64), "mid", 64, 1000),
+    # Every key lies after every query: no key tile is read, each tile's
+    # one empty item applies m = max(m, _NEG).
+    "chunk-after-queries": (128, 200, 16, 16, True, (0, 512), "mid", 64,
+                            132),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_reference_matches_jax_kernel(name):
+    (sl_q, sl_k, dim, dv, causal, (qo, ko), carry, masked,
+     n_sm) = SPLIT_CASES[name]
+    ops = hop_case(sl_q, sl_k, dim, dv, seed=len(name), carry=carry,
+                   masked_rows=masked)
+    scale = 1.0 / np.sqrt(dim)
+    want = jattn.flash_hop_update(*to_jax(ops, jnp.bfloat16), qo, ko, scale,
+                                  causal=causal, interpret=True)
+    got = tattn.flash_hop_update_split_reference(
+        *to_torch(ops, torch.bfloat16), qo, ko, scale, causal, n_sm=n_sm)
+    assert all(t.dtype == torch.float32 for t in got)
+    assert_within_check_hop(got, want, dv)
+    sched = tattn.hop_schedule(sl_q, sl_k, qo, ko, causal,
+                               tattn.sm90_tiles(dim, dv)[1], n_sm)
+    if n_sm == 1000:
+        assert sched.n_slots > 0        # partial carries were merged
+    if name == "chunk-after-queries":
+        assert sched.loads == [0]
+    if name in ("masked-rows", "chunk-after-queries"):
+        np.testing.assert_array_equal(got[1][:masked].numpy(), 0.0)
+        np.testing.assert_array_equal(got[0][:masked].numpy(),
+                                      np.float32(NEG))
 
 
 def test_adam_matches_optax():
