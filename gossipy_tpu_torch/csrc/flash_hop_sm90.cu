@@ -57,11 +57,11 @@
 // tensor cores; the softmax is float32 with expf (not __expf, whose error
 // grows near kNeg).
 //
-// Tensor maps come from cuTensorMapEncodeTiled, reached through the
-// runtime's driver entry point, so the library does not link libcuda. C
-// interface for ctypes: the launch goes on the caller's stream and does not
-// synchronise; the function returns cudaGetLastError() after it (or 10000
-// plus the driver's error when a tensor map cannot be encoded).
+// Tensor maps come from cuTensorMapEncodeTiled, looked up at run time with
+// cudaGetDriverEntryPointByVersion, so the library does not link libcuda.
+// C interface for ctypes: the launch goes on the caller's stream and does
+// not synchronise; the function returns cudaGetLastError() after it (or
+// 10000 plus the CUresult when a tensor map cannot be encoded).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
