@@ -36,28 +36,36 @@ Phases, each printed as it runs; any failure exits non-zero:
 5. reference: the same small run of each path on the CPU (plain versions)
    and on the card (kernels), from the same seeds: equal accounting, close
    params (within one encoding step more for the bf16 and int8 rings).
-6. attention: the flash-attention hop kernel K5 in its two routes, built
-   in phase 2: bf16 operands run ``csrc/flash_hop_sm90.cu`` (tensor
-   cores, TMA, a balanced causal work list), f32 ones ``csrc/flash_hop.cu``.
-   K5 against its plain version at the JAX bench's regime (S = 8192, one
-   head, D = 128, causal, bf16 and f32), on mid-stream hops (a random
-   carry; a chunk wholly in the past, one across the diagonal), at ragged
-   shapes (1000 x 777 rows, D = 72), with wholly masked rows whose m is
-   _NEG (f32 and bf16), on a bf16 hop whose query tiles are cut into many
-   pieces merged in the launch, and on every instance of each route (f32
-   and bf16 at the demo's own shape, Dv = 32, and at Dv = 150 and 256);
+6. attention: the flash-attention hop kernel K5 in its three routes,
+   built in phase 2: bf16 operands run ``csrc/flash_hop_sm90.cu`` (tensor
+   cores, TMA, a balanced causal work list), f32 ones with D, Dv <= 128
+   ``csrc/flash_hop_tf32.cu`` (the same machinery as 3xTF32, after its
+   split pre-pass), wider f32 ones ``csrc/flash_hop.cu`` (CUDA cores).
+   The pre-pass bit for bit against its plain version (edge values:
+   rounding ties, zeros, subnormals) and its time; K5 against its plain
+   version at the JAX bench's regime (S = 8192, one head, D = 128,
+   causal, bf16 and f32), on mid-stream hops (a random carry; a chunk
+   wholly in the past, one across the diagonal), at ragged shapes
+   (1000 x 777 rows, D = 72), with wholly masked rows whose m is _NEG
+   (f32 and bf16), on a bf16 hop whose query tiles are cut into many
+   pieces merged in the launch, and on every instance of each route (the
+   demo's own shape, D = Dv = 32, D = 64 with Dv = 40, Dv = 150 and 256);
    then the bf16 route's main run: ``flash_attention`` at the bench shape
    with its launches counted, its device time beside the plain version,
-   ``scaled_dot_product_attention`` (SDPA) and the bound; the f32 route's
-   time at the training shape (S = 8192, D = 128, non-causal) beside the
-   plain version, SDPA in f32 and its bound; ``flash_attention``'s forward
-   and gradient against dense attention through autograd (the JAX bench's
+   ``scaled_dot_product_attention`` (SDPA) and the bound; the 3xTF32
+   route's time at the training shape (S = 8192, D = 128, non-causal) and
+   at the causal bench shape beside the plain version, SDPA in f32 (its
+   kernel named) and the bounds at the TF32 and the f32 rates; the wide
+   f32 route's run (3 ``flash_attention`` calls at S = 2048, D = 256,
+   launches counted) and its time; ``flash_attention``'s forward and
+   gradient against dense attention through autograd (the JAX bench's
    ``_attention_parity`` rule); and the training demo
    (``gossipy_tpu_torch.examples.demo_ring_attention``, f32), at its
-   defaults with K5's launches counted (one per step, none from the
-   backward), then 3 steps at S = 8192, D = 128 with K5 and with the plain
-   version, whose losses must agree. ``attention_diagnostics`` (not run
-   here) breaks K5's time down further.
+   defaults with K5's launches counted (one 3xTF32 hop and one pre-pass
+   per step, none from the backward), then 3 steps at S = 8192, D = 128
+   with K5 and with the plain version, whose losses must agree.
+   ``attention_diagnostics`` (not run here) breaks K5's time down
+   further.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -91,6 +99,9 @@ FP32_FLOPS = 67e12
 # bound of attention's two products: a bf16 x bf16 product is exact in f32.
 TENSOR_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
                 ("H100", 989e12))
+# The TF32 tensor-core rate is half the bf16 one on every H100 part (the
+# same data sheets): the bound of the 3xTF32 route's three products.
+TF32_PER_BF16 = 0.5
 ATTN_S = 8192       # the JAX bench's flash-attention regime:
 ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
 
@@ -586,7 +597,7 @@ def check_hop(torch, attn, label, sl_q, sl_k, dim, dv, dtype, causal, offs,
             (("l", l_w), ("acc", a_w), ("out", out_w))}
     out_bf16 = bf16_steps(torch, out_g.to(torch.bfloat16),
                           out_w.to(torch.bfloat16))
-    log(f"[attention] K5 {attn.ROUTES[dtype]} {label}: sl_q={sl_q} "
+    log(f"[attention] K5 {attn.route(dtype, dim, dv)} {label}: sl_q={sl_q} "
         f"sl_k={sl_k} D={dim} Dv={dv} "
         f"{str(dtype).split('.')[-1]} causal={causal} offs={offs} "
         f"carry={carry}: m rel err {m_err:.3e}, "
@@ -659,31 +670,182 @@ def attention_bound(rate, flop_rate, s_len, dim, causal, itemsize):
             else "operations", nbytes, flops)
 
 
-def f32_route_times(torch, attn, rate) -> dict:
-    """The f32 route at the training shape (S = 8192, D = 128, non-causal,
-    the demo's width): ``flash_attention`` with K5, through the plain
-    version and SDPA in f32 (TF32 off), beside the bound at the f32 rate
-    outside the tensor cores."""
+def sdpa_backend(torch, fn) -> str:
+    """The name of the kernel that takes most of the device time of one
+    ``fn()`` call under torch.profiler (SDPA's backend). When the profiler
+    shows no device kernel (a later profiler session in one process may
+    record none), the backend the dispatcher chooses for ``fn``'s
+    operands, ``fn.sdpa_args``, by name."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+    fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev_us(e) > 0 and not e.key.startswith(
+                   ("Activity", "Memcpy", "Memset"))]
+    if kernels:
+        return max(kernels, key=dev_us).key
+    from torch.nn.attention import SDPBackend
+    choice = torch._fused_sdp_choice(*fn.sdpa_args)
+    return f"{SDPBackend(choice).name} (the dispatcher's choice)"
+
+
+def f32_route_times(torch, attn, rate, name) -> dict:
+    """The 3xTF32 route at the training shape (S = 8192, D = 128,
+    non-causal, the demo's width): ``flash_attention`` with K5 (pre-pass
+    included), through the plain version, and SDPA in f32 (TF32 off) as it
+    chooses its backend and forced to the memory-efficient one, with the
+    backend's kernel named; beside the bound at the TF32 tensor-core rate
+    for three products a pair (the route's arithmetic) and at the f32 rate
+    outside the tensor cores. Then ``flash_attention`` at the causal bench
+    shape in f32 beside SDPA."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
                            torch.float32, "initial", 40)[:3]
     ms = time_ms(torch, lambda: attn.flash_attention(q, k, v), iters=10)
     plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(q, k, v),
                        iters=10)
     q4, k4, v4 = (t[None, None] for t in (q, k, v))
-    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4), iters=10)
-    bound_ms, bound_by, nbytes, flops = attention_bound(
-        rate, FP32_FLOPS, ATTN_S, ATTN_D, False, 4)
+
+    def sdpa(causal=False):
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    sdpa.sdpa_args = (q4, k4, v4)
+    sdpa_ms = time_ms(torch, sdpa, iters=10)
+    backend = sdpa_backend(torch, sdpa)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        sdpa_eff_ms = time_ms(torch, sdpa, iters=10)
+    tf32_rate = tensor_rate(name) * TF32_PER_BF16
+    f32_rate_ms, _, nbytes, flops = attention_bound(rate, FP32_FLOPS, ATTN_S,
+                                                    ATTN_D, False, 4)
+    bound_ms, bound_by, _, _ = attention_bound(rate, tf32_rate / 3, ATTN_S,
+                                               ATTN_D, False, 4)
+    causal_ms = time_ms(torch, lambda: attn.flash_attention(q, k, v,
+                                                            causal=True),
+                        iters=10)
+    sdpa_causal_ms = time_ms(torch, lambda: sdpa(True), iters=10)
+    causal_bound = attention_bound(rate, tf32_rate / 3, ATTN_S, ATTN_D, True,
+                                   4)[0]
     log(f"[attention] f32 route at the training shape S={ATTN_S} "
         f"D=Dv={ATTN_D} f32 non-causal: flash_attention (K5 "
-        f"{attn.ROUTES[torch.float32]}) {ms:.5f} ms, through the plain hop "
-        f"{plain_ms:.5f} ms, SDPA f32 {sdpa_ms:.5f} ms; bound "
-        f"{bound_ms:.5f} ms ({nbytes} bytes, {flops} flops at the f32 "
-        f"rate, bound by {bound_by}); K5 reaches {bound_ms / ms:.4f} of its "
-        f"bound")
+        f"{attn.route(torch.float32, ATTN_D, ATTN_D)}, pre-pass included) "
+        f"{ms:.5f} ms, through the plain hop {plain_ms:.5f} ms, SDPA f32 "
+        f"{sdpa_ms:.5f} ms (kernel {backend}), SDPA forced to "
+        f"EFFICIENT_ATTENTION {sdpa_eff_ms:.5f} ms; bound {bound_ms:.5f} ms "
+        f"({nbytes} bytes, 3 x {flops} flops at the TF32 rate "
+        f"{tf32_rate / 1e12:.1f} TFLOP/s, bound by {bound_by}), "
+        f"{f32_rate_ms:.5f} ms at the f32 rate; K5 reaches "
+        f"{bound_ms / ms:.4f} of its bound, {f32_rate_ms / ms:.4f} of the "
+        f"f32-rate one. Causal bench shape f32: flash_attention "
+        f"{causal_ms:.5f} ms, SDPA {sdpa_causal_ms:.5f} ms, bound "
+        f"{causal_bound:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_f32_rate_ms=f32_rate_ms, sdpa_backend=backend)
+
+
+def check_tf32_split(torch, attn, rate) -> dict:
+    """The 3xTF32 route's pre-pass against its plain version, bit for bit:
+    ragged shapes (1000 x 72 q, 777 x 72 k, 777 x 40 v) holding normal
+    values, both zeros, negatives, exact rounding ties of the hi and of the
+    lo part, values that round up into the next binade and subnormals;
+    then its device time at the training shape (S = 8192, D = Dv = 128)
+    beside the plain version and the bound (bytes: q, k, v read once,
+    their planes written once)."""
+    rng = np.random.default_rng(50)
+
+    def edge(rows, cols):
+        x = rng.normal(size=(rows, cols)).astype(np.float32)
+        bits = x.view(np.uint32)
+        n = bits.size
+        picks = rng.choice(n, size=6 * (n // 7), replace=False).reshape(6, -1)
+        bits.flat[picks[0]] = (bits.flat[picks[0]] & ~np.uint32(0x1FFF)) \
+            | np.uint32(0x1000)                      # hi tie
+        bits.flat[picks[1]] = (bits.flat[picks[1]] & ~np.uint32(0xFFF)) \
+            | np.uint32(0x800)                       # lo tie
+        bits.flat[picks[2]] |= np.uint32(0x7FFFFF)   # rounds to 2^(e+1)
+        bits.flat[picks[3]] = np.uint32(0x80000000) * (picks[3] % 2)  # +-0
+        bits.flat[picks[4]] = (bits.flat[picks[4]] & np.uint32(0x807FFFFF))
+        bits.flat[picks[4][::2]] |= np.uint32(0x1000)  # subnormal ties
+        bits.flat[picks[5]] ^= np.uint32(0x80000000)   # sign flips
+        return torch.from_numpy(x).cuda()
+
+    q, k, v = edge(1000, 72), edge(777, 72), edge(777, 40)
+    got = attn.tf32_split(q, k, v)
+    want = attn.tf32_split_reference(q, k, v)
+    torch.cuda.synchronize()
+    same = all(g.shape == w.shape and torch.equal(
+        g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+    diffs = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                for g, w in zip(got, want) if g.shape == w.shape)
+    q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
+                           torch.float32, "initial", 41)[:3]
+    ms = time_ms(torch, lambda: attn.tf32_split(q, k, v))
+    plain_ms = time_ms(torch, lambda: attn.tf32_split_reference(q, k, v),
+                       iters=10)
+    nbytes = 3 * ATTN_S * ATTN_D * 4 * 3
+    bound_ms, bound_by = bound(nbytes, 0, rate)
+    log(f"[attention] tf32_split: kernel vs plain bit-equal {same} "
+        f"({diffs} words differ) on ragged edge values; at S={ATTN_S} "
+        f"D=Dv={ATTN_D}: {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms ({nbytes} bytes, bound by {bound_by}); reaches "
+        f"{bound_ms / ms:.4f} of its bound")
+    if not same:
+        raise RuntimeError("tf32_split's kernel disagrees with its plain "
+                           "version")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def f32_wide_run(torch, attn, rate, name) -> dict:
+    """The CUDA-core route's run: 3 ``flash_attention`` calls at S = 2048,
+    D = Dv = 256, f32, causal (heads wider than the 3xTF32 route takes),
+    launches counted from 0, finite [S, Dv] outputs; then the device time
+    of one call beside the plain version, SDPA and the bound at the TF32
+    rate for three products (the f32-rate bound printed beside it)."""
+    import torch.nn.functional as F
+    s_len, dim = 2048, 256
+    q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim,
+                           torch.float32, "initial", 42)[:3]
+    attn.LAUNCHES.clear()
+    outs = [attn.flash_attention(q, k, v, causal=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    launches = dict(attn.LAUNCHES)
+    if launches.get(attn.F32_WIDE_ROUTE) != 3 or launches.get(
+            attn.F32_ROUTE) or not all(
+            o.shape == (s_len, dim) and bool(torch.isfinite(o).all())
+            for o in outs):
+        raise RuntimeError(f"the wide f32 run launched {launches} for 3 "
+                           "calls, or its output is not finite [S, Dv]")
+    ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True),
+                 iters=10)
+    plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(
+        q, k, v, causal=True), iters=10)
+    q4, k4, v4 = (t[None, None] for t in (q, k, v))
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), iters=10)
+    bound_ms, bound_by, _, flops = attention_bound(
+        rate, tensor_rate(name) * TF32_PER_BF16 / 3, s_len, dim, True, 4)
+    f32_rate_ms = attention_bound(rate, FP32_FLOPS, s_len, dim, True, 4)[0]
+    log(f"[attention] wide f32 run S={s_len} D=Dv={dim} causal: "
+        f"{launches.get(attn.F32_WIDE_ROUTE)} launches of "
+        f"{attn.F32_WIDE_ROUTE} in 3 calls; flash_attention {ms:.5f} ms, "
+        f"plain {plain_ms:.5f} ms, SDPA f32 {sdpa_ms:.5f} ms; bound "
+        f"{bound_ms:.5f} ms (3 x {flops} flops at the TF32 rate), "
+        f"{f32_rate_ms:.5f} ms at the f32 rate")
+    return dict(launches=launches[attn.F32_WIDE_ROUTE], ms=ms,
+                plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_f32_rate_ms=f32_rate_ms)
 
 
 def check_split(torch, attn, seed) -> dict:
@@ -715,9 +877,10 @@ def attention_phase(torch, rate: float, name: str):
     from gossipy_tpu_torch.examples import demo_ring_attention as demo
     from gossipy_tpu_torch.ops import attention as attn
 
-    bf16, bf16_route = torch.bfloat16, attn.ROUTES[torch.bfloat16]
-    f32_route = attn.ROUTES[torch.float32]
+    bf16, bf16_route = torch.bfloat16, attn.BF16_ROUTE
+    f32_route, wide_route = attn.F32_ROUTE, attn.F32_WIDE_ROUTE
     s_len, dim = ATTN_S, ATTN_D
+    split = check_tf32_split(torch, attn, rate)
     bench = check_hop(torch, attn, "bench", s_len, s_len, dim, dim, bf16,
                       True, (0, 0), "initial", 21)
     bench_f32 = check_hop(torch, attn, "bench-f32", s_len, s_len, dim, dim,
@@ -734,18 +897,23 @@ def attention_phase(torch, rate: float, name: str):
         check_hop(torch, attn, "masked rows", 256, 256, dim, dim, dtype,
                   True, (0, 128), "mid", 27, masked_rows=128)
     check_split(torch, attn, 34)
-    # Every instance of each route: the f32 route's input x Dv in groups of
-    # 64, the bf16 route's 64-column groups G = 1-4 (128-key tiles up to
-    # G = 2, 64-key tiles above): the demo's own shape (Dv = 32, one
-    # group), Dv = 150 (three groups, D not a multiple of 8: padded
-    # columns) and Dv = 256 (four groups, the most shared memory).
+    # Every instance of each route: the bf16 route's 64-column groups
+    # G = 1-4 (128-key tiles up to G = 2, 64-key tiles above), the 3xTF32
+    # route's 32-column groups G = 1-4 (D = Dv = 32 the demo's own shape,
+    # 72 ragged above, 128 the bench cases), the wide f32 route's input x
+    # Dv in groups of 64: Dv = 150 (D not a multiple of 8: padded
+    # columns) and Dv = 256 (the most shared memory).
+    check_hop(torch, attn, "G 2", 300, 200, 64, 40, torch.float32, True,
+              (100, 0), "mid", 35)
+    errs_256 = {}
     for seed, dtype in enumerate((torch.float32, bf16), start=28):
         check_hop(torch, attn, "demo shape", 256, 256, 32, 32, dtype, False,
                   (0, 0), "initial", seed)
         check_hop(torch, attn, "Dv 150", 1000, 777, 150, 150, dtype, False,
                   (0, 0), "mid", seed + 2)
-        check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, dtype, True,
-                  (300, 0), "mid", seed + 4)
+        errs_256[dtype] = check_hop(torch, attn, "Dv 256", 1000, 777, 256,
+                                    256, dtype, True, (300, 0), "mid",
+                                    seed + 4)
 
     # The bf16 route's main run: flash_attention at the bench shape, as the
     # JAX bench calls it, with the launches counted; then its device time
@@ -787,7 +955,8 @@ def attention_phase(torch, rate: float, name: str):
         f"its bound")
     del q, k, v, q4, k4, v4, sdpa, fa
     torch.cuda.empty_cache()
-    f32 = f32_route_times(torch, attn, rate)
+    f32 = f32_route_times(torch, attn, rate, name)
+    wide = f32_wide_run(torch, attn, rate, name)
 
     # The gradient check, at the bench shape in f32.
     q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim, bf16,
@@ -802,15 +971,18 @@ def attention_phase(torch, rate: float, name: str):
     rec = demo.run(device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, demo_launches = (attn.LAUNCHES[attn.KERNEL],
-                               attn.LAUNCHES[f32_route])
+    launches, demo_launches, split_launches = (
+        attn.LAUNCHES[attn.KERNEL], attn.LAUNCHES[f32_route],
+        attn.LAUNCHES[attn.SPLIT_KERNEL])
     log(f"[attention] demo at its defaults (S=256, D=32, 60 adam steps): "
         f"{json.dumps(rec)}; {wall:.3f} s; K5 launches {launches} "
-        f"({demo_launches} of {f32_route})")
-    if not rec["learned"] or launches != 60 or demo_launches != 60 or not (
+        f"({demo_launches} of {f32_route}, {attn.LAUNCHES[wide_route]} of "
+        f"{wide_route}), {split_launches} of {attn.SPLIT_KERNEL}")
+    if not rec["learned"] or launches != 60 or demo_launches != 60 \
+            or split_launches != 60 or not (
             np.isfinite(rec["loss_first"]) and np.isfinite(rec["loss_last"])):
-        raise RuntimeError("the demo did not learn, or K5 did not launch once "
-                           "per step")
+        raise RuntimeError("the demo did not learn, or K5's 3xTF32 route and "
+                           "its pre-pass did not launch once per step")
 
     # 3 training steps at the bench width in f32, with K5 and with the
     # plain version: the same losses within 1e-4 relative.
@@ -832,11 +1004,24 @@ def attention_phase(torch, rate: float, name: str):
              "plain_ms": fa_plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": sdpa_ms},
             {"name": f32_route, "route": "cuda",
-             "source": "gossipy_tpu_torch/csrc/flash_hop.cu",
+             "source": "gossipy_tpu_torch/csrc/flash_hop_tf32.cu",
              "replaces": replaces, "launches": demo_launches,
              "max_abs_err": bench_f32["max_abs_err"], "ms": f32["ms"],
              "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"]}]
+             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+             "bound_f32_rate_ms": f32["bound_f32_rate_ms"],
+             "library": f32["sdpa_backend"]},
+            {"name": attn.SPLIT_KERNEL, "route": "cuda",
+             "source": "gossipy_tpu_torch/csrc/flash_hop_tf32.cu",
+             "replaces": replaces, "launches": split_launches, **split},
+            {"name": wide_route, "route": "cuda",
+             "source": "gossipy_tpu_torch/csrc/flash_hop.cu",
+             "replaces": replaces, "launches": wide["launches"],
+             "max_abs_err": errs_256[torch.float32]["max_abs_err"],
+             "ms": wide["ms"],
+             "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+             "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+             "bound_f32_rate_ms": wide["bound_f32_rate_ms"]}]
 
 
 def bench_task(torch, demo):
@@ -855,8 +1040,9 @@ def attention_diagnostics(torch) -> None:
     bf16 hop (K5 and plain), of causal and non-causal ``flash_attention``
     with the bf16 route and SDPA, and their non-causal/causal ratios (twice
     the pairs: a balanced causal schedule takes about half the non-causal
-    time); the f32 route at the training shape beside SDPA in f32; the
-    host-clock time and peak memory of 3 training steps at S = 8192,
+    time); the 3xTF32 route at the training shape beside SDPA in f32, its
+    pre-pass alone and its bare hop (causal and not); the host-clock time
+    and peak memory of 3 training steps at S = 8192,
     D = 128, f32, in turns plain, K5, K5, plain (so neither side alone pays
     the first use of the backward's shapes); and one profiled step with
     K5."""
@@ -889,14 +1075,28 @@ def attention_diagnostics(torch) -> None:
                               dim, False, 2)[0]
     log(f"[diagnostics] S={s_len} D=Dv={dim} bf16: causal hop alone, K5 "
         f"{hop_ms:.5f} ms, plain {hop_plain_ms:.5f} ms; flash_attention "
-        f"(K5 {attn.ROUTES[torch.bfloat16]}) causal {fa_c:.5f} ms, "
+        f"(K5 {attn.BF16_ROUTE}) causal {fa_c:.5f} ms, "
         f"non-causal {fa_n:.5f} ms (bound {bound_n:.5f}, reaches "
         f"{bound_n / fa_n:.4f}), non-causal/causal {fa_n / fa_c:.3f}; SDPA "
         f"causal {sd_c:.5f} ms, non-causal {sd_n:.5f} ms, ratio "
         f"{sd_n / sd_c:.3f}")
     del q, k, v, m, l, acc, q4, k4, v4
     torch.cuda.empty_cache()
-    f32_route_times(torch, attn, memory_rate(name))
+    f32_route_times(torch, attn, memory_rate(name), name)
+    # The 3xTF32 route's parts at the training shape: the pre-pass alone,
+    # the bare hop (pre-pass and hop kernel, no carry fills or division).
+    q, k, v, m, l, acc = hop_operands(torch, attn, s_len, s_len, dim, dim,
+                                      torch.float32, "initial", 40)
+    split_ms = time_ms(torch, lambda: attn.tf32_split(q, k, v))
+    hop32_ms = time_ms(torch, lambda: attn.flash_hop_update_cuda(
+        q, k, v, m, l, acc, 0, 0, scale, False), iters=10)
+    hop32_c_ms = time_ms(torch, lambda: attn.flash_hop_update_cuda(
+        q, k, v, m, l, acc, 0, 0, scale, True), iters=10)
+    log(f"[diagnostics] S={s_len} D=Dv={dim} f32, {attn.F32_ROUTE}: "
+        f"pre-pass {split_ms:.5f} ms; hop (pre-pass included) non-causal "
+        f"{hop32_ms:.5f} ms, causal {hop32_c_ms:.5f} ms")
+    del q, k, v, m, l, acc
+    torch.cuda.empty_cache()
 
     start, x, tgt = bench_task(torch, demo)
 

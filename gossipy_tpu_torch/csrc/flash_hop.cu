@@ -1,12 +1,13 @@
-// Flash-attention hop, float32 route: absorb one key/value chunk into the
-// per-query streaming-softmax carry (m, l, acc), with the score block kept
-// on chip.
+// Flash-attention hop, wide float32 route: absorb one key/value chunk into
+// the per-query streaming-softmax carry (m, l, acc), with the score block
+// kept on chip.
 //
 // Replaces the TPU kernel gossipy_tpu/ops/attention.py::_hop_kernel (K5)
-// for float32 q, k and v, entry point flash_hop. bfloat16 operands go to
-// flash_hop_sm90.cu, the Hopper route (tensor cores, TMA, a balanced causal
-// schedule), which replaced this file's bfloat16 instances. For each query
-// row i and key row j of the chunk,
+// for float32 q, k and v whose D or Dv lies above 128 (up to 256), entry
+// point flash_hop. Narrower float32 heads go to flash_hop_tf32.cu (3xTF32
+// on the tensor cores), bfloat16 operands to flash_hop_sm90.cu; both
+// replaced instances of this file. For each query row i and key row j of
+// the chunk,
 //
 //     s[i,j] = scale * (q[i] . k[j]),  masked (-> kNeg) where j >= sl_k or,
 //              when causal, where k_off + j > q_off + i (global positions);

@@ -3,8 +3,9 @@
 // (m, l, acc), with the score block kept in registers.
 //
 // Replaces the TPU kernel gossipy_tpu/ops/attention.py::_hop_kernel (K5)
-// for bfloat16 q, k and v (entry point flash_hop_sm90); flash_hop.cu keeps
-// the float32 route. For each query row i and key row j of the chunk,
+// for bfloat16 q, k and v (entry point flash_hop_sm90); float32 operands go
+// to flash_hop_tf32.cu (3xTF32 on the same machinery) or, for heads wider
+// than 128, flash_hop.cu. For each query row i and key row j of the chunk,
 //
 //     s[i,j] = scale * (q[i] . k[j]),  masked (-> kNeg) where j >= sl_k or,
 //              when causal, where k_off + j > q_off + i (global positions);
@@ -57,8 +58,9 @@
 // tensor cores; the softmax is float32 with expf (not __expf, whose error
 // grows near kNeg).
 //
-// Tensor maps come from cuTensorMapEncodeTiled, looked up at run time with
-// cudaGetDriverEntryPointByVersion, so the library does not link libcuda.
+// Tensor maps come from cuTensorMapEncodeTiled, looked up at run time
+// (sm90.cuh, with the pipeline's other building blocks), so the library
+// does not link libcuda.
 // C interface for ctypes: the launch goes on the caller's stream and does
 // not synchronise; the function returns cudaGetLastError() after it (or
 // 10000 plus the CUresult when a tensor map cannot be encoded).
@@ -69,7 +71,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int kBlockQ = 128;    // query rows per CTA
 constexpr int kThreads = 384;   // warpgroup 0: producer; 1, 2: consumers
@@ -104,86 +110,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait of more
-// than ~2^34 cycles (seconds) can only be a broken pipeline: trap, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    if (clock64() - start > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_consumers() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128B-swizzled operand: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 (B128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // S (+)= A B^T: m64nNk16, A and B K-major in shared memory.
 // O (+)= A B: m64n64k16, A in registers, B MN-major in shared memory.
@@ -234,16 +160,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Key tiles of query tile qt that hold a key at or before its last row.
@@ -434,9 +350,9 @@ __device__ void consumer(const Params& p, const uint8_t* sQ,
                 ws_acc + (size_t)(rq + 8 * h) * C::kDvp + 64 * g + 8 * j +
                 cq) = make_float2(o[g][4 * j + 2 * h], o[g][4 * j + 2 * h + 1]);
       __threadfence();
-      bar_consumers();
+      bar_sync<kConsumers>();
       if (ctid == 0) *s_flag = atomicAdd(p.tickets + qt, 1) == pieces - 1;
-      bar_consumers();
+      bar_sync<kConsumers>();
       if (!*s_flag) continue;
       __threadfence();
     }
@@ -580,49 +496,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A [rows, cols] row-major bf16 matrix cut in boxes of 64 columns by
 // box_rows rows, 128B-swizzled in shared memory; out-of-bounds reads are 0.
 int tensor_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t cols,
                int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return 10000 + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+  return sm90::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims,
+                          strides, box);
 }
 
 template <int G>

@@ -18,19 +18,25 @@ whose whole chunk is masked while its incoming ``m`` is ``_NEG``: there the
 plain body adds ``exp(0) = 1`` to ``l`` per masked key and the kernel adds
 nothing.
 
-K5 is CUDA C++, built at first use, in two routes by the operands' type:
-bfloat16 q, k, v go to ``csrc/flash_hop_sm90.cu`` (tensor cores through
+K5 is CUDA C++, built at first use, in three routes chosen by the
+operands' type and head dims (:func:`route`): bfloat16 q, k, v go to
+``csrc/flash_hop_sm90.cu`` (``flash_hop[bf16]``: tensor cores through
 ``wgmma``, TMA loads, a persistent grid walking the work list of
-:func:`hop_schedule`), float32 ones to ``csrc/flash_hop.cu`` (CUDA cores);
-any other type raises. On CPU tensors :func:`flash_hop_update` runs the
-plain version of the kernel, :func:`flash_hop_update_reference`, which
-streams over key blocks of ``block_k`` as the TPU kernel does.
-:func:`flash_hop_update_split_reference` is a plain model of the bf16
-route's own arithmetic (its work list, 128-key tiles, P split into bf16
-high and low parts, partial carries merged); the CPU tests use it, the
+:func:`hop_schedule`); float32 ones with D and Dv at most
+:data:`TF32_MAX_DIM` to ``csrc/flash_hop_tf32.cu`` (``flash_hop[f32]``:
+the same machinery with each product as three TF32 products, after the
+split pre-pass :func:`tf32_split`, which that source also holds); float32
+ones with D or Dv above it, up to :data:`MAX_DIM`, to ``csrc/flash_hop.cu``
+(``flash_hop[f32-wide]``, CUDA cores). Any other type raises. On CPU
+tensors :func:`flash_hop_update` runs the plain version of the kernel,
+:func:`flash_hop_update_reference`, which streams over key blocks of
+``block_k`` as the TPU kernel does. :func:`flash_hop_update_split_reference`
+and :func:`flash_hop_update_tf32_reference` are plain models of the two
+tensor-core routes' own arithmetic (their work lists and tiles, the split
+of their operands, partial carries merged); the CPU tests use them, the
 card's path does not. On CUDA tensors K5 launches or raises. Every launch
-adds one to ``LAUNCHES["flash_hop"]`` and one to its route's count,
-``LAUNCHES["flash_hop[bf16]"]`` or ``LAUNCHES["flash_hop[f32]"]``.
+adds one to ``LAUNCHES["flash_hop"]`` and one to its route's count; the
+pre-pass adds one to ``LAUNCHES["tf32_split"]``.
 
 The gradient is the JAX package's hand-derived backward (``_hop_bwd_math``)
 in plain PyTorch under :class:`torch.autograd.Function`: it recomputes the
@@ -62,16 +68,24 @@ BLOCK_Q = 128
 BLOCK_K = 512
 
 KERNEL = "flash_hop"
-# K5's route for each input type: the launch count of the route, beside the
-# count of every hop under KERNEL.
-ROUTES = {torch.bfloat16: "flash_hop[bf16]", torch.float32: "flash_hop[f32]"}
+SPLIT_KERNEL = "tf32_split"
+BF16_ROUTE, F32_ROUTE, F32_WIDE_ROUTE = ("flash_hop[bf16]", "flash_hop[f32]",
+                                         "flash_hop[f32-wide]")
 # The csrc/ source (without .cu) that holds each route's entry point.
-SOURCES = {"flash_hop[bf16]": "flash_hop_sm90", "flash_hop[f32]": "flash_hop"}
-MAX_DIM = 256      # D and Dv up to this, on both routes
+SOURCES = {BF16_ROUTE: "flash_hop_sm90", F32_ROUTE: "flash_hop_tf32",
+           F32_WIDE_ROUTE: "flash_hop"}
+ROUTES = tuple(SOURCES)
+MAX_DIM = 256      # D and Dv up to this, on every route
+# float32 heads up to this wide take the 3xTF32 route.
+TF32_MAX_DIM = 128
 # The bf16 route's tiles (csrc/flash_hop_sm90.cu): 128 query rows per work
 # item; key tiles of 128 rows while D and Dv fit two 64-column groups, of 64
 # above.
 SM90_BLOCK_Q = 128
+# The 3xTF32 route's tiles (csrc/flash_hop_tf32.cu): 128 query rows per
+# work item (two warpgroups of 64), 32-key tiles.
+TF32_BLOCK_Q = 128
+TF32_BLOCK_K = 32
 H100_SMS = 132
 
 Offset = Union[int, torch.Tensor]
@@ -180,7 +194,7 @@ def flash_hop_update_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
     return m, l, acc
 
 
-# -- the bf16 route's work list and its plain model ---------------------------
+# -- the tensor-core routes' work list and their plain models ----------------
 
 def sm90_tiles(dim: int, dv: int):
     """``(groups, block_k)`` of the bf16 route for head dims ``dim`` and
@@ -190,14 +204,33 @@ def sm90_tiles(dim: int, dv: int):
     return groups, (128 if groups <= 2 else 64)
 
 
+def tf32_groups(dim: int, dv: int) -> int:
+    """The 3xTF32 route's 32-column groups for head dims ``dim`` and
+    ``dv`` (its instance): the wider of the two, rounded up to 32."""
+    return -(-max(dim, dv) // 32)
+
+
+def route(dtype: torch.dtype, dim: int, dv: int) -> str:
+    """K5's route for operands of ``dtype`` and head dims ``dim``, ``dv``
+    (up to :data:`MAX_DIM`): bfloat16 → ``flash_hop[bf16]``; float32 with
+    both at most :data:`TF32_MAX_DIM` → ``flash_hop[f32]`` (3xTF32), wider
+    float32 → ``flash_hop[f32-wide]``. Raises on any other type."""
+    if dtype == torch.bfloat16:
+        return BF16_ROUTE
+    if dtype == torch.float32:
+        return F32_ROUTE if max(dim, dv) <= TF32_MAX_DIM else F32_WIDE_ROUTE
+    raise TypeError(f"K5 takes q, k_c and v_c of one type, float32 or "
+                    f"bfloat16; got {dtype}")
+
+
 class HopSchedule(NamedTuple):
-    """The bf16 route's work list. ``items``: ``(q_tile, kt0, kt1, slot0,
-    pieces, slot)`` in table order, key tiles ``[kt0, kt1)`` of query tile
-    ``q_tile``; a tile cut into ``pieces > 1`` pieces has its partial
-    carries in slots ``slot0 ..`` (``slot`` this piece's), else both are
-    -1. ``table``: int32, ``n_cta + 1`` offsets into the items (CTA ``c``
-    runs items ``[off[c], off[c + 1])``) then 6 ints per item. ``loads``:
-    key tiles per CTA."""
+    """A tensor-core route's work list. ``items``: ``(q_tile, kt0, kt1,
+    slot0, pieces, slot)`` in table order, key tiles ``[kt0, kt1)`` of
+    query tile ``q_tile``; a tile cut into ``pieces > 1`` pieces has its
+    partial carries in slots ``slot0 ..`` (``slot`` this piece's), else
+    both are -1. ``table``: int32, ``n_cta + 1`` offsets into the items
+    (CTA ``c`` runs items ``[off[c], off[c + 1])``) then 6 ints per item.
+    ``loads``: key tiles per CTA."""
     table: np.ndarray
     items: list
     loads: list
@@ -220,13 +253,16 @@ def tiles_needed(sl_q: int, sl_k: int, q_off: int, k_off: int, causal: bool,
 
 
 def hop_schedule(sl_q: int, sl_k: int, q_off: int, k_off: int, causal: bool,
-                 block_k: int = 128, n_sm: int = H100_SMS) -> HopSchedule:
-    """The bf16 route's balanced work list for a card of ``n_sm`` SMs.
-    The key range of each query tile is cut into pieces of the mean load
-    per SM (rounded up) and a shorter last one; a query tile that needs no
-    key tile gets one empty item, which applies the skipped tiles. Items go
-    longest first to the least loaded of ``min(n_sm, items)`` CTAs."""
-    need = tiles_needed(sl_q, sl_k, q_off, k_off, causal, block_k)
+                 block_k: int = 128, n_sm: int = H100_SMS,
+                 block_q: int = SM90_BLOCK_Q) -> HopSchedule:
+    """The balanced work list of query tiles of ``block_q`` rows and key
+    tiles of ``block_k`` for a card of ``n_sm`` SMs (the bf16 route's tiles
+    by default). The key range of each query tile is cut into pieces of
+    the mean load per SM (rounded up) and a shorter last one; a query tile
+    that needs no key tile gets one empty item, which applies the skipped
+    tiles. Items go longest first to the least loaded of
+    ``min(n_sm, items)`` CTAs."""
+    need = tiles_needed(sl_q, sl_k, q_off, k_off, causal, block_k, block_q)
     cap = max(1, -(-sum(need) // n_sm))
     pieces, n_slots = [], 0
     for qt, n in enumerate(need):
@@ -256,59 +292,54 @@ def hop_schedule(sl_q: int, sl_k: int, q_off: int, k_off: int, causal: bool,
                        len(need))
 
 
-def flash_hop_update_split_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
-                                     k_off: Offset, scale: float,
-                                     causal: bool = False,
-                                     n_sm: int = H100_SMS):
-    """Plain PyTorch model of the bf16 route's arithmetic: it walks the
-    work list of :func:`hop_schedule` for ``n_sm`` SMs, streams each
-    piece's key tiles (of the route's ``block_k`` rows) into a partial
-    carry started at ``m = _NEG``, ``l = 0``, ``acc = 0`` with ``p`` split
-    into a bf16 high part and a bf16 low part for the ``p v`` product, and
-    merges the incoming carry, the pieces in slot order and, where key
-    tiles were skipped, a ``(_NEG, 0, 0)`` term:
+def _scheduled_hop(q, k_c, v_c, m, l, acc, q_off, k_off, scale, causal,
+                   n_sm, block_q, block_k, scores, p_times_v):
+    """The tensor-core routes' arithmetic with the products left to the
+    caller: walk the work list of :func:`hop_schedule`, stream each piece's
+    key tiles into a partial carry started at ``m = _NEG``, ``l = 0``,
+    ``acc = 0`` (``s = scores(q rows, k rows) * scale``, ``acc += p_times_v(p,
+    v rows)``), and merge the incoming carry, the pieces in slot order and,
+    where key tiles were skipped, a ``(_NEG, 0, 0)`` term:
     ``m = max m_i``, ``l = sum l_i exp(m_i - m)``, ``acc`` likewise. A
     ragged last tile counts its padded keys as masked (``_NEG`` in the row
     max). Float32; returns ``(m, l, acc)``."""
     _check_hop(q, k_c, v_c, m, l, acc)
     q_off, k_off = _offset(q_off), _offset(k_off)
-    sl_q, dim = q.shape
-    sl_k, dv = v_c.shape
-    _, bk = sm90_tiles(dim, dv)
-    sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, bk, n_sm)
+    sl_q, sl_k = q.shape[0], k_c.shape[0]
+    dv = v_c.shape[1]
+    sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, block_k, n_sm,
+                         block_q)
     qf, kf, vf = (t.float() for t in (q, k_c, v_c))
     m, l, acc = (t.float() for t in (m, l, acc))
-    n_kt = -(-sl_k // bk)
+    n_kt = -(-sl_k // block_k)
     parts, need = {}, {}
     for qt, kt0, kt1, _, _, slot in sched.items:
-        r0, r1 = qt * SM90_BLOCK_Q, min((qt + 1) * SM90_BLOCK_Q, sl_q)
+        r0, r1 = qt * block_q, min((qt + 1) * block_q, sl_q)
         pm = torch.full((r1 - r0,), _NEG, device=q.device)
         pl = torch.zeros(r1 - r0, device=q.device)
         pa = torch.zeros(r1 - r0, dv, device=q.device)
         for kt in range(kt0, kt1):
-            c0, c1 = kt * bk, min((kt + 1) * bk, sl_k)
-            s = (qf[r0:r1] @ kf[c0:c1].T) * scale
+            c0, c1 = kt * block_k, min((kt + 1) * block_k, sl_k)
+            s = scores(qf[r0:r1], kf[c0:c1]) * scale
             masked = torch.zeros_like(s, dtype=torch.bool)
             if causal:
                 masked = _causal_mask(r1 - r0, c1 - c0, q_off + r0,
                                       k_off + c0, q.device)
                 s = torch.where(masked, _NEG, s)
             mx = s.amax(dim=1)
-            if c1 - c0 < bk:
+            if c1 - c0 < block_k:
                 mx = torch.clamp(mx, min=_NEG)
             m_new = torch.maximum(pm, mx)
             alpha = torch.exp(pm - m_new)
             p = torch.where(masked, 0.0, torch.exp(s - m_new[:, None]))
-            hi = p.to(torch.bfloat16).float()
-            lo = (p - hi).to(torch.bfloat16).float()
-            pa = pa * alpha[:, None] + hi @ vf[c0:c1] + lo @ vf[c0:c1]
+            pa = pa * alpha[:, None] + p_times_v(p, vf[c0:c1])
             pl = pl * alpha + p.sum(dim=1)
             pm = m_new
         parts.setdefault(qt, []).append((slot, pm, pl, pa))
         need[qt] = max(need.get(qt, 0), kt1)
     m_out, l_out, acc_out = m.clone(), l.clone(), acc.clone()
     for qt, terms in parts.items():
-        r0, r1 = qt * SM90_BLOCK_Q, min((qt + 1) * SM90_BLOCK_Q, sl_q)
+        r0, r1 = qt * block_q, min((qt + 1) * block_q, sl_q)
         m0 = m[r0:r1]
         top = m0 if need[qt] == n_kt else torch.clamp(m0, min=_NEG)
         for _, pm, _, _ in terms:
@@ -323,25 +354,160 @@ def flash_hop_update_split_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
     return m_out, l_out, acc_out
 
 
+def flash_hop_update_split_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
+                                     k_off: Offset, scale: float,
+                                     causal: bool = False,
+                                     n_sm: int = H100_SMS):
+    """Plain PyTorch model of the bf16 route's arithmetic: its work list
+    and tiles (128 query rows, :func:`sm90_tiles`' key tiles), ``q k^T`` of
+    the bf16 operands (exact in float32) and ``p`` split into a bf16 high
+    part and a bf16 low part for the ``p v`` product. Float32; returns
+    ``(m, l, acc)``."""
+    _, bk = sm90_tiles(q.shape[1], v_c.shape[1])
+
+    def p_times_v(p, v):
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        return hi @ v + lo @ v
+
+    return _scheduled_hop(q, k_c, v_c, m, l, acc, q_off, k_off, scale,
+                          causal, n_sm, SM90_BLOCK_Q, bk,
+                          lambda a, b: a @ b.T, p_times_v)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
+    nearest, ties away from zero, by adding half a TF32 step to the
+    magnitude's bits and clearing the low 13. Non-finite values pass
+    through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_parts(x: torch.Tensor):
+    """``(hi, lo)``: ``hi = tf32_round(x)``, ``lo = tf32_round(x - hi)``
+    (``x - hi`` is exact in float32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _tf32x3(a_parts, b_parts):
+    """``a b`` as the 3xTF32 route computes it: the small products, then
+    the large one, from ``(hi, lo)`` parts (``lo`` None: one TF32
+    product)."""
+    (a_hi, a_lo), (b_hi, b_lo) = a_parts, b_parts
+    if a_lo is None:
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def flash_hop_update_tf32_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
+                                    k_off: Offset, scale: float,
+                                    causal: bool = False,
+                                    n_sm: int = H100_SMS,
+                                    low_parts: bool = True):
+    """Plain PyTorch model of the 3xTF32 route's arithmetic, for float32
+    operands: its work list and tiles (:data:`TF32_BLOCK_Q` query rows,
+    :data:`TF32_BLOCK_K`-key tiles), and both products as
+    ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` of TF32 parts
+    (:func:`tf32_parts`), ``q k^T`` from the split operands and ``p v``
+    with ``p`` split in the same way. ``low_parts=False`` drops the low
+    parts: one plain TF32 product each. Float32; returns ``(m, l, acc)``."""
+    def parts(x):
+        return tf32_parts(x) if low_parts else (tf32_round(x), None)
+
+    return _scheduled_hop(
+        q, k_c, v_c, m, l, acc, q_off, k_off, scale, causal, n_sm,
+        TF32_BLOCK_Q, TF32_BLOCK_K,
+        lambda a, b: _tf32x3(parts(a), parts(b.T.contiguous())),
+        lambda p, v: _tf32x3(parts(p), parts(v)))
+
+
+def tf32_split_reference(q, k_c, v_c):
+    """Plain version of the 3xTF32 route's pre-pass: ``(qs, ks, vt)``,
+    float32 planes ``[2, rows, 32 G]`` of q's and k's hi and lo parts
+    (zero columns past D), and ``[2, 32 G, ld_k]`` of v's transposed, with
+    G = :func:`tf32_groups`, ``ld_k`` = ``sl_k`` rounded up to 8, zeros past
+    Dv and ``sl_k``, and the keys of each 8-key group in the order
+    (0, 2, 4, 6, 1, 3, 5, 7): the A fragment of a TF32 ``wgmma`` holds
+    keys t and t + 4 of a k-step where the score accumulator holds 2t and
+    2t + 1."""
+    (sl_k, dv), dim = v_c.shape, q.shape[1]
+    cols = 32 * tf32_groups(dim, dv)
+    ld_k = -(-sl_k // 8) * 8
+    qf, kf, vf = (t.float() for t in (q, k_c, v_c))
+    qs = torch.stack(tf32_parts(F.pad(qf, (0, cols - dim))))
+    ks = torch.stack(tf32_parts(F.pad(kf, (0, cols - dim))))
+    vt = F.pad(vf, (0, cols - dv, 0, ld_k - sl_k)).T
+    # The order by arithmetic, on v's device (no host copy: this runs
+    # inside CUDA graph captures when timed): position t of a group holds
+    # key 2t for t < 4, else 2t - 7.
+    pos = torch.arange(ld_k, device=vt.device)
+    t = pos % 8
+    order = pos - t + torch.where(t < 4, 2 * t, 2 * t - 7)
+    vt = torch.stack(tf32_parts(vt[:, order].contiguous()))
+    return qs, ks, vt
+
+
+def tf32_split(q, k_c, v_c):
+    """The 3xTF32 route's pre-pass: its kernel on CUDA tensors (one launch,
+    counted in ``LAUNCHES["tf32_split"]``), :func:`tf32_split_reference`
+    on CPU tensors."""
+    if q.device.type == "cpu":
+        return tf32_split_reference(q, k_c, v_c)
+    if not q.is_cuda:
+        raise ValueError(f"no tf32_split for device {q.device}")
+    if any(t.dtype != torch.float32 for t in (q, k_c, v_c)):
+        raise TypeError("tf32_split takes float32 q, k_c and v_c")
+    if q.dim() != 2 or v_c.dim() != 2 or k_c.shape != (v_c.shape[0],
+                                                        q.shape[1]):
+        raise ValueError(f"tf32_split takes q [rows, D], k_c [keys, D] and "
+                         f"v_c [keys, Dv]; got {tuple(q.shape)}, "
+                         f"{tuple(k_c.shape)}, {tuple(v_c.shape)}")
+    (sl_q, dim), (sl_k, dv) = q.shape, v_c.shape
+    groups = tf32_groups(dim, dv)
+    if groups > TF32_MAX_DIM // 32:
+        raise ValueError(f"tf32_split takes D and Dv up to {TF32_MAX_DIM}, "
+                         f"got {dim} and {dv}")
+    q, k_c, v_c = (t.contiguous() for t in (q, k_c, v_c))
+    ld_k = -(-sl_k // 8) * 8
+    qs = torch.empty(2, sl_q, 32 * groups, device=q.device)
+    ks = torch.empty(2, sl_k, 32 * groups, device=q.device)
+    vt = torch.empty(2, 32 * groups, ld_k, device=q.device)
+    fn = _build.function(SOURCES[F32_ROUTE], "tf32_split",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6
+                         + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), qs.data_ptr(),
+                ks.data_ptr(), vt.data_ptr(), sl_q, sl_k, dim, dv, groups,
+                ld_k, _build.stream(q))
+    _build.raise_if_failed(SPLIT_KERNEL, rc)
+    LAUNCHES[SPLIT_KERNEL] += 1
+    return qs, ks, vt
+
+
 # -- K5 -----------------------------------------------------------------------
 
 def flash_hop_update_cuda(q, k_c, v_c, m, l, acc, q_off: Offset,
                           k_off: Offset, scale: float, causal: bool = False):
     """Launch K5; returns new float32 tensors ``(m, l, acc)``.
 
-    ``q``, ``k_c``, ``v_c`` are one type: bfloat16 runs the Hopper route
-    (``csrc/flash_hop_sm90.cu``), float32 the CUDA-core route
-    (``csrc/flash_hop.cu``); the carry is float32. ``D`` and ``Dv`` are at
-    most :data:`MAX_DIM`. Raises on an operand K5 does not take and when
-    the launch reports an error."""
+    ``q``, ``k_c``, ``v_c`` are one type, and :func:`route` picks the route
+    by type and head dims: bfloat16 runs ``csrc/flash_hop_sm90.cu``,
+    float32 with D and Dv at most :data:`TF32_MAX_DIM` the 3xTF32 route
+    (``csrc/flash_hop_tf32.cu``: the pre-pass :func:`tf32_split`, then the
+    hop), wider float32 the CUDA-core route (``csrc/flash_hop.cu``); the
+    carry is float32. ``D`` and ``Dv`` are at most :data:`MAX_DIM`. Raises
+    on an operand K5 does not take and when a launch reports an error."""
     _check_hop(q, k_c, v_c, m, l, acc)
-    if q.dtype not in ROUTES or k_c.dtype != q.dtype \
-            or v_c.dtype != q.dtype:
-        raise TypeError(f"K5 takes q, k_c and v_c of one type, float32 or "
-                        f"bfloat16; got {q.dtype}, {k_c.dtype}, {v_c.dtype}")
+    if k_c.dtype != q.dtype or v_c.dtype != q.dtype:
+        raise TypeError(f"K5 takes q, k_c and v_c of one type; got "
+                        f"{q.dtype}, {k_c.dtype}, {v_c.dtype}")
     if any(t.dtype != torch.float32 for t in (m, l, acc)):
         raise TypeError("K5 takes a float32 carry (m, l, acc)")
     dim, dv = q.shape[1], v_c.shape[1]
+    name = route(q.dtype, dim, dv)
     if dim > MAX_DIM or dv > MAX_DIM:
         raise ValueError(f"K5 takes D and Dv up to {MAX_DIM}, got {dim} and "
                          f"{dv}")
@@ -350,20 +516,21 @@ def flash_hop_update_cuda(q, k_c, v_c, m, l, acc, q_off: Offset,
     q_off, k_off = _offset(q_off), _offset(k_off)
     m, l, acc = (t.contiguous() for t in (m, l, acc))
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
-    launch = _launch_sm90 if q.dtype == torch.bfloat16 else _launch_f32
+    launch = {BF16_ROUTE: _launch_sm90, F32_ROUTE: _launch_tf32,
+              F32_WIDE_ROUTE: _launch_f32_wide}[name]
     with torch.cuda.device(q.device):
         rc = launch(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off,
                     k_off, float(scale), int(bool(causal)))
-    _build.raise_if_failed(ROUTES[q.dtype], rc)
+    _build.raise_if_failed(name, rc)
     LAUNCHES[KERNEL] += 1
-    LAUNCHES[ROUTES[q.dtype]] += 1
+    LAUNCHES[name] += 1
     return m_out, l_out, acc_out
 
 
-def _launch_f32(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
-                scale, causal) -> int:
+def _launch_f32_wide(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off,
+                     k_off, scale, causal) -> int:
     q, k_c, v_c = (t.contiguous() for t in (q, k_c, v_c))
-    fn = _build.function(SOURCES[ROUTES[torch.float32]], "flash_hop",
+    fn = _build.function(SOURCES[F32_WIDE_ROUTE], "flash_hop",
                          [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn(q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), m.data_ptr(),
@@ -391,20 +558,35 @@ def _tma_operand(t: torch.Tensor, cols: int) -> torch.Tensor:
 _SCHEDULES: dict = {}
 
 
-def _device_schedule(dev, sl_q, sl_k, q_off, k_off, causal, bk):
+def _device_schedule(dev, sl_q, sl_k, q_off, k_off, causal, bk,
+                     bq=SM90_BLOCK_Q):
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    key = (dev, sl_q, sl_k, q_off, k_off, bool(causal), bk, n_sm)
+    key = (dev, sl_q, sl_k, q_off, k_off, bool(causal), bq, bk, n_sm)
     hit = _SCHEDULES.get(key)
     if hit is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("K5's work list for this hop is not on the card "
                                "yet: call the hop once before capturing it")
-        sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, bk, n_sm)
+        sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, bk, n_sm, bq)
         if len(_SCHEDULES) >= 64:
             _SCHEDULES.clear()
         hit = (torch.from_numpy(sched.table).to(dev), sched)
         _SCHEDULES[key] = hit
     return hit
+
+
+def _workspace(sched, block_q, acc_cols, dev):
+    """The partial carries (``n_slots`` x ``block_q`` x (2 + ``acc_cols``)
+    float32) and the tickets (one int32 per query tile, zeroed) of split
+    query tiles. Freed when the launch returns: the caching allocator
+    hands the blocks only to work queued after the kernel on the same
+    stream."""
+    part = torch.empty(max(1, sched.n_slots * block_q * (2 + acc_cols)),
+                       dtype=torch.float32, device=dev)
+    tickets = (torch.zeros(sched.n_q_tiles, dtype=torch.int32, device=dev)
+               if sched.n_slots else torch.empty(1, dtype=torch.int32,
+                                                  device=dev))
+    return part, tickets
 
 
 def _launch_sm90(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
@@ -416,15 +598,8 @@ def _launch_sm90(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
     v_c = _tma_operand(v_c, ld_v)
     table, sched = _device_schedule(q.device, sl_q, sl_k, q_off, k_off,
                                     causal, bk)
-    # The partial carries and the tickets of split query tiles. Freed when
-    # this returns: the caching allocator hands the blocks only to work
-    # queued after the kernel on the same stream.
-    part = torch.empty(max(1, sched.n_slots * SM90_BLOCK_Q * (2 + 64 * groups)),
-                       dtype=torch.float32, device=q.device)
-    tickets = (torch.zeros(sched.n_q_tiles, dtype=torch.int32,
-                           device=q.device) if sched.n_slots
-               else torch.empty(1, dtype=torch.int32, device=q.device))
-    fn = _build.function(SOURCES[ROUTES[torch.bfloat16]], "flash_hop_sm90",
+    part, tickets = _workspace(sched, SM90_BLOCK_Q, 64 * groups, q.device)
+    fn = _build.function(SOURCES[BF16_ROUTE], "flash_hop_sm90",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
                          + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
@@ -435,6 +610,28 @@ def _launch_sm90(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
               l_out.data_ptr(), acc_out.data_ptr(), sl_q, sl_k, q_off, k_off,
               scale, causal, table.data_ptr(), sched.n_cta, part.data_ptr(),
               tickets.data_ptr(), bk, _build.stream(q))
+
+
+def _launch_tf32(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
+                 scale, causal) -> int:
+    (sl_q, dim), (sl_k, dv) = q.shape, v_c.shape
+    groups = tf32_groups(dim, dv)
+    qs, ks, vt = tf32_split(q, k_c, v_c)
+    table, sched = _device_schedule(q.device, sl_q, sl_k, q_off, k_off,
+                                    causal, TF32_BLOCK_K, TF32_BLOCK_Q)
+    part, tickets = _workspace(sched, TF32_BLOCK_Q, 32 * groups, q.device)
+    fn = _build.function(SOURCES[F32_ROUTE], "flash_hop_tf32",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                         + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return fn(qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), groups,
+              vt.shape[2], dv, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+              m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(), sl_q,
+              sl_k, q_off, k_off, scale, causal, table.data_ptr(),
+              sched.n_cta, part.data_ptr(), tickets.data_ptr(), TF32_BLOCK_Q,
+              TF32_BLOCK_K, _build.stream(q))
 
 
 # -- gradient -----------------------------------------------------------------

@@ -239,8 +239,9 @@ def test_cuda_wrapper_refuses_what_k5_cannot_take():
 def test_sources_name_every_kernel_source():
     built = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert tops.SOURCES == built
-    assert {"flash_hop", "flash_hop_sm90"} <= set(tops.SOURCES)
-    assert set(tattn.SOURCES) == set(tattn.ROUTES.values())
+    assert {"flash_hop", "flash_hop_sm90", "flash_hop_tf32"} <= set(
+        tops.SOURCES)
+    assert set(tattn.SOURCES) == set(tattn.ROUTES)
 
 
 # -- the bf16 route: work list and plain model --------------------------------
