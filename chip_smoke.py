@@ -755,13 +755,15 @@ def f32_route_times(torch, attn, rate, name) -> dict:
 
 
 def check_tf32_split(torch, attn, rate) -> dict:
-    """The 3xTF32 route's pre-pass against its plain version, bit for bit:
-    ragged shapes (1000 x 72 q, 777 x 72 k, 777 x 40 v) holding normal
-    values, both zeros, negatives, exact rounding ties of the hi and of the
-    lo part, values that round up into the next binade and subnormals;
-    then its device time at the training shape (S = 8192, D = Dv = 128)
-    beside the plain version and the bound (bytes: q, k, v read once,
-    their planes written once)."""
+    """The 3xTF32 routes' pre-pass against its plain version, bit for bit:
+    ragged shapes for G = 3, 5, 6, 7 and 8 groups of 32 columns (1000 x 72
+    q, 777 x 72 k, 777 x 40 v; 300 x 150 q with 261-key k and v of 150,
+    130, 180, 200 and 256 columns) holding normal values, both zeros,
+    negatives, exact rounding ties of the hi and of the lo part, values
+    that round up into the next binade and subnormals; then its device
+    time at the training shape (S = 8192, D = Dv = 128) beside the plain
+    version and the bound (bytes: q, k, v read once, their planes written
+    once)."""
     rng = np.random.default_rng(50)
 
     def edge(rows, cols):
@@ -780,14 +782,20 @@ def check_tf32_split(torch, attn, rate) -> dict:
         bits.flat[picks[5]] ^= np.uint32(0x80000000)   # sign flips
         return torch.from_numpy(x).cuda()
 
-    q, k, v = edge(1000, 72), edge(777, 72), edge(777, 40)
-    got = attn.tf32_split(q, k, v)
-    want = attn.tf32_split_reference(q, k, v)
-    torch.cuda.synchronize()
-    same = all(g.shape == w.shape and torch.equal(
-        g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
-    diffs = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
-                for g, w in zip(got, want) if g.shape == w.shape)
+    same, diffs, groups = True, 0, []
+    for (sl_q, sl_k, dim, dv) in ((1000, 777, 72, 40), (300, 261, 150, 130),
+                                  (300, 261, 150, 180), (300, 261, 150, 200),
+                                  (300, 261, 150, 256)):
+        q, k, v = edge(sl_q, dim), edge(sl_k, dim), edge(sl_k, dv)
+        got = attn.tf32_split(q, k, v)
+        want = attn.tf32_split_reference(q, k, v)
+        torch.cuda.synchronize()
+        groups.append(attn.tf32_groups(dim, dv))
+        same = same and all(g.shape == w.shape and torch.equal(
+            g.view(torch.int32), w.view(torch.int32))
+            for g, w in zip(got, want))
+        diffs += sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                     for g, w in zip(got, want) if g.shape == w.shape)
     q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
                            torch.float32, "initial", 41)[:3]
     ms = time_ms(torch, lambda: attn.tf32_split(q, k, v))
@@ -796,7 +804,8 @@ def check_tf32_split(torch, attn, rate) -> dict:
     nbytes = 3 * ATTN_S * ATTN_D * 4 * 3
     bound_ms, bound_by = bound(nbytes, 0, rate)
     log(f"[attention] tf32_split: kernel vs plain bit-equal {same} "
-        f"({diffs} words differ) on ragged edge values; at S={ATTN_S} "
+        f"({diffs} words differ) on ragged edge values at G = {groups}; at "
+        f"S={ATTN_S} "
         f"D=Dv={ATTN_D}: {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
         f"{bound_ms:.5f} ms ({nbytes} bytes, bound by {bound_by}); reaches "
         f"{bound_ms / ms:.4f} of its bound")
@@ -808,11 +817,13 @@ def check_tf32_split(torch, attn, rate) -> dict:
 
 
 def f32_wide_run(torch, attn, rate, name) -> dict:
-    """The CUDA-core route's run: 3 ``flash_attention`` calls at S = 2048,
-    D = Dv = 256, f32, causal (heads wider than the 3xTF32 route takes),
-    launches counted from 0, finite [S, Dv] outputs; then the device time
-    of one call beside the plain version, SDPA and the bound at the TF32
-    rate for three products (the f32-rate bound printed beside it)."""
+    """The wide f32 route's run: 3 ``flash_attention`` calls at S = 2048,
+    D = Dv = 256, f32, causal (heads wider than ``flash_hop[f32]`` takes),
+    launches counted from 0 (3 of ``flash_hop[f32-wide]``, 3 of its
+    pre-pass), finite [S, Dv] outputs; then the device time of one call
+    and of its pre-pass alone beside the plain version, SDPA in f32 and
+    the bound at the TF32 rate for three products (the f32-rate bound
+    printed beside it)."""
     import torch.nn.functional as F
     s_len, dim = 2048, 256
     q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim,
@@ -822,6 +833,7 @@ def f32_wide_run(torch, attn, rate, name) -> dict:
     torch.cuda.synchronize()
     launches = dict(attn.LAUNCHES)
     if launches.get(attn.F32_WIDE_ROUTE) != 3 or launches.get(
+            attn.SPLIT_KERNEL) != 3 or launches.get(
             attn.F32_ROUTE) or not all(
             o.shape == (s_len, dim) and bool(torch.isfinite(o).all())
             for o in outs):
@@ -829,6 +841,7 @@ def f32_wide_run(torch, attn, rate, name) -> dict:
                            "calls, or its output is not finite [S, Dv]")
     ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True),
                  iters=10)
+    split_ms = time_ms(torch, lambda: attn.tf32_split(q, k, v), iters=10)
     plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(
         q, k, v, causal=True), iters=10)
     q4, k4, v4 = (t[None, None] for t in (q, k, v))
@@ -839,13 +852,99 @@ def f32_wide_run(torch, attn, rate, name) -> dict:
     f32_rate_ms = attention_bound(rate, FP32_FLOPS, s_len, dim, True, 4)[0]
     log(f"[attention] wide f32 run S={s_len} D=Dv={dim} causal: "
         f"{launches.get(attn.F32_WIDE_ROUTE)} launches of "
-        f"{attn.F32_WIDE_ROUTE} in 3 calls; flash_attention {ms:.5f} ms, "
-        f"plain {plain_ms:.5f} ms, SDPA f32 {sdpa_ms:.5f} ms; bound "
-        f"{bound_ms:.5f} ms (3 x {flops} flops at the TF32 rate), "
-        f"{f32_rate_ms:.5f} ms at the f32 rate")
+        f"{attn.F32_WIDE_ROUTE} and {launches.get(attn.SPLIT_KERNEL)} of "
+        f"{attn.SPLIT_KERNEL} in 3 calls; flash_attention {ms:.5f} ms "
+        f"(pre-pass alone {split_ms:.5f} ms), plain {plain_ms:.5f} ms, SDPA "
+        f"f32 {sdpa_ms:.5f} ms; bound {bound_ms:.5f} ms (3 x {flops} flops "
+        f"at the TF32 rate), {f32_rate_ms:.5f} ms at the f32 rate; K5 "
+        f"reaches {bound_ms / ms:.4f} of its bound")
     return dict(launches=launches[attn.F32_WIDE_ROUTE], ms=ms,
                 plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_f32_rate_ms=f32_rate_ms)
+                bound_by=bound_by, bound_f32_rate_ms=f32_rate_ms,
+                split_ms=split_ms)
+
+
+def check_f32_wide(torch, attn) -> dict:
+    """Every instance of the wide f32 route against the plain version
+    (:func:`check_hop`): G = 5 (Dv 150, D not a multiple of 8), 6 (D 64,
+    Dv 180: D <= 128 < Dv), 7 (D 200, Dv 40: Dv <= 128 < D) and 8 (Dv 256,
+    16-key tiles; the others take 32-key tiles); ragged and causal at
+    G = 7; wholly masked rows and a hop whose two 64-row query tiles are
+    each cut into many pieces merged in the launch, at G = 8. Returns the
+    Dv 256 case's numbers."""
+    f32 = torch.float32
+    check_hop(torch, attn, "Dv 150", 1000, 777, 150, 150, f32, False,
+              (0, 0), "mid", 30)
+    check_hop(torch, attn, "G 6 D 64", 300, 500, 64, 180, f32, True,
+              (200, 0), "mid", 36)
+    check_hop(torch, attn, "G 7 Dv 40", 300, 500, 200, 40, f32, False,
+              (0, 0), "initial", 37)
+    check_hop(torch, attn, "ragged", 1000, 777, 200, 200, f32, True,
+              (300, 0), "mid", 38)
+    check_hop(torch, attn, "masked rows", 256, 256, 256, 256, f32, True,
+              (0, 128), "mid", 39, masked_rows=128)
+    sched = attn.hop_schedule(128, 4096, 4096, 0, True,
+                              attn.tf32_tiles(256, 256)[1],
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count,
+                              attn.TF32_WIDE_BLOCK_Q)
+    pieces = min(it[4] for it in sched.items)
+    if pieces < 3:
+        raise RuntimeError("the wide split case cut a query tile into fewer "
+                           "than 3 pieces")
+    check_hop(torch, attn, f"split ({pieces}+ pieces a tile)", 128, 4096,
+              256, 256, f32, True, (4096, 0), "mid", 43)
+    return check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, f32, True,
+                     (300, 0), "mid", 32)
+
+
+def check_graph_replay(torch, attn) -> None:
+    """K5's work list outlives a CUDA graph that captured it: capture one
+    hop (a wide f32 one and a bf16 one), call 70 hops of other offsets
+    (each a work list of its own), allocate blocks of the table's size
+    filled with -1, replay the graph and compare its output with an eager
+    call of the same hop, bit for bit."""
+    for label, dim, dtype, seed in (("f32-wide", 256, torch.float32, 44),
+                                    ("bf16", 128, torch.bfloat16, 45)):
+        ops = hop_operands(torch, attn, 300, 500, dim, dim, dtype, "mid",
+                           seed)
+        scale = 1.0 / float(np.sqrt(dim))
+
+        def hop(q_off=400):
+            return attn.flash_hop_update_cuda(*ops, q_off, 0, scale, True)
+
+        hop()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            hop()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            captured = hop()
+        cached = len(attn._SCHEDULES)
+        for i in range(70):
+            hop(1000 + 7 * i)
+        torch.cuda.synchronize()
+        n_ints = max(t.numel() for t, _ in attn._SCHEDULES.values())
+        junk = [torch.full((n_ints,), -1, dtype=torch.int32, device="cuda")
+                for _ in range(4000)]
+        graph.replay()
+        torch.cuda.synchronize()
+        want = hop()
+        torch.cuda.synchronize()
+        diff = max(float((g - w).abs().max()) for g, w in zip(captured, want))
+        log(f"[attention] graph replay ({label}, {attn.route(dtype, dim, dim)}"
+            f"): captured one hop with {cached} work lists cached, called 70 "
+            f"other hops ({len(attn._SCHEDULES)} cached), allocated "
+            f"{len(junk)} blocks of {n_ints} int32 = -1; replay vs eager max "
+            f"abs diff {diff}")
+        if diff != 0.0 or not all(bool(torch.isfinite(t).all())
+                                  for t in captured):
+            raise RuntimeError(f"a replayed {label} hop disagrees with the "
+                               "eager call: its work list was not kept")
+        del junk, graph, captured
 
 
 def check_split(torch, attn, seed) -> dict:
@@ -898,22 +997,21 @@ def attention_phase(torch, rate: float, name: str):
                   True, (0, 128), "mid", 27, masked_rows=128)
     check_split(torch, attn, 34)
     # Every instance of each route: the bf16 route's 64-column groups
-    # G = 1-4 (128-key tiles up to G = 2, 64-key tiles above), the 3xTF32
-    # route's 32-column groups G = 1-4 (D = Dv = 32 the demo's own shape,
-    # 72 ragged above, 128 the bench cases), the wide f32 route's input x
-    # Dv in groups of 64: Dv = 150 (D not a multiple of 8: padded
-    # columns) and Dv = 256 (the most shared memory).
+    # G = 1-4 (128-key tiles up to G = 2, 64-key tiles above: D = 32, 150
+    # and 256 here), the 3xTF32 route's 32-column groups G = 1-4 (D = Dv =
+    # 32 the demo's own shape, 72 ragged above, 128 the bench cases), the
+    # wide f32 route's G = 5-8 (check_f32_wide).
     check_hop(torch, attn, "G 2", 300, 200, 64, 40, torch.float32, True,
               (100, 0), "mid", 35)
-    errs_256 = {}
     for seed, dtype in enumerate((torch.float32, bf16), start=28):
         check_hop(torch, attn, "demo shape", 256, 256, 32, 32, dtype, False,
                   (0, 0), "initial", seed)
-        check_hop(torch, attn, "Dv 150", 1000, 777, 150, 150, dtype, False,
-                  (0, 0), "mid", seed + 2)
-        errs_256[dtype] = check_hop(torch, attn, "Dv 256", 1000, 777, 256,
-                                    256, dtype, True, (300, 0), "mid",
-                                    seed + 4)
+    check_hop(torch, attn, "Dv 150", 1000, 777, 150, 150, bf16, False,
+              (0, 0), "mid", 31)
+    check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, bf16, True,
+              (300, 0), "mid", 33)
+    wide_256 = check_f32_wide(torch, attn)
+    check_graph_replay(torch, attn)
 
     # The bf16 route's main run: flash_attention at the bench shape, as the
     # JAX bench calls it, with the launches counted; then its device time
@@ -1015,13 +1113,56 @@ def attention_phase(torch, rate: float, name: str):
              "source": "gossipy_tpu_torch/csrc/flash_hop_tf32.cu",
              "replaces": replaces, "launches": split_launches, **split},
             {"name": wide_route, "route": "cuda",
-             "source": "gossipy_tpu_torch/csrc/flash_hop.cu",
+             "source": "gossipy_tpu_torch/csrc/flash_hop_tf32_wide.cu",
              "replaces": replaces, "launches": wide["launches"],
-             "max_abs_err": errs_256[torch.float32]["max_abs_err"],
+             "max_abs_err": wide_256["max_abs_err"],
              "ms": wide["ms"],
              "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
              "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
              "bound_f32_rate_ms": wide["bound_f32_rate_ms"]}]
+
+
+def f32_wide_variants(torch, attn, rate, name) -> None:
+    """The wide f32 route's two designs, each first held to every check of
+    :func:`check_f32_wide`, then timed in turns 1, 2, 2, 1 through
+    ``flash_attention`` (pre-pass included): one consumer warpgroup per
+    64 query rows holding all of acc's columns (``TF32_WIDE_COL_SPLIT =
+    1``) against two that cut them in halves and both compute S (2), at
+    S = 2048 causal and S = 8192 non-causal and causal, D = Dv = 256, f32,
+    beside SDPA in f32 and the 3xTF32 bound. Leaves the module's choice as
+    it found it."""
+    import torch.nn.functional as F
+    chosen = attn.TF32_WIDE_COL_SPLIT
+    try:
+        for split in (1, 2):
+            attn.TF32_WIDE_COL_SPLIT = split
+            log(f"[diagnostics] wide f32 route, col_split {split}: checks")
+            check_f32_wide(torch, attn)
+        tf32_rate = tensor_rate(name) * TF32_PER_BF16
+        for s_len, causal in ((2048, True), (8192, False), (8192, True)):
+            q, k, v = hop_operands(torch, attn, s_len, s_len, 256, 256,
+                                   torch.float32, "initial", 46)[:3]
+            times = {1: [], 2: []}
+            for split in (1, 2, 2, 1):
+                attn.TF32_WIDE_COL_SPLIT = split
+                times[split].append(time_ms(
+                    torch, lambda: attn.flash_attention(q, k, v,
+                                                        causal=causal),
+                    iters=10))
+            q4, k4, v4 = (t[None, None] for t in (q, k, v))
+            sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), iters=10)
+            bound_ms = attention_bound(rate, tf32_rate / 3, s_len, 256,
+                                       causal, 4)[0]
+            log(f"[diagnostics] wide f32 S={s_len} D=Dv=256 causal={causal}: "
+                f"flash_attention col_split 1 "
+                f"{', '.join(f'{t:.5f}' for t in times[1])} ms, col_split 2 "
+                f"{', '.join(f'{t:.5f}' for t in times[2])} ms; SDPA f32 "
+                f"{sdpa_ms:.5f} ms; bound {bound_ms:.5f} ms")
+            del q, k, v, q4, k4, v4
+            torch.cuda.empty_cache()
+    finally:
+        attn.TF32_WIDE_COL_SPLIT = chosen
 
 
 def bench_task(torch, demo):
@@ -1041,11 +1182,12 @@ def attention_diagnostics(torch) -> None:
     with the bf16 route and SDPA, and their non-causal/causal ratios (twice
     the pairs: a balanced causal schedule takes about half the non-causal
     time); the 3xTF32 route at the training shape beside SDPA in f32, its
-    pre-pass alone and its bare hop (causal and not); the host-clock time
-    and peak memory of 3 training steps at S = 8192,
-    D = 128, f32, in turns plain, K5, K5, plain (so neither side alone pays
-    the first use of the backward's shapes); and one profiled step with
-    K5."""
+    pre-pass alone and its bare hop (causal and not); the wide f32 route's
+    two designs in turns at D = 256, S = 2048 and 8192, beside SDPA in f32
+    (:func:`f32_wide_variants`); the host-clock time and peak memory of 3
+    training steps at S = 8192, D = 128, f32, in turns plain, K5, K5,
+    plain (so neither side alone pays the first use of the backward's
+    shapes); and one profiled step with K5."""
     import torch.nn.functional as F
 
     from gossipy_tpu_torch.examples import demo_ring_attention as demo
@@ -1097,6 +1239,7 @@ def attention_diagnostics(torch) -> None:
         f"{hop32_ms:.5f} ms, causal {hop32_c_ms:.5f} ms")
     del q, k, v, m, l, acc
     torch.cuda.empty_cache()
+    f32_wide_variants(torch, attn, memory_rate(name), name)
 
     start, x, tgt = bench_task(torch, demo)
 

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the flash-hop kernels written
-// for the tensor cores (flash_hop_sm90.cu, bfloat16; flash_hop_tf32.cu,
+// for the tensor cores (flash_hop_sm90.cu, bfloat16; flash_hop_tf32.cuh,
 // float32 as 3xTF32): mbarriers, TMA loads, wgmma descriptors and fences,
 // quad reductions over the four threads of an accumulator row, and tensor
 // maps encoded through the driver entry point looked up at run time (so a
@@ -89,6 +89,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The same for a 64B-swizzled operand (rows of 64 bytes, 8-row atoms of
+// 512 bytes): layout type 2 (B64).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -145,19 +154,20 @@ inline EncodeTiled encode_tiled() {
 
 // A row-major tensor of `rank` (2 or 3) dimensions, dims[0] the contiguous
 // one (elements) and strides[i] the byte stride of dims[i + 1], cut in
-// boxes of 128 bytes by box[1] rows (by one plane), 128B-swizzled in shared
-// memory; out-of-bounds reads are 0. Returns 0, or 10000 plus the CUresult.
+// boxes of box[0] elements (at most the swizzle's width in bytes) by box[1]
+// rows (by one plane), swizzled in shared memory (128B unless asked);
+// out-of-bounds reads are 0. Returns 0, or 10000 plus the CUresult.
 inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                       const void* ptr, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return 10000 + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
                         dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }

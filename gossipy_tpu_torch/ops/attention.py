@@ -26,12 +26,13 @@ operands' type and head dims (:func:`route`): bfloat16 q, k, v go to
 :data:`TF32_MAX_DIM` to ``csrc/flash_hop_tf32.cu`` (``flash_hop[f32]``:
 the same machinery with each product as three TF32 products, after the
 split pre-pass :func:`tf32_split`, which that source also holds); float32
-ones with D or Dv above it, up to :data:`MAX_DIM`, to ``csrc/flash_hop.cu``
-(``flash_hop[f32-wide]``, CUDA cores). Any other type raises. On CPU
+ones with D or Dv above it, up to :data:`MAX_DIM`, to
+``csrc/flash_hop_tf32_wide.cu`` (``flash_hop[f32-wide]``: the same
+pre-pass and kernel on 64-row query tiles). Any other type raises. On CPU
 tensors :func:`flash_hop_update` runs the plain version of the kernel,
 :func:`flash_hop_update_reference`, which streams over key blocks of
 ``block_k`` as the TPU kernel does. :func:`flash_hop_update_split_reference`
-and :func:`flash_hop_update_tf32_reference` are plain models of the two
+and :func:`flash_hop_update_tf32_reference` are plain models of the
 tensor-core routes' own arithmetic (their work lists and tiles, the split
 of their operands, partial carries merged); the CPU tests use them, the
 card's path does not. On CUDA tensors K5 launches or raises. Every launch
@@ -73,7 +74,7 @@ BF16_ROUTE, F32_ROUTE, F32_WIDE_ROUTE = ("flash_hop[bf16]", "flash_hop[f32]",
                                          "flash_hop[f32-wide]")
 # The csrc/ source (without .cu) that holds each route's entry point.
 SOURCES = {BF16_ROUTE: "flash_hop_sm90", F32_ROUTE: "flash_hop_tf32",
-           F32_WIDE_ROUTE: "flash_hop"}
+           F32_WIDE_ROUTE: "flash_hop_tf32_wide"}
 ROUTES = tuple(SOURCES)
 MAX_DIM = 256      # D and Dv up to this, on every route
 # float32 heads up to this wide take the 3xTF32 route.
@@ -82,10 +83,17 @@ TF32_MAX_DIM = 128
 # item; key tiles of 128 rows while D and Dv fit two 64-column groups, of 64
 # above.
 SM90_BLOCK_Q = 128
-# The 3xTF32 route's tiles (csrc/flash_hop_tf32.cu): 128 query rows per
-# work item (two warpgroups of 64), 32-key tiles.
+# The 3xTF32 routes' tiles (csrc/flash_hop_tf32.cuh). Up to TF32_MAX_DIM:
+# 128 query rows per work item (two warpgroups of 64), 32-key tiles. Wider
+# (flash_hop[f32-wide]): 64 query rows, since the hi and lo planes of a
+# 128-row tile of 256 columns alone would pass a block's 227 KB of shared
+# memory; 32-key tiles up to G = 7 32-column groups, 16-key tiles at G = 8.
 TF32_BLOCK_Q = 128
 TF32_BLOCK_K = 32
+TF32_WIDE_BLOCK_Q = 64
+# Consumer warpgroups on each 64 query rows of the wide route: 1 holds all
+# of acc's columns; 2 cut them in halves and both compute S.
+TF32_WIDE_COL_SPLIT = 1
 H100_SMS = 132
 
 Offset = Union[int, torch.Tensor]
@@ -210,11 +218,20 @@ def tf32_groups(dim: int, dv: int) -> int:
     return -(-max(dim, dv) // 32)
 
 
+def tf32_tiles(dim: int, dv: int):
+    """``(block_q, block_k)`` of the 3xTF32 route that takes float32 heads
+    ``dim`` and ``dv``: its query rows per work item and key-tile rows."""
+    groups = tf32_groups(dim, dv)
+    if groups <= TF32_MAX_DIM // 32:
+        return TF32_BLOCK_Q, TF32_BLOCK_K
+    return TF32_WIDE_BLOCK_Q, (32 if groups < MAX_DIM // 32 else 16)
+
+
 def route(dtype: torch.dtype, dim: int, dv: int) -> str:
     """K5's route for operands of ``dtype`` and head dims ``dim``, ``dv``
     (up to :data:`MAX_DIM`): bfloat16 → ``flash_hop[bf16]``; float32 with
-    both at most :data:`TF32_MAX_DIM` → ``flash_hop[f32]`` (3xTF32), wider
-    float32 → ``flash_hop[f32-wide]``. Raises on any other type."""
+    both at most :data:`TF32_MAX_DIM` → ``flash_hop[f32]``, wider float32
+    → ``flash_hop[f32-wide]`` (both 3xTF32). Raises on any other type."""
     if dtype == torch.bfloat16:
         return BF16_ROUTE
     if dtype == torch.float32:
@@ -407,19 +424,23 @@ def flash_hop_update_tf32_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
                                     causal: bool = False,
                                     n_sm: int = H100_SMS,
                                     low_parts: bool = True):
-    """Plain PyTorch model of the 3xTF32 route's arithmetic, for float32
-    operands: its work list and tiles (:data:`TF32_BLOCK_Q` query rows,
-    :data:`TF32_BLOCK_K`-key tiles), and both products as
+    """Plain PyTorch model of the 3xTF32 routes' arithmetic, for float32
+    operands: the work list and tiles of the route that takes these head
+    dims (:func:`tf32_tiles`: ``flash_hop[f32]`` or
+    ``flash_hop[f32-wide]``), and both products as
     ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` of TF32 parts
     (:func:`tf32_parts`), ``q k^T`` from the split operands and ``p v``
-    with ``p`` split in the same way. ``low_parts=False`` drops the low
-    parts: one plain TF32 product each. Float32; returns ``(m, l, acc)``."""
+    with ``p`` split in the same way. A kernel that cuts ``acc``'s columns
+    between warpgroups computes each column as here. ``low_parts=False``
+    drops the low parts: one plain TF32 product each. Float32; returns
+    ``(m, l, acc)``."""
     def parts(x):
         return tf32_parts(x) if low_parts else (tf32_round(x), None)
 
+    block_q, block_k = tf32_tiles(q.shape[1], v_c.shape[1])
     return _scheduled_hop(
         q, k_c, v_c, m, l, acc, q_off, k_off, scale, causal, n_sm,
-        TF32_BLOCK_Q, TF32_BLOCK_K,
+        block_q, block_k,
         lambda a, b: _tf32x3(parts(a), parts(b.T.contiguous())),
         lambda p, v: _tf32x3(parts(p), parts(v)))
 
@@ -467,9 +488,9 @@ def tf32_split(q, k_c, v_c):
                          f"{tuple(k_c.shape)}, {tuple(v_c.shape)}")
     (sl_q, dim), (sl_k, dv) = q.shape, v_c.shape
     groups = tf32_groups(dim, dv)
-    if groups > TF32_MAX_DIM // 32:
-        raise ValueError(f"tf32_split takes D and Dv up to {TF32_MAX_DIM}, "
-                         f"got {dim} and {dv}")
+    if groups > MAX_DIM // 32:
+        raise ValueError(f"tf32_split takes D and Dv up to {MAX_DIM}, got "
+                         f"{dim} and {dv}")
     q, k_c, v_c = (t.contiguous() for t in (q, k_c, v_c))
     ld_k = -(-sl_k // 8) * 8
     qs = torch.empty(2, sl_q, 32 * groups, device=q.device)
@@ -495,9 +516,9 @@ def flash_hop_update_cuda(q, k_c, v_c, m, l, acc, q_off: Offset,
 
     ``q``, ``k_c``, ``v_c`` are one type, and :func:`route` picks the route
     by type and head dims: bfloat16 runs ``csrc/flash_hop_sm90.cu``,
-    float32 with D and Dv at most :data:`TF32_MAX_DIM` the 3xTF32 route
-    (``csrc/flash_hop_tf32.cu``: the pre-pass :func:`tf32_split`, then the
-    hop), wider float32 the CUDA-core route (``csrc/flash_hop.cu``); the
+    float32 one of the 3xTF32 routes (the pre-pass :func:`tf32_split`,
+    then the hop of ``csrc/flash_hop_tf32.cu`` with D and Dv at most
+    :data:`TF32_MAX_DIM`, of ``csrc/flash_hop_tf32_wide.cu`` above); the
     carry is float32. ``D`` and ``Dv`` are at most :data:`MAX_DIM`. Raises
     on an operand K5 does not take and when a launch reports an error."""
     _check_hop(q, k_c, v_c, m, l, acc)
@@ -516,8 +537,7 @@ def flash_hop_update_cuda(q, k_c, v_c, m, l, acc, q_off: Offset,
     q_off, k_off = _offset(q_off), _offset(k_off)
     m, l, acc = (t.contiguous() for t in (m, l, acc))
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
-    launch = {BF16_ROUTE: _launch_sm90, F32_ROUTE: _launch_tf32,
-              F32_WIDE_ROUTE: _launch_f32_wide}[name]
+    launch = _launch_sm90 if name == BF16_ROUTE else _launch_tf32
     with torch.cuda.device(q.device):
         rc = launch(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off,
                     k_off, float(scale), int(bool(causal)))
@@ -525,18 +545,6 @@ def flash_hop_update_cuda(q, k_c, v_c, m, l, acc, q_off: Offset,
     LAUNCHES[KERNEL] += 1
     LAUNCHES[name] += 1
     return m_out, l_out, acc_out
-
-
-def _launch_f32_wide(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off,
-                     k_off, scale, causal) -> int:
-    q, k_c, v_c = (t.contiguous() for t in (q, k_c, v_c))
-    fn = _build.function(SOURCES[F32_WIDE_ROUTE], "flash_hop",
-                         [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6
-                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return fn(q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), m.data_ptr(),
-              l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
-              acc_out.data_ptr(), q.shape[0], k_c.shape[0], q.shape[1],
-              v_c.shape[1], q_off, k_off, scale, causal, _build.stream(q))
 
 
 def _tma_operand(t: torch.Tensor, cols: int) -> torch.Tensor:
@@ -554,25 +562,34 @@ def _tma_operand(t: torch.Tensor, cols: int) -> torch.Tensor:
 # Work lists on the card, by (device, shape, offsets, causal, tiles, SMs).
 # A launch being captured in a CUDA graph reads the list cached by an
 # earlier call of the same hop; building one needs a host-to-device copy,
-# which a capture cannot hold.
+# which a capture cannot hold. A graph keeps the table's address, so no
+# entry is ever dropped: the cache holds one table of a few KB for each
+# distinct hop a process runs.
 _SCHEDULES: dict = {}
+
+
+def _cached_schedule(dev, n_sm, sl_q, sl_k, q_off, k_off, causal, bk, bq,
+                     capturing: bool = False):
+    """``(table on dev, HopSchedule)`` of this hop, built and cached at
+    first use and the same objects ever after; raises while ``capturing``
+    a CUDA graph if the list is not cached yet."""
+    key = (dev, sl_q, sl_k, q_off, k_off, bool(causal), bq, bk, n_sm)
+    hit = _SCHEDULES.get(key)
+    if hit is None:
+        if capturing:
+            raise RuntimeError("K5's work list for this hop is not on the card "
+                               "yet: call the hop once before capturing it")
+        sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, bk, n_sm, bq)
+        hit = (torch.from_numpy(sched.table).to(dev), sched)
+        _SCHEDULES[key] = hit
+    return hit
 
 
 def _device_schedule(dev, sl_q, sl_k, q_off, k_off, causal, bk,
                      bq=SM90_BLOCK_Q):
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    key = (dev, sl_q, sl_k, q_off, k_off, bool(causal), bq, bk, n_sm)
-    hit = _SCHEDULES.get(key)
-    if hit is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("K5's work list for this hop is not on the card "
-                               "yet: call the hop once before capturing it")
-        sched = hop_schedule(sl_q, sl_k, q_off, k_off, causal, bk, n_sm, bq)
-        if len(_SCHEDULES) >= 64:
-            _SCHEDULES.clear()
-        hit = (torch.from_numpy(sched.table).to(dev), sched)
-        _SCHEDULES[key] = hit
-    return hit
+    return _cached_schedule(dev, n_sm, sl_q, sl_k, q_off, k_off, causal, bk,
+                            bq, torch.cuda.is_current_stream_capturing())
 
 
 def _workspace(sched, block_q, acc_cols, dev):
@@ -614,24 +631,33 @@ def _launch_sm90(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
 
 def _launch_tf32(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
                  scale, causal) -> int:
+    """Both 3xTF32 routes: the pre-pass, then the hop of the route's
+    source, on the work list of its tiles."""
     (sl_q, dim), (sl_k, dv) = q.shape, v_c.shape
     groups = tf32_groups(dim, dv)
+    bq, bk = tf32_tiles(dim, dv)
+    wide = groups > TF32_MAX_DIM // 32
     qs, ks, vt = tf32_split(q, k_c, v_c)
     table, sched = _device_schedule(q.device, sl_q, sl_k, q_off, k_off,
-                                    causal, TF32_BLOCK_K, TF32_BLOCK_Q)
-    part, tickets = _workspace(sched, TF32_BLOCK_Q, 32 * groups, q.device)
+                                    causal, bk, bq)
+    part, tickets = _workspace(sched, bq, 32 * groups, q.device)
+    argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int])
+    args = (qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), groups, vt.shape[2],
+            dv, m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
+            l_out.data_ptr(), acc_out.data_ptr(), sl_q, sl_k, q_off, k_off,
+            scale, causal, table.data_ptr(), sched.n_cta, part.data_ptr(),
+            tickets.data_ptr(), bq, bk)
+    if wide:
+        fn = _build.function(SOURCES[F32_WIDE_ROUTE], "flash_hop_tf32_wide",
+                             argtypes + [ctypes.c_int, ctypes.c_void_p])
+        return fn(*args, TF32_WIDE_COL_SPLIT, _build.stream(q))
     fn = _build.function(SOURCES[F32_ROUTE], "flash_hop_tf32",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
-                         + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
-                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    return fn(qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), groups,
-              vt.shape[2], dv, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-              m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(), sl_q,
-              sl_k, q_off, k_off, scale, causal, table.data_ptr(),
-              sched.n_cta, part.data_ptr(), tickets.data_ptr(), TF32_BLOCK_Q,
-              TF32_BLOCK_K, _build.stream(q))
+                         argtypes + [ctypes.c_void_p])
+    return fn(*args, _build.stream(q))
 
 
 # -- gradient -----------------------------------------------------------------
