@@ -40,32 +40,36 @@ Phases, each printed as it runs; any failure exits non-zero:
    built in phase 2: bf16 operands run ``csrc/flash_hop_sm90.cu`` (tensor
    cores, TMA, a balanced causal work list), f32 ones with D, Dv <= 128
    ``csrc/flash_hop_tf32.cu`` (the same machinery as 3xTF32, after its
-   split pre-pass), wider f32 ones ``csrc/flash_hop.cu`` (CUDA cores).
-   The pre-pass bit for bit against its plain version (edge values:
-   rounding ties, zeros, subnormals) and its time; K5 against its plain
-   version at the JAX bench's regime (S = 8192, one head, D = 128,
-   causal, bf16 and f32), on mid-stream hops (a random carry; a chunk
-   wholly in the past, one across the diagonal), at ragged shapes
-   (1000 x 777 rows, D = 72), with wholly masked rows whose m is _NEG
-   (f32 and bf16), on a bf16 hop whose query tiles are cut into many
-   pieces merged in the launch, and on every instance of each route (the
-   demo's own shape, D = Dv = 32, D = 64 with Dv = 40, Dv = 150 and 256);
-   then the bf16 route's main run: ``flash_attention`` at the bench shape
+   split pre-pass), f32 ones with D or Dv in 129..256
+   ``csrc/flash_hop_tf32_wide.cu`` (the same kernel on 64-row query
+   tiles). The pre-pass bit for bit against its plain version (edge
+   values: rounding ties, zeros, subnormals; up to 8 groups of 32
+   columns) and its time; K5 against its plain version at the JAX bench's
+   regime (S = 8192, one head, D = 128, causal, bf16 and f32), on
+   mid-stream hops (a random carry; a chunk wholly in the past, one
+   across the diagonal), at ragged shapes (1000 x 777 rows, D = 72), with
+   wholly masked rows whose m is _NEG (f32, bf16, wide f32), on hops whose
+   query tiles are cut into many pieces merged in the launch (bf16, wide
+   f32), on asymmetric wide heads (D 64 with Dv 180, D 200 with Dv 40)
+   and on every instance of each route; a CUDA graph of one hop (wide
+   f32, bf16) replayed after 70 hops of other shapes and compared with
+   an eager call, so that a work list a graph keeps is never freed; then
+   the bf16 route's main run: ``flash_attention`` at the bench shape
    with its launches counted, its device time beside the plain version,
    ``scaled_dot_product_attention`` (SDPA) and the bound; the 3xTF32
    route's time at the training shape (S = 8192, D = 128, non-causal) and
    at the causal bench shape beside the plain version, SDPA in f32 (its
    kernel named) and the bounds at the TF32 and the f32 rates; the wide
    f32 route's run (3 ``flash_attention`` calls at S = 2048, D = 256,
-   launches counted) and its time; ``flash_attention``'s forward and
-   gradient against dense attention through autograd (the JAX bench's
-   ``_attention_parity`` rule); and the training demo
-   (``gossipy_tpu_torch.examples.demo_ring_attention``, f32), at its
-   defaults with K5's launches counted (one 3xTF32 hop and one pre-pass
-   per step, none from the backward), then 3 steps at S = 8192, D = 128
-   with K5 and with the plain version, whose losses must agree.
-   ``attention_diagnostics`` (not run here) breaks K5's time down
-   further.
+   launches of the hop and of its pre-pass counted) and its time;
+   ``flash_attention``'s forward and gradient against dense attention
+   through autograd (the JAX bench's ``_attention_parity`` rule); and the
+   training demo (``gossipy_tpu_torch.examples.demo_ring_attention``,
+   f32), at its defaults with K5's launches counted (one 3xTF32 hop and
+   one pre-pass per step, none from the backward), then 3 steps at
+   S = 8192, D = 128 with K5 and with the plain version, whose losses
+   must agree. ``attention_diagnostics`` (not run here) breaks K5's time
+   down further.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -860,8 +864,7 @@ def f32_wide_run(torch, attn, rate, name) -> dict:
         f"reaches {bound_ms / ms:.4f} of its bound")
     return dict(launches=launches[attn.F32_WIDE_ROUTE], ms=ms,
                 plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bound_f32_rate_ms=f32_rate_ms,
-                split_ms=split_ms)
+                bound_by=bound_by, bound_f32_rate_ms=f32_rate_ms)
 
 
 def check_f32_wide(torch, attn) -> dict:
@@ -1122,47 +1125,27 @@ def attention_phase(torch, rate: float, name: str):
              "bound_f32_rate_ms": wide["bound_f32_rate_ms"]}]
 
 
-def f32_wide_variants(torch, attn, rate, name) -> None:
-    """The wide f32 route's two designs, each first held to every check of
-    :func:`check_f32_wide`, then timed in turns 1, 2, 2, 1 through
-    ``flash_attention`` (pre-pass included): one consumer warpgroup per
-    64 query rows holding all of acc's columns (``TF32_WIDE_COL_SPLIT =
-    1``) against two that cut them in halves and both compute S (2), at
-    S = 2048 causal and S = 8192 non-causal and causal, D = Dv = 256, f32,
-    beside SDPA in f32 and the 3xTF32 bound. Leaves the module's choice as
-    it found it."""
+def f32_wide_times(torch, attn, rate, name) -> None:
+    """The wide f32 route at S = 8192, D = Dv = 256, f32, non-causal and
+    causal: ``flash_attention`` (pre-pass included) beside SDPA in f32 and
+    the bound at the TF32 rate for three products."""
     import torch.nn.functional as F
-    chosen = attn.TF32_WIDE_COL_SPLIT
-    try:
-        for split in (1, 2):
-            attn.TF32_WIDE_COL_SPLIT = split
-            log(f"[diagnostics] wide f32 route, col_split {split}: checks")
-            check_f32_wide(torch, attn)
-        tf32_rate = tensor_rate(name) * TF32_PER_BF16
-        for s_len, causal in ((2048, True), (8192, False), (8192, True)):
-            q, k, v = hop_operands(torch, attn, s_len, s_len, 256, 256,
-                                   torch.float32, "initial", 46)[:3]
-            times = {1: [], 2: []}
-            for split in (1, 2, 2, 1):
-                attn.TF32_WIDE_COL_SPLIT = split
-                times[split].append(time_ms(
-                    torch, lambda: attn.flash_attention(q, k, v,
-                                                        causal=causal),
-                    iters=10))
-            q4, k4, v4 = (t[None, None] for t in (q, k, v))
-            sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal), iters=10)
-            bound_ms = attention_bound(rate, tf32_rate / 3, s_len, 256,
-                                       causal, 4)[0]
-            log(f"[diagnostics] wide f32 S={s_len} D=Dv=256 causal={causal}: "
-                f"flash_attention col_split 1 "
-                f"{', '.join(f'{t:.5f}' for t in times[1])} ms, col_split 2 "
-                f"{', '.join(f'{t:.5f}' for t in times[2])} ms; SDPA f32 "
-                f"{sdpa_ms:.5f} ms; bound {bound_ms:.5f} ms")
-            del q, k, v, q4, k4, v4
-            torch.cuda.empty_cache()
-    finally:
-        attn.TF32_WIDE_COL_SPLIT = chosen
+    tf32_rate = tensor_rate(name) * TF32_PER_BF16
+    q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, 256, 256,
+                           torch.float32, "initial", 46)[:3]
+    q4, k4, v4 = (t[None, None] for t in (q, k, v))
+    for causal in (False, True):
+        ms = time_ms(torch, lambda: attn.flash_attention(q, k, v,
+                                                         causal=causal),
+                     iters=10)
+        sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), iters=10)
+        bound_ms = attention_bound(rate, tf32_rate / 3, ATTN_S, 256, causal,
+                                   4)[0]
+        log(f"[diagnostics] wide f32 S={ATTN_S} D=Dv=256 causal={causal}: "
+            f"flash_attention ({attn.route(torch.float32, 256, 256)}) "
+            f"{ms:.5f} ms, SDPA f32 {sdpa_ms:.5f} ms; bound {bound_ms:.5f} ms,"
+            f" K5 reaches {bound_ms / ms:.4f} of it")
 
 
 def bench_task(torch, demo):
@@ -1182,9 +1165,9 @@ def attention_diagnostics(torch) -> None:
     with the bf16 route and SDPA, and their non-causal/causal ratios (twice
     the pairs: a balanced causal schedule takes about half the non-causal
     time); the 3xTF32 route at the training shape beside SDPA in f32, its
-    pre-pass alone and its bare hop (causal and not); the wide f32 route's
-    two designs in turns at D = 256, S = 2048 and 8192, beside SDPA in f32
-    (:func:`f32_wide_variants`); the host-clock time and peak memory of 3
+    pre-pass alone and its bare hop (causal and not); the wide f32 route at
+    S = 8192, D = 256 beside SDPA in f32 (:func:`f32_wide_times`); the
+    host-clock time and peak memory of 3
     training steps at S = 8192, D = 128, f32, in turns plain, K5, K5,
     plain (so neither side alone pays the first use of the backward's
     shapes); and one profiled step with K5."""
@@ -1239,7 +1222,7 @@ def attention_diagnostics(torch) -> None:
         f"{hop32_ms:.5f} ms, causal {hop32_c_ms:.5f} ms")
     del q, k, v, m, l, acc
     torch.cuda.empty_cache()
-    f32_wide_variants(torch, attn, memory_rate(name), name)
+    f32_wide_times(torch, attn, memory_rate(name), name)
 
     start, x, tgt = bench_task(torch, demo)
 

@@ -154,12 +154,12 @@ extern "C" int flash_hop_tf32(const void* qs, const void* ks, const void* vt,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (groups) {
     case 1:
-      return launch<1, 2, 1, 32>(qs, ks, vt, ld_k, p, st);
+      return launch<1, 2, 32>(qs, ks, vt, ld_k, p, st);
     case 2:
-      return launch<2, 2, 1, 32>(qs, ks, vt, ld_k, p, st);
+      return launch<2, 2, 32>(qs, ks, vt, ld_k, p, st);
     case 3:
-      return launch<3, 2, 1, 32>(qs, ks, vt, ld_k, p, st);
+      return launch<3, 2, 32>(qs, ks, vt, ld_k, p, st);
     default:
-      return launch<4, 2, 1, 32>(qs, ks, vt, ld_k, p, st);
+      return launch<4, 2, 32>(qs, ks, vt, ld_k, p, st);
   }
 }

@@ -38,11 +38,8 @@
 //     is 32 bytes, as a bf16 k-step is, so the swizzle arithmetic is the
 //     bf16 route's in bytes). P = exp(S - m) goes to P V as the register
 //     A operand, split into hi and lo in the registers; B is the v^T
-//     tile. With CW = 2 two warpgroups share each 64 rows, both compute
-//     its S and each takes half of acc's columns (fewer accumulator
-//     registers a thread, 1.5 times the flops). Warpgroups queue their
-//     wgmma on the same tensor cores, so one's softmax runs while
-//     another's products do.
+//     tile. Warpgroups queue their wgmma on the same tensor cores, so
+//     one's softmax runs while another's products do.
 //   - P without shuffles. For 32-bit A a thread's fragment holds keys
 //     (t, t + 4) of each 8-key step (t = lane % 4), its accumulator holds
 //     keys (2t, 2t + 1). The pre-pass stores v^T with the keys of every
@@ -61,9 +58,13 @@
 //     tiles at G = 8 (q 128 KB, two k stages and one v stage of 32 KB).
 //     A 16-key v^T tile has rows of 64 bytes: it is 64B-swizzled.
 //   - Overlapped loads. One producer thread (warpgroup 0) issues the TMA
-//     loads of q, k and v. 128 (1 + RW CW) threads: 384 leave ptxas 168
+//     loads of q, k and v. 128 (1 + RW) threads: 384 leave ptxas 168
 //     registers a thread, 256 leave 255 for the wide route's one consumer
-//     warpgroup and its accumulator of up to 128 registers.
+//     warpgroup and its accumulator of up to 128 registers (ptxas uses
+//     them all and spills a little at G = 7 and 8). On an H100, two
+//     consumers that split acc's columns, both computing S, took 1.06-1.34
+//     times as long, and one that queued tile j's S with tile j - 1's P V
+//     to hide its softmax 1.28-1.63 times (it spilled more).
 //   - Balanced causal work. The grid is persistent, at most one CTA per
 //     SM, walking the work list of ops/attention.py::hop_schedule for the
 //     instance's tiles; the pieces of a query tile cut into several are
@@ -99,21 +100,19 @@ constexpr int kSmemData = 232448 - 1024 - 128;  // for tiles, after alignment
 constexpr float kNeg = -1e30f;
 constexpr int kItemInts = 6;    // (q tile, kt0, kt1, slot0, pieces, slot)
 
-// Instance of G 32-column groups: RW row warpgroups of 64 query rows, CW
-// warpgroups cutting acc's columns for each (each computes that S), BK-key
-// tiles. Shared memory from a 1024-byte aligned base: q (hi plane, lo
-// plane), the k ring, the v ring; q and k planes in 32-column (128-byte)
-// groups, 128B-swizzled as TMA writes them; v^T planes of 32 G rows of BK
-// keys, 128B-swizzled (BK = 32) or 64B-swizzled (BK = 16).
-template <int G, int RW, int CW, int BK>
+// Instance of G 32-column groups: RW consumer warpgroups of 64 query
+// rows, BK-key tiles. Shared memory from a 1024-byte aligned base: q (hi
+// plane, lo plane), the k ring, the v ring; q and k planes in 32-column
+// (128-byte) groups, 128B-swizzled as TMA writes them; v^T planes of 32 G
+// rows of BK keys, 128B-swizzled (BK = 32) or 64B-swizzled (BK = 16).
+template <int G, int RW, int BK>
 struct Cfg {
   static_assert(BK == 16 || BK == 32, "S is one m64nBKk8 chain per tile");
   static constexpr int kBlockQ = 64 * RW;        // query rows per work item
-  static constexpr int kConsumers = 128 * RW * CW;
+  static constexpr int kConsumers = 128 * RW;
   static constexpr int kThreads = 128 + kConsumers;  // warpgroup 0: producer
   static constexpr int kNV = 32 * G;             // v^T rows (acc columns)
-  static constexpr int kNW = kNV / CW;           // acc columns a warpgroup
-  static_assert(kNW % 8 == 0 && kNW <= 256, "P V is one m64nNWk8 chain");
+  static_assert(kNV <= 256, "P V is one m64nNVk8 chain");
   static constexpr int kVRow = 4 * BK;           // bytes of a v^T tile row
   static constexpr int kGroupQ = kBlockQ * 128;  // one group of a q plane
   static constexpr int kPlaneQ = G * kGroupQ;
@@ -236,25 +235,6 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// O += A B: m64n80k8, A in registers, B K-major in shared memory.
-template <>
-__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // O += A B: m64n96k8, A in registers, B K-major in shared memory.
 template <>
 __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
@@ -272,27 +252,6 @@ __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// O += A B: m64n112k8, A in registers, B K-major in shared memory.
-template <>
-__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
-      "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -459,22 +418,20 @@ struct Bars {
 
 // Accumulator element i of a 64 x N wgmma tile lies in row r0 (i % 4 < 2)
 // or r0 + 8 and column 8 (i / 4) + 2 (lane % 4) + (i % 2).
-template <int G, int RW, int CW, int BK>
+template <int G, int RW, int BK>
 __device__ void consumer(const Params& p, uint32_t base,
-                         const Bars<Cfg<G, RW, CW, BK>>& bar) {
-  using C = Cfg<G, RW, CW, BK>;
-  constexpr int NV = C::kNV, NW = C::kNW, NO = NW / 2, NS = BK / 2;
+                         const Bars<Cfg<G, RW, BK>>& bar) {
+  using C = Cfg<G, RW, BK>;
+  constexpr int NV = C::kNV, NO = NV / 2, NS = BK / 2;
   constexpr int KK = BK / 8;  // k-steps of P V
   constexpr int kBlockQ = C::kBlockQ;
   const int ctid = threadIdx.x - 128;
   const int cwg = ctid / 128, warp = (ctid % 128) / 32, lane = ctid % 32;
-  const int rw = cwg / CW, c0 = (cwg % CW) * NW;  // rows, first acc column
-  const bool writes_ml = c0 == 0;  // one warpgroup of each row group
-  const int rq = rw * 64 + warp * 16 + lane / 4;  // tile row of r0
+  const int rq = cwg * 64 + warp * 16 + lane / 4;  // tile row of r0
   const int cq = 2 * (lane % 4);
   const int n_kt = (p.sl_k + BK - 1) / BK;
   const long long diag = p.q_off - p.k_off;  // masked iff j - i > diag
-  const uint32_t q_base = base + rw * 64 * 128;  // this warpgroup's rows
+  const uint32_t q_base = base + cwg * 64 * 128;  // this warpgroup's rows
   const int* items = p.sched + p.n_cta + 1;
   const int i0 = p.sched[blockIdx.x], i1 = p.sched[blockIdx.x + 1];
 
@@ -530,7 +487,7 @@ __device__ void consumer(const Params& p, uint32_t base,
 
       // Scale, mask, row max (across the 4 threads of a row).
       const int k0 = kt * BK;
-      const long long r_first = q0 + rw * 64;
+      const long long r_first = q0 + cwg * 64;
       const bool masked_tile =
           k0 + BK > p.sl_k ||
           (p.causal && (long long)(k0 + BK - 1) - r_first > diag);
@@ -585,10 +542,9 @@ __device__ void consumer(const Params& p, uint32_t base,
       reg_fence(o);
 
       // O += P_lo V_hi + P_hi V_lo, then P_hi V_hi, over the k-steps of 8
-      // keys (32 bytes of a v^T row), on this warpgroup's v^T rows.
+      // keys (32 bytes of a v^T row).
       mbar_wait(smem_u32(bar.vfull + vs), vph);
-      const uint32_t v_base =
-          base + C::kVOff + vs * C::kVBytes + c0 * C::kVRow;
+      const uint32_t v_base = base + C::kVOff + vs * C::kVBytes;
       wg_fence();
 #pragma unroll
       for (int pass = 0; pass < 3; ++pass) {
@@ -598,7 +554,7 @@ __device__ void consumer(const Params& p, uint32_t base,
               v_base + (pass == 1 ? C::kPlaneV : 0) + kk * 32;
           const uint64_t b = BK == 32 ? sw128_desc(addr, 16, 1024)
                                       : sw64_desc(addr, 16, 512);
-          wgmma_rs<NW>(o, pass == 0 ? lo[kk] : hi[kk], b);
+          wgmma_rs<NV>(o, pass == 0 ? lo[kk] : hi[kk], b);
         }
       }
       wg_commit();
@@ -612,14 +568,14 @@ __device__ void consumer(const Params& p, uint32_t base,
     }
 
     // Epilogue: this thread's rows r0 = q0 + rq and r0 + 8, columns
-    // c0 + 8 j + cq + {0, 1}.
+    // 8 j + cq + {0, 1}.
 #pragma unroll
     for (int h = 0; h < 2; ++h) l_r[h] = quad_sum(l_r[h]);
     const size_t slot_floats = (size_t)kBlockQ * (2 + NV);
     if (pieces > 1) {
       float* ws = p.part + (size_t)slot * slot_floats;
       float* ws_acc = ws + 2 * kBlockQ;
-      if (lane % 4 == 0 && writes_ml) {
+      if (lane % 4 == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           ws[rq + 8 * h] = m_r[h];
@@ -627,11 +583,11 @@ __device__ void consumer(const Params& p, uint32_t base,
         }
       }
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j)
+      for (int j = 0; j < NV / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           *reinterpret_cast<float2*>(ws_acc + (size_t)(rq + 8 * h) * NV +
-                                     c0 + 8 * j + cq) =
+                                     8 * j + cq) =
               make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
       __threadfence();
       bar_sync<C::kConsumers>();
@@ -660,10 +616,10 @@ __device__ void consumer(const Params& p, uint32_t base,
       const float e1 = pieces > 1 ? 0.f : expf(m_r[h] - m);
       float l = l0 * e0;
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j)
+      for (int j = 0; j < NV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = c0 + 8 * j + cq + e;
+          const int c = 8 * j + cq + e;
           const float a0 =
               (live && c < p.dv) ? p.acc_in[(size_t)row * p.dv + c] : 0.f;
           float& x = o[4 * j + 2 * h + e];
@@ -674,10 +630,9 @@ __device__ void consumer(const Params& p, uint32_t base,
           const float* ws = p.part + (size_t)(slot0 + i) * slot_floats;
           const float w = expf(__ldcg(ws + rq + 8 * h) - m);
           l += __ldcg(ws + kBlockQ + rq + 8 * h) * w;
-          const float* wa =
-              ws + 2 * kBlockQ + (size_t)(rq + 8 * h) * NV + c0;
+          const float* wa = ws + 2 * kBlockQ + (size_t)(rq + 8 * h) * NV;
 #pragma unroll
-          for (int j = 0; j < NW / 8; ++j) {
+          for (int j = 0; j < NV / 8; ++j) {
             const float2 a =
                 __ldcg(reinterpret_cast<const float2*>(wa + 8 * j + cq));
             o[4 * j + 2 * h] += a.x * w;
@@ -688,27 +643,27 @@ __device__ void consumer(const Params& p, uint32_t base,
         l += l_r[h] * e1;
       }
       if (!live) continue;
-      if (lane % 4 == 0 && writes_ml) {
+      if (lane % 4 == 0) {
         p.m_out[row] = m;
         p.l_out[row] = l;
       }
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j)
+      for (int j = 0; j < NV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = c0 + 8 * j + cq + e;
+          const int c = 8 * j + cq + e;
           if (c < p.dv) p.acc_out[(size_t)row * p.dv + c] = o[4 * j + 2 * h + e];
         }
     }
   }
 }
 
-template <int G, int RW, int CW, int BK>
-__global__ void __launch_bounds__(Cfg<G, RW, CW, BK>::kThreads, 1)
+template <int G, int RW, int BK>
+__global__ void __launch_bounds__(Cfg<G, RW, BK>::kThreads, 1)
     hop_tf32(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const Params p) {
-  using C = Cfg<G, RW, CW, BK>;
+  using C = Cfg<G, RW, BK>;
   extern __shared__ uint8_t smem_raw[];
   // Swizzled tiles start on 1024-byte boundaries.
   const uint32_t base =
@@ -731,7 +686,7 @@ __global__ void __launch_bounds__(Cfg<G, RW, CW, BK>::kThreads, 1)
   __syncthreads();
 
   if (threadIdx.x >= 128) {
-    consumer<G, RW, CW, BK>(p, base, bar);
+    consumer<G, RW, BK>(p, base, bar);
     return;
   }
   if (threadIdx.x != 0) return;
@@ -794,14 +749,14 @@ inline int plane_map(CUtensorMap* map, const void* ptr, int64_t rows,
                           strides, box, swizzle);
 }
 
-template <int G, int RW, int CW, int BK>
+template <int G, int RW, int BK>
 int launch(const void* qs, const void* ks, const void* vt, int64_t ld_k,
            const Params& p, cudaStream_t st) {
-  using C = Cfg<G, RW, CW, BK>;
+  using C = Cfg<G, RW, BK>;
   static bool allowed = false;
   if (!allowed) {
     const cudaError_t err =
-        cudaFuncSetAttribute(hop_tf32<G, RW, CW, BK>,
+        cudaFuncSetAttribute(hop_tf32<G, RW, BK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmem);
     if (err != cudaSuccess) return (int)err;
@@ -818,7 +773,7 @@ int launch(const void* qs, const void* ks, const void* vt, int64_t ld_k,
                    BK == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
                             : CU_TENSOR_MAP_SWIZZLE_64B);
   if (rc != 0) return rc;
-  hop_tf32<G, RW, CW, BK><<<p.n_cta, C::kThreads, C::kSmem, st>>>(tq, tk,
+  hop_tf32<G, RW, BK><<<p.n_cta, C::kThreads, C::kSmem, st>>>(tq, tk,
                                                                  tv, p);
   return (int)cudaGetLastError();
 }

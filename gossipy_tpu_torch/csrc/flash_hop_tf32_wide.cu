@@ -2,11 +2,10 @@
 // 129..256), as 3xTF32 on the tensor cores: instances of the kernel of
 // flash_hop_tf32.cuh with G = 5..8 groups of 32 columns, 64-row query
 // tiles (the hi and lo planes of a 128-row q tile would not fit a block's
-// shared memory), 32-key tiles up to G = 7 and 16-key tiles at G = 8, and
-// one consumer warpgroup holding all of acc's columns (col_split 1) or two
-// that cut them in halves and both compute S (col_split 2). It runs after
-// the split pre-pass of flash_hop_tf32.cu (tf32_split); the design and the
-// update are in flash_hop_tf32.cuh.
+// shared memory) owned by one consumer warpgroup, 32-key tiles up to G = 7
+// and 16-key tiles at G = 8. It runs after the split pre-pass of
+// flash_hop_tf32.cu (tf32_split); the design and the update are in
+// flash_hop_tf32.cuh.
 //
 // C interface for ctypes: the launch goes on the caller's stream and does
 // not synchronise; it returns cudaGetLastError() after it (or 10000 plus
@@ -18,46 +17,32 @@
 
 #include "flash_hop_tf32.cuh"
 
-namespace {
-
-template <int CW>
-int launch_wide(int64_t groups, const void* qs, const void* ks,
-                const void* vt, int64_t ld_k, const Params& p,
-                cudaStream_t st) {
-  switch (groups) {
-    case 5:
-      return launch<5, 1, CW, 32>(qs, ks, vt, ld_k, p, st);
-    case 6:
-      return launch<6, 1, CW, 32>(qs, ks, vt, ld_k, p, st);
-    case 7:
-      return launch<7, 1, CW, 32>(qs, ks, vt, ld_k, p, st);
-    default:
-      return launch<8, 1, CW, 16>(qs, ks, vt, ld_k, p, st);
-  }
-}
-
-}  // namespace
-
 // K5, float32 route for max(D, Dv) in 129..256. Arguments as for
 // flash_hop_tf32 (flash_hop_tf32.cu), with groups in 5..8, block_q 64 and
-// block_k 32 (groups < 8) or 16 (groups 8), part's slots 64 x (2 + 32
-// groups) float32; col_split: 1 or 2 consumer warpgroups on each 64 query
-// rows.
+// block_k 32 (groups < 8) or 16 (groups 8), and part's slots 64 x (2 + 32
+// groups) float32.
 extern "C" int flash_hop_tf32_wide(
     const void* qs, const void* ks, const void* vt, int64_t groups,
     int64_t ld_k, int64_t dv, const void* m, const void* l, const void* acc,
     void* m_out, void* l_out, void* acc_out, int64_t sl_q, int64_t sl_k,
     int64_t q_off, int64_t k_off, float scale, int causal, const void* sched,
     int n_cta, void* part, void* tickets, int block_q, int block_k,
-    int col_split, void* stream) {
+    void* stream) {
   Params p;
   if (block_q != 64 || block_k != (groups < 8 ? 32 : 16) ||
-      (col_split != 1 && col_split != 2) ||
       !hop_params(p, groups, 5, 8, ld_k, dv, m, l, acc, m_out, l_out,
                   acc_out, sl_q, sl_k, q_off, k_off, scale, causal, sched,
                   n_cta, part, tickets, block_q, block_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return col_split == 1 ? launch_wide<1>(groups, qs, ks, vt, ld_k, p, st)
-                        : launch_wide<2>(groups, qs, ks, vt, ld_k, p, st);
+  switch (groups) {
+    case 5:
+      return launch<5, 1, 32>(qs, ks, vt, ld_k, p, st);
+    case 6:
+      return launch<6, 1, 32>(qs, ks, vt, ld_k, p, st);
+    case 7:
+      return launch<7, 1, 32>(qs, ks, vt, ld_k, p, st);
+    default:
+      return launch<8, 1, 16>(qs, ks, vt, ld_k, p, st);
+  }
 }

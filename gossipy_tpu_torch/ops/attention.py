@@ -91,9 +91,6 @@ SM90_BLOCK_Q = 128
 TF32_BLOCK_Q = 128
 TF32_BLOCK_K = 32
 TF32_WIDE_BLOCK_Q = 64
-# Consumer warpgroups on each 64 query rows of the wide route: 1 holds all
-# of acc's columns; 2 cut them in halves and both compute S.
-TF32_WIDE_COL_SPLIT = 1
 H100_SMS = 132
 
 Offset = Union[int, torch.Tensor]
@@ -430,10 +427,8 @@ def flash_hop_update_tf32_reference(q, k_c, v_c, m, l, acc, q_off: Offset,
     ``flash_hop[f32-wide]``), and both products as
     ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` of TF32 parts
     (:func:`tf32_parts`), ``q k^T`` from the split operands and ``p v``
-    with ``p`` split in the same way. A kernel that cuts ``acc``'s columns
-    between warpgroups computes each column as here. ``low_parts=False``
-    drops the low parts: one plain TF32 product each. Float32; returns
-    ``(m, l, acc)``."""
+    with ``p`` split in the same way. ``low_parts=False`` drops the low
+    parts: one plain TF32 product each. Float32; returns ``(m, l, acc)``."""
     def parts(x):
         return tf32_parts(x) if low_parts else (tf32_round(x), None)
 
@@ -636,28 +631,24 @@ def _launch_tf32(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
     (sl_q, dim), (sl_k, dv) = q.shape, v_c.shape
     groups = tf32_groups(dim, dv)
     bq, bk = tf32_tiles(dim, dv)
-    wide = groups > TF32_MAX_DIM // 32
     qs, ks, vt = tf32_split(q, k_c, v_c)
     table, sched = _device_schedule(q.device, sl_q, sl_k, q_off, k_off,
                                     causal, bk, bq)
     part, tickets = _workspace(sched, bq, 32 * groups, q.device)
-    argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
-                + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int])
-    args = (qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), groups, vt.shape[2],
-            dv, m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
-            l_out.data_ptr(), acc_out.data_ptr(), sl_q, sl_k, q_off, k_off,
-            scale, causal, table.data_ptr(), sched.n_cta, part.data_ptr(),
-            tickets.data_ptr(), bq, bk)
-    if wide:
-        fn = _build.function(SOURCES[F32_WIDE_ROUTE], "flash_hop_tf32_wide",
-                             argtypes + [ctypes.c_int, ctypes.c_void_p])
-        return fn(*args, TF32_WIDE_COL_SPLIT, _build.stream(q))
-    fn = _build.function(SOURCES[F32_ROUTE], "flash_hop_tf32",
-                         argtypes + [ctypes.c_void_p])
-    return fn(*args, _build.stream(q))
+    # Each route's entry point has its source's name.
+    source = SOURCES[route(q.dtype, dim, dv)]
+    fn = _build.function(source, source,
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                         + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return fn(qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), groups,
+              vt.shape[2], dv, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+              m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(), sl_q,
+              sl_k, q_off, k_off, scale, causal, table.data_ptr(),
+              sched.n_cta, part.data_ptr(), tickets.data_ptr(), bq, bk,
+              _build.stream(q))
 
 
 # -- gradient -----------------------------------------------------------------
