@@ -40,11 +40,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    built in phase 2: bf16 operands run ``csrc/flash_hop_sm90.cu`` (tensor
    cores, TMA, a balanced causal work list), f32 ones with D, Dv <= 128
    ``csrc/flash_hop_tf32.cu`` (the same machinery as 3xTF32, after its
-   split pre-pass), f32 ones with D or Dv in 129..256
-   ``csrc/flash_hop_tf32_wide.cu`` (the same kernel on 64-row query
-   tiles). The pre-pass bit for bit against its plain version (edge
-   values: rounding ties, zeros, subnormals; up to 8 groups of 32
-   columns) and its time; K5 against its plain version at the JAX bench's
+   split pre-pass), f32 ones with D or Dv in 129..256 the same source's
+   wider instances (the same kernel on 64-row query tiles). The pre-pass
+   bit for bit against its plain version (edge values: rounding ties,
+   zeros, subnormals; up to 8 groups of 32 columns; the timed shapes)
+   and its time; K5 against its plain version at the JAX bench's
    regime (S = 8192, one head, D = 128, causal, bf16 and f32), on
    mid-stream hops (a random carry; a chunk wholly in the past, one
    across the diagonal), at ragged shapes (1000 x 777 rows, D = 72), with
@@ -57,11 +57,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    the bf16 route's main run: ``flash_attention`` at the bench shape
    with its launches counted, its device time beside the plain version,
    ``scaled_dot_product_attention`` (SDPA) and the bound; the 3xTF32
-   route's time at the training shape (S = 8192, D = 128, non-causal) and
-   at the causal bench shape beside the plain version, SDPA in f32 (its
+   route's output at the training shape (S = 8192, D = 128, non-causal)
+   against its plain version's and its time there and at the causal bench
+   shape beside the plain version, SDPA in f32 (its
    kernel named) and the bounds at the TF32 and the f32 rates; the wide
    f32 route's run (3 ``flash_attention`` calls at S = 2048, D = 256,
-   launches of the hop and of its pre-pass counted) and its time;
+   launches of the hop and of its pre-pass counted, the output against
+   the plain version's) and its time;
    ``flash_attention``'s forward and gradient against dense attention
    through autograd (the JAX bench's ``_attention_parity`` rule); and the
    training demo (``gossipy_tpu_torch.examples.demo_ring_attention``,
@@ -716,6 +718,9 @@ def f32_route_times(torch, attn, rate, name) -> dict:
     from torch.nn.attention import SDPBackend, sdpa_kernel
     q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
                            torch.float32, "initial", 40)[:3]
+    err = check_output(torch, f"f32 route S={ATTN_S} D=Dv={ATTN_D} "
+                       "non-causal", attn.flash_attention(q, k, v),
+                       attn.flash_attention_reference(q, k, v))
     ms = time_ms(torch, lambda: attn.flash_attention(q, k, v), iters=10)
     plain_ms = time_ms(torch, lambda: attn.flash_attention_reference(q, k, v),
                        iters=10)
@@ -753,9 +758,37 @@ def f32_route_times(torch, attn, rate, name) -> dict:
         f"f32-rate one. Causal bench shape f32: flash_attention "
         f"{causal_ms:.5f} ms, SDPA {sdpa_causal_ms:.5f} ms, bound "
         f"{causal_bound:.5f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bound_f32_rate_ms=f32_rate_ms, sdpa_backend=backend)
+
+
+def split_diffs(torch, attn, q, k, v) -> int:
+    """The 32-bit words in which the pre-pass's planes differ from its
+    plain version's on the same q, k, v (-1 when their shapes differ)."""
+    got = attn.tf32_split(q, k, v)
+    want = attn.tf32_split_reference(q, k, v)
+    torch.cuda.synchronize()
+    if any(g.shape != w.shape for g, w in zip(got, want)):
+        return -1
+    return sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+               for g, w in zip(got, want))
+
+
+def check_output(torch, label, got, want) -> float:
+    """``flash_attention``'s f32 output against its plain version's on the
+    same inputs: finite, of its shape, within 1e-4 of the plain output's
+    largest magnitude (``PERF.md`` §2). Returns the max abs error."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    mag = float(want.abs().max())
+    log(f"[attention] {label}: flash_attention vs its plain version max abs "
+        f"err {err:.3e} (of {mag:.3e})")
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+            or err > 1e-4 * mag:
+        raise RuntimeError(f"{label}: flash_attention disagrees with its "
+                           "plain version")
+    return err
 
 
 def check_tf32_split(torch, attn, rate) -> dict:
@@ -764,10 +797,10 @@ def check_tf32_split(torch, attn, rate) -> dict:
     q, 777 x 72 k, 777 x 40 v; 300 x 150 q with 261-key k and v of 150,
     130, 180, 200 and 256 columns) holding normal values, both zeros,
     negatives, exact rounding ties of the hi and of the lo part, values
-    that round up into the next binade and subnormals; then its device
-    time at the training shape (S = 8192, D = Dv = 128) beside the plain
-    version and the bound (bytes: q, k, v read once, their planes written
-    once)."""
+    that round up into the next binade and subnormals; then, at the
+    training shape (S = 8192, D = Dv = 128), bit for bit again and its
+    device time beside the plain version and the bound (bytes: q, k, v
+    read once, their planes written once)."""
     rng = np.random.default_rng(50)
 
     def edge(rows, cols):
@@ -790,18 +823,15 @@ def check_tf32_split(torch, attn, rate) -> dict:
     for (sl_q, sl_k, dim, dv) in ((1000, 777, 72, 40), (300, 261, 150, 130),
                                   (300, 261, 150, 180), (300, 261, 150, 200),
                                   (300, 261, 150, 256)):
-        q, k, v = edge(sl_q, dim), edge(sl_k, dim), edge(sl_k, dv)
-        got = attn.tf32_split(q, k, v)
-        want = attn.tf32_split_reference(q, k, v)
-        torch.cuda.synchronize()
+        n = split_diffs(torch, attn, edge(sl_q, dim), edge(sl_k, dim),
+                        edge(sl_k, dv))
         groups.append(attn.tf32_groups(dim, dv))
-        same = same and all(g.shape == w.shape and torch.equal(
-            g.view(torch.int32), w.view(torch.int32))
-            for g, w in zip(got, want))
-        diffs += sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
-                     for g, w in zip(got, want) if g.shape == w.shape)
+        same = same and n == 0
+        diffs += max(n, 0)
     q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
                            torch.float32, "initial", 41)[:3]
+    timed_diffs = split_diffs(torch, attn, q, k, v)
+    same = same and timed_diffs == 0
     ms = time_ms(torch, lambda: attn.tf32_split(q, k, v))
     plain_ms = time_ms(torch, lambda: attn.tf32_split_reference(q, k, v),
                        iters=10)
@@ -809,8 +839,8 @@ def check_tf32_split(torch, attn, rate) -> dict:
     bound_ms, bound_by = bound(nbytes, 0, rate)
     log(f"[attention] tf32_split: kernel vs plain bit-equal {same} "
         f"({diffs} words differ) on ragged edge values at G = {groups}; at "
-        f"S={ATTN_S} "
-        f"D=Dv={ATTN_D}: {ms:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"S={ATTN_S} D=Dv={ATTN_D}: {timed_diffs} words differ, {ms:.5f} "
+        f"ms, plain {plain_ms:.5f} ms, bound "
         f"{bound_ms:.5f} ms ({nbytes} bytes, bound by {bound_by}); reaches "
         f"{bound_ms / ms:.4f} of its bound")
     if not same:
@@ -824,7 +854,9 @@ def f32_wide_run(torch, attn, rate, name) -> dict:
     """The wide f32 route's run: 3 ``flash_attention`` calls at S = 2048,
     D = Dv = 256, f32, causal (heads wider than ``flash_hop[f32]`` takes),
     launches counted from 0 (3 of ``flash_hop[f32-wide]``, 3 of its
-    pre-pass), finite [S, Dv] outputs; then the device time of one call
+    pre-pass), finite [S, Dv] outputs, the first held to the plain
+    version's on the same q, k, v (:func:`check_output`), the pre-pass on
+    them bit for bit to its plain version; then the device time of one call
     and of its pre-pass alone beside the plain version, SDPA in f32 and
     the bound at the TF32 rate for three products (the f32-rate bound
     printed beside it)."""
@@ -843,6 +875,14 @@ def f32_wide_run(torch, attn, rate, name) -> dict:
             for o in outs):
         raise RuntimeError(f"the wide f32 run launched {launches} for 3 "
                            "calls, or its output is not finite [S, Dv]")
+    err = check_output(torch, f"wide f32 run S={s_len} D=Dv={dim} causal",
+                       outs[0], attn.flash_attention_reference(q, k, v,
+                                                               causal=True))
+    del outs
+    split_words = split_diffs(torch, attn, q, k, v)
+    if split_words:
+        raise RuntimeError(f"the wide run's pre-pass differs from its plain "
+                           f"version in {split_words} words")
     ms = time_ms(torch, lambda: attn.flash_attention(q, k, v, causal=True),
                  iters=10)
     split_ms = time_ms(torch, lambda: attn.tf32_split(q, k, v), iters=10)
@@ -857,24 +897,25 @@ def f32_wide_run(torch, attn, rate, name) -> dict:
     log(f"[attention] wide f32 run S={s_len} D=Dv={dim} causal: "
         f"{launches.get(attn.F32_WIDE_ROUTE)} launches of "
         f"{attn.F32_WIDE_ROUTE} and {launches.get(attn.SPLIT_KERNEL)} of "
-        f"{attn.SPLIT_KERNEL} in 3 calls; flash_attention {ms:.5f} ms "
+        f"{attn.SPLIT_KERNEL} in 3 calls, output max abs err {err:.3e}, "
+        f"pre-pass bit-equal; flash_attention {ms:.5f} ms "
         f"(pre-pass alone {split_ms:.5f} ms), plain {plain_ms:.5f} ms, SDPA "
         f"f32 {sdpa_ms:.5f} ms; bound {bound_ms:.5f} ms (3 x {flops} flops "
         f"at the TF32 rate), {f32_rate_ms:.5f} ms at the f32 rate; K5 "
         f"reaches {bound_ms / ms:.4f} of its bound")
-    return dict(launches=launches[attn.F32_WIDE_ROUTE], ms=ms,
+    return dict(launches=launches[attn.F32_WIDE_ROUTE], max_abs_err=err,
+                ms=ms,
                 plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_f32_rate_ms=f32_rate_ms)
 
 
-def check_f32_wide(torch, attn) -> dict:
+def check_f32_wide(torch, attn) -> None:
     """Every instance of the wide f32 route against the plain version
     (:func:`check_hop`): G = 5 (Dv 150, D not a multiple of 8), 6 (D 64,
     Dv 180: D <= 128 < Dv), 7 (D 200, Dv 40: Dv <= 128 < D) and 8 (Dv 256,
     16-key tiles; the others take 32-key tiles); ragged and causal at
     G = 7; wholly masked rows and a hop whose two 64-row query tiles are
-    each cut into many pieces merged in the launch, at G = 8. Returns the
-    Dv 256 case's numbers."""
+    each cut into many pieces merged in the launch, at G = 8."""
     f32 = torch.float32
     check_hop(torch, attn, "Dv 150", 1000, 777, 150, 150, f32, False,
               (0, 0), "mid", 30)
@@ -897,18 +938,21 @@ def check_f32_wide(torch, attn) -> dict:
                            "than 3 pieces")
     check_hop(torch, attn, f"split ({pieces}+ pieces a tile)", 128, 4096,
               256, 256, f32, True, (4096, 0), "mid", 43)
-    return check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, f32, True,
-                     (300, 0), "mid", 32)
+    check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, f32, True,
+              (300, 0), "mid", 32)
 
 
 def check_graph_replay(torch, attn) -> None:
     """K5's work list outlives a CUDA graph that captured it: capture one
     hop (a wide f32 one and a bf16 one), call 70 hops of other offsets
-    (each a work list of its own), allocate blocks of the table's size
-    filled with -1, replay the graph and compare its output with an eager
-    call of the same hop, bit for bit."""
+    (each a work list of its own), allocate blocks of the captured table's
+    own size filled with -1 (were the table freed, the caching allocator
+    would hand its block to one of them), replay the graph and compare
+    its output with an eager call of the same hop, bit for bit."""
     for label, dim, dtype, seed in (("f32-wide", 256, torch.float32, 44),
                                     ("bf16", 128, torch.bfloat16, 45)):
+        bq, bk = (attn.tf32_tiles(dim, dim) if dtype == torch.float32 else
+                  (attn.SM90_BLOCK_Q, attn.sm90_tiles(dim, dim)[1]))
         ops = hop_operands(torch, attn, 300, 500, dim, dim, dtype, "mid",
                            seed)
         scale = 1.0 / float(np.sqrt(dim))
@@ -927,12 +971,19 @@ def check_graph_replay(torch, attn) -> None:
         with torch.cuda.graph(graph):
             captured = hop()
         cached = len(attn._SCHEDULES)
+        table = attn._device_schedule(ops[0].device, 300, 500, 400, 0, True,
+                                      bk, bq)[0]
+        n_ints, table_ptr = table.numel(), table.data_ptr()
+        del table
+        if len(attn._SCHEDULES) != cached:
+            raise RuntimeError("the graph check did not find the captured "
+                               "hop's work list")
         for i in range(70):
             hop(1000 + 7 * i)
         torch.cuda.synchronize()
-        n_ints = max(t.numel() for t, _ in attn._SCHEDULES.values())
         junk = [torch.full((n_ints,), -1, dtype=torch.int32, device="cuda")
                 for _ in range(4000)]
+        reused = any(t.data_ptr() == table_ptr for t in junk)
         graph.replay()
         torch.cuda.synchronize()
         want = hop()
@@ -941,8 +992,9 @@ def check_graph_replay(torch, attn) -> None:
         log(f"[attention] graph replay ({label}, {attn.route(dtype, dim, dim)}"
             f"): captured one hop with {cached} work lists cached, called 70 "
             f"other hops ({len(attn._SCHEDULES)} cached), allocated "
-            f"{len(junk)} blocks of {n_ints} int32 = -1; replay vs eager max "
-            f"abs diff {diff}")
+            f"{len(junk)} blocks of {n_ints} int32 = -1 (one at the captured "
+            f"table's address: {reused}); replay vs eager max abs diff "
+            f"{diff}")
         if diff != 0.0 or not all(bool(torch.isfinite(t).all())
                                   for t in captured):
             raise RuntimeError(f"a replayed {label} hop disagrees with the "
@@ -985,8 +1037,8 @@ def attention_phase(torch, rate: float, name: str):
     split = check_tf32_split(torch, attn, rate)
     bench = check_hop(torch, attn, "bench", s_len, s_len, dim, dim, bf16,
                       True, (0, 0), "initial", 21)
-    bench_f32 = check_hop(torch, attn, "bench-f32", s_len, s_len, dim, dim,
-                          torch.float32, True, (0, 0), "initial", 22)
+    check_hop(torch, attn, "bench-f32", s_len, s_len, dim, dim,
+              torch.float32, True, (0, 0), "initial", 22)
     for seed, offs in ((23, (s_len, 0)), (24, (4096, 2048))):
         check_hop(torch, attn, f"mid-stream {offs}", s_len, s_len, dim, dim,
                   bf16, True, offs, "mid", seed)
@@ -1013,7 +1065,7 @@ def attention_phase(torch, rate: float, name: str):
               (0, 0), "mid", 31)
     check_hop(torch, attn, "Dv 256", 1000, 777, 256, 256, bf16, True,
               (300, 0), "mid", 33)
-    wide_256 = check_f32_wide(torch, attn)
+    check_f32_wide(torch, attn)
     check_graph_replay(torch, attn)
 
     # The bf16 route's main run: flash_attention at the bench shape, as the
@@ -1107,7 +1159,7 @@ def attention_phase(torch, rate: float, name: str):
             {"name": f32_route, "route": "cuda",
              "source": "gossipy_tpu_torch/csrc/flash_hop_tf32.cu",
              "replaces": replaces, "launches": demo_launches,
-             "max_abs_err": bench_f32["max_abs_err"], "ms": f32["ms"],
+             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
              "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
              "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
              "bound_f32_rate_ms": f32["bound_f32_rate_ms"],
@@ -1116,10 +1168,9 @@ def attention_phase(torch, rate: float, name: str):
              "source": "gossipy_tpu_torch/csrc/flash_hop_tf32.cu",
              "replaces": replaces, "launches": split_launches, **split},
             {"name": wide_route, "route": "cuda",
-             "source": "gossipy_tpu_torch/csrc/flash_hop_tf32_wide.cu",
+             "source": "gossipy_tpu_torch/csrc/flash_hop_tf32.cu",
              "replaces": replaces, "launches": wide["launches"],
-             "max_abs_err": wide_256["max_abs_err"],
-             "ms": wide["ms"],
+             "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
              "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
              "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
              "bound_f32_rate_ms": wide["bound_f32_rate_ms"]}]

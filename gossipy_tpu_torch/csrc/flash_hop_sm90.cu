@@ -4,9 +4,8 @@
 //
 // Replaces the TPU kernel gossipy_tpu/ops/attention.py::_hop_kernel (K5)
 // for bfloat16 q, k and v (entry point flash_hop_sm90); float32 operands go
-// to flash_hop_tf32.cu (3xTF32 on the same machinery) or, for heads wider
-// than 128, flash_hop_tf32_wide.cu. For each query row i and key row j of
-// the chunk,
+// to flash_hop_tf32.cu (3xTF32 on the same machinery, heads up to 256
+// wide). For each query row i and key row j of the chunk,
 //
 //     s[i,j] = scale * (q[i] . k[j]),  masked (-> kNeg) where j >= sl_k or,
 //              when causal, where k_off + j > q_off + i (global positions);

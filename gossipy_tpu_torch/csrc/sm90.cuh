@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the flash-hop kernels written
-// for the tensor cores (flash_hop_sm90.cu, bfloat16; flash_hop_tf32.cuh,
+// for the tensor cores (flash_hop_sm90.cu, bfloat16; flash_hop_tf32.cu,
 // float32 as 3xTF32): mbarriers, TMA loads, wgmma descriptors and fences,
 // quad reductions over the four threads of an accumulator row, and tensor
 // maps encoded through the driver entry point looked up at run time (so a

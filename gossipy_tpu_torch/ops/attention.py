@@ -26,9 +26,9 @@ operands' type and head dims (:func:`route`): bfloat16 q, k, v go to
 :data:`TF32_MAX_DIM` to ``csrc/flash_hop_tf32.cu`` (``flash_hop[f32]``:
 the same machinery with each product as three TF32 products, after the
 split pre-pass :func:`tf32_split`, which that source also holds); float32
-ones with D or Dv above it, up to :data:`MAX_DIM`, to
-``csrc/flash_hop_tf32_wide.cu`` (``flash_hop[f32-wide]``: the same
-pre-pass and kernel on 64-row query tiles). Any other type raises. On CPU
+ones with D or Dv above it, up to :data:`MAX_DIM`, to the same source's
+wider instances (``flash_hop[f32-wide]``: the same pre-pass and kernel
+on 64-row query tiles). Any other type raises. On CPU
 tensors :func:`flash_hop_update` runs the plain version of the kernel,
 :func:`flash_hop_update_reference`, which streams over key blocks of
 ``block_k`` as the TPU kernel does. :func:`flash_hop_update_split_reference`
@@ -72,9 +72,9 @@ KERNEL = "flash_hop"
 SPLIT_KERNEL = "tf32_split"
 BF16_ROUTE, F32_ROUTE, F32_WIDE_ROUTE = ("flash_hop[bf16]", "flash_hop[f32]",
                                          "flash_hop[f32-wide]")
-# The csrc/ source (without .cu) that holds each route's entry point.
+# The csrc/ source (without .cu) that holds each route's kernel.
 SOURCES = {BF16_ROUTE: "flash_hop_sm90", F32_ROUTE: "flash_hop_tf32",
-           F32_WIDE_ROUTE: "flash_hop_tf32_wide"}
+           F32_WIDE_ROUTE: "flash_hop_tf32"}
 ROUTES = tuple(SOURCES)
 MAX_DIM = 256      # D and Dv up to this, on every route
 # float32 heads up to this wide take the 3xTF32 route.
@@ -83,7 +83,7 @@ TF32_MAX_DIM = 128
 # item; key tiles of 128 rows while D and Dv fit two 64-column groups, of 64
 # above.
 SM90_BLOCK_Q = 128
-# The 3xTF32 routes' tiles (csrc/flash_hop_tf32.cuh). Up to TF32_MAX_DIM:
+# The 3xTF32 routes' tiles (csrc/flash_hop_tf32.cu). Up to TF32_MAX_DIM:
 # 128 query rows per work item (two warpgroups of 64), 32-key tiles. Wider
 # (flash_hop[f32-wide]): 64 query rows, since the hi and lo planes of a
 # 128-row tile of 256 columns alone would pass a block's 227 KB of shared
@@ -512,8 +512,8 @@ def flash_hop_update_cuda(q, k_c, v_c, m, l, acc, q_off: Offset,
     ``q``, ``k_c``, ``v_c`` are one type, and :func:`route` picks the route
     by type and head dims: bfloat16 runs ``csrc/flash_hop_sm90.cu``,
     float32 one of the 3xTF32 routes (the pre-pass :func:`tf32_split`,
-    then the hop of ``csrc/flash_hop_tf32.cu`` with D and Dv at most
-    :data:`TF32_MAX_DIM`, of ``csrc/flash_hop_tf32_wide.cu`` above); the
+    then the hop of ``csrc/flash_hop_tf32.cu``, on 128-row query tiles
+    with D and Dv at most :data:`TF32_MAX_DIM`, on 64-row ones above); the
     carry is float32. ``D`` and ``Dv`` are at most :data:`MAX_DIM`. Raises
     on an operand K5 does not take and when a launch reports an error."""
     _check_hop(q, k_c, v_c, m, l, acc)
@@ -626,8 +626,8 @@ def _launch_sm90(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
 
 def _launch_tf32(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
                  scale, causal) -> int:
-    """Both 3xTF32 routes: the pre-pass, then the hop of the route's
-    source, on the work list of its tiles."""
+    """Both 3xTF32 routes: the pre-pass, then the hop on the work list
+    of the route's tiles."""
     (sl_q, dim), (sl_k, dv) = q.shape, v_c.shape
     groups = tf32_groups(dim, dv)
     bq, bk = tf32_tiles(dim, dv)
@@ -635,9 +635,7 @@ def _launch_tf32(q, k_c, v_c, m, l, acc, m_out, l_out, acc_out, q_off, k_off,
     table, sched = _device_schedule(q.device, sl_q, sl_k, q_off, k_off,
                                     causal, bk, bq)
     part, tickets = _workspace(sched, bq, 32 * groups, q.device)
-    # Each route's entry point has its source's name.
-    source = SOURCES[route(q.dtype, dim, dv)]
-    fn = _build.function(source, source,
+    fn = _build.function(SOURCES[F32_ROUTE], "flash_hop_tf32",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
                          + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,

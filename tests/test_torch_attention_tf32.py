@@ -1,5 +1,5 @@
-"""K5's float32 routes as 3xTF32 (``csrc/flash_hop_tf32.cu`` for D, Dv up
-to 128; ``csrc/flash_hop_tf32_wide.cu`` up to 256), on the CPU.
+"""K5's float32 routes as 3xTF32 (``csrc/flash_hop_tf32.cu``: 128-row
+query tiles for D, Dv up to 128, 64-row ones up to 256), on the CPU.
 
 The routes split every float32 operand into TF32 high and low parts and
 compute each product as three TF32 products. Their CUDA kernels run on the
@@ -312,7 +312,7 @@ def test_route_picks_by_type_and_width():
     with pytest.raises(TypeError):
         tattn.route(torch.float16, 32, 32)
     assert tattn.SOURCES[tattn.F32_ROUTE] == "flash_hop_tf32"
-    assert tattn.SOURCES[tattn.F32_WIDE_ROUTE] == "flash_hop_tf32_wide"
+    assert tattn.SOURCES[tattn.F32_WIDE_ROUTE] == "flash_hop_tf32"
     assert [tattn.tf32_groups(d, dv) for d, dv in
             ((32, 32), (64, 40), (72, 72), (128, 128), (8, 100), (129, 8),
              (64, 180), (200, 40), (256, 256))] == [1, 2, 3, 4, 4, 5, 6, 7, 8]
