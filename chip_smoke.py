@@ -72,6 +72,31 @@ Phases, each printed as it runs; any failure exits non-zero:
    S = 8192, D = 128 with K5 and with the plain version, whose losses
    must agree. ``attention_diagnostics`` (not run here) breaks K5's time
    down further.
+7. north star: the configuration of ``bench.py::build_sim``, built through
+   the port's entry points (``Topology.random_regular(100, 20, seed=42)``,
+   ``load_classification_dataset("spambase")``, the data handler and
+   dispatcher, ``SGDHandler`` over ``LogisticRegression(57, 2)``, SGD 0.1,
+   batch 32, MERGE_UPDATE, PUSH, a global eval every round), on its two
+   legs: the default deliver (``fused_merge=False``, compaction on by
+   itself at N = 100) and the single-pass one (K1). (a) 10 rounds on the
+   card and on the CPU from the same seeds: equal accounting (sent,
+   failures by cause, mailbox high-water mark, compact/wide slots, both
+   boxes), params within REF_TOL. K1, K2 and K3 against their plain
+   versions, timed, at the shapes the north star gives them (100 rows of
+   LogReg's 116-column stride, the derived 6 slots or one, a two-cell
+   ring). (b) Each leg timed: a warm-up, then
+   BENCH_ROUNDS rounds from the same initial state and the same draws,
+   the card synchronised before the host clock stops; rounds/s, final
+   global accuracy, the kernels' launches (counts set to 0 just before),
+   one profiled round's idle share. (c) The paper examples' network model
+   (``UniformDelay(0, 10)``, 10% drops, 20% online, ``sampling_eval=0.1``)
+   in 10-round card-against-CPU runs: on the single-pass deliver with a
+   bf16 ring (K2), with PUSH_PULL on the single-pass deliver (K1 in the
+   reply phase) and on the per-slot one (K3), and with async nodes. On
+   the card every merge call of these runs is held, as it happens,
+   against its plain version on the same tables (ring cells older than
+   the round's own, the reply box's tables), and each run must launch
+   its kernels.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -79,6 +104,7 @@ every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -108,6 +134,12 @@ TENSOR_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
 # The TF32 tensor-core rate is half the bf16 one on every H100 part (the
 # same data sheets): the bound of the 3xTF32 route's three products.
 TF32_PER_BF16 = 0.5
+# The north-star configuration (bench.py:29-35, 228-260).
+NS_NODES = 100
+NS_DEGREE = 20
+NS_CHECK_ROUNDS = 10
+NS_WARMUP_ROUNDS = 20
+BENCH_ROUNDS = 2000
 ATTN_S = 8192       # the JAX bench's flash-attention regime:
 ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
 
@@ -381,9 +413,10 @@ def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
     return sim, state
 
 
-def profile(torch, fn, label: str) -> None:
+def profile(torch, fn, label: str):
     """``fn`` once under torch.profiler: the kernels that take the card's
-    time, in order, and the card's idle share of the call's wall time."""
+    time, in order, and the card's idle share of the call's wall time,
+    which it returns (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
     torch.cuda.synchronize()
@@ -404,26 +437,29 @@ def profile(torch, fn, label: str) -> None:
     busy = sum(dev_us(e) for e in kernels)
     if busy <= 0:
         log("[profile] the profiler recorded no device time")
-        return
+        return None
     log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / wall_us:.3f}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {e.count:5d}x "
             f"{e.key[:90]}")
+    return 1 - busy / wall_us
 
 
 def phase_times(torch, sim, state, label: str, rounds: int = 3) -> None:
     """Host-clock ms of each phase of a round, synchronised around each
     phase, averaged over ``rounds`` rounds (eval every round here, where
     the timed runs evaluate once per run)."""
-    tot = {"snapshot": 0.0, "send": 0.0, "deliver": 0.0, "eval": 0.0}
+    tot = {"snapshot": 0.0, "send": 0.0, "deliver": 0.0, "reply": 0.0,
+           "eval": 0.0}
     for _ in range(rounds):
         r = state.round
         steps = (("snapshot", lambda: sim._snapshot(state, r)),
                  ("send", lambda: sim._send_phase(state, r)),
                  ("deliver", lambda: sim._deliver_phase(state, r)),
-                 ("eval", lambda: sim._eval_phase(state)))
+                 ("reply", lambda: sim._reply_phase(state, r)),
+                 ("eval", lambda: sim._eval_phase(state, r)))
         for name, fn in steps:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -525,6 +561,254 @@ def card_vs_cpu(torch, merge, label: str, fused, wire: str) -> None:
     if worst > 0 or l_c != 0 or (l_g == 0) != (fused is False):
         raise RuntimeError(f"{label}: card run does not agree with the CPU "
                            "run")
+
+
+def northstar_sim(torch, device, seed: int = 42, **kw):
+    """``bench.py::build_sim`` through the port's entry points, on
+    ``device``, with the draws of ``TorchDraws(seed)`` and the initial
+    weights of a generator seeded with ``seed``; ``kw`` goes to the
+    simulator (the default deliver unless it names another)."""
+    import warnings
+
+    from gossipy_tpu_torch.core import (AntiEntropyProtocol, CreateModelMode,
+                                        Topology)
+    from gossipy_tpu_torch.data import (ClassificationDataHandler,
+                                        DataDispatcher,
+                                        load_classification_dataset)
+    from gossipy_tpu_torch.handlers import SGDHandler, losses
+    from gossipy_tpu_torch.models import LogisticRegression
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import GossipSimulator
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the offline stand-in's note
+        X, y = load_classification_dataset("spambase")
+    dh = ClassificationDataHandler(X, y, test_size=0.2, seed=42)
+    stacked = DataDispatcher(dh, n=NS_NODES, eval_on_user=False).stacked()
+    topology = Topology.random_regular(NS_NODES, NS_DEGREE, seed=42,
+                                       backend="networkx")
+    d = X.shape[1]
+    handler = SGDHandler(LogisticRegression(d, 2), losses.cross_entropy,
+                         learning_rate=0.1, local_epochs=1, batch_size=32,
+                         n_classes=2, input_shape=(d,),
+                         create_model_mode=CreateModelMode.MERGE_UPDATE)
+    kw = {"fused_merge": False, "protocol": AntiEntropyProtocol.PUSH, **kw}
+    sim = GossipSimulator(handler, topology, stacked, delta=100,
+                          draws=TorchDraws(seed), device=device, **kw)
+    state = sim.init_nodes(torch.Generator().manual_seed(seed))
+    return sim, state
+
+
+class MergeAudit:
+    """Holds every merge kernel call of one card run, as it happens,
+    against its plain version on the same tables: the kernel's own output
+    on the path's own inputs (the plain version launches nothing). Counts,
+    per kernel, the calls, the tables that read ring cells older than the
+    round's own (delayed messages), the reply phase's tables, and the
+    worst error."""
+
+    def __init__(self, torch, merge, sim):
+        from gossipy_tpu_torch.simulation import engine
+        self.torch, self.merge, self.sim, self.engine = \
+            torch, merge, sim, engine
+        self.phase, self.r = "deliver", 0
+        self.stats = {}
+
+    def __enter__(self):
+        e, m = self.engine, self.merge
+        self._saved = (e.gather_merge_multi, e.gather_merge_flat)
+        e.gather_merge_multi = self._wrap(e.gather_merge_multi,
+                                          m.gather_merge_multi_reference)
+        e.gather_merge_flat = self._wrap(e.gather_merge_flat,
+                                         m.gather_merge_reference)
+        for phase in ("deliver", "reply"):
+            run = getattr(self.sim, f"_{phase}_phase")
+
+            def tagged(state, r, run=run, phase=phase):
+                self.phase, self.r = phase, r
+                return run(state, r)
+            setattr(self.sim, f"_{phase}_phase", tagged)
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.gather_merge_multi, self.engine.gather_merge_flat = \
+            self._saved
+        del self.sim._deliver_phase, self.sim._reply_phase
+        return False
+
+    def _wrap(self, fn, plain):
+        def call(p, h, idx, w_self, w_peer, scale=None, leaf_starts=None):
+            before = dict(self.merge.LAUNCHES)
+            out = fn(p, h, idx, w_self, w_peer, scale, leaf_starts)
+            launched = [k for k, v in self.merge.LAUNCHES.items()
+                        if v != before.get(k, 0)]
+            if len(launched) != 1:
+                raise RuntimeError(f"a merge call launched {launched}")
+            want = plain(p, h, idx, w_self, w_peer, scale, leaf_starts)
+            err = float((out - want).abs().max())
+            n = self.sim.n_nodes
+            cells = idx.long()[w_peer != 0] // n
+            depth = h.shape[0] // n
+            s = self.stats.setdefault(launched[0], {
+                "calls": 0, "older_cells": 0, "reply": 0, "max_abs_err": 0.0})
+            s["calls"] += 1
+            s["older_cells"] += int(bool((cells != self.r % depth).any()))
+            s["reply"] += int(self.phase == "reply")
+            if not err <= s["max_abs_err"]:
+                s["max_abs_err"] = err
+            if not err <= KERNEL_TOL:
+                raise RuntimeError(f"{launched[0]}: {err} off its plain "
+                                   f"version on the {self.phase} tables of "
+                                   f"round {self.r}")
+            return out
+        return call
+
+
+def ns_card_vs_cpu(torch, merge, label: str, wire: str = "float32",
+                   **kw) -> dict:
+    """NS_CHECK_ROUNDS rounds of the north-star configuration (with
+    ``kw``) on the CPU and on the card from the same seeds: equal
+    accounting and boxes, params within REF_TOL (plus half a bf16 step of
+    the value for a bf16 ring); on the card, every merge call held to its
+    plain version (:class:`MergeAudit`). Returns the audit's stats and
+    the card run's launches per kernel."""
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sim, state = northstar_sim(torch, dev, seed=3, history_dtype=wire,
+                                   **kw)
+        merge.reset_launch_counts()
+        audit = MergeAudit(torch, merge, sim)
+        with audit if dev == "cuda" else contextlib.nullcontext():
+            state, rep = sim.start(state, n_rounds=NS_CHECK_ROUNDS)
+        runs[dev] = (state, rep, {k: v for k, v in merge.LAUNCHES.items()
+                                  if v}, audit.stats)
+    (st_c, r_c, l_c, _), (st_g, r_g, l_g, stats) = runs["cpu"], runs["cuda"]
+    fields = ("sent_per_round", "failed_per_round", "mailbox_hwm_per_round",
+              "compact_slots_per_round", "wide_slots_per_round")
+    for field in fields:
+        if not np.array_equal(getattr(r_c, field), getattr(r_g, field)):
+            raise RuntimeError(f"{label}: card and CPU differ in {field}")
+    for cause, v in r_c.failed_per_cause.items():
+        if not np.array_equal(v, r_g.failed_per_cause[cause]):
+            raise RuntimeError(f"{label}: card and CPU differ in {cause}")
+    for box in ("mailbox", "reply_box"):
+        for a, b in zip(getattr(st_c, box), getattr(st_g, box)):
+            if not torch.equal(a, b.cpu()):
+                raise RuntimeError(f"{label}: card and CPU {box} differ")
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    tol = torch.full_like(p_c, REF_TOL)
+    if wire == "bfloat16":
+        tol = tol + 2.0 ** -8 * p_c.abs()
+    diff = (p_c - p_g).abs()
+    worst = float((diff - tol).max())
+    causes = {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()}
+    log(f"[northstar] {label}: {NS_CHECK_ROUNDS} rounds, card vs CPU: sent "
+        f"{int(r_g.sent_per_round.sum())}, failed {causes}, slots "
+        f"{(r_g.compact_slots_per_round + r_g.wide_slots_per_round).tolist()}"
+        f", max abs param diff {float(diff.max()):.3e}, worst margin to the "
+        f"tolerance {worst:.3e} (<= 0 passes); final accuracy card "
+        f"{r_g.final('accuracy')}, CPU {r_c.final('accuracy')}; launches "
+        f"card {l_g}, CPU {l_c}; merge calls held to the plain versions "
+        f"{stats}")
+    if worst > 0 or l_c or not np.isfinite(r_g.final("accuracy")):
+        raise RuntimeError(f"{label}: card run does not agree with the CPU "
+                           "run")
+    if bool(l_g) != bool(kw.get("fused_merge", False)):
+        raise RuntimeError(f"{label}: launches {l_g} on the card; a fused "
+                           "path launches its kernel, the plain one none")
+    return {"stats": stats, "launches": l_g}
+
+
+def ns_timed(torch, merge, label: str, fused) -> dict:
+    """One leg of the north-star configuration timed as ``bench.py``
+    times it: a warm-up, then BENCH_ROUNDS rounds from the same initial
+    state and the same draws, the card synchronised before the host clock
+    stops. Launch counts are set to 0 just before the timed rounds."""
+    import copy
+
+    from gossipy_tpu_torch.random import TorchDraws
+    sim, state0 = northstar_sim(torch, "cuda", fused_merge=fused)
+    warm, _ = sim.start(copy.deepcopy(state0), n_rounds=NS_WARMUP_ROUNDS)
+    torch.cuda.synchronize()
+    sim.draws = TorchDraws(42)
+    state = copy.deepcopy(state0)
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=BENCH_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    compact, wide = rep.compact_slots_per_round, rep.wide_slots_per_round
+    with_msgs = int(((compact + wide) > 0).sum())
+    acc = rep.final("accuracy")
+    if not torch.isfinite(state.model.params).all() or not np.isfinite(acc):
+        raise RuntimeError(f"{label}: non-finite params or accuracy")
+    want = {merge.KERNEL: with_msgs} if fused == "multi" else {}
+    if launches != want or (fused == "multi" and with_msgs == 0):
+        raise RuntimeError(f"{label}: launches {launches}, the path must "
+                           f"make {want}")
+    idle = profile(torch, lambda: sim._round(state),
+                   f"north star {label}, one round with eval")
+    log(f"[northstar] {label}: {BENCH_ROUNDS} rounds in {wall:.3f} s = "
+        f"{BENCH_ROUNDS / wall:.2f} rounds/s ({wall / BENCH_ROUNDS * 1e3:.4f}"
+        f" ms/round); sent {int(rep.sent_per_round.sum())}, failed "
+        f"{int(rep.failed_per_round.sum())}, slots compact "
+        f"{int(compact.sum())} wide {int(wide.sum())}; final global accuracy"
+        f" {acc}; launches {launches}; idle share of one round {idle}")
+    phase_times(torch, sim, state, f"north star {label}")
+    return {"rounds_per_s": BENCH_ROUNDS / wall, "accuracy": acc,
+            "launches": launches, "idle_share": idle}
+
+
+def northstar_phase(torch, merge, rate) -> dict:
+    """Phase 7 (a)-(c); returns the launches per path of each (kernel,
+    ring format)."""
+    from gossipy_tpu_torch.core import AntiEntropyProtocol, UniformDelay
+    paths = {}
+    # (a) the two legs, card against CPU
+    for label, fused in (("default", False), ("multi", "multi")):
+        ns_card_vs_cpu(torch, merge, label, fused_merge=fused)
+    # K1, K2 and K3 against their plain versions, timed, at the shapes the
+    # north star gives them: 100 rows of LogReg's stride, the derived K
+    # slots (one for K3), a two-cell ring.
+    sim, _ = northstar_sim(torch, "cpu")
+    layout = sim.handler.layout
+    starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
+    check_merge(torch, merge, NS_NODES, 2, layout.stride, sim.K, 21, rate)
+    check_wire_kernel(torch, merge, "multi", "bfloat16", NS_NODES, 2,
+                      layout.stride, sim.K, starts, 22, rate)
+    check_wire_kernel(torch, merge, "single", "float32", NS_NODES, 2,
+                      layout.stride, 1, starts, 23, rate)
+    # (b) rounds per second of each leg
+    for label, fused in (("default", False), ("multi", "multi")):
+        out = ns_timed(torch, merge, label, fused)
+        for k, v in out["launches"].items():
+            paths.setdefault((k, "float32"), {})[f"northstar-{label}"] = v
+    # (c) the paper examples' network model
+    net = dict(delay=UniformDelay(0, 10), drop_prob=0.1, online_prob=0.2,
+               sampling_eval=0.1)
+    push_pull = AntiEntropyProtocol.PUSH_PULL
+    cases = (("danner-multi-bf16", "bfloat16", dict(fused_merge="multi")),
+             ("danner-push_pull-multi", "float32",
+              dict(fused_merge="multi", protocol=push_pull)),
+             ("danner-push_pull-per_slot", "float32",
+              dict(fused_merge="per_slot", protocol=push_pull)),
+             ("danner-async-multi", "float32",
+              dict(fused_merge="multi", sync=False)))
+    need = {"danner-multi-bf16": (merge.KERNEL_MULTI_DQ, "older_cells"),
+            "danner-push_pull-multi": (merge.KERNEL, "reply"),
+            "danner-push_pull-per_slot": (merge.KERNEL_FLAT, "reply"),
+            "danner-async-multi": (merge.KERNEL, "older_cells")}
+    for label, wire, kw in cases:
+        out = ns_card_vs_cpu(torch, merge, label, wire=wire, **net, **kw)
+        kernel, what = need[label]
+        s = out["stats"].get(kernel, {})
+        if not s.get(what) or not out["launches"].get(kernel):
+            raise RuntimeError(f"{label}: {kernel} never ran on {what} "
+                               f"tables ({out['stats']})")
+        for k, v in out["launches"].items():
+            paths.setdefault((k, wire), {})[label] = v
+    return paths
 
 
 def tensor_rate(name: str) -> float:
@@ -1399,6 +1683,9 @@ def main() -> int:
     # 6. attention: K5, its gradient and the training demo
     k5 = attention_phase(torch, rate, name)
 
+    # 7. the north-star configuration and the examples' network model
+    ns_paths = northstar_phase(torch, merge, rate)
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -1406,7 +1693,9 @@ def main() -> int:
                 "launches": launched, "max_abs_err": nums["max_abs_err"],
                 "ms": nums["ms"], "plain_ms": nums["plain_ms"],
                 "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
-                "library_ms": None}
+                "library_ms": None,
+                "launches_by_path": ns_paths.get((kernel, wire or "float32"),
+                                                 {})}
 
     kernels = [entry(merge.KERNEL, None, "gather_merge_multi.cu", 76, k1,
                      launches)]

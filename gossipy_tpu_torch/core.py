@@ -1,18 +1,24 @@
 """Core protocol primitives: enums, the dense topology, delay models.
 
 Counterpart of ``gossipy_tpu/core.py``. The topology is a host-side numpy
-bool adjacency; the simulator copies it to its device once. Peer draws go
-through the simulation's :class:`~gossipy_tpu_torch.random.DrawProvider`.
+bool adjacency; the simulator copies it to its device once. Peer draws and
+random delays go through the simulation's
+:class:`~gossipy_tpu_torch.random.DrawProvider`.
 
-Ported so far: the enums, :class:`Topology` with its ``clique``
-constructor, and :class:`ConstantDelay`. The other constructors, the
-sparse topology and the random delay models are still to be ported.
+Ported so far: the enums, :class:`Topology` with its ``clique``, ``ring``
+and ``random_regular`` constructors (the last with networkx's algorithm,
+copied below, so the edge set equals the JAX package's for every seed),
+and the three delay models. ``barabasi_albert``, ``erdos_renyi``, the
+native generators and the sparse topology are still to be ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
+from collections import defaultdict
 from enum import IntEnum
+from typing import Optional
 
 import numpy as np
 import torch
@@ -50,6 +56,10 @@ class Topology:
     Self-loops are removed; row ``i`` lists node ``i``'s out-neighbours.
     """
 
+    # Node count from which the JAX package's "auto" backend switches to its
+    # native generators (another edge set for the same seed).
+    NATIVE_THRESHOLD = 2048
+
     def __init__(self, adjacency: np.ndarray):
         adjacency = np.asarray(adjacency)
         if adjacency.ndim != 2 or adjacency.shape[0] != adjacency.shape[1]:
@@ -65,20 +75,154 @@ class Topology:
         """Fully-connected topology."""
         return Topology(np.ones((n, n), dtype=bool))
 
+    @staticmethod
+    def ring(n: int, k: int = 1) -> "Topology":
+        """Ring lattice: each node links to its ``k`` nearest neighbours on
+        each side."""
+        a = np.zeros((n, n), dtype=bool)
+        idx = np.arange(n)
+        for d in range(1, k + 1):
+            a[idx, (idx + d) % n] = True
+            a[idx, (idx - d) % n] = True
+        return Topology(a)
+
+    @staticmethod
+    def random_regular(n: int, degree: int, seed: int = 42,
+                       backend: str = "networkx") -> "Topology":
+        """Random ``degree``-regular graph on ``n`` nodes, with the edge set
+        networkx's ``random_regular_graph(degree, n, seed)`` gives (the JAX
+        package's ``backend="networkx"``). ``"native"``, and ``"auto"`` at
+        ``n >= NATIVE_THRESHOLD``, name the JAX package's C++ generators,
+        which are not ported yet."""
+        if backend not in ("auto", "networkx", "native"):
+            raise ValueError("backend must be 'auto', 'networkx' or "
+                             f"'native', got {backend!r}")
+        if backend == "native" or (backend == "auto"
+                                   and n >= Topology.NATIVE_THRESHOLD):
+            raise NotImplementedError(
+                "the native graph generators are not ported yet; pass "
+                "backend='networkx'")
+        a = np.zeros((n, n), dtype=bool)
+        for s1, s2 in _random_regular_edges(degree, n, random.Random(seed)):
+            a[s1, s2] = a[s2, s1] = True
+        return Topology(a)
+
+    def get_peers(self, node_id: int) -> list[int]:
+        """Peer ids of one node."""
+        return list(np.where(self.adjacency[node_id])[0])
+
+    def size(self, node: Optional[int] = None) -> int:
+        """Number of nodes, or the degree of ``node`` if given (node 0
+        too: the original gossipy's ``if node:`` gives it the node count)."""
+        if node is None:
+            return self.num_nodes
+        return int(self.degrees[node])
+
     def adjacency_on(self, device: torch.device) -> torch.Tensor:
         """The adjacency as a bool tensor on ``device``."""
         return torch.as_tensor(self.adjacency, device=device)
 
 
+# The pairing algorithm of networkx 3.6.1's ``random_regular_graph``
+# (networkx/generators/random_graphs.py:524), copied so that the port needs
+# no networkx. Its only randomness is ``rng.shuffle`` of the stubs, with
+# ``rng = random.Random(seed)`` as networkx's ``py_random_state`` makes it.
+#
+# Copyright (C) 2004-2025, NetworkX Developers
+# Aric Hagberg <hagberg@lanl.gov>
+# Dan Schult <dschult@colgate.edu>
+# Pieter Swart <swart@lanl.gov>
+# All rights reserved.
+#
+# Redistribution and use in source and binary forms, with or without
+# modification, are permitted provided that the following conditions are
+# met:
+#
+#   * Redistributions of source code must retain the above copyright
+#     notice, this list of conditions and the following disclaimer.
+#   * Redistributions in binary form must reproduce the above copyright
+#     notice, this list of conditions and the following disclaimer in the
+#     documentation and/or other materials provided with the distribution.
+#   * Neither the name of the NetworkX Developers nor the names of its
+#     contributors may be used to endorse or promote products derived from
+#     this software without specific prior written permission.
+#
+# THIS SOFTWARE IS PROVIDED BY THE COPYRIGHT HOLDERS AND CONTRIBUTORS "AS
+# IS" AND ANY EXPRESS OR IMPLIED WARRANTIES, INCLUDING, BUT NOT LIMITED TO,
+# THE IMPLIED WARRANTIES OF MERCHANTABILITY AND FITNESS FOR A PARTICULAR
+# PURPOSE ARE DISCLAIMED. IN NO EVENT SHALL THE COPYRIGHT OWNER OR
+# CONTRIBUTORS BE LIABLE FOR ANY DIRECT, INDIRECT, INCIDENTAL, SPECIAL,
+# EXEMPLARY, OR CONSEQUENTIAL DAMAGES (INCLUDING, BUT NOT LIMITED TO,
+# PROCUREMENT OF SUBSTITUTE GOODS OR SERVICES; LOSS OF USE, DATA, OR
+# PROFITS; OR BUSINESS INTERRUPTION) HOWEVER CAUSED AND ON ANY THEORY OF
+# LIABILITY, WHETHER IN CONTRACT, STRICT LIABILITY, OR TORT (INCLUDING
+# NEGLIGENCE OR OTHERWISE) ARISING IN ANY WAY OUT OF THE USE OF THIS
+# SOFTWARE, EVEN IF ADVISED OF THE POSSIBILITY OF SUCH DAMAGE.
+
+def _random_regular_edges(d: int, n: int, rng: random.Random) -> set:
+    """The edge set ``{(s1, s2)}``, ``s1 < s2``, of a random d-regular
+    graph on nodes ``0..n-1`` (Steger and Wormald's pairing, started again
+    until it succeeds)."""
+    if (n * d) % 2 != 0:
+        raise ValueError("n * d must be even")
+    if not 0 <= d < n:
+        raise ValueError("the 0 <= d < n inequality must be satisfied")
+    if d == 0:
+        return set()
+
+    def suitable(edges, potential_edges):
+        # Whether an edge can still be formed among the leftover stubs.
+        if not potential_edges:
+            return True
+        for s1 in potential_edges:
+            for s2 in potential_edges:
+                if s1 == s2:
+                    break
+                if s1 > s2:
+                    s1, s2 = s2, s1
+                if (s1, s2) not in edges:
+                    return True
+        return False
+
+    def try_creation():
+        edges = set()
+        stubs = list(range(n)) * d
+        while stubs:
+            potential_edges = defaultdict(lambda: 0)
+            rng.shuffle(stubs)
+            stubiter = iter(stubs)
+            for s1, s2 in zip(stubiter, stubiter):
+                if s1 > s2:
+                    s1, s2 = s2, s1
+                if s1 != s2 and ((s1, s2) not in edges):
+                    edges.add((s1, s2))
+                else:
+                    potential_edges[s1] += 1
+                    potential_edges[s2] += 1
+            if not suitable(edges, potential_edges):
+                return None
+            stubs = [node for node, potential in potential_edges.items()
+                     for _ in range(potential)]
+        return edges
+
+    edges = try_creation()
+    while edges is None:
+        edges = try_creation()
+    return edges
+
+
 @dataclasses.dataclass(frozen=True)
 class Delay:
-    """Base message-latency model: ``sample`` returns integer delays in
-    simulation time units for a batch of messages of ``size`` scalars."""
+    """Base message-latency model: ``sample`` returns ``[n]`` int64 delays
+    in simulation time units for messages of ``size`` scalars, drawing any
+    randomness from the simulation's draw provider under ``(r, purpose,
+    sub)``."""
 
     def max_delay(self, size: int) -> int:
         raise NotImplementedError
 
-    def sample(self, n: int, size: int, device: torch.device) -> torch.Tensor:
+    def sample(self, draws, r: int, purpose: int, n: int, size: int,
+               device: torch.device, sub: int = 0) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -91,5 +235,41 @@ class ConstantDelay(Delay):
     def max_delay(self, size: int) -> int:
         return self.delay
 
-    def sample(self, n, size, device):
+    def sample(self, draws, r, purpose, n, size, device, sub=0):
         return torch.full((n,), self.delay, dtype=torch.int64, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformDelay(Delay):
+    """Uniform integer delay in ``[min_delay, max_delay_]``."""
+
+    min_delay: int
+    max_delay_: int
+
+    def __post_init__(self):
+        if not 0 <= self.min_delay <= self.max_delay_:
+            raise ValueError("need 0 <= min_delay <= max_delay_")
+
+    def max_delay(self, size: int) -> int:
+        return self.max_delay_
+
+    def sample(self, draws, r, purpose, n, size, device, sub=0):
+        return draws.randint(r, purpose, self.min_delay, self.max_delay_, n,
+                             device, sub)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearDelay(Delay):
+    """Overhead plus a size-proportional delay,
+    ``int(timexunit * size) + overhead``: the same for every message of
+    one size."""
+
+    timexunit: float
+    overhead: int
+
+    def max_delay(self, size: int) -> int:
+        return int(self.timexunit * size) + self.overhead
+
+    def sample(self, draws, r, purpose, n, size, device, sub=0):
+        return torch.full((n,), self.max_delay(size), dtype=torch.int64,
+                          device=device)

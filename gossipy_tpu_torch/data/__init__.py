@@ -1,18 +1,26 @@
-"""Data layer: uniform assignment, the shard dispatcher, and the step that
-puts the stacked shards on the device.
+"""Data layer: the offline classification loader, uniform assignment, the
+shard dispatcher, and the step that puts the stacked shards on the device.
 
 A numpy copy of the parts of ``gossipy_tpu/data/__init__.py`` the ported
-path runs (assignment and stacking run once at set-up, on the host).
-:meth:`DataDispatcher.stacked` pads every node's shard to one length and
-returns ``X [N, S, ...]``, ``y [N, S]`` and ``mask [N, S]`` (1.0 on real
+path runs (loading, assignment and stacking run once at set-up, on the
+host). :meth:`DataDispatcher.stacked` pads every node's shard to one length
+and returns ``X [N, S, ...]``, ``y [N, S]`` and ``mask [N, S]`` (1.0 on real
 rows); :func:`to_device` moves that dict onto the run's device.
 
-The non-uniform partitioners and the dataset loaders are still to be
-ported.
+:func:`load_classification_dataset` gives the UCI names the JAX package's
+offline stand-in (its deterministic synthetic data, without trying the
+download first) and scales the features with :func:`standard_scale`, a
+numpy copy of scikit-learn's ``StandardScaler``. The sklearn built-ins,
+svmlight files, the non-uniform partitioners and the other loaders are
+still to be ported.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
+import zlib
+from statistics import NormalDist
 from typing import Callable, Optional
 
 import numpy as np
@@ -22,7 +30,110 @@ from .. import resolve_device
 from .handler import ClassificationDataHandler, DataHandler
 
 __all__ = ["AssignmentHandler", "DataDispatcher", "ClassificationDataHandler",
-           "DataHandler", "to_device"]
+           "DataHandler", "load_classification_dataset", "standard_scale",
+           "to_device", "SYNTHETIC_DATA_VERSION", "UCI_SHAPES"]
+
+# The UCI datasets the original gossipy downloads: name -> (n_samples,
+# n_features, n_classes), the shapes of their synthetic stand-ins.
+UCI_SHAPES = {
+    "spambase": (4601, 57, 2),
+    "sonar": (208, 60, 2),
+    "ionosphere": (351, 34, 2),
+    "abalone": (4177, 8, 3),
+    "banknote": (1372, 4, 2),
+    "reuters": (2600, 9947, 2),
+}
+
+# Version of the synthetic generator's recipe, the JAX package's
+# (2: Bayes-accuracy-calibrated centre separation): a change to the values
+# it generates bumps it in both packages.
+SYNTHETIC_DATA_VERSION = 2
+
+# The scikit-learn built-ins of the JAX package's loader.
+_SKLEARN_BUILTINS = ("iris", "breast", "breast_cancer", "digits", "wine")
+
+
+def _name_seeded_rng(name: str) -> np.random.Generator:
+    """RNG keyed on a dataset name (crc32: Python's string hash is salted
+    per process)."""
+    return np.random.default_rng(zlib.crc32(name.encode()))
+
+
+def _synthetic_classification(name: str, n: int, d: int, c: int,
+                              seed: Optional[int] = None,
+                              bayes_accuracy: float = 0.90):
+    """Deterministic synthetic stand-in for a dataset that is not
+    downloaded: a Gaussian mixture keyed on the name, its class centres
+    scaled so the closest pair's two-class Bayes accuracy
+    (``Phi(||mu_i - mu_j|| / 2)``, unit-variance classes) is
+    ``bayes_accuracy``. The JAX package's generator, value for value."""
+    rng = _name_seeded_rng(name) if seed is None \
+        else np.random.default_rng(seed)
+    centers = rng.normal(size=(c, d))
+    if c > 1:
+        diffs = centers[:, None, :] - centers[None, :, :]
+        dists = np.sqrt((diffs ** 2).sum(-1))
+        np.fill_diagonal(dists, np.inf)
+        sep = 2.0 * NormalDist().inv_cdf(bayes_accuracy)
+        centers *= sep / dists.min()
+    per = n // c
+    Xs, ys = [], []
+    for k in range(c):
+        cnt = per + (1 if k < n % c else 0)
+        Xs.append(rng.normal(loc=centers[k], scale=1.0, size=(cnt, d)))
+        ys.append(np.full(cnt, k))
+    X = np.concatenate(Xs).astype(np.float32)
+    y = np.concatenate(ys).astype(np.int64)
+    perm = rng.permutation(n)
+    return X[perm], y[perm]
+
+
+def standard_scale(X: np.ndarray) -> np.ndarray:
+    """Zero mean and unit population variance per column, as
+    scikit-learn's ``StandardScaler().fit_transform``: statistics in
+    float64, a constant column (variance within rounding of 0, sklearn's
+    ``_is_constant_feature`` bound) keeps scale 1; float32 out."""
+    X64 = np.asarray(X, dtype=np.float64)
+    n = X64.shape[0]
+    mean = X64.mean(axis=0)
+    var = X64.var(axis=0)
+    eps = np.finfo(np.float64).eps
+    constant = var <= n * eps * var + (n * mean * eps) ** 2
+    scale = np.where(constant, 1.0, np.sqrt(var))
+    return ((X64 - mean) / scale).astype(np.float32)
+
+
+def load_classification_dataset(name: str = "spambase",
+                                normalize: bool = True):
+    """A classification dataset as ``(X [n, d] float32, y [n] int64)``.
+
+    The UCI names (:data:`UCI_SHAPES`) give the JAX package's offline
+    stand-in, with its warning; no download is tried. The scikit-learn
+    built-ins and svmlight files raise ``NotImplementedError``.
+    ``normalize`` applies :func:`standard_scale`.
+    """
+    key = name.lower()
+    if key in _SKLEARN_BUILTINS:
+        raise NotImplementedError(
+            f"dataset {name!r} is a scikit-learn built-in; the port does not "
+            "depend on scikit-learn, and its loader is not ported yet")
+    if key in UCI_SHAPES:
+        n, d, c = UCI_SHAPES[key]
+        warnings.warn(
+            f"Dataset '{key}' could not be downloaded (no egress?); using a "
+            f"deterministic synthetic stand-in of shape ({n}, {d}).")
+        X, y = _synthetic_classification(key, n, d, c)
+    elif os.path.isfile(name):
+        raise NotImplementedError(
+            f"{name!r} would load as an svmlight file, which needs "
+            "scikit-learn's reader; it is not ported yet")
+    else:
+        raise ValueError(f"Unknown dataset: {key}")
+    X = np.asarray(X, dtype=np.float32)
+    y = np.asarray(y, dtype=np.int64)
+    if normalize:
+        X = standard_scale(X)
+    return X, y
 
 
 class AssignmentHandler:

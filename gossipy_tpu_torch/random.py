@@ -8,6 +8,11 @@ directly: it asks a :class:`DrawProvider` for exactly the values it needs,
 by round and purpose. :class:`TorchDraws` is the default provider. A test
 provider that replays the JAX engine's keys (``tests/torch_oracle.py``)
 makes a port run match a reference run draw for draw.
+
+Sub-fires: an async node may send ``F`` times in one round. Sub-fire
+``f > 0`` draws under ``sub=f``: the JAX engine folds ``f`` into each
+purpose key, and draws its peers from the base ``_round_key(r, K_FIRE)``
+folded with ``f``.
 """
 
 from __future__ import annotations
@@ -40,14 +45,35 @@ class DrawProvider:
         ``[n, epochs, s]``, each row a permutation of ``range(s)``."""
         raise NotImplementedError
 
-    def peers(self, r: int, adjacency: torch.Tensor) -> torch.Tensor:
+    def init_period(self, n: int, delta: int,
+                    device: torch.device) -> torch.Tensor:
+        """Async send periods: ``[n]`` int32
+        ``max(int(delta + delta / 10 * z), 1)`` with ``z`` standard
+        normal."""
+        raise NotImplementedError
+
+    def peers(self, r: int, adjacency: torch.Tensor,
+              sub: int = 0) -> torch.Tensor:
         """One uniform neighbour per node of the bool ``[n, n]`` adjacency
         (purpose ``K_PEER``); ``-1`` for a node with no neighbour."""
         raise NotImplementedError
 
     def bernoulli(self, r: int, purpose: int, p: float, n: int,
-                  device: torch.device) -> torch.Tensor:
+                  device: torch.device, sub: int = 0) -> torch.Tensor:
         """``[n]`` independent draws that are True with probability ``p``."""
+        raise NotImplementedError
+
+    def randint(self, r: int, purpose: int, lo: int, hi: int, n: int,
+                device: torch.device, sub: int = 0) -> torch.Tensor:
+        """``[n]`` int64 uniform integers in ``[lo, hi]`` (random
+        delays)."""
+        raise NotImplementedError
+
+    def eval_subset(self, r: int, n: int, n_pick: int,
+                    device: torch.device) -> torch.Tensor:
+        """The ``n_pick`` nodes a sampled evaluation reads (purpose
+        ``K_EVAL``): the first ``n_pick`` of a random permutation of
+        ``range(n)``, int64."""
         raise NotImplementedError
 
     def update_permutations(self, r: int, purposes: Sequence[int],
@@ -87,7 +113,12 @@ class TorchDraws(DrawProvider):
     def init_permutations(self, n, epochs, s, device):
         return self._perms(n, epochs, s).to(device)
 
-    def peers(self, r, adjacency):
+    def init_period(self, n, delta, device):
+        z = torch.randn((n,), generator=self.generator)
+        raw = delta + (delta / 10.0) * z
+        return torch.clamp(raw.to(torch.int32), min=1).to(device)
+
+    def peers(self, r, adjacency, sub=0):
         adj = adjacency.cpu()
         has_peer = adj.any(dim=1)
         # multinomial refuses an all-zero row: give isolated nodes a dummy
@@ -97,9 +128,16 @@ class TorchDraws(DrawProvider):
         peers = torch.multinomial(w, 1, generator=self.generator)[:, 0]
         return torch.where(has_peer, peers, -1).to(adjacency.device)
 
-    def bernoulli(self, r, purpose, p, n, device):
+    def bernoulli(self, r, purpose, p, n, device, sub=0):
         u = torch.rand((n,), generator=self.generator)
         return (u < p).to(device)
+
+    def randint(self, r, purpose, lo, hi, n, device, sub=0):
+        return torch.randint(lo, hi + 1, (n,), generator=self.generator,
+                             dtype=torch.int64).to(device)
+
+    def eval_subset(self, r, n, n_pick, device):
+        return torch.randperm(n, generator=self.generator)[:n_pick].to(device)
 
     def update_permutations(self, r, purposes, first_k, epochs, s):
         return self._perms(first_k.shape[0], epochs, s).to(first_k.device)

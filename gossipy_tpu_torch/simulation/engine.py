@@ -1,4 +1,4 @@
-"""The gossip simulation engine: the sync PUSH round.
+"""The gossip simulation engine: the gossip round.
 
 Counterpart of ``gossipy_tpu/simulation/engine.py``. The JAX engine traces
 a round into one XLA program; here a round is eager PyTorch on the run's
@@ -6,8 +6,13 @@ device, phase by phase:
 
     snapshot  the round-start params go into the ``[D, N, stride]``
               history ring, encoded in its wire format (``_snapshot``)
-    send      every node draws one peer; drop draw; message metadata is
-              scattered into the ``[D, N, K]`` mailbox (``_send_phase``)
+    send      every node that fires draws one peer; drop and delay draws;
+              message metadata is scattered into the mailbox cell of its
+              arrival round, ``(r + (offset + delay) // delta) % D``, of
+              the ``[D, N, K]`` mailbox (``_send_phase``). Sync nodes fire
+              once per round at their offset; async ones at every multiple
+              of their period inside the round, up to
+              ``max_fires_per_round`` sub-fires
     deliver   the cell's K slots are drained (``_deliver_phase``) by one of
               three paths, chosen by ``fused_merge``:
               - ``"multi"`` (the default): ONE launch of the multi-slot
@@ -21,8 +26,14 @@ device, phase by phase:
                 (merge, then update) runs over the population, or, with
                 compaction, over a gathered batch of the slot's live
                 receivers;
-              an empty slot skips its whole pass
-    eval      local and global metrics, averaged over nodes (``_eval_phase``)
+              an empty slot skips its whole pass. Under PULL and
+              PUSH_PULL every request that reached an online node queues
+              a REPLY, carrying the replier's snapshot, in the ``[D, N,
+              Kr]`` reply box
+    reply     the reply box's cell is drained by the same path
+              (``_reply_phase``)
+    eval      local and global metrics, averaged over the nodes, or over a
+              random ``sampling_eval`` share of them (``_eval_phase``)
 
 Messages carry node indices, not models: a message's payload is the
 sender's row of the ring at its send round. The ring is stored in float32,
@@ -32,9 +43,10 @@ per (ring cell, node, leaf) in ``history_scale``.
 The state is updated in place: :meth:`GossipSimulator.start` mutates the
 :class:`SimState` it is given and returns it.
 
-Ported: PUSH, sync nodes, no delay, the three deliver paths with wide and
-compact dispatch, the three ring formats. Every other option of the JAX
-engine raises ``NotImplementedError``.
+Ported: PUSH, PULL and PUSH_PULL, sync and async nodes, the three delay
+models, sampled evaluation, the three deliver paths with wide and compact
+dispatch, the three ring formats. Every other option of the JAX engine
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,13 +65,18 @@ from ..core import AntiEntropyProtocol, ConstantDelay, CreateModelMode, \
 from ..data import to_device
 from ..handlers.base import ModelState, PeerModel
 from ..ops.merge import column_leaves, gather_merge_flat, gather_merge_multi
-from ..random import K_CALL, K_DROP, K_ONLINE, DrawProvider, TorchDraws
+from ..random import K_CALL, K_DELAY, K_DROP, K_ONLINE, K_REPLY_DELAY, \
+    K_REPLY_DROP, DrawProvider, TorchDraws
 from ..telemetry import FailureCounts
 from .report import SimulationReport
 
 # Image rows one evaluation chunk may push through the model at once
 # (nodes x eval samples): bounds the im2col buffers of the global eval.
 EVAL_ROWS = 8192
+
+_PROTO_TO_MSG = {AntiEntropyProtocol.PUSH: MessageType.PUSH,
+                 AntiEntropyProtocol.PULL: MessageType.PULL,
+                 AntiEntropyProtocol.PUSH_PULL: MessageType.PUSH_PULL}
 
 
 class Mailbox(NamedTuple):
@@ -91,10 +108,12 @@ class SimState:
 
     model: ModelState              # params [N, stride], n_updates [N]
     phase: torch.Tensor            # [N] int32 send offset within a round
+                                   # (sync) or send period (async)
     history_params: torch.Tensor   # [D, N, stride] round-start snapshots,
                                    # in the wire format
     history_ages: torch.Tensor     # [D, N] int32 snapshot ages
-    mailbox: Mailbox
+    mailbox: Mailbox               # [D, N, K]
+    reply_box: Mailbox             # [D, N, Kr]
     round: int = 0
     history_scale: Optional[torch.Tensor] = None  # [D, N, L] f32, int8 only
 
@@ -146,6 +165,9 @@ class GossipSimulator:
         As in the JAX engine: ``None`` turns compaction on for the plain
         path at N >= 48 with K > 1; ``True`` derives the capacity; an int
         sets it. The ``"per_slot"`` path takes no compaction.
+    reply_slots : int
+        ``Kr``, the reply box's slots per node and round (PULL and
+        PUSH_PULL).
     history_dtype : "float32" | "bfloat16" | "int8"
         The ring's wire format.
     draws : DrawProvider | None
@@ -173,6 +195,7 @@ class GossipSimulator:
                  eval_every: int = 1,
                  sync: bool = True,
                  mailbox_slots: Optional[int] = None,
+                 reply_slots: int = 2,
                  message_size: Optional[int] = None,
                  fused_merge: Union[bool, str] = "multi",
                  compact_deliver: Union[None, bool, int] = None,
@@ -207,15 +230,15 @@ class GossipSimulator:
         elif fused_merge not in ("multi", "per_slot"):
             raise ValueError(f"unknown fused_merge mode {fused_merge!r}; "
                              "options: False, True/'multi', 'per_slot'")
-        if protocol != AntiEntropyProtocol.PUSH:
-            raise NotImplementedError(f"{protocol!r} is not ported yet (PUSH)")
-        if not sync or (max_fires_per_round not in (None, 1)):
-            raise NotImplementedError("async nodes are not ported yet")
-        if not isinstance(delay, ConstantDelay) or delay.delay != 0:
-            raise NotImplementedError("message delays are not ported yet "
-                                      "(ConstantDelay(0) only)")
-        if sampling_eval > 0:
-            raise NotImplementedError("sampling_eval is not ported yet")
+        if not isinstance(topology, Topology):
+            raise NotImplementedError(
+                f"{type(topology).__name__} is not ported yet (the dense "
+                "Topology only)")
+        if max_fires_per_round is None:
+            max_fires_per_round = 1 if sync else 2
+        if max_fires_per_round < 1 or reply_slots < 1:
+            raise ValueError("need max_fires_per_round >= 1 and "
+                             "reply_slots >= 1")
         if eval_every < 1:
             raise ValueError("eval_every must be >= 1")
         if fused_merge:
@@ -241,16 +264,20 @@ class GossipSimulator:
         self.topology = topology
         self.n_nodes = topology.num_nodes
         self.delta = int(delta)
+        self.protocol = AntiEntropyProtocol(protocol)
         self.drop_prob = float(drop_prob)
         self.online_prob = float(online_prob)
         self.delay = delay
+        self.sampling_eval = float(sampling_eval)
         self.eval_every = int(eval_every)
+        self.sync = bool(sync)
         self.fused_merge = fused_merge
         self.history_dtype = history_dtype
-        self.F = 1
+        self.F = int(max_fires_per_round)
         self._lam_vec: Optional[np.ndarray] = None
         self.K = (self._derive_mailbox_slots(self._lam_max())
                   if mailbox_slots is None else int(mailbox_slots))
+        self.Kr = int(reply_slots)
         self._warn_if_mailbox_undersized()
         self._compact_cap = self._compact_capacity(compact_deliver)
         self._message_size = message_size
@@ -402,10 +429,11 @@ class GossipSimulator:
         return self._decode_history_rows(*self._encode_history_rows(params))
 
     def wire_bytes_per_message(self) -> int:
-        """Bytes one model-carrying message moves under the wire format:
-        the payload plus, for int8, one float32 scale per leaf (the
-        scalars the JAX package counts; the port's row padding is not
-        sent)."""
+        """Bytes one model-carrying message (PUSH, PUSH_PULL or REPLY)
+        moves under the wire format: the payload plus, for int8, one
+        float32 scale per leaf (the scalars the JAX package counts; the
+        port's row padding is not sent). A PULL request carries no model:
+        the report counts it as one scalar."""
         layout = self.handler.layout
         sidecar = 4 * len(layout.leaves) if self.history_dtype == "int8" \
             else 0
@@ -422,7 +450,9 @@ class GossipSimulator:
         return int(self.handler.get_size())
 
     def _history_depth(self, size: int) -> int:
-        """Ring depth covering the worst in-flight delay (2 at delay 0)."""
+        """Ring depth covering the worst in-flight delay: the send offset
+        (at most ``delta - 1``), the delay, and one reply's delay (2 at
+        delay 0)."""
         max_d = self.delay.max_delay(size)
         return max(2, (self.delta - 1 + 2 * max_d) // self.delta + 2)
 
@@ -451,13 +481,16 @@ class GossipSimulator:
             perms = self.draws.init_permutations(
                 n, self.handler.local_epochs, s, self.device)
             model = self.handler.update(model, self._local_data(), perms)
-        phase = self.draws.init_phase(n, self.delta, self.device)
+        if self.sync:
+            phase = self.draws.init_phase(n, self.delta, self.device)
+        else:
+            phase = self.draws.init_period(n, self.delta, self.device)
         return self.init_state(model, phase)
 
     def init_state(self, model: ModelState, phase: torch.Tensor) -> SimState:
         """A round-0 state around given node models: the ring holds
-        ``model``'s params, encoded, in every cell and the mailbox is
-        empty."""
+        ``model``'s params, encoded, in every cell and the mailbox and
+        reply box are empty."""
         n = self.n_nodes
         params = model.params.to(self.device, torch.float32).contiguous()
         n_updates = model.n_updates.to(self.device, torch.int32)
@@ -469,6 +502,7 @@ class GossipSimulator:
             history_params=stored.unsqueeze(0).repeat(D, 1, 1),
             history_ages=n_updates.unsqueeze(0).repeat(D, 1),
             mailbox=Mailbox.empty(D, n, self.K, self.device),
+            reply_box=Mailbox.empty(D, n, self.Kr, self.device),
             history_scale=(None if scales is None
                            else scales.unsqueeze(0).repeat(D, 1, 1)),
         )
@@ -507,23 +541,50 @@ class GossipSimulator:
         box.extra[where] = extra[ok].to(torch.int32)
         return n_overflow
 
+    def _fire_mask(self, state: SimState, r: int, f: int):
+        """``(fires [N] bool, offset [N])`` of sub-fire ``f``: sync nodes
+        fire once, at their offset; an async node fires at every multiple
+        of its period inside the round's window ``[r delta, (r + 1)
+        delta)``, at that time's offset within the round (every async node
+        fires at time 0, as in the original gossipy)."""
+        if self.sync:
+            return (torch.ones(self.n_nodes, dtype=torch.bool,
+                               device=self.device), state.phase.long())
+        period = state.phase.long()
+        lo = r * self.delta
+        first = (lo + period - 1) // period * period
+        t_f = first + f * period
+        return t_f < lo + self.delta, (t_f - lo).clamp(0, self.delta - 1)
+
     def _send_phase(self, state: SimState, r: int):
+        """Every sub-fire's sends, all carrying the round-start snapshot;
+        sub-fire ``f`` draws under ``sub=f``. A PULL request counts as one
+        scalar."""
         n = self.n_nodes
         dev = self.device
-        size = self._model_size()
-        peers = self.draws.peers(r, self._adj)
-        active = peers >= 0  # sync nodes fire once per round
-        dropped = self.draws.bernoulli(r, K_DROP, self.drop_prob, n, dev)
-        delays = self.delay.sample(n, size, dev)
-        dr = (state.phase.long() + delays) // self.delta
-        n_sent = active.sum()
-        fails = FailureCounts(drop=(active & dropped).sum())
-        live = active & ~dropped
-        n_overflow = self._scatter_messages(
-            state.mailbox, live, dr, peers, torch.arange(n, device=dev), r,
-            int(MessageType.PUSH), torch.zeros(n, dtype=torch.int32,
-                                               device=dev), r, self.K)
-        fails = fails._replace(overflow=n_overflow)
+        size = (1 if self.protocol == AntiEntropyProtocol.PULL
+                else self._model_size())
+        msg_type = int(_PROTO_TO_MSG[self.protocol])
+        senders = torch.arange(n, device=dev)
+        no_extra = torch.zeros(n, dtype=torch.int32, device=dev)
+        n_sent, fails = 0, FailureCounts()
+        # A sync node fires once: sub-fires past the first send nothing.
+        for f in range(1 if self.sync else self.F):
+            fires, offset = self._fire_mask(state, r, f)
+            peers = self.draws.peers(r, self._adj, sub=f)
+            active = fires & (peers >= 0)
+            dropped = self.draws.bernoulli(r, K_DROP, self.drop_prob, n, dev,
+                                           sub=f)
+            delays = self.delay.sample(self.draws, r, K_DELAY, n, size, dev,
+                                       sub=f)
+            dr = (offset + delays) // self.delta
+            n_sent = n_sent + active.sum()
+            live = active & ~dropped
+            n_overflow = self._scatter_messages(
+                state.mailbox, live, dr, peers, senders, r, msg_type,
+                no_extra, r, self.K)
+            fails = fails + FailureCounts(drop=(active & dropped).sum(),
+                                          overflow=n_overflow)
         return n_sent, fails, n_sent * size
 
     # -- deliver: the ring ----------------------------------------------------
@@ -564,11 +625,11 @@ class GossipSimulator:
             return 1, 0
         return 0, 1
 
-    def _slot_loop(self, state: SimState, r: int, sr_t, sender_t,
-                   apply_t) -> tuple[int, int]:
-        """One pass per occupied mailbox slot, in slot order; slot ``k``
-        trains every node under purpose ``K_CALL * 101 + k``. Returns the
-        (compact, wide) slot counts."""
+    def _slot_loop(self, state: SimState, r: int, sr_t, sender_t, apply_t,
+                   call_tag: int) -> tuple[int, int]:
+        """One pass per occupied slot of a mailbox cell, in slot order;
+        slot ``k`` trains every node under purpose ``call_tag * 101 + k``.
+        Returns the (compact, wide) slot counts."""
         n = self.n_nodes
         live = apply_t.sum(dim=0).tolist()
         first_k = torch.zeros(n, dtype=torch.int64, device=self.device)
@@ -580,7 +641,7 @@ class GossipSimulator:
             if n_live == 0:
                 continue
             perms = self.draws.update_permutations(
-                r, [K_CALL * 101 + k], first_k, self.handler.local_epochs,
+                r, [call_tag * 101 + k], first_k, self.handler.local_epochs,
                 self.data["mtr"].shape[1])
             self._receive_slot_apply(state, sr_t[:, k], sender_t[:, k],
                                      apply_t[:, k], perms, n_live)
@@ -721,10 +782,11 @@ class GossipSimulator:
         return 0, occ_slots
 
     def _fused_deliver_all(self, state: SimState, r: int, sr_t, sender_t,
-                           apply_t) -> tuple[int, int]:
+                           apply_t, call_tag: int) -> tuple[int, int]:
         """Single-pass fused deliver of one mailbox cell; each node trains
-        under its first live slot's stream. Returns the (compact, wide)
-        slot counts."""
+        under its first live slot's stream (slot ``k``: purpose
+        ``call_tag * 101 + k``). Returns the (compact, wide) slot
+        counts."""
         any_msg = apply_t.any(dim=1)
         n_live, occ_slots = torch.stack(
             [any_msg.sum(), apply_t.any(dim=0).sum()]).tolist()
@@ -732,14 +794,24 @@ class GossipSimulator:
             return 0, 0
         first_k = torch.argmax(apply_t.to(torch.int32), dim=1)
         perms = self.draws.update_permutations(
-            r, [K_CALL * 101 + k for k in range(self.K)], first_k,
-            self.handler.local_epochs, self.data["mtr"].shape[1])
+            r, [call_tag * 101 + k for k in range(apply_t.shape[1])],
+            first_k, self.handler.local_epochs, self.data["mtr"].shape[1])
         return self._fused_multi_dispatch(state, sr_t, sender_t, apply_t,
                                           perms, any_msg, n_live, occ_slots)
 
+    def _drain(self, state: SimState, r: int, sr_t, sender_t, apply_t,
+               call_tag: int) -> tuple[int, int]:
+        """Apply a mailbox cell's ``[N, K]`` live messages by the
+        configured path; returns the (compact, wide) slot counts."""
+        if self.fused_merge == "multi":
+            return self._fused_deliver_all(state, r, sr_t, sender_t,
+                                           apply_t, call_tag)
+        return self._slot_loop(state, r, sr_t, sender_t, apply_t, call_tag)
+
     def _deliver_phase(self, state: SimState, r: int):
-        """Deliver this round's mailbox cell; returns the failure counts
-        and the diagnostics of the cell."""
+        """Deliver this round's mailbox cell and queue the replies it asks
+        for; returns the failure counts, the diagnostics of the cell, and
+        the replies sent and their size."""
         n = self.n_nodes
         D = state.history_ages.shape[0]
         b = r % D
@@ -753,17 +825,74 @@ class GossipSimulator:
         hwm = occupied_t.sum(dim=1).max()
         carries = ((ty_t == MessageType.PUSH) | (ty_t == MessageType.PUSH_PULL)
                    | (ty_t == MessageType.REPLY))
-        apply_t = occupied_t & online[:, None] & carries
+        valid_t = occupied_t & online[:, None]
+        apply_t = valid_t & carries
         fails = FailureCounts(offline=(occupied_t & ~online[:, None]).sum())
-        if self.fused_merge == "multi":
-            n_compact, n_wide = self._fused_deliver_all(state, r, sr_t,
-                                                        sender_t, apply_t)
-        else:
-            n_compact, n_wide = self._slot_loop(state, r, sr_t, sender_t,
-                                                apply_t)
+        n_compact, n_wide = self._drain(state, r, sr_t, sender_t, apply_t,
+                                        K_CALL)
+        n_replies, reply_size = 0, 0
+        if self.protocol != AntiEntropyProtocol.PUSH:
+            wants = valid_t & ((ty_t == MessageType.PULL)
+                               | (ty_t == MessageType.PUSH_PULL))
+            n_replies, fail_q, reply_size = self._queue_replies(
+                state, r, sender_t, wants)
+            fails = fails + fail_q
         box.clear_cell(b)
         return fails, {"mailbox_hwm": hwm, "compact_slots": n_compact,
-                       "wide_slots": n_wide}
+                       "wide_slots": n_wide}, n_replies, reply_size
+
+    def _queue_replies(self, state: SimState, r: int, sender_t, wants):
+        """For each ``[N, K]`` request in ``wants`` a REPLY from its
+        receiver to its sender, carrying the receiver's round-``r``
+        snapshot, scattered into the reply box slot by slot (slot ``k``
+        draws its drops under ``K_REPLY_DROP * 101 + k`` and its delays
+        under ``K_REPLY_DELAY * 101 + k``). A reply counts as sent, with
+        the model's size, even when dropped or past the last reply slot.
+        Returns ``(n_sent, fails, size)``."""
+        n = self.n_nodes
+        dev = self.device
+        size = self._model_size()
+        repliers = torch.arange(n, device=dev)
+        no_extra = torch.zeros(n, dtype=torch.int32, device=dev)
+        n_sent, fails = 0, FailureCounts()
+        for k, any_k in enumerate(wants.any(dim=0).tolist()):
+            if not any_k:
+                continue
+            need = wants[:, k]
+            dropped = self.draws.bernoulli(r, K_REPLY_DROP * 101 + k,
+                                           self.drop_prob, n, dev)
+            delays = self.delay.sample(self.draws, r,
+                                       K_REPLY_DELAY * 101 + k, n, size, dev)
+            n_sent = n_sent + need.sum()
+            n_overflow = self._scatter_messages(
+                state.reply_box, need & ~dropped, delays // self.delta,
+                sender_t[:, k], repliers, r, int(MessageType.REPLY),
+                no_extra, r, self.Kr)
+            fails = fails + FailureCounts(drop=(need & dropped).sum(),
+                                          overflow=n_overflow)
+        return n_sent, fails, n_sent * size
+
+    def _reply_phase(self, state: SimState, r: int):
+        """Drain this round's reply-box cell into the online nodes, by the
+        deliver path (slot ``k`` trains under ``(K_CALL + 53) * 101 + k``;
+        online draw ``K_ONLINE * 7 + 3``). Returns the failure counts and
+        the (compact, wide) slot counts."""
+        if self.protocol == AntiEntropyProtocol.PUSH:
+            return FailureCounts(), 0, 0
+        n = self.n_nodes
+        b = r % state.history_ages.shape[0]
+        box = state.reply_box
+        online = self.draws.bernoulli(r, K_ONLINE * 7 + 3, self.online_prob,
+                                      n, self.device)
+        sender_t = box.sender[b]
+        sr_t = box.send_round[b]
+        occupied_t = sender_t >= 0
+        apply_t = occupied_t & online[:, None]
+        fails = FailureCounts(offline=(occupied_t & ~online[:, None]).sum())
+        n_compact, n_wide = self._drain(state, r, sr_t, sender_t, apply_t,
+                                        K_CALL + 53)
+        box.clear_cell(b)
+        return fails, n_compact, n_wide
 
     # -- evaluation --------------------------------------------------------
 
@@ -786,32 +915,48 @@ class GossipSimulator:
         mean = (vals * w[:, None]).sum(0) / torch.clamp(tot, min=1.0)
         return torch.where(tot > 0, mean, torch.full_like(mean, float("nan")))
 
+    def _n_eval_nodes(self) -> int:
+        """How many nodes an evaluation reads: ``max(int(N *
+        sampling_eval), 1)`` with sampling, else all of them."""
+        if self.sampling_eval > 0:
+            return max(int(self.n_nodes * self.sampling_eval), 1)
+        return self.n_nodes
+
     @torch.no_grad()
-    def _eval_phase(self, state: SimState):
+    def _eval_phase(self, state: SimState, r: int):
+        """Mean local and global metrics over the nodes, or over the
+        ``eval_subset`` drawn for round ``r`` with ``sampling_eval``."""
         names = self._metric_keys()
         nan = torch.full((len(names),), float("nan"), device=self.device)
         model = state.model
+        data = self.data
+        if self.sampling_eval > 0:
+            idx = self.draws.eval_subset(r, self.n_nodes,
+                                         self._n_eval_nodes(), self.device)
+            model = _take_rows(model, idx)
+            if self.has_local_test:
+                data = {k: data[k][idx] for k in ("xte", "yte", "mte")}
+        m = model.params.shape[0]
         local = nan
         if self.has_local_test:
-            d = (self.data["xte"], self.data["yte"], self.data["mte"])
+            d = (data["xte"], data["yte"], data["mte"])
             res = self.handler.evaluate(model, d)
-            local = self._mean_metrics(res, self.data["mte"].sum(dim=1) > 0)
+            local = self._mean_metrics(res, data["mte"].sum(dim=1) > 0)
         glob = nan
         if self.has_global_eval:
             xe, ye = self.data["x_eval"], self.data["y_eval"]
             me = torch.ones(xe.shape[0], device=self.device)
             chunk = max(1, EVAL_ROWS // max(1, xe.shape[0]))
             parts = []
-            for lo in range(0, self.n_nodes, chunk):
+            for lo in range(0, m, chunk):
                 p = model.params[lo:lo + chunk]
                 c = p.shape[0]
                 d = (xe.expand(c, *xe.shape), ye.expand(c, *ye.shape),
                      me.expand(c, *me.shape))
                 parts.append(self.handler.evaluate(ModelState(p, None), d))
-            res = {k: torch.cat([r[k] for r in parts]) for k in names}
+            res = {k: torch.cat([part[k] for part in parts]) for k in names}
             glob = self._mean_metrics(
-                res, torch.ones(self.n_nodes, dtype=torch.bool,
-                                device=self.device))
+                res, torch.ones(m, dtype=torch.bool, device=self.device))
         return local, glob
 
     def _maybe_eval(self, state: SimState, r: int, last_round=None):
@@ -819,7 +964,7 @@ class GossipSimulator:
         round; NaN rows otherwise."""
         due = (r + 1) % self.eval_every == 0 or r == last_round
         if due:
-            return self._eval_phase(state)
+            return self._eval_phase(state, r)
         nan = torch.full((len(self._metric_keys()),), float("nan"),
                          device=self.device)
         return nan, nan
@@ -832,20 +977,21 @@ class GossipSimulator:
         r = state.round
         self._snapshot(state, r)
         n_sent, fail_s, size = self._send_phase(state, r)
-        fail_d, diag = self._deliver_phase(state, r)
+        fail_d, diag, n_replies, reply_size = self._deliver_phase(state, r)
+        fail_r, reply_compact, reply_wide = self._reply_phase(state, r)
         local, glob = self._maybe_eval(state, r, last_round)
         state.round = r + 1
-        fails = fail_s + fail_d
+        fails = fail_s + fail_d + fail_r
         return {
-            "sent": n_sent,
+            "sent": n_sent + n_replies,
             "failed": fails.total(),
             "failed_drop": fails.drop,
             "failed_offline": fails.offline,
             "failed_overflow": fails.overflow,
             "mailbox_hwm": diag["mailbox_hwm"],
-            "compact_slots": diag["compact_slots"],
-            "wide_slots": diag["wide_slots"],
-            "size": size,
+            "compact_slots": diag["compact_slots"] + reply_compact,
+            "wide_slots": diag["wide_slots"] + reply_wide,
+            "size": size + reply_size,
             "local": local,
             "global": glob,
         }

@@ -30,7 +30,8 @@ import optax
 import pytest
 import torch
 
-from gossipy_tpu.core import AntiEntropyProtocol, CreateModelMode, Topology
+from gossipy_tpu.core import AntiEntropyProtocol, CreateModelMode, \
+    SparseTopology, Topology
 from gossipy_tpu.data import ClassificationDataHandler, DataDispatcher
 from gossipy_tpu.handlers import SGDHandler, losses
 from gossipy_tpu.models import LogisticRegression
@@ -207,18 +208,30 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"sampling_eval": 0.5}, {"max_fires_per_round": 2},
-    {"tracing": True}, {"protocol": tcore.AntiEntropyProtocol.PULL},
-    {"sync": False}, {"delay": tcore.ConstantDelay(5)}, {"mesh": object()},
+    {"create_model_mode": tcore.CreateModelMode.UPDATE_MERGE,
+     "fused_merge": False},
+    {"metrics": True},
+    {"tracing": True},
+    {"topology": lambda: SparseTopology(N, np.array([[0, 1], [1, 2]]))},
+    {"perf": True},
+    {"topology": lambda: tcore.Topology.random_regular(N, 3,
+                                                       backend="native")},
+    {"mesh": object()},
     {"chaos": {}}, {"probes": True}, {"sentinels": True},
-    {"protocol": tcore.AntiEntropyProtocol.PUSH_PULL}, {"cohort": 4},
+    {"topology": lambda: tcore.Topology.random_regular(2048, 4,
+                                                       backend="auto")},
+    {"cohort": 4},
 ])
 def test_unported_options_raise(option):
+    option = dict(option)
+    mode = option.pop("create_model_mode",
+                      tcore.CreateModelMode.MERGE_UPDATE)
+    topology = option.pop("topology", lambda: tcore.Topology.clique(N))
     th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
-                     input_shape=(D_FEAT,))
+                     input_shape=(D_FEAT,), create_model_mode=mode)
     with pytest.raises(NotImplementedError):
-        TGossipSimulator(th, tcore.Topology.clique(N), data(),
-                         mailbox_slots=K, device="cpu", **option)
+        TGossipSimulator(th, topology(), data(), mailbox_slots=K,
+                         device="cpu", **option)
 
 
 def test_pretraining_matches_jax_init_nodes():

@@ -63,6 +63,18 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.models, gossipy_tpu_torch.handlers, "
         "gossipy_tpu_torch.ops.attention, gossipy_tpu_torch.optim, "
         "gossipy_tpu_torch.examples.demo_ring_attention\n"
+        # The north-star set-up, with no socket that may connect.
+        "import socket, warnings\n"
+        "class NoNet(socket.socket):\n"
+        "    def connect(self, *a):\n"
+        "        raise OSError('no network')\n"
+        "socket.socket = NoNet\n"
+        "from gossipy_tpu_torch.core import Topology\n"
+        "from gossipy_tpu_torch.data import load_classification_dataset\n"
+        "assert Topology.random_regular(100, 20).degrees.min() == 20\n"
+        "warnings.simplefilter('ignore')\n"
+        "assert load_classification_dataset('spambase')[0].shape == "
+        "(4601, 57)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -5,7 +5,10 @@ The JAX engine derives every draw of round ``r`` and purpose ``p`` from
 ``fold_in(fold_in(base, r), p)`` (``GossipSimulator._round_key``), and
 ``init_nodes(key)`` splits ``key`` into ``(k_init, k_phase, k_up)``. The
 oracle recomputes those keys with ``jax.random`` and hands the values to
-the port as tensors. Test-only: the port itself never imports JAX.
+the port as tensors. Sub-fire ``f > 0`` of an async round folds ``f``
+into each purpose key and draws its peers from ``fold_in(_round_key(r,
+K_FIRE), f)`` as the base (engine.py ``_send_phase``). Test-only: the port
+itself never imports JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from gossipy_tpu.core import sample_peers
-from gossipy_tpu_torch.random import K_PEER, DrawProvider
+from gossipy_tpu_torch.random import K_EVAL, K_FIRE, K_PEER, DrawProvider
 
 
 def perms_from_keys(keys, epochs: int, s: int) -> np.ndarray:
@@ -37,8 +40,10 @@ class JaxDraws(DrawProvider):
         if init_key is not None:
             _, self.k_phase, self.k_up = jax.random.split(init_key, 3)
 
-    def _key(self, r, purpose):
-        return jax.random.fold_in(jax.random.fold_in(self.base, r), purpose)
+    def _key(self, r, purpose, sub=0, base=None):
+        base = self.base if base is None else base
+        k = jax.random.fold_in(jax.random.fold_in(base, r), purpose)
+        return jax.random.fold_in(k, sub) if sub > 0 else k
 
     def init_phase(self, n, delta, device):
         ph = jax.random.randint(self.k_phase, (n,), 0, delta,
@@ -50,14 +55,29 @@ class JaxDraws(DrawProvider):
         return torch.as_tensor(perms_from_keys(keys, epochs, s),
                                device=device).long()
 
-    def peers(self, r, adjacency):
+    def init_period(self, n, delta, device):
+        raw = delta + (delta / 10.0) * jax.random.normal(self.k_phase, (n,))
+        ph = jnp.maximum(raw.astype(jnp.int32), 1)
+        return torch.as_tensor(np.array(ph), device=device)
+
+    def peers(self, r, adjacency, sub=0):
         adj = jnp.asarray(adjacency.cpu().numpy())
-        p = sample_peers(self._key(r, K_PEER), adj)
+        base = None if sub == 0 else self._key(r, K_FIRE, sub)
+        p = sample_peers(self._key(r, K_PEER, base=base), adj)
         return torch.as_tensor(np.array(p), device=adjacency.device).long()
 
-    def bernoulli(self, r, purpose, p, n, device):
-        b = jax.random.bernoulli(self._key(r, purpose), p, (n,))
+    def bernoulli(self, r, purpose, p, n, device, sub=0):
+        b = jax.random.bernoulli(self._key(r, purpose, sub), p, (n,))
         return torch.as_tensor(np.array(b), device=device)
+
+    def randint(self, r, purpose, lo, hi, n, device, sub=0):
+        v = jax.random.randint(self._key(r, purpose, sub), (n,), lo, hi + 1,
+                               dtype=jnp.int32)
+        return torch.as_tensor(np.array(v), device=device).long()
+
+    def eval_subset(self, r, n, n_pick, device):
+        idx = jax.random.permutation(self._key(r, K_EVAL), n)[:n_pick]
+        return torch.as_tensor(np.array(idx), device=device).long()
 
     def update_permutations(self, r, purposes, first_k, epochs, s):
         n = first_k.shape[0]
