@@ -24,11 +24,11 @@ Phases, each printed as it runs; any failure exits non-zero:
 4. paths: a 64-node CIFAR10Net gossip run on the card (clique, PUSH,
    MERGE_UPDATE, 4-slot mailbox, SGD 0.05, batch 32, synthetic 32x32x3
    data with 64 images per node), on each deliver path: the single-pass
-   fused deliver with an fp32 ring (the first slice's main path: 5 timed
+   fused deliver with an fp32 ring (the first slice's main path: 3 timed
    rounds, then one profiled round and the host-clock time of each
    phase), then the plain deliver with compaction (auto), the per-slot
    fused deliver with fp32, bf16 and int8 rings and the single-pass one
-   with bf16 and int8 rings (a warm-up round, 3 timed rounds and the
+   with bf16 and int8 rings (a warm-up round, 2 timed rounds and the
    phase times each). Launch counts are set to 0 just before each path's
    timed rounds and read just after: the multi-slot kernels launch once
    per round with messages, the single-slot ones once per occupied slot,
@@ -98,6 +98,33 @@ Phases, each printed as it runs; any failure exits non-zero:
    the round's own, the reply box's tables), and each run must launch
    its kernels.
 
+8. flagship: the 100-node CIFAR-10 configuration of
+   ``examples/main_cifar10_100nodes.py`` (and
+   ``examples/configs/cifar10_100nodes.json``), built by its twin
+   ``gossipy_tpu_torch.examples.main_cifar10_100nodes``: the synthetic
+   CIFAR-10 stand-in normalised by the training statistics,
+   ``label_dirichlet_skew(0.5)``, CIFAR10Net under weight decay 1e-3 and
+   SGD 0.05, batch 32, MERGE_UPDATE, PUSH on ``random_regular(100, 20,
+   seed=42)``, a 10% sampled eval every round, common init, the
+   single-pass deliver. (a) 16 nodes, 4096 images, 3 rounds on the card
+   and on the CPU from the same seeds, fp32 compute with an fp32 ring,
+   then bf16 compute with fp32, bf16 and int8 rings: accounting, boxes
+   and ages equal, params by the rule of PERF.md §2 (a ReLU or max-pool
+   decision near a tie may flip between the two: the fp32 run's median
+   element within REF_TOL and its largest within what bf16 compute moves
+   the run; a bf16 run within twice that), and every K1 and
+   K2 call of the card runs held bit-equal to its plain version as it
+   happens (``MergeAudit``). K1 and K2 (bf16, int8) against their plain
+   versions, timed, at the flagship's shape (100 rows of CIFAR10Net's
+   stride, the derived K, a two-cell ring). (b) The full width: 100
+   nodes, all 50,000 training images split by the Dirichlet skew, 10,000
+   test images, bf16 compute, on three ring legs (fp32: K1; bf16, int8:
+   K2): a warm-up round, FLAG_ROUNDS timed rounds with the card
+   synchronised before the host clock stops, the launches (counts set to
+   0 just before; one per round with messages), the final sampled
+   accuracy, ``memory_budget()`` beside ``max_memory_allocated``, one
+   profiled round's idle share and the phase times.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -110,11 +137,12 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
-ROUNDS = 5          # timed rounds of the fp32 single-pass path
-LEG_ROUNDS = 3      # timed rounds of each other path
+ROUNDS = 3          # timed rounds of the fp32 single-pass path
+LEG_ROUNDS = 2      # timed rounds of each other path
 N_NODES = 64
 SLOTS = 4
 KERNEL_TOL = 0.0    # --fmad=false: the kernels round as the plain versions
@@ -139,9 +167,20 @@ NS_NODES = 100
 NS_DEGREE = 20
 NS_CHECK_ROUNDS = 10
 NS_WARMUP_ROUNDS = 20
-BENCH_ROUNDS = 2000
+# Timed rounds of each north-star leg: bench.py times 2000; 1000 keep the
+# whole script within half its time limit beside phase 8.
+BENCH_ROUNDS = 1000
 ATTN_S = 8192       # the JAX bench's flash-attention regime:
 ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
+# The flagship (examples/main_cifar10_100nodes.py,
+# examples/configs/cifar10_100nodes.json) through its twin,
+# gossipy_tpu_torch/examples/main_cifar10_100nodes.py.
+FLAG_NODES = 100
+FLAG_ROUNDS = 10            # timed rounds of each ring leg
+FLAG_CHECK_NODES = 16       # the card-against-CPU runs
+FLAG_CHECK_SUBSAMPLE = 4096
+FLAG_CHECK_ROUNDS = 3
+FLAG_WIRES = ("float32", "bfloat16", "int8")
 
 # The paths of phase 4 after the first: (label, fused_merge, history_dtype).
 LEGS = (("plain", False, "float32"),
@@ -546,12 +585,7 @@ def card_vs_cpu(torch, merge, label: str, fused, wire: str) -> None:
             raise RuntimeError(f"{label}: card and CPU runs differ in "
                                f"{field}")
     p_c, p_g = st_c.model.params, st_g.model.params.cpu()
-    tol = torch.full_like(p_c, REF_TOL)
-    if wire == "bfloat16":
-        tol = tol + 2.0 ** -8 * p_c.abs()
-    elif wire == "int8":
-        quantum = 0.5 * st_c.history_scale.amax(dim=(0, 1))
-        tol = tol + quantum[sim._col_leaf.cpu()]
+    tol = REF_TOL + ring_step(torch, sim, st_c, wire)
     diff = (p_c - p_g).abs()
     worst = float((diff - tol).max())
     log(f"[reference] {label}: 8-node CIFAR10Net, 3 rounds, card vs CPU: max "
@@ -568,8 +602,6 @@ def northstar_sim(torch, device, seed: int = 42, **kw):
     ``device``, with the draws of ``TorchDraws(seed)`` and the initial
     weights of a generator seeded with ``seed``; ``kw`` goes to the
     simulator (the default deliver unless it names another)."""
-    import warnings
-
     from gossipy_tpu_torch.core import (AntiEntropyProtocol, CreateModelMode,
                                         Topology)
     from gossipy_tpu_torch.data import (ClassificationDataHandler,
@@ -664,6 +696,25 @@ class MergeAudit:
         return call
 
 
+def check_same_accounting(torch, label, st_c, st_g, r_c, r_g) -> None:
+    """The CPU run (``st_c``, ``r_c``) and the card run: equal per-round
+    accounting, failures by cause, both boxes and ages."""
+    for field in ("sent_per_round", "failed_per_round",
+                  "mailbox_hwm_per_round", "compact_slots_per_round",
+                  "wide_slots_per_round"):
+        if not np.array_equal(getattr(r_c, field), getattr(r_g, field)):
+            raise RuntimeError(f"{label}: card and CPU differ in {field}")
+    for cause, v in r_c.failed_per_cause.items():
+        if not np.array_equal(v, r_g.failed_per_cause[cause]):
+            raise RuntimeError(f"{label}: card and CPU differ in {cause}")
+    for box in ("mailbox", "reply_box"):
+        for a, b in zip(getattr(st_c, box), getattr(st_g, box)):
+            if not torch.equal(a, b.cpu()):
+                raise RuntimeError(f"{label}: card and CPU {box} differ")
+    if not torch.equal(st_c.model.n_updates, st_g.model.n_updates.cpu()):
+        raise RuntimeError(f"{label}: card and CPU ages differ")
+
+
 def ns_card_vs_cpu(torch, merge, label: str, wire: str = "float32",
                    **kw) -> dict:
     """NS_CHECK_ROUNDS rounds of the north-star configuration (with
@@ -683,22 +734,9 @@ def ns_card_vs_cpu(torch, merge, label: str, wire: str = "float32",
         runs[dev] = (state, rep, {k: v for k, v in merge.LAUNCHES.items()
                                   if v}, audit.stats)
     (st_c, r_c, l_c, _), (st_g, r_g, l_g, stats) = runs["cpu"], runs["cuda"]
-    fields = ("sent_per_round", "failed_per_round", "mailbox_hwm_per_round",
-              "compact_slots_per_round", "wide_slots_per_round")
-    for field in fields:
-        if not np.array_equal(getattr(r_c, field), getattr(r_g, field)):
-            raise RuntimeError(f"{label}: card and CPU differ in {field}")
-    for cause, v in r_c.failed_per_cause.items():
-        if not np.array_equal(v, r_g.failed_per_cause[cause]):
-            raise RuntimeError(f"{label}: card and CPU differ in {cause}")
-    for box in ("mailbox", "reply_box"):
-        for a, b in zip(getattr(st_c, box), getattr(st_g, box)):
-            if not torch.equal(a, b.cpu()):
-                raise RuntimeError(f"{label}: card and CPU {box} differ")
+    check_same_accounting(torch, label, st_c, st_g, r_c, r_g)
     p_c, p_g = st_c.model.params, st_g.model.params.cpu()
-    tol = torch.full_like(p_c, REF_TOL)
-    if wire == "bfloat16":
-        tol = tol + 2.0 ** -8 * p_c.abs()
+    tol = REF_TOL + ring_step(torch, sim, st_c, wire)
     diff = (p_c - p_g).abs()
     worst = float((diff - tol).max())
     causes = {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()}
@@ -809,6 +847,227 @@ def northstar_phase(torch, merge, rate) -> dict:
         for k, v in out["launches"].items():
             paths.setdefault((k, wire), {})[label] = v
     return paths
+
+
+def flagship_run(torch, merge, flag, stacked, n, bf16, wire, device,
+                 rounds, audit=False):
+    """The flagship's multi path from its twin's functions, on ``device``
+    with ``TorchDraws(42)`` and initial weights seeded with 42, ``rounds``
+    rounds after ``init_nodes``; on the card with ``audit``, every merge
+    call held to its plain version (:class:`MergeAudit`). Returns the
+    simulator, the state, the report, the launches per kernel and the
+    audit's stats."""
+    sim = flag.flagship_sim(stacked, n, bf16, "multi", wire, device=device)
+    state = sim.init_nodes(torch.Generator().manual_seed(42),
+                           common_init=True)
+    merge.reset_launch_counts()
+    check = MergeAudit(torch, merge, sim) if audit \
+        else contextlib.nullcontext()
+    with check:
+        state, rep = sim.start(state, n_rounds=rounds)
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    return sim, state, rep, launches, (check.stats if audit else None)
+
+
+def ring_step(torch, sim, state, wire):
+    """One encoding step of the ring per param (half a bf16 step of the
+    value, half an int8 quantum of the leaf), 0 for an fp32 ring."""
+    p = state.model.params
+    if wire == "bfloat16":
+        return 2.0 ** -8 * p.abs()
+    if wire == "int8":
+        quantum = 0.5 * state.history_scale.amax(dim=(0, 1))
+        return quantum[sim._col_leaf.cpu()].expand_as(p)
+    return torch.zeros_like(p)
+
+
+def flagship_card_vs_cpu(torch, merge, flag, sets) -> dict:
+    """Phase 8 (a): FLAG_CHECK_ROUNDS rounds of the flagship at
+    FLAG_CHECK_NODES nodes and FLAG_CHECK_SUBSAMPLE images on the CPU and
+    on the card from the same seeds, fp32 compute with an fp32 ring, then
+    bf16 compute with fp32, bf16 and int8 rings. Accounting and both boxes
+    equal; every K1 and K2 call of the card runs bit-equal to its plain
+    version on the same tables; the params by the rule of PERF.md §2,
+    against ``effect``, what bf16 compute moves the CPU's fp32 run:
+
+    - fp32: the median element within REF_TOL, the largest within the
+      largest effect (a ReLU or max-pool decision near a tie may go the
+      other way on the card: a whole gradient term on one node, which
+      the later steps and merges carry on; an fp32 run may not stray
+      further than bf16 compute moves it);
+    - bf16: the largest and the median element within twice the effect's
+      (two bf16 runs are each a perturbation of the fp32 run), plus one
+      encoding step of a bf16 or int8 ring; and the card's bf16 run moves
+      at least half the median effect away from the fp32 run.
+
+    Returns the launches per (kernel, ring) of the card runs."""
+    stacked = flag.flagship_data(FLAG_CHECK_NODES, FLAG_CHECK_SUBSAMPLE,
+                                 sets=sets)
+    cases = (("fp32", False, "float32"), ("bf16", True, "float32"),
+             ("bf16-ring-bf16", True, "bfloat16"),
+             ("bf16-ring-int8", True, "int8"))
+    runs = {}
+    for label, bf16, wire in cases:
+        t0 = time.perf_counter()
+        cpu = flagship_run(torch, merge, flag, stacked, FLAG_CHECK_NODES,
+                           bf16, wire, "cpu", FLAG_CHECK_ROUNDS)
+        t1 = time.perf_counter()
+        card = flagship_run(torch, merge, flag, stacked, FLAG_CHECK_NODES,
+                            bf16, wire, "cuda", FLAG_CHECK_ROUNDS,
+                            audit=True)
+        runs[label] = (cpu, card, t1 - t0, time.perf_counter() - t1)
+    p32 = runs["fp32"][0][1].model.params
+    effect = (runs["bf16"][0][1].model.params - p32).abs()
+    eff_max, eff_med = float(effect.max()), float(effect.median())
+    paths = {}
+    for label, bf16, wire in cases:
+        (sim, st_c, r_c, l_c, _), (_, st_g, r_g, l_g, stats), t_c, t_g = \
+            runs[label]
+        check_same_accounting(torch, f"flagship {label}", st_c, st_g, r_c,
+                              r_g)
+        kernel = merge.KERNEL if wire == "float32" else merge.KERNEL_MULTI_DQ
+        with_msgs = int(((r_g.compact_slots_per_round
+                          + r_g.wide_slots_per_round) > 0).sum())
+        calls = stats.get(kernel, {}).get("calls", 0)
+        if l_c or l_g != {kernel: with_msgs} or calls != with_msgs \
+                or with_msgs == 0:
+            raise RuntimeError(f"flagship {label}: launches card {l_g}, CPU "
+                               f"{l_c}, audited calls {stats}; the path "
+                               f"makes {{{kernel}: {with_msgs}}}")
+        p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+        diff = (p_c - p_g).abs()
+        step = ring_step(torch, sim, st_c, wire)
+        d_max, d_med = float(diff.max()), float(diff.median())
+        if bf16:
+            lim_max = 2 * eff_max + float(step.max())
+            lim_med = 2 * eff_med + float(step.median())
+            moved = float((p_g - p32).abs().median())
+            ok = d_max <= lim_max and d_med <= lim_med \
+                and moved >= 0.5 * eff_med
+        else:
+            lim_max, lim_med, moved = eff_max, REF_TOL, None
+            ok = d_max <= lim_max and d_med <= lim_med
+        finite = bool(torch.isfinite(p_g).all()) and \
+            np.isfinite(r_g.final("accuracy"))
+        log(f"[flagship] card vs CPU {label} (ring {wire}): "
+            f"{FLAG_CHECK_NODES} nodes, {FLAG_CHECK_SUBSAMPLE} images, S = "
+            f"{sim.data['mtr'].shape[1]}, {FLAG_CHECK_ROUNDS} rounds: sent "
+            f"{int(r_g.sent_per_round.sum())}, slots "
+            f"{r_g.wide_slots_per_round.tolist()}; params max abs diff "
+            f"{d_max:.3e} (limit {lim_max:.3e}), median {d_med:.3e} (limit "
+            f"{lim_med:.3e}); bf16 effect max {eff_max:.3e} median "
+            f"{eff_med:.3e}; card bf16 run from CPU fp32, median {moved}; "
+            f"accuracy card {r_g.final('accuracy')}, CPU "
+            f"{r_c.final('accuracy')}; launches {l_g}; merge calls held "
+            f"to the plain versions {stats}; CPU {t_c:.1f} s, card "
+            f"{t_g:.1f} s")
+        if not (ok and finite):
+            raise RuntimeError(f"flagship {label}: the card run does not "
+                               "agree with the CPU run")
+        paths.setdefault((kernel, wire), {})[f"flagship-check-{label}"] = \
+            l_g[kernel]
+    return paths
+
+
+def flagship_timed(torch, merge, flag, stacked, wire: str) -> dict:
+    """Phase 8 (b), one ring leg: the full-width flagship (FLAG_NODES
+    nodes, bf16 compute, multi), a warm-up round, then FLAG_ROUNDS timed
+    rounds, the card synchronised before the host clock stops; launches
+    (counts set to 0 just before the timed rounds), the final sampled
+    accuracy, the memory budget and the peak allocation, one profiled
+    round and the phase times."""
+    kernel = merge.KERNEL if wire == "float32" else merge.KERNEL_MULTI_DQ
+    label = f"multi-{wire}"
+    sim = flag.flagship_sim(stacked, FLAG_NODES, True, "multi", wire,
+                            device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = sim.init_nodes(torch.Generator().manual_seed(42),
+                           common_init=True)
+    state, _ = sim.start(state, n_rounds=1)     # warm-up round
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=FLAG_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    with_msgs = int(((rep.compact_slots_per_round
+                      + rep.wide_slots_per_round) > 0).sum())
+    if launches != {kernel: with_msgs} or with_msgs != FLAG_ROUNDS:
+        raise RuntimeError(f"flagship {label}: launches {launches}, the "
+                           f"path must make {{{kernel}: {with_msgs}}} in "
+                           f"{FLAG_ROUNDS} rounds with messages")
+    acc = rep.final("accuracy")
+    stride = sim.handler.layout.stride
+    if state.model.params.shape != (FLAG_NODES, stride) or not \
+            torch.isfinite(state.model.params).all() or not np.isfinite(acc):
+        raise RuntimeError(f"flagship {label}: output has the wrong shape "
+                           "or is not finite")
+    budget = sim.memory_budget()
+    idle = profile(torch, lambda: sim._round(state),
+                   f"flagship {label}, one round with eval")
+    log(f"[flagship] {label}: {FLAG_NODES}-node CIFAR10Net (stride "
+        f"{stride}), bf16 compute, S = {sim.data['mtr'].shape[1]}, K = "
+        f"{sim.K}, {FLAG_ROUNDS} rounds in {wall:.3f} s = "
+        f"{wall / FLAG_ROUNDS * 1e3:.3f} ms/round; sent "
+        f"{int(rep.sent_per_round.sum())}, failed "
+        f"{int(rep.failed_per_round.sum())}; final sampled accuracy {acc}; "
+        f"launches {launches}; idle share of one round {idle}; memory "
+        f"budget {budget['total_bytes']} B ({budget['total_bytes'] / 2**30:.3f}"
+        f" GiB: data {budget['data_bytes']}, ring "
+        f"{budget['history_ring_bytes']}, model and optimizer "
+        f"{budget['model_and_opt_bytes']}, eval {budget['eval_peak_bytes']})"
+        f"; peak allocated {peak} B ({peak / 2**30:.3f} GiB)")
+    phase_times(torch, sim, state, f"flagship {label}")
+    return {"ms_per_round": wall / FLAG_ROUNDS * 1e3, "accuracy": acc,
+            "launches": launches, "idle_share": idle,
+            "budget_bytes": budget["total_bytes"], "peak_bytes": peak}
+
+
+def flagship_phase(torch, merge, rate) -> tuple:
+    """Phase 8: (a) the card against the CPU at a reduced size, K1 and K2
+    at the flagship's shape, (b) the three timed ring legs at full width.
+    Returns the launches per (kernel, ring) and path, and K1's and K2's
+    numbers at the flagship shape."""
+    from gossipy_tpu_torch.data import get_CIFAR10, to_device
+    from gossipy_tpu_torch.examples import main_cifar10_100nodes as flag
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the synthetic stand-in's note
+        sets = get_CIFAR10()
+    log(f"[flagship] CIFAR-10 stand-in, 50,000 + 10,000 images, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = flagship_card_vs_cpu(torch, merge, flag, sets)
+    t0 = time.perf_counter()
+    stacked = to_device(flag.flagship_data(FLAG_NODES, sets=sets), "cuda")
+    del sets
+    log(f"[flagship] {FLAG_NODES} Dirichlet(0.5) shards padded to "
+        f"{stacked['mtr'].shape[1]} rows and on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # K1 and K2 at the flagship's shape: 100 rows of CIFAR10Net's stride,
+    # the derived K, the two-cell ring.
+    probe = flag.flagship_sim(stacked, FLAG_NODES, True, "multi",
+                              device="cuda")
+    layout = probe.handler.layout
+    starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
+    shape = dict(n=FLAG_NODES, d=2, f=layout.stride, k=probe.K)
+    at_shape = {("multi", "float32"): check_merge(
+        torch, merge, shape["n"], shape["d"], shape["f"], shape["k"], 31,
+        rate)}
+    for seed, wire in enumerate(("bfloat16", "int8"), start=32):
+        at_shape[("multi", wire)] = check_wire_kernel(
+            torch, merge, "multi", wire, shape["n"], shape["d"], shape["f"],
+            shape["k"], starts, seed, rate)
+    del probe
+    legs = {}
+    for wire in FLAG_WIRES:
+        legs[wire] = flagship_timed(torch, merge, flag, stacked, wire)
+        for k, v in legs[wire]["launches"].items():
+            paths.setdefault((k, wire), {})[f"flagship-{wire}"] = v
+        torch.cuda.empty_cache()
+    return paths, at_shape
 
 
 def tensor_rate(name: str) -> float:
@@ -1686,6 +1945,11 @@ def main() -> int:
     # 7. the north-star configuration and the examples' network model
     ns_paths = northstar_phase(torch, merge, rate)
 
+    # 8. the 100-node CIFAR-10 flagship
+    flag_paths, at_flagship = flagship_phase(torch, merge, rate)
+    for key, by_path in flag_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -1699,6 +1963,7 @@ def main() -> int:
 
     kernels = [entry(merge.KERNEL, None, "gather_merge_multi.cu", 76, k1,
                      launches)]
+    kernels[0]["at_flagship_shape"] = at_flagship[("multi", "float32")]
     for slots, wire, label, kernel, source, line in (
             ("multi", "bfloat16", "multi-bf16", merge.KERNEL_MULTI_DQ,
              "gather_merge_multi.cu", 100),
@@ -1713,6 +1978,8 @@ def main() -> int:
         kernels.append(entry(kernel, None if wire == "float32" else wire,
                              source, line, numbers[(slots, wire)],
                              leg_launches[label][kernel]))
+        if (slots, wire) in at_flagship:
+            kernels[-1]["at_flagship_shape"] = at_flagship[(slots, wire)]
     kernels.extend(k5)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,13 @@
-"""Carry the JAX package's parameters over to the port.
+"""Carry the JAX package's parameters and optimizer state over to the port.
 
 The port keeps the JAX layouts (HWIO convolution kernels, ``[in, out]``
 dense kernels), so a flax parameter tree maps onto the port's named leaves
 by name alone: ``{"Conv_0": {"kernel": ..., "bias": ...}, ...}`` becomes
 ``{"Conv_0/kernel": ..., "Conv_0/bias": ...}``, then one flat row per node.
-The arrays come in as numpy (``np.asarray`` of each JAX leaf); nothing here
-imports JAX.
+An optax state maps onto the port's flat state tuple
+(:mod:`gossipy_tpu_torch.optim`) in the order its rules chain. The arrays
+come in as numpy (``np.asarray`` of each JAX leaf, which keeps optax's
+named tuples); nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -53,3 +55,43 @@ def params_to_numpy(flat: torch.Tensor, layout: ParamLayout) -> dict:
     """The port's flat rows -> ``{name: numpy array}`` in the JAX layouts
     (for holding a port run against a JAX one)."""
     return {k: v.detach().cpu().numpy() for k, v in layout.views(flat).items()}
+
+
+def opt_state_from_jax(state, layout: ParamLayout, rule, stacked: bool = True,
+                       device="cpu") -> tuple:
+    """An optax state of numpy leaves (``jax.tree.map(np.asarray, s)``) ->
+    the port's state tuple for the optimizer ``rule``: an ``EmptyState``
+    gives nothing, a ``TraceState`` its trace as flat rows, a
+    ``ScaleByAdamState`` its int32 ``count`` (``[N]`` when ``stacked``)
+    and its ``mu`` and ``nu`` rows; a chain's tuple gives its members' in
+    order. Raises on any other state, or when the result does not have
+    ``rule``'s length."""
+    out = []
+
+    def rows(tree):
+        return params_from_jax(tree, layout, stacked, device)
+
+    def walk(node):
+        fields = getattr(node, "_fields", None)
+        if fields is None:
+            if not isinstance(node, (tuple, list)):
+                raise ValueError(f"unknown optimizer state {node!r}")
+            for child in node:
+                walk(child)
+        elif fields == ():
+            pass
+        elif fields == ("trace",):
+            out.append(rows(node.trace))
+        elif fields == ("count", "mu", "nu"):
+            out.append(torch.tensor(np.asarray(node.count, np.int32),
+                                    device=device))
+            out.extend([rows(node.mu), rows(node.nu)])
+        else:
+            raise ValueError(f"{type(node).__name__}{fields} has no "
+                             "counterpart in the port's optimizers")
+
+    walk(state)
+    if len(out) != rule.n_state:
+        raise ValueError(f"the state gives {len(out)} tensors, the rule "
+                         f"keeps {rule.n_state}")
+    return tuple(out)

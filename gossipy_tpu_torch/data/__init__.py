@@ -1,18 +1,19 @@
-"""Data layer: the offline classification loader, uniform assignment, the
-shard dispatcher, and the step that puts the stacked shards on the device.
+"""Data layer: the offline loaders, the partitioners, the shard
+dispatcher, and the step that puts the stacked shards on the device.
 
 A numpy copy of the parts of ``gossipy_tpu/data/__init__.py`` the ported
-path runs (loading, assignment and stacking run once at set-up, on the
-host). :meth:`DataDispatcher.stacked` pads every node's shard to one length
+paths run (loading, assignment and stacking run once at set-up, on the
+host, and give numpy arrays). :meth:`DataDispatcher.stacked` pads every node's shard to one length
 and returns ``X [N, S, ...]``, ``y [N, S]`` and ``mask [N, S]`` (1.0 on real
 rows); :func:`to_device` moves that dict onto the run's device.
 
 :func:`load_classification_dataset` gives the UCI names the JAX package's
 offline stand-in (its deterministic synthetic data, without trying the
 download first) and scales the features with :func:`standard_scale`, a
-numpy copy of scikit-learn's ``StandardScaler``. The sklearn built-ins,
-svmlight files, the non-uniform partitioners and the other loaders are
-still to be ported.
+numpy copy of scikit-learn's ``StandardScaler``. :func:`get_CIFAR10`
+gives the JAX package's synthetic CIFAR-10 stand-in (no download is
+tried, and no archive is read). The sklearn built-ins, svmlight files and
+the other loaders are still to be ported.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ from .. import resolve_device
 from .handler import ClassificationDataHandler, DataHandler
 
 __all__ = ["AssignmentHandler", "DataDispatcher", "ClassificationDataHandler",
-           "DataHandler", "load_classification_dataset", "standard_scale",
-           "to_device", "SYNTHETIC_DATA_VERSION", "UCI_SHAPES"]
+           "DataHandler", "get_CIFAR10", "load_classification_dataset",
+           "standard_scale", "to_device", "SYNTHETIC_DATA_VERSION",
+           "UCI_SHAPES"]
 
 # The UCI datasets the original gossipy downloads: name -> (n_samples,
 # n_features, n_classes), the shapes of their synthetic stand-ins.
@@ -136,9 +138,47 @@ def load_classification_dataset(name: str = "spambase",
     return X, y
 
 
+def _synthetic_images(name: str, n: int, shape: tuple, c: int):
+    """Class-dependent Gaussian-blob images, deterministic per name: the
+    JAX package's stand-in, value for value."""
+    rng = _name_seeded_rng(name)
+    y = rng.integers(0, c, size=n).astype(np.int64)
+    X = rng.normal(0.0, 1.0, size=(n,) + shape).astype(np.float32)
+    h, w = shape[0], shape[1]
+    yy, xx = np.mgrid[0:h, 0:w]
+    for k in range(c):  # stamp a class-specific blob so the task is learnable
+        cy, cx = (k * 7) % h, (k * 11) % w
+        blob = np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / 18.0)).astype(np.float32)
+        X[y == k] += 2.5 * blob[..., None]
+    return X, y
+
+
+def get_CIFAR10(allow_synthetic: bool = True):
+    """CIFAR-10 train and test sets as NHWC float32 numpy arrays, ``((X
+    [50000, 32, 32, 3], y), (X [10000, 32, 32, 3], y))``.
+
+    The port reads no archive and tries no download: it gives the JAX
+    package's offline stand-in (a deterministic synthetic 10-class set of
+    CIFAR-10's shapes), with its warning. ``allow_synthetic=False``
+    raises, naming the archive the real set comes from.
+    """
+    if not allow_synthetic:
+        raise FileNotFoundError(
+            "the real CIFAR-10 set needs cifar-10-python.tar.gz, which the "
+            "port does not load; pass allow_synthetic=True for the "
+            "synthetic stand-in")
+    warnings.warn("CIFAR-10 substituted with synthetic 32x32x3 data (no "
+                  "archive is loaded).")
+    Xtr, ytr = _synthetic_images("cifar10-train", 50_000, (32, 32, 3), 10)
+    Xte, yte = _synthetic_images("cifar10-test", 10_000, (32, 32, 3), 10)
+    return (Xtr, ytr), (Xte, yte)
+
+
 class AssignmentHandler:
     """Partitioners mapping labels to per-node index arrays; all randomness
-    goes through one ``numpy.random.Generator`` seeded at construction."""
+    goes through one ``numpy.random.Generator`` seeded at construction.
+    Each is the JAX package's, draw for draw: for the same seed they give
+    the same index arrays."""
 
     def __init__(self, seed: int = 42):
         self.rng = np.random.default_rng(seed)
@@ -148,6 +188,95 @@ class AssignmentHandler:
         ex_client = y.shape[0] // n
         idx = self.rng.permutation(y.shape[0])
         return [idx[ex_client * i: ex_client * (i + 1)] for i in range(n)]
+
+    def quantity_skew(self, y: np.ndarray, n: int, min_quantity: int = 2,
+                      alpha: float = 4.0) -> list[np.ndarray]:
+        """Power-law shard sizes, ``min_quantity`` rows guaranteed."""
+        if min_quantity * n > y.shape[0]:
+            raise ValueError("# of instances must be > than min_quantity*n")
+        if min_quantity <= 0:
+            raise ValueError("min_quantity must be >= 1")
+        s = (self.rng.power(alpha, y.shape[0] - min_quantity * n) * n).astype(int)
+        m = np.repeat(np.arange(n), min_quantity)
+        assignment = np.concatenate([s, m])
+        self.rng.shuffle(assignment)
+        return [np.where(assignment == i)[0] for i in range(n)]
+
+    def classwise_quantity_skew(self, y: np.ndarray, n: int, min_quantity: int = 2,
+                                alpha: float = 4.0) -> list[np.ndarray]:
+        """Per-class power-law splits."""
+        if min_quantity * n > y.shape[0]:
+            raise ValueError("# of instances must be > than min_quantity*n")
+        if min_quantity <= 0:
+            raise ValueError("min_quantity must be >= 1")
+        labels = np.unique(y)
+        lens = [int((y == c).sum()) for c in labels]
+        if min(lens) < n:
+            raise ValueError("Under represented class!")
+        res: list[list[int]] = [[] for _ in range(n)]
+        for c, ln in zip(labels, lens):
+            s = (self.rng.power(alpha, ln - n) * n).astype(int)
+            ass = np.concatenate([s, np.arange(n)])
+            self.rng.shuffle(ass)
+            idc = np.where(y == c)[0]
+            for i in range(n):
+                res[i].extend(idc[np.where(ass == i)[0]])
+        return [np.array(sorted(r), dtype=int) for r in res]
+
+    def label_quantity_skew(self, y: np.ndarray, n: int,
+                            class_per_client: int = 2) -> list[np.ndarray]:
+        """k-classes-per-client split (Li et al. 2021)."""
+        labels = set(np.unique(y).tolist())
+        if not 0 < class_per_client <= len(labels):
+            raise ValueError("class_per_client must be > 0 and <= #classes")
+        if class_per_client * n < len(labels):
+            raise ValueError("class_per_client * n must be >= #classes")
+        nlbl = [self.rng.choice(len(labels), class_per_client, replace=False)
+                for _ in range(n)]
+        covered = set().union(*[set(a.tolist()) for a in nlbl])
+        while len(covered) < len(labels):
+            for missing in labels - covered:
+                nlbl[self.rng.integers(0, n)][self.rng.integers(0, class_per_client)] = missing
+            covered = set().union(*[set(a.tolist()) for a in nlbl])
+        class_map = {c: [u for u, lbl in enumerate(nlbl) if c in lbl] for c in labels}
+        assignment = np.zeros(y.shape[0], dtype=int)
+        for lbl, users in class_map.items():
+            ids = np.where(y == lbl)[0]
+            assignment[ids] = self.rng.choice(users, len(ids))
+        return [np.where(assignment == i)[0] for i in range(n)]
+
+    def label_dirichlet_skew(self, y: np.ndarray, n: int,
+                             beta: float = 0.1) -> list[np.ndarray]:
+        """Dirichlet(beta) class allocation; each client gets at least one
+        example of each class (the ``ids[:n]`` seeding)."""
+        if beta <= 0:
+            raise ValueError("beta must be > 0")
+        labels = np.unique(y)
+        assignment = np.zeros(y.shape[0], dtype=int)
+        for c in labels:
+            pk = self.rng.dirichlet([beta] * n)
+            ids = np.where(y == c)[0]
+            self.rng.shuffle(ids)
+            assignment[ids[n:]] = self.rng.choice(n, size=max(len(ids) - n, 0), p=pk)
+            assignment[ids[:n]] = np.arange(min(n, len(ids)))
+        return [np.where(assignment == i)[0] for i in range(n)]
+
+    def label_pathological_skew(self, y: np.ndarray, n: int,
+                                shards_per_client: int = 2) -> list[np.ndarray]:
+        """Sorted-shard split (McMahan 2017)."""
+        sorted_ids = np.argsort(y, kind="stable")
+        n_shards = int(shards_per_client * n)
+        shard_size = int(np.ceil(len(y) / n_shards))
+        assignment = np.zeros(y.shape[0], dtype=int)
+        perm = self.rng.permutation(n_shards)
+        j = 0
+        for i in range(n):
+            for _ in range(shards_per_client):
+                left = perm[j] * shard_size
+                right = min((perm[j] + 1) * shard_size, len(y))
+                assignment[sorted_ids[left:right]] = i
+                j += 1
+        return [np.where(assignment == i)[0] for i in range(n)]
 
 
 class DataDispatcher:
@@ -180,6 +309,18 @@ class DataDispatcher:
             ev = self.data_handler.get_eval_set()
             self.te_assignments = AssignmentHandler(seed).uniform(
                 np.asarray(ev[1]), self.n)
+        else:
+            self.te_assignments = [np.array([], dtype=int)
+                                   for _ in range(self.n)]
+
+    def set_assignments(self, tr: list[np.ndarray],
+                        te: Optional[list[np.ndarray]] = None) -> None:
+        """Custom splits: ``tr`` (and ``te``, else empty) per node."""
+        if len(tr) != self.n:
+            raise ValueError(f"{len(tr)} train splits for {self.n} nodes")
+        self.tr_assignments = [np.asarray(a, dtype=int) for a in tr]
+        if te is not None:
+            self.te_assignments = [np.asarray(a, dtype=int) for a in te]
         else:
             self.te_assignments = [np.array([], dtype=int)
                                    for _ in range(self.n)]

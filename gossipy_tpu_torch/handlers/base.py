@@ -2,8 +2,8 @@
 
 Counterpart of ``gossipy_tpu/handlers/base.py``. A node's parameters are
 one flat float32 row (:class:`~gossipy_tpu_torch.models.nn.ParamLayout`);
-a population stacks the rows to ``[N, stride]``. The ported handlers use
-plain SGD, so there is no optimizer state.
+a population stacks the rows to ``[N, stride]``, and its optimizer state
+is a tuple of per-node tensors (:mod:`gossipy_tpu_torch.optim`).
 
 The JAX handler is written for one node and vmapped by the engine; a port
 handler takes the whole population (or a gathered subset of it) at once,
@@ -24,10 +24,13 @@ class ModelState(NamedTuple):
     """One node's (or, stacked, every node's) learning state.
 
     - ``params``: flat float32 parameters, ``[stride]`` or ``[N, stride]``
+    - ``opt_state``: the optimizer's state, a tuple of tensors with a
+      leading node axis when stacked (``()`` for a stateless rule)
     - ``n_updates``: int32 age, ``[]`` or ``[N]``
     """
 
     params: torch.Tensor
+    opt_state: tuple
     n_updates: torch.Tensor
 
 
@@ -50,24 +53,44 @@ class BaseHandler:
     def call(self, state: ModelState, peer: PeerModel, data,
              perms: torch.Tensor) -> ModelState:
         """What every row of ``state`` becomes on receiving the matching
-        row of ``peer``:
+        row of ``peer``; the received model trains with the node's own
+        optimizer state, as in the JAX ``call``:
 
         - UPDATE: the received model, trained on local data;
         - MERGE_UPDATE: own and received model merged, then trained;
+        - UPDATE_MERGE: own and received model each trained, then merged.
+          The JAX handler splits the node's key in two; here ``perms``
+          holds both halves' shard orders, ``[N, 2 E, S]``: the first
+          ``E`` rows train the own model, the last ``E`` the received one;
         - PASS: the received model as it is.
-
-        UPDATE_MERGE trains two models per node, which needs a second
-        stream of shard orders per node (the JAX handler splits the call
-        key); it is not ported yet and raises.
         """
         if self.mode == CreateModelMode.UPDATE:
-            return self.update(ModelState(peer.params, peer.n_updates), data,
-                               perms)
+            recv = ModelState(peer.params, state.opt_state, peer.n_updates)
+            return self.update(recv, data, perms)
         if self.mode == CreateModelMode.MERGE_UPDATE:
             return self.update(self.merge(state, peer), data, perms)
-        if self.mode == CreateModelMode.PASS:
-            return ModelState(peer.params, peer.n_updates)
         if self.mode == CreateModelMode.UPDATE_MERGE:
-            raise NotImplementedError(
-                "CreateModelMode.UPDATE_MERGE is not ported yet")
+            e = perms.shape[1] // 2
+            mine = self.update(state, data, perms[:, :e])
+            recv = ModelState(peer.params, state.opt_state, peer.n_updates)
+            theirs = self.update(recv, data, perms[:, e:])
+            return self.merge(mine, PeerModel(theirs.params,
+                                              theirs.n_updates))
+        if self.mode == CreateModelMode.PASS:
+            return ModelState(peer.params, state.opt_state, peer.n_updates)
         raise ValueError(f"unknown create model mode {self.mode}")
+
+
+def select_rows(cond: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """``cond ? a : b`` row by row (``cond`` is ``[N]``)."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def select_state(cond: torch.Tensor, a: ModelState,
+                 b: ModelState) -> ModelState:
+    """``cond ? a : b`` row by row over every tensor of the state."""
+    return ModelState(select_rows(cond, a.params, b.params),
+                      tuple(select_rows(cond, x, y)
+                            for x, y in zip(a.opt_state, b.opt_state)),
+                      select_rows(cond, a.n_updates, b.n_updates))

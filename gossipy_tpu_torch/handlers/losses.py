@@ -33,3 +33,25 @@ def cross_entropy(scores: torch.Tensor, y: torch.Tensor,
     else:
         nll = -torch.gather(logp, -1, y.unsqueeze(-1).long())[..., 0]
     return _masked_mean(nll, mask)
+
+
+def mse(scores: torch.Tensor, y: torch.Tensor,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean squared error over the last axis of ``scores [..., B, C]``
+    against ``y [..., B, C]``, or ``y [..., B]`` taken as one column."""
+    if y.dim() < scores.dim():
+        y = y.unsqueeze(-1)
+    err = ((scores - y) ** 2).mean(dim=-1)
+    return _masked_mean(err, mask)
+
+
+def binary_cross_entropy(scores: torch.Tensor, y: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary cross-entropy of probability outputs (``[..., B, 1]`` or
+    ``[..., B]``, clipped to ``[1e-7, 1 - 1e-7]``) against 0/1 labels
+    ``[..., B]``."""
+    s = scores.squeeze(-1) if scores.dim() > y.dim() else scores
+    s = s.clamp(1e-7, 1 - 1e-7)
+    y = y.to(s.dtype)
+    nll = -(y * torch.log(s) + (1 - y) * torch.log(1 - s))
+    return _masked_mean(nll, mask)

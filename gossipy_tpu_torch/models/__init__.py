@@ -1,5 +1,7 @@
 """Models over stacked per-node parameters (see :mod:`.nn`)."""
 
-from .nn import CIFAR10Net, LogisticRegression, ParamLayout
+from .nn import (MLP, CIFAR10Net, LinearRegression, LogisticRegression,
+                 ParamLayout, Perceptron)
 
-__all__ = ["CIFAR10Net", "LogisticRegression", "ParamLayout"]
+__all__ = ["CIFAR10Net", "LinearRegression", "LogisticRegression", "MLP",
+           "ParamLayout", "Perceptron"]

@@ -146,6 +146,87 @@ class LogisticRegression:
                                     params["Dense_0/bias"]))
 
 
+def _dense_leaves(name: str, fan_in: int, fan_out: int, use_bias=True):
+    leaves = [(f"{name}/kernel", (fan_in, fan_out))]
+    return leaves + ([(f"{name}/bias", (fan_out,))] if use_bias else [])
+
+
+class Perceptron:
+    """``sigmoid(x @ W + b)`` with one output, ``[N, B, 1]``; an
+    xavier-uniform kernel, a zero bias (none with ``use_bias=False``)."""
+
+    def __init__(self, dim: int, use_bias: bool = True):
+        self.dim = dim
+        self.use_bias = use_bias
+        self.leaves = sorted(_dense_leaves("Dense_0", dim, 1, use_bias))
+
+    def init(self, generator: torch.Generator) -> dict:
+        out = {"Dense_0/kernel": _xavier_uniform((self.dim, 1), self.dim, 1,
+                                                 generator)}
+        if self.use_bias:
+            out["Dense_0/bias"] = torch.zeros(1)
+        return out
+
+    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """``x [N, B, dim]`` -> ``[N, B, 1]``."""
+        h = torch.bmm(x, params["Dense_0/kernel"])
+        if self.use_bias:
+            h = h + params["Dense_0/bias"].unsqueeze(1)
+        return torch.sigmoid(h)
+
+
+class MLP:
+    """Dense layers of ``hidden_dims`` widths, each followed by
+    ``activation``, then a linear output layer (raw scores);
+    xavier-uniform kernels, zero biases."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 hidden_dims=(100,), activation=torch.relu):
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.activation = activation
+        dims = [input_dim, *hidden_dims, output_dim]
+        self._layers = [(f"Dense_{i}", dims[i], dims[i + 1])
+                        for i in range(len(dims) - 1)]
+        self.leaves = sorted(leaf for name, i, o in self._layers
+                             for leaf in _dense_leaves(name, i, o))
+
+    def init(self, generator: torch.Generator) -> dict:
+        out = {}
+        for name, i, o in self._layers:
+            out[f"{name}/kernel"] = _xavier_uniform((i, o), i, o, generator)
+            out[f"{name}/bias"] = torch.zeros(o)
+        return out
+
+    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """``x [N, B, input_dim]`` -> ``[N, B, output_dim]``."""
+        for name, _, _ in self._layers[:-1]:
+            x = self.activation(_dense(x, params[f"{name}/kernel"],
+                                       params[f"{name}/bias"]))
+        name = self._layers[-1][0]
+        return _dense(x, params[f"{name}/kernel"], params[f"{name}/bias"])
+
+
+class LinearRegression:
+    """``x @ W + b`` with ``output_dim`` outputs; a lecun-normal kernel
+    (flax's ``Dense`` default), a zero bias."""
+
+    def __init__(self, input_dim: int, output_dim: int):
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.leaves = sorted(_dense_leaves("Dense_0", input_dim, output_dim))
+
+    def init(self, generator: torch.Generator) -> dict:
+        return {"Dense_0/bias": torch.zeros(self.output_dim),
+                "Dense_0/kernel": _lecun_normal(
+                    (self.input_dim, self.output_dim), self.input_dim,
+                    generator)}
+
+    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """``x [N, B, input_dim]`` -> ``[N, B, output_dim]``."""
+        return _dense(x, params["Dense_0/kernel"], params["Dense_0/bias"])
+
+
 class CIFAR10Net:
     """The small CIFAR-10 CNN, NHWC: conv(3->32) -> pool -> conv(32->64)
     -> pool -> conv(64->64) -> pool -> fc(256->64) -> fc(64->10), 3x3

@@ -42,7 +42,9 @@ class DrawProvider:
     def init_permutations(self, n: int, epochs: int, s: int,
                           device: torch.device) -> torch.Tensor:
         """Per-node, per-epoch shard orders for the pre-training pass:
-        ``[n, epochs, s]``, each row a permutation of ``range(s)``."""
+        ``[n, max(epochs, 1), s]``, each row a permutation of
+        ``range(s)`` (``epochs=0``: the one order a handler that takes a
+        single step draws straight from the node's key)."""
         raise NotImplementedError
 
     def init_period(self, n: int, delta: int,
@@ -77,15 +79,19 @@ class DrawProvider:
         raise NotImplementedError
 
     def update_permutations(self, r: int, purposes: Sequence[int],
-                            first_k: torch.Tensor, epochs: int, s: int
-                            ) -> torch.Tensor:
-        """Shard orders ``[n, epochs, s]`` for the round's local update.
+                            first_k: torch.Tensor, epochs: int, s: int,
+                            split: bool = False) -> torch.Tensor:
+        """Shard orders ``[n, E, s]`` for the round's local update, ``E =
+        max(epochs, 1)`` as in :meth:`init_permutations`.
 
         ``purposes[k]`` is the stream of mailbox slot ``k`` and
         ``first_k[i]`` the first live slot of node ``i``: node ``i`` trains
         under slot ``first_k[i]``'s stream, as the JAX engine's
-        ``_fused_slot_keys`` selects it. The result lies on
-        ``first_k``'s device.
+        ``_fused_slot_keys`` selects it. ``split`` gives ``[n, 2 E, s]``:
+        the orders of the two halves of each node's stream (the JAX
+        UPDATE_MERGE ``call`` splits the node's key and trains one model
+        under each), first half first. The result lies on ``first_k``'s
+        device.
         """
         raise NotImplementedError
 
@@ -103,7 +109,7 @@ class TorchDraws(DrawProvider):
         self.generator = torch.Generator().manual_seed(seed)
 
     def _perms(self, n: int, epochs: int, s: int) -> torch.Tensor:
-        u = torch.rand((n, epochs, s), generator=self.generator)
+        u = torch.rand((n, max(epochs, 1), s), generator=self.generator)
         return torch.argsort(u, dim=-1)
 
     def init_phase(self, n, delta, device):
@@ -139,5 +145,10 @@ class TorchDraws(DrawProvider):
     def eval_subset(self, r, n, n_pick, device):
         return torch.randperm(n, generator=self.generator)[:n_pick].to(device)
 
-    def update_permutations(self, r, purposes, first_k, epochs, s):
-        return self._perms(first_k.shape[0], epochs, s).to(first_k.device)
+    def update_permutations(self, r, purposes, first_k, epochs, s,
+                            split=False):
+        n = first_k.shape[0]
+        if split:
+            both = [self._perms(n, epochs, s) for _ in range(2)]
+            return torch.cat(both, dim=1).to(first_k.device)
+        return self._perms(n, epochs, s).to(first_k.device)

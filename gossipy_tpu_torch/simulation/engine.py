@@ -45,8 +45,10 @@ The state is updated in place: :meth:`GossipSimulator.start` mutates the
 
 Ported: PUSH, PULL and PUSH_PULL, sync and async nodes, the three delay
 models, sampled evaluation, the three deliver paths with wide and compact
-dispatch, the three ring formats. Every other option of the JAX engine
-raises ``NotImplementedError``.
+dispatch, the three ring formats, every create-model mode (UPDATE_MERGE on
+the plain path, as in the JAX engine), handlers with optimizer state, and
+:meth:`GossipSimulator.memory_budget`. Every other option of the JAX
+engine raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from .. import resolve_device
 from ..core import AntiEntropyProtocol, ConstantDelay, CreateModelMode, \
     Delay, MessageType, Topology
 from ..data import to_device
-from ..handlers.base import ModelState, PeerModel
+from ..handlers.base import ModelState, PeerModel, select_state
 from ..ops.merge import column_leaves, gather_merge_flat, gather_merge_multi
 from ..random import K_CALL, K_DELAY, K_DROP, K_ONLINE, K_REPLY_DELAY, \
     K_REPLY_DROP, DrawProvider, TorchDraws
@@ -106,7 +108,8 @@ class Mailbox(NamedTuple):
 class SimState:
     """Full simulator state, updated in place round by round."""
 
-    model: ModelState              # params [N, stride], n_updates [N]
+    model: ModelState              # params [N, stride], opt_state (per-node
+                                   # tensors), n_updates [N]
     phase: torch.Tensor            # [N] int32 send offset within a round
                                    # (sync) or send period (async)
     history_params: torch.Tensor   # [D, N, stride] round-start snapshots,
@@ -118,21 +121,18 @@ class SimState:
     history_scale: Optional[torch.Tensor] = None  # [D, N, L] f32, int8 only
 
 
-def select_nodes(mask: torch.Tensor, a: ModelState,
-                 b: ModelState) -> ModelState:
-    """``mask ? a : b`` row by row."""
-    return ModelState(torch.where(mask[:, None], a.params, b.params),
-                      torch.where(mask, a.n_updates, b.n_updates))
-
-
 def _take_rows(model: ModelState, idx: torch.Tensor) -> ModelState:
-    return ModelState(model.params[idx], model.n_updates[idx])
+    return ModelState(model.params[idx],
+                      tuple(t[idx] for t in model.opt_state),
+                      model.n_updates[idx])
 
 
 def _put_rows(model: ModelState, idx: torch.Tensor,
               part: ModelState) -> ModelState:
     """``model`` with rows ``idx`` replaced by ``part`` (a new state)."""
     return ModelState(model.params.index_copy(0, idx, part.params),
+                      tuple(t.index_copy(0, idx, u) for t, u in
+                            zip(model.opt_state, part.opt_state)),
                       model.n_updates.index_copy(0, idx, part.n_updates))
 
 
@@ -255,9 +255,6 @@ class GossipSimulator:
             if handler.mode != CreateModelMode.MERGE_UPDATE:
                 raise ValueError("fused_merge only fuses the MERGE_UPDATE "
                                  "path")
-        elif handler.mode == CreateModelMode.UPDATE_MERGE:
-            raise NotImplementedError(
-                "CreateModelMode.UPDATE_MERGE is not ported yet")
 
         self.device = resolve_device(device)
         self.handler = handler
@@ -439,6 +436,71 @@ class GossipSimulator:
             else 0
         return layout.width * self._wire_itemsize() + sidecar
 
+    # -- memory budget -------------------------------------------------------
+
+    def _eval_peak_bytes(self) -> int:
+        """Transient peak of the global evaluation's scores and metric
+        operands: the JAX engine's ~3 float32 ``[eval nodes, eval
+        samples]`` buffers, over the nodes of one of the port's chunks
+        (``EVAL_ROWS`` image rows)."""
+        if not self.has_global_eval:
+            return 0
+        n_samples = int(self.data["x_eval"].shape[0])
+        chunk = max(1, EVAL_ROWS // max(1, n_samples))
+        return 3 * min(self._n_eval_nodes(), chunk) * n_samples * 4
+
+    def memory_budget(self) -> dict:
+        """Device-memory budget (bytes) of the run's big terms, from shapes
+        alone, with the JAX engine's keys and meaning:
+
+        - ``model_and_opt_bytes``: params, optimizer state and ages of the
+          N nodes;
+        - ``history_ring_bytes``: the ``[D, N, stride]`` ring in its wire
+          format, the int8 scales included; those are also given alone as
+          ``history_ring_sidecar`` (no ``_bytes`` suffix, so the total
+          counts them once); ``history_dtype`` names the format;
+        - ``history_ages_bytes`` and ``history_depth`` (D);
+        - ``aux_bytes``: a variant's own per-node state (none here: 0);
+        - ``mailbox_bytes``, ``reply_box_bytes``: four int32 fields of
+          ``[D, N, K]`` and ``[D, N, Kr]``;
+        - ``data_bytes``: the stacked data on the device;
+        - ``eval_peak_bytes``: the global evaluation's transient
+          (:meth:`_eval_peak_bytes`);
+        - ``total_bytes``: the sum of the ``_bytes`` terms.
+
+        The port's rows are ``stride`` wide (the layout pads each row to a
+        multiple of 4 floats), so its params, optimizer and ring terms
+        count ``stride`` scalars a node where the JAX engine counts the
+        model's width. Activations and the allocator's workspace are not
+        counted: the budget is a floor, not a ceiling.
+        """
+        n = self.n_nodes
+        layout = self.handler.layout
+        one = self.handler.optimizer.init(torch.zeros(1, layout.stride))
+        per_node = (4 * layout.stride + 4
+                    + sum(t.numel() * t.element_size() for t in one))
+        D = self._history_depth(self._model_size())
+        sidecar = (4 * D * n * len(layout.leaves)
+                   if self.history_dtype == "int8" else 0)
+        out = {
+            "model_and_opt_bytes": per_node * n,
+            "history_ring_bytes": (D * n * layout.stride
+                                   * self._wire_itemsize() + sidecar),
+            "history_ring_sidecar": sidecar,
+            "history_dtype": self.history_dtype,
+            "history_ages_bytes": 4 * D * n,
+            "history_depth": D,
+            "aux_bytes": 0,
+            "mailbox_bytes": 4 * 4 * D * n * self.K,
+            "reply_box_bytes": 4 * 4 * D * n * self.Kr,
+            "data_bytes": sum(t.numel() * t.element_size()
+                              for t in self.data.values()),
+            "eval_peak_bytes": self._eval_peak_bytes(),
+        }
+        out["total_bytes"] = sum(v for k, v in out.items()
+                                 if k.endswith("_bytes"))
+        return out
+
     # -- state -------------------------------------------------------------
 
     def _local_data(self):
@@ -460,7 +522,8 @@ class GossipSimulator:
                    local_train: bool = True,
                    common_init: bool = False) -> SimState:
         """Initialise every node's model (weights from ``generator``,
-        default seeded with 0), then one local pre-training pass.
+        default seeded with 0) and optimizer state, then one local
+        pre-training pass.
 
         ``common_init=True`` gives every node the same initial weights; the
         pre-training pass still diversifies them.
@@ -474,8 +537,9 @@ class GossipSimulator:
         else:
             params = torch.stack([self.handler.init(g, self.device).params
                                   for _ in range(n)])
-        model = ModelState(params, torch.zeros(n, dtype=torch.int32,
-                                               device=self.device))
+        model = ModelState(params, self.handler.optimizer.init(params),
+                           torch.zeros(n, dtype=torch.int32,
+                                       device=self.device))
         if local_train:
             s = self.data["mtr"].shape[1]
             perms = self.draws.init_permutations(
@@ -488,16 +552,17 @@ class GossipSimulator:
         return self.init_state(model, phase)
 
     def init_state(self, model: ModelState, phase: torch.Tensor) -> SimState:
-        """A round-0 state around given node models: the ring holds
-        ``model``'s params, encoded, in every cell and the mailbox and
-        reply box are empty."""
+        """A round-0 state around given node models (their optimizer
+        state included): the ring holds ``model``'s params, encoded, in
+        every cell and the mailbox and reply box are empty."""
         n = self.n_nodes
         params = model.params.to(self.device, torch.float32).contiguous()
+        opt_state = tuple(t.to(self.device) for t in model.opt_state)
         n_updates = model.n_updates.to(self.device, torch.int32)
         D = self._history_depth(self._model_size())
         stored, scales = self._encode_history_rows(params)
         return SimState(
-            model=ModelState(params, n_updates),
+            model=ModelState(params, opt_state, n_updates),
             phase=phase.to(self.device, torch.int32),
             history_params=stored.unsqueeze(0).repeat(D, 1, 1),
             history_ages=n_updates.unsqueeze(0).repeat(D, 1),
@@ -628,11 +693,14 @@ class GossipSimulator:
     def _slot_loop(self, state: SimState, r: int, sr_t, sender_t, apply_t,
                    call_tag: int) -> tuple[int, int]:
         """One pass per occupied slot of a mailbox cell, in slot order;
-        slot ``k`` trains every node under purpose ``call_tag * 101 + k``.
-        Returns the (compact, wide) slot counts."""
+        slot ``k`` trains every node under purpose ``call_tag * 101 + k``
+        (both halves of it under UPDATE_MERGE). Returns the (compact,
+        wide) slot counts."""
         n = self.n_nodes
         live = apply_t.sum(dim=0).tolist()
         first_k = torch.zeros(n, dtype=torch.int64, device=self.device)
+        # UPDATE_MERGE trains two models a receive: two sets of orders.
+        split = self.handler.mode == CreateModelMode.UPDATE_MERGE
         n_compact = n_wide = 0
         for k, n_live in enumerate(live):
             dc, dw = self._delivery_path_counts(n_live)
@@ -642,7 +710,7 @@ class GossipSimulator:
                 continue
             perms = self.draws.update_permutations(
                 r, [call_tag * 101 + k], first_k, self.handler.local_epochs,
-                self.data["mtr"].shape[1])
+                self.data["mtr"].shape[1], split=split)
             self._receive_slot_apply(state, sr_t[:, k], sender_t[:, k],
                                      apply_t[:, k], perms, n_live)
         return n_compact, n_wide
@@ -669,7 +737,7 @@ class GossipSimulator:
         """Population-wide :meth:`_receive_rows`, kept where ``valid``."""
         new_model = self._receive_rows(state.model, peer, self._local_data(),
                                        perms)
-        state.model = select_nodes(valid, new_model, state.model)
+        state.model = select_state(valid, new_model, state.model)
 
     def _apply_receive_compact(self, state: SimState, send_round, sender,
                                valid, perms) -> None:
@@ -683,7 +751,7 @@ class GossipSimulator:
         sub_model = _take_rows(state.model, idx)
         data = tuple(d[idx] for d in self._local_data())
         new_sub = self._receive_rows(sub_model, peer, data, perms[idx])
-        new_sub = select_nodes(sub_valid, new_sub, sub_model)
+        new_sub = select_state(sub_valid, new_sub, sub_model)
         state.model = _put_rows(state.model, idx, new_sub)
 
     def _receive_rows(self, models: ModelState, peer: PeerModel, data,
@@ -696,8 +764,8 @@ class GossipSimulator:
                        perms) -> None:
         """MERGE_UPDATE through the single-slot gather-merge kernel (one
         launch over the flat row, where the JAX engine launches once per
-        leaf), then the local update of every node; rows without a live
-        message keep their state."""
+        leaf), then the local update of every node with its own optimizer
+        state; rows without a live message keep their state."""
         n = self.n_nodes
         D = state.history_ages.shape[0]
         s = sender.long().clamp(0, n - 1)
@@ -710,9 +778,10 @@ class GossipSimulator:
         merged = gather_merge_flat(model.params, ring, cell * n + s, w_self,
                                    w_peer, scale, starts)
         ages = torch.maximum(model.n_updates, state.history_ages[cell, s])
-        updated = self.handler.update(ModelState(merged, ages),
-                                      self._local_data(), perms)
-        state.model = select_nodes(valid, updated, model)
+        updated = self.handler.update(
+            ModelState(merged, model.opt_state, ages), self._local_data(),
+            perms)
+        state.model = select_state(valid, updated, model)
 
     # -- deliver: the single-pass fused path ----------------------------------
 
@@ -736,8 +805,8 @@ class GossipSimulator:
                                   data) -> ModelState:
         """One kernel launch and one update over ``model``'s rows: the
         compound left-to-right K-slot blend, age = max over the live
-        peers, then the local update; rows without a live message keep
-        their state."""
+        peers, then the local update with the receiver's optimizer state;
+        rows without a live message keep their state."""
         flat_idx, w_self, w_peer, peer_ages = self._fused_multi_tables(
             state, sr_t, sender_t, apply_t)
         ring, scale, starts = self._ring(state)
@@ -746,8 +815,9 @@ class GossipSimulator:
         live_ages = torch.where(apply_t, peer_ages,
                                 torch.zeros_like(peer_ages)).amax(dim=1)
         ages = torch.maximum(model.n_updates, live_ages)
-        updated = self.handler.update(ModelState(merged, ages), data, perms)
-        return select_nodes(row_valid, updated, model)
+        updated = self.handler.update(
+            ModelState(merged, model.opt_state, ages), data, perms)
+        return select_state(row_valid, updated, model)
 
     def _fused_multi_apply(self, state: SimState, sr_t, sender_t, apply_t,
                            perms, any_msg) -> None:
@@ -904,7 +974,8 @@ class GossipSimulator:
                  self.data[mkey][:1, :1])
             params = self.handler.init(torch.Generator().manual_seed(0),
                                        self.device).params
-            res = self.handler.evaluate(ModelState(params[None], None), d)
+            res = self.handler.evaluate(ModelState(params[None], (), None),
+                                        d)
             self._metric_names = sorted(res.keys())
         return self._metric_names
 
@@ -928,12 +999,12 @@ class GossipSimulator:
         ``eval_subset`` drawn for round ``r`` with ``sampling_eval``."""
         names = self._metric_keys()
         nan = torch.full((len(names),), float("nan"), device=self.device)
-        model = state.model
+        model = ModelState(state.model.params, (), None)
         data = self.data
         if self.sampling_eval > 0:
             idx = self.draws.eval_subset(r, self.n_nodes,
                                          self._n_eval_nodes(), self.device)
-            model = _take_rows(model, idx)
+            model = ModelState(model.params[idx], (), None)
             if self.has_local_test:
                 data = {k: data[k][idx] for k in ("xte", "yte", "mte")}
         m = model.params.shape[0]
@@ -953,7 +1024,8 @@ class GossipSimulator:
                 c = p.shape[0]
                 d = (xe.expand(c, *xe.shape), ye.expand(c, *ye.shape),
                      me.expand(c, *me.shape))
-                parts.append(self.handler.evaluate(ModelState(p, None), d))
+                parts.append(self.handler.evaluate(ModelState(p, (), None),
+                                                   d))
             res = {k: torch.cat([part[k] for part in parts]) for k in names}
             glob = self._mean_metrics(
                 res, torch.ones(m, dtype=torch.bool, device=self.device))

@@ -38,7 +38,9 @@ from gossipy_tpu.models import LogisticRegression
 from gossipy_tpu.simulation import GossipSimulator
 from gossipy_tpu_torch import core as tcore
 from gossipy_tpu_torch import ops as tops
-from gossipy_tpu_torch.convert import params_from_jax, params_to_numpy
+from gossipy_tpu_torch import optim as toptim
+from gossipy_tpu_torch.convert import opt_state_from_jax, params_from_jax, \
+    params_to_numpy
 from gossipy_tpu_torch.handlers import ModelState as TModelState
 from gossipy_tpu_torch.handlers import SGDHandler as TSGDHandler
 from gossipy_tpu_torch.handlers import losses as tlosses
@@ -69,14 +71,17 @@ def data():
     return disp.stacked()
 
 
-def make_pair(adjacency, key, fused="multi", **kw):
+def make_pair(adjacency, key, fused="multi", rules=None, **kw):
+    """``rules``: the (optax, port) optimizers, SGD 0.1 by default."""
     stacked = data()
+    jopt, topt = rules if rules is not None else (optax.sgd(0.1),
+                                                  toptim.sgd(0.1))
     jh = SGDHandler(model=LogisticRegression(D_FEAT, 2),
-                    loss=losses.cross_entropy, optimizer=optax.sgd(0.1),
+                    loss=losses.cross_entropy, optimizer=jopt,
                     local_epochs=1, batch_size=8, n_classes=2,
                     input_shape=(D_FEAT,))
     th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
-                     learning_rate=0.1, local_epochs=1, batch_size=8,
+                     optimizer=topt, local_epochs=1, batch_size=8,
                      n_classes=2, input_shape=(D_FEAT,))
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore",
@@ -94,8 +99,10 @@ def make_pair(adjacency, key, fused="multi", **kw):
 def to_port_state(tsim, jst):
     params = params_from_jax(jax.tree.map(np.asarray, jst.model.params),
                              tsim.handler.layout)
+    opt = opt_state_from_jax(jax.tree.map(np.asarray, jst.model.opt_state),
+                             tsim.handler.layout, tsim.handler.optimizer)
     n_up = torch.as_tensor(np.array(jst.model.n_updates))
-    return tsim.init_state(TModelState(params, n_up),
+    return tsim.init_state(TModelState(params, opt, n_up),
                            torch.as_tensor(np.array(jst.phase)))
 
 
@@ -208,8 +215,6 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"create_model_mode": tcore.CreateModelMode.UPDATE_MERGE,
-     "fused_merge": False},
     {"metrics": True},
     {"tracing": True},
     {"topology": lambda: SparseTopology(N, np.array([[0, 1], [1, 2]]))},
@@ -248,7 +253,7 @@ def test_pretraining_matches_jax_init_nodes():
     perms = tsim.draws.init_permutations(N, 1, tsim.data["mtr"].shape[1],
                                          tsim.device)
     got = tsim.handler.update(
-        TModelState(params, torch.zeros(N, dtype=torch.int32)),
+        TModelState(params, (), torch.zeros(N, dtype=torch.int32)),
         tsim._local_data(), perms)
     tst = tsim.init_state(got, tsim.draws.init_phase(N, 100, tsim.device))
     assert_params_close(tst, jst, layout)
@@ -444,9 +449,12 @@ def test_compaction_misuse_rejected():
 
 
 @pytest.mark.parametrize("mode", [CreateModelMode.UPDATE,
-                                  CreateModelMode.PASS])
+                                  CreateModelMode.PASS,
+                                  CreateModelMode.UPDATE_MERGE])
 def test_plain_path_other_modes_match_jax_engine(mode):
-    """The plain path runs the handler's ``call``: UPDATE and PASS too."""
+    """The plain path runs the handler's ``call``: UPDATE, PASS and
+    UPDATE_MERGE (two models trained a receive, under both halves of each
+    node's stream) too."""
     key = jax.random.PRNGKey(6)
     adjacency = np.ones((N, N), dtype=bool)
     jsim, tsim = make_pair(adjacency, key, fused=False, compact_deliver=3)
@@ -470,10 +478,14 @@ def test_mode_and_path_rules():
         with pytest.raises(ValueError, match="MERGE_UPDATE"):
             TGossipSimulator(th, topo, data(), mailbox_slots=K,
                              fused_merge=fused, device="cpu")
+    # UPDATE_MERGE trains two models a receive: the plain path only.
     th.mode = CreateModelMode.UPDATE_MERGE
-    with pytest.raises(NotImplementedError, match="UPDATE_MERGE"):
-        TGossipSimulator(th, topo, data(), mailbox_slots=K,
-                         fused_merge=False, device="cpu")
+    for fused in ("multi", "per_slot"):
+        with pytest.raises(ValueError, match="MERGE_UPDATE"):
+            TGossipSimulator(th, topo, data(), mailbox_slots=K,
+                             fused_merge=fused, device="cpu")
+    TGossipSimulator(th, topo, data(), mailbox_slots=K, fused_merge=False,
+                     device="cpu")
     th.mode = CreateModelMode.MERGE_UPDATE
     with pytest.raises(ValueError, match="fused_merge"):
         TGossipSimulator(th, topo, data(), mailbox_slots=K,
@@ -481,3 +493,88 @@ def test_mode_and_path_rules():
     sim = TGossipSimulator(th, topo, data(), mailbox_slots=K,
                            fused_merge=True, device="cpu")
     assert sim.fused_merge == "multi"
+
+
+# (name, fused_merge, compact_deliver, rule)
+OPT_LEGS = [
+    ("plain-compact-momentum", False, 3, "momentum"),
+    ("plain-wide-adam", False, False, "adam"),
+    ("per_slot-momentum", "per_slot", None, "momentum"),
+    ("multi-adam", "multi", None, "adam"),
+    ("multi-compact-momentum", "multi", 4, "momentum"),
+]
+OPT_RULES = {"momentum": lambda: (optax.sgd(0.1, momentum=0.9),
+                                  toptim.sgd(0.1, momentum=0.9)),
+             "adam": lambda: (optax.adam(0.05), toptim.adam(0.05))}
+
+
+@pytest.mark.parametrize("leg", OPT_LEGS, ids=[leg[0] for leg in OPT_LEGS])
+def test_optimizer_state_flows_through_the_engine(leg):
+    """A handler with optimizer state on every deliver path, wide and
+    compact: ``init_nodes`` gives each node the rule's initial state, the
+    receiver trains with (and the fused paths keep) its own state, and
+    the state survives the compacted gather and scatter. Params and every
+    state tensor within 1e-5 of the JAX engine's; ages and adam's counts
+    exactly."""
+    name, fused, compact, rule = leg
+    adjacency = (hub_adjacency(N) if "multi-compact" in name
+                 else np.ones((N, N), dtype=bool))
+    key = jax.random.PRNGKey(8)
+    jsim, tsim = make_pair(adjacency, key, fused=fused,
+                           compact_deliver=compact, rules=OPT_RULES[rule](),
+                           drop_prob=0.2)
+    jst = jsim.init_nodes(key, common_init=True)
+    tst = to_port_state(tsim, jst)
+    own = tsim.init_nodes(common_init=True)
+    assert len(own.model.opt_state) == len(tst.model.opt_state) > 0
+    jst, jrep = jsim.start(jst, n_rounds=3, key=key, donate_state=False)
+    tst, trep = tsim.start(tst, n_rounds=3)
+    np.testing.assert_array_equal(trep.compact_slots_per_round,
+                                  jrep.compact_slots_per_round)
+    np.testing.assert_array_equal(trep.sent_per_round, jrep.sent_per_round)
+    if compact:
+        assert trep.compact_slots_per_round.sum() > 0
+    assert_params_close(tst, jst, tsim.handler.layout)
+    want = opt_state_from_jax(jax.tree.map(np.asarray, jst.model.opt_state),
+                              tsim.handler.layout, tsim.handler.optimizer)
+    for got, w in zip(tst.model.opt_state, want):
+        if got.dtype == torch.int32:
+            np.testing.assert_array_equal(got.numpy(), w.numpy())
+        else:
+            np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("rule", ["sgd", "adam"])
+def test_memory_budget_matches_jax_terms(wire, rule):
+    """The JAX engine's keys; the terms the two layouts share are equal
+    (depth, ages, mailbox, reply box, int8 sidecar, aux); the port's
+    params, optimizer and ring terms count the ``stride``-wide row where
+    JAX counts the model's width; the data term counts the port's int64
+    labels."""
+    rules = None if rule == "sgd" else (optax.adam(0.1), toptim.adam(0.1))
+    jsim, tsim = make_pair(np.ones((N, N), dtype=bool), jax.random.PRNGKey(0),
+                           rules=rules, history_dtype=wire,
+                           sampling_eval=0.5)
+    jb, tb = jsim.memory_budget(), tsim.memory_budget()
+    assert set(tb) == set(jb)
+    for k in ("history_depth", "history_ages_bytes", "mailbox_bytes",
+              "reply_box_bytes", "history_ring_sidecar", "history_dtype",
+              "aux_bytes", "eval_peak_bytes"):
+        assert tb[k] == jb[k], k
+    layout = tsim.handler.layout
+    n_rows = {"sgd": 1, "adam": 3}[rule]
+    per_node = 4 * n_rows * layout.stride + 4 + (4 if rule == "adam" else 0)
+    assert tb["model_and_opt_bytes"] == N * per_node
+    assert jb["model_and_opt_bytes"] == N * (per_node - 4 * n_rows
+                                             * (layout.stride - layout.width))
+    item = {"float32": 4, "bfloat16": 2, "int8": 1}[wire]
+    D = tb["history_depth"]
+    assert tb["history_ring_bytes"] - tb["history_ring_sidecar"] == \
+        D * N * layout.stride * item
+    assert tb["data_bytes"] == sum(t.numel() * t.element_size()
+                                   for t in tsim.data.values())
+    assert tb["total_bytes"] == sum(v for k, v in tb.items()
+                                    if k.endswith("_bytes")
+                                    and k != "total_bytes")

@@ -6,7 +6,10 @@
   by importing the package with those modules blocked.
 - The modules the port copies from the JAX package because they are numpy
   only (the data dispatcher, the report) give array-equal output on the
-  same inputs.
+  same inputs (the partitioners and the synthetic images:
+  ``test_torch_data.py``).
+- The flagship twin runs end to end on the host with those modules
+  blocked and no socket able to connect.
 """
 
 import ast
@@ -62,7 +65,8 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.ops, gossipy_tpu_torch.convert, "
         "gossipy_tpu_torch.models, gossipy_tpu_torch.handlers, "
         "gossipy_tpu_torch.ops.attention, gossipy_tpu_torch.optim, "
-        "gossipy_tpu_torch.examples.demo_ring_attention\n"
+        "gossipy_tpu_torch.examples.demo_ring_attention, "
+        "gossipy_tpu_torch.examples.main_cifar10_100nodes\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -75,12 +79,21 @@ def test_package_imports_with_jax_blocked():
         "warnings.simplefilter('ignore')\n"
         "assert load_classification_dataset('spambase')[0].shape == "
         "(4601, 57)\n"
+        # The flagship twin end to end on the host, at a tiny size, with
+        # a small synthetic set in place of the 60,000 images.
+        "import gossipy_tpu_torch.examples.main_cifar10_100nodes as f\n"
+        "from gossipy_tpu_torch.data import _synthetic_images as s\n"
+        "f.get_CIFAR10 = lambda: (s('a', 96, (32, 32, 3), 10), "
+        "s('b', 20, (32, 32, 3), 10))\n"
+        "out = f.main(['--device', 'cpu', '--nodes', '4', '--rounds', '1', "
+        "'--bf16', '--history-dtype', 'int8'])\n"
+        "assert out['rounds'] == 1 and out['sent_messages'] == 4, out\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def dataset(seed=0):

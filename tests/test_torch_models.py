@@ -12,11 +12,15 @@ import pytest
 import torch
 
 from gossipy_tpu.handlers import losses
-from gossipy_tpu.models import CIFAR10Net, LogisticRegression
+from gossipy_tpu.models import MLP, CIFAR10Net, LinearRegression, \
+    LogisticRegression, Perceptron
 from gossipy_tpu_torch import convert
 from gossipy_tpu_torch.handlers import losses as tlosses
 from gossipy_tpu_torch.models import CIFAR10Net as TCIFAR10Net
+from gossipy_tpu_torch.models import MLP as TMLP
+from gossipy_tpu_torch.models import LinearRegression as TLinReg
 from gossipy_tpu_torch.models import LogisticRegression as TLogReg
+from gossipy_tpu_torch.models import Perceptron as TPerceptron
 from gossipy_tpu_torch.models import ParamLayout
 
 torch.set_num_threads(1)
@@ -124,14 +128,53 @@ def test_cross_entropy_value_and_gradient(labels, mask_kind):
         assert got.item() == 0.0 and not got_g.any()
 
 
-@pytest.mark.parametrize("which", ["logreg", "cifar"])
+def small_models(d):
+    """(flax model, port model) pairs of the dense models, input dim d."""
+    return {
+        "perceptron": (Perceptron(d), TPerceptron(d)),
+        "perceptron-nobias": (Perceptron(d, use_bias=False),
+                              TPerceptron(d, use_bias=False)),
+        "mlp": (MLP(d, 3, hidden_dims=(5, 4)),
+                TMLP(d, 3, hidden_dims=(5, 4))),
+        "linreg": (LinearRegression(d, 2), TLinReg(d, 2)),
+    }
+
+
+@pytest.mark.parametrize("name", ["perceptron", "perceptron-nobias", "mlp",
+                                  "linreg"])
+def test_dense_model_forward_and_leaves(name):
+    """Perceptron (sigmoid, one output), MLP (ReLU hidden layers, raw
+    scores) and LinearRegression on converted flax weights, two nodes;
+    the port's leaves are the flax tree's."""
+    jmodel, tmodel = small_models(7)[name]
+    jp = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 7)))["params"]
+    want = {n: tuple(np.shape(v)) for n, v in
+            convert.flatten_names(jax.tree.map(np.asarray, jp)).items()}
+    assert dict(tmodel.leaves) == want
+    x = np.random.default_rng(5).normal(size=(2, 3, 7)).astype(np.float32)
+    got, want = run_both(jmodel, tmodel, x)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("which", ["logreg", "cifar", "perceptron", "mlp",
+                                   "linreg"])
 def test_init_distributions_match_flax(which):
     """The port draws its own initial weights (a torch.Generator cannot
-    replay flax's keys); each leaf's scale matches flax's initialiser."""
+    replay flax's keys); each leaf's scale matches flax's initialiser
+    (xavier-uniform where the flax model names it, lecun-normal for a
+    plain ``Dense``, zero biases)."""
     if which == "logreg":
         jmodel, tmodel, shape = LogisticRegression(300, 40), TLogReg(300, 40), (300,)
-    else:
+    elif which == "cifar":
         jmodel, tmodel, shape = CIFAR10Net(), TCIFAR10Net(), (32, 32, 3)
+    elif which == "perceptron":
+        jmodel, tmodel, shape = Perceptron(300), TPerceptron(300), (300,)
+    elif which == "mlp":
+        jmodel, tmodel, shape = (MLP(300, 40, hidden_dims=(200,)),
+                                 TMLP(300, 40, hidden_dims=(200,)), (300,))
+    else:
+        jmodel, tmodel, shape = LinearRegression(300, 40), TLinReg(300, 40), (300,)
     jp = convert.flatten_names(jax.tree.map(np.asarray, jmodel.init(
         jax.random.PRNGKey(0), jnp.zeros((1,) + shape))["params"]))
     tp = tmodel.init(torch.Generator().manual_seed(0))
@@ -146,3 +189,34 @@ def test_init_distributions_match_flax(which):
                                    err_msg=name)
         np.testing.assert_allclose(np.abs(got).max(), np.abs(want).max(),
                                    rtol=0.15, err_msg=name)
+
+
+@pytest.mark.parametrize("loss", ["mse", "binary_cross_entropy"])
+@pytest.mark.parametrize("mask_kind", ["partial", "empty", "none"])
+def test_regression_and_binary_losses(loss, mask_kind):
+    """``mse`` (one-column labels and full targets) and
+    ``binary_cross_entropy`` (probability outputs ``[B, 1]``, clipped away
+    from 0 and 1): values and gradients."""
+    rng = np.random.default_rng(4)
+    if loss == "mse":
+        cases = [(rng.normal(size=(6, 1)), rng.normal(size=6)),
+                 (rng.normal(size=(6, 3)), rng.normal(size=(6, 3)))]
+    else:
+        p = rng.uniform(0.05, 0.95, size=(6, 1))
+        p[0, 0] = 1.0   # clipped
+        cases = [(p, rng.integers(0, 2, 6)), (p[:, 0], rng.integers(0, 2, 6))]
+    mask = {"partial": np.array([1, 1, 0, 1, 0, 1], np.float32),
+            "empty": np.zeros(6, np.float32), "none": None}[mask_kind]
+    jm = None if mask is None else jnp.asarray(mask)
+    tm = None if mask is None else torch.from_numpy(mask)
+    for scores, y in cases:
+        scores = scores.astype(np.float32)
+        y = y.astype(np.float32 if loss == "mse" else np.int64)
+        want, want_g = jax.value_and_grad(
+            lambda sc: getattr(losses, loss)(sc, jnp.asarray(y), jm))(
+                jnp.asarray(scores))
+        sc = torch.from_numpy(scores).requires_grad_(True)
+        got = getattr(tlosses, loss)(sc, torch.from_numpy(y), tm)
+        (got_g,) = torch.autograd.grad(got, sc)
+        np.testing.assert_allclose(got.item(), float(want), **TOL)
+        np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **TOL)

@@ -175,8 +175,9 @@ def test_ring_and_message_size_match_jax(history_dtype):
     params = convert.params_from_jax(jax.tree.map(np.asarray,
                                                   jst.model.params),
                                      th.layout)
-    tst = tsim.init_state(TModelState(params, torch.zeros(n, dtype=torch.int32)),
-                          torch.zeros(n, dtype=torch.int32))
+    tst = tsim.init_state(
+        TModelState(params, (), torch.zeros(n, dtype=torch.int32)),
+        torch.zeros(n, dtype=torch.int32))
     D = jst.history_ages.shape[0]
     assert tst.history_params.shape == (D, n, th.layout.stride)
     assert tst.history_params.dtype == tsim._HISTORY_DTYPES[history_dtype]
@@ -195,7 +196,8 @@ def test_ring_and_message_size_match_jax(history_dtype):
     else:
         assert tst.history_scale is None
     # The snapshot re-encodes the round-start params into cell r % D.
-    tst.model = TModelState(tst.model.params * 2.0, tst.model.n_updates + 1)
+    tst.model = TModelState(tst.model.params * 2.0, (),
+                            tst.model.n_updates + 1)
     tsim._snapshot(tst, 1)
     stored, scales = tsim._encode_history_rows(tst.model.params)
     assert torch.equal(tst.history_params[1], stored)

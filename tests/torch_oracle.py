@@ -22,13 +22,23 @@ from gossipy_tpu.core import sample_peers
 from gossipy_tpu_torch.random import K_EVAL, K_FIRE, K_PEER, DrawProvider
 
 
-def perms_from_keys(keys, epochs: int, s: int) -> np.ndarray:
+def perms_from_keys(keys, epochs: int, s: int,
+                    split: bool = False) -> np.ndarray:
     """What ``SGDHandler.update`` draws from each node key: ``[n, epochs,
-    s]`` permutations, one per ``split(key, epochs)`` entry."""
+    s]`` permutations, one per ``split(key, epochs)`` entry, or with
+    ``epochs=0`` the one ``permutation(key, s)`` of a single step (``[n,
+    1, s]``). ``split``: what the UPDATE_MERGE ``call`` draws, the orders
+    of ``k1`` then ``k2`` of ``split(key)`` along the epoch axis."""
     def one(key):
+        if epochs == 0:
+            return jax.random.permutation(key, s)[None]
         return jax.vmap(lambda k: jax.random.permutation(k, s))(
             jax.random.split(key, epochs))
-    return np.array(jax.vmap(one)(keys))
+
+    def two(key):
+        k1, k2 = jax.random.split(key)
+        return jnp.concatenate([one(k1), one(k2)])
+    return np.array(jax.vmap(two if split else one)(keys))
 
 
 class JaxDraws(DrawProvider):
@@ -79,10 +89,11 @@ class JaxDraws(DrawProvider):
         idx = jax.random.permutation(self._key(r, K_EVAL), n)[:n_pick]
         return torch.as_tensor(np.array(idx), device=device).long()
 
-    def update_permutations(self, r, purposes, first_k, epochs, s):
+    def update_permutations(self, r, purposes, first_k, epochs, s,
+                            split=False):
         n = first_k.shape[0]
         tabs = jnp.stack([jax.random.split(self._key(r, p), n)
                           for p in purposes])
         keys = tabs[jnp.asarray(first_k.cpu().numpy()), jnp.arange(n)]
-        return torch.as_tensor(perms_from_keys(keys, epochs, s),
+        return torch.as_tensor(perms_from_keys(keys, epochs, s, split),
                                device=first_k.device).long()

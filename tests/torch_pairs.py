@@ -27,7 +27,8 @@ from gossipy_tpu.handlers import SGDHandler, losses
 from gossipy_tpu.models import LogisticRegression
 from gossipy_tpu.simulation import GossipSimulator
 from gossipy_tpu_torch import core as tcore
-from gossipy_tpu_torch.convert import params_from_jax, params_to_numpy
+from gossipy_tpu_torch.convert import flatten_names, opt_state_from_jax, \
+    params_from_jax, params_to_numpy
 from gossipy_tpu_torch.handlers import ModelState as TModelState
 from gossipy_tpu_torch.handlers import SGDHandler as TSGDHandler
 from gossipy_tpu_torch.handlers import losses as tlosses
@@ -103,16 +104,21 @@ def clique_pair(key, **kw):
 
 
 def to_port_state(tsim, jst):
+    """The JAX state's params, optimizer state, ages and phases, in a
+    round-0 port state."""
+    layout = tsim.handler.layout
     params = params_from_jax(jax.tree.map(np.asarray, jst.model.params),
-                             tsim.handler.layout)
+                             layout)
+    opt = opt_state_from_jax(jax.tree.map(np.asarray, jst.model.opt_state),
+                             layout, tsim.handler.optimizer)
     n_up = torch.as_tensor(np.array(jst.model.n_updates))
-    return tsim.init_state(TModelState(params, n_up),
+    return tsim.init_state(TModelState(params, opt, n_up),
                            torch.as_tensor(np.array(jst.phase)))
 
 
-def assert_same_run(jsim, tsim, jst, tst, jrep, trep, param_tol=1e-5,
-                    metric_tol=1e-5):
-    """The per-round accounting, both boxes, params, ages and metrics."""
+def assert_same_accounting(jsim, tsim, jst, tst, jrep, trep):
+    """The per-round accounting, both boxes, the ages and the ring's
+    ages, exactly."""
     assert tsim.K == jsim.K and tsim.Kr == jsim.Kr
     for field in ("sent_per_round", "failed_per_round",
                   "mailbox_hwm_per_round", "compact_slots_per_round",
@@ -130,20 +136,28 @@ def assert_same_run(jsim, tsim, jst, tst, jrep, trep, param_tol=1e-5,
                                  "extra")):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want),
                                           err_msg=f"{name}.{f}")
+    np.testing.assert_array_equal(tst.model.n_updates.numpy(),
+                                  np.asarray(jst.model.n_updates))
+    np.testing.assert_array_equal(tst.history_ages.numpy(),
+                                  np.asarray(jst.history_ages))
+
+
+def assert_same_run(jsim, tsim, jst, tst, jrep, trep, param_tol=1e-5,
+                    metric_tol=1e-5):
+    """The per-round accounting, both boxes, params, ages and metrics."""
+    assert_same_accounting(jsim, tsim, jst, tst, jrep, trep)
     got = params_to_numpy(tst.model.params, tsim.handler.layout)
     wire = tsim.history_dtype
-    for k, v in jst.model.params["Dense_0"].items():
+    scales = (flatten_names(jst.history_scale) if wire == "int8" else {})
+    for k, v in flatten_names(jst.model.params).items():
         want = np.asarray(v)
         tol = param_tol
         if wire == "bfloat16":
             tol = tol + 2.0 ** -8 * np.abs(want)
         elif wire == "int8":
-            tol = tol + 0.5 * float(np.asarray(
-                jst.history_scale["Dense_0"][k]).max())
-        diff = np.abs(got["Dense_0/" + k] - want)
+            tol = tol + 0.5 * float(np.asarray(scales[k]).max())
+        diff = np.abs(got[k] - want)
         assert (diff <= tol).all(), (k, float(diff.max()))
-    np.testing.assert_array_equal(tst.model.n_updates.numpy(),
-                                  np.asarray(jst.model.n_updates))
     if wire != "float32":
         return
     for local in (True, False):
