@@ -125,6 +125,29 @@ Phases, each printed as it runs; any failure exits non-zero:
    accuracy, ``memory_budget()`` beside ``max_memory_allocated``, one
    profiled round's idle share and the phase times.
 
+9. papers: the four paper examples on the vanilla simulator, built by
+   their twins (``gossipy_tpu_torch/examples/main_ormandi_2013.py``,
+   ``main_berta_2014.py``, ``main_hegedus_2020.py``,
+   ``main_danner_2023.py``): Ormandi (Pegasos over AdaLine, one node per
+   training sample, a clique, async PUSH, ``UniformDelay(0, 10)``, 20%
+   online, 10% drops, the single-pass deliver: K1), Berta (k-means with
+   Hungarian matching, one node per sample, sync PUSH, ``delta=1000``),
+   Hegedus (MF on the ml-100k stand-in, one user a node,
+   ``random_regular(943, 20)``) and Danner (limited merging of LogReg
+   under weight decay and SGD 1.0, 100 nodes); the last three take the
+   plain path. (a) Each at a cut size (64 nodes; Hegedus 64 users;
+   Danner 16) for PAPER_CHECK_ROUNDS rounds on the card and on the CPU
+   from the same seeds: accounting, boxes and ages equal, params within
+   REF_TOL plus REF_TOL of their magnitude, every K1 call of the Ormandi
+   run bit-equal to its plain version (``MergeAudit``), no launch on the
+   plain path. K1 against its plain version, timed, at the Ormandi shape
+   (4,141 rows of the 60-column stride, the derived K, the ring's 3
+   cells). (b) Each at full width (4,141 nodes, 4,601, 943 users, 100)
+   for PAPER_ROUNDS rounds: ms/round, the final metric (accuracy, NMI,
+   local RMSE, accuracy), K1's launches against the rounds with messages,
+   one profiled round's idle share, the phase times, and
+   ``memory_budget()`` beside ``max_memory_allocated``.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -1070,6 +1093,203 @@ def flagship_phase(torch, merge, rate) -> tuple:
     return paths, at_shape
 
 
+PAPERS = ("ormandi", "berta", "hegedus", "danner")
+PAPER_CHECK_SIZE = {"ormandi": 64, "berta": 64, "hegedus": 64, "danner": 16}
+PAPER_CHECK_ROUNDS = 8
+# Timed rounds at full width: the reference's 100 for Ormandi and
+# Hegedus, 100 of Berta's 500 and 300 of Danner's 1000.
+PAPER_ROUNDS = {"ormandi": 100, "berta": 100, "hegedus": 100, "danner": 300}
+PAPER_METRIC = {"ormandi": ("accuracy", False), "berta": ("nmi", False),
+                "hegedus": ("rmse", True), "danner": ("accuracy", False)}
+
+
+def paper_sets():
+    """The data the four paper examples read, made once: the normalised
+    spambase stand-in and the ml-100k stand-in's ratings."""
+    from gossipy_tpu_torch.data import (load_classification_dataset,
+                                        load_recsys_dataset)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the stand-ins' notes
+        return {"spambase": load_classification_dataset("spambase"),
+                "ml-100k": load_recsys_dataset("ml-100k")}
+
+
+def paper_sim(torch, name: str, sets: dict, size: int, device,
+              seed: int = 42):
+    """Example ``name``'s simulator, built by its twin's own functions on
+    ``device`` with ``TorchDraws(seed)``, at ``size`` nodes (users for
+    Hegedus; 0 = the example's full width), and its ``init_nodes`` state
+    under a generator seeded with ``seed``."""
+    from gossipy_tpu_torch.examples import main_berta_2014 as berta
+    from gossipy_tpu_torch.examples import main_danner_2023 as danner
+    from gossipy_tpu_torch.examples import main_hegedus_2020 as hegedus
+    from gossipy_tpu_torch.examples import main_ormandi_2013 as ormandi
+    if name == "ormandi":
+        stacked, dim = ormandi.ormandi_data(size, seed, sets["spambase"])
+        sim = ormandi.ormandi_sim(stacked, dim, seed=seed, device=device)
+    elif name == "berta":
+        stacked, dim = berta.berta_data(size, sets["spambase"])
+        sim = berta.berta_sim(stacked, dim, seed, device=device)
+    elif name == "hegedus":
+        stacked, n_items = hegedus.hegedus_data(seed=seed, users=size,
+                                                sets=sets["ml-100k"])
+        sim = hegedus.hegedus_sim(stacked, n_items, seed, device=device)
+    else:
+        stacked, dim = danner.danner_data(size or 100, seed,
+                                          sets["spambase"])
+        sim = danner.danner_sim(stacked, dim, seed, device=device)
+    state = sim.init_nodes(torch.Generator().manual_seed(seed))
+    return sim, state
+
+
+def rounds_with_messages(rep) -> int:
+    return int(((rep.compact_slots_per_round
+                 + rep.wide_slots_per_round) > 0).sum())
+
+
+def paper_card_vs_cpu(torch, merge, name: str, sets: dict) -> dict:
+    """Phase 9 (a), one example: PAPER_CHECK_ROUNDS rounds at
+    PAPER_CHECK_SIZE nodes on the CPU and on the card from the same
+    seeds. Accounting, both boxes and ages equal; params within REF_TOL
+    plus REF_TOL of their magnitude (Pegasos's weights reach hundreds);
+    Ormandi launches K1 once a round with messages on the card, every
+    call bit-equal to its plain version (``MergeAudit``); the three
+    others take the plain path and launch nothing. Returns the card run's
+    launches."""
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sim, state = paper_sim(torch, name, sets, PAPER_CHECK_SIZE[name],
+                               dev, seed=3)
+        merge.reset_launch_counts()
+        audit = MergeAudit(torch, merge, sim)
+        t0 = time.perf_counter()
+        with audit if dev == "cuda" else contextlib.nullcontext():
+            state, rep = sim.start(state, n_rounds=PAPER_CHECK_ROUNDS)
+        runs[dev] = (sim, state, rep, {k: v for k, v in
+                                       merge.LAUNCHES.items() if v},
+                     audit.stats, time.perf_counter() - t0)
+    (sim, st_c, r_c, l_c, _, t_c), (_, st_g, r_g, l_g, stats, t_g) = \
+        runs["cpu"], runs["cuda"]
+    label = f"papers {name}"
+    check_same_accounting(torch, label, st_c, st_g, r_c, r_g)
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    diff = (p_c - p_g).abs()
+    worst = float((diff - REF_TOL * (1.0 + p_c.abs())).max())
+    metric, local = PAPER_METRIC[name]
+    m_c, m_g = r_c.final(metric, local), r_g.final(metric, local)
+    with_msgs = rounds_with_messages(r_g)
+    want = {merge.KERNEL: with_msgs} if sim.fused_merge == "multi" else {}
+    calls = stats.get(merge.KERNEL, {}).get("calls", 0)
+    log(f"[papers] {name} card vs CPU: {sim.n_nodes} nodes, S = "
+        f"{sim.data['mtr'].shape[1]}, K = {sim.K}, deliver "
+        f"{sim.fused_merge or 'plain'}, {PAPER_CHECK_ROUNDS} rounds: sent "
+        f"{int(r_g.sent_per_round.sum())}, failed "
+        f"{ {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()} }, "
+        f"slots compact {int(r_g.compact_slots_per_round.sum())} wide "
+        f"{int(r_g.wide_slots_per_round.sum())}; max abs param diff "
+        f"{float(diff.max()):.3e} (largest param {float(p_c.abs().max()):.3e}"
+        f"), worst margin to the tolerance {worst:.3e} (<= 0 passes); final "
+        f"{metric} card {m_g}, CPU {m_c}; launches card {l_g}, CPU {l_c}; "
+        f"merge calls held to the plain versions {stats}; CPU {t_c:.1f} s, "
+        f"card {t_g:.1f} s")
+    if worst > 0 or not np.isfinite(m_g) or not \
+            torch.isfinite(st_g.model.params).all():
+        raise RuntimeError(f"{label}: the card run does not agree with the "
+                           "CPU run")
+    if l_c or l_g != want or (want and (with_msgs == 0
+                                        or calls != with_msgs)):
+        raise RuntimeError(f"{label}: launches card {l_g}, CPU {l_c}, "
+                           f"audited calls {calls}; the path makes {want}")
+    return l_g
+
+
+def paper_timed(torch, merge, name: str, sets: dict) -> dict:
+    """Phase 9 (b), one example at full width on the card: a warm-up
+    round, then PAPER_ROUNDS timed rounds (every round's sampled eval
+    included), the card synchronised before the host clock stops; the
+    final metric, the launches (counts set to 0 just before the timed
+    rounds; Ormandi's K1 once a round with messages), the memory budget
+    beside the peak allocation, one profiled round's idle share and the
+    phase times."""
+    rounds = PAPER_ROUNDS[name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim, state = paper_sim(torch, name, sets, 0, "cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    state, _ = sim.start(state, n_rounds=1)     # warm-up round
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    with_msgs = rounds_with_messages(rep)
+    want = {merge.KERNEL: with_msgs} if sim.fused_merge == "multi" else {}
+    metric, local = PAPER_METRIC[name]
+    final = rep.final(metric, local)
+    if launches != want or (want and with_msgs == 0):
+        raise RuntimeError(f"papers {name}: launches {launches}, the path "
+                           f"must make {want}")
+    if not torch.isfinite(state.model.params).all() or \
+            not np.isfinite(final):
+        raise RuntimeError(f"papers {name}: non-finite params or {metric}")
+    budget = sim.memory_budget()
+    idle = profile(torch, lambda: sim._round(state),
+                   f"papers {name}, one round with eval")
+    log(f"[papers] {name}: {sim.n_nodes} nodes (stride "
+        f"{sim.handler.layout.stride}, S = {sim.data['mtr'].shape[1]}, K = "
+        f"{sim.K}, D = {state.history_ages.shape[0]}), deliver "
+        f"{sim.fused_merge or 'plain'}, {rounds} rounds in {wall:.3f} s = "
+        f"{wall / rounds * 1e3:.3f} ms/round (set-up {setup:.1f} s); sent "
+        f"{int(rep.sent_per_round.sum())}, failed "
+        f"{int(rep.failed_per_round.sum())}, slots compact "
+        f"{int(rep.compact_slots_per_round.sum())} wide "
+        f"{int(rep.wide_slots_per_round.sum())}; final "
+        f"{'local' if local else 'global'} {metric} {final}; launches "
+        f"{launches} for {with_msgs} rounds with messages; idle share of one "
+        f"round {idle}; memory budget {budget['total_bytes']} B ("
+        f"{budget['total_bytes'] / 2**20:.1f} MiB: data "
+        f"{budget['data_bytes']}, ring {budget['history_ring_bytes']}, model "
+        f"{budget['model_and_opt_bytes']}); peak allocated {peak} B ("
+        f"{peak / 2**20:.1f} MiB)")
+    phase_times(torch, sim, state, f"papers {name}")
+    return {"ms_per_round": wall / rounds * 1e3, metric: final,
+            "launches": launches, "idle_share": idle,
+            "budget_bytes": budget["total_bytes"], "peak_bytes": peak}
+
+
+def papers_phase(torch, merge, rate) -> tuple:
+    """Phase 9: the four paper examples. (a) each on the card against the
+    CPU at a cut size; K1 against its plain version, timed, at the
+    Ormandi shape; (b) each timed at full width. Returns the launches per
+    (kernel, ring) and run, and K1's numbers at the Ormandi shape."""
+    t0 = time.perf_counter()
+    sets = paper_sets()
+    log(f"[papers] spambase and ml-100k stand-ins made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {}
+    for name in PAPERS:
+        launched = paper_card_vs_cpu(torch, merge, name, sets)
+        for k, v in launched.items():
+            paths.setdefault((k, "float32"), {})[f"{name}-check"] = v
+    # K1 at the Ormandi shape: 4,141 rows of AdaLine(57)'s 60-column
+    # stride, the derived K, the ring's D cells.
+    probe, state = paper_sim(torch, "ormandi", sets, 0, "cpu")
+    depth = state.history_ages.shape[0]
+    at_ormandi = check_merge(torch, merge, probe.n_nodes, depth,
+                             probe.handler.layout.stride, probe.K, 41, rate)
+    del probe, state
+    for name in PAPERS:
+        out = paper_timed(torch, merge, name, sets)
+        for k, v in out["launches"].items():
+            paths.setdefault((k, "float32"), {})[name] = v
+        torch.cuda.empty_cache()
+    return paths, at_ormandi
+
+
 def tensor_rate(name: str) -> float:
     for key, rate in TENSOR_FLOPS:
         if key in name:
@@ -1950,6 +2170,11 @@ def main() -> int:
     for key, by_path in flag_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
 
+    # 9. the four paper examples on the vanilla simulator
+    paper_paths, at_ormandi = papers_phase(torch, merge, rate)
+    for key, by_path in paper_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -1964,6 +2189,7 @@ def main() -> int:
     kernels = [entry(merge.KERNEL, None, "gather_merge_multi.cu", 76, k1,
                      launches)]
     kernels[0]["at_flagship_shape"] = at_flagship[("multi", "float32")]
+    kernels[0]["at_ormandi_shape"] = at_ormandi
     for slots, wire, label, kernel, source, line in (
             ("multi", "bfloat16", "multi-bf16", merge.KERNEL_MULTI_DQ,
              "gather_merge_multi.cu", 100),

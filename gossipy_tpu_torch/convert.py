@@ -18,8 +18,12 @@ import torch
 from .models.nn import ParamLayout
 
 
-def flatten_names(tree: dict, prefix: str = "") -> dict:
-    """``{"Dense_0": {"kernel": a}}`` -> ``{"Dense_0/kernel": a}``."""
+def flatten_names(tree, prefix: str = "") -> dict:
+    """``{"Dense_0": {"kernel": a}}`` -> ``{"Dense_0/kernel": a}``; a bare
+    array (AdaLine's vector, k-means' centroids) is the one leaf named by
+    the empty path, ``{"": a}``."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
     out = {}
     for k, v in tree.items():
         name = f"{prefix}/{k}" if prefix else str(k)
@@ -30,7 +34,7 @@ def flatten_names(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def params_from_jax(tree: dict, layout: ParamLayout, stacked: bool = True,
+def params_from_jax(tree, layout: ParamLayout, stacked: bool = True,
                     device="cpu") -> torch.Tensor:
     """A (stacked) flax parameter tree of numpy arrays -> the port's flat
     rows: ``[N, stride]`` when ``stacked`` (leaves ``[N, ...]``), else

@@ -12,8 +12,10 @@ offline stand-in (its deterministic synthetic data, without trying the
 download first) and scales the features with :func:`standard_scale`, a
 numpy copy of scikit-learn's ``StandardScaler``. :func:`get_CIFAR10`
 gives the JAX package's synthetic CIFAR-10 stand-in (no download is
-tried, and no archive is read). The sklearn built-ins, svmlight files and
-the other loaders are still to be ported.
+tried, and no archive is read). :func:`load_recsys_dataset` gives the
+JAX package's synthetic MovieLens stand-in (no download is tried), which
+:class:`RecSysDataDispatcher` stacks one user a node. The sklearn
+built-ins, svmlight files and the other loaders are still to be ported.
 """
 
 from __future__ import annotations
@@ -28,12 +30,15 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .handler import ClassificationDataHandler, DataHandler
+from .handler import ClassificationDataHandler, ClusteringDataHandler, \
+    DataHandler, RecSysDataHandler, RegressionDataHandler
 
 __all__ = ["AssignmentHandler", "DataDispatcher", "ClassificationDataHandler",
-           "DataHandler", "get_CIFAR10", "load_classification_dataset",
+           "ClusteringDataHandler", "DataHandler", "RecSysDataDispatcher",
+           "RecSysDataHandler", "RegressionDataHandler", "get_CIFAR10",
+           "load_classification_dataset", "load_recsys_dataset",
            "standard_scale", "to_device", "SYNTHETIC_DATA_VERSION",
-           "UCI_SHAPES"]
+           "UCI_SHAPES", "RECSYS_SHAPES"]
 
 # The UCI datasets the original gossipy downloads: name -> (n_samples,
 # n_features, n_classes), the shapes of their synthetic stand-ins.
@@ -50,6 +55,13 @@ UCI_SHAPES = {
 # (2: Bayes-accuracy-calibrated centre separation): a change to the values
 # it generates bumps it in both packages.
 SYNTHETIC_DATA_VERSION = 2
+
+# The MovieLens sets: name -> (n_users, n_items, n_ratings), the shapes of
+# their synthetic stand-ins.
+RECSYS_SHAPES = {"ml-100k": (943, 1682, 100_000),
+                 "ml-1m": (6040, 3706, 1_000_000),
+                 "ml-10m": (69_878, 10_677, 10_000_054),
+                 "ml-20m": (138_493, 26_744, 20_000_263)}
 
 # The scikit-learn built-ins of the JAX package's loader.
 _SKLEARN_BUILTINS = ("iris", "breast", "breast_cancer", "digits", "wine")
@@ -136,6 +148,42 @@ def load_classification_dataset(name: str = "spambase",
     if normalize:
         X = standard_scale(X)
     return X, y
+
+
+def load_recsys_dataset(name: str = "ml-100k",
+                        allow_synthetic: bool = True):
+    """MovieLens ratings as ``({user: [(item, rating)]}, n_users,
+    n_items)``.
+
+    The port reads no archive and tries no download: it gives the JAX
+    package's offline stand-in for ``name`` (:data:`RECSYS_SHAPES`), a
+    rank-6 rating matrix keyed on the name, ``n_ratings // n_users``
+    distinct items a user, ratings ``clip(round(3 + 1.5 u.v), 1, 5)``,
+    value for value, with its warning. ``allow_synthetic=False`` raises.
+    """
+    if name not in RECSYS_SHAPES:
+        raise ValueError(f"Unknown recsys dataset: {name}")
+    if not allow_synthetic:
+        raise FileNotFoundError(
+            f"the real {name} set needs its MovieLens archive, which the "
+            "port does not load; pass allow_synthetic=True for the "
+            "synthetic stand-in")
+    n_users, n_items, n_ratings = RECSYS_SHAPES[name]
+    warnings.warn(f"RecSys dataset '{name}' substituted with a synthetic "
+                  "low-rank rating matrix (no egress).")
+    rng = _name_seeded_rng(name)
+    k = 6
+    U = rng.normal(size=(n_users, k)) / np.sqrt(k)
+    V = rng.normal(size=(n_items, k)) / np.sqrt(k)
+    ratings: dict = {}
+    per_user = max(n_ratings // n_users, 5)
+    for u in range(n_users):
+        items = rng.choice(n_items, size=min(per_user, n_items),
+                           replace=False)
+        raw = U[u] @ V[items].T
+        r = np.clip(np.round(3.0 + 1.5 * raw), 1, 5)
+        ratings[u] = [(int(i), float(v)) for i, v in zip(items, r)]
+    return ratings, n_users, n_items
 
 
 def _synthetic_images(name: str, n: int, shape: tuple, c: int):
@@ -387,17 +435,65 @@ class DataDispatcher:
                 f"n={self.n}, eval_on_user={self.eval_on_user})")
 
 
+class RecSysDataDispatcher(DataDispatcher):
+    """One user a node, in a seeded permutation of the users; each node's
+    train and test ratings stacked as ``items [N, S]`` (int32),
+    ``ratings [N, S]`` (float32) and ``mask [N, S]``."""
+
+    def __init__(self, data_handler: RecSysDataHandler):
+        self.data_handler = data_handler
+        self.n = data_handler.size()
+        self.eval_on_user = True
+        self.assign()
+
+    def assign(self, seed: int = 42) -> None:
+        rng = np.random.default_rng(seed)
+        self.assignments = rng.permutation(self.n)
+
+    def __getitem__(self, idx: int):
+        u = int(self.assignments[idx])
+        return (self.data_handler.at(u),
+                self.data_handler.at(u, eval_set=True))
+
+    def has_test(self) -> bool:
+        return True
+
+    def get_eval_set(self):
+        return None
+
+    def stacked(self, pad_to: Optional[int] = None) -> dict:
+        """``xtr/ytr/mtr`` (train) and ``xte/yte/mte`` (test): items,
+        ratings and mask of every node's ratings, padded to one length."""
+        def pack(eval_set: bool):
+            items, rates = [], []
+            for i in range(self.n):
+                r = self.data_handler.at(int(self.assignments[i]),
+                                         eval_set=eval_set)
+                items.append(np.array([it for it, _ in r], dtype=np.int32))
+                rates.append(np.array([v for _, v in r], dtype=np.float32))
+            it_stack, mask = self._pad_stack(items, pad_to)
+            rt_stack, _ = self._pad_stack(rates, pad_to)
+            return it_stack, rt_stack, mask
+
+        itr, rtr, mtr = pack(False)
+        ite, rte, mte = pack(True)
+        return {"xtr": itr, "ytr": rtr, "mtr": mtr,
+                "xte": ite, "yte": rte, "mte": mte}
+
+
 def to_device(stacked: dict, device=None) -> dict:
     """Move a :meth:`DataDispatcher.stacked` dict onto ``device`` (``cuda``
-    unless ``device="cpu"``): features and masks as float32, labels as
-    int64."""
+    unless ``device="cpu"``): floating arrays (features, masks, float
+    labels such as ±1 targets, ratings or regression targets) as float32,
+    integer labels as int64, other integer arrays (item ids) as they
+    are. A label keeps its kind, as in the JAX engine."""
     dev = resolve_device(device)
     out = {}
     for k, v in stacked.items():
         t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-        if k.startswith("y"):
-            t = t.to(torch.int64)
-        elif t.is_floating_point():
+        if t.is_floating_point():
             t = t.to(torch.float32)
+        elif k.startswith("y"):
+            t = t.to(torch.int64)
         out[k] = t.to(dev)
     return out

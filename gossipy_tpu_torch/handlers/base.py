@@ -13,11 +13,12 @@ and its local update takes shard orders drawn by the engine's
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import CreateModelMode
+from ..models.nn import ParamLayout
 
 
 class ModelState(NamedTuple):
@@ -44,11 +45,40 @@ class PeerModel(NamedTuple):
 class BaseHandler:
     """Receive-time dispatch on the create-model mode (base.py:93-112).
 
-    Subclasses define ``update(state, data, perms)`` and
-    ``merge(state, peer)``, both over stacked rows.
+    Subclasses set ``layout`` (the :class:`ParamLayout` of a node's flat
+    row) and define ``init(generator, device)``, ``update(state, data,
+    perms)``, ``merge(state, peer)`` and ``evaluate(state, data)``, the
+    last three over stacked rows. What the engine asks of every handler
+    beyond those has a default here: no optimizer state
+    (:meth:`init_opt_state`), an update that draws no shard orders
+    (:meth:`orders_per_update`; it then receives ``perms=None``), a
+    message of the row's real width (:meth:`get_size`), and a merge the
+    fused kernels may not replace (``uniform_avg_merge``,
+    ``merge_peer_weight``).
     """
 
     mode: CreateModelMode = CreateModelMode.MERGE_UPDATE
+    layout: ParamLayout
+    # True when ``merge`` is exactly the two-way blend ``(1 - w) * own +
+    # w * peer`` with age = max, ``w = merge_peer_weight``: the engine's
+    # fused kernels may then replace it.
+    uniform_avg_merge: bool = False
+    merge_peer_weight: Optional[float] = None
+
+    def init_opt_state(self, params: torch.Tensor) -> tuple:
+        """The optimizer state of rows ``params`` (``[N, stride]``) before
+        any step: none by default."""
+        return ()
+
+    def orders_per_update(self) -> Optional[int]:
+        """The ``epochs`` of the shard orders one local update takes from
+        the engine's draw provider, or None when it draws none (the JAX
+        handler ignores its key)."""
+        return None
+
+    def get_size(self) -> int:
+        """Scalars a message carries (message-size accounting)."""
+        return self.layout.width
 
     def call(self, state: ModelState, peer: PeerModel, data,
              perms: torch.Tensor) -> ModelState:
@@ -70,10 +100,14 @@ class BaseHandler:
         if self.mode == CreateModelMode.MERGE_UPDATE:
             return self.update(self.merge(state, peer), data, perms)
         if self.mode == CreateModelMode.UPDATE_MERGE:
-            e = perms.shape[1] // 2
-            mine = self.update(state, data, perms[:, :e])
+            if perms is None:
+                own_perms = peer_perms = None
+            else:
+                e = perms.shape[1] // 2
+                own_perms, peer_perms = perms[:, :e], perms[:, e:]
+            mine = self.update(state, data, own_perms)
             recv = ModelState(peer.params, state.opt_state, peer.n_updates)
-            theirs = self.update(recv, data, perms[:, e:])
+            theirs = self.update(recv, data, peer_perms)
             return self.merge(mine, PeerModel(theirs.params,
                                               theirs.n_updates))
         if self.mode == CreateModelMode.PASS:

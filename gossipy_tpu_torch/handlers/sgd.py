@@ -83,9 +83,14 @@ class SGDHandler(BaseHandler):
         self.remat = bool(remat)
         self.layout = ParamLayout(model.leaves)
 
-    def get_size(self) -> int:
-        """Scalars per node (message-size accounting)."""
-        return self.layout.width
+    def init_opt_state(self, params: torch.Tensor) -> tuple:
+        """The optimizer's initial state of rows ``params``."""
+        return self.optimizer.init(params)
+
+    def orders_per_update(self) -> int:
+        """One shard order per local epoch (``local_epochs=0``: the one
+        order of a single step)."""
+        return self.local_epochs
 
     def apply(self, params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Forward of every node: ``params [N, stride]``, ``x [N, B, ...]``;
@@ -172,3 +177,34 @@ class SGDHandler(BaseHandler):
         X, y, mask = data
         scores = self.apply(state.params, X)
         return classification_metrics(scores, y, self.n_classes, mask)
+
+
+class LimitedMergeSGDHandler(SGDHandler):
+    """Limited merging (Danner 2023): when one model is more than
+    ``age_diff_threshold`` updates older than the other, the older one is
+    kept whole; otherwise the age-weighted average. Two age-0 models
+    average plainly. The age becomes the larger one, the optimizer state
+    stays the receiver's. Not a uniform average: the engine takes the
+    plain deliver path."""
+
+    uniform_avg_merge = False
+
+    def __init__(self, *args, age_diff_threshold: int = 1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.L = age_diff_threshold
+
+    def merge(self, state: ModelState, peer: PeerModel) -> ModelState:
+        a1 = state.n_updates.to(torch.float32)
+        a2 = peer.n_updates.to(torch.float32)
+        tot = a1 + a2
+        safe = torch.where(tot > 0, tot, torch.ones_like(tot))
+        half = torch.full_like(tot, 0.5)
+        w1 = torch.where(tot > 0, a1 / safe, half)[..., None]
+        w2 = torch.where(tot > 0, a2 / safe, half)[..., None]
+        keep_self = (a1 > a2 + self.L)[..., None]
+        keep_peer = (a2 > a1 + self.L)[..., None]
+        p1, p2 = state.params, peer.params
+        avg = w1 * p1 + w2 * p2
+        params = torch.where(keep_self, p1, torch.where(keep_peer, p2, avg))
+        return ModelState(params, state.opt_state,
+                          torch.maximum(state.n_updates, peer.n_updates))

@@ -1,7 +1,7 @@
 """Models over stacked per-node parameters (see :mod:`.nn`)."""
 
-from .nn import (MLP, CIFAR10Net, LinearRegression, LogisticRegression,
-                 ParamLayout, Perceptron)
+from .nn import (MLP, AdaLine, CIFAR10Net, LinearRegression,
+                 LogisticRegression, ParamLayout, Perceptron)
 
-__all__ = ["CIFAR10Net", "LinearRegression", "LogisticRegression", "MLP",
+__all__ = ["AdaLine", "CIFAR10Net", "LinearRegression", "LogisticRegression", "MLP",
            "ParamLayout", "Perceptron"]

@@ -58,7 +58,7 @@ class ParamLayout:
         out = {}
         for name, shape in self.leaves:
             o = self.offsets[name]
-            out[name] = flat[..., o:o + math.prod(shape)].view(*lead, *shape)
+            out[name] = flat[..., o:o + math.prod(shape)].view(tuple(lead) + shape)
         return out
 
     def flatten(self, leaves: dict) -> torch.Tensor:
@@ -225,6 +225,24 @@ class LinearRegression:
     def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """``x [N, B, input_dim]`` -> ``[N, B, output_dim]``."""
         return _dense(x, params["Dense_0/kernel"], params["Dense_0/bias"])
+
+
+class AdaLine:
+    """The AdaLine / Pegasos weight vector: a zero-initialised ``[dim]``
+    row, trained by hand-written rules (:mod:`..handlers.linear`), no
+    autograd. The JAX params are a bare array, one leaf whose name is the
+    empty path ``""``."""
+
+    def __init__(self, dim: int):
+        self.dim = dim
+        self.leaves = [("", (dim,))]
+
+    def init(self, generator: Optional[torch.Generator] = None) -> dict:
+        return {"": torch.zeros(self.dim)}
+
+    def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Scores ``x [N, B, dim] @ w`` -> ``[N, B]``."""
+        return torch.bmm(x, params[""].unsqueeze(-1)).squeeze(-1)
 
 
 class CIFAR10Net:

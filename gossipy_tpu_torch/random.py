@@ -107,6 +107,7 @@ class TorchDraws(DrawProvider):
 
     def __init__(self, seed: int = 42):
         self.generator = torch.Generator().manual_seed(seed)
+        self._neighbours = None   # (adjacency, degrees, row starts, ids)
 
     def _perms(self, n: int, epochs: int, s: int) -> torch.Tensor:
         u = torch.rand((n, max(epochs, 1), s), generator=self.generator)
@@ -124,14 +125,32 @@ class TorchDraws(DrawProvider):
         raw = delta + (delta / 10.0) * z
         return torch.clamp(raw.to(torch.int32), min=1).to(device)
 
+    def _neighbour_lists(self, adjacency: torch.Tensor):
+        """The adjacency's neighbour lists on the host, ``(degrees, row
+        starts, neighbour ids)``, made once per adjacency tensor."""
+        cached = self._neighbours
+        if cached is None or cached[0] is not adjacency:
+            adj = adjacency.cpu()
+            deg = adj.sum(dim=1)
+            starts = torch.cumsum(deg, 0) - deg
+            ids = adj.nonzero()[:, 1].to(torch.int32)
+            cached = (adjacency, deg, starts, ids)
+            self._neighbours = cached
+        return cached[1:]
+
     def peers(self, r, adjacency, sub=0):
-        adj = adjacency.cpu()
-        has_peer = adj.any(dim=1)
-        # multinomial refuses an all-zero row: give isolated nodes a dummy
-        # weight and mask their draw to -1 afterwards.
-        w = adj.to(torch.float32)
-        w[~has_peer, 0] = 1.0
-        peers = torch.multinomial(w, 1, generator=self.generator)[:, 0]
+        """Node ``i`` takes its ``floor(u_i deg_i)``-th neighbour in index
+        order, ``u_i`` uniform in ``[0, 1)`` (float64): one ``[n]`` draw
+        and a gather, whatever the degree."""
+        deg, starts, ids = self._neighbour_lists(adjacency)
+        u = torch.rand(deg.shape, generator=self.generator,
+                       dtype=torch.float64)
+        has_peer = deg > 0
+        if not bool(has_peer.any()):
+            return torch.full(deg.shape, -1, dtype=torch.int64,
+                              device=adjacency.device)
+        k = torch.minimum((u * deg).to(torch.int64), deg - 1).clamp(min=0)
+        peers = ids[torch.where(has_peer, starts + k, 0)].to(torch.int64)
         return torch.where(has_peer, peers, -1).to(adjacency.device)
 
     def bernoulli(self, r, purpose, p, n, device, sub=0):

@@ -15,7 +15,8 @@ device, phase by phase:
               ``max_fires_per_round`` sub-fires
     deliver   the cell's K slots are drained (``_deliver_phase``) by one of
               three paths, chosen by ``fused_merge``:
-              - ``"multi"`` (the default): ONE launch of the multi-slot
+              - ``"multi"`` (the default where the handler admits it):
+                ONE launch of the multi-slot
                 gather-merge kernel blends every live peer snapshot into
                 its receiver, then ONE local update trains every node that
                 received something;
@@ -46,8 +47,10 @@ The state is updated in place: :meth:`GossipSimulator.start` mutates the
 Ported: PUSH, PULL and PUSH_PULL, sync and async nodes, the three delay
 models, sampled evaluation, the three deliver paths with wide and compact
 dispatch, the three ring formats, every create-model mode (UPDATE_MERGE on
-the plain path, as in the JAX engine), handlers with optimizer state, and
-:meth:`GossipSimulator.memory_budget`. Every other option of the JAX
+the plain path, as in the JAX engine), handlers with and without optimizer
+state or shard orders (``BaseHandler``'s defaults),
+:meth:`GossipSimulator.memory_budget` and
+:meth:`GossipSimulator.run_repetitions`. Every other option of the JAX
 engine raises ``NotImplementedError``.
 """
 
@@ -136,6 +139,26 @@ def _put_rows(model: ModelState, idx: torch.Tensor,
                       model.n_updates.index_copy(0, idx, part.n_updates))
 
 
+def fused_refusal(handler) -> Optional[str]:
+    """Why the fused kernels may not replace ``handler``'s merge, or None
+    when they may: they apply a fixed two-way blend, so only a
+    uniform-average MERGE_UPDATE handler that declares its blend
+    coefficient admits them."""
+    if not getattr(handler, "uniform_avg_merge", False):
+        return "fused_merge requires a uniform-average merge handler"
+    if getattr(handler, "merge_peer_weight", None) is None:
+        return ("fused_merge requires the handler to declare its blend "
+                "coefficient (merge_peer_weight)")
+    if handler.mode != CreateModelMode.MERGE_UPDATE:
+        return "fused_merge only fuses the MERGE_UPDATE path"
+    return None
+
+
+def _take(perms: Optional[torch.Tensor], idx: torch.Tensor):
+    """Rows ``idx`` of the shard orders (None stays None)."""
+    return None if perms is None else perms[idx]
+
+
 def _rank_within_group(key: torch.Tensor) -> torch.Tensor:
     """For each element, its 0-based rank among equal values of ``key``
     (in index order)."""
@@ -158,9 +181,12 @@ class GossipSimulator:
     port has not taken over raise ``NotImplementedError`` when set to
     anything but their default. Differences:
 
-    fused_merge : False | "multi" | True | "per_slot"
-        The deliver path (``True`` means ``"multi"``). The default is
-        ``"multi"``, where the JAX engine's is ``False``.
+    fused_merge : None | False | "multi" | True | "per_slot"
+        The deliver path (``True`` means ``"multi"``). The default
+        (``None``) is ``"multi"`` when the handler admits a fused deliver
+        (:func:`fused_refusal` finds nothing), else the plain path, where
+        the JAX engine's default is always ``False``. Naming a fused path for a
+        handler that does not admit it raises ``ValueError``.
     compact_deliver : None | bool | int
         As in the JAX engine: ``None`` turns compaction on for the plain
         path at N >= 48 with K > 1; ``True`` derives the capacity; an int
@@ -197,7 +223,7 @@ class GossipSimulator:
                  mailbox_slots: Optional[int] = None,
                  reply_slots: int = 2,
                  message_size: Optional[int] = None,
-                 fused_merge: Union[bool, str] = "multi",
+                 fused_merge: Union[None, bool, str] = None,
                  compact_deliver: Union[None, bool, int] = None,
                  mesh=None,
                  max_fires_per_round: Optional[int] = None,
@@ -223,6 +249,9 @@ class GossipSimulator:
         for name, val in unported.items():
             if val is not None:
                 raise NotImplementedError(f"{name}= is not ported yet")
+        refusal = fused_refusal(handler)
+        if fused_merge is None:
+            fused_merge = "multi" if refusal is None else False
         if fused_merge is True:
             fused_merge = "multi"
         elif not fused_merge:
@@ -241,20 +270,8 @@ class GossipSimulator:
                              "reply_slots >= 1")
         if eval_every < 1:
             raise ValueError("eval_every must be >= 1")
-        if fused_merge:
-            # The fused kernels replace the merge with a fixed two-way
-            # blend: only a uniform-average MERGE_UPDATE handler that
-            # declares its blend coefficient may take them.
-            if not getattr(handler, "uniform_avg_merge", False):
-                raise ValueError("fused_merge requires a uniform-average "
-                                 "merge handler")
-            if getattr(handler, "merge_peer_weight", None) is None:
-                raise ValueError("fused_merge requires the handler to "
-                                 "declare its blend coefficient "
-                                 "(merge_peer_weight)")
-            if handler.mode != CreateModelMode.MERGE_UPDATE:
-                raise ValueError("fused_merge only fuses the MERGE_UPDATE "
-                                 "path")
+        if fused_merge and refusal is not None:
+            raise ValueError(refusal)
 
         self.device = resolve_device(device)
         self.handler = handler
@@ -476,7 +493,7 @@ class GossipSimulator:
         """
         n = self.n_nodes
         layout = self.handler.layout
-        one = self.handler.optimizer.init(torch.zeros(1, layout.stride))
+        one = self.handler.init_opt_state(torch.zeros(1, layout.stride))
         per_node = (4 * layout.stride + 4
                     + sum(t.numel() * t.element_size() for t in one))
         D = self._history_depth(self._model_size())
@@ -521,9 +538,9 @@ class GossipSimulator:
     def init_nodes(self, generator: Optional[torch.Generator] = None,
                    local_train: bool = True,
                    common_init: bool = False) -> SimState:
-        """Initialise every node's model (weights from ``generator``,
-        default seeded with 0) and optimizer state, then one local
-        pre-training pass.
+        """Initialise every node's model (weights and age from the
+        handler's ``init`` under ``generator``, default seeded with 0) and
+        optimizer state, then one local pre-training pass.
 
         ``common_init=True`` gives every node the same initial weights; the
         pre-training pass still diversifies them.
@@ -532,18 +549,19 @@ class GossipSimulator:
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         if common_init:
-            one = self.handler.init(g, self.device).params
-            params = one.unsqueeze(0).repeat(n, 1)
+            one = self.handler.init(g, self.device)
+            params = one.params.unsqueeze(0).repeat(n, 1)
+            n_updates = one.n_updates.reshape(1).repeat(n)
         else:
-            params = torch.stack([self.handler.init(g, self.device).params
-                                  for _ in range(n)])
-        model = ModelState(params, self.handler.optimizer.init(params),
-                           torch.zeros(n, dtype=torch.int32,
-                                       device=self.device))
+            inits = [self.handler.init(g, self.device) for _ in range(n)]
+            params = torch.stack([m.params for m in inits])
+            n_updates = torch.stack([m.n_updates for m in inits])
+        model = ModelState(params, self.handler.init_opt_state(params),
+                           n_updates.to(torch.int32))
         if local_train:
-            s = self.data["mtr"].shape[1]
-            perms = self.draws.init_permutations(
-                n, self.handler.local_epochs, s, self.device)
+            epochs = self.handler.orders_per_update()
+            perms = None if epochs is None else self.draws.init_permutations(
+                n, epochs, self.data["mtr"].shape[1], self.device)
             model = self.handler.update(model, self._local_data(), perms)
         if self.sync:
             phase = self.draws.init_phase(n, self.delta, self.device)
@@ -680,6 +698,18 @@ class GossipSimulator:
 
     # -- deliver: the plain and per-slot paths (the slot loop) ---------------
 
+    def _update_orders(self, r: int, purposes, first_k: torch.Tensor,
+                       split: bool = False) -> Optional[torch.Tensor]:
+        """The shard orders of a round's local update
+        (:meth:`DrawProvider.update_permutations`), or None for a handler
+        whose update draws nothing."""
+        epochs = self.handler.orders_per_update()
+        if epochs is None:
+            return None
+        return self.draws.update_permutations(
+            r, purposes, first_k, epochs, self.data["mtr"].shape[1],
+            split=split)
+
     def _delivery_path_counts(self, n_live: int) -> tuple[int, int]:
         """(compact, wide) 0/1 indicators of one slot's pass, from the
         slot's live receiver count, as :meth:`_receive_slot_apply`
@@ -708,9 +738,8 @@ class GossipSimulator:
             n_wide += dw
             if n_live == 0:
                 continue
-            perms = self.draws.update_permutations(
-                r, [call_tag * 101 + k], first_k, self.handler.local_epochs,
-                self.data["mtr"].shape[1], split=split)
+            perms = self._update_orders(r, [call_tag * 101 + k], first_k,
+                                        split)
             self._receive_slot_apply(state, sr_t[:, k], sender_t[:, k],
                                      apply_t[:, k], perms, n_live)
         return n_compact, n_wide
@@ -750,7 +779,8 @@ class GossipSimulator:
         peer = self._gather_peer(state, send_round[idx], sender[idx])
         sub_model = _take_rows(state.model, idx)
         data = tuple(d[idx] for d in self._local_data())
-        new_sub = self._receive_rows(sub_model, peer, data, perms[idx])
+        new_sub = self._receive_rows(sub_model, peer, data,
+                                     _take(perms, idx))
         new_sub = select_state(sub_valid, new_sub, sub_model)
         state.model = _put_rows(state.model, idx, new_sub)
 
@@ -834,7 +864,7 @@ class GossipSimulator:
         data = tuple(d[idx] for d in self._local_data())
         new_sub = self._fused_multi_merge_update(
             state, _take_rows(state.model, idx), sr_t[idx], sender_t[idx],
-            apply_t[idx], perms[idx], any_msg[idx], data)
+            apply_t[idx], _take(perms, idx), any_msg[idx], data)
         state.model = _put_rows(state.model, idx, new_sub)
 
     def _fused_multi_dispatch(self, state: SimState, sr_t, sender_t, apply_t,
@@ -863,9 +893,9 @@ class GossipSimulator:
         if n_live == 0:
             return 0, 0
         first_k = torch.argmax(apply_t.to(torch.int32), dim=1)
-        perms = self.draws.update_permutations(
+        perms = self._update_orders(
             r, [call_tag * 101 + k for k in range(apply_t.shape[1])],
-            first_k, self.handler.local_epochs, self.data["mtr"].shape[1])
+            first_k)
         return self._fused_multi_dispatch(state, sr_t, sender_t, apply_t,
                                           perms, any_msg, n_live, occ_slots)
 
@@ -1080,6 +1110,35 @@ class GossipSimulator:
             vals = [torch.as_tensor(row[k], device=self.device) for row in rows]
             stats[k] = torch.stack(vals).cpu().numpy()
         return state, self._build_report(stats, n_rounds)
+
+    def run_repetitions(self, n_rounds: int, seeds, local_train: bool = True,
+                        common_init: bool = False, draws=None
+                        ) -> tuple[list, list]:
+        """Independent simulations, one after another: repetition ``i``
+        is :meth:`init_nodes` under ``torch.Generator().manual_seed(
+        seeds[i])`` then :meth:`start` for ``n_rounds`` rounds, drawing
+        from ``draws[i]`` (default ``TorchDraws(seeds[i])``). Returns the
+        final states and one report each. The JAX engine runs them as one
+        vmapped program from split keys; the simulator's own draw
+        provider is restored afterwards."""
+        if draws is not None and len(draws) != len(seeds):
+            raise ValueError(f"{len(draws)} draw providers for "
+                             f"{len(seeds)} repetitions")
+        saved = self.draws
+        states, reports = [], []
+        try:
+            for i, seed in enumerate(seeds):
+                self.draws = (draws[i] if draws is not None
+                              else TorchDraws(int(seed)))
+                state = self.init_nodes(
+                    torch.Generator().manual_seed(int(seed)),
+                    local_train=local_train, common_init=common_init)
+                state, report = self.start(state, n_rounds)
+                states.append(state)
+                reports.append(report)
+        finally:
+            self.draws = saved
+        return states, reports
 
     def _build_report(self, stats: dict, n_rounds: int) -> SimulationReport:
         m = len(self._metric_keys())

@@ -1,6 +1,7 @@
-"""Evaluation metrics over masked, batched scores.
+"""Evaluation metrics over masked, batched scores, and the curve plot.
 
-Counterpart of the classification metrics in ``gossipy_tpu/utils.py``.
+Counterpart of the metrics in ``gossipy_tpu/utils.py`` (classification,
+the ±1 linear learners', NMI and RMSE) and of its ``plot_evaluation``.
 Every function takes any number of leading axes (the engine passes one
 row per node) and reduces only the sample axis; ``mask`` marks real rows
 (1.0) against padding (0.0).
@@ -102,3 +103,87 @@ def classification_metrics(scores: torch.Tensor, y_true: torch.Tensor,
     if scores.shape[-1] == 2:
         res["auc"] = binary_auc(scores[..., 1], y_true, mask)
     return res
+
+
+def signed_binary_metrics(scores: torch.Tensor, y_true: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> dict:
+    """Metrics of ±1-labelled linear models (AdaLine, Pegasos): the
+    prediction is ``score >= 0``, a label is positive when ``> 0``;
+    accuracy, macro P/R/F1 over the two classes and the AUC of the raw
+    scores. ``scores`` and ``y_true`` are ``[..., E]``."""
+    y01 = (y_true > 0).to(torch.int64)
+    pred01 = (scores >= 0).to(torch.int64)
+    prec, rec, f1 = macro_prf1(y01, pred01, 2, mask)
+    return {
+        "accuracy": accuracy(y01, pred01, mask),
+        "precision": prec,
+        "recall": rec,
+        "f1_score": f1,
+        "auc": binary_auc(scores, y01, mask),
+    }
+
+
+def nmi(y_true: torch.Tensor, y_pred: torch.Tensor, n_true: int,
+        n_pred: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Normalized mutual information (arithmetic normalisation, natural
+    logarithms: scikit-learn's ``normalized_mutual_info_score``), one
+    value per leading index; 0 when both labellings have zero entropy."""
+    cm = confusion_matrix(y_true, y_pred, max(n_true, n_pred), mask)
+    n = cm.sum(dim=(-2, -1), keepdim=True)
+    pij = _safe_div(cm, n.expand_as(cm))
+    pi = pij.sum(dim=-1, keepdim=True)
+    pj = pij.sum(dim=-2, keepdim=True)
+    outer = pi * pj
+    ok = (pij > 0) & (outer > 0)
+    ratio = _safe_div(pij, torch.where(outer > 0, outer,
+                                       torch.ones_like(outer)))
+    mi = torch.where(ok, pij * torch.log(torch.where(ok, ratio,
+                                                     torch.ones_like(ratio))),
+                     torch.zeros_like(pij)).sum(dim=(-2, -1))
+
+    def entropy(p):
+        safe = torch.where(p > 0, p, torch.ones_like(p))
+        return -torch.where(p > 0, p * torch.log(safe),
+                            torch.zeros_like(p)).sum(dim=(-2, -1))
+    denom = (entropy(pi) + entropy(pj)) / 2.0
+    return torch.where(denom > 0, mi / torch.where(denom > 0, denom,
+                                                   torch.ones_like(denom)),
+                       torch.zeros_like(denom))
+
+
+def rmse(pred: torch.Tensor, target: torch.Tensor,
+         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Root mean squared error over the last axis (masked)."""
+    err2 = (pred - target) ** 2
+    if mask is None:
+        return torch.sqrt(err2.mean(dim=-1))
+    return torch.sqrt(_safe_div((err2 * mask).sum(dim=-1),
+                                mask.sum(dim=-1)))
+
+
+def plot_evaluation(evals: list, title: str = "Untitled plot",
+                    path: Optional[str] = None):
+    """Mean and standard-deviation band of each metric over repetitions:
+    ``evals`` holds one list of per-round ``{metric: value}`` dicts per
+    repetition. Saved to ``path`` when given (matplotlib, imported
+    here)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    if not evals or not evals[0] or not evals[0][0]:
+        return None
+    fig = plt.figure()
+    for k in evals[0][0]:
+        series = np.array([[d[k] for d in rep] for rep in evals],
+                          dtype=float)
+        mu, sd = series.mean(axis=0), series.std(axis=0)
+        plt.fill_between(range(1, len(mu) + 1), mu - sd, mu + sd, alpha=0.2)
+        plt.plot(range(1, len(mu) + 1), mu, label=k)
+    plt.legend(loc="lower right")
+    plt.title(title)
+    plt.xlabel("round")
+    if path:
+        plt.savefig(path, bbox_inches="tight")
+    return fig

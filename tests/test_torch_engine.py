@@ -377,8 +377,10 @@ def test_compaction_on_equals_off(fused, cap, topology):
     the wide pass) gives the same trajectory."""
     adjacency = (np.ones((N, N), dtype=bool) if topology == "clique"
                  else hub_adjacency(N))
-    s_off, r_off = port_run(fused, False, adjacency, drop_prob=0.1)
-    s_on, r_on = port_run(fused, cap, adjacency, drop_prob=0.1)
+    # Seed 6: every case has a round whose live receivers fit the
+    # capacity under the default provider's draws.
+    s_off, r_off = port_run(fused, False, adjacency, seed=6, drop_prob=0.1)
+    s_on, r_on = port_run(fused, cap, adjacency, seed=6, drop_prob=0.1)
     assert int(r_on.compact_slots_per_round.sum()) > 0
     assert int(r_off.compact_slots_per_round.sum()) == 0
     np.testing.assert_allclose(s_on.model.params.numpy(),

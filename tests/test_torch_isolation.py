@@ -8,8 +8,8 @@
   only (the data dispatcher, the report) give array-equal output on the
   same inputs (the partitioners and the synthetic images:
   ``test_torch_data.py``).
-- The flagship twin runs end to end on the host with those modules
-  blocked and no socket able to connect.
+- The flagship twin and the four paper-example twins run end to end on
+  the host with those modules blocked and no socket able to connect.
 """
 
 import ast
@@ -66,7 +66,13 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.models, gossipy_tpu_torch.handlers, "
         "gossipy_tpu_torch.ops.attention, gossipy_tpu_torch.optim, "
         "gossipy_tpu_torch.examples.demo_ring_attention, "
-        "gossipy_tpu_torch.examples.main_cifar10_100nodes\n"
+        "gossipy_tpu_torch.examples.main_cifar10_100nodes, "
+        "gossipy_tpu_torch.examples.main_ormandi_2013, "
+        "gossipy_tpu_torch.examples.main_berta_2014, "
+        "gossipy_tpu_torch.examples.main_hegedus_2020, "
+        "gossipy_tpu_torch.examples.main_danner_2023, "
+        "gossipy_tpu_torch.handlers.linear, gossipy_tpu_torch.handlers.kmeans, "
+        "gossipy_tpu_torch.handlers.mf\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -94,6 +100,40 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+# Each paper-example twin at a host size: (module, arguments, what its
+# summary must show).
+PAPER_TWINS = {
+    "main_ormandi_2013": (["--nodes", "12", "--rounds", "2",
+                           "--repetitions", "2"], "accuracy"),
+    "main_berta_2014": (["--nodes", "12", "--rounds", "2"], "nmi"),
+    "main_hegedus_2020": (["--rounds", "2"], "rmse"),
+    "main_danner_2023": (["--nodes", "12", "--rounds", "2"], "accuracy"),
+}
+
+
+@pytest.mark.parametrize("twin", sorted(PAPER_TWINS))
+def test_paper_twin_runs_with_jax_blocked(twin):
+    args, metric = PAPER_TWINS[twin]
+    code = (
+        "import sys, socket, json\n"
+        f"for m in {BANNED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "class NoNet(socket.socket):\n"
+        "    def connect(self, *a):\n"
+        "        raise OSError('no network')\n"
+        "socket.socket = NoNet\n"
+        f"import gossipy_tpu_torch.examples.{twin} as twin\n"
+        f"out = twin.main({args + ['--device', 'cpu']!r})\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["sent_messages"] > 0, summary
+    assert np.isfinite(summary["final"][metric]), summary
 
 
 def dataset(seed=0):

@@ -104,13 +104,14 @@ def clique_pair(key, **kw):
 
 
 def to_port_state(tsim, jst):
-    """The JAX state's params, optimizer state, ages and phases, in a
-    round-0 port state."""
+    """The JAX state's params, optimizer state (none for a handler
+    without an optimizer), ages and phases, in a round-0 port state."""
     layout = tsim.handler.layout
     params = params_from_jax(jax.tree.map(np.asarray, jst.model.params),
                              layout)
-    opt = opt_state_from_jax(jax.tree.map(np.asarray, jst.model.opt_state),
-                             layout, tsim.handler.optimizer)
+    rule = getattr(tsim.handler, "optimizer", None)
+    opt = () if rule is None else opt_state_from_jax(
+        jax.tree.map(np.asarray, jst.model.opt_state), layout, rule)
     n_up = torch.as_tensor(np.array(jst.model.n_updates))
     return tsim.init_state(TModelState(params, opt, n_up),
                            torch.as_tensor(np.array(jst.phase)))
@@ -143,15 +144,17 @@ def assert_same_accounting(jsim, tsim, jst, tst, jrep, trep):
 
 
 def assert_same_run(jsim, tsim, jst, tst, jrep, trep, param_tol=1e-5,
-                    metric_tol=1e-5):
-    """The per-round accounting, both boxes, params, ages and metrics."""
+                    metric_tol=1e-5, param_rtol=0.0):
+    """The per-round accounting, both boxes, params, ages and metrics;
+    params within ``param_tol`` plus ``param_rtol`` of the value (for
+    weights far above 1, where 1e-5 is below one float32 step)."""
     assert_same_accounting(jsim, tsim, jst, tst, jrep, trep)
     got = params_to_numpy(tst.model.params, tsim.handler.layout)
     wire = tsim.history_dtype
     scales = (flatten_names(jst.history_scale) if wire == "int8" else {})
     for k, v in flatten_names(jst.model.params).items():
         want = np.asarray(v)
-        tol = param_tol
+        tol = param_tol + param_rtol * np.abs(want)
         if wire == "bfloat16":
             tol = tol + 2.0 ** -8 * np.abs(want)
         elif wire == "int8":
