@@ -106,7 +106,7 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``label_dirichlet_skew(0.5)``, CIFAR10Net under weight decay 1e-3 and
    SGD 0.05, batch 32, MERGE_UPDATE, PUSH on ``random_regular(100, 20,
    seed=42)``, a 10% sampled eval every round, common init, the
-   single-pass deliver. (a) 16 nodes, 4096 images, 3 rounds on the card
+   single-pass deliver. (a) 16 nodes, 2048 images, 3 rounds on the card
    and on the CPU from the same seeds, fp32 compute with an fp32 ring,
    then bf16 compute with fp32, bf16 and int8 rings: accounting, boxes
    and ages equal, params by the rule of PERF.md §2 (a ReLU or max-pool
@@ -147,6 +147,39 @@ Phases, each printed as it runs; any failure exits non-zero:
    local RMSE, accuracy), K1's launches against the rounds with messages,
    one profiled round's idle share, the phase times, and
    ``memory_budget()`` beside ``max_memory_allocated``.
+
+10. variants: the node-behaviour, token-account and all-to-all
+   simulators through the twins of the four paper examples they carry
+   (``gossipy_tpu_torch/examples/main_giaretta_2019.py``,
+   ``main_hegedus_2021.py``, ``main_onoszko_2021.py``,
+   ``main_all2all.py``), and the token simulator over the north star:
+   Giaretta 2019 (Pegasos on ``barabasi_albert(n, 10)``, async PUSH) in
+   its three node behaviours (vanilla on the single-pass deliver: K1;
+   pass-through and neighbour cache on the plain path), Hegedus 2021
+   (100 LogReg nodes under UPDATE; the partitioned exchange under token
+   accounts and the sampled one), All2All under uniform and
+   Metropolis-Hastings mixing (one ``W_eff @ P`` a round), Onoszko 2021
+   (PENS over 5 CIFAR10Net nodes), and ``TokenizedGossipSimulator`` on
+   the per-slot fused deliver with an fp32 ring (K3) and a bf16 ring
+   (K4). (a) Each at a cut size (64 nodes; 32; 3 nodes and 96 images for
+   Onoszko; the north star's 100) for VARIANT_CHECK_ROUNDS rounds on the
+   card and on the CPU from the same seeds, with token accounts under
+   which nodes send from the first rounds: accounting, both boxes, ages,
+   the ring's ages and ``aux`` equal; params within REF_TOL plus
+   REF_TOL of their magnitude (Onoszko by the decision-flip rule);
+   launches as the path makes them (K1 once a round with messages on
+   Giaretta vanilla, K3 or K4 once per occupied slot on the token runs,
+   none elsewhere), every call bit-equal to its plain version
+   (``MergeAudit``). K1 against its plain version, timed, at Giaretta's
+   shape (4,141 rows of the 60-column stride, K = 59), K3 and K4 (bf16)
+   at the token north star's (100 rows of 116 columns, one slot). (b)
+   Each at full width (4,141 nodes; 100; 5 nodes
+   and 50,000 images) for VARIANT_ROUNDS rounds (Onoszko: a window of
+   ONOSZKO_ROUNDS rounds holding a phase-1 merge and 2 phase-2 rounds,
+   and its ms per local step): ms/round, the final sampled accuracy, the
+   launches, one profiled round's idle share (Onoszko: of 30 local
+   steps), the phase times, ``memory_budget()`` beside
+   ``max_memory_allocated``.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -190,9 +223,9 @@ NS_NODES = 100
 NS_DEGREE = 20
 NS_CHECK_ROUNDS = 10
 NS_WARMUP_ROUNDS = 20
-# Timed rounds of each north-star leg: bench.py times 2000; 1000 keep the
+# Timed rounds of each north-star leg: bench.py times 2000; 500 keep the
 # whole script within half its time limit beside phase 8.
-BENCH_ROUNDS = 1000
+BENCH_ROUNDS = 500
 ATTN_S = 8192       # the JAX bench's flash-attention regime:
 ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
 # The flagship (examples/main_cifar10_100nodes.py,
@@ -201,7 +234,7 @@ ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
 FLAG_NODES = 100
 FLAG_ROUNDS = 10            # timed rounds of each ring leg
 FLAG_CHECK_NODES = 16       # the card-against-CPU runs
-FLAG_CHECK_SUBSAMPLE = 4096
+FLAG_CHECK_SUBSAMPLE = 2048
 FLAG_CHECK_ROUNDS = 3
 FLAG_WIRES = ("float32", "bfloat16", "int8")
 
@@ -513,11 +546,12 @@ def phase_times(torch, sim, state, label: str, rounds: int = 3) -> None:
     """Host-clock ms of each phase of a round, synchronised around each
     phase, averaged over ``rounds`` rounds (eval every round here, where
     the timed runs evaluate once per run)."""
-    tot = {"snapshot": 0.0, "send": 0.0, "deliver": 0.0, "reply": 0.0,
-           "eval": 0.0}
+    tot = {"pre_send": 0.0, "snapshot": 0.0, "send": 0.0, "deliver": 0.0,
+           "reply": 0.0, "eval": 0.0}
     for _ in range(rounds):
         r = state.round
-        steps = (("snapshot", lambda: sim._snapshot(state, r)),
+        steps = (("pre_send", lambda: sim._pre_send(state, r)),
+                 ("snapshot", lambda: sim._snapshot(state, r)),
                  ("send", lambda: sim._send_phase(state, r)),
                  ("deliver", lambda: sim._deliver_phase(state, r)),
                  ("reply", lambda: sim._reply_phase(state, r)),
@@ -1288,6 +1322,391 @@ def papers_phase(torch, merge, rate) -> tuple:
             paths.setdefault((k, "float32"), {})[name] = v
         torch.cuda.empty_cache()
     return paths, at_ormandi
+
+
+# -- phase 10: the variant simulators and the four examples they carry ------
+
+# The configurations: (label, example, variant). Giaretta's three node
+# behaviours, Hegedus 2021's two exchanges, All2All's two mixings,
+# Onoszko's PENS, and the token-account simulator over the north star on
+# the per-slot fused deliver with an fp32 ring (K3) and a bf16 ring (K4).
+VARIANTS = (("giaretta-vanilla", "giaretta", "vanilla"),
+            ("giaretta-passthrough", "giaretta", "passthrough"),
+            ("giaretta-cacheneigh", "giaretta", "cacheneigh"),
+            ("hegedus2021-partitioning", "hegedus2021", "partitioning"),
+            ("hegedus2021-sampling", "hegedus2021", "sampling"),
+            ("all2all-uniform", "all2all", "uniform"),
+            ("all2all-metropolis", "all2all", "metropolis"),
+            ("onoszko", "onoszko", None),
+            ("tokenized-float32", "tokenized", "float32"),
+            ("tokenized-bfloat16", "tokenized", "bfloat16"))
+# Card-against-CPU sizes (nodes; Onoszko: 3 nodes and 96 images).
+VARIANT_CHECK_SIZE = {"giaretta": 64, "hegedus2021": 32, "all2all": 32,
+                      "onoszko": 3, "tokenized": NS_NODES}
+VARIANT_CHECK_ROUNDS = 8
+ONOSZKO_CHECK = dict(subsample=96, step1_rounds=3, rounds=5)
+# Timed rounds at full width: Giaretta's and All2All's reference 100,
+# 100 of Hegedus 2021's 1000, 100 of the tokenized north star. Onoszko's
+# window is cut to ONOSZKO_STEP1 phase-1 rounds (of 100) and 2 phase-2
+# rounds (of 400): 3 local epochs at batch 8 make 3,750 steps an update
+# pass. Under seed 42 the first phase-1 merge falls in round 2 (the
+# message flow does not depend on the weights: a host run with the
+# updates stubbed out finds it); the timed run fails if it holds none.
+# Its profile covers ONOSZKO_PROFILE_ROWS samples of each shard (30
+# local steps), not a round of ~7,500 steps and ~2 million kernels.
+VARIANT_ROUNDS = {"giaretta": 100, "hegedus2021": 100, "all2all": 100,
+                  "tokenized": 100}
+ONOSZKO_STEP1 = 3
+ONOSZKO_ROUNDS = ONOSZKO_STEP1 + 2
+ONOSZKO_PROFILE_ROWS = 80
+
+
+def variant_sets() -> dict:
+    """The spambase stand-in and the CIFAR-10 stand-in, made once."""
+    from gossipy_tpu_torch.data import get_CIFAR10, \
+        load_classification_dataset
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the stand-ins' notes
+        return {"spambase": load_classification_dataset("spambase"),
+                "cifar10": get_CIFAR10()}
+
+
+def variant_sim(torch, label: str, sets: dict, full: bool, device,
+                seed: int = 42, bf16: bool = False):
+    """Configuration ``label`` of VARIANTS built by its twin's functions
+    (the tokenized north star by ``northstar_sim``'s recipe) on
+    ``device`` with ``TorchDraws(seed)``, at full width or at
+    VARIANT_CHECK_SIZE, and its ``init_nodes`` state under a generator
+    seeded with ``seed``. The checks run the token accounts as
+    ``RandomizedTokenAccount(C=2, A=1)`` (Hegedus 2021) and
+    ``SimpleTokenAccount(C=1)`` (north star), under which nodes send from
+    the first rounds; the full-width Hegedus 2021 keeps the example's
+    ``RandomizedTokenAccount(C=20, A=10)``."""
+    from gossipy_tpu_torch.examples import main_all2all as all2all
+    from gossipy_tpu_torch.examples import main_giaretta_2019 as giaretta
+    from gossipy_tpu_torch.examples import main_hegedus_2021 as hegedus
+    from gossipy_tpu_torch.examples import main_onoszko_2021 as onoszko
+    from gossipy_tpu_torch.flow_control import RandomizedTokenAccount, \
+        SimpleTokenAccount
+    from gossipy_tpu_torch.random import TorchDraws
+    _, example, variant = next(v for v in VARIANTS if v[0] == label)
+    size = 0 if full else VARIANT_CHECK_SIZE[example]
+    draws = TorchDraws(seed)
+    if example == "giaretta":
+        stacked, dim = giaretta.giaretta_data(size, seed, sets["spambase"])
+        sim = giaretta.giaretta_sim(stacked, dim, variant, seed, draws,
+                                    device)
+    elif example == "hegedus2021":
+        stacked, dim = hegedus.hegedus2021_data(size or 100, seed,
+                                                sets["spambase"])
+        account = None if full else RandomizedTokenAccount(C=2, A=1)
+        sim = hegedus.hegedus2021_sim(stacked, dim, variant, seed, draws,
+                                      device, token_account=account)
+    elif example == "all2all":
+        stacked, dim = all2all.all2all_data(size or 100, seed,
+                                            sets["spambase"])
+        sim = all2all.all2all_sim(stacked, dim, variant, seed, draws, device)
+    elif example == "onoszko":
+        sub = 0 if full else ONOSZKO_CHECK["subsample"]
+        step1 = ONOSZKO_STEP1 if full else ONOSZKO_CHECK["step1_rounds"]
+        stacked = onoszko.onoszko_data(size or 5, sub, sets["cifar10"])
+        sim = onoszko.onoszko_sim(stacked, step1, seed, draws, device,
+                                  bf16=bf16)
+    else:
+        return tokenized_northstar(torch, device, seed, variant)
+    state = sim.init_nodes(torch.Generator().manual_seed(seed))
+    return sim, state
+
+
+def tokenized_northstar(torch, device, seed: int, wire: str):
+    """The north-star configuration (``northstar_sim``) on the token
+    simulator, ``SimpleTokenAccount(C=1)``, the per-slot fused deliver,
+    ring ``wire``."""
+    from gossipy_tpu_torch.core import AntiEntropyProtocol, CreateModelMode, \
+        Topology
+    from gossipy_tpu_torch.data import ClassificationDataHandler, \
+        DataDispatcher, load_classification_dataset
+    from gossipy_tpu_torch.flow_control import SimpleTokenAccount
+    from gossipy_tpu_torch.handlers import SGDHandler, losses
+    from gossipy_tpu_torch.models import LogisticRegression
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import TokenizedGossipSimulator
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the offline stand-in's note
+        X, y = load_classification_dataset("spambase")
+    dh = ClassificationDataHandler(X, y, test_size=0.2, seed=42)
+    stacked = DataDispatcher(dh, n=NS_NODES, eval_on_user=False).stacked()
+    d = X.shape[1]
+    handler = SGDHandler(LogisticRegression(d, 2), losses.cross_entropy,
+                         learning_rate=0.1, local_epochs=1, batch_size=32,
+                         n_classes=2, input_shape=(d,),
+                         create_model_mode=CreateModelMode.MERGE_UPDATE)
+    sim = TokenizedGossipSimulator(
+        handler, Topology.random_regular(NS_NODES, NS_DEGREE, seed=42),
+        stacked, token_account=SimpleTokenAccount(C=1), delta=100,
+        protocol=AntiEntropyProtocol.PUSH, fused_merge="per_slot",
+        history_dtype=wire, draws=TorchDraws(seed), device=device)
+    state = sim.init_nodes(torch.Generator().manual_seed(seed))
+    return sim, state
+
+
+def variant_want(merge, sim, rep) -> dict:
+    """The launches a run of ``sim`` must make: the single-pass deliver
+    one K1 a round with messages, the per-slot one a K3 (fp32 ring) or a
+    K4 (bf16, int8) per occupied slot, every other path none."""
+    slots = rep.compact_slots_per_round + rep.wide_slots_per_round
+    if sim.fused_merge == "multi":
+        return {merge.KERNEL: int((slots > 0).sum())}
+    if sim.fused_merge == "per_slot":
+        kernel = merge.KERNEL_FLAT if sim.history_dtype == "float32" \
+            else merge.KERNEL_FLAT_DQ
+        return {kernel: int(slots.sum())}
+    return {}
+
+
+def check_same_aux(torch, label, st_c, st_g, tol) -> None:
+    """Equal ``aux``: integers and masks exactly, floats (infinities in
+    the same places) within ``tol`` plus ``tol`` of the value; a parked
+    model in a bf16 or int8 wire format within one encoding step."""
+    if sorted(st_c.aux) != sorted(st_g.aux):
+        raise RuntimeError(f"{label}: card and CPU aux differ in keys")
+    for k, a in st_c.aux.items():
+        b = st_g.aux[k].cpu()
+        if a.dtype in (torch.bfloat16, torch.int8):
+            # One step of the wire format (an int8 code, a bf16 ulp).
+            a, b = a.to(torch.float32), b.to(torch.float32)
+            ok = ((a - b).abs() <= 1.0 + 2.0 ** -7 * a.abs()).all()
+        elif a.is_floating_point():
+            same_inf = torch.equal(torch.isinf(a), torch.isinf(b))
+            fin = torch.isfinite(a)
+            ok = same_inf and bool(((a - b).abs()[fin]
+                                    <= tol * (1.0 + a.abs()[fin])).all())
+        else:
+            ok = torch.equal(a, b)
+        if not ok:
+            raise RuntimeError(f"{label}: card and CPU aux[{k!r}] differ")
+
+
+def variant_run(torch, merge, label, sets, device, rounds, audit, seed=3,
+                bf16=False):
+    """``rounds`` rounds of ``label`` at its check size from the same
+    seeds, counts set to 0 just before; on the card with ``audit``, every
+    merge call held to its plain version (:class:`MergeAudit`)."""
+    sim, state = variant_sim(torch, label, sets, False, device, seed, bf16)
+    merge.reset_launch_counts()
+    check = MergeAudit(torch, merge, sim) if audit \
+        else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with check:
+        state, rep = sim.start(state, n_rounds=rounds)
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    return (sim, state, rep, launches, check.stats if audit else None,
+            time.perf_counter() - t0)
+
+
+def variant_card_vs_cpu(torch, merge, label: str, sets: dict) -> dict:
+    """Phase 10 (a), one configuration at its check size on the CPU and
+    on the card from the same seeds: accounting, both boxes, ages and
+    ``aux`` equal; params within REF_TOL plus REF_TOL of their magnitude
+    (plus one encoding step of a bf16 ring); Onoszko's CIFAR10Net by the
+    decision-flip rule of PERF.md §2 (the median element within REF_TOL,
+    the largest within what bf16 compute moves the CPU's run); the
+    launches the path makes (:func:`variant_want`), every merge call
+    bit-equal to its plain version. Returns the card run's launches."""
+    rounds = (ONOSZKO_CHECK["rounds"] if label == "onoszko"
+              else VARIANT_CHECK_ROUNDS)
+    sim, st_c, r_c, l_c, _, t_c = variant_run(torch, merge, label, sets,
+                                              "cpu", rounds, False)
+    _, st_g, r_g, l_g, stats, t_g = variant_run(torch, merge, label, sets,
+                                                "cuda", rounds, True)
+    tag = f"variants {label}"
+    check_same_accounting(torch, tag, st_c, st_g, r_c, r_g)
+    check_same_aux(torch, tag, st_c, st_g, REF_TOL)
+    if not torch.equal(st_c.history_ages, st_g.history_ages.cpu()):
+        raise RuntimeError(f"{tag}: card and CPU ring ages differ")
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    diff = (p_c - p_g).abs()
+    if label == "onoszko":
+        bf = variant_run(torch, merge, label, sets, "cpu", rounds, False,
+                         bf16=True)[1].model.params
+        effect = float((bf - p_c).abs().max())
+        rule = (f"median {float(diff.median()):.3e} (limit {REF_TOL}), max "
+                f"{float(diff.max()):.3e} (limit: bf16's effect {effect:.3e})")
+        ok = float(diff.median()) <= REF_TOL and float(diff.max()) <= effect
+    else:
+        tol = REF_TOL * (1.0 + p_c.abs()) + ring_step(torch, sim, st_c,
+                                                      sim.history_dtype)
+        worst = float((diff - tol).max())
+        rule = (f"max abs diff {float(diff.max()):.3e} (largest param "
+                f"{float(p_c.abs().max()):.3e}), worst margin {worst:.3e} "
+                "(<= 0 passes)")
+        ok = worst <= 0
+    metric = "accuracy"
+    m_c, m_g = r_c.final(metric), r_g.final(metric)
+    want = variant_want(merge, sim, r_g)
+    calls = {k: s["calls"] for k, s in (stats or {}).items()}
+    log(f"[variants] {label} card vs CPU: {sim.n_nodes} nodes, "
+        f"{type(sim).__name__}, K = {sim.K}, deliver "
+        f"{sim.fused_merge or 'plain'}, ring {sim.history_dtype}, {rounds} "
+        f"rounds: sent {int(r_g.sent_per_round.sum())}, failed "
+        f"{ {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()} }, "
+        f"slots compact {int(r_g.compact_slots_per_round.sum())} wide "
+        f"{int(r_g.wide_slots_per_round.sum())}; params {rule}; final "
+        f"{metric} card {m_g}, CPU {m_c}; launches card {l_g}, CPU {l_c}; "
+        f"merge calls held to the plain versions {stats}; CPU {t_c:.1f} s, "
+        f"card {t_g:.1f} s")
+    if not ok or not np.isfinite(m_g) or not torch.isfinite(p_g).all():
+        raise RuntimeError(f"{tag}: the card run does not agree with the "
+                           "CPU run")
+    if l_c or l_g != want or calls != want or (want and not
+                                                sum(want.values())):
+        raise RuntimeError(f"{tag}: launches card {l_g}, CPU {l_c}, "
+                           f"audited calls {calls}; the path makes {want}")
+    if int(r_g.sent_per_round.sum()) == 0:
+        raise RuntimeError(f"{tag}: no message was sent")
+    return l_g
+
+
+def onoszko_steps(torch, sim, state):
+    """A local update of every node over the first ONOSZKO_PROFILE_ROWS
+    samples of its shard (3 epochs of 10 steps), as a function, and its
+    step count: Onoszko's round is these steps, 3,750 an update pass."""
+    h = sim.handler
+    data = tuple(d[:, :ONOSZKO_PROFILE_ROWS] for d in sim._local_data())
+    perms = sim.draws.update_permutations(
+        state.round, [0], torch.zeros(sim.n_nodes, dtype=torch.int64,
+                                      device=sim.device),
+        h.local_epochs, ONOSZKO_PROFILE_ROWS)
+    steps = h.local_epochs * -(-ONOSZKO_PROFILE_ROWS // h.batch_size)
+    return (lambda: h.update(state.model, data, perms)), steps
+
+
+def variant_timed(torch, merge, label: str, sets: dict) -> dict:
+    """Phase 10 (b), one configuration at full width on the card: a
+    warm-up round, then the timed rounds (every round's sampled eval
+    included), the card synchronised before the host clock stops; the
+    final metric, the launches (counts set to 0 just before the timed
+    rounds), the memory budget beside the peak allocation, one profiled
+    round's idle share and the phase times. Onoszko's window runs from
+    round 0 (its first phase is part of what is timed) and must hold a
+    phase-1 merge and two phase-2 rounds; its ms per local step is
+    printed."""
+    example = next(v[1] for v in VARIANTS if v[0] == label)
+    onoszko = example == "onoszko"
+    rounds = ONOSZKO_ROUNDS if onoszko else VARIANT_ROUNDS[example]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim, state = variant_sim(torch, label, sets, True, "cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if not onoszko:
+        state, _ = sim.start(state, n_rounds=1)     # warm-up round
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    want = variant_want(merge, sim, rep)
+    metric = "accuracy"
+    final = rep.final(metric)
+    if launches != want or (want and not sum(want.values())):
+        raise RuntimeError(f"variants {label}: launches {launches}, the "
+                           f"path must make {want}")
+    if not torch.isfinite(state.model.params).all() or \
+            not np.isfinite(final) or rep.sent_messages == 0:
+        raise RuntimeError(f"variants {label}: non-finite params or "
+                           f"{metric}, or no message sent")
+    extra = ""
+    if onoszko:
+        merged = int(state.aux["neigh_counter"].sum())
+        if merged == 0 or rounds - ONOSZKO_STEP1 < 2:
+            raise RuntimeError("variants onoszko: the timed window holds no "
+                               "phase-1 merge or fewer than 2 phase-2 "
+                               "rounds")
+        steps_fn, steps = onoszko_steps(torch, sim, state)
+        steps_fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps_fn()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3 / steps
+        extra = (f"; phase-1 merged models {merged}, best neighbours "
+                 f"{int(state.aux['best'].sum())}; {step_ms:.4f} ms per "
+                 f"local step of the 5 nodes ({steps} steps timed): "
+                 f"{step_ms * 3750 / 1e3:.2f} s an update pass")
+    budget = sim.memory_budget()
+    if onoszko:
+        idle = profile(torch, steps_fn, f"variants {label}, {steps} local "
+                       "steps")
+    else:
+        idle = profile(torch, lambda: sim._round(state),
+                       f"variants {label}, one round with eval")
+    log(f"[variants] {label}: {sim.n_nodes} nodes, {type(sim).__name__} "
+        f"(stride {sim.handler.layout.stride}, S = "
+        f"{sim.data['mtr'].shape[1]}, K = {sim.K}, D = "
+        f"{state.history_ages.shape[0]}), deliver "
+        f"{sim.fused_merge or 'plain'}, ring {sim.history_dtype}, {rounds} "
+        f"rounds in {wall:.3f} s = {wall / rounds * 1e3:.3f} ms/round "
+        f"(set-up {setup:.1f} s); sent {int(rep.sent_per_round.sum())}, "
+        f"failed {int(rep.failed_per_round.sum())}, slots compact "
+        f"{int(rep.compact_slots_per_round.sum())} wide "
+        f"{int(rep.wide_slots_per_round.sum())}; final sampled {metric} "
+        f"{final}; launches {launches}; idle share of "
+        f"{'the profiled steps' if onoszko else 'one round'} {idle}; "
+        f"memory budget {budget['total_bytes']} B "
+        f"({budget['total_bytes'] / 2**20:.1f} MiB: aux "
+        f"{budget['aux_bytes']}, data {budget['data_bytes']}, ring "
+        f"{budget['history_ring_bytes']}, model "
+        f"{budget['model_and_opt_bytes']}); peak allocated {peak} B "
+        f"({peak / 2**20:.1f} MiB){extra}")
+    if example != "all2all" and not onoszko:
+        phase_times(torch, sim, state, f"variants {label}")
+    return {"ms_per_round": wall / rounds * 1e3, metric: final,
+            "launches": launches, "idle_share": idle,
+            "budget_bytes": budget["total_bytes"], "peak_bytes": peak}
+
+
+def variants_phase(torch, merge, rate) -> tuple:
+    """Phase 10: (a) each configuration on the card against the CPU at
+    its check size; K1 against its plain version, timed, at Giaretta's
+    shape, K3 and K4 (bf16) at the token north star's; (b) each timed at
+    full width. Returns the launches per (kernel, ring) and run, and the
+    kernels' numbers at those shapes."""
+    t0 = time.perf_counter()
+    sets = variant_sets()
+    log(f"[variants] spambase and CIFAR-10 stand-ins made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {}
+    for label, _, _ in VARIANTS:
+        for k, v in variant_card_vs_cpu(torch, merge, label, sets).items():
+            wire = "bfloat16" if label.endswith("bfloat16") else "float32"
+            paths.setdefault((k, wire), {})[f"{label}-check"] = v
+    # K1 at Giaretta's shape: 4,141 rows of AdaLine(57)'s 60-column
+    # stride, the derived K of the hubs' fan-in, the ring's cells; K3 and
+    # K4 at the token north star's: 100 rows of LogReg's 116, one slot.
+    probe, state = variant_sim(torch, "giaretta-vanilla", sets, True, "cpu")
+    shapes = {"giaretta": check_merge(
+        torch, merge, probe.n_nodes, state.history_ages.shape[0],
+        probe.handler.layout.stride, probe.K, 51, rate)}
+    probe, state = variant_sim(torch, "tokenized-float32", sets, True, "cpu")
+    layout = probe.handler.layout
+    starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
+    for seed, wire in enumerate(("float32", "bfloat16"), start=52):
+        shapes[("tokenized", wire)] = check_wire_kernel(
+            torch, merge, "single", wire, probe.n_nodes,
+            state.history_ages.shape[0], layout.stride, 1, starts, seed,
+            rate)
+    del probe, state
+    for label, _, _ in VARIANTS:
+        out = variant_timed(torch, merge, label, sets)
+        for k, v in out["launches"].items():
+            wire = "bfloat16" if label.endswith("bfloat16") else "float32"
+            paths.setdefault((k, wire), {})[label] = v
+        torch.cuda.empty_cache()
+    return paths, shapes
 
 
 def tensor_rate(name: str) -> float:
@@ -2175,6 +2594,13 @@ def main() -> int:
     for key, by_path in paper_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
 
+    # 10. the variant simulators and the four examples they carry
+    t0 = time.perf_counter()
+    variant_paths, at_variants = variants_phase(torch, merge, rate)
+    for key, by_path in variant_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[variants] phase 10 took {time.perf_counter() - t0:.1f} s")
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -2190,6 +2616,7 @@ def main() -> int:
                      launches)]
     kernels[0]["at_flagship_shape"] = at_flagship[("multi", "float32")]
     kernels[0]["at_ormandi_shape"] = at_ormandi
+    kernels[0]["at_giaretta_shape"] = at_variants["giaretta"]
     for slots, wire, label, kernel, source, line in (
             ("multi", "bfloat16", "multi-bf16", merge.KERNEL_MULTI_DQ,
              "gather_merge_multi.cu", 100),
@@ -2206,6 +2633,9 @@ def main() -> int:
                              leg_launches[label][kernel]))
         if (slots, wire) in at_flagship:
             kernels[-1]["at_flagship_shape"] = at_flagship[(slots, wire)]
+        if slots == "single" and ("tokenized", wire) in at_variants:
+            kernels[-1]["at_tokenized_shape"] = at_variants[("tokenized",
+                                                             wire)]
     kernels.extend(k5)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,11 +5,13 @@ bool adjacency; the simulator copies it to its device once. Peer draws and
 random delays go through the simulation's
 :class:`~gossipy_tpu_torch.random.DrawProvider`.
 
-Ported so far: the enums, :class:`Topology` with its ``clique``, ``ring``
-and ``random_regular`` constructors (the last with networkx's algorithm,
-copied below, so the edge set equals the JAX package's for every seed),
-and the three delay models. ``barabasi_albert``, ``erdos_renyi``, the
-native generators and the sparse topology are still to be ported.
+Ported so far: the enums, :class:`Topology` with its ``clique``, ``ring``,
+``random_regular`` and ``barabasi_albert`` constructors (the last two with
+networkx's algorithms, copied below, so the edge set equals the JAX
+package's for every seed), the dense mixing matrices of the all-to-all
+simulator and the three delay models. ``erdos_renyi``, the native
+generators, the sparse topology and the sparse mixing are still to be
+ported.
 """
 
 from __future__ import annotations
@@ -94,6 +96,28 @@ class Topology:
         package's ``backend="networkx"``). ``"native"``, and ``"auto"`` at
         ``n >= NATIVE_THRESHOLD``, name the JAX package's C++ generators,
         which are not ported yet."""
+        Topology._check_backend(n, backend)
+        a = np.zeros((n, n), dtype=bool)
+        for s1, s2 in _random_regular_edges(degree, n, random.Random(seed)):
+            a[s1, s2] = a[s2, s1] = True
+        return Topology(a)
+
+    @staticmethod
+    def barabasi_albert(n: int, m: int, seed: int = 42,
+                        backend: str = "networkx") -> "Topology":
+        """Preferential-attachment graph on ``n`` nodes, ``m`` edges from
+        each new node, with the edge set networkx's
+        ``barabasi_albert_graph(n, m, seed)`` gives. ``"native"``, and
+        ``"auto"`` at ``n >= NATIVE_THRESHOLD``, raise as in
+        :meth:`random_regular`."""
+        Topology._check_backend(n, backend)
+        a = np.zeros((n, n), dtype=bool)
+        for s1, s2 in _barabasi_albert_edges(n, m, random.Random(seed)):
+            a[s1, s2] = a[s2, s1] = True
+        return Topology(a)
+
+    @staticmethod
+    def _check_backend(n: int, backend: str) -> None:
         if backend not in ("auto", "networkx", "native"):
             raise ValueError("backend must be 'auto', 'networkx' or "
                              f"'native', got {backend!r}")
@@ -102,10 +126,6 @@ class Topology:
             raise NotImplementedError(
                 "the native graph generators are not ported yet; pass "
                 "backend='networkx'")
-        a = np.zeros((n, n), dtype=bool)
-        for s1, s2 in _random_regular_edges(degree, n, random.Random(seed)):
-            a[s1, s2] = a[s2, s1] = True
-        return Topology(a)
 
     def get_peers(self, node_id: int) -> list[int]:
         """Peer ids of one node."""
@@ -124,9 +144,12 @@ class Topology:
 
 
 # The pairing algorithm of networkx 3.6.1's ``random_regular_graph``
-# (networkx/generators/random_graphs.py:524), copied so that the port needs
-# no networkx. Its only randomness is ``rng.shuffle`` of the stubs, with
-# ``rng = random.Random(seed)`` as networkx's ``py_random_state`` makes it.
+# (networkx/generators/random_graphs.py:524) and its preferential
+# attachment, ``barabasi_albert_graph`` with ``_random_subset`` (the same
+# file), copied so that the port needs no networkx. Their only randomness
+# is ``rng.shuffle`` of the stubs and ``rng.choice`` of the repeated-node
+# list, with ``rng = random.Random(seed)`` as networkx's
+# ``py_random_state`` makes it.
 #
 # Copyright (C) 2004-2025, NetworkX Developers
 # Aric Hagberg <hagberg@lanl.gov>
@@ -209,6 +232,76 @@ def _random_regular_edges(d: int, n: int, rng: random.Random) -> set:
     while edges is None:
         edges = try_creation()
     return edges
+
+
+def _barabasi_albert_edges(n: int, m: int, rng: random.Random) -> list:
+    """The edges ``(source, target)`` of a Barabasi-Albert graph grown
+    from ``star_graph(m)`` (hub 0, spokes ``1..m``): each new node draws
+    ``m`` distinct targets uniformly from the list of existing nodes, each
+    repeated once per incident edge. The targets are a set, iterated in
+    the order CPython gives a set of ints, as networkx iterates it."""
+    if m < 1 or m >= n:
+        raise ValueError("Barabasi-Albert needs 1 <= m < n, got "
+                         f"m = {m}, n = {n}")
+    edges = [(0, j) for j in range(1, m + 1)]
+    repeated = [0] * m + list(range(1, m + 1))
+    for source in range(m + 1, n):
+        targets = set()
+        while len(targets) < m:
+            targets.add(rng.choice(repeated))
+        edges.extend((source, t) for t in targets)
+        repeated.extend(targets)
+        repeated.extend([source] * m)
+    return edges
+
+
+def uniform_mixing(topology: Topology) -> np.ndarray:
+    """Uniform mixing weights ``[N, N]`` float32: row ``i`` weights node
+    ``i`` and each of its ``deg(i)`` peers by ``1 / (deg(i) + 1)``
+    (``gossipy_tpu/core.py::uniform_mixing``, dense only)."""
+    _dense_only(topology)
+    a = topology.adjacency.astype(np.float64)
+    deg = a.sum(axis=1)
+    w = a / (deg[:, None] + 1.0)
+    np.fill_diagonal(w, 1.0 / (deg + 1.0))
+    return w.astype(np.float32)
+
+
+def metropolis_hastings_mixing(topology: Topology) -> np.ndarray:
+    """The standard Metropolis-Hastings weights ``[N, N]`` float32
+    (symmetric, doubly stochastic): ``W_ij = 1 / (1 + max(deg_i,
+    deg_j))`` on edges, ``W_ii = 1 - sum_j W_ij``; the JAX package's
+    weights, not the original gossipy's (dense only)."""
+    _dense_only(topology)
+    a = topology.adjacency.astype(np.float64)
+    deg = a.sum(axis=1)
+    w = a / (1.0 + np.maximum(deg[:, None], deg[None, :]))
+    np.fill_diagonal(w, 0.0)
+    np.fill_diagonal(w, 1.0 - w.sum(axis=1))
+    return w.astype(np.float32)
+
+
+def mixing_weight_rows(w: np.ndarray, topology: Topology) -> np.ndarray:
+    """Per-node weight vectors ``[N, max_deg + 1]`` float32 in the original
+    gossipy's layout, ``[self weight, peer weights in id order...]``,
+    zero-padded."""
+    _dense_only(topology)
+    n = topology.num_nodes
+    max_deg = int(topology.degrees.max()) if n else 0
+    out = np.zeros((n, max_deg + 1), dtype=np.float32)
+    w = np.asarray(w)
+    for i in range(n):
+        peers = np.where(topology.adjacency[i])[0]
+        out[i, 0] = w[i, i]
+        out[i, 1:1 + len(peers)] = w[i, peers]
+    return out
+
+
+def _dense_only(topology) -> None:
+    if not isinstance(topology, Topology):
+        raise NotImplementedError(
+            f"{type(topology).__name__} mixing is not ported yet (the dense "
+            "Topology only)")
 
 
 @dataclasses.dataclass(frozen=True)

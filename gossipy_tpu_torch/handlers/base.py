@@ -27,7 +27,8 @@ class ModelState(NamedTuple):
     - ``params``: flat float32 parameters, ``[stride]`` or ``[N, stride]``
     - ``opt_state``: the optimizer's state, a tuple of tensors with a
       leading node axis when stacked (``()`` for a stateless rule)
-    - ``n_updates``: int32 age, ``[]`` or ``[N]``
+    - ``n_updates``: int32 age, ``[]`` or ``[N]`` (a partitioned
+      handler's age vector: ``[P]`` or ``[N, P]``)
     """
 
     params: torch.Tensor
@@ -80,11 +81,20 @@ class BaseHandler:
         """Scalars a message carries (message-size accounting)."""
         return self.layout.width
 
+    def _merge(self, state: ModelState, peer: PeerModel, extra=None
+               ) -> ModelState:
+        """``merge``, passing the message's decoded ``extra`` only to a
+        handler whose merge reads one (a partition id, a sample mask)."""
+        if extra is None:
+            return self.merge(state, peer)
+        return self.merge(state, peer, extra)
+
     def call(self, state: ModelState, peer: PeerModel, data,
-             perms: torch.Tensor) -> ModelState:
+             perms: torch.Tensor, extra=None) -> ModelState:
         """What every row of ``state`` becomes on receiving the matching
         row of ``peer``; the received model trains with the node's own
-        optimizer state, as in the JAX ``call``:
+        optimizer state, as in the JAX ``call``; ``extra`` (row-aligned,
+        or None) goes to the merge:
 
         - UPDATE: the received model, trained on local data;
         - MERGE_UPDATE: own and received model merged, then trained;
@@ -98,7 +108,7 @@ class BaseHandler:
             recv = ModelState(peer.params, state.opt_state, peer.n_updates)
             return self.update(recv, data, perms)
         if self.mode == CreateModelMode.MERGE_UPDATE:
-            return self.update(self.merge(state, peer), data, perms)
+            return self.update(self._merge(state, peer, extra), data, perms)
         if self.mode == CreateModelMode.UPDATE_MERGE:
             if perms is None:
                 own_perms = peer_perms = None
@@ -108,8 +118,8 @@ class BaseHandler:
             mine = self.update(state, data, own_perms)
             recv = ModelState(peer.params, state.opt_state, peer.n_updates)
             theirs = self.update(recv, data, peer_perms)
-            return self.merge(mine, PeerModel(theirs.params,
-                                              theirs.n_updates))
+            return self._merge(mine, PeerModel(theirs.params,
+                                               theirs.n_updates), extra)
         if self.mode == CreateModelMode.PASS:
             return ModelState(peer.params, state.opt_state, peer.n_updates)
         raise ValueError(f"unknown create model mode {self.mode}")

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..compression import ModelPartition, sampled_merge
 from ..core import CreateModelMode
 from ..models.nn import ParamLayout, init_flat
 from ..optim import Optimizer, apply_updates, sgd
@@ -113,6 +114,17 @@ class SGDHandler(BaseHandler):
 
     # -- training ----------------------------------------------------------
 
+    def _adjust_gradient(self, grad: torch.Tensor,
+                         n_updates: torch.Tensor) -> torch.Tensor:
+        """Hook on the flat ``[N, stride]`` gradient before the optimizer
+        (:class:`PartitionedSGDHandler` divides by the part's age)."""
+        return grad
+
+    def _count_updates(self, n_updates: torch.Tensor,
+                       any_real: torch.Tensor) -> torch.Tensor:
+        """The ages after a step; ``any_real`` is ``[N]``."""
+        return n_updates + any_real.to(n_updates.dtype)
+
     def _sgd_step(self, state: ModelState, xb, yb, mb) -> ModelState:
         params, opt_state, n_updates = state
         p = params.detach().requires_grad_(True)
@@ -124,9 +136,12 @@ class SGDHandler(BaseHandler):
             loss = self.loss(scores, yb, mb).sum()
             (grad,) = torch.autograd.grad(loss, p)
         any_real = mb.sum(dim=1) > 0
+        # The ages count before the gradient is adjusted, as in the JAX
+        # handler.
+        n_new = self._count_updates(n_updates, any_real)
+        grad = self._adjust_gradient(grad, n_new)
         updates, opt_new = self.optimizer.update(grad, opt_state, params)
-        stepped = ModelState(apply_updates(params, updates), opt_new,
-                             n_updates + any_real.to(n_updates.dtype))
+        stepped = ModelState(apply_updates(params, updates), opt_new, n_new)
         return select_state(any_real, stepped, state)
 
     def update(self, state: ModelState, data, perms: torch.Tensor
@@ -208,3 +223,122 @@ class LimitedMergeSGDHandler(SGDHandler):
         params = torch.where(keep_self, p1, torch.where(keep_peer, p2, avg))
         return ModelState(params, state.opt_state,
                           torch.maximum(state.n_updates, peer.n_updates))
+
+
+class WeightedSGDHandler(SGDHandler):
+    """Merge with caller-supplied weights over 1 + K models
+    (``gossipy_tpu/handlers/sgd.py::WeightedSGDHandler``). Its pairwise
+    merge stays the uniform average; the all-to-all simulator mixes the
+    whole population with one matrix product instead."""
+
+    def merge_many(self, state: ModelState, peers_params: torch.Tensor,
+                   weights: torch.Tensor, peer_ages: torch.Tensor,
+                   valid: torch.Tensor) -> ModelState:
+        """Every row: ``w0 * own + sum_k w_k * peer_k`` over the valid
+        slots, the weights renormalised over them; age = max of its own
+        and the valid peers'. ``peers_params [N, K, stride]``, ``weights
+        [N, K + 1]`` (own weight first), ``peer_ages [N, K]``, ``valid
+        [N, K]``."""
+        w0 = weights[:, 0]
+        wk = weights[:, 1:] * valid.to(weights.dtype)
+        total = w0 + wk.sum(dim=1)
+        w0 = w0 / total
+        wk = wk / total[:, None]
+        params = w0[:, None] * state.params + \
+            (wk[:, :, None] * peers_params).sum(dim=1)
+        ages = torch.where(valid > 0, peer_ages, torch.zeros_like(peer_ages))
+        n_up = torch.maximum(state.n_updates,
+                             ages.amax(dim=1).clamp(min=0))
+        return ModelState(params, state.opt_state, n_up)
+
+
+class _PartialMergeCall:
+    """Receive dispatch of the subset-merge handlers
+    (``gossipy_tpu/handlers/sgd.py::_PartialMergeCall``): in UPDATE mode
+    the received model trains on local data and only its subset (sample
+    or partition) is then merged into the node's own; the other modes
+    dispatch as :meth:`BaseHandler.call`."""
+
+    def call(self, state: ModelState, peer: PeerModel, data, perms,
+             extra=None) -> ModelState:
+        if self.mode == CreateModelMode.UPDATE:
+            recv = ModelState(peer.params, state.opt_state, peer.n_updates)
+            trained = self.update(recv, data, perms)
+            return self._merge(state, PeerModel(trained.params,
+                                                trained.n_updates), extra)
+        return super().call(state, peer, data, perms, extra)
+
+
+class SamplingSGDHandler(_PartialMergeCall, SGDHandler):
+    """Merge only a random subset of the coordinates (Hegedus 2021).
+
+    ``extra`` is the ``[rows, stride]`` bool mask the simulator decodes
+    from the message's sample seed (:func:`~gossipy_tpu_torch.compression.
+    sample_mask`). The merge does not advance ``n_updates``. Not a uniform
+    average: the engine takes the plain deliver path."""
+
+    uniform_avg_merge = False
+
+    def __init__(self, sample_size: float, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.mode == CreateModelMode.PASS:
+            raise ValueError("Mode PASS not allowed for sampled models.")
+        self.sample_size = sample_size
+
+    def merge(self, state: ModelState, peer: PeerModel,
+              extra=None) -> ModelState:
+        if extra is None:
+            raise ValueError("SamplingSGDHandler.merge needs a sample mask")
+        return ModelState(sampled_merge(state.params, peer.params, extra),
+                          state.opt_state, state.n_updates)
+
+
+class PartitionedSGDHandler(_PartialMergeCall, SGDHandler):
+    """Partitioned model exchange (Hegedus 2021).
+
+    - ``n_updates`` is an int32 age per part, ``[P]`` a node (``[N, P]``
+      stacked); every step ages all parts by one;
+    - each gradient coordinate is divided by the age of its part;
+    - ``merge`` averages the one part named by ``extra`` (``[rows]``
+      partition ids), weighted by the two ages of that part, whose age
+      becomes the larger one.
+    Not a uniform average: the engine takes the plain deliver path."""
+
+    uniform_avg_merge = False
+
+    def __init__(self, partition: ModelPartition, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.mode == CreateModelMode.PASS:
+            raise ValueError("Mode PASS not allowed for partitioned models.")
+        self.partition = partition
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device=None) -> ModelState:
+        st = super().init(generator, device)
+        return ModelState(st.params, st.opt_state,
+                          torch.zeros(self.partition.n_parts,
+                                      dtype=torch.int32,
+                                      device=st.params.device))
+
+    def _count_updates(self, n_updates, any_real):
+        return n_updates + any_real.to(n_updates.dtype)[:, None]
+
+    def _adjust_gradient(self, grad, n_updates):
+        ages = torch.clamp(n_updates.to(torch.float32), min=1.0)
+        cols = self.partition.columns(grad.device).clamp(min=0)
+        return grad / ages[:, cols]
+
+    def merge(self, state: ModelState, peer: PeerModel,
+              extra=None) -> ModelState:
+        if extra is None:
+            raise ValueError("PartitionedSGDHandler.merge needs a partition "
+                             "id")
+        pid = extra.long() % self.partition.n_parts
+        rows = torch.arange(pid.shape[0], device=pid.device)
+        a1 = state.n_updates[rows, pid]
+        a2 = peer.n_updates[rows, pid]
+        params = self.partition.merge(state.params, peer.params, pid,
+                                      weights=(a1, a2))
+        n_up = state.n_updates.clone()
+        n_up[rows, pid] = torch.maximum(a1, a2)
+        return ModelState(params, state.opt_state, n_up)

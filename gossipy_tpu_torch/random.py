@@ -11,8 +11,17 @@ makes a port run match a reference run draw for draw.
 
 Sub-fires: an async node may send ``F`` times in one round. Sub-fire
 ``f > 0`` draws under ``sub=f``: the JAX engine folds ``f`` into each
-purpose key, and draws its peers from the base ``_round_key(r, K_FIRE)``
+purpose key of :meth:`DrawProvider.bernoulli` and
+:meth:`DrawProvider.randint`, and derives the draws of its send hooks
+(:meth:`DrawProvider.peers`, :meth:`DrawProvider.uniform`,
+:meth:`DrawProvider.choice`) from the base ``_round_key(r, K_FIRE)``
 folded with ``f``.
+
+The simulator variants draw under the JAX package's variant tags
+(``>= 9000``): the token gate ``K_TOKEN_GATE``, reactive rounding
+``K_REACT_SLOT + k``, the reaction waves ``K_REACT_PEER``, ``_DROP``,
+``_DELAY``, ``_EXTRA`` each ``+ 10 j``, the all-to-all round's drops,
+online draws and updates, and the neighbour cache's pop and merge.
 """
 
 from __future__ import annotations
@@ -21,10 +30,23 @@ from typing import Sequence
 
 import torch
 
+from .compression import sample_mask as _hash_mask
+
 # Purpose tags, value for value those of the JAX engine (one stream per
 # (round, purpose)); the engine derives per-slot tags as ``tag * 101 + k``.
 K_PHASE, K_PEER, K_DROP, K_DELAY, K_ONLINE, K_CALL, K_EXTRA, \
     K_REPLY_DELAY, K_REPLY_DROP, K_EVAL, K_TOKEN, K_FIRE = range(12)
+# The variants' tags (gossipy_tpu/simulation/variants.py, nodes.py).
+K_TOKEN_GATE = 9000
+K_REACT_SLOT = 9100
+K_REACT_PEER, K_REACT_DROP, K_REACT_DELAY, K_REACT_EXTRA = 9200, 9201, \
+    9202, 9203
+K_A2A_DROP, K_A2A_ONLINE, K_A2A_UPDATE = 9400, 9401, 9402
+K_CACHE_POP, K_CACHE_MERGE = 9500, 9501
+# A pass-through receive draws its accept under ``fold_in(row key, 911)``;
+# PENS draws its fallback peer under ``fold_in(peer key, 3)``.
+FOLD_ACCEPT = 911
+FOLD_FALLBACK = 3
 
 
 class DrawProvider:
@@ -54,16 +76,51 @@ class DrawProvider:
         normal."""
         raise NotImplementedError
 
-    def peers(self, r: int, adjacency: torch.Tensor,
-              sub: int = 0) -> torch.Tensor:
+    def peers(self, r: int, adjacency: torch.Tensor, sub: int = 0,
+              purpose: int = K_PEER, fold: int = 0) -> torch.Tensor:
         """One uniform neighbour per node of the bool ``[n, n]`` adjacency
-        (purpose ``K_PEER``); ``-1`` for a node with no neighbour."""
+        (purpose ``K_PEER`` unless named; ``fold`` folds a tag into the
+        key); ``-1`` for a node with no neighbour."""
         raise NotImplementedError
 
-    def bernoulli(self, r: int, purpose: int, p: float, n: int,
-                  device: torch.device, sub: int = 0) -> torch.Tensor:
-        """``[n]`` independent draws that are True with probability ``p``."""
+    def bernoulli(self, r: int, purpose: int, p: float, n, device:
+                  torch.device, sub: int = 0) -> torch.Tensor:
+        """Independent draws that are True with probability ``p``, of
+        shape ``[n]`` (or ``n`` when it is a tuple)."""
         raise NotImplementedError
+
+    def uniform(self, r: int, purpose: int, n: int, device: torch.device,
+                sub: int = 0) -> torch.Tensor:
+        """``[n]`` float32 uniform in ``[0, 1)``; ``u < p`` is the JAX
+        ``bernoulli(key, p)`` of a per-node ``p``."""
+        raise NotImplementedError
+
+    def choice(self, r: int, purpose: int, valid: torch.Tensor,
+               sub: int = 0) -> torch.Tensor:
+        """Per row of the bool ``[n, s]`` ``valid``, the index of one of
+        its True entries drawn uniformly (the JAX ``categorical`` over
+        ``0 / -inf`` logits), int64 on ``valid``'s device; 0 for a row
+        with none."""
+        raise NotImplementedError
+
+    def row_uniform(self, r: int, purpose: int, n: int, fold: int,
+                    device: torch.device) -> torch.Tensor:
+        """``[n]`` float32 uniform, row ``i`` drawn from the key of node
+        ``i``'s stream under ``purpose`` (the per-node key a receive
+        trains under) folded with ``fold``."""
+        raise NotImplementedError
+
+    def sample_mask(self, payload: torch.Tensor, layout,
+                    sample_size: float) -> torch.Tensor:
+        """The sampled merge's ``[rows, stride]`` bool coordinate mask of
+        each row's 31-bit ``payload`` (padding columns False)."""
+        raise NotImplementedError
+
+    def derive(self, tag: int) -> "DrawProvider":
+        """The provider of a run segment keyed on ``tag`` (PENS's second
+        phase runs under the JAX base key ``fold_in(key, 2)``); a stream
+        provider carries on as it is."""
+        return self
 
     def randint(self, r: int, purpose: int, lo: int, hi: int, n: int,
                 device: torch.device, sub: int = 0) -> torch.Tensor:
@@ -138,7 +195,7 @@ class TorchDraws(DrawProvider):
             self._neighbours = cached
         return cached[1:]
 
-    def peers(self, r, adjacency, sub=0):
+    def peers(self, r, adjacency, sub=0, purpose=K_PEER, fold=0):
         """Node ``i`` takes its ``floor(u_i deg_i)``-th neighbour in index
         order, ``u_i`` uniform in ``[0, 1)`` (float64): one ``[n]`` draw
         and a gather, whatever the degree."""
@@ -154,8 +211,28 @@ class TorchDraws(DrawProvider):
         return torch.where(has_peer, peers, -1).to(adjacency.device)
 
     def bernoulli(self, r, purpose, p, n, device, sub=0):
-        u = torch.rand((n,), generator=self.generator)
+        shape = (n,) if isinstance(n, int) else tuple(n)
+        u = torch.rand(shape, generator=self.generator)
         return (u < p).to(device)
+
+    def uniform(self, r, purpose, n, device, sub=0):
+        return torch.rand((n,), generator=self.generator).to(device)
+
+    def choice(self, r, purpose, valid, sub=0):
+        """The ``floor(u count)``-th True entry of each row, ``u`` uniform
+        (float64): one ``[n]`` draw whatever the row length."""
+        u = torch.rand(valid.shape[0], generator=self.generator,
+                       dtype=torch.float64).to(valid.device)
+        count = valid.sum(dim=1)
+        k = torch.minimum((u * count).to(torch.int64), count - 1)
+        hit = valid & (valid.cumsum(dim=1) == (k + 1)[:, None])
+        return hit.to(torch.int8).argmax(dim=1)
+
+    def row_uniform(self, r, purpose, n, fold, device):
+        return torch.rand((n,), generator=self.generator).to(device)
+
+    def sample_mask(self, payload, layout, sample_size):
+        return _hash_mask(payload, layout, sample_size)
 
     def randint(self, r, purpose, lo, hi, n, device, sub=0):
         return torch.randint(lo, hi + 1, (n,), generator=self.generator,

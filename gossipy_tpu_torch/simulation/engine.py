@@ -44,6 +44,18 @@ per (ring cell, node, leaf) in ``history_scale``.
 The state is updated in place: :meth:`GossipSimulator.start` mutates the
 :class:`SimState` it is given and returns it.
 
+Variants (``nodes.py``, ``variants.py``) hook into the round where the JAX
+engine's do, each hook updating the state in place: ``_init_aux`` (the
+variant's per-node state, ``state.aux``), ``_pre_send`` (before the
+snapshot), ``_select_peers``, ``_send_gate`` and ``_send_extra`` (the send
+phase), ``_reply_extra`` (the replies' payload), ``_decode_extra``,
+``_receive_rows`` and ``_apply_receive`` (a slot's receive),
+``_post_receive_slot`` (after each slot that held a message) and
+``_post_deliver`` (after the deliver phase; its sends count in the
+round's accounting). A fused path refuses a variant that overrides a
+receive hook it replaces, as the JAX engine does
+(:meth:`GossipSimulator._fused_refusal`).
+
 Ported: PUSH, PULL and PUSH_PULL, sync and async nodes, the three delay
 models, sampled evaluation, the three deliver paths with wide and compact
 dispatch, the three ring formats, every create-model mode (UPDATE_MERGE on
@@ -70,8 +82,8 @@ from ..core import AntiEntropyProtocol, ConstantDelay, CreateModelMode, \
 from ..data import to_device
 from ..handlers.base import ModelState, PeerModel, select_state
 from ..ops.merge import column_leaves, gather_merge_flat, gather_merge_multi
-from ..random import K_CALL, K_DELAY, K_DROP, K_ONLINE, K_REPLY_DELAY, \
-    K_REPLY_DROP, DrawProvider, TorchDraws
+from ..random import K_CALL, K_DELAY, K_DROP, K_EXTRA, K_ONLINE, \
+    K_REPLY_DELAY, K_REPLY_DROP, DrawProvider, TorchDraws
 from ..telemetry import FailureCounts
 from .report import SimulationReport
 
@@ -117,11 +129,14 @@ class SimState:
                                    # (sync) or send period (async)
     history_params: torch.Tensor   # [D, N, stride] round-start snapshots,
                                    # in the wire format
-    history_ages: torch.Tensor     # [D, N] int32 snapshot ages
+    history_ages: torch.Tensor     # [D, N, *age] int32 snapshot ages
+                                   # (a partitioned handler's ages: [D, N, P])
     mailbox: Mailbox               # [D, N, K]
     reply_box: Mailbox             # [D, N, Kr]
     round: int = 0
     history_scale: Optional[torch.Tensor] = None  # [D, N, L] f32, int8 only
+    aux: dict = dataclasses.field(default_factory=dict)  # a variant's
+                                   # per-node state, leading node axis
 
 
 def _take_rows(model: ModelState, idx: torch.Tensor) -> ModelState:
@@ -183,10 +198,10 @@ class GossipSimulator:
 
     fused_merge : None | False | "multi" | True | "per_slot"
         The deliver path (``True`` means ``"multi"``). The default
-        (``None``) is ``"multi"`` when the handler admits a fused deliver
-        (:func:`fused_refusal` finds nothing), else the plain path, where
-        the JAX engine's default is always ``False``. Naming a fused path for a
-        handler that does not admit it raises ``ValueError``.
+        (``None``) is ``"multi"`` when the handler and the simulator admit
+        a fused deliver (:meth:`_fused_refusal` finds nothing), else the
+        plain path, where the JAX engine's default is always ``False``.
+        Naming a fused path that is refused raises ``ValueError``.
     compact_deliver : None | bool | int
         As in the JAX engine: ``None`` turns compaction on for the plain
         path at N >= 48 with K > 1; ``True`` derives the capacity; an int
@@ -249,9 +264,9 @@ class GossipSimulator:
         for name, val in unported.items():
             if val is not None:
                 raise NotImplementedError(f"{name}= is not ported yet")
-        refusal = fused_refusal(handler)
         if fused_merge is None:
-            fused_merge = "multi" if refusal is None else False
+            fused_merge = ("multi" if self._fused_refusal(handler, "multi")
+                           is None else False)
         if fused_merge is True:
             fused_merge = "multi"
         elif not fused_merge:
@@ -270,7 +285,8 @@ class GossipSimulator:
                              "reply_slots >= 1")
         if eval_every < 1:
             raise ValueError("eval_every must be >= 1")
-        if fused_merge and refusal is not None:
+        refusal = fused_merge and self._fused_refusal(handler, fused_merge)
+        if refusal:
             raise ValueError(refusal)
 
         self.device = resolve_device(device)
@@ -311,6 +327,37 @@ class GossipSimulator:
         self._leaf_starts = torch.tensor(starts, dtype=torch.int32,
                                          device=self.device)
         self._col_leaf = column_leaves(starts, layout.stride, self.device)
+        self._slot_hook = (type(self)._post_receive_slot
+                           is not GossipSimulator._post_receive_slot)
+
+    # -- admission -----------------------------------------------------------
+
+    # A subclass whose _decode_extra and _receive_rows overrides are
+    # row-aligned (elementwise in the payload, per-node state read by node
+    # id, per-row draws) declares it here to keep automatic compaction.
+    _compact_safe = False
+
+    def _overridden(self, hooks) -> list:
+        return [h for h in hooks
+                if getattr(type(self), h) is not getattr(GossipSimulator, h)]
+
+    def _fused_refusal(self, handler, mode: str) -> Optional[str]:
+        """Why fused path ``mode`` may not run this simulator, or None.
+        The fused kernels replace the gather, decode and receive of a
+        slot, so a variant overriding one of those hooks is refused; the
+        single pass also collapses the slot loop, so it refuses per-slot
+        hooks and reply payloads too (the JAX engine's rules,
+        engine.py:598-617); then the handler's own rule
+        (:func:`fused_refusal`)."""
+        hooks = ["_apply_receive", "_receive_rows", "_gather_peer",
+                 "_decode_extra"]
+        if mode == "multi":
+            hooks += ["_post_receive_slot", "_reply_extra"]
+        over = self._overridden(hooks)
+        if over:
+            return (f"fused_merge requires the base receive path ({over[0]} "
+                    f"is overridden by {type(self).__name__})")
+        return fused_refusal(handler)
 
     # -- mailbox sizing and compaction ------------------------------------
 
@@ -359,10 +406,27 @@ class GossipSimulator:
 
     def _compact_capacity(self, compact_deliver) -> Optional[int]:
         """The compacted pass's static receiver capacity, or None when
-        compaction is off (the rules of engine.py:659-709)."""
+        compaction is off (the rules of engine.py:640-709): a variant
+        keeps it only with the base ``_apply_receive`` and ``_gather_peer``
+        and either the base ``_decode_extra`` and ``_receive_rows`` or a
+        ``_compact_safe`` declaration."""
+        base_receive = not self._overridden(["_apply_receive",
+                                             "_gather_peer"])
+        extra_ok = (not self._overridden(["_decode_extra", "_receive_rows"])
+                    or type(self)._compact_safe)
         if compact_deliver is None:
-            compact_deliver = (not self.fused_merge and self.n_nodes >= 48
-                               and self.K > 1)
+            compact_deliver = (base_receive and extra_ok
+                               and not self.fused_merge
+                               and self.n_nodes >= 48 and self.K > 1)
+        elif compact_deliver and not base_receive:
+            raise ValueError("compact_deliver requires the base "
+                             "_apply_receive/_gather_peer (overridden by "
+                             f"{type(self).__name__}); pass "
+                             "compact_deliver=False or None")
+        elif compact_deliver and not extra_ok:
+            raise ValueError(f"{type(self).__name__} overrides _decode_extra/"
+                             "_receive_rows without declaring _compact_safe "
+                             "= True; pass compact_deliver=False")
         elif compact_deliver and self.fused_merge == "per_slot":
             raise ValueError("compact_deliver composes with the single-pass "
                              "fused deliver (fused_merge='multi') but not "
@@ -477,7 +541,7 @@ class GossipSimulator:
           ``history_ring_sidecar`` (no ``_bytes`` suffix, so the total
           counts them once); ``history_dtype`` names the format;
         - ``history_ages_bytes`` and ``history_depth`` (D);
-        - ``aux_bytes``: a variant's own per-node state (none here: 0);
+        - ``aux_bytes``: a variant's own per-node state (``state.aux``);
         - ``mailbox_bytes``, ``reply_box_bytes``: four int32 fields of
           ``[D, N, K]`` and ``[D, N, Kr]``;
         - ``data_bytes``: the stacked data on the device;
@@ -494,7 +558,9 @@ class GossipSimulator:
         n = self.n_nodes
         layout = self.handler.layout
         one = self.handler.init_opt_state(torch.zeros(1, layout.stride))
-        per_node = (4 * layout.stride + 4
+        age_shape = self._age_shape()
+        ages = 4 * math.prod(age_shape)
+        per_node = (4 * layout.stride + ages
                     + sum(t.numel() * t.element_size() for t in one))
         D = self._history_depth(self._model_size())
         sidecar = (4 * D * n * len(layout.leaves)
@@ -505,9 +571,9 @@ class GossipSimulator:
                                    * self._wire_itemsize() + sidecar),
             "history_ring_sidecar": sidecar,
             "history_dtype": self.history_dtype,
-            "history_ages_bytes": 4 * D * n,
+            "history_ages_bytes": ages * D * n,
             "history_depth": D,
-            "aux_bytes": 0,
+            "aux_bytes": self._aux_bytes(age_shape),
             "mailbox_bytes": 4 * 4 * D * n * self.K,
             "reply_box_bytes": 4 * 4 * D * n * self.Kr,
             "data_bytes": sum(t.numel() * t.element_size()
@@ -517,6 +583,22 @@ class GossipSimulator:
         out["total_bytes"] = sum(v for k, v in out.items()
                                  if k.endswith("_bytes"))
         return out
+
+    def _age_shape(self) -> tuple:
+        """The shape of one node's age (``()``, or ``(P,)`` for a
+        partitioned handler)."""
+        one = self.handler.init(torch.Generator().manual_seed(0), "cpu")
+        return tuple(one.n_updates.shape)
+
+    def _aux_bytes(self, age_shape: tuple) -> int:
+        """Bytes of ``state.aux``, from :meth:`_init_aux` over a model of
+        meta tensors (shapes only, nothing allocated)."""
+        n = self.n_nodes
+        model = ModelState(
+            torch.empty(n, self.handler.layout.stride, device="meta"), (),
+            torch.empty((n,) + age_shape, dtype=torch.int32, device="meta"))
+        return sum(t.numel() * t.element_size()
+                   for t in self._init_aux(model).values())
 
     # -- state -------------------------------------------------------------
 
@@ -551,7 +633,8 @@ class GossipSimulator:
         if common_init:
             one = self.handler.init(g, self.device)
             params = one.params.unsqueeze(0).repeat(n, 1)
-            n_updates = one.n_updates.reshape(1).repeat(n)
+            n_updates = one.n_updates.unsqueeze(0).repeat(
+                n, *[1] * one.n_updates.dim())
         else:
             inits = [self.handler.init(g, self.device) for _ in range(n)]
             params = torch.stack([m.params for m in inits])
@@ -572,23 +655,78 @@ class GossipSimulator:
     def init_state(self, model: ModelState, phase: torch.Tensor) -> SimState:
         """A round-0 state around given node models (their optimizer
         state included): the ring holds ``model``'s params, encoded, in
-        every cell and the mailbox and reply box are empty."""
+        every cell, the mailbox and reply box are empty, and ``aux`` is
+        the variant's initial state (:meth:`_init_aux`)."""
         n = self.n_nodes
         params = model.params.to(self.device, torch.float32).contiguous()
         opt_state = tuple(t.to(self.device) for t in model.opt_state)
         n_updates = model.n_updates.to(self.device, torch.int32)
         D = self._history_depth(self._model_size())
         stored, scales = self._encode_history_rows(params)
+        model = ModelState(params, opt_state, n_updates)
         return SimState(
-            model=ModelState(params, opt_state, n_updates),
+            model=model,
             phase=phase.to(self.device, torch.int32),
             history_params=stored.unsqueeze(0).repeat(D, 1, 1),
-            history_ages=n_updates.unsqueeze(0).repeat(D, 1),
+            history_ages=n_updates.unsqueeze(0).repeat(
+                D, *[1] * n_updates.dim()),
             mailbox=Mailbox.empty(D, n, self.K, self.device),
             reply_box=Mailbox.empty(D, n, self.Kr, self.device),
             history_scale=(None if scales is None
                            else scales.unsqueeze(0).repeat(D, 1, 1)),
+            aux=self._init_aux(model),
         )
+
+    # -- variant hooks (the JAX engine's, engine.py:1324-1409, 2269-2289) -----
+
+    def _init_aux(self, model: ModelState) -> dict:
+        """A variant's per-node state (token balances, caches...), built
+        on ``model.params``' device: none here."""
+        return {}
+
+    def _pre_send(self, state: SimState, r: int) -> None:
+        """Before the round's snapshot (the neighbour cache merges a
+        parked model here, so that the snapshot carries it)."""
+
+    def _select_peers(self, state: SimState, r: int, f: int) -> torch.Tensor:
+        """Sub-fire ``f``'s peer of every node (``-1``: none)."""
+        return self.draws.peers(r, self._adj, sub=f)
+
+    def _send_gate(self, state: SimState, active: torch.Tensor,
+                   peers: torch.Tensor, r: int, f: int) -> torch.Tensor:
+        """Which of the ``active`` senders send (token accounts, PENS's
+        selection counts); may update ``state.aux``."""
+        return active
+
+    def _send_extra(self, state: SimState, r: int, purpose: int,
+                    sub: int = 0) -> torch.Tensor:
+        """The ``[N]`` int32 payload of every sender's message (partition
+        ids, sample seeds, degrees...), drawn under ``purpose``."""
+        return torch.zeros(self.n_nodes, dtype=torch.int32,
+                           device=self.device)
+
+    def _reply_extra(self, state: SimState, r: int,
+                     purpose: int) -> torch.Tensor:
+        """The ``[N]`` int32 payload of every replier's REPLY."""
+        return torch.zeros(self.n_nodes, dtype=torch.int32,
+                           device=self.device)
+
+    def _decode_extra(self, extra: torch.Tensor):
+        """The handler's ``extra`` argument from a slot's payloads
+        (row-aligned); the base protocol carries nothing."""
+        return None
+
+    def _post_receive_slot(self, state: SimState, valid, ty, sender,
+                           send_round, extra, r: int, k: int) -> None:
+        """After mailbox slot ``k`` was delivered (token reactions).
+        Called for each slot that held a live message; the JAX engine
+        calls it for every slot, and on one without any its hooks
+        change nothing."""
+
+    def _post_deliver(self, state: SimState, r: int):
+        """After the deliver phase, the cell cleared; may send more.
+        Returns ``(n_sent, fails, size)``."""
+        return 0, FailureCounts(), 0
 
     # -- per-round phases --------------------------------------------------
 
@@ -649,13 +787,13 @@ class GossipSimulator:
                 else self._model_size())
         msg_type = int(_PROTO_TO_MSG[self.protocol])
         senders = torch.arange(n, device=dev)
-        no_extra = torch.zeros(n, dtype=torch.int32, device=dev)
         n_sent, fails = 0, FailureCounts()
         # A sync node fires once: sub-fires past the first send nothing.
         for f in range(1 if self.sync else self.F):
             fires, offset = self._fire_mask(state, r, f)
-            peers = self.draws.peers(r, self._adj, sub=f)
-            active = fires & (peers >= 0)
+            peers = self._select_peers(state, r, f)
+            active = self._send_gate(state, fires & (peers >= 0), peers, r,
+                                     f)
             dropped = self.draws.bernoulli(r, K_DROP, self.drop_prob, n, dev,
                                            sub=f)
             delays = self.delay.sample(self.draws, r, K_DELAY, n, size, dev,
@@ -665,7 +803,7 @@ class GossipSimulator:
             live = active & ~dropped
             n_overflow = self._scatter_messages(
                 state.mailbox, live, dr, peers, senders, r, msg_type,
-                no_extra, r, self.K)
+                self._send_extra(state, r, K_EXTRA, f), r, self.K)
             fails = fails + FailureCounts(drop=(active & dropped).sum(),
                                           overflow=n_overflow)
         return n_sent, fails, n_sent * size
@@ -721,13 +859,20 @@ class GossipSimulator:
         return 0, 1
 
     def _slot_loop(self, state: SimState, r: int, sr_t, sender_t, apply_t,
-                   call_tag: int) -> tuple[int, int]:
+                   extra_t, call_tag: int, post=None) -> tuple[int, int]:
         """One pass per occupied slot of a mailbox cell, in slot order;
         slot ``k`` trains every node under purpose ``call_tag * 101 + k``
-        (both halves of it under UPDATE_MERGE). Returns the (compact,
-        wide) slot counts."""
+        (both halves of it under UPDATE_MERGE). ``post = (valid_t,
+        ty_t)`` calls :meth:`_post_receive_slot` after each slot that
+        held a live message (the deliver phase's cell; the reply phase
+        passes None). Returns the (compact, wide) slot counts."""
         n = self.n_nodes
-        live = apply_t.sum(dim=0).tolist()
+        counts = [apply_t.sum(dim=0)]
+        hooked = post is not None and self._slot_hook
+        if hooked:
+            counts.append(post[0].any(dim=0))
+        counts = torch.stack([c.long() for c in counts]).tolist()
+        live = counts[0]
         first_k = torch.zeros(n, dtype=torch.int64, device=self.device)
         # UPDATE_MERGE trains two models a receive: two sets of orders.
         split = self.handler.mode == CreateModelMode.UPDATE_MERGE
@@ -736,43 +881,54 @@ class GossipSimulator:
             dc, dw = self._delivery_path_counts(n_live)
             n_compact += dc
             n_wide += dw
-            if n_live == 0:
-                continue
-            perms = self._update_orders(r, [call_tag * 101 + k], first_k,
-                                        split)
-            self._receive_slot_apply(state, sr_t[:, k], sender_t[:, k],
-                                     apply_t[:, k], perms, n_live)
+            if n_live:
+                purpose = call_tag * 101 + k
+                perms = self._update_orders(r, [purpose], first_k, split)
+                self._receive_slot_apply(state, sr_t[:, k], sender_t[:, k],
+                                         extra_t[:, k], apply_t[:, k], perms,
+                                         n_live, (r, purpose))
+            if hooked and counts[1][k]:
+                self._post_receive_slot(state, post[0][:, k], post[1][:, k],
+                                        sender_t[:, k], sr_t[:, k],
+                                        extra_t[:, k], r, k)
         return n_compact, n_wide
 
-    def _receive_slot_apply(self, state: SimState, send_round, sender, valid,
-                            perms, n_live: int) -> None:
+    def _receive_slot_apply(self, state: SimState, send_round, sender, extra,
+                            valid, perms, n_live: int, call) -> None:
         """One mailbox slot: the per-slot fused kernel, the compacted pass
-        when every live receiver fits the capacity, else the wide pass."""
+        when every live receiver fits the capacity, else the wide pass.
+        ``call = (r, purpose)`` names the slot's stream (the JAX engine's
+        ``call_key``)."""
         if self.fused_merge:
             self._fused_receive(state, send_round, sender, valid, perms)
         elif self._compact_cap is not None and n_live <= self._compact_cap:
-            self._apply_receive_compact(state, send_round, sender, valid,
-                                        perms)
+            self._apply_receive_compact(state, send_round, sender, extra,
+                                        valid, perms, call)
         else:
-            self._apply_receive_wide(state, send_round, sender, valid, perms)
+            self._apply_receive_wide(state, send_round, sender, extra, valid,
+                                     perms, call)
 
-    def _apply_receive_wide(self, state: SimState, send_round, sender, valid,
-                            perms) -> None:
+    def _apply_receive_wide(self, state: SimState, send_round, sender, extra,
+                            valid, perms, call) -> None:
         peer = self._gather_peer(state, send_round, sender)
-        self._apply_receive(state, peer, valid, perms)
+        self._apply_receive(state, peer, extra, valid, perms, call)
 
-    def _apply_receive(self, state: SimState, peer: PeerModel, valid,
-                       perms) -> None:
+    def _apply_receive(self, state: SimState, peer: PeerModel, extra, valid,
+                       perms, call) -> None:
         """Population-wide :meth:`_receive_rows`, kept where ``valid``."""
+        node_ids = torch.arange(self.n_nodes, device=self.device)
         new_model = self._receive_rows(state.model, peer, self._local_data(),
-                                       perms)
+                                       perms, self._decode_extra(extra),
+                                       node_ids, call)
         state.model = select_state(valid, new_model, state.model)
 
     def _apply_receive_compact(self, state: SimState, send_round, sender,
-                               valid, perms) -> None:
+                               extra, valid, perms, call) -> None:
         """The receive pass over a gathered batch of ``cap`` rows that holds
         every live receiver (the stable valid-first argsort), with each
-        node's own shard orders; only called when the live count fits."""
+        node's own shard orders; only called when the live count fits.
+        The payloads are gathered before they are decoded (a compact-safe
+        decode is elementwise)."""
         idx = torch.argsort((~valid).to(torch.int32),
                             stable=True)[:self._compact_cap]
         sub_valid = valid[idx]
@@ -780,15 +936,21 @@ class GossipSimulator:
         sub_model = _take_rows(state.model, idx)
         data = tuple(d[idx] for d in self._local_data())
         new_sub = self._receive_rows(sub_model, peer, data,
-                                     _take(perms, idx))
+                                     _take(perms, idx),
+                                     self._decode_extra(extra[idx]), idx,
+                                     call)
         new_sub = select_state(sub_valid, new_sub, sub_model)
         state.model = _put_rows(state.model, idx, new_sub)
 
     def _receive_rows(self, models: ModelState, peer: PeerModel, data,
-                      perms) -> ModelState:
+                      perms, extra_arg, node_ids, call) -> ModelState:
         """The handler's receive over row-aligned batches (the population,
-        or a gathered subset)."""
-        return self.handler.call(models, peer, data, perms)
+        or a gathered subset). Every argument is row-aligned; ``node_ids``
+        maps rows to nodes. An override reads per-node state by
+        ``node_ids`` and draws per row from the slot's stream ``call``
+        (:meth:`DrawProvider.row_uniform`), so that it stays
+        compaction-safe."""
+        return self.handler.call(models, peer, data, perms, extra_arg)
 
     def _fused_receive(self, state: SimState, send_round, sender, valid,
                        perms) -> None:
@@ -900,18 +1062,20 @@ class GossipSimulator:
                                           perms, any_msg, n_live, occ_slots)
 
     def _drain(self, state: SimState, r: int, sr_t, sender_t, apply_t,
-               call_tag: int) -> tuple[int, int]:
+               extra_t, call_tag: int, post=None) -> tuple[int, int]:
         """Apply a mailbox cell's ``[N, K]`` live messages by the
         configured path; returns the (compact, wide) slot counts."""
         if self.fused_merge == "multi":
             return self._fused_deliver_all(state, r, sr_t, sender_t,
                                            apply_t, call_tag)
-        return self._slot_loop(state, r, sr_t, sender_t, apply_t, call_tag)
+        return self._slot_loop(state, r, sr_t, sender_t, apply_t, extra_t,
+                               call_tag, post)
 
     def _deliver_phase(self, state: SimState, r: int):
-        """Deliver this round's mailbox cell and queue the replies it asks
-        for; returns the failure counts, the diagnostics of the cell, and
-        the replies sent and their size."""
+        """Deliver this round's mailbox cell, queue the replies it asks
+        for, then :meth:`_post_deliver`; returns the failure counts, the
+        diagnostics of the cell, and the replies and extra messages sent
+        and their size."""
         n = self.n_nodes
         D = state.history_ages.shape[0]
         b = r % D
@@ -929,7 +1093,8 @@ class GossipSimulator:
         apply_t = valid_t & carries
         fails = FailureCounts(offline=(occupied_t & ~online[:, None]).sum())
         n_compact, n_wide = self._drain(state, r, sr_t, sender_t, apply_t,
-                                        K_CALL)
+                                        box.extra[b], K_CALL,
+                                        (valid_t, ty_t))
         n_replies, reply_size = 0, 0
         if self.protocol != AntiEntropyProtocol.PUSH:
             wants = valid_t & ((ty_t == MessageType.PULL)
@@ -938,22 +1103,25 @@ class GossipSimulator:
                 state, r, sender_t, wants)
             fails = fails + fail_q
         box.clear_cell(b)
-        return fails, {"mailbox_hwm": hwm, "compact_slots": n_compact,
-                       "wide_slots": n_wide}, n_replies, reply_size
+        ex_sent, ex_fails, ex_size = self._post_deliver(state, r)
+        return fails + ex_fails, {"mailbox_hwm": hwm,
+                                  "compact_slots": n_compact,
+                                  "wide_slots": n_wide}, \
+            n_replies + ex_sent, reply_size + ex_size
 
     def _queue_replies(self, state: SimState, r: int, sender_t, wants):
         """For each ``[N, K]`` request in ``wants`` a REPLY from its
         receiver to its sender, carrying the receiver's round-``r``
         snapshot, scattered into the reply box slot by slot (slot ``k``
-        draws its drops under ``K_REPLY_DROP * 101 + k`` and its delays
-        under ``K_REPLY_DELAY * 101 + k``). A reply counts as sent, with
+        draws its drops under ``K_REPLY_DROP * 101 + k``, its delays
+        under ``K_REPLY_DELAY * 101 + k`` and its payload under
+        ``(K_EXTRA + 31) * 101 + k``). A reply counts as sent, with
         the model's size, even when dropped or past the last reply slot.
         Returns ``(n_sent, fails, size)``."""
         n = self.n_nodes
         dev = self.device
         size = self._model_size()
         repliers = torch.arange(n, device=dev)
-        no_extra = torch.zeros(n, dtype=torch.int32, device=dev)
         n_sent, fails = 0, FailureCounts()
         for k, any_k in enumerate(wants.any(dim=0).tolist()):
             if not any_k:
@@ -967,7 +1135,8 @@ class GossipSimulator:
             n_overflow = self._scatter_messages(
                 state.reply_box, need & ~dropped, delays // self.delta,
                 sender_t[:, k], repliers, r, int(MessageType.REPLY),
-                no_extra, r, self.Kr)
+                self._reply_extra(state, r, (K_EXTRA + 31) * 101 + k), r,
+                self.Kr)
             fails = fails + FailureCounts(drop=(need & dropped).sum(),
                                           overflow=n_overflow)
         return n_sent, fails, n_sent * size
@@ -990,7 +1159,7 @@ class GossipSimulator:
         apply_t = occupied_t & online[:, None]
         fails = FailureCounts(offline=(occupied_t & ~online[:, None]).sum())
         n_compact, n_wide = self._drain(state, r, sr_t, sender_t, apply_t,
-                                        K_CALL + 53)
+                                        box.extra[b], K_CALL + 53)
         box.clear_cell(b)
         return fails, n_compact, n_wide
 
@@ -1077,6 +1246,7 @@ class GossipSimulator:
         """One round, in place; returns the round's stats (0-d tensors and
         metric rows, still on the device)."""
         r = state.round
+        self._pre_send(state, r)
         self._snapshot(state, r)
         n_sent, fail_s, size = self._send_phase(state, r)
         fail_d, diag, n_replies, reply_size = self._deliver_phase(state, r)

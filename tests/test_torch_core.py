@@ -1,8 +1,9 @@
 """The port's topology constructors and delay models against the JAX
-package's: ``random_regular`` (the edge set networkx gives), ``ring``,
-``get_peers`` and ``size``; the delays' ``max_delay`` and their draws,
-through the JAX draw oracle, equal to the JAX ``sample`` under the same
-key."""
+package's: ``random_regular`` and ``barabasi_albert`` (the edge sets
+networkx gives), ``ring``, ``get_peers`` and ``size``; the uniform and
+Metropolis-Hastings mixing matrices and their per-node weight rows; the
+delays' ``max_delay`` and their draws, through the JAX draw oracle, equal
+to the JAX ``sample`` under the same key."""
 
 import jax
 import numpy as np
@@ -35,6 +36,52 @@ def test_random_regular_refuses_what_it_cannot_build():
     with pytest.raises(ValueError):
         tcore.Topology.random_regular(4, 4)   # d >= n
     assert not tcore.Topology.random_regular(6, 0).adjacency.any()
+
+
+@pytest.mark.parametrize("n,m,seed", [(200, 10, 42), (50, 3, 1),
+                                      (31, 1, 7), (12, 11, 0)])
+def test_barabasi_albert_equals_networkx(n, m, seed):
+    got = tcore.Topology.barabasi_albert(n, m, seed=seed)
+    want = jcore.Topology.barabasi_albert(n, m, seed=seed,
+                                          backend="networkx")
+    np.testing.assert_array_equal(got.adjacency, want.adjacency)
+    assert (got.adjacency == got.adjacency.T).all()
+    assert got.degrees.sum() == 2 * m * (n - m)   # m edges a new node
+
+
+def test_barabasi_albert_refuses_what_it_cannot_build():
+    with pytest.raises(NotImplementedError):
+        tcore.Topology.barabasi_albert(10, 3, backend="native")
+    with pytest.raises(NotImplementedError):
+        tcore.Topology.barabasi_albert(2048, 3, backend="auto")
+    for m in (0, 10):
+        with pytest.raises(ValueError):
+            tcore.Topology.barabasi_albert(10, m)
+
+
+@pytest.mark.parametrize("kind", ["ba", "regular", "ring", "clique"])
+def test_mixing_matrices_match_jax(kind):
+    build = {"ba": lambda m: m.Topology.barabasi_albert(40, 3, seed=2),
+             "regular": lambda m: m.Topology.random_regular(30, 4, seed=1),
+             "ring": lambda m: m.Topology.ring(9, 2),
+             "clique": lambda m: m.Topology.clique(6)}[kind]
+    tt, jt = build(tcore), build(jcore)
+    for name in ("uniform_mixing", "metropolis_hastings_mixing"):
+        got = getattr(tcore, name)(tt)
+        want = np.asarray(getattr(jcore, name)(jt))
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-6)
+        np.testing.assert_array_equal(
+            tcore.mixing_weight_rows(got, tt),
+            np.asarray(jcore.mixing_weight_rows(want, jt)))
+    mh = tcore.metropolis_hastings_mixing(tt)
+    np.testing.assert_array_equal(mh, mh.T)
+
+
+def test_mixing_refuses_a_sparse_topology():
+    with pytest.raises(NotImplementedError):
+        tcore.uniform_mixing(object())
 
 
 @pytest.mark.parametrize("n,k", [(7, 1), (10, 3)])

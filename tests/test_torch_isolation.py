@@ -8,7 +8,7 @@
   only (the data dispatcher, the report) give array-equal output on the
   same inputs (the partitioners and the synthetic images:
   ``test_torch_data.py``).
-- The flagship twin and the four paper-example twins run end to end on
+- The flagship twin and the eight paper-example twins run end to end on
   the host with those modules blocked and no socket able to connect.
 """
 
@@ -72,7 +72,14 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.examples.main_hegedus_2020, "
         "gossipy_tpu_torch.examples.main_danner_2023, "
         "gossipy_tpu_torch.handlers.linear, gossipy_tpu_torch.handlers.kmeans, "
-        "gossipy_tpu_torch.handlers.mf\n"
+        "gossipy_tpu_torch.handlers.mf, gossipy_tpu_torch.flow_control, "
+        "gossipy_tpu_torch.compression, "
+        "gossipy_tpu_torch.simulation.nodes, "
+        "gossipy_tpu_torch.simulation.variants, "
+        "gossipy_tpu_torch.examples.main_giaretta_2019, "
+        "gossipy_tpu_torch.examples.main_hegedus_2021, "
+        "gossipy_tpu_torch.examples.main_onoszko_2021, "
+        "gossipy_tpu_torch.examples.main_all2all\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -110,6 +117,15 @@ PAPER_TWINS = {
     "main_berta_2014": (["--nodes", "12", "--rounds", "2"], "nmi"),
     "main_hegedus_2020": (["--rounds", "2"], "rmse"),
     "main_danner_2023": (["--nodes", "12", "--rounds", "2"], "accuracy"),
+    "main_giaretta_2019": (["--nodes", "24", "--rounds", "2", "--variant",
+                            "cacheneigh"], "accuracy"),
+    "main_hegedus_2021": (["--nodes", "12", "--rounds", "2", "--variant",
+                           "sampling"], "accuracy"),
+    "main_all2all": (["--nodes", "12", "--rounds", "2", "--mixing",
+                      "metropolis"], "accuracy"),
+    "main_onoszko_2021": (["--nodes", "3", "--subsample", "48",
+                           "--step1-rounds", "1", "--rounds", "2"],
+                          "accuracy"),
 }
 
 
@@ -125,6 +141,10 @@ def test_paper_twin_runs_with_jax_blocked(twin):
         "        raise OSError('no network')\n"
         "socket.socket = NoNet\n"
         f"import gossipy_tpu_torch.examples.{twin} as twin\n"
+        # A small synthetic set in place of the 60,000 CIFAR-10 images.
+        "from gossipy_tpu_torch.data import _synthetic_images as s\n"
+        "twin.get_CIFAR10 = lambda: (s('a', 48, (32, 32, 3), 10), "
+        "s('b', 10, (32, 32, 3), 10))\n"
         f"out = twin.main({args + ['--device', 'cpu']!r})\n"
         "print(json.dumps(out))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
