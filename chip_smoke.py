@@ -181,6 +181,39 @@ Phases, each printed as it runs; any failure exits non-zero:
    steps), the phase times, ``memory_budget()`` beside
    ``max_memory_allocated``.
 
+11. telemetry: the events, gossip-dynamics probes, numerics sentinels and
+   scheduled faults of ``gossipy_tpu_torch.simulation.events``,
+   ``telemetry.probes``, ``telemetry.health`` and ``simulation.faults``,
+   switched on with ``ProbeConfig()``, ``SentinelConfig()`` and the
+   examples' ``--chaos`` scenario (``examples/_common.py::
+   demo_chaos_config``: the population partitioned in half over the
+   middle third of the run, then healed). (a) On the card and on the CPU
+   from the same seeds, TEL_CHECK_ROUNDS rounds each: the north star on
+   the single-pass deliver (K1), the flagship at TEL_FLAG_CHECK_NODES
+   nodes and TEL_FLAG_CHECK_SUBSAMPLE images with fp32 compute and a
+   bf16 ring (K2, TEL_FLAG_CHECK_ROUNDS rounds) and All2All at
+   TEL_A2A_CHECK_NODES nodes: accounting, ``failed_chaos``, boxes and
+   ages equal; every probe, health and chaos integer array (staleness
+   histograms, accepted counts, non-finite counts, first bad slot,
+   divergence flags, trips, watermarks, component counts) equal; the
+   float arrays within REF_TOL plus REF_TOL of their magnitude (the
+   flagship's plus the most bf16 compute moves each in a round on the
+   CPU, the decision-flip rule); K1 or K2 once a round with messages,
+   every call
+   bit-equal to its plain version (``MergeAudit``: the probes read the
+   merged rows the deliver's own launch produced, so no second launch).
+   Then the north star with a NaN written into one node's params after 2
+   clean rounds: both trip in round 3 with the same first bad slot and
+   per-leaf counts. (b) The north star's three timed legs on K1, each a
+   warm-up and TEL_BENCH_ROUNDS rounds in two halves, interleaved (the
+   legs in order, then in reverse, so a drift of the host's speed falls
+   on each alike): telemetry off, probes and sentinels, and the chaos
+   added (its gap's peak and ``rounds_to_reconverge``), rounds/s of each
+   and its share of the first; the full-width flagship (FLAG_NODES nodes, bf16 compute, bf16
+   ring) with all three on for FLAG_ROUNDS rounds, its ms/round beside
+   phase 8's bf16 leg. In (b) no call of K1's or K3's plain version is
+   allowed, and the launches are K1 or K2 once a round with messages.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -734,7 +767,11 @@ class MergeAudit:
             if len(launched) != 1:
                 raise RuntimeError(f"a merge call launched {launched}")
             want = plain(p, h, idx, w_self, w_peer, scale, leaf_starts)
-            err = float((out - want).abs().max())
+            # Bit-equal, a NaN where the plain version has a NaN (a run
+            # with a NaN written into its params merges NaN rows).
+            same = (out == want) | (out.isnan() & want.isnan())
+            err = 0.0 if bool(same.all()) else \
+                float((out - want).abs()[~same].max())
             n = self.sim.n_nodes
             cells = idx.long()[w_peer != 0] // n
             depth = h.shape[0] // n
@@ -1085,8 +1122,9 @@ def flagship_timed(torch, merge, flag, stacked, wire: str) -> dict:
 def flagship_phase(torch, merge, rate) -> tuple:
     """Phase 8: (a) the card against the CPU at a reduced size, K1 and K2
     at the flagship's shape, (b) the three timed ring legs at full width.
-    Returns the launches per (kernel, ring) and path, and K1's and K2's
-    numbers at the flagship shape."""
+    Returns the launches per (kernel, ring) and path, K1's and K2's
+    numbers at the flagship shape and the bf16 ring leg's ms/round
+    (phase 11 runs that leg again)."""
     from gossipy_tpu_torch.data import get_CIFAR10, to_device
     from gossipy_tpu_torch.examples import main_cifar10_100nodes as flag
 
@@ -1124,7 +1162,7 @@ def flagship_phase(torch, merge, rate) -> tuple:
         for k, v in legs[wire]["launches"].items():
             paths.setdefault((k, wire), {})[f"flagship-{wire}"] = v
         torch.cuda.empty_cache()
-    return paths, at_shape
+    return paths, at_shape, legs["bfloat16"]["ms_per_round"]
 
 
 PAPERS = ("ormandi", "berta", "hegedus", "danner")
@@ -1442,7 +1480,8 @@ def tokenized_northstar(torch, device, seed: int, wire: str):
                          n_classes=2, input_shape=(d,),
                          create_model_mode=CreateModelMode.MERGE_UPDATE)
     sim = TokenizedGossipSimulator(
-        handler, Topology.random_regular(NS_NODES, NS_DEGREE, seed=42),
+        handler, Topology.random_regular(NS_NODES, NS_DEGREE, seed=42,
+                                         backend="networkx"),
         stacked, token_account=SimpleTokenAccount(C=1), delta=100,
         protocol=AntiEntropyProtocol.PUSH, fused_merge="per_slot",
         history_dtype=wire, draws=TorchDraws(seed), device=device)
@@ -1707,6 +1746,425 @@ def variants_phase(torch, merge, rate) -> tuple:
             paths.setdefault((k, wire), {})[label] = v
         torch.cuda.empty_cache()
     return paths, shapes
+
+
+# -- phase 11: events, probes, sentinels and chaos ---------------------------
+
+TEL_CHECK_ROUNDS = 12       # the card-against-CPU runs
+TEL_FLAG_CHECK_ROUNDS = 6
+TEL_FLAG_CHECK_NODES = 16
+TEL_FLAG_CHECK_SUBSAMPLE = 256
+TEL_A2A_CHECK_NODES = 32
+TEL_NAN_CLEAN = 2           # clean rounds before the NaN is written
+TEL_NAN_ROUNDS = 3          # rounds after it
+TEL_NAN_AT = (7, 0)         # (node, column) the NaN is written to
+TEL_BENCH_ROUNDS = BENCH_ROUNDS
+
+
+def telemetry_kw(nodes: int, rounds: int) -> dict:
+    """``ProbeConfig(True)``, ``SentinelConfig(True)`` and the examples'
+    ``--chaos`` scenario (``demo_chaos_config``: a half/half partition
+    over the middle third of ``rounds``) as simulator arguments, and the
+    heal round."""
+    import argparse
+
+    from gossipy_tpu_torch.examples._common import demo_chaos_config
+    from gossipy_tpu_torch.telemetry import ProbeConfig, SentinelConfig
+    args = argparse.Namespace(chaos=True, nodes=nodes, rounds=rounds)
+    chaos = demo_chaos_config(args)
+    return dict(probes=ProbeConfig(), sentinels=SentinelConfig(),
+                chaos=chaos), args._chaos_heal
+
+
+def rounded(arr):
+    """A per-round array as a list for the log (6 decimals), or None."""
+    return None if arr is None else np.round(np.asarray(arr, np.float64),
+                                             6).tolist()
+
+
+def telemetry_fields(rep) -> list:
+    """The report's probe, health and chaos arrays that the run filled."""
+    from gossipy_tpu_torch.simulation.report import PER_ROUND_FIELDS
+    return [f for f in PER_ROUND_FIELDS
+            if f.startswith(("probe_", "health_", "chaos_"))
+            and getattr(rep, f) is not None]
+
+
+def check_same_telemetry(label, r_c, r_g, extra=None) -> float:
+    """The CPU run's and the card run's probe, health and chaos arrays:
+    the same set filled; integer arrays (staleness histograms, accepted
+    counts, non-finite counts, first bad slot, divergence flags, trip,
+    watermarks, component counts) equal; float arrays within REF_TOL plus
+    REF_TOL of their magnitude, plus ``extra[field]`` (the decision-flip
+    rule's allowance), NaN where the other is NaN. Returns the worst
+    margin to the tolerance (<= 0)."""
+    fields = telemetry_fields(r_c)
+    if fields != telemetry_fields(r_g) or not fields:
+        raise RuntimeError(f"{label}: telemetry arrays differ: CPU {fields}, "
+                           f"card {telemetry_fields(r_g)}")
+    worst = -np.inf
+    for f in fields:
+        a, b = np.asarray(getattr(r_c, f)), np.asarray(getattr(r_g, f))
+        if a.shape != b.shape:
+            raise RuntimeError(f"{label}: {f} shapes {a.shape}, {b.shape}")
+        if a.dtype.kind in "iub":
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"{label}: card and CPU differ in {f}")
+            continue
+        tol = REF_TOL + REF_TOL * np.abs(a)
+        if extra is not None:
+            tol = tol + extra[f]
+        both_nan = np.isnan(a) & np.isnan(b)
+        margin = np.where(both_nan, -np.inf, np.abs(a - b) - tol)
+        if np.isnan(margin).any() or float(margin.max()) > 0:
+            raise RuntimeError(f"{label}: card and CPU differ in {f}: "
+                               f"{a.tolist()} vs {b.tolist()}")
+        worst = max(worst, float(margin.max()))
+    return worst
+
+
+def telemetry_run(torch, merge, build, device, rounds, nan_at=None):
+    """``rounds`` rounds of ``build(device)``'s simulator; on the card
+    every merge call held to its plain version (:class:`MergeAudit`).
+    With ``nan_at = (clean, node, column)``, a NaN is written into that
+    param after ``clean`` rounds and the run goes on in a second
+    ``start()``. Returns the simulator, the state, the report (the two
+    segments concatenated), the launches and the audit's stats."""
+    from gossipy_tpu_torch.simulation import SimulationReport
+    sim, state = build(device)
+    merge.reset_launch_counts()
+    audit = MergeAudit(torch, merge, sim)
+    with audit if device == "cuda" else contextlib.nullcontext():
+        if nan_at is None:
+            state, rep = sim.start(state, n_rounds=rounds)
+        else:
+            clean, node, col = nan_at
+            state, first = sim.start(state, n_rounds=clean)
+            state.model.params[node, col] = float("nan")
+            state, rest = sim.start(state, n_rounds=rounds - clean)
+            rep = SimulationReport.concatenate([first, rest])
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    return sim, state, rep, launches, audit.stats
+
+
+def telemetry_card_vs_cpu(torch, merge, label, build, rounds, kernel,
+                          nan_at=None, extra_build=None) -> dict:
+    """One configuration with probes, sentinels and chaos on the CPU and
+    on the card from the same seeds: accounting (``failed_chaos``
+    included), boxes and ages equal; params within REF_TOL plus REF_TOL
+    of their magnitude, or, where ``extra_build`` gives the same run
+    with bf16 compute, by the decision-flip rule for an fp32 run (PERF.md
+    §2: the largest element within the largest of what bf16 compute
+    moves the CPU's run, the median within REF_TOL, each plus one ring
+    step; each telemetry float array within REF_TOL plus REF_TOL of its
+    magnitude plus the most bf16 compute moves it in any round on the
+    CPU);
+    the telemetry arrays by :func:`check_same_telemetry`; ``kernel``
+    launched once a round with
+    messages on the card, none on the CPU, every call bit-equal to its
+    plain version. Returns the card run's report and launches."""
+    t0 = time.perf_counter()
+    sim, st_c, r_c, l_c, _ = telemetry_run(torch, merge, build, "cpu",
+                                           rounds, nan_at)
+    t1 = time.perf_counter()
+    _, st_g, r_g, l_g, stats = telemetry_run(torch, merge, build, "cuda",
+                                             rounds, nan_at)
+    t2 = time.perf_counter()
+    check_same_accounting(torch, label, st_c, st_g, r_c, r_g)
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    diff = (p_c - p_g).abs()
+    if nan_at is not None:
+        same_nan = torch.equal(torch.isnan(p_c), torch.isnan(p_g))
+        diff = torch.where(torch.isnan(p_c) & torch.isnan(p_g), 0.0, diff)
+        if not same_nan:
+            raise RuntimeError(f"{label}: card and CPU NaN params differ")
+    extra, rule = None, "REF_TOL plus REF_TOL of the magnitude"
+    if extra_build is None:
+        over = float((diff - REF_TOL
+                      - REF_TOL * p_c.abs().nan_to_num(0.0)).max())
+    else:
+        # The decision-flip rule: against what bf16 compute
+        # (``extra_build``) moves the CPU's fp32 run.
+        _, st_e, r_e, _, _ = telemetry_run(torch, merge, extra_build, "cpu",
+                                           rounds)
+        effect = (p_c - st_e.model.params).abs()
+        step = ring_step(torch, sim, st_c, sim.history_dtype)
+        lim_max = float(effect.max()) + float(step.max())
+        lim_med = REF_TOL + float(step.median())
+        extra = {f: float(np.nanmax(np.abs(
+            np.asarray(getattr(r_e, f), np.float64)
+            - np.asarray(getattr(r_c, f), np.float64))))
+            for f in telemetry_fields(r_c)}
+        over = max(float(diff.max()) - lim_max,
+                   float(diff.median()) - lim_med)
+        rule = (f"decision-flip rule: largest {float(diff.max()):.3e} "
+                f"(limit {lim_max:.3e}), median {float(diff.median()):.3e} "
+                f"(limit {lim_med:.3e})")
+    ok = over <= 0
+    worst = check_same_telemetry(label, r_c, r_g, extra)
+    with_msgs = int(((r_g.compact_slots_per_round
+                      + r_g.wide_slots_per_round) > 0).sum())
+    calls = stats.get(kernel, {}).get("calls", 0)
+    if l_c or l_g != {kernel: with_msgs} or calls != with_msgs \
+            or with_msgs == 0:
+        raise RuntimeError(f"{label}: launches card {l_g}, CPU {l_c}, "
+                           f"audited {stats}; the path makes "
+                           f"{{{kernel}: {with_msgs}}}")
+    causes = {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()}
+    log(f"[telemetry] {label}: {rounds} rounds, card vs CPU: sent "
+        f"{int(r_g.sent_per_round.sum())}, failed {causes}; params max abs "
+        f"diff {float(diff.max()):.3e} ({rule}; worst margin {over:.3e}); "
+        f"telemetry arrays {len(telemetry_fields(r_g))}, worst float margin "
+        f"{worst:.3e} (<= 0 passes); trips {rounded(r_g.health_trip)}, "
+        f"first bad slot {rounded(r_g.health_first_bad_slot)}; gap "
+        f"{rounded(r_g.chaos_component_gap)}; launches "
+        f"{l_g}; merge calls held to the plain versions {stats}; CPU "
+        f"{t1 - t0:.1f} s, card {t2 - t1:.1f} s")
+    if not ok:
+        raise RuntimeError(f"{label}: card params do not agree with the "
+                           "CPU's")
+    return {"report": r_g, "launches": l_g}
+
+
+def telemetry_timed(torch, merge, legs, rounds, kernel,
+                    warmup: int = 1) -> dict:
+    """Timed legs, ``legs`` a list of ``(label, build, heal)``: each leg
+    ``warmup`` rounds on its own simulator, then ``rounds`` rounds on a
+    fresh one from the same seeds, in two halves (two ``start()`` calls,
+    the round counter and the carry going on): the legs in order, then in
+    reverse, so that a drift of the host's speed falls on each leg alike;
+    the card synchronised before the host clock stops each half. Each
+    leg: the kernel once a round with messages (counts set to 0 just
+    before each half), no call of K1's or K3's plain version (a telemetry
+    hook may not stand in for the kernel), finite params, no sentinel
+    trip; with ``heal``, the partition's gap peak and
+    ``rounds_to_reconverge``. Returns, per label, ms/round, rounds/s and
+    the launches."""
+    from gossipy_tpu_torch.simulation import SimulationReport, \
+        rounds_to_reconverge
+    for _, build, _ in legs:
+        sim, state = build("cuda")
+        sim.start(state, n_rounds=warmup)
+        torch.cuda.synchronize()
+        del sim, state
+    runs = {label: list(build("cuda")) + [0.0, {}, []]
+            for label, build, _ in legs}
+    plain_calls = []
+    saved = merge.gather_merge_multi_reference, merge.gather_merge_reference
+
+    def count(fn):
+        def call(*a, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return call
+    merge.gather_merge_multi_reference = count(saved[0])
+    merge.gather_merge_reference = count(saved[1])
+    order = [label for label, _, _ in legs]
+    try:
+        for half, n in ((order, rounds // 2),
+                        (order[::-1], rounds - rounds // 2)):
+            for label in half:
+                run = runs[label]
+                merge.reset_launch_counts()
+                t0 = time.perf_counter()
+                run[1], rep = run[0].start(run[1], n_rounds=n)
+                torch.cuda.synchronize()
+                run[2] += time.perf_counter() - t0
+                for k, v in merge.LAUNCHES.items():
+                    if v:
+                        run[3][k] = run[3].get(k, 0) + v
+                run[4].append(rep)
+    finally:
+        merge.gather_merge_multi_reference, merge.gather_merge_reference = \
+            saved
+    out = {}
+    for label, _, heal in legs:
+        _, state, wall, launches, reps = runs[label]
+        rep = SimulationReport.concatenate(reps)
+        with_msgs = int(((rep.compact_slots_per_round
+                          + rep.wide_slots_per_round) > 0).sum())
+        acc = rep.final("accuracy")
+        if launches != {kernel: with_msgs} or with_msgs == 0 or plain_calls:
+            raise RuntimeError(f"{label}: launches {launches}, plain calls "
+                               f"{plain_calls}; the path makes "
+                               f"{{{kernel}: {with_msgs}}} and no plain call")
+        if not torch.isfinite(state.model.params).all() or \
+                not np.isfinite(acc):
+            raise RuntimeError(f"{label}: non-finite params or accuracy")
+        extra = ""
+        if rep.health_trip is not None:
+            extra += f"; trips {int(rep.health_trip.sum())}"
+            if rep.health_trip.sum():
+                raise RuntimeError(f"{label}: a sentinel tripped on a clean "
+                                   "run")
+        if rep.probe_consensus_mean is not None:
+            extra += (f"; consensus first "
+                      f"{float(rep.probe_consensus_mean[0]):.6f} last "
+                      f"{float(rep.probe_consensus_mean[-1]):.6f}")
+        out[label] = {"ms_per_round": wall / rounds * 1e3,
+                      "rounds_per_s": rounds / wall, "launches": launches,
+                      "accuracy": acc, "with_msgs": with_msgs}
+        if heal is not None:
+            gap = rep.chaos_component_gap
+            r2r = rounds_to_reconverge(gap, heal)
+            out[label].update(gap_peak=float(np.nanmax(gap)),
+                              rounds_to_reconverge=r2r)
+            extra += (f"; failed_chaos "
+                      f"{int(rep.failed_per_cause['chaos'].sum())}, gap peak "
+                      f"{float(np.nanmax(gap)):.6f}, last {float(gap[-1]):.6f}"
+                      f", rounds_to_reconverge after the heal at round "
+                      f"{heal}: {r2r}")
+        log(f"[telemetry] {label}: {rounds} rounds in {wall:.3f} s = "
+            f"{rounds / wall:.2f} rounds/s ({wall / rounds * 1e3:.4f} "
+            f"ms/round); final accuracy {acc}; launches {launches} in "
+            f"{with_msgs} rounds with messages; plain calls 0{extra}")
+    return out
+
+
+def telemetry_phase(torch, merge, flag_ms) -> dict:
+    """Phase 11: (a) the north star (K1), the flagship at 16 nodes on a
+    bf16 ring (K2, fp32 compute) and All2All at 32 nodes, with probes,
+    sentinels and the demo chaos, on the card against the CPU; the north
+    star with a NaN written mid-run; (b) the north star's three 500-round
+    legs
+    (telemetry off, probes and sentinels, and the chaos added) and the
+    full-width flagship on its bf16 ring with all three on. Returns the
+    launches per (kernel, ring) and path."""
+    from gossipy_tpu_torch.examples import main_all2all as all2all
+    from gossipy_tpu_torch.examples import main_cifar10_100nodes as flag
+    from gossipy_tpu_torch.random import TorchDraws
+    paths = {}
+    k1, k2 = merge.KERNEL, merge.KERNEL_MULTI_DQ
+
+    # (a) the card against the CPU
+    kw, _ = telemetry_kw(NS_NODES, TEL_CHECK_ROUNDS)
+
+    def ns(device):
+        return northstar_sim(torch, device, seed=3, fused_merge="multi",
+                             **kw)
+    out = telemetry_card_vs_cpu(torch, merge, "north star multi", ns,
+                                TEL_CHECK_ROUNDS, k1)
+    paths.setdefault((k1, "float32"), {})["telemetry-ns-check"] = \
+        out["launches"][k1]
+    # The NaN: written into node 7's first column after 2 clean rounds;
+    # both trip in the third round, naming the same slot and leaf.
+    nan_kw = dict(kw, chaos=None)
+
+    def ns_nan(device):
+        return northstar_sim(torch, device, seed=3, fused_merge="multi",
+                             **nan_kw)
+    out = telemetry_card_vs_cpu(
+        torch, merge, "north star multi, NaN before round 3", ns_nan,
+        TEL_NAN_CLEAN + TEL_NAN_ROUNDS, k1,
+        nan_at=(TEL_NAN_CLEAN,) + TEL_NAN_AT)
+    rep = out["report"]
+    trip_round = int(np.argmax(rep.health_trip > 0))
+    if rep.health_trip[:TEL_NAN_CLEAN].any() or trip_round != TEL_NAN_CLEAN \
+            or rep.health_nonfinite_params[TEL_NAN_CLEAN, 0] < 1:
+        raise RuntimeError(f"NaN run: trips {rep.health_trip.tolist()}, "
+                           "the sentinel must trip in round 3")
+    log(f"[telemetry] NaN run: tripped in round {trip_round + 1}, first bad "
+        f"slot {int(rep.health_first_bad_slot[trip_round])}, non-finite "
+        f"params per leaf {rep.health_nonfinite_params[trip_round].tolist()}"
+        f", the same on the card and the CPU")
+
+    from gossipy_tpu_torch.data import get_CIFAR10, to_device
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the synthetic stand-in's note
+        sets = get_CIFAR10()
+    fstack = flag.flagship_data(TEL_FLAG_CHECK_NODES,
+                                TEL_FLAG_CHECK_SUBSAMPLE, sets=sets)
+    flag_stacked = to_device(flag.flagship_data(FLAG_NODES, sets=sets),
+                             "cuda")
+    del sets
+    fkw, _ = telemetry_kw(TEL_FLAG_CHECK_NODES, TEL_FLAG_CHECK_ROUNDS)
+
+    def flagship(bf16):
+        def build(device):
+            sim = flag.flagship_sim(fstack, TEL_FLAG_CHECK_NODES, bf16,
+                                    "multi", "bfloat16", device=device,
+                                    **fkw)
+            return sim, sim.init_nodes(torch.Generator().manual_seed(42),
+                                       common_init=True)
+        return build
+    out = telemetry_card_vs_cpu(
+        torch, merge, f"flagship {TEL_FLAG_CHECK_NODES} nodes, bf16 ring",
+        flagship(False), TEL_FLAG_CHECK_ROUNDS, k2,
+        extra_build=flagship(True))
+    paths.setdefault((k2, "bfloat16"), {})["telemetry-flagship-check"] = \
+        out["launches"][k2]
+
+    akw, _ = telemetry_kw(TEL_A2A_CHECK_NODES, TEL_CHECK_ROUNDS)
+    astack, dim = all2all.all2all_data(TEL_A2A_CHECK_NODES, 3)
+
+    def a2a(device):
+        sim = all2all.all2all_sim(astack, dim, "uniform", 3, TorchDraws(3),
+                                  device, **akw)
+        return sim, sim.init_nodes(torch.Generator().manual_seed(3))
+    t0 = time.perf_counter()
+    runs = [telemetry_run(torch, merge, a2a, dev, TEL_CHECK_ROUNDS)
+            for dev in ("cpu", "cuda")]
+    (_, st_c, r_c, l_c, _), (_, st_g, r_g, l_g, _) = runs
+    check_same_accounting(torch, "all2all", st_c, st_g, r_c, r_g)
+    worst = check_same_telemetry("all2all", r_c, r_g)
+    diff = (st_c.model.params - st_g.model.params.cpu()).abs()
+    if float((diff - REF_TOL - REF_TOL * st_c.model.params.abs()).max()) > 0 \
+            or l_c or l_g:
+        raise RuntimeError(f"all2all: params differ by {float(diff.max())} "
+                           f"or launches {l_c}, {l_g}")
+    log(f"[telemetry] all2all {TEL_A2A_CHECK_NODES} nodes: "
+        f"{TEL_CHECK_ROUNDS} rounds, card vs CPU: failed "
+        f"{ {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()} }, "
+        f"mixing non-finite {int(r_g.health_mix_nonfinite.sum())}, params max "
+        f"abs diff {float(diff.max()):.3e}, worst float margin {worst:.3e}; "
+        f"gap {rounded(r_g.chaos_component_gap)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) full width: the north star's three legs, interleaved
+    legs = []
+    for leg, on, chaos in (("off", False, False),
+                           ("probes+sentinels", True, False),
+                           ("probes+sentinels+chaos", True, True)):
+        tkw, heal = telemetry_kw(NS_NODES, TEL_BENCH_ROUNDS)
+        if not chaos:
+            tkw["chaos"], heal = None, None
+        if not on:
+            tkw = {}
+
+        def build(device, tkw=tkw):
+            return northstar_sim(torch, device, fused_merge="multi", **tkw)
+        legs.append((f"north star multi, {leg}", build, heal))
+    timed = telemetry_timed(torch, merge, legs, TEL_BENCH_ROUNDS, k1,
+                            warmup=NS_WARMUP_ROUNDS)
+    base = timed[legs[0][0]]["rounds_per_s"]
+    for label, v in timed.items():
+        leg = label.split(", ")[-1]
+        paths.setdefault((k1, "float32"), {})[f"telemetry-ns-{leg}"] = \
+            v["launches"][k1]
+    log("[telemetry] north star rounds/s: " + ", ".join(
+        f"{label.split(', ')[-1]} {v['rounds_per_s']:.2f} "
+        f"({v['rounds_per_s'] / base:.3f} of off)"
+        for label, v in timed.items()))
+    fkw, heal = telemetry_kw(FLAG_NODES, FLAG_ROUNDS)
+
+    def flag_full(device):
+        sim = flag.flagship_sim(flag_stacked, FLAG_NODES, True, "multi",
+                                "bfloat16", device=device, **fkw)
+        return sim, sim.init_nodes(torch.Generator().manual_seed(42),
+                                   common_init=True)
+    label = (f"flagship {FLAG_NODES} nodes, bf16 ring, "
+             "probes+sentinels+chaos")
+    out = telemetry_timed(torch, merge, [(label, flag_full, heal)],
+                          FLAG_ROUNDS, k2)[label]
+    if out["with_msgs"] != FLAG_ROUNDS:
+        raise RuntimeError("flagship: a round without messages")
+    paths.setdefault((k2, "bfloat16"), {})["telemetry-flagship"] = \
+        out["launches"][k2]
+    log(f"[telemetry] flagship bf16 ring: {out['ms_per_round']:.3f} ms/round "
+        f"with probes, sentinels and chaos, {flag_ms:.3f} without (phase 8)")
+    del flag_stacked
+    torch.cuda.empty_cache()
+    return paths
 
 
 def tensor_rate(name: str) -> float:
@@ -2585,7 +3043,7 @@ def main() -> int:
     ns_paths = northstar_phase(torch, merge, rate)
 
     # 8. the 100-node CIFAR-10 flagship
-    flag_paths, at_flagship = flagship_phase(torch, merge, rate)
+    flag_paths, at_flagship, flag_ms = flagship_phase(torch, merge, rate)
     for key, by_path in flag_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
 
@@ -2600,6 +3058,13 @@ def main() -> int:
     for key, by_path in variant_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[variants] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # 11. events, probes, sentinels and chaos
+    t0 = time.perf_counter()
+    tel_paths = telemetry_phase(torch, merge, flag_ms)
+    for key, by_path in tel_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[telemetry] phase 11 took {time.perf_counter() - t0:.1f} s")
 
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",

@@ -90,12 +90,15 @@ class Topology:
 
     @staticmethod
     def random_regular(n: int, degree: int, seed: int = 42,
-                       backend: str = "networkx") -> "Topology":
+                       backend: str = "auto") -> "Topology":
         """Random ``degree``-regular graph on ``n`` nodes, with the edge set
         networkx's ``random_regular_graph(degree, n, seed)`` gives (the JAX
-        package's ``backend="networkx"``). ``"native"``, and ``"auto"`` at
-        ``n >= NATIVE_THRESHOLD``, name the JAX package's C++ generators,
-        which are not ported yet."""
+        package's ``backend="networkx"``). The default ``"auto"`` is the
+        JAX package's: networkx's algorithm below ``NATIVE_THRESHOLD``
+        nodes, the C++ generator from there on. ``"native"``, and
+        ``"auto"`` at ``n >= NATIVE_THRESHOLD``, name that generator, which
+        is not ported yet: they raise, so the same call never gives the
+        two packages different edge sets."""
         Topology._check_backend(n, backend)
         a = np.zeros((n, n), dtype=bool)
         for s1, s2 in _random_regular_edges(degree, n, random.Random(seed)):
@@ -104,7 +107,7 @@ class Topology:
 
     @staticmethod
     def barabasi_albert(n: int, m: int, seed: int = 42,
-                        backend: str = "networkx") -> "Topology":
+                        backend: str = "auto") -> "Topology":
         """Preferential-attachment graph on ``n`` nodes, ``m`` edges from
         each new node, with the edge set networkx's
         ``barabasi_albert_graph(n, m, seed)`` gives. ``"native"``, and
@@ -124,8 +127,9 @@ class Topology:
         if backend == "native" or (backend == "auto"
                                    and n >= Topology.NATIVE_THRESHOLD):
             raise NotImplementedError(
-                "the native graph generators are not ported yet; pass "
-                "backend='networkx'")
+                "the native graph generators are not ported yet (backend="
+                f"{backend!r} at n={n}, threshold "
+                f"{Topology.NATIVE_THRESHOLD}); pass backend='networkx'")
 
     def get_peers(self, node_id: int) -> list[int]:
         """Peer ids of one node."""

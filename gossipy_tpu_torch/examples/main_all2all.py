@@ -8,9 +8,10 @@ sgd(0.1))``, batch 32, MERGE_UPDATE; every node that fires pushes to all
 its peers and the receivers mix with ``--mixing`` weights (uniform or
 Metropolis-Hastings): the whole population's merge is one ``W_eff @ P``
 matrix product a round. Async, a 10% sampled evaluation, 100 rounds.
-``--probes``, ``--sentinels`` and ``--chaos`` name options the port has
-not taken over yet: set, they raise ``NotImplementedError``. It runs on
-the card; ``--device cpu`` runs on the host:
+``--probes``, ``--sentinels`` and ``--chaos`` (a half/half partition over
+the middle third of the run) switch on the gossip-dynamics probes, the
+numerics sentinels and the scheduled faults, and the summary reports
+them. It runs on the card; ``--device cpu`` runs on the host:
 
     python3 -m gossipy_tpu_torch.examples.main_all2all
     python3 -m gossipy_tpu_torch.examples.main_all2all \\
@@ -26,7 +27,9 @@ from gossipy_tpu_torch.core import AntiEntropyProtocol, CreateModelMode, \
     Topology, metropolis_hastings_mixing, uniform_mixing
 from gossipy_tpu_torch.data import ClassificationDataHandler, \
     DataDispatcher, load_classification_dataset
-from gossipy_tpu_torch.examples._common import finish, make_parser
+from gossipy_tpu_torch.examples._common import add_chaos_flag, \
+    add_probes_flag, add_sentinels_flag, demo_chaos_config, finish, \
+    make_parser
 from gossipy_tpu_torch.handlers import WeightedSGDHandler, losses
 from gossipy_tpu_torch.models import LogisticRegression
 from gossipy_tpu_torch.optim import add_decayed_weights, chain, sgd
@@ -59,7 +62,8 @@ def all2all_sim(stacked, dim: int, mixing: str = "uniform", seed: int = 42,
     ``TorchDraws(seed)`` unless ``draws`` is given; ``kw`` goes to the
     simulator."""
     n = int(stacked["mtr"].shape[0])
-    topology = Topology.random_regular(n, min(DEGREE, n - 1), seed=42)
+    topology = Topology.random_regular(n, min(DEGREE, n - 1), seed=42,
+                                        backend="networkx")
     handler = WeightedSGDHandler(
         LogisticRegression(dim, 2), losses.cross_entropy,
         optimizer=chain(add_decayed_weights(1e-2), sgd(0.1)),
@@ -76,17 +80,16 @@ def main(argv=None) -> dict:
     parser = make_parser(__doc__, rounds=100, nodes=100)
     parser.add_argument("--mixing", choices=sorted(MIXINGS),
                         default="uniform")
-    for flag in ("--probes", "--sentinels", "--chaos"):
-        parser.add_argument(flag, action="store_true",
-                            help="not ported yet (raises when set)")
+    add_probes_flag(parser)
+    add_sentinels_flag(parser)
+    add_chaos_flag(parser)
     args = parser.parse_args(argv)
     generator = set_seed(args.seed)
     stacked, dim = all2all_data(args.nodes, args.seed)
     sim = all2all_sim(stacked, dim, args.mixing, args.seed,
-                      device=args.device,
-                      probes=args.probes or None,
-                      sentinels=args.sentinels or None,
-                      chaos=args.chaos or None)
+                      device=args.device, probes=args.probes,
+                      sentinels=args.sentinels,
+                      chaos=demo_chaos_config(args))
     state = sim.init_nodes(generator)
     state, report = sim.start(state, n_rounds=args.rounds)
     return finish(report, args, local=False)

@@ -13,10 +13,17 @@ evaluation, sync nodes and a common initialisation.
 ``--history-dtype bfloat16|int8`` stores the history ring in a quantized
 wire format; ``--deliver`` picks the deliver path (``multi``, the port's
 default, blends every live message in one launch of the multi-slot
-gather-merge kernel). It runs on the card; ``--device cpu`` runs the plain
-versions on the host (use small ``--nodes`` and ``--subsample`` there):
+gather-merge kernel); ``--probes``, ``--sentinels`` and ``--chaos`` (a
+half/half partition over the middle third of the run) switch on the
+gossip-dynamics probes, the numerics sentinels and the scheduled faults,
+and the summary reports them. The JAX script's ``--plot`` is not here
+(the card's machine has no matplotlib). It runs on the card; ``--device
+cpu`` runs the plain versions on the host (use small ``--nodes`` and
+``--subsample`` there):
 
     python3 -m gossipy_tpu_torch.examples.main_cifar10_100nodes --bf16
+    python3 -m gossipy_tpu_torch.examples.main_cifar10_100nodes --bf16 \
+        --history-dtype bfloat16 --probes --sentinels --chaos --rounds 10
     python3 -m gossipy_tpu_torch.examples.main_cifar10_100nodes \\
         --device cpu --nodes 8 --subsample 512 --rounds 2
 """
@@ -36,6 +43,9 @@ from gossipy_tpu_torch.core import AntiEntropyProtocol, CreateModelMode, \
     Topology
 from gossipy_tpu_torch.data import AssignmentHandler, \
     ClassificationDataHandler, DataDispatcher, get_CIFAR10
+from gossipy_tpu_torch.examples._common import add_chaos_flag, \
+    add_probes_flag, add_sentinels_flag, demo_chaos_config, \
+    telemetry_summary
 from gossipy_tpu_torch.handlers import SGDHandler, losses
 from gossipy_tpu_torch.models import CIFAR10Net
 from gossipy_tpu_torch.optim import add_decayed_weights, chain, sgd
@@ -70,6 +80,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "launch a round)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    add_probes_flag(p)
+    add_sentinels_flag(p)
+    add_chaos_flag(p)
     return p.parse_args(argv)
 
 
@@ -117,19 +130,21 @@ def flagship_handler(bf16: bool = False) -> SGDHandler:
 def flagship_sim(stacked: dict, n: int, bf16: bool = False,
                  deliver: str = "multi", history_dtype: str = "float32",
                  eval_every: int = 1, seed: int = 42, draws=None,
-                 device=None) -> GossipSimulator:
+                 device=None, **kw) -> GossipSimulator:
     """The flagship simulator over ``stacked`` (numpy, or tensors already
     on the device): PUSH on ``random_regular(n, min(20, n - 1),
     seed=42)``, ``delta=100``, a 10% sampled evaluation, sync nodes; draws
-    from ``TorchDraws(seed)`` unless ``draws`` is given."""
+    from ``TorchDraws(seed)`` unless ``draws`` is given; ``kw`` (probes,
+    sentinels, chaos) goes to the simulator."""
     return GossipSimulator(
         flagship_handler(bf16),
-        Topology.random_regular(n, min(DEGREE, n - 1), seed=42),
+        Topology.random_regular(n, min(DEGREE, n - 1), seed=42,
+                                backend="networkx"),
         stacked, delta=100, protocol=AntiEntropyProtocol.PUSH,
         sampling_eval=0.1, sync=True, eval_every=eval_every,
         fused_merge=DELIVER[deliver], history_dtype=history_dtype,
         draws=draws if draws is not None else TorchDraws(seed),
-        device=device)
+        device=device, **kw)
 
 
 def main(argv=None) -> dict:
@@ -138,7 +153,9 @@ def main(argv=None) -> dict:
     stacked = flagship_data(args.nodes, args.subsample, args.beta, args.seed)
     sim = flagship_sim(stacked, args.nodes, args.bf16, args.deliver,
                        args.history_dtype, args.eval_every, args.seed,
-                       device=args.device)
+                       device=args.device, probes=args.probes,
+                       sentinels=args.sentinels,
+                       chaos=demo_chaos_config(args))
     budget = sim.memory_budget()
     print(f"[cifar10-100nodes] history ring ({args.history_dtype}): "
           f"{budget['history_ring_bytes'] / 2**20:.1f} MB "
@@ -162,6 +179,7 @@ def main(argv=None) -> dict:
                "final": {k: round(float(v[-1]), 4)
                          for k, v in report.curves(local=False).items()
                          if len(v) and np.isfinite(v[-1])}}
+    summary.update(telemetry_summary(report, args))
     print(json.dumps(summary))
     return summary
 

@@ -68,7 +68,8 @@ def danner_sim(stacked, dim: int, seed: int = 42, draws=None,
     n = int(stacked["mtr"].shape[0])
     return GossipSimulator(
         danner_handler(dim),
-        Topology.random_regular(n, min(DEGREE, n - 1), seed=42), stacked,
+        Topology.random_regular(n, min(DEGREE, n - 1), seed=42,
+                                backend="networkx"), stacked,
         delta=100, protocol=AntiEntropyProtocol.PUSH,
         delay=UniformDelay(0, 10), online_prob=0.2, drop_prob=0.1,
         sampling_eval=0.1, sync=True,

@@ -69,7 +69,8 @@ def giaretta_sim(stacked, dim: int, variant: str = "vanilla",
     handler = PegasosHandler(net=AdaLine(dim), learning_rate=0.01,
                              create_model_mode=CreateModelMode.MERGE_UPDATE)
     return SIMULATORS[variant](
-        handler, Topology.barabasi_albert(n, min(ATTACH, n - 1), seed=seed),
+        handler, Topology.barabasi_albert(n, min(ATTACH, n - 1), seed=seed,
+                                           backend="networkx"),
         stacked, delta=100, protocol=AntiEntropyProtocol.PUSH,
         sampling_eval=0.1, sync=False,
         draws=draws if draws is not None else TorchDraws(seed),

@@ -62,7 +62,8 @@ def hegedus_sim(stacked, n_items: int, seed: int = 42, draws=None,
                         learning_rate=0.001,
                         create_model_mode=CreateModelMode.MERGE_UPDATE)
     return GossipSimulator(
-        handler, Topology.random_regular(n, min(DEGREE, n - 1), seed=42),
+        handler, Topology.random_regular(n, min(DEGREE, n - 1), seed=42,
+                                         backend="networkx"),
         stacked, delta=100, protocol=AntiEntropyProtocol.PUSH,
         delay=UniformDelay(0, 10), sampling_eval=0.1, sync=True,
         draws=draws if draws is not None else TorchDraws(seed),

@@ -79,7 +79,8 @@ def hegedus2021_sim(stacked, dim: int, variant: str = "partitioning",
                delay=UniformDelay(0, 10), sampling_eval=0.1, sync=True,
                draws=draws if draws is not None else TorchDraws(seed),
                device=device, **kw)
-    topology = Topology.random_regular(n, min(DEGREE, n - 1), seed=42)
+    topology = Topology.random_regular(n, min(DEGREE, n - 1), seed=42,
+                                        backend="networkx")
     if variant == "partitioning":
         handler = PartitionedSGDHandler(
             ModelPartition(ParamLayout(model.leaves), PARTS), model,

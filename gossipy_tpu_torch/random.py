@@ -164,7 +164,11 @@ class TorchDraws(DrawProvider):
 
     def __init__(self, seed: int = 42):
         self.generator = torch.Generator().manual_seed(seed)
-        self._neighbours = None   # (adjacency, degrees, row starts, ids)
+        # id(adjacency) -> (adjacency, degrees, row starts, ids): one entry
+        # per adjacency tensor a run draws over (the topology's, and under
+        # chaos one per distinct edge-alive mask), kept for the provider's
+        # life so that alternating between them copies nothing.
+        self._neighbours: dict = {}
 
     def _perms(self, n: int, epochs: int, s: int) -> torch.Tensor:
         u = torch.rand((n, max(epochs, 1), s), generator=self.generator)
@@ -185,14 +189,14 @@ class TorchDraws(DrawProvider):
     def _neighbour_lists(self, adjacency: torch.Tensor):
         """The adjacency's neighbour lists on the host, ``(degrees, row
         starts, neighbour ids)``, made once per adjacency tensor."""
-        cached = self._neighbours
+        cached = self._neighbours.get(id(adjacency))
         if cached is None or cached[0] is not adjacency:
             adj = adjacency.cpu()
             deg = adj.sum(dim=1)
             starts = torch.cumsum(deg, 0) - deg
             ids = adj.nonzero()[:, 1].to(torch.int32)
             cached = (adjacency, deg, starts, ids)
-            self._neighbours = cached
+            self._neighbours[id(adjacency)] = cached
         return cached[1:]
 
     def peers(self, r, adjacency, sub=0, purpose=K_PEER, fold=0):

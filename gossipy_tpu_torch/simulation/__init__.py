@@ -1,6 +1,12 @@
-"""The gossip simulation engine, its variants and its report."""
+"""The gossip simulation engine, its variants, its events, its scheduled
+faults and its report."""
 
 from .engine import GossipSimulator, Mailbox, SimState
+from .events import CallbackReceiver, JSONLinesReceiver, ProgressReceiver, \
+    SimulationEventReceiver, SimulationEventSender
+from .faults import ChaosConfig, ChurnProcess, FaultSchedule, FaultSpike, \
+    OutageEpisode, PartitionEpisode, build_fault_schedule, \
+    rounds_to_reconverge
 from .nodes import CacheNeighGossipSimulator, PassThroughGossipSimulator, \
     PartitioningGossipSimulator, PENSGossipSimulator, \
     SamplingGossipSimulator, build_neighbor_table
@@ -9,8 +15,13 @@ from .variants import All2AllGossipSimulator, TokenizedGossipSimulator, \
     TokenizedPartitioningGossipSimulator
 
 __all__ = ["All2AllGossipSimulator", "CacheNeighGossipSimulator",
-           "GossipSimulator", "Mailbox", "PENSGossipSimulator",
+           "CallbackReceiver", "ChaosConfig", "ChurnProcess",
+           "FaultSchedule", "FaultSpike", "GossipSimulator",
+           "JSONLinesReceiver", "Mailbox", "OutageEpisode",
+           "PENSGossipSimulator", "PartitionEpisode",
            "PartitioningGossipSimulator", "PassThroughGossipSimulator",
-           "SamplingGossipSimulator", "SimState", "SimulationReport",
-           "TokenizedGossipSimulator", "TokenizedPartitioningGossipSimulator",
-           "build_neighbor_table"]
+           "ProgressReceiver", "SamplingGossipSimulator",
+           "SimState", "SimulationEventReceiver", "SimulationEventSender",
+           "SimulationReport", "TokenizedGossipSimulator",
+           "TokenizedPartitioningGossipSimulator", "build_fault_schedule",
+           "build_neighbor_table", "rounds_to_reconverge"]

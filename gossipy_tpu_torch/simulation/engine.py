@@ -56,11 +56,36 @@ round's accounting). A fused path refuses a variant that overrides a
 receive hook it replaces, as the JAX engine does
 (:meth:`GossipSimulator._fused_refusal`).
 
+Opt-in telemetry, as in the JAX engine (each None by default, and then
+the round computes none of it):
+
+- ``probes=`` (:mod:`~gossipy_tpu_torch.telemetry.probes`): consensus
+  distance after the round; staleness and accepted merges folded slot by
+  slot; the merge and train deltas, where the merged rows are the deliver
+  kernel's own output (the fused paths keep the rows the gather-merge
+  launch produced, before training) or, on the plain path, the handler's
+  ``merge`` over the same gather;
+- ``sentinels=`` (:mod:`~gossipy_tpu_torch.telemetry.health`): the
+  round's vitals after :meth:`GossipSimulator._round`, against a copy of
+  the round-start params, with a carry that persists across ``start()``
+  calls until ``init_nodes``; the first slot whose delivery left a
+  non-finite param;
+- ``chaos=`` (:mod:`~gossipy_tpu_torch.simulation.faults`): forced-offline
+  nodes neither send nor receive (the ``chaos`` failure cause), peers are
+  drawn over the round's alive edges (one masked adjacency per distinct
+  schedule mask, made once), drop and delay spikes.
+
+:class:`GossipSimulator` is a
+:class:`~gossipy_tpu_torch.simulation.events.SimulationEventSender`:
+receivers get the run's rounds replayed when it ends, or, when ``live``,
+at each round boundary (one host sync a round, only then).
+
 Ported: PUSH, PULL and PUSH_PULL, sync and async nodes, the three delay
 models, sampled evaluation, the three deliver paths with wide and compact
 dispatch, the three ring formats, every create-model mode (UPDATE_MERGE on
 the plain path, as in the JAX engine), handlers with and without optimizer
-state or shard orders (``BaseHandler``'s defaults),
+state or shard orders (``BaseHandler``'s defaults), probes, sentinels and
+chaos over a dense topology, event receivers,
 :meth:`GossipSimulator.memory_budget` and
 :meth:`GossipSimulator.run_repetitions`. Every other option of the JAX
 engine raises ``NotImplementedError``.
@@ -80,11 +105,20 @@ from .. import resolve_device
 from ..core import AntiEntropyProtocol, ConstantDelay, CreateModelMode, \
     Delay, MessageType, Topology
 from ..data import to_device
-from ..handlers.base import ModelState, PeerModel, select_state
+from ..handlers.base import ModelState, PeerModel, select_rows, \
+    select_state
 from ..ops.merge import column_leaves, gather_merge_flat, gather_merge_multi
-from ..random import K_CALL, K_DELAY, K_DROP, K_EXTRA, K_ONLINE, \
+from ..random import K_CALL, K_DELAY, K_DROP, K_EXTRA, K_ONLINE, K_PEER, \
     K_REPLY_DELAY, K_REPLY_DROP, DrawProvider, TorchDraws
 from ..telemetry import FailureCounts
+from ..telemetry.health import HEALTH_STAT_KEYS, HealthCarry, \
+    SentinelConfig, health_event_row, health_round_stats, nonfinite_total
+from ..telemetry.probes import PROBE_STAT_KEYS, ProbeAccum, ProbeConfig, \
+    consensus_stats, param_layer_names, probe_event_row, \
+    probe_stats_from_accum, sq_param_distance
+from .events import SimulationEventSender
+from .faults import CHAOS_PROBE_KEYS, ChaosConfig, build_fault_schedule, \
+    chaos_event_row, chaos_round_stats
 from .report import SimulationReport
 
 # Image rows one evaluation chunk may push through the model at once
@@ -174,6 +208,16 @@ def _take(perms: Optional[torch.Tensor], idx: torch.Tensor):
     return None if perms is None else perms[idx]
 
 
+@dataclasses.dataclass
+class _SlotTelemetry:
+    """What a drain folds in for the probes and the sentinels: the probe
+    accumulator (None when the slot probes are off) and the first slot
+    whose delivery left a non-finite param (None when not tracked)."""
+
+    pa: Optional[ProbeAccum] = None
+    first_bad: Optional[torch.Tensor] = None
+
+
 def _rank_within_group(key: torch.Tensor) -> torch.Tensor:
     """For each element, its 0-based rank among equal values of ``key``
     (in index order)."""
@@ -189,7 +233,7 @@ def _rank_within_group(key: torch.Tensor) -> torch.Tensor:
     return rank
 
 
-class GossipSimulator:
+class GossipSimulator(SimulationEventSender):
     """Vanilla gossip simulator.
 
     Parameters follow ``gossipy_tpu.simulation.GossipSimulator``; those the
@@ -211,6 +255,9 @@ class GossipSimulator:
         PUSH_PULL).
     history_dtype : "float32" | "bfloat16" | "int8"
         The ring's wire format.
+    probes, sentinels, chaos
+        As in the JAX engine: ``ProbeConfig`` or bool, ``SentinelConfig``
+        or bool, ``ChaosConfig`` or dict (a dense topology only).
     draws : DrawProvider | None
         Source of every random draw of the run (default
         :class:`~gossipy_tpu_torch.random.TorchDraws` seeded with 42).
@@ -258,8 +305,7 @@ class GossipSimulator:
         if history_dtype not in self._HISTORY_DTYPES:
             raise ValueError(f"unknown history_dtype {history_dtype!r}; "
                              "options: " + ", ".join(self._HISTORY_DTYPES))
-        unported = {"mesh": mesh, "probes": probes, "sentinels": sentinels,
-                    "chaos": chaos, "perf": perf, "metrics": metrics,
+        unported = {"mesh": mesh, "perf": perf, "metrics": metrics,
                     "cohort": cohort, "tracing": tracing, "ledger": ledger}
         for name, val in unported.items():
             if val is not None:
@@ -329,6 +375,44 @@ class GossipSimulator:
         self._col_leaf = column_leaves(starts, layout.stride, self.device)
         self._slot_hook = (type(self)._post_receive_slot
                            is not GossipSimulator._post_receive_slot)
+        self.probes = ProbeConfig.coerce(probes)
+        self.sentinels = SentinelConfig.coerce(sentinels)
+        # The sentinels' cross-round state: persists across start() calls,
+        # reset by init_nodes.
+        self._health_carry: Optional[HealthCarry] = None
+        # The merge/train-delta decomposition is exact only for the base
+        # receive pipeline under MERGE_UPDATE; elsewhere it is NaN.
+        self._probe_delta_ok = (
+            self.probes is not None and self.probes.mixing
+            and handler.mode == CreateModelMode.MERGE_UPDATE
+            and not self._overridden(["_apply_receive", "_receive_rows"]))
+        self._init_chaos(ChaosConfig.coerce(chaos))
+
+    def _init_chaos(self, chaos: Optional[ChaosConfig]) -> None:
+        """Compile the chaos config into its tables: on the host (the
+        per-round rates and mask indices, read by round number) and on
+        the device (forced-offline rows, component ids)."""
+        self.chaos = chaos
+        self.chaos_schedule = None
+        self._chaos_edges = False
+        if chaos is None:
+            return
+        self._chaos_edges = chaos.has_edge_faults()
+        if self._chaos_edges and self._overridden(["_select_peers"]) \
+                and not self._overridden(["_round"]):
+            raise ValueError(
+                f"{type(self).__name__} overrides _select_peers; chaos "
+                "partitions/churn mask the BASE uniform peer sampling and "
+                "would be silently bypassed — use outage/spike faults only, "
+                "or drop chaos")
+        sched = build_fault_schedule(chaos, self.topology, self.drop_prob)
+        self.chaos_schedule = sched
+        self._chaos_forced = torch.as_tensor(sched.forced_offline,
+                                             device=self.device)
+        self._chaos_comp = torch.as_tensor(sched.component_id,
+                                           device=self.device)
+        self._chaos_ncomp = chaos.max_components()
+        self._chaos_adjs = {0: self._adj}
 
     # -- admission -----------------------------------------------------------
 
@@ -612,9 +696,11 @@ class GossipSimulator:
 
     def _history_depth(self, size: int) -> int:
         """Ring depth covering the worst in-flight delay: the send offset
-        (at most ``delta - 1``), the delay, and one reply's delay (2 at
-        delay 0)."""
+        (at most ``delta - 1``), the delay (times the worst scheduled
+        chaos delay spike), and one reply's delay (2 at delay 0)."""
         max_d = self.delay.max_delay(size)
+        if self.chaos is not None:
+            max_d = int(math.ceil(max_d * self.chaos.max_delay_scale()))
         return max(2, (self.delta - 1 + 2 * max_d) // self.delta + 2)
 
     def init_nodes(self, generator: Optional[torch.Generator] = None,
@@ -628,6 +714,7 @@ class GossipSimulator:
         pre-training pass still diversifies them.
         """
         n = self.n_nodes
+        self._health_carry = None   # a fresh population, a fresh EMA
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         if common_init:
@@ -689,8 +776,9 @@ class GossipSimulator:
         parked model here, so that the snapshot carries it)."""
 
     def _select_peers(self, state: SimState, r: int, f: int) -> torch.Tensor:
-        """Sub-fire ``f``'s peer of every node (``-1``: none)."""
-        return self.draws.peers(r, self._adj, sub=f)
+        """Sub-fire ``f``'s peer of every node (``-1``: none), over the
+        round's alive edges under chaos partitions or churn."""
+        return self._chaos_masked_peers(r, sub=f)
 
     def _send_gate(self, state: SimState, active: torch.Tensor,
                    peers: torch.Tensor, r: int, f: int) -> torch.Tensor:
@@ -791,13 +879,18 @@ class GossipSimulator:
         # A sync node fires once: sub-fires past the first send nothing.
         for f in range(1 if self.sync else self.F):
             fires, offset = self._fire_mask(state, r, f)
+            if self.chaos is not None:
+                # A forced-offline node neither sends nor receives.
+                fires = fires & ~self._chaos_forced_offline(r)
             peers = self._select_peers(state, r, f)
             active = self._send_gate(state, fires & (peers >= 0), peers, r,
                                      f)
-            dropped = self.draws.bernoulli(r, K_DROP, self.drop_prob, n, dev,
+            dropped = self.draws.bernoulli(r, K_DROP,
+                                           self._chaos_drop_prob(r), n, dev,
                                            sub=f)
-            delays = self.delay.sample(self.draws, r, K_DELAY, n, size, dev,
-                                       sub=f)
+            delays = self._chaos_scale_delays(
+                self.delay.sample(self.draws, r, K_DELAY, n, size, dev,
+                                  sub=f), r)
             dr = (offset + delays) // self.delta
             n_sent = n_sent + active.sum()
             live = active & ~dropped
@@ -859,13 +952,16 @@ class GossipSimulator:
         return 0, 1
 
     def _slot_loop(self, state: SimState, r: int, sr_t, sender_t, apply_t,
-                   extra_t, call_tag: int, post=None) -> tuple[int, int]:
+                   extra_t, call_tag: int, post=None,
+                   tel: Optional[_SlotTelemetry] = None) -> tuple[int, int]:
         """One pass per occupied slot of a mailbox cell, in slot order;
         slot ``k`` trains every node under purpose ``call_tag * 101 + k``
         (both halves of it under UPDATE_MERGE). ``post = (valid_t,
         ty_t)`` calls :meth:`_post_receive_slot` after each slot that
         held a live message (the deliver phase's cell; the reply phase
-        passes None). Returns the (compact, wide) slot counts."""
+        passes None). ``tel`` folds each slot into the probes and the
+        first-bad-slot sentinel. Returns the (compact, wide) slot
+        counts."""
         n = self.n_nodes
         counts = [apply_t.sum(dim=0)]
         hooked = post is not None and self._slot_hook
@@ -884,29 +980,54 @@ class GossipSimulator:
             if n_live:
                 purpose = call_tag * 101 + k
                 perms = self._update_orders(r, [purpose], first_k, split)
-                self._receive_slot_apply(state, sr_t[:, k], sender_t[:, k],
-                                         extra_t[:, k], apply_t[:, k], perms,
-                                         n_live, (r, purpose))
+                pre_model = state.model
+                merged = self._receive_slot_apply(
+                    state, sr_t[:, k], sender_t[:, k], extra_t[:, k],
+                    apply_t[:, k], perms, n_live, (r, purpose))
+                if tel is not None:
+                    self._slot_telemetry(tel, state, pre_model, sr_t[:, k],
+                                         sender_t[:, k], extra_t[:, k],
+                                         apply_t[:, k], r, k, merged)
             if hooked and counts[1][k]:
                 self._post_receive_slot(state, post[0][:, k], post[1][:, k],
                                         sender_t[:, k], sr_t[:, k],
                                         extra_t[:, k], r, k)
         return n_compact, n_wide
 
+    def _slot_telemetry(self, tel: _SlotTelemetry, state: SimState,
+                        pre_model: ModelState, send_round, sender, extra,
+                        apply_mask, r: int, k: int, merged) -> None:
+        """Fold one delivered slot into ``tel``: the probes
+        (:meth:`_probe_slot_update`) and, while no earlier slot has, the
+        first slot whose delivery left a non-finite param (on the
+        device: no host sync)."""
+        if tel.pa is not None:
+            tel.pa = self._probe_slot_update(tel.pa, state, pre_model,
+                                             send_round, sender, extra,
+                                             apply_mask, r, merged)
+        if tel.first_bad is not None:
+            bad = nonfinite_total(state.model.params, self._leaf_spans) > 0
+            tel.first_bad = torch.where((tel.first_bad < 0) & bad,
+                                        torch.full_like(tel.first_bad, k),
+                                        tel.first_bad)
+
     def _receive_slot_apply(self, state: SimState, send_round, sender, extra,
-                            valid, perms, n_live: int, call) -> None:
+                            valid, perms, n_live: int, call):
         """One mailbox slot: the per-slot fused kernel, the compacted pass
         when every live receiver fits the capacity, else the wide pass.
         ``call = (r, purpose)`` names the slot's stream (the JAX engine's
-        ``call_key``)."""
+        ``call_key``). Returns the merged rows the per-slot kernel
+        produced (before training), or None on the plain path."""
         if self.fused_merge:
-            self._fused_receive(state, send_round, sender, valid, perms)
-        elif self._compact_cap is not None and n_live <= self._compact_cap:
+            return self._fused_receive(state, send_round, sender, valid,
+                                       perms)
+        if self._compact_cap is not None and n_live <= self._compact_cap:
             self._apply_receive_compact(state, send_round, sender, extra,
                                         valid, perms, call)
         else:
             self._apply_receive_wide(state, send_round, sender, extra, valid,
                                      perms, call)
+        return None
 
     def _apply_receive_wide(self, state: SimState, send_round, sender, extra,
                             valid, perms, call) -> None:
@@ -953,11 +1074,12 @@ class GossipSimulator:
         return self.handler.call(models, peer, data, perms, extra_arg)
 
     def _fused_receive(self, state: SimState, send_round, sender, valid,
-                       perms) -> None:
+                       perms) -> torch.Tensor:
         """MERGE_UPDATE through the single-slot gather-merge kernel (one
         launch over the flat row, where the JAX engine launches once per
         leaf), then the local update of every node with its own optimizer
-        state; rows without a live message keep their state."""
+        state; rows without a live message keep their state. Returns the
+        kernel's merged rows."""
         n = self.n_nodes
         D = state.history_ages.shape[0]
         s = sender.long().clamp(0, n - 1)
@@ -974,6 +1096,7 @@ class GossipSimulator:
             ModelState(merged, model.opt_state, ages), self._local_data(),
             perms)
         state.model = select_state(valid, updated, model)
+        return merged
 
     # -- deliver: the single-pass fused path ----------------------------------
 
@@ -994,11 +1117,12 @@ class GossipSimulator:
 
     def _fused_multi_merge_update(self, state: SimState, model: ModelState,
                                   sr_t, sender_t, apply_t, perms, row_valid,
-                                  data) -> ModelState:
+                                  data) -> tuple[ModelState, torch.Tensor]:
         """One kernel launch and one update over ``model``'s rows: the
         compound left-to-right K-slot blend, age = max over the live
         peers, then the local update with the receiver's optimizer state;
-        rows without a live message keep their state."""
+        rows without a live message keep their state. Returns the new
+        rows and the kernel's merged params."""
         flat_idx, w_self, w_peer, peer_ages = self._fused_multi_tables(
             state, sr_t, sender_t, apply_t)
         ring, scale, starts = self._ring(state)
@@ -1009,45 +1133,57 @@ class GossipSimulator:
         ages = torch.maximum(model.n_updates, live_ages)
         updated = self.handler.update(
             ModelState(merged, model.opt_state, ages), data, perms)
-        return select_state(row_valid, updated, model)
+        return select_state(row_valid, updated, model), merged
 
     def _fused_multi_apply(self, state: SimState, sr_t, sender_t, apply_t,
-                           perms, any_msg) -> None:
-        state.model = self._fused_multi_merge_update(
+                           perms, any_msg) -> torch.Tensor:
+        state.model, merged = self._fused_multi_merge_update(
             state, state.model, sr_t, sender_t, apply_t, perms, any_msg,
             self._local_data())
+        return merged
 
     def _fused_multi_apply_compact(self, state: SimState, sr_t, sender_t,
-                                   apply_t, perms, any_msg) -> None:
+                                   apply_t, perms, any_msg) -> torch.Tensor:
         """The single pass over ``cap`` gathered rows holding every
-        receiver with a live message (the stable valid-first argsort)."""
+        receiver with a live message (the stable valid-first argsort).
+        Returns the merged rows scattered over the round-start params
+        (only when the probes read them; else None)."""
         idx = torch.argsort((~any_msg).to(torch.int32),
                             stable=True)[:self._compact_cap]
         data = tuple(d[idx] for d in self._local_data())
-        new_sub = self._fused_multi_merge_update(
+        pre = state.model.params
+        new_sub, merged = self._fused_multi_merge_update(
             state, _take_rows(state.model, idx), sr_t[idx], sender_t[idx],
             apply_t[idx], _take(perms, idx), any_msg[idx], data)
         state.model = _put_rows(state.model, idx, new_sub)
+        return pre.index_copy(0, idx, merged) if self._probe_delta_ok \
+            else None
 
     def _fused_multi_dispatch(self, state: SimState, sr_t, sender_t, apply_t,
-                              perms, any_msg, n_live: int,
-                              occ_slots: int) -> tuple[int, int]:
+                              perms, any_msg, n_live: int, occ_slots: int):
         """The compacted single pass when every receiver fits the capacity,
-        else the wide one; returns ``(compact, wide)`` with the cell's
-        occupied-slot count on the path taken."""
+        else the wide one; returns ``(compact, wide, merged)``: the
+        cell's occupied-slot count on the path taken, and the kernel's
+        merged rows (:meth:`_fused_multi_apply_compact`)."""
         if self._compact_cap is not None and n_live <= self._compact_cap:
-            self._fused_multi_apply_compact(state, sr_t, sender_t, apply_t,
-                                            perms, any_msg)
-            return occ_slots, 0
-        self._fused_multi_apply(state, sr_t, sender_t, apply_t, perms,
-                                any_msg)
-        return 0, occ_slots
+            merged = self._fused_multi_apply_compact(state, sr_t, sender_t,
+                                                     apply_t, perms, any_msg)
+            return occ_slots, 0, merged
+        merged = self._fused_multi_apply(state, sr_t, sender_t, apply_t,
+                                         perms, any_msg)
+        return 0, occ_slots, merged
 
     def _fused_deliver_all(self, state: SimState, r: int, sr_t, sender_t,
-                           apply_t, call_tag: int) -> tuple[int, int]:
+                           apply_t, call_tag: int,
+                           tel: Optional[_SlotTelemetry] = None
+                           ) -> tuple[int, int]:
         """Single-pass fused deliver of one mailbox cell; each node trains
         under its first live slot's stream (slot ``k``: purpose
-        ``call_tag * 101 + k``). Returns the (compact, wide) slot
+        ``call_tag * 101 + k``). ``tel`` gets the cell's accepted counts
+        and staleness (every slot at once), the merge and train deltas of
+        the compound blend the kernel applied, and, when a param is
+        non-finite after the pass, the first occupied slot (the pass has
+        no per-slot states to bisect). Returns the (compact, wide) slot
         counts."""
         any_msg = apply_t.any(dim=1)
         n_live, occ_slots = torch.stack(
@@ -1058,30 +1194,81 @@ class GossipSimulator:
         perms = self._update_orders(
             r, [call_tag * 101 + k for k in range(apply_t.shape[1])],
             first_k)
-        return self._fused_multi_dispatch(state, sr_t, sender_t, apply_t,
-                                          perms, any_msg, n_live, occ_slots)
+        pre_params = state.model.params
+        n_compact, n_wide, merged = self._fused_multi_dispatch(
+            state, sr_t, sender_t, apply_t, perms, any_msg, n_live,
+            occ_slots)
+        if tel is None:
+            return n_compact, n_wide
+        spans = self._leaf_spans
+        if tel.pa is not None:
+            tel.pa = tel.pa.record_slot(apply_t, r - sr_t)
+            if self._probe_delta_ok:
+                merged_p = select_rows(any_msg, merged, pre_params)
+                tel.pa = tel.pa.add_deltas(
+                    sq_param_distance(merged_p, pre_params, spans),
+                    sq_param_distance(state.model.params, merged_p, spans))
+        if tel.first_bad is not None:
+            bad = nonfinite_total(state.model.params, spans) > 0
+            first_occ = torch.argmax(apply_t.any(dim=0).to(torch.int32))
+            tel.first_bad = torch.where(bad, first_occ.to(torch.int32),
+                                        tel.first_bad)
+        return n_compact, n_wide
 
     def _drain(self, state: SimState, r: int, sr_t, sender_t, apply_t,
-               extra_t, call_tag: int, post=None) -> tuple[int, int]:
+               extra_t, call_tag: int, post=None,
+               tel: Optional[_SlotTelemetry] = None) -> tuple[int, int]:
         """Apply a mailbox cell's ``[N, K]`` live messages by the
         configured path; returns the (compact, wide) slot counts."""
         if self.fused_merge == "multi":
             return self._fused_deliver_all(state, r, sr_t, sender_t,
-                                           apply_t, call_tag)
+                                           apply_t, call_tag, tel)
         return self._slot_loop(state, r, sr_t, sender_t, apply_t, extra_t,
-                               call_tag, post)
+                               call_tag, post, tel)
+
+    def _online(self, r: int, purpose: int):
+        """The receivers' availability draw of a drain: ``(online,
+        forced)``, where a node a scheduled outage forces offline is never
+        online (``forced`` is None without chaos)."""
+        online = self.draws.bernoulli(r, purpose, self.online_prob,
+                                      self.n_nodes, self.device)
+        if self.chaos is None:
+            return online, None
+        forced = self._chaos_forced_offline(r)
+        return online & ~forced, forced
+
+    @staticmethod
+    def _receive_fails(occupied_t, online, forced) -> FailureCounts:
+        """The messages of a cell lost at their receiver: to a scheduled
+        outage (``chaos``) or to the availability draw (``offline``),
+        one cause a message."""
+        off = occupied_t & ~online[:, None]
+        if forced is None:
+            return FailureCounts(offline=off.sum())
+        hit = occupied_t & forced[:, None]
+        return FailureCounts(offline=(off & ~hit).sum(), chaos=hit.sum())
+
+    def _slot_telemetry_start(self, track_bad: bool) -> _SlotTelemetry:
+        """A drain's probe accumulator (slot probes on) and first-bad-slot
+        sentinel (``track_bad`` and the non-finite sentinel on)."""
+        tel = _SlotTelemetry()
+        if self._probe_slots_on():
+            tel.pa = self._probe_zero_accum()
+        if track_bad and self._health_slots_on():
+            tel.first_bad = torch.full((), -1, dtype=torch.int32,
+                                       device=self.device)
+        return tel
 
     def _deliver_phase(self, state: SimState, r: int):
         """Deliver this round's mailbox cell, queue the replies it asks
         for, then :meth:`_post_deliver`; returns the failure counts, the
-        diagnostics of the cell, and the replies and extra messages sent
-        and their size."""
-        n = self.n_nodes
+        diagnostics of the cell (the probe accumulator and the first bad
+        slot among them when those are on), and the replies and extra
+        messages sent and their size."""
         D = state.history_ages.shape[0]
         b = r % D
         box = state.mailbox
-        online = self.draws.bernoulli(r, K_ONLINE, self.online_prob, n,
-                                      self.device)
+        online, forced = self._online(r, K_ONLINE)
         sender_t = box.sender[b]
         sr_t = box.send_round[b]
         ty_t = box.msg_type[b]
@@ -1091,10 +1278,11 @@ class GossipSimulator:
                    | (ty_t == MessageType.REPLY))
         valid_t = occupied_t & online[:, None]
         apply_t = valid_t & carries
-        fails = FailureCounts(offline=(occupied_t & ~online[:, None]).sum())
+        fails = self._receive_fails(occupied_t, online, forced)
+        tel = self._slot_telemetry_start(track_bad=True)
         n_compact, n_wide = self._drain(state, r, sr_t, sender_t, apply_t,
                                         box.extra[b], K_CALL,
-                                        (valid_t, ty_t))
+                                        (valid_t, ty_t), tel)
         n_replies, reply_size = 0, 0
         if self.protocol != AntiEntropyProtocol.PUSH:
             wants = valid_t & ((ty_t == MessageType.PULL)
@@ -1104,10 +1292,11 @@ class GossipSimulator:
             fails = fails + fail_q
         box.clear_cell(b)
         ex_sent, ex_fails, ex_size = self._post_deliver(state, r)
-        return fails + ex_fails, {"mailbox_hwm": hwm,
-                                  "compact_slots": n_compact,
-                                  "wide_slots": n_wide}, \
-            n_replies + ex_sent, reply_size + ex_size
+        diag = {"mailbox_hwm": hwm, "compact_slots": n_compact,
+                "wide_slots": n_wide, "probe_accum": tel.pa,
+                "first_bad_slot": tel.first_bad}
+        return fails + ex_fails, diag, n_replies + ex_sent, \
+            reply_size + ex_size
 
     def _queue_replies(self, state: SimState, r: int, sender_t, wants):
         """For each ``[N, K]`` request in ``wants`` a REPLY from its
@@ -1128,9 +1317,10 @@ class GossipSimulator:
                 continue
             need = wants[:, k]
             dropped = self.draws.bernoulli(r, K_REPLY_DROP * 101 + k,
-                                           self.drop_prob, n, dev)
-            delays = self.delay.sample(self.draws, r,
-                                       K_REPLY_DELAY * 101 + k, n, size, dev)
+                                           self._chaos_drop_prob(r), n, dev)
+            delays = self._chaos_scale_delays(
+                self.delay.sample(self.draws, r, K_REPLY_DELAY * 101 + k, n,
+                                  size, dev), r)
             n_sent = n_sent + need.sum()
             n_overflow = self._scatter_messages(
                 state.reply_box, need & ~dropped, delays // self.delta,
@@ -1144,24 +1334,24 @@ class GossipSimulator:
     def _reply_phase(self, state: SimState, r: int):
         """Drain this round's reply-box cell into the online nodes, by the
         deliver path (slot ``k`` trains under ``(K_CALL + 53) * 101 + k``;
-        online draw ``K_ONLINE * 7 + 3``). Returns the failure counts and
-        the (compact, wide) slot counts."""
+        online draw ``K_ONLINE * 7 + 3``). Returns the failure counts,
+        the (compact, wide) slot counts and the probe accumulator (None
+        when the slot probes are off)."""
+        tel = self._slot_telemetry_start(track_bad=False)
         if self.protocol == AntiEntropyProtocol.PUSH:
-            return FailureCounts(), 0, 0
-        n = self.n_nodes
+            return FailureCounts(), 0, 0, tel.pa
         b = r % state.history_ages.shape[0]
         box = state.reply_box
-        online = self.draws.bernoulli(r, K_ONLINE * 7 + 3, self.online_prob,
-                                      n, self.device)
+        online, forced = self._online(r, K_ONLINE * 7 + 3)
         sender_t = box.sender[b]
         sr_t = box.send_round[b]
         occupied_t = sender_t >= 0
         apply_t = occupied_t & online[:, None]
-        fails = FailureCounts(offline=(occupied_t & ~online[:, None]).sum())
+        fails = self._receive_fails(occupied_t, online, forced)
         n_compact, n_wide = self._drain(state, r, sr_t, sender_t, apply_t,
-                                        box.extra[b], K_CALL + 53)
+                                        box.extra[b], K_CALL + 53, tel=tel)
         box.clear_cell(b)
-        return fails, n_compact, n_wide
+        return fails, n_compact, n_wide, tel.pa
 
     # -- evaluation --------------------------------------------------------
 
@@ -1240,6 +1430,160 @@ class GossipSimulator:
                          device=self.device)
         return nan, nan
 
+    # -- chaos (opt-in; see simulation.faults) ------------------------------
+
+    def _fc_zeros(self) -> FailureCounts:
+        """Zero failure counters with the fourth (``chaos``) counter
+        exactly when chaos is configured."""
+        return FailureCounts.zeros(chaos_on=self.chaos is not None)
+
+    def _chaos_t(self, r: int) -> int:
+        """The schedule row of round ``r`` (rounds at or after the horizon
+        read the trailing baseline row)."""
+        return min(max(r, 0), self.chaos_schedule.rows - 1)
+
+    def _chaos_forced_offline(self, r: int) -> torch.Tensor:
+        """``[N]`` bool: the nodes a scheduled outage forces fully offline
+        in round ``r`` (no sends, no receives)."""
+        return self._chaos_forced[self._chaos_t(r)]
+
+    def _chaos_drop_prob(self, r: int) -> float:
+        """The round's message drop rate: the base rate, or the
+        schedule's (possibly spiked) one."""
+        if self.chaos is None:
+            return self.drop_prob
+        return float(self.chaos_schedule.drop_prob[self._chaos_t(r)])
+
+    def _chaos_scale_delays(self, delays: torch.Tensor, r: int
+                            ) -> torch.Tensor:
+        """The round's scheduled delay spike: ``floor(f32(delay) * s)``,
+        as the JAX engine rounds it (the delays themselves without
+        chaos or spike)."""
+        if self.chaos is None:
+            return delays
+        s = float(self.chaos_schedule.delay_scale[self._chaos_t(r)])
+        if s == 1.0:
+            return delays
+        return torch.floor(delays.to(torch.float32) * s).to(delays.dtype)
+
+    def _round_adjacency(self, r: int) -> torch.Tensor:
+        """The adjacency a uniform peer draw of round ``r`` runs over: the
+        topology's, ANDed with the round's scheduled edge-alive mask under
+        partitions or churn. One masked adjacency per distinct mask, made
+        at its first use and kept (a draw provider caches its neighbour
+        lists per adjacency tensor)."""
+        if not self._chaos_edges:
+            return self._adj
+        m = int(self.chaos_schedule.mask_idx[self._chaos_t(r)])
+        adj = self._chaos_adjs.get(m)
+        if adj is None:
+            mask = torch.as_tensor(self.chaos_schedule.edge_masks[m],
+                                   device=self.device)
+            adj = self._chaos_adjs[m] = self._adj & mask
+        return adj
+
+    def _chaos_masked_peers(self, r: int, sub: int = 0,
+                            purpose: int = K_PEER) -> torch.Tensor:
+        """A uniform peer draw over the round's alive adjacency
+        (:meth:`_round_adjacency`); a node whose every edge is dead gets
+        peer -1, like an isolated node."""
+        return self.draws.peers(r, self._round_adjacency(r), sub=sub,
+                                purpose=purpose)
+
+    def _chaos_probes_on(self) -> bool:
+        """Whether the round emits the partition-recovery vitals (chaos
+        scheduled and the consensus probes on)."""
+        return (self.chaos is not None and self.probes is not None
+                and self.probes.consensus)
+
+    def _chaos_stats(self, state: SimState, r: int) -> dict:
+        return chaos_round_stats(state.model.params,
+                                 self._chaos_comp[self._chaos_t(r)],
+                                 self._chaos_ncomp, self._leaf_spans)
+
+    # -- probes (opt-in; see telemetry.probes) ------------------------------
+
+    def _probe_slots_on(self) -> bool:
+        """Whether the drains fold a probe accumulator (staleness or
+        mixing probes on)."""
+        return self.probes is not None and (self.probes.staleness
+                                            or self.probes.mixing)
+
+    def _probe_zero_accum(self) -> ProbeAccum:
+        return ProbeAccum.zeros(self.n_nodes, self.probes.staleness_buckets,
+                                self.device)
+
+    def _probe_slot_update(self, pa: ProbeAccum, state: SimState,
+                           pre_model: ModelState, send_round, sender, extra,
+                           apply_mask, r: int, merged=None) -> ProbeAccum:
+        """Fold one slot's accepted merges into the accumulator:
+        staleness and counts always; the merge/train deltas where the
+        decomposition is exact (``_probe_delta_ok``). ``merged`` is the
+        per-slot kernel's own output; on the plain path (None) the
+        handler's ``merge`` over the same gather gives the merged rows, as
+        the JAX engine recomputes them."""
+        pa = pa.record_slot(apply_mask, r - send_round)
+        if not self._probe_delta_ok:
+            return pa
+        if merged is None:
+            peer = self._gather_peer(state, send_round, sender)
+            extra_arg = self._decode_extra(extra)
+            merged = (self.handler.merge(pre_model, peer) if extra_arg is None
+                      else self.handler.merge(pre_model, peer,
+                                              extra_arg)).params
+        spans = self._leaf_spans
+        merged_p = select_rows(apply_mask, merged, pre_model.params)
+        return pa.add_deltas(
+            sq_param_distance(merged_p, pre_model.params, spans),
+            sq_param_distance(state.model.params, merged_p, spans))
+
+    def _probe_round_stats(self, state: SimState,
+                           pa: Optional[ProbeAccum]) -> dict:
+        """The round's ``probe_*`` stats entries, from the round-end state
+        and the drains' accumulator."""
+        cfg = self.probes
+        out: dict = {}
+        if cfg.consensus:
+            cm, cx, cl = consensus_stats(state.model.params,
+                                         self._leaf_spans)
+            out["probe_consensus_mean"] = cm
+            out["probe_consensus_max"] = cx
+            out["probe_consensus_per_layer"] = cl
+        if pa is not None:
+            out.update(probe_stats_from_accum(cfg, pa, self._probe_delta_ok))
+        return out
+
+    def _probe_expected_fanin(self) -> np.ndarray:
+        """``[N]`` expected accepted merges per node and round, the
+        baseline of ``probe_accepted_per_node``: the expected fan-in
+        thinned by the drop and online rates."""
+        return (self._lam_vector() * (1.0 - self.drop_prob)
+                * self.online_prob)
+
+    def _probe_layer_names(self) -> list[str]:
+        """Leaf names of the ``probe_consensus_per_layer`` columns."""
+        return param_layer_names(self.handler.layout)
+
+    # -- sentinels (opt-in; see telemetry.health) ---------------------------
+
+    def _health_slots_on(self) -> bool:
+        """Whether the deliver drain tracks the first bad slot (the
+        non-finite sentinel on)."""
+        return self.sentinels is not None and self.sentinels.nonfinite
+
+    def _health_zero_carry(self) -> HealthCarry:
+        return HealthCarry.zeros(self.n_nodes, self.device)
+
+    def _health_round(self, hc: HealthCarry, pre_params: torch.Tensor,
+                      state: SimState, stats: dict
+                      ) -> tuple[HealthCarry, dict]:
+        """One round's sentinel vitals, after :meth:`_round` (so every
+        variant's round is covered), against the round-start params."""
+        return health_round_stats(
+            self.sentinels, hc, pre_params, state.model.params,
+            stats.get("local"), stats.get("global"), self._leaf_spans,
+            mailbox_hwm=stats.get("mailbox_hwm"))
+
     # -- the round ---------------------------------------------------------
 
     def _round(self, state: SimState, last_round=None) -> dict:
@@ -1250,11 +1594,12 @@ class GossipSimulator:
         self._snapshot(state, r)
         n_sent, fail_s, size = self._send_phase(state, r)
         fail_d, diag, n_replies, reply_size = self._deliver_phase(state, r)
-        fail_r, reply_compact, reply_wide = self._reply_phase(state, r)
+        fail_r, reply_compact, reply_wide, reply_pa = \
+            self._reply_phase(state, r)
         local, glob = self._maybe_eval(state, r, last_round)
         state.round = r + 1
-        fails = fail_s + fail_d + fail_r
-        return {
+        fails = self._fc_zeros() + fail_s + fail_d + fail_r
+        stats = {
             "sent": n_sent + n_replies,
             "failed": fails.total(),
             "failed_drop": fails.drop,
@@ -1267,19 +1612,84 @@ class GossipSimulator:
             "local": local,
             "global": glob,
         }
+        if self.chaos is not None:
+            stats["failed_chaos"] = fails.chaos
+            if self._chaos_probes_on():
+                stats.update(self._chaos_stats(state, r))
+        if self.probes is not None:
+            pa = None
+            if self._probe_slots_on():
+                pa = diag["probe_accum"] + reply_pa
+            stats.update(self._probe_round_stats(state, pa))
+        if self._health_slots_on():
+            stats["health_first_bad_slot"] = diag["first_bad_slot"]
+        return stats
+
+    def _run_round(self, state: SimState, last_round) -> dict:
+        """:meth:`_round`, then the sentinels' vitals against a copy of the
+        round-start params (the round replaces the state's tensors; a copy
+        keeps the delta right whatever a hook writes in place)."""
+        if self.sentinels is None:
+            return self._round(state, last_round)
+        pre_params = state.model.params.clone()
+        stats = self._round(state, last_round)
+        self._health_carry, hstats = self._health_round(
+            self._health_carry, pre_params, state, stats)
+        stats.update(hstats)
+        return stats
 
     def start(self, state: SimState, n_rounds: int = 100
               ) -> tuple[SimState, SimulationReport]:
         """Run ``n_rounds`` rounds on ``state`` (in place); returns the
         state and a report. The per-round counters stay on the device
-        until the run ends."""
+        until the run ends, unless a live receiver is attached: each
+        round is then copied to the host and notified as it ends. After
+        the run, the other receivers get every round replayed."""
+        first_round = state.round
         last = state.round + n_rounds - 1
-        rows = [self._round(state, last) for _ in range(n_rounds)]
+        if self.sentinels is not None and self._health_carry is None:
+            self._health_carry = self._health_zero_carry()
+        live = self.has_live_receivers()
+        rows = []
+        for _ in range(n_rounds):
+            rows.append(self._run_round(state, last))
+            if live:
+                self._emit_live(state.round, rows[-1])
         stats = {}
         for k in rows[0] if rows else ():
             vals = [torch.as_tensor(row[k], device=self.device) for row in rows]
             stats[k] = torch.stack(vals).cpu().numpy()
-        return state, self._build_report(stats, n_rounds)
+        report = self._build_report(stats, n_rounds)
+        if rows:
+            self.replay_events(first_round, stats, self._metric_keys())
+        return state, report
+
+    def _emit_live(self, round_no: int, row: dict) -> None:
+        """Notify the live receivers of one finished round (1-based
+        ``round_no``): its counters copied to the host, the payloads built
+        as the replay builds them."""
+        vals = {k: torch.as_tensor(v).cpu().numpy() for k, v in row.items()}
+        names = self._metric_keys()
+        causes = {c: int(vals["failed_" + c])
+                  for c in ("drop", "offline", "overflow")}
+        if "failed_chaos" in vals:
+            causes["chaos"] = int(vals["failed_chaos"])
+
+        def pick(keys):
+            return {k: vals[k] for k in keys if k in vals}
+
+        def metrics(v):
+            if np.all(np.isnan(v)):
+                return None
+            return {k: float(x) for k, x in zip(names, v)}
+        self._notify_round(
+            round_no, int(vals["sent"]), int(vals["failed"]),
+            int(vals["size"]), metrics(vals["local"]),
+            metrics(vals["global"]), live_only=True, causes=causes,
+            probes=probe_event_row(pick(PROBE_STAT_KEYS)),
+            health=health_event_row(pick(HEALTH_STAT_KEYS)),
+            chaos=chaos_event_row(pick(("failed_chaos",)
+                                       + CHAOS_PROBE_KEYS)))
 
     def run_repetitions(self, n_rounds: int, seeds, local_train: bool = True,
                         common_init: bool = False, draws=None
@@ -1316,6 +1726,21 @@ class GossipSimulator:
 
         def get(k, default):
             return stats.get(k, default)
+        causes = {"drop": get("failed_drop", empty_i),
+                  "offline": get("failed_offline", empty_i),
+                  "overflow": get("failed_overflow", empty_i)}
+        if self.chaos is not None:
+            causes["chaos"] = get("failed_chaos", empty_i)
+        extras = {k: stats[k] for k in PROBE_STAT_KEYS + HEALTH_STAT_KEYS
+                  + CHAOS_PROBE_KEYS if k in stats}
+        if self.probes is not None:
+            if self.probes.consensus:
+                extras["probe_layer_names"] = self._probe_layer_names()
+            if self.probes.mixing:
+                extras["probe_expected_fanin"] = np.asarray(
+                    self._probe_expected_fanin(), np.float64)
+        if self._health_slots_on():
+            extras["health_layer_names"] = self._probe_layer_names()
         return SimulationReport(
             metric_names=self._metric_keys(),
             local_evals=(get("local", np.zeros((0, m)))
@@ -1325,10 +1750,9 @@ class GossipSimulator:
             sent=get("sent", empty_i),
             failed=get("failed", empty_i),
             total_size=int(np.asarray(get("size", empty_i)).sum()),
-            failed_by_cause={"drop": get("failed_drop", empty_i),
-                             "offline": get("failed_offline", empty_i),
-                             "overflow": get("failed_overflow", empty_i)},
+            failed_by_cause=causes,
             mailbox_hwm=get("mailbox_hwm", empty_i),
             compact_slots=get("compact_slots", empty_i),
             wide_slots=get("wide_slots", empty_i),
+            **extras,
         )

@@ -220,6 +220,9 @@ class CacheNeighGossipSimulator(GossipSimulator):
         it before the snapshot and the sends."""
         aux = state.aux
         fires, _ = self._fire_mask(state, r, 0)
+        if self.chaos is not None:
+            # A forced-offline node does not wake to merge its cache.
+            fires = fires & ~self._chaos_forced_offline(r)
         valid = aux["cache_valid"]
         pick = self.draws.choice(r, K_CACHE_POP, valid)
         do = fires & valid.any(dim=1)

@@ -24,10 +24,11 @@ Telemetry extensions beyond the reference's report:
   compact-vs-wide delivery-path indicator (engine runs only; None from
   engines without a mailbox).
 - gossip-dynamics probe arrays (``probe_*``; present when the run was
-  started with ``probes=``; probes are not ported yet):
-  consensus distance (mean/max/per-layer), merge-staleness distribution
-  (mean/max/histogram), per-node accepted-merge counts and the
-  merge-delta vs train-delta norms.
+  started with ``probes=``): consensus distance (mean/max/per-layer),
+  merge-staleness distribution (mean/max/histogram), per-node
+  accepted-merge counts and the merge-delta vs train-delta norms; the
+  sentinels' ``health_*`` arrays (``sentinels=``) and the chaos
+  ``chaos_*`` arrays with ``failed_per_cause["chaos"]`` (``chaos=``).
 - ``wall_clock_seconds_per_round`` / ``rounds_per_sec_ema``: host timing
   captured through the live io_callback path (None for non-live runs).
 - ``to_dict()`` / ``save(path)`` / ``from_dict()`` / ``load(path)``: a

@@ -28,6 +28,7 @@ from ..random import K_A2A_DROP, K_A2A_ONLINE, K_A2A_UPDATE, \
     K_REACT_DELAY, K_REACT_DROP, K_REACT_EXTRA, K_REACT_PEER, \
     K_REACT_SLOT, K_TOKEN_GATE
 from ..telemetry import FailureCounts
+from ..telemetry.probes import consensus_stats, sq_param_distance
 from .engine import _PROTO_TO_MSG, GossipSimulator, SimState
 from .nodes import PartitioningGossipSimulator
 
@@ -115,13 +116,18 @@ class TokenizedGossipSimulator(GossipSimulator):
         n_sent, fails, total = 0, FailureCounts(), 0
         waves = min(self.max_reactions, int(pending.max()) if n else 0)
         for j in range(waves):
-            peers = self.draws.peers(r, self._adj,
-                                     purpose=K_REACT_PEER + 10 * j)
-            active = (pending > j) & (peers >= 0)
+            fire = pending > j
+            if self.chaos is not None:
+                # A forced-offline node sends no reaction either; the
+                # peer draw runs over the round's alive edges.
+                fire = fire & ~self._chaos_forced_offline(r)
+            peers = self._chaos_masked_peers(r, purpose=K_REACT_PEER + 10 * j)
+            active = fire & (peers >= 0)
             dropped = self.draws.bernoulli(r, K_REACT_DROP + 10 * j,
-                                           self.drop_prob, n, dev)
-            delays = self.delay.sample(self.draws, r, K_REACT_DELAY + 10 * j,
-                                       n, size, dev)
+                                           self._chaos_drop_prob(r), n, dev)
+            delays = self._chaos_scale_delays(
+                self.delay.sample(self.draws, r, K_REACT_DELAY + 10 * j, n,
+                                  size, dev), r)
             dr = torch.clamp(delays // self.delta, min=1)
             sent = active.sum()
             n_sent = n_sent + sent
@@ -210,9 +216,16 @@ class All2AllGossipSimulator(GossipSimulator):
         fires, _ = self._fire_mask(state, r, 0)
         online = self.draws.bernoulli(r, K_A2A_ONLINE, self.online_prob, n,
                                       dev)
-        drop = self.draws.bernoulli(r, K_A2A_DROP, self.drop_prob, (n, n),
-                                    dev)
-        sent_mask = self._adj & fires[None, :]          # [receiver, sender]
+        forced = None
+        if self.chaos is not None:
+            # A scheduled outage silences a node on both sides of the
+            # broadcast; partitions and churn mask the mixed edges.
+            forced = self._chaos_forced_offline(r)
+            fires = fires & ~forced
+            online = online & ~forced
+        drop = self.draws.bernoulli(r, K_A2A_DROP, self._chaos_drop_prob(r),
+                                    (n, n), dev)
+        sent_mask = self._round_adjacency(r) & fires[None, :]  # [recv, sender]
         live = sent_mask & ~drop & online[:, None]
         mix = self.mixing
         w = mix * live + torch.diag(torch.diagonal(mix))
@@ -220,29 +233,49 @@ class All2AllGossipSimulator(GossipSimulator):
         n_sent = sent_mask.sum()
         n_drop = (sent_mask & drop).sum()
         n_offline = (sent_mask & ~drop & ~online[:, None]).sum()
-        received = (live & (mix > 0)).any(dim=1)
+        n_chaos = None
+        if forced is not None:
+            n_chaos = (sent_mask & ~drop & forced[:, None]).sum()
+            n_offline = n_offline - n_chaos
+        accepted = live & (mix > 0)
+        received = accepted.any(dim=1)
 
+        # The probes' merge and train deltas: the mix and the local update
+        # are separate phases here, so the split is exact.
+        deltas = self.probes is not None and self.probes.mixing
+        zero_f = torch.zeros((), dtype=torch.float32, device=dev)
+        merge_sq = train_sq = zero_f
+        spans = self._leaf_spans
         model = state.model
         if self.handler.mode == CreateModelMode.UPDATE_MERGE:
+            pre_train = model.params
             model = self._train(model, fires, r)
+            if deltas:
+                train_sq = sq_param_distance(model.params, pre_train, spans)
         ages = model.n_updates
         live_e = live.view((n, n) + (1,) * (ages.dim() - 1))
         in_age = torch.where(live_e, ages[None], torch.zeros_like(
             ages[None])).amax(dim=1)
-        mixed = self._mix(model.params, w_eff)
-        model = ModelState(select_rows(received, mixed, model.params),
-                           model.opt_state,
+        mixed = select_rows(received, self._mix(model.params, w_eff),
+                            model.params)
+        if deltas:
+            merge_sq = sq_param_distance(mixed, model.params, spans)
+        model = ModelState(mixed, model.opt_state,
                            select_rows(received, torch.maximum(ages, in_age),
                                        ages))
         if self.handler.mode != CreateModelMode.UPDATE_MERGE:
+            pre_train = model.params
             model = self._train(model, fires, r)
+            if deltas:
+                train_sq = sq_param_distance(model.params, pre_train, spans)
         state.model = model
         local, glob = self._maybe_eval(state, r, last_round)
         state.round = r + 1
         zero = torch.zeros((), dtype=torch.int64, device=dev)
-        return {
+        fails = FailureCounts(n_drop, n_offline, zero, n_chaos)
+        stats = {
             "sent": n_sent,
-            "failed": n_drop + n_offline,
+            "failed": fails.total(),
             "failed_drop": n_drop,
             "failed_offline": n_offline,
             "failed_overflow": zero,
@@ -255,3 +288,56 @@ class All2AllGossipSimulator(GossipSimulator):
             "local": local,
             "global": glob,
         }
+        if self.chaos is not None:
+            stats["failed_chaos"] = n_chaos
+            if self._chaos_probes_on():
+                stats.update(self._chaos_stats(state, r))
+        if self.probes is not None:
+            stats.update(self._a2a_probe_stats(state, accepted, merge_sq,
+                                               train_sq))
+        if self._health_slots_on():
+            # The mixing weights are the one quantity this round owns that
+            # the engine's vitals cannot see: a non-finite weight poisons
+            # every row it touches before any param goes bad.
+            stats["health_mix_nonfinite"] = \
+                (~torch.isfinite(w_eff)).sum(dtype=torch.int32)
+        return stats
+
+    def _a2a_probe_stats(self, state: SimState, accepted, merge_sq,
+                         train_sq) -> dict:
+        """The round's ``probe_*`` entries. Every mixed contribution is a
+        round-start snapshot: staleness is 0, the whole histogram sits in
+        bucket 0, and the accepted merges are the live in-edges with a
+        positive weight."""
+        cfg = self.probes
+        dev = self.device
+        out: dict = {}
+        if cfg.consensus:
+            cm, cx, cl = consensus_stats(state.model.params, self._leaf_spans)
+            out["probe_consensus_mean"] = cm
+            out["probe_consensus_max"] = cx
+            out["probe_consensus_per_layer"] = cl
+        acc = accepted.sum(dim=1, dtype=torch.int32)
+        if cfg.staleness:
+            hist = torch.zeros(cfg.staleness_buckets, dtype=torch.int32,
+                               device=dev)
+            hist[0] = acc.sum(dtype=torch.int32)
+            out["probe_stale_mean"] = torch.zeros((), dtype=torch.float32,
+                                                  device=dev)
+            out["probe_stale_max"] = torch.zeros((), dtype=torch.int32,
+                                                 device=dev)
+            out["probe_stale_hist"] = hist
+        if cfg.mixing:
+            out["probe_accepted_per_node"] = acc
+            out["probe_merge_delta"] = torch.sqrt(merge_sq)
+            out["probe_train_delta"] = torch.sqrt(train_sq)
+        return out
+
+    def _probe_expected_fanin(self) -> np.ndarray:
+        """Broadcast mixing: every in-neighbour's send reaches a node each
+        round, thinned by the per-edge drop draw and the receiver's online
+        draw."""
+        mix = self.mixing.cpu().numpy()
+        adj = np.asarray(self.topology.adjacency).astype(bool)
+        indeg = (adj & (mix > 0)).sum(axis=1).astype(np.float64)
+        return indeg * (1.0 - self.drop_prob) * self.online_prob

@@ -9,7 +9,10 @@
   same inputs (the partitioners and the synthetic images:
   ``test_torch_data.py``).
 - The flagship twin and the eight paper-example twins run end to end on
-  the host with those modules blocked and no socket able to connect.
+  the host with those modules blocked and no socket able to connect; the
+  flagship and All2All twins with ``--probes --sentinels --chaos`` too,
+  and their summaries' ``probes``, ``health`` and ``chaos`` entries have
+  the keys the JAX scripts' ``finish`` gives.
 """
 
 import ast
@@ -79,7 +82,12 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.examples.main_giaretta_2019, "
         "gossipy_tpu_torch.examples.main_hegedus_2021, "
         "gossipy_tpu_torch.examples.main_onoszko_2021, "
-        "gossipy_tpu_torch.examples.main_all2all\n"
+        "gossipy_tpu_torch.examples.main_all2all, "
+        "gossipy_tpu_torch.simulation.events, "
+        "gossipy_tpu_torch.simulation.faults, "
+        "gossipy_tpu_torch.telemetry.probes, "
+        "gossipy_tpu_torch.telemetry.health, "
+        "gossipy_tpu_torch.telemetry.cost\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -154,6 +162,79 @@ def test_paper_twin_runs_with_jax_blocked(twin):
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     assert summary["sent_messages"] > 0, summary
     assert np.isfinite(summary["final"][metric]), summary
+
+
+# The JAX scripts' summary of a run with probes, sentinels and chaos:
+# ``examples/_common.finish`` over a JAX report carrying every array it
+# reads, run in a child with its own HOME (the module turns on JAX's
+# compilation cache there). Prints the key set of each entry.
+JAX_FINISH = (
+    "import sys, json, argparse\n"
+    "import numpy as np\n"
+    "sys.path.insert(0, 'examples')\n"
+    "from _common import finish\n"
+    "from gossipy_tpu.simulation.report import SimulationReport\n"
+    "r, n = 6, 4\n"
+    "f = np.linspace(1.0, 0.1, r).astype(np.float32)\n"
+    "i = np.ones(r, np.int32)\n"
+    "rep = SimulationReport(metric_names=['accuracy'], local_evals=None,\n"
+    "    global_evals=np.full((r, 1), 0.5), sent=i, failed=i,\n"
+    "    total_size=r, failed_by_cause={'drop': i, 'offline': 0 * i,\n"
+    "    'overflow': 0 * i, 'chaos': 0 * i},\n"
+    "    probe_consensus_mean=f, probe_consensus_max=f,\n"
+    "    probe_stale_max=i, probe_accepted_per_node=np.ones((r, n), "
+    "np.int32),\n"
+    "    probe_merge_delta=f, probe_train_delta=f, health_trip=0 * i,\n"
+    "    health_nonfinite_params=np.zeros((r, 2), np.int32),\n"
+    "    health_diverged_per_node=np.zeros((r, n), np.int32),\n"
+    "    health_delta_hwm=f, chaos_component_gap=f)\n"
+    "args = argparse.Namespace(plot=None, _chaos_heal=4)\n"
+    "out = finish(rep, args)\n"
+    "print(json.dumps({k: sorted(out[k]) for k in ('probes', 'health', "
+    "'chaos')}))\n")
+
+TELEMETRY_TWINS = {
+    "main_cifar10_100nodes": ["--nodes", "8", "--rounds", "6", "--bf16",
+                              "--history-dtype", "bfloat16"],
+    "main_all2all": ["--nodes", "12", "--rounds", "6"],
+}
+
+
+@pytest.fixture(scope="module")
+def jax_finish_keys(tmp_path_factory):
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu",
+               HOME=str(tmp_path_factory.mktemp("home")))
+    out = subprocess.run([sys.executable, "-c", JAX_FINISH], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("twin", sorted(TELEMETRY_TWINS))
+def test_telemetry_twin_runs_with_jax_blocked(twin, jax_finish_keys):
+    args = TELEMETRY_TWINS[twin] + ["--probes", "--sentinels", "--chaos",
+                                    "--device", "cpu"]
+    code = (
+        "import sys, json\n"
+        f"for m in {BANNED!r}:\n"
+        "    sys.modules[m] = None\n"
+        f"import gossipy_tpu_torch.examples.{twin} as twin\n"
+        "from gossipy_tpu_torch.data import _synthetic_images as s\n"
+        "twin.get_CIFAR10 = lambda: (s('a', 96, (32, 32, 3), 10), "
+        "s('b', 20, (32, 32, 3), 10))\n"
+        f"out = twin.main({args!r})\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    for entry in ("probes", "health", "chaos"):
+        assert sorted(summary[entry]) == jax_finish_keys[entry], \
+            (entry, summary[entry])
+    assert summary["health"]["trips"] == 0
+    assert summary["chaos"]["gap_peak"] > 0
 
 
 def dataset(seed=0):

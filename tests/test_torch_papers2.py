@@ -181,7 +181,14 @@ def test_all2all_matches_jax_engine():
 
 
 def test_all2all_unported_flags_raise():
-    for flag in ("--probes", "--sentinels", "--chaos"):
-        with pytest.raises(NotImplementedError):
-            all2all.main(["--device", "cpu", "--nodes", "12", "--rounds",
-                          "1", flag])
+    """The twin's ``--probes``, ``--sentinels`` and ``--chaos`` raised
+    until the port took them over; now each runs and its summary entry
+    appears (``test_torch_isolation.py`` holds the entries' keys to the
+    JAX scripts')."""
+    entry = {"--probes": "probes", "--sentinels": "health",
+             "--chaos": "chaos"}
+    for flag, key in entry.items():
+        out = all2all.main(["--device", "cpu", "--nodes", "12", "--rounds",
+                            "3", flag])
+        assert key in out, (flag, out)
+        assert not (set(entry.values()) - {key}) & set(out), (flag, out)

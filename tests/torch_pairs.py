@@ -33,6 +33,9 @@ from gossipy_tpu.handlers import PartitionedSGDHandler, PegasosHandler, \
     SamplingSGDHandler, SGDHandler, WeightedSGDHandler, losses
 from gossipy_tpu.models import AdaLine, LogisticRegression
 from gossipy_tpu.simulation import GossipSimulator
+from gossipy_tpu.simulation import faults as jfaults
+from gossipy_tpu.telemetry import health as jhealth
+from gossipy_tpu.telemetry import probes as jprobes
 from gossipy_tpu_torch import core as tcore
 from gossipy_tpu_torch import handlers as th
 from gossipy_tpu_torch import simulation as tsimulation
@@ -47,6 +50,9 @@ from gossipy_tpu_torch.models import LogisticRegression as TLogReg
 from gossipy_tpu_torch.models.nn import ParamLayout
 from gossipy_tpu_torch.optim import add_decayed_weights, chain, sgd
 from gossipy_tpu_torch.simulation import GossipSimulator as TGossipSimulator
+from gossipy_tpu_torch.simulation import faults as tfaults
+from gossipy_tpu_torch.telemetry import health as thealth
+from gossipy_tpu_torch.telemetry import probes as tprobes
 from torch_oracle import JaxDraws
 
 N, D_FEAT, ROUNDS = 12, 10, 6
@@ -101,11 +107,7 @@ def make_pair(jtopo, ttopo, jdata, tdata, key, d_feat=D_FEAT, batch=8,
     """The same configuration in both engines. ``kw`` is given in the
     port's terms (its delay objects and protocol enum) and translated."""
     jh, th = handlers(d_feat, batch)
-    jkw = dict(kw)
-    if "delay" in kw:
-        jkw["delay"] = to_jax_delay(kw["delay"])
-    if "protocol" in kw:
-        jkw["protocol"] = jcore.AntiEntropyProtocol(int(kw["protocol"]))
+    jkw = jax_kw(kw)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore",
                                 message=r"mailbox_slots=\d+ may overflow")
@@ -273,6 +275,13 @@ def jax_kw(kw):
         acc = kw["token_account"]
         out["token_account"] = getattr(jflow, type(acc).__name__)(
             **dataclasses.asdict(acc))
+    # The telemetry configs: the same fields in the JAX package's classes.
+    if isinstance(kw.get("probes"), tprobes.ProbeConfig):
+        out["probes"] = jprobes.ProbeConfig(**kw["probes"].to_dict())
+    if isinstance(kw.get("sentinels"), thealth.SentinelConfig):
+        out["sentinels"] = jhealth.SentinelConfig(**kw["sentinels"].to_dict())
+    if isinstance(kw.get("chaos"), tfaults.ChaosConfig):
+        out["chaos"] = jfaults.ChaosConfig.from_dict(kw["chaos"].to_dict())
     return out
 
 
@@ -384,3 +393,55 @@ def check_variant(build, key_seed, rounds, common_init=True, rtol=0.0,
     assert_same_aux(tsim, jst, tst, rtol=rtol)
     assert trep.sent_messages > 0
     return tsim, tst, trep
+
+
+# -- probes, sentinels and chaos ---------------------------------------------
+
+# Per-round telemetry arrays of the two reports (the JAX report's field
+# names): integers equal, floats within a relative tolerance.
+TELEMETRY_FIELDS = tuple(
+    f for f in ("probe_consensus_mean", "probe_consensus_max",
+                "probe_consensus_per_layer", "probe_stale_mean",
+                "probe_stale_max", "probe_stale_hist",
+                "probe_accepted_per_node", "probe_merge_delta",
+                "probe_train_delta", "health_nonfinite_params",
+                "health_nonfinite_delta", "health_nonfinite_metrics",
+                "health_first_bad_slot", "health_mix_nonfinite",
+                "health_diverged_per_node", "health_param_norm_max",
+                "health_delta_norm", "health_delta_hwm",
+                "health_mailbox_hwm_run", "health_trip",
+                "chaos_component_gap", "chaos_within_mean",
+                "chaos_active_components"))
+
+
+def assert_same_telemetry(jrep, trep, rtol=1e-5, atol=1e-6,
+                          skip=()) -> list:
+    """Every probe, health and chaos array of the two reports: present
+    in both or in neither; integer arrays equal, float arrays within
+    ``atol`` plus ``rtol`` of the value (NaN where the other is NaN);
+    the static layer names, the expected fan-in and ``failed_chaos``
+    equal. Returns the names of the arrays compared."""
+    seen = []
+    for f in TELEMETRY_FIELDS:
+        want, got = getattr(jrep, f), getattr(trep, f)
+        assert (want is None) == (got is None), f
+        if want is None or f in skip:
+            continue
+        want, got = np.asarray(want), np.asarray(got)
+        assert got.shape == want.shape, (f, got.shape, want.shape)
+        if want.dtype.kind in "iub":
+            np.testing.assert_array_equal(got, want, err_msg=f)
+        else:
+            np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                       equal_nan=True, err_msg=f)
+        seen.append(f)
+    for f in ("probe_layer_names", "health_layer_names"):
+        assert getattr(trep, f) == getattr(jrep, f), f
+    if jrep.probe_expected_fanin is not None:
+        np.testing.assert_allclose(trep.probe_expected_fanin,
+                                   jrep.probe_expected_fanin, rtol=1e-12)
+    assert sorted(trep.failed_per_cause) == sorted(jrep.failed_per_cause)
+    if "chaos" in jrep.failed_per_cause:
+        np.testing.assert_array_equal(trep.failed_per_cause["chaos"],
+                                      jrep.failed_per_cause["chaos"])
+    return seen
