@@ -214,6 +214,33 @@ Phases, each printed as it runs; any failure exits non-zero:
    phase 8's bf16 leg. In (b) no call of K1's or K3's plain version is
    allowed, and the launches are K1 or K2 once a round with messages.
 
+12. sparse: the population-scale configurations of the JAX package's
+   ``bench.py --scale`` and ``--scale-all2all`` (and the last rung of
+   ``scripts/scale_ladder.py``), built by their twin
+   ``gossipy_tpu_torch/examples/scale.py``: the synthetic spambase-shaped
+   set (4 samples a node, the eval capped at 2048), LogReg under SGD 0.1,
+   batch 4, MERGE_UPDATE, PUSH on ``SparseTopology.random_regular(N, 20,
+   seed=42)`` (CSR, no ``[N, N]`` anywhere), a 1% sampled eval on the
+   last round, an fp32 ring, the default deliver (K1). (a) The native
+   generator (``gossipy_tpu_torch/native``, built by g++ here) gives the
+   edge sets whose digests ``NATIVE_DIGESTS`` pins to the JAX package's
+   generator; then at SPARSE_CHECK_NODES nodes, SPARSE_CHECK_ROUNDS
+   rounds on the card and on the CPU from the same seeds: the vanilla
+   row on the single-pass deliver, the same under a partition and churn
+   (the sparse chaos draw over the alive neighbour slots), the neighbour
+   cache, All2All over ``SparseMixing`` in its segment and padded forms:
+   accounting, boxes, ages and ``aux`` equal, params within REF_TOL plus
+   REF_TOL of their magnitude, K1 once a round with messages and every
+   call bit-equal to its plain version (``MergeAudit``). (b) The vanilla
+   row at SCALE_NODES nodes (a warm-up round, SCALE_ROUNDS timed rounds:
+   rounds/s, the final accuracy, the topology's build time, K1's
+   launches against the rounds with messages, one profiled round's idle
+   share, the phase times, ``memory_budget()`` beside
+   ``max_memory_allocated``), K1 against its plain version, timed, at
+   that shape (``at_scale_shape``), the LADDER_NODES rung on the same
+   path (LADDER_ROUNDS rounds), and the All2All row at SCALE_NODES nodes,
+   SCALE_A2A_ROUNDS rounds, in the segment and the padded form.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -256,9 +283,10 @@ NS_NODES = 100
 NS_DEGREE = 20
 NS_CHECK_ROUNDS = 10
 NS_WARMUP_ROUNDS = 20
-# Timed rounds of each north-star leg: bench.py times 2000; 500 keep the
-# whole script within half its time limit beside phase 8.
-BENCH_ROUNDS = 500
+# Timed rounds of each north-star leg (phases 7 and 11): bench.py times
+# 2000; 300 keep the whole script near half its time limit beside phases
+# 8 and 12.
+BENCH_ROUNDS = 300
 ATTN_S = 8192       # the JAX bench's flash-attention regime:
 ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
 # The flagship (examples/main_cifar10_100nodes.py,
@@ -279,6 +307,25 @@ LEGS = (("plain", False, "float32"),
         ("multi-bf16", "multi", "bfloat16"),
         ("multi-int8", "multi", "int8"))
 ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
+
+# The native generators' edge sets that phase 12 holds the card machine's
+# build to: sha256 of the int32 [E, 2] edge list of
+# random_regular_edges(2048, 20, 42) and barabasi_albert_edges(4141, 10,
+# 42), pinned equal to the JAX package's generator by
+# tests/test_torch_sparse.py.
+NATIVE_DIGESTS = {
+    ("random_regular", (2048, 20, 42)):
+        "a74f85469ed4827b25d96f55ad7cb667959a6aaaad32bb38e48d5656a31e0739",
+    ("barabasi_albert", (4141, 10, 42)):
+        "547ee97e7aae343ce97c1fea261e79164285c8dd63bfa8a4044c0620e1a521d9",
+}
+
+
+def edge_digest(edges) -> str:
+    """sha256 of an edge list as contiguous int32."""
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(edges, dtype=np.int32)
+                          .tobytes()).hexdigest()
 
 
 def log(msg: str) -> None:
@@ -2025,9 +2072,9 @@ def telemetry_phase(torch, merge, flag_ms) -> dict:
     """Phase 11: (a) the north star (K1), the flagship at 16 nodes on a
     bf16 ring (K2, fp32 compute) and All2All at 32 nodes, with probes,
     sentinels and the demo chaos, on the card against the CPU; the north
-    star with a NaN written mid-run; (b) the north star's three 500-round
-    legs
-    (telemetry off, probes and sentinels, and the chaos added) and the
+    star with a NaN written mid-run; (b) the north star's three
+    300-round legs (telemetry off, probes and sentinels, and the chaos
+    added) and the
     full-width flagship on its bf16 ring with all three on. Returns the
     launches per (kernel, ring) and path."""
     from gossipy_tpu_torch.examples import main_all2all as all2all
@@ -2165,6 +2212,254 @@ def telemetry_phase(torch, merge, flag_ms) -> dict:
     del flag_stacked
     torch.cuda.empty_cache()
     return paths
+
+
+# -- phase 12: sparse topologies at population scale ------------------------
+
+SCALE_NODES = 50_000        # bench.py --scale, --scale-all2all
+SCALE_ROUNDS = 100          # bench.py --scale's rounds
+SCALE_A2A_ROUNDS = 50       # bench.py --scale-all2all's rounds
+LADDER_NODES = 100_000      # scripts/scale_ladder.py's last rung
+LADDER_ROUNDS = 20
+SPARSE_CHECK_NODES = 512
+SPARSE_CHECK_ROUNDS = 8
+# The card-against-CPU runs of phase 12 (a): (label, configuration, the
+# deliver path or the All2All form).
+SPARSE_CHECKS = (("vanilla-multi", "vanilla", "multi"),
+                 ("chaos-multi", "chaos", "multi"),
+                 ("cacheneigh", "cacheneigh", None),
+                 ("all2all-segment", "all2all", "segment"),
+                 ("all2all-padded", "all2all", "padded"))
+
+
+def sparse_check_sim(torch, kind: str, form, device, seed: int = 3):
+    """Phase 12 (a): the scale twin's configuration
+    (``gossipy_tpu_torch/examples/scale.py``) at SPARSE_CHECK_NODES nodes
+    of ``SparseTopology.random_regular(n, 20, seed=42)``, on ``device``
+    with ``TorchDraws(seed)``, and its ``init_nodes`` state: the vanilla
+    row on deliver ``form``; the same under a partition of the first
+    third of the nodes and churn (the slot form of the sparse chaos
+    draw); the neighbour cache (async, plain path); All2All in ``form``
+    with 10% drops and 80% online."""
+    from gossipy_tpu_torch.core import SparseTopology
+    from gossipy_tpu_torch.examples import scale
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import CacheNeighGossipSimulator
+    from gossipy_tpu_torch.simulation.faults import ChaosConfig, \
+        ChurnProcess, PartitionEpisode
+    n, rounds = SPARSE_CHECK_NODES, SPARSE_CHECK_ROUNDS
+    topo = SparseTopology.random_regular(n, scale.DEGREE, seed=42)
+    draws = TorchDraws(seed)
+    if kind == "all2all":
+        sim = scale.build_all2all(n, rounds, topo, draws=draws,
+                                  device=device, sparse_mix_form=form,
+                                  drop_prob=0.1, online_prob=0.8)
+    elif kind == "cacheneigh":
+        sim = CacheNeighGossipSimulator(
+            scale.scale_handler(), topo, scale.scale_data(n),
+            delta=scale.ROUND_LEN, sync=False, sampling_eval=0.1,
+            draws=draws, device=device)
+    else:
+        kw = {}
+        if kind == "chaos":
+            kw["chaos"] = ChaosConfig(
+                partitions=(PartitionEpisode(
+                    components=(tuple(range(n // 3)),), start=1, stop=5),),
+                churn=ChurnProcess(keep_frac=0.5, start=3, stop=7,
+                                   period=2, seed=1))
+        sim = scale.build_vanilla(n, rounds, topo, draws=draws,
+                                  device=device, fused_merge=form,
+                                  drop_prob=0.1, **kw)
+    state = sim.init_nodes(torch.Generator().manual_seed(seed))
+    return sim, state
+
+
+def sparse_card_vs_cpu(torch, merge, label: str, kind: str, form) -> dict:
+    """Phase 12 (a), one configuration on the CPU and on the card from
+    the same seeds: accounting, both boxes, ages and ``aux`` equal,
+    params within REF_TOL plus REF_TOL of their magnitude (the segment
+    form's ``index_add_`` sums with atomics on the card, in another
+    order), K1 once a round with messages on the single-pass deliver and
+    every call bit-equal to its plain version (``MergeAudit``). Returns
+    the card run's launches."""
+    runs = []
+    for device in ("cpu", "cuda"):
+        sim, state = sparse_check_sim(torch, kind, form, device)
+        merge.reset_launch_counts()
+        audit = MergeAudit(torch, merge, sim) if device == "cuda" \
+            else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with audit:
+            state, rep = sim.start(state, n_rounds=SPARSE_CHECK_ROUNDS)
+        launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+        runs.append((sim, state, rep, launches,
+                     audit.stats if device == "cuda" else None,
+                     time.perf_counter() - t0))
+    (sim, st_c, r_c, l_c, _, t_c), (_, st_g, r_g, l_g, stats, t_g) = runs
+    tag = f"sparse {label}"
+    check_same_accounting(torch, tag, st_c, st_g, r_c, r_g)
+    check_same_aux(torch, tag, st_c, st_g, REF_TOL)
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    diff = (p_c - p_g).abs()
+    worst = float((diff - REF_TOL * (1.0 + p_c.abs())).max())
+    want = variant_want(merge, sim, r_g)
+    calls = {k: s["calls"] for k, s in (stats or {}).items()}
+    errs = {k: s["max_abs_err"] for k, s in (stats or {}).items()}
+    m_c, m_g = r_c.final("accuracy"), r_g.final("accuracy")
+    failed = {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()}
+    log(f"[sparse] {label} card vs CPU: {sim.n_nodes} nodes, "
+        f"{type(sim).__name__}, deliver {sim.fused_merge or 'plain'}"
+        f"{', form ' + form if kind == 'all2all' else ''}, K = {sim.K}, "
+        f"{SPARSE_CHECK_ROUNDS} rounds: sent {int(r_g.sent_per_round.sum())}"
+        f", failed {failed}"
+        f"; params max abs diff {float(diff.max()):.3e}, worst margin "
+        f"{worst:.3e} (<= 0 passes); final accuracy card {m_g}, CPU {m_c}; "
+        f"launches card {l_g}, CPU {l_c}; merge calls held to the plain "
+        f"version {calls}, max abs err {errs}; CPU {t_c:.1f} s, card "
+        f"{t_g:.1f} s")
+    if worst > 0 or not torch.isfinite(p_g).all() or not np.isfinite(m_g):
+        raise RuntimeError(f"{tag}: the card run does not agree with the "
+                           "CPU run")
+    if l_c or l_g != want or calls != want or any(errs.values()) or \
+            (sim.fused_merge == "multi" and not sum(want.values())):
+        raise RuntimeError(f"{tag}: launches card {l_g}, CPU {l_c}, "
+                           f"audited calls {calls} (errors {errs}); the "
+                           f"path makes {want}")
+    if int(r_g.sent_per_round.sum()) == 0:
+        raise RuntimeError(f"{tag}: no message was sent")
+    return l_g
+
+
+def scale_timed(torch, merge, n: int, rounds: int, all2all: bool = False,
+                form: str = "auto", phases: bool = True) -> dict:
+    """Phase 12 (b), one scale row at ``n`` nodes on the card, built as
+    ``examples/scale.py`` builds it: the topology's build time, a
+    warm-up round, then ``rounds`` timed rounds (the last one evaluates),
+    the card synchronised before the host clock stops; rounds/s, the
+    final accuracy, the launches against the rounds with messages
+    (counts set to 0 just before), ``memory_budget()`` beside
+    ``max_memory_allocated``, one profiled round's idle share and the
+    phase times."""
+    from gossipy_tpu_torch.core import SparseTopology
+    from gossipy_tpu_torch.examples import scale
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    topo = SparseTopology.random_regular(n, scale.DEGREE, seed=42)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if all2all:
+        sim = scale.build_all2all(n, rounds + 1, topo, device="cuda",
+                                  sparse_mix_form=form)
+    else:
+        sim = scale.build_vanilla(n, rounds + 1, topo, device="cuda")
+    state = sim.init_nodes(torch.Generator().manual_seed(42))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    state, _ = sim.start(state, n_rounds=1)     # warm-up round
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    want = variant_want(merge, sim, rep)
+    with_msgs = int(((rep.compact_slots_per_round
+                      + rep.wide_slots_per_round) > 0).sum())
+    acc = rep.final("accuracy")
+    if launches != want or (not all2all and (sim.fused_merge != "multi"
+                                             or want[merge.KERNEL]
+                                             != with_msgs
+                                             or with_msgs == 0)):
+        raise RuntimeError(f"scale {n}: launches {launches}, the path must "
+                           f"make {want} ({with_msgs} rounds with "
+                           "messages)")
+    if not torch.isfinite(state.model.params).all() or \
+            not np.isfinite(acc) or rep.sent_messages == 0:
+        raise RuntimeError(f"scale {n}: non-finite params or accuracy, or "
+                           "no message sent")
+    budget = sim.memory_budget()
+    row = (f"all2all {sim.n_nodes} nodes, form "
+           f"{'padded' if sim._sparse_padded else 'segment'}" if all2all
+           else f"vanilla {sim.n_nodes} nodes")
+    idle = profile(torch, lambda: sim._round(state), f"scale {row}, one "
+                   "round without eval")
+    log(f"[sparse] scale {row}: degree {scale.DEGREE}, K = {sim.K}, D = "
+        f"{state.history_ages.shape[0]}, deliver "
+        f"{sim.fused_merge or 'plain'}, stride "
+        f"{sim.handler.layout.stride}: topology built in {build_s:.3f} s, "
+        f"simulator and init_nodes {setup:.1f} s; {rounds} rounds in "
+        f"{wall:.3f} s = {rounds / wall:.2f} rounds/s "
+        f"({wall / rounds * 1e3:.3f} ms/round); sent {rep.sent_messages}, "
+        f"failed {rep.failed_messages}; final global accuracy {acc}; "
+        f"launches {launches} for {with_msgs} rounds with messages; idle "
+        f"share of one round {idle}; memory budget {budget['total_bytes']} "
+        f"B ({budget['total_bytes'] / 2**20:.1f} MiB), peak allocated "
+        f"{peak} B ({peak / 2**20:.1f} MiB); a dense [N, N] float64 fan-in "
+        f"would take {8 * n * n / 2**30:.1f} GiB on the host")
+    if phases and not all2all:
+        phase_times(torch, sim, state, f"scale vanilla {n}")
+    out = {"rounds_per_s": rounds / wall, "accuracy": acc,
+           "build_s": build_s, "launches": launches, "idle_share": idle,
+           "budget_bytes": budget["total_bytes"], "peak_bytes": peak,
+           "K": sim.K, "D": int(state.history_ages.shape[0]),
+           "stride": sim.handler.layout.stride}
+    del sim, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sparse_phase(torch, merge, rate) -> tuple:
+    """Phase 12: (a) the native generator's edge sets against the pinned
+    digests, each SPARSE_CHECKS configuration on the card against the
+    CPU; (b) the vanilla scale row at SCALE_NODES nodes, K1 timed at its
+    shape, the LADDER_NODES rung, the All2All row in both sparse forms.
+    Returns the launches per (kernel, ring) and run, and K1's numbers at
+    the scale row's shape."""
+    from gossipy_tpu_torch import native
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("the native graph generators did not build")
+    log(f"[sparse] native generators built (g++) in "
+        f"{time.perf_counter() - t0:.1f} s: {native.library_path().name}")
+    for (kind, args), want in NATIVE_DIGESTS.items():
+        t0 = time.perf_counter()
+        edges = getattr(native, f"{kind}_edges")(*args)
+        got = edge_digest(edges)
+        log(f"[sparse] native {kind}_edges{args}: {len(edges)} edges in "
+            f"{time.perf_counter() - t0:.3f} s, sha256 {got[:16]}... "
+            f"{'equal to' if got == want else 'DIFFERENT FROM'} the pinned "
+            "digest")
+        if got != want:
+            raise RuntimeError(f"native {kind}{args}: edge set differs from "
+                               "the JAX package's generator")
+    paths = {}
+    for label, kind, form in SPARSE_CHECKS:
+        for k, v in sparse_card_vs_cpu(torch, merge, label, kind,
+                                       form).items():
+            paths.setdefault((k, "float32"), {})[f"sparse-{label}"] = v
+    out = scale_timed(torch, merge, SCALE_NODES, SCALE_ROUNDS)
+    paths.setdefault((merge.KERNEL, "float32"), {})[
+        f"scale-{SCALE_NODES}"] = out["launches"][merge.KERNEL]
+    # K1 at the scale row's shape: 50,000 rows of LogReg's stride, the
+    # derived K, the ring's cells.
+    at_scale = check_merge(torch, merge, SCALE_NODES, out["D"],
+                           out["stride"], out["K"], 61, rate)
+    ladder = scale_timed(torch, merge, LADDER_NODES, LADDER_ROUNDS,
+                         phases=False)
+    paths[(merge.KERNEL, "float32")][f"scale-{LADDER_NODES}"] = \
+        ladder["launches"][merge.KERNEL]
+    a2a = {form: scale_timed(torch, merge, SCALE_NODES, SCALE_A2A_ROUNDS,
+                             all2all=True, form=form)
+           for form in ("segment", "padded")}
+    log(f"[sparse] rounds/s: vanilla {SCALE_NODES} "
+        f"{out['rounds_per_s']:.2f}, vanilla {LADDER_NODES} "
+        f"{ladder['rounds_per_s']:.2f}, all2all {SCALE_NODES} segment "
+        f"{a2a['segment']['rounds_per_s']:.2f}, padded "
+        f"{a2a['padded']['rounds_per_s']:.2f}")
+    return paths, at_scale
 
 
 def tensor_rate(name: str) -> float:
@@ -3066,6 +3361,13 @@ def main() -> int:
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[telemetry] phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    # 12. sparse topologies at population scale
+    t0 = time.perf_counter()
+    sparse_paths, at_scale = sparse_phase(torch, merge, rate)
+    for key, by_path in sparse_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[sparse] phase 12 took {time.perf_counter() - t0:.1f} s")
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -3082,6 +3384,7 @@ def main() -> int:
     kernels[0]["at_flagship_shape"] = at_flagship[("multi", "float32")]
     kernels[0]["at_ormandi_shape"] = at_ormandi
     kernels[0]["at_giaretta_shape"] = at_variants["giaretta"]
+    kernels[0]["at_scale_shape"] = at_scale
     for slots, wire, label, kernel, source, line in (
             ("multi", "bfloat16", "multi-bf16", merge.KERNEL_MULTI_DQ,
              "gather_merge_multi.cu", 100),

@@ -1,17 +1,23 @@
-"""Core protocol primitives: enums, the dense topology, delay models.
+"""Core protocol primitives: enums, the dense and sparse topologies, the
+mixing weights, delay models.
 
-Counterpart of ``gossipy_tpu/core.py``. The topology is a host-side numpy
-bool adjacency; the simulator copies it to its device once. Peer draws and
-random delays go through the simulation's
-:class:`~gossipy_tpu_torch.random.DrawProvider`.
+Counterpart of ``gossipy_tpu/core.py``. A topology is host-side numpy: a
+dense bool adjacency (:class:`Topology`) or CSR neighbour lists
+(:class:`SparseTopology`, O(E) memory, for populations where an ``[N,
+N]`` adjacency no longer fits); the simulator copies it to its device
+once. Peer draws and random delays go through the simulation's
+:class:`~gossipy_tpu_torch.random.DrawProvider`: a uniform neighbour of a
+dense row is the JAX package's categorical, of a CSR row its ``randint``
+into the row.
 
-Ported so far: the enums, :class:`Topology` with its ``clique``, ``ring``,
-``random_regular`` and ``barabasi_albert`` constructors (the last two with
-networkx's algorithms, copied below, so the edge set equals the JAX
-package's for every seed), the dense mixing matrices of the all-to-all
-simulator and the three delay models. ``erdos_renyi``, the native
-generators, the sparse topology and the sparse mixing are still to be
-ported.
+The generators have the JAX package's backends: networkx's algorithms,
+copied below so that the port needs no networkx and the edge set equals
+the JAX package's for every seed, and the native C++ generators of
+:mod:`gossipy_tpu_torch.native` (a copy of the JAX package's source),
+which ``"auto"`` takes from ``NATIVE_THRESHOLD`` nodes on. The mixing
+weights of the all-to-all simulator are a dense ``[N, N]`` matrix over a
+:class:`Topology` and O(E) edge weights (:class:`SparseMixing`) over a
+:class:`SparseTopology`.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import dataclasses
 import random
 from collections import defaultdict
 from enum import IntEnum
-from typing import Optional
+from itertools import combinations
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -89,47 +96,75 @@ class Topology:
         return Topology(a)
 
     @staticmethod
-    def random_regular(n: int, degree: int, seed: int = 42,
-                       backend: str = "auto") -> "Topology":
-        """Random ``degree``-regular graph on ``n`` nodes, with the edge set
-        networkx's ``random_regular_graph(degree, n, seed)`` gives (the JAX
-        package's ``backend="networkx"``). The default ``"auto"`` is the
-        JAX package's: networkx's algorithm below ``NATIVE_THRESHOLD``
-        nodes, the C++ generator from there on. ``"native"``, and
-        ``"auto"`` at ``n >= NATIVE_THRESHOLD``, name that generator, which
-        is not ported yet: they raise, so the same call never gives the
-        two packages different edge sets."""
-        Topology._check_backend(n, backend)
+    def _use_native(n: int, backend: str) -> bool:
+        """Whether a generator call takes the native generator: always
+        under ``"native"`` (which raises when the library cannot be
+        built), never under ``"networkx"``, and under ``"auto"`` from
+        ``NATIVE_THRESHOLD`` nodes on when the library can be built,
+        with the JAX package's warning that the edge set then differs
+        from networkx's for the same seed."""
+        if backend not in ("auto", "networkx", "native"):
+            raise ValueError("backend must be 'auto', 'networkx' or "
+                             f"'native', got {backend!r}")
+        if backend == "networkx":
+            return False
+        from . import native
+        if backend == "native":
+            native.load()
+            return True
+        if n >= Topology.NATIVE_THRESHOLD and native.available():
+            from . import LOG
+            LOG.warning(
+                "Topology backend='auto' selected the native generator for "
+                "n=%d (threshold %d): edge sets differ from networkx's RNG "
+                "stream. Pin backend='native' or backend='networkx' for "
+                "cross-size reproducibility.", n, Topology.NATIVE_THRESHOLD)
+            return True
+        return False
+
+    @staticmethod
+    def _from_edges(n: int, edges) -> "Topology":
         a = np.zeros((n, n), dtype=bool)
-        for s1, s2 in _random_regular_edges(degree, n, random.Random(seed)):
+        for s1, s2 in edges:
             a[s1, s2] = a[s2, s1] = True
         return Topology(a)
+
+    @staticmethod
+    def random_regular(n: int, degree: int, seed: int = 42,
+                       backend: str = "auto") -> "Topology":
+        """Random ``degree``-regular graph on ``n`` nodes: the edge set of
+        networkx's ``random_regular_graph(degree, n, seed)``
+        (``backend="networkx"``) or of the native pairing model
+        (``"native"``); ``"auto"`` takes the second from
+        ``NATIVE_THRESHOLD`` nodes on (:meth:`_use_native`)."""
+        if Topology._use_native(n, backend):
+            from . import native
+            return Topology(native.random_regular(n, degree, seed))
+        return Topology._from_edges(
+            n, _random_regular_edges(degree, n, random.Random(seed)))
 
     @staticmethod
     def barabasi_albert(n: int, m: int, seed: int = 42,
                         backend: str = "auto") -> "Topology":
         """Preferential-attachment graph on ``n`` nodes, ``m`` edges from
-        each new node, with the edge set networkx's
-        ``barabasi_albert_graph(n, m, seed)`` gives. ``"native"``, and
-        ``"auto"`` at ``n >= NATIVE_THRESHOLD``, raise as in
-        :meth:`random_regular`."""
-        Topology._check_backend(n, backend)
-        a = np.zeros((n, n), dtype=bool)
-        for s1, s2 in _barabasi_albert_edges(n, m, random.Random(seed)):
-            a[s1, s2] = a[s2, s1] = True
-        return Topology(a)
+        each new node: networkx's ``barabasi_albert_graph(n, m, seed)`` or
+        the native generator, chosen as in :meth:`random_regular`."""
+        if Topology._use_native(n, backend):
+            from . import native
+            return Topology(native.barabasi_albert(n, m, seed))
+        return Topology._from_edges(
+            n, _barabasi_albert_edges(n, m, random.Random(seed)))
 
     @staticmethod
-    def _check_backend(n: int, backend: str) -> None:
-        if backend not in ("auto", "networkx", "native"):
-            raise ValueError("backend must be 'auto', 'networkx' or "
-                             f"'native', got {backend!r}")
-        if backend == "native" or (backend == "auto"
-                                   and n >= Topology.NATIVE_THRESHOLD):
-            raise NotImplementedError(
-                "the native graph generators are not ported yet (backend="
-                f"{backend!r} at n={n}, threshold "
-                f"{Topology.NATIVE_THRESHOLD}); pass backend='networkx'")
+    def erdos_renyi(n: int, p: float, seed: int = 42,
+                    backend: str = "auto") -> "Topology":
+        """G(n, p): each of the ``n (n - 1) / 2`` pairs an edge with
+        probability ``p``, networkx's ``erdos_renyi_graph(n, p, seed)`` or
+        the native generator, chosen as in :meth:`random_regular`."""
+        if Topology._use_native(n, backend):
+            from . import native
+            return Topology(native.erdos_renyi(n, p, seed))
+        return Topology._from_edges(n, _gnp_edges(n, p, random.Random(seed)))
 
     def get_peers(self, node_id: int) -> list[int]:
         """Peer ids of one node."""
@@ -148,12 +183,13 @@ class Topology:
 
 
 # The pairing algorithm of networkx 3.6.1's ``random_regular_graph``
-# (networkx/generators/random_graphs.py:524) and its preferential
-# attachment, ``barabasi_albert_graph`` with ``_random_subset`` (the same
-# file), copied so that the port needs no networkx. Their only randomness
-# is ``rng.shuffle`` of the stubs and ``rng.choice`` of the repeated-node
-# list, with ``rng = random.Random(seed)`` as networkx's
-# ``py_random_state`` makes it.
+# (networkx/generators/random_graphs.py:524), its preferential
+# attachment, ``barabasi_albert_graph`` with ``_random_subset``, and its
+# ``gnp_random_graph`` (the same file), copied so that the port needs no
+# networkx. Their only randomness is ``rng.shuffle`` of the stubs,
+# ``rng.choice`` of the repeated-node list and ``rng.random()`` per pair,
+# with ``rng = random.Random(seed)`` as networkx's ``py_random_state``
+# makes it.
 #
 # Copyright (C) 2004-2025, NetworkX Developers
 # Aric Hagberg <hagberg@lanl.gov>
@@ -259,11 +295,163 @@ def _barabasi_albert_edges(n: int, m: int, rng: random.Random) -> list:
     return edges
 
 
-def uniform_mixing(topology: Topology) -> np.ndarray:
-    """Uniform mixing weights ``[N, N]`` float32: row ``i`` weights node
-    ``i`` and each of its ``deg(i)`` peers by ``1 / (deg(i) + 1)``
-    (``gossipy_tpu/core.py::uniform_mixing``, dense only)."""
-    _dense_only(topology)
+def _gnp_edges(n: int, p: float, rng: random.Random) -> list:
+    """The edges of G(n, p): every pair ``(i, j)``, ``i < j``, in
+    ``combinations`` order, kept when ``rng.random() < p`` (all of them
+    for ``p >= 1``, none for ``p <= 0``, drawing nothing)."""
+    if p >= 1:
+        return list(combinations(range(n), 2))
+    if p <= 0:
+        return []
+    return [e for e in combinations(range(n), 2) if rng.random() < p]
+
+
+class CSR(NamedTuple):
+    """A :class:`SparseTopology`'s neighbour lists as int64 tensors on one
+    device: ``indptr`` ``[N + 1]``, ``indices`` ``[2E]``, ``degrees``
+    ``[N]``."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    degrees: torch.Tensor
+
+
+class SparseTopology:
+    """A static topology as CSR neighbour lists, for node counts where a
+    dense ``[N, N]`` adjacency no longer fits (2.5 GB of bools at 50,000
+    nodes, 20 GB of the float64 fan-in product).
+
+    ``indices`` ``[2E]`` int32 lists each node's neighbours in id order,
+    row by row; ``indptr`` ``[N + 1]`` int32 holds the rows' offsets;
+    ``degrees`` ``[N]`` int32. The query surface is :class:`Topology`'s
+    (``num_nodes``, ``degrees``, ``get_peers``, ``size``) and the engine
+    runs on either; ``adjacency`` raises, so nothing builds an ``[N, N]``
+    by accident. A uniform peer draw is a ``randint(degree)`` into the row
+    (:meth:`~gossipy_tpu_torch.random.DrawProvider.csr_peers`).
+    """
+
+    def __init__(self, num_nodes: int, edges: np.ndarray):
+        """``edges``: the undirected edge list ``[E, 2]``, each edge once,
+        without self-loops (the generators give it so)."""
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        n = int(num_nodes)
+        src = np.concatenate([edges[:, 0], edges[:, 1]])
+        dst = np.concatenate([edges[:, 1], edges[:, 0]])
+        order = np.lexsort((dst, src))  # rows ascending, sorted within row
+        self.num_nodes = n
+        self.indices: np.ndarray = dst[order].astype(np.int32)
+        counts = np.bincount(src, minlength=n).astype(np.int64)
+        self.indptr: np.ndarray = np.concatenate(
+            [[0], np.cumsum(counts)]).astype(np.int32)
+        self.degrees: np.ndarray = counts.astype(np.int32)
+        self._on: dict = {}
+
+    # -- constructors: the native edge-list generators, O(E) throughout ------
+
+    @staticmethod
+    def random_regular(n: int, degree: int, seed: int = 42
+                       ) -> "SparseTopology":
+        from . import native
+        return SparseTopology(n, native.random_regular_edges(n, degree, seed))
+
+    @staticmethod
+    def erdos_renyi(n: int, p: float, seed: int = 42) -> "SparseTopology":
+        from . import native
+        return SparseTopology(n, native.erdos_renyi_edges(n, p, seed))
+
+    @staticmethod
+    def barabasi_albert(n: int, m: int, seed: int = 42) -> "SparseTopology":
+        from . import native
+        return SparseTopology(n, native.barabasi_albert_edges(n, m, seed))
+
+    @staticmethod
+    def ring(n: int, k: int = 1) -> "SparseTopology":
+        """Ring lattice, ``k`` neighbours a side (an antipodal pair is one
+        edge)."""
+        idx = np.arange(n, dtype=np.int64)
+        edges = []
+        for d in range(1, k + 1):
+            if 2 * d < n:
+                edges.append(np.stack([idx, (idx + d) % n], axis=1))
+            elif 2 * d == n:
+                half = idx[: n // 2]
+                edges.append(np.stack([half, half + n // 2], axis=1))
+        return SparseTopology(n, np.concatenate(edges) if edges
+                              else np.empty((0, 2), np.int64))
+
+    @staticmethod
+    def from_dense(topology: Topology) -> "SparseTopology":
+        i, j = np.nonzero(np.triu(topology.adjacency))
+        return SparseTopology(topology.num_nodes, np.stack([i, j], axis=1))
+
+    def to_dense(self) -> Topology:
+        """The dense :class:`Topology` of the same edges (small N only)."""
+        a = np.zeros((self.num_nodes, self.num_nodes), dtype=bool)
+        rows = np.repeat(np.arange(self.num_nodes), self.degrees)
+        a[rows, self.indices] = True
+        return Topology(a)
+
+    # -- queries ----------------------------------------------------------
+
+    def get_peers(self, node_id: int) -> list[int]:
+        lo, hi = int(self.indptr[node_id]), int(self.indptr[node_id + 1])
+        return list(self.indices[lo:hi])
+
+    def size(self, node: Optional[int] = None) -> int:
+        if node is None:
+            return self.num_nodes
+        return int(self.degrees[node])
+
+    @property
+    def adjacency(self):
+        raise AttributeError(
+            "SparseTopology does not materialize a dense adjacency; use "
+            "Topology for features that need one or from_dense/to_dense for "
+            "small N")
+
+    def csr_on(self, device: torch.device) -> CSR:
+        """The neighbour lists on ``device``, copied once per device."""
+        device = torch.device(device)
+        csr = self._on.get(device)
+        if csr is None:
+            csr = self._on[device] = CSR(
+                *(torch.as_tensor(a, device=device).long()
+                  for a in (self.indptr, self.indices, self.degrees)))
+        return csr
+
+
+class SparseMixing(NamedTuple):
+    """Mixing weights on the directed edges of a :class:`SparseTopology`,
+    in its CSR order, O(E): ``edge_w[e]`` is ``W[rows[e], senders[e]]``
+    and ``self_w[i]`` is ``W[i, i]``. The all-to-all merge is then a
+    gather and a sum per receiver, with no ``[N, N]`` anywhere. Host-side
+    numpy, as the dense matrix is; the simulator copies it to its
+    device."""
+
+    edge_w: np.ndarray    # [2E] float32, W[receiver, sender] per edge
+    self_w: np.ndarray    # [N]  float32, W[i, i]
+    rows: np.ndarray      # [2E] int32, the receiver (CSR row) per edge
+    senders: np.ndarray   # [2E] int32, the sender (CSR index) per edge
+    num_nodes: int
+
+
+def _csr_edge_arrays(topo: SparseTopology):
+    rows = np.repeat(np.arange(topo.num_nodes, dtype=np.int32),
+                     np.asarray(topo.degrees))
+    return rows, topo.indices
+
+
+def uniform_mixing(topology):
+    """Uniform mixing weights: row ``i`` weights node ``i`` and each of
+    its ``deg(i)`` peers by ``1 / (deg(i) + 1)``. A :class:`Topology`
+    gives the ``[N, N]`` float32 matrix, a :class:`SparseTopology` its
+    :class:`SparseMixing` edge weights."""
+    if isinstance(topology, SparseTopology):
+        rows, senders = _csr_edge_arrays(topology)
+        inv = 1.0 / (np.asarray(topology.degrees, dtype=np.float64) + 1.0)
+        return SparseMixing(inv[rows].astype(np.float32),
+                            inv.astype(np.float32), rows, senders,
+                            topology.num_nodes)
     a = topology.adjacency.astype(np.float64)
     deg = a.sum(axis=1)
     w = a / (deg[:, None] + 1.0)
@@ -271,12 +459,21 @@ def uniform_mixing(topology: Topology) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def metropolis_hastings_mixing(topology: Topology) -> np.ndarray:
-    """The standard Metropolis-Hastings weights ``[N, N]`` float32
-    (symmetric, doubly stochastic): ``W_ij = 1 / (1 + max(deg_i,
-    deg_j))`` on edges, ``W_ii = 1 - sum_j W_ij``; the JAX package's
-    weights, not the original gossipy's (dense only)."""
-    _dense_only(topology)
+def metropolis_hastings_mixing(topology):
+    """The standard Metropolis-Hastings weights (symmetric, doubly
+    stochastic): ``W_ij = 1 / (1 + max(deg_i, deg_j))`` on edges, ``W_ii
+    = 1 - sum_j W_ij``; the JAX package's weights, not the original
+    gossipy's. ``[N, N]`` float32 over a :class:`Topology`,
+    :class:`SparseMixing` over a :class:`SparseTopology`."""
+    if isinstance(topology, SparseTopology):
+        rows, senders = _csr_edge_arrays(topology)
+        deg = np.asarray(topology.degrees, dtype=np.float64)
+        ew = 1.0 / (1.0 + np.maximum(deg[rows], deg[senders]))
+        self_w = 1.0 - np.bincount(rows, weights=ew,
+                                   minlength=topology.num_nodes)
+        return SparseMixing(ew.astype(np.float32),
+                            self_w.astype(np.float32), rows, senders,
+                            topology.num_nodes)
     a = topology.adjacency.astype(np.float64)
     deg = a.sum(axis=1)
     w = a / (1.0 + np.maximum(deg[:, None], deg[None, :]))
@@ -288,8 +485,8 @@ def metropolis_hastings_mixing(topology: Topology) -> np.ndarray:
 def mixing_weight_rows(w: np.ndarray, topology: Topology) -> np.ndarray:
     """Per-node weight vectors ``[N, max_deg + 1]`` float32 in the original
     gossipy's layout, ``[self weight, peer weights in id order...]``,
-    zero-padded."""
-    _dense_only(topology)
+    zero-padded. Dense only, as in the JAX package: a
+    :class:`SparseTopology`'s ``adjacency`` raises."""
     n = topology.num_nodes
     max_deg = int(topology.degrees.max()) if n else 0
     out = np.zeros((n, max_deg + 1), dtype=np.float32)
@@ -299,13 +496,6 @@ def mixing_weight_rows(w: np.ndarray, topology: Topology) -> np.ndarray:
         out[i, 0] = w[i, i]
         out[i, 1:1 + len(peers)] = w[i, peers]
     return out
-
-
-def _dense_only(topology) -> None:
-    if not isinstance(topology, Topology):
-        raise NotImplementedError(
-            f"{type(topology).__name__} mixing is not ported yet (the dense "
-            "Topology only)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,9 +13,17 @@ Sub-fires: an async node may send ``F`` times in one round. Sub-fire
 ``f > 0`` draws under ``sub=f``: the JAX engine folds ``f`` into each
 purpose key of :meth:`DrawProvider.bernoulli` and
 :meth:`DrawProvider.randint`, and derives the draws of its send hooks
-(:meth:`DrawProvider.peers`, :meth:`DrawProvider.uniform`,
+(:meth:`DrawProvider.peers`, :meth:`DrawProvider.csr_peers`,
+:meth:`DrawProvider.slot_peers`, :meth:`DrawProvider.uniform`,
 :meth:`DrawProvider.choice`) from the base ``_round_key(r, K_FIRE)``
 folded with ``f``.
+
+A uniform peer is drawn in the topology's form, as the JAX package draws
+it: a categorical over a dense adjacency row (:meth:`DrawProvider.peers`),
+a ``randint`` into a sparse topology's CSR row
+(:meth:`DrawProvider.csr_peers`), and under sparse chaos a categorical
+over the alive slots of the padded neighbour table
+(:meth:`DrawProvider.slot_peers`).
 
 The simulator variants draw under the JAX package's variant tags
 (``>= 9000``): the token gate ``K_TOKEN_GATE``, reactive rounding
@@ -82,6 +90,27 @@ class DrawProvider:
         (purpose ``K_PEER`` unless named; ``fold`` folds a tag into the
         key); ``-1`` for a node with no neighbour."""
         raise NotImplementedError
+
+    def csr_peers(self, r: int, csr, sub: int = 0, purpose: int = K_PEER,
+                  fold: int = 0) -> torch.Tensor:
+        """One uniform neighbour per node of a sparse topology's
+        neighbour lists ``csr`` (:class:`~gossipy_tpu_torch.core.CSR`):
+        the JAX ``SparseTopology.sample_peers``, ``randint(key, (n,), 0,
+        max(deg, 1))`` into the row, not the dense categorical; keys as in
+        :meth:`peers`; ``-1`` for a node with no neighbour."""
+        raise NotImplementedError
+
+    def slot_peers(self, r: int, nbr: torch.Tensor, alive: torch.Tensor,
+                   sub: int = 0, purpose: int = K_PEER) -> torch.Tensor:
+        """One uniform neighbour per node among its alive slots: ``nbr``
+        is the padded neighbour table ``[n, max_deg]`` (``-1``: no
+        slot), ``alive`` the bool mask of the slots a draw may take (the
+        sparse chaos form). The slot is the JAX ``categorical`` over ``0 /
+        -inf`` logits, drawn as :meth:`choice` draws it; ``-1`` for a
+        node with no alive slot."""
+        slot = self.choice(r, purpose, alive, sub).clamp(0, nbr.shape[1] - 1)
+        peers = nbr.gather(1, slot[:, None]).squeeze(1).long()
+        return torch.where(alive.any(dim=1), peers, -1)
 
     def bernoulli(self, r: int, purpose: int, p: float, n, device:
                   torch.device, sub: int = 0) -> torch.Tensor:
@@ -165,9 +194,10 @@ class TorchDraws(DrawProvider):
     def __init__(self, seed: int = 42):
         self.generator = torch.Generator().manual_seed(seed)
         # id(adjacency) -> (adjacency, degrees, row starts, ids): one entry
-        # per adjacency tensor a run draws over (the topology's, and under
-        # chaos one per distinct edge-alive mask), kept for the provider's
-        # life so that alternating between them copies nothing.
+        # per dense adjacency tensor a run draws over (the topology's, and
+        # under chaos one per distinct edge-alive mask), kept for the
+        # provider's life so that alternating between them copies nothing.
+        # A sparse topology's neighbour lists are its CSR arrays already.
         self._neighbours: dict = {}
 
     def _perms(self, n: int, epochs: int, s: int) -> torch.Tensor:
@@ -213,6 +243,20 @@ class TorchDraws(DrawProvider):
         k = torch.minimum((u * deg).to(torch.int64), deg - 1).clamp(min=0)
         peers = ids[torch.where(has_peer, starts + k, 0)].to(torch.int64)
         return torch.where(has_peer, peers, -1).to(adjacency.device)
+
+    def csr_peers(self, r, csr, sub=0, purpose=K_PEER, fold=0):
+        """:meth:`peers`' rule over the CSR rows, on their device: the
+        same draws give the same peers as :meth:`peers` over the dense
+        adjacency of the same graph."""
+        deg = csr.degrees
+        u = torch.rand(deg.shape, generator=self.generator,
+                       dtype=torch.float64).to(deg.device)
+        if csr.indices.numel() == 0:      # a graph with no edge at all
+            return torch.full_like(deg, -1)
+        has_peer = deg > 0
+        k = torch.minimum((u * deg).to(torch.int64), deg - 1).clamp(min=0)
+        pos = torch.where(has_peer, csr.indptr[:-1] + k, 0)
+        return torch.where(has_peer, csr.indices[pos], -1)
 
     def bernoulli(self, r, purpose, p, n, device, sub=0):
         shape = (n,) if isinstance(n, int) else tuple(n)

@@ -72,8 +72,17 @@ the round computes none of it):
   non-finite param;
 - ``chaos=`` (:mod:`~gossipy_tpu_torch.simulation.faults`): forced-offline
   nodes neither send nor receive (the ``chaos`` failure cause), peers are
-  drawn over the round's alive edges (one masked adjacency per distinct
-  schedule mask, made once), drop and delay spikes.
+  drawn over the round's alive edges (on a dense topology one masked
+  adjacency per distinct schedule mask, made once; on a sparse one a
+  draw over the alive slots of the padded neighbour table, the JAX
+  engine's ``"slot"`` form), drop and delay spikes.
+
+The topology is a dense :class:`~gossipy_tpu_torch.core.Topology` or a
+:class:`~gossipy_tpu_torch.core.SparseTopology`. Over the second nothing
+``[N, N]`` exists: peers are drawn into the CSR rows
+(:meth:`~gossipy_tpu_torch.random.DrawProvider.csr_peers`) and the
+expected fan-in that sizes the mailbox and the compaction is a scatter
+over the edge list.
 
 :class:`GossipSimulator` is a
 :class:`~gossipy_tpu_torch.simulation.events.SimulationEventSender`:
@@ -84,8 +93,8 @@ Ported: PUSH, PULL and PUSH_PULL, sync and async nodes, the three delay
 models, sampled evaluation, the three deliver paths with wide and compact
 dispatch, the three ring formats, every create-model mode (UPDATE_MERGE on
 the plain path, as in the JAX engine), handlers with and without optimizer
-state or shard orders (``BaseHandler``'s defaults), probes, sentinels and
-chaos over a dense topology, event receivers,
+state or shard orders (``BaseHandler``'s defaults), dense and sparse
+topologies, probes, sentinels and chaos, event receivers,
 :meth:`GossipSimulator.memory_budget` and
 :meth:`GossipSimulator.run_repetitions`. Every other option of the JAX
 engine raises ``NotImplementedError``.
@@ -103,7 +112,7 @@ import torch
 
 from .. import resolve_device
 from ..core import AntiEntropyProtocol, ConstantDelay, CreateModelMode, \
-    Delay, MessageType, Topology
+    Delay, MessageType, SparseTopology, Topology
 from ..data import to_device
 from ..handlers.base import ModelState, PeerModel, select_rows, \
     select_state
@@ -257,7 +266,7 @@ class GossipSimulator(SimulationEventSender):
         The ring's wire format.
     probes, sentinels, chaos
         As in the JAX engine: ``ProbeConfig`` or bool, ``SentinelConfig``
-        or bool, ``ChaosConfig`` or dict (a dense topology only).
+        or bool, ``ChaosConfig`` or dict.
     draws : DrawProvider | None
         Source of every random draw of the run (default
         :class:`~gossipy_tpu_torch.random.TorchDraws` seeded with 42).
@@ -272,7 +281,7 @@ class GossipSimulator(SimulationEventSender):
 
     def __init__(self,
                  handler,
-                 topology: Topology,
+                 topology: Union[Topology, SparseTopology],
                  data: dict,
                  delta: int = 100,
                  protocol: AntiEntropyProtocol = AntiEntropyProtocol.PUSH,
@@ -320,10 +329,9 @@ class GossipSimulator(SimulationEventSender):
         elif fused_merge not in ("multi", "per_slot"):
             raise ValueError(f"unknown fused_merge mode {fused_merge!r}; "
                              "options: False, True/'multi', 'per_slot'")
-        if not isinstance(topology, Topology):
-            raise NotImplementedError(
-                f"{type(topology).__name__} is not ported yet (the dense "
-                "Topology only)")
+        if not isinstance(topology, (Topology, SparseTopology)):
+            raise TypeError("topology must be a Topology or a SparseTopology,"
+                            f" got {type(topology).__name__}")
         if max_fires_per_round is None:
             max_fires_per_round = 1 if sync else 2
         if max_fires_per_round < 1 or reply_slots < 1:
@@ -338,6 +346,7 @@ class GossipSimulator(SimulationEventSender):
         self.device = resolve_device(device)
         self.handler = handler
         self.topology = topology
+        self._sparse = isinstance(topology, SparseTopology)
         self.n_nodes = topology.num_nodes
         self.delta = int(delta)
         self.protocol = AntiEntropyProtocol(protocol)
@@ -361,7 +370,11 @@ class GossipSimulator(SimulationEventSender):
         self.data = to_device(data, self.device)
         self.has_local_test = "xte" in self.data
         self.has_global_eval = "x_eval" in self.data
-        self._adj = topology.adjacency_on(self.device)
+        # The topology on the device, in its own form: the dense bool
+        # adjacency, or the CSR neighbour lists (and no [N, N] at all).
+        self._adj = None if self._sparse else topology.adjacency_on(
+            self.device)
+        self._csr = topology.csr_on(self.device) if self._sparse else None
         self._metric_names: Optional[list] = None
         # The leaves of the flat row: start columns (the kernels' leaf
         # table) and each column's leaf (the int8 codec's scale lookup;
@@ -412,7 +425,20 @@ class GossipSimulator(SimulationEventSender):
         self._chaos_comp = torch.as_tensor(sched.component_id,
                                            device=self.device)
         self._chaos_ncomp = chaos.max_components()
-        self._chaos_adjs = {0: self._adj}
+        if not self._chaos_edges:
+            return
+        if self._sparse:
+            # The JAX engine's "slot" form: the padded neighbour table and
+            # the schedule's per-slot alive masks, each mask ANDed with the
+            # table's used slots once.
+            from .nodes import build_neighbor_table
+            self._chaos_nbr = torch.as_tensor(
+                build_neighbor_table(self.topology), device=self.device)
+            used = self._chaos_nbr >= 0
+            self._chaos_alive = torch.as_tensor(
+                sched.slot_masks, device=self.device) & used
+        else:
+            self._chaos_adjs = {0: self._adj}
 
     # -- admission -----------------------------------------------------------
 
@@ -447,12 +473,22 @@ class GossipSimulator(SimulationEventSender):
 
     def _lam_vector(self) -> np.ndarray:
         """Per-node expected same-round fan-in under uniform peer draws:
-        ``lam_i = sum_{j -> i} F / deg_j`` (computed once)."""
+        ``lam_i = sum_{j -> i} F / deg_j`` (computed once): a column sum of
+        the dense adjacency, or each CSR row's ``F / deg`` scattered into
+        its neighbours (``np.add.at``, O(E))."""
         if self._lam_vec is None:
             deg = np.maximum(self.topology.degrees.astype(np.float64), 1.0)
-            self._lam_vec = np.asarray((self.F / deg)
-                                       @ self.topology.adjacency,
-                                       dtype=np.float64)
+            inv = self.F / deg
+            if self._sparse:
+                lam = np.zeros(self.n_nodes)
+                degrees = np.asarray(self.topology.degrees)
+                if degrees.sum():
+                    np.add.at(lam, self.topology.indices,
+                              np.repeat(inv, degrees))
+                self._lam_vec = lam
+            else:
+                self._lam_vec = np.asarray(inv @ self.topology.adjacency,
+                                           dtype=np.float64)
         return self._lam_vec
 
     def _lam_max(self) -> float:
@@ -723,9 +759,12 @@ class GossipSimulator(SimulationEventSender):
             n_updates = one.n_updates.unsqueeze(0).repeat(
                 n, *[1] * one.n_updates.dim())
         else:
-            inits = [self.handler.init(g, self.device) for _ in range(n)]
-            params = torch.stack([m.params for m in inits])
-            n_updates = torch.stack([m.n_updates for m in inits])
+            # One init a node, made on the host and copied in one piece:
+            # at population scale a copy per node would dominate.
+            inits = [self.handler.init(g, "cpu") for _ in range(n)]
+            params = torch.stack([m.params for m in inits]).to(self.device)
+            n_updates = torch.stack([m.n_updates for m in inits]).to(
+                self.device)
         model = ModelState(params, self.handler.init_opt_state(params),
                            n_updates.to(torch.int32))
         if local_train:
@@ -1467,11 +1506,11 @@ class GossipSimulator(SimulationEventSender):
         return torch.floor(delays.to(torch.float32) * s).to(delays.dtype)
 
     def _round_adjacency(self, r: int) -> torch.Tensor:
-        """The adjacency a uniform peer draw of round ``r`` runs over: the
-        topology's, ANDed with the round's scheduled edge-alive mask under
-        partitions or churn. One masked adjacency per distinct mask, made
-        at its first use and kept (a draw provider caches its neighbour
-        lists per adjacency tensor)."""
+        """The dense adjacency a uniform peer draw of round ``r`` runs
+        over: the topology's, ANDed with the round's scheduled edge-alive
+        mask under partitions or churn. One masked adjacency per distinct
+        mask, made at its first use and kept (a draw provider caches its
+        neighbour lists per adjacency tensor)."""
         if not self._chaos_edges:
             return self._adj
         m = int(self.chaos_schedule.mask_idx[self._chaos_t(r)])
@@ -1482,11 +1521,30 @@ class GossipSimulator(SimulationEventSender):
             adj = self._chaos_adjs[m] = self._adj & mask
         return adj
 
+    def _topology_peers(self, r: int, sub: int = 0, purpose: int = K_PEER,
+                        fold: int = 0) -> torch.Tensor:
+        """A uniform peer draw over the topology's own edges, in its form:
+        the dense categorical or the CSR ``randint``."""
+        if self._sparse:
+            return self.draws.csr_peers(r, self._csr, sub=sub,
+                                        purpose=purpose, fold=fold)
+        return self.draws.peers(r, self._adj, sub=sub, purpose=purpose,
+                                fold=fold)
+
     def _chaos_masked_peers(self, r: int, sub: int = 0,
                             purpose: int = K_PEER) -> torch.Tensor:
-        """A uniform peer draw over the round's alive adjacency
-        (:meth:`_round_adjacency`); a node whose every edge is dead gets
-        peer -1, like an isolated node."""
+        """A uniform peer draw over the round's alive edges: the dense
+        adjacency masked by the round's schedule
+        (:meth:`_round_adjacency`), or on a sparse topology the alive
+        slots of the padded neighbour table; a node whose every edge is
+        dead gets peer -1, like an isolated node."""
+        if not self._chaos_edges:
+            return self._topology_peers(r, sub=sub, purpose=purpose)
+        if self._sparse:
+            m = int(self.chaos_schedule.mask_idx[self._chaos_t(r)])
+            return self.draws.slot_peers(r, self._chaos_nbr,
+                                         self._chaos_alive[m], sub=sub,
+                                         purpose=purpose)
         return self.draws.peers(r, self._round_adjacency(r), sub=sub,
                                 purpose=purpose)
 

@@ -16,8 +16,9 @@ works over the port's flat ``[N, stride]`` rows.
 - :func:`build_fault_schedule`: the per-round tables, indexed by the
   absolute round. Edge effects (partitions + churn) compose into a small
   set of deduplicated ``[M, N, N]`` edge-alive masks plus a per-round
-  index. The sparse-topology forms of the JAX module (per-edge CSR and
-  padded slot masks) are not ported yet and raise.
+  index on a dense topology; on a sparse one, per-edge masks in CSR
+  order (``[M, 2E]``) and per-slot masks of the padded neighbour table
+  (``[M, N, max_deg]``), O(E) each.
 - :func:`chaos_round_stats`: per-round partition consensus gap,
   within-component mixing and live component count.
 - :func:`rounds_to_reconverge`: how many rounds after a heal the gap
@@ -237,11 +238,10 @@ class ChaosConfig:
 class FaultSchedule(NamedTuple):
     """Per-round fault tables, indexed by the absolute round number
     clamped to the trailing baseline row (``horizon``); numpy on the
-    host. The fields and their meaning are the JAX module's, without its
-    sparse forms (``csr_masks``, ``slot_masks``), which come with sparse
-    topologies.
+    host. The fields and their meaning are the JAX module's.
 
-    ``edge_masks`` holds the deduplicated edge-alive masks;
+    ``edge_masks`` (dense topologies) or ``csr_masks`` and ``slot_masks``
+    (sparse topologies) hold the deduplicated edge-alive masks;
     ``mask_idx[t]`` picks the round's mask (0 = baseline, everything
     alive). Masks are modifiers: the engine ANDs them with the base
     adjacency, so a True entry on a non-edge is inert.
@@ -253,6 +253,8 @@ class FaultSchedule(NamedTuple):
     mask_idx: Any         # [T+1] i32: edge-mask index (0 = baseline)
     component_id: Any     # [T+1, N] i32: scheduled partition component
     edge_masks: Any = ()  # [M, N, N] bool (dense topology) | ()
+    csr_masks: Any = ()   # [M, 2E] bool, CSR directed-edge order | ()
+    slot_masks: Any = ()  # [M, N, max_deg] bool, padded neighbour slots | ()
 
     @property
     def rows(self) -> int:
@@ -263,14 +265,17 @@ def _undirected_pairs(topology):
     """(pi, pj) int64 arrays of the topology's undirected edges, sorted
     lexicographically: the canonical pair ordering every churn draw and
     mask derives from (the JAX module's, equal for dense and CSR
-    topologies). Dense topologies only: the CSR form is not ported."""
-    adjacency = getattr(topology, "adjacency", None)
-    if not isinstance(adjacency, np.ndarray):
-        raise NotImplementedError(
-            f"chaos over a {type(topology).__name__} is not ported yet "
-            "(the dense Topology only)")
-    pi, pj = np.nonzero(np.triu(adjacency))
-    pi, pj = pi.astype(np.int64), pj.astype(np.int64)
+    topologies)."""
+    from ..core import SparseTopology
+    if isinstance(topology, SparseTopology):
+        src = np.repeat(np.arange(topology.num_nodes, dtype=np.int64),
+                        np.asarray(topology.degrees, dtype=np.int64))
+        dst = topology.indices.astype(np.int64)
+        keep = src < dst
+        pi, pj = src[keep], dst[keep]
+    else:
+        pi, pj = np.nonzero(np.triu(np.asarray(topology.adjacency)))
+        pi, pj = pi.astype(np.int64), pj.astype(np.int64)
     order = np.lexsort((pj, pi))
     return pi[order], pj[order]
 
@@ -278,8 +283,8 @@ def _undirected_pairs(topology):
 def build_fault_schedule(cfg: ChaosConfig, topology,
                          base_drop_prob: float) -> FaultSchedule:
     """Compile ``cfg`` against a topology into host-side numpy tables
-    (the engine moves them to its device once). Dense topologies only:
-    the sparse forms raise, in :func:`_undirected_pairs`."""
+    (the engine moves them to its device once)."""
+    from ..core import SparseTopology
     T = int(cfg.horizon)
     n = topology.num_nodes
     rows = T + 1  # trailing baseline row, read by rounds >= horizon
@@ -311,6 +316,8 @@ def build_fault_schedule(cfg: ChaosConfig, topology,
 
     mask_idx = np.zeros(rows, dtype=np.int32)
     edge_masks: Any = ()
+    csr_masks: Any = ()
+    slot_masks: Any = ()
     if cfg.has_edge_faults():
         pi, pj = _undirected_pairs(topology)
         n_pairs = len(pi)
@@ -346,10 +353,28 @@ def build_fault_schedule(cfg: ChaosConfig, topology,
 
         pair_alive = np.stack(pair_alive_rows)  # [M, n_pairs]
         m_count = pair_alive.shape[0]
-        dense = np.ones((m_count, n, n), dtype=bool)
-        dense[:, pi, pj] = pair_alive
-        dense[:, pj, pi] = pair_alive
-        edge_masks = dense
+        if isinstance(topology, SparseTopology):
+            # Directed CSR edge order (rows ascending, neighbours sorted):
+            # each directed edge takes its unordered pair's draw.
+            src = np.repeat(np.arange(n, dtype=np.int64),
+                            np.asarray(topology.degrees, dtype=np.int64))
+            dst = topology.indices.astype(np.int64)
+            lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+            pair_key = pi * n + pj
+            order = np.argsort(pair_key)
+            pos = np.searchsorted(pair_key[order], lo * n + hi)
+            csr_masks = pair_alive[:, order[pos]]   # [M, 2E]
+            # The padded slot form: slot s of row i is edge indptr[i] + s.
+            degrees = np.asarray(topology.degrees, dtype=np.int64)
+            max_deg = max(int(degrees.max()) if n else 0, 1)
+            slot_masks = np.zeros((m_count, n, max_deg), dtype=bool)
+            pos_e = np.arange(len(src)) - topology.indptr[src]
+            slot_masks[:, src, pos_e] = csr_masks
+        else:
+            dense = np.ones((m_count, n, n), dtype=bool)
+            dense[:, pi, pj] = pair_alive
+            dense[:, pj, pi] = pair_alive
+            edge_masks = dense
 
     return FaultSchedule(
         forced_offline=forced,
@@ -358,6 +383,8 @@ def build_fault_schedule(cfg: ChaosConfig, topology,
         mask_idx=mask_idx,
         component_id=comp,
         edge_masks=edge_masks,
+        csr_masks=csr_masks,
+        slot_masks=slot_masks,
     )
 
 

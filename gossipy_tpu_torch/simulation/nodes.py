@@ -18,7 +18,10 @@ subclass overriding the engine's hooks, its per-node state in
   models are scored on local data and the best ones merged; the second
   phase gossips only with the neighbours whose models were picked most.
 
-Dense topologies only: the sparse topology is not ported yet.
+Each runs over a dense :class:`~gossipy_tpu_torch.core.Topology` or a
+:class:`~gossipy_tpu_torch.core.SparseTopology`: per-peer state is keyed
+on the padded neighbour table (:func:`build_neighbor_table`), and peers
+are drawn through the topology's own form.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..core import CreateModelMode, Topology
+from ..core import CreateModelMode, SparseTopology
 from ..handlers.base import ModelState, PeerModel, select_rows, select_state
 from ..random import FOLD_ACCEPT, FOLD_FALLBACK, K_CACHE_MERGE, \
     K_CACHE_POP, K_PEER
@@ -36,24 +39,41 @@ from .engine import EVAL_ROWS, GossipSimulator, SimState
 from .report import SimulationReport
 
 
-def build_neighbor_table(topology: Topology,
-                         reject_duplicates: bool = False) -> np.ndarray:
+def build_neighbor_table(topology, reject_duplicates: bool = False
+                         ) -> np.ndarray:
     """The padded out-neighbour table ``[N, max_deg]`` int32 (``-1``:
-    unused slot), neighbours in id order: variant state keyed on a peer's
-    slot in its receiver's row (the neighbour cache, PENS's counters)
-    takes O(N max_deg) instead of ``[N, N]``. A dense adjacency cannot list
-    a neighbour twice, so ``reject_duplicates`` (which the JAX package
-    needs for its sparse topology) finds nothing to reject here."""
-    if not isinstance(topology, Topology):
-        raise NotImplementedError(f"{type(topology).__name__} is not ported "
-                                  "yet (the dense Topology only)")
+    unused slot), neighbours in row order (id order for a dense adjacency,
+    CSR order for a sparse topology): variant state keyed on a peer's
+    slot in its receiver's row (the neighbour cache, PENS's counters, the
+    sparse chaos draw) takes O(N max_deg) instead of ``[N, N]``.
+
+    ``reject_duplicates``: slot-keyed consumers assume each peer holds
+    one slot of its receiver's row, so they pass True and a CSR row that
+    lists a neighbour twice raises. A dense adjacency cannot list one
+    twice."""
     n = topology.num_nodes
-    max_deg = max(int(topology.degrees.max()) if n else 0, 1)
+    degrees = np.asarray(topology.degrees)
+    max_deg = max(int(degrees.max()) if n else 0, 1)
     table = np.full((n, max_deg), -1, dtype=np.int32)
-    if n:
+    sparse = isinstance(topology, SparseTopology)
+    if sparse:
+        rows = np.repeat(np.arange(n), degrees)
+        pos = np.arange(len(topology.indices)) - topology.indptr[rows]
+        table[rows, pos] = topology.indices
+    elif n:
         i, j = np.nonzero(topology.adjacency)
         pos = np.arange(len(i)) - np.searchsorted(i, i, side="left")
         table[i, pos] = j
+    if reject_duplicates and sparse and n:
+        row_sorted = np.sort(table, axis=1)
+        dup = (row_sorted[:, 1:] >= 0) & (row_sorted[:, 1:]
+                                          == row_sorted[:, :-1])
+        if dup.any():
+            bad = int(np.nonzero(dup.any(axis=1))[0][0])
+            raise ValueError(
+                f"topology row {bad} lists a neighbor more than once; "
+                "slot-keyed variant state (PENS/CacheNeigh) requires "
+                "duplicate-free neighbor lists — deduplicate the edge list")
     return table
 
 
@@ -298,12 +318,12 @@ class PENSGossipSimulator(GossipSimulator):
 
     def _select_peers(self, state, r, f):
         if self._step == 1:
-            return self.draws.peers(r, self._adj, sub=f)
+            return self._topology_peers(r, sub=f)
         best = state.aux["best"]
         idx = torch.arange(self.n_nodes, device=self.device)
         slot = self.draws.choice(r, K_PEER, best, sub=f).clamp(
             0, self.max_deg - 1)
-        fallback = self.draws.peers(r, self._adj, sub=f, fold=FOLD_FALLBACK)
+        fallback = self._topology_peers(r, sub=f, fold=FOLD_FALLBACK)
         return torch.where(best.any(dim=1), self.nbr_table[idx, slot],
                            fallback)
 

@@ -8,20 +8,22 @@ Counterpart of ``gossipy_tpu/simulation/variants.py``:
   partitioned exchange (Hegedus 2021).
 - :class:`All2AllGossipSimulator`: every node that fires pushes to all its
   peers, and the receivers mix with weights: the whole population's merge
-  is one matrix product ``W_eff @ P`` over the flat rows.
+  is one matrix product ``W_eff @ P`` over the flat rows, or over a sparse
+  topology a gather and a per-receiver sum over the O(E) edges.
 
-The sparse mixing, the mesh and the ring schedule of the all-to-all round
-are not ported yet.
+The mesh and the ring schedule of the all-to-all round are not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core import AntiEntropyProtocol, CreateModelMode, MessageType
+from ..core import AntiEntropyProtocol, CreateModelMode, MessageType, \
+    SparseMixing
 from ..flow_control import TokenAccount
 from ..handlers.base import ModelState, select_rows, select_state
 from ..random import K_A2A_DROP, K_A2A_ONLINE, K_A2A_UPDATE, \
@@ -149,22 +151,52 @@ class TokenizedPartitioningGossipSimulator(TokenizedGossipSimulator,
     partition-id payloads of the second."""
 
 
+class _Edges(NamedTuple):
+    """One all-to-all round's live edges, whatever the mixing's form:
+    the accounting, each receiver's accepted count, and the merge."""
+
+    sent: torch.Tensor
+    drop: torch.Tensor
+    offline: torch.Tensor
+    chaos: Optional[torch.Tensor]
+    accepted: torch.Tensor          # [N] int32: live in-edges, weight > 0
+    mix: Callable                   # params [N, stride] -> mixed rows
+    in_age: Callable                # ages -> the largest live in-edge age
+    nonfinite: torch.Tensor         # non-finite effective weights
+
+
 class All2AllGossipSimulator(GossipSimulator):
     """Decentralised SGD with broadcast and weighted mixing (Koloskova et
-    al. 2020), on a dense ``[N, N]`` mixing matrix.
+    al. 2020).
 
     Every node that fires pushes its round-start model to all its peers.
     An edge is live when its sender fired, its message was not dropped
-    (one ``[N, N]`` draw) and its receiver is online; the self weight is
-    always there. ``W_eff`` is the mixing matrix on the live edges, each
-    row renormalised, and the merge of the whole population is ``W_eff @
-    P`` (on a bf16 or int8 wire, the exact self term plus the off-diagonal
-    product over the wire's round trip of ``P``). A node that received
-    anything takes the mixed row and the largest age among its live
-    in-edges; every node that fired then trains (UPDATE_MERGE: trains
-    first, then mixes). Lost weight is redistributed by the
+    and its receiver is online; the self weight is always there. ``W_eff``
+    is the mixing matrix on the live edges, each row renormalised. A node
+    that received anything takes the mixed row and the largest age among
+    its live in-edges; every node that fired then trains (UPDATE_MERGE:
+    trains first, then mixes). Lost weight is redistributed by the
     renormalisation, and delays collapse to round granularity, as in the
     JAX package.
+
+    The mixing is a dense ``[N, N]`` matrix or, over a
+    :class:`~gossipy_tpu_torch.core.SparseTopology`, the O(E) edge weights
+    of a :class:`~gossipy_tpu_torch.core.SparseMixing`:
+
+    - dense: one ``[N, N]`` drop draw, and the merge of the whole
+      population is ``W_eff @ P`` (on a bf16 or int8 wire, the exact self
+      term plus the off-diagonal product over the wire's round trip);
+    - ``sparse_mix_form="padded"``: the weights padded into ``[N,
+      max_deg]`` tables, the drop drawn over that shape, the merge a
+      gather of the senders' rows and an ``einsum``; refused on a
+      heavy-tailed degree distribution, where padding to the hub's degree
+      would cost O(N max_deg);
+    - ``"segment"``: the drop drawn over the ``[2E]`` edges, the merge a
+      gather of the senders' rows and an ``index_add_`` into the
+      receivers (the JAX package's ``segment_sum``).
+
+    ``"auto"`` takes ``"segment"``: the JAX package's rule off the TPU, so
+    a run on the card and one on the CPU make the same draws.
     """
 
     def __init__(self, *args, mixing, mesh=None, ring_mix: bool = False,
@@ -172,12 +204,9 @@ class All2AllGossipSimulator(GossipSimulator):
         if sparse_mix_form not in ("auto", "padded", "segment"):
             raise ValueError(f"unknown sparse_mix_form {sparse_mix_form!r}; "
                              "options: auto, padded, segment")
-        if mesh is not None or ring_mix or sparse_mix_form != "auto":
-            raise NotImplementedError("mesh=, ring_mix= and the sparse mixing "
-                                      "forms are not ported yet")
-        if hasattr(mixing, "edge_w"):
-            raise NotImplementedError("SparseMixing is not ported yet (a "
-                                      "dense [N, N] mixing matrix only)")
+        if mesh is not None or ring_mix:
+            raise NotImplementedError("mesh= and ring_mix= are not ported "
+                                      "yet")
         kwargs.setdefault("protocol", AntiEntropyProtocol.PUSH)
         # The round never reads the mailbox: one slot keeps it small.
         kwargs.setdefault("mailbox_slots", 1)
@@ -185,12 +214,66 @@ class All2AllGossipSimulator(GossipSimulator):
         super().__init__(*args, **kwargs)
         if self.protocol != AntiEntropyProtocol.PUSH:
             raise ValueError("All2AllNode only supports PUSH protocol.")
+        self.sparse_mix = isinstance(mixing, SparseMixing)
+        self._sparse_padded = False
+        if self.sparse_mix:
+            self._init_sparse_mixing(mixing, sparse_mix_form)
+            return
+        if self._sparse:
+            raise ValueError("a SparseTopology requires SparseMixing (pass "
+                             "uniform_mixing(sparse_topology)); dense "
+                             "mixing arrays need a dense Topology")
         w = torch.as_tensor(np.asarray(mixing, dtype=np.float32),
                             device=self.device)
         if tuple(w.shape) != (self.n_nodes, self.n_nodes):
             raise ValueError(f"mixing is {tuple(w.shape)}, the topology has "
                              f"{self.n_nodes} nodes")
         self.mixing = w
+
+    def _init_sparse_mixing(self, mixing: SparseMixing, form: str) -> None:
+        """Check the edge weights, move them to the device and, for the
+        padded form, lay them out in ``[N, max_deg]`` tables."""
+        if mixing.num_nodes != self.n_nodes:
+            raise ValueError("mixing/topology node-count mismatch: "
+                             f"{mixing.num_nodes} vs {self.n_nodes}")
+        rows = np.asarray(mixing.rows)
+        if rows.size and not (np.diff(rows) >= 0).all():
+            raise ValueError("SparseMixing.rows must be non-decreasing "
+                             "(CSR row order)")
+        degrees = np.bincount(rows, minlength=self.n_nodes)
+        max_deg = int(degrees.max()) if rows.size else 0
+        mean_deg = float(degrees.mean()) if rows.size else 0.0
+        near_regular = max_deg > 0 and max_deg <= max(4.0 * mean_deg, 8.0)
+        if form == "padded" and not near_regular:
+            raise ValueError(
+                "sparse_mix_form='padded' on a heavy-tailed degree "
+                f"distribution (max {max_deg} vs mean {mean_deg:.1f}) would "
+                "pad O(N * max_deg); use 'segment'")
+        self._sparse_padded = form == "padded"
+        dev = self.device
+        self.mixing = SparseMixing(
+            torch.as_tensor(np.asarray(mixing.edge_w, np.float32), device=dev),
+            torch.as_tensor(np.asarray(mixing.self_w, np.float32), device=dev),
+            torch.as_tensor(rows, device=dev).long(),
+            torch.as_tensor(np.asarray(mixing.senders), device=dev).long(),
+            self.n_nodes)
+        if self._sparse_padded:
+            senders = np.asarray(mixing.senders)
+            pos = np.arange(len(rows)) - np.searchsorted(rows, rows)
+            nbr = np.zeros((self.n_nodes, max_deg), np.int64)
+            wt = np.zeros((self.n_nodes, max_deg), np.float32)
+            valid = np.zeros((self.n_nodes, max_deg), bool)
+            nbr[rows, pos] = senders
+            wt[rows, pos] = np.asarray(mixing.edge_w)
+            valid[rows, pos] = True
+            self._nbr_tab = torch.as_tensor(nbr, device=dev)
+            self._w_tab = torch.as_tensor(wt, device=dev)
+            self._slot_valid = torch.as_tensor(valid, device=dev)
+            # CSR edge -> padded slot: where the chaos per-edge alive mask
+            # lands in the slot layout (one table per schedule mask).
+            self._pad_at = (torch.as_tensor(rows, device=dev).long(),
+                            torch.as_tensor(pos, device=dev).long())
+            self._pad_alive: dict = {}
 
     def _warn_if_mailbox_undersized(self) -> None:
         """Broadcast mixing loses no message to a full mailbox."""
@@ -202,12 +285,140 @@ class All2AllGossipSimulator(GossipSimulator):
         w_off = w_eff - torch.diag(w_diag)
         return w_diag[:, None] * params + w_off @ self._wire_roundtrip(params)
 
+    def _wire(self, params: torch.Tensor) -> torch.Tensor:
+        """What the peers receive of ``params``: the rows themselves on an
+        fp32 wire, else their round trip through the wire format."""
+        if self.history_dtype == "float32":
+            return params
+        return self._wire_roundtrip(params)
+
     def _train(self, model: ModelState, fires, r: int) -> ModelState:
         perms = self._update_orders(
             r, [K_A2A_UPDATE],
             torch.zeros(self.n_nodes, dtype=torch.int64, device=self.device))
         updated = self.handler.update(model, self._local_data(), perms)
         return select_state(fires, updated, model)
+
+    def _chaos_mask_idx(self, r: int) -> Optional[int]:
+        """The round's edge-alive mask index under partitions or churn,
+        else None."""
+        if not self._chaos_edges:
+            return None
+        return int(self.chaos_schedule.mask_idx[self._chaos_t(r)])
+
+    def _dense_edges(self, r, fires, online, forced) -> _Edges:
+        n, dev = self.n_nodes, self.device
+        drop = self.draws.bernoulli(r, K_A2A_DROP, self._chaos_drop_prob(r),
+                                    (n, n), dev)
+        sent = self._round_adjacency(r) & fires[None, :]  # [recv, sender]
+        live = sent & ~drop & online[:, None]
+        mix = self.mixing
+        w = mix * live + torch.diag(torch.diagonal(mix))
+        w_eff = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-12)
+
+        def in_age(ages):
+            live_e = live.view((n, n) + (1,) * (ages.dim() - 1))
+            return torch.where(live_e, ages[None],
+                               torch.zeros_like(ages[None])).amax(dim=1)
+
+        accepted = (live & (mix > 0)).sum(dim=1, dtype=torch.int32)
+        return self._edges_out(
+            sent, drop, ~online[:, None],
+            None if forced is None else forced[:, None], accepted,
+            lambda p: self._mix(p, w_eff), in_age,
+            (~torch.isfinite(w_eff)).sum(dtype=torch.int32))
+
+    def _padded_edges(self, r, fires, online, forced) -> _Edges:
+        mix = self.mixing
+        nbr, wt, slot = self._nbr_tab, self._w_tab, self._slot_valid
+        m = self._chaos_mask_idx(r)
+        if m is not None:
+            alive = self._pad_alive.get(m)
+            if alive is None:
+                alive = torch.zeros_like(slot)
+                alive[self._pad_at] = torch.as_tensor(
+                    self.chaos_schedule.csr_masks[m], device=self.device)
+                alive = self._pad_alive[m] = slot & alive
+            slot = alive
+        drop = self.draws.bernoulli(r, K_A2A_DROP, self._chaos_drop_prob(r),
+                                    tuple(wt.shape), self.device)
+        sent = fires[nbr] & slot
+        live = sent & ~drop & online[:, None]
+        w = wt * live
+        inv = 1.0 / torch.clamp(mix.self_w + w.sum(dim=1), min=1e-12)
+        w_eff = w * inv[:, None]
+        self_eff = mix.self_w * inv
+
+        def merge(params):
+            return (self_eff[:, None] * params
+                    + torch.einsum("ns,nsd->nd", w_eff,
+                                   self._wire(params)[nbr]))
+
+        def in_age(ages):
+            live_e = live.view(live.shape + (1,) * (ages.dim() - 1))
+            return torch.where(live_e, ages[nbr],
+                               torch.zeros_like(ages[nbr])).amax(dim=1)
+
+        accepted = (live & (wt > 0)).sum(dim=1, dtype=torch.int32)
+        return self._edges_out(
+            sent, drop, ~online[:, None],
+            None if forced is None else forced[:, None], accepted, merge,
+            in_age, (~torch.isfinite(w_eff)).sum(dtype=torch.int32)
+            + (~torch.isfinite(self_eff)).sum(dtype=torch.int32))
+
+    def _segment_edges(self, r, fires, online, forced) -> _Edges:
+        n, dev = self.n_nodes, self.device
+        mix = self.mixing
+        rows, senders = mix.rows, mix.senders
+        drop = self.draws.bernoulli(r, K_A2A_DROP, self._chaos_drop_prob(r),
+                                    (rows.shape[0],), dev)
+        sent = fires[senders]
+        m = self._chaos_mask_idx(r)
+        if m is not None:
+            sent = sent & torch.as_tensor(self.chaos_schedule.csr_masks[m],
+                                          device=dev)
+        live = sent & ~drop & online[rows]
+        w = mix.edge_w * live
+        row_sum = mix.self_w + torch.zeros(n, device=dev).index_add_(
+            0, rows, w)
+        inv = 1.0 / torch.clamp(row_sum, min=1e-12)
+        w_eff = w * inv[rows]
+        self_eff = mix.self_w * inv
+        accepted = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+            0, rows, (live & (mix.edge_w > 0)).to(torch.int32))
+
+        def merge(params):
+            contrib = w_eff[:, None] * self._wire(params)[senders]
+            return (self_eff[:, None] * params
+                    + torch.zeros_like(params).index_add_(0, rows, contrib))
+
+        def in_age(ages):
+            tail = (1,) * (ages.dim() - 1)
+            vals = torch.where(live.view((-1,) + tail), ages[senders],
+                               torch.zeros_like(ages[senders]))
+            idx = rows.view((-1,) + tail).expand_as(vals)
+            return torch.zeros_like(ages).scatter_reduce_(
+                0, idx, vals, "amax")
+
+        return self._edges_out(
+            sent, drop, ~online[rows],
+            None if forced is None else forced[rows], accepted, merge, in_age,
+            (~torch.isfinite(w_eff)).sum(dtype=torch.int32)
+            + (~torch.isfinite(self_eff)).sum(dtype=torch.int32))
+
+    @staticmethod
+    def _edges_out(sent, drop, recv_offline, recv_forced, accepted, merge,
+                   in_age, nonfinite) -> _Edges:
+        """The accounting of the sent edges: a dropped message never
+        reaches its receiver, so drop is charged first and offline only
+        on surviving edges, forced-offline receivers under ``chaos``."""
+        n_offline = (sent & ~drop & recv_offline).sum()
+        n_chaos = None
+        if recv_forced is not None:
+            n_chaos = (sent & ~drop & recv_forced).sum()
+            n_offline = n_offline - n_chaos
+        return _Edges(sent.sum(), (sent & drop).sum(), n_offline, n_chaos,
+                      accepted, merge, in_age, nonfinite)
 
     def _round(self, state: SimState, last_round=None) -> dict:
         r = state.round
@@ -223,22 +434,13 @@ class All2AllGossipSimulator(GossipSimulator):
             forced = self._chaos_forced_offline(r)
             fires = fires & ~forced
             online = online & ~forced
-        drop = self.draws.bernoulli(r, K_A2A_DROP, self._chaos_drop_prob(r),
-                                    (n, n), dev)
-        sent_mask = self._round_adjacency(r) & fires[None, :]  # [recv, sender]
-        live = sent_mask & ~drop & online[:, None]
-        mix = self.mixing
-        w = mix * live + torch.diag(torch.diagonal(mix))
-        w_eff = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-12)
-        n_sent = sent_mask.sum()
-        n_drop = (sent_mask & drop).sum()
-        n_offline = (sent_mask & ~drop & ~online[:, None]).sum()
-        n_chaos = None
-        if forced is not None:
-            n_chaos = (sent_mask & ~drop & forced[:, None]).sum()
-            n_offline = n_offline - n_chaos
-        accepted = live & (mix > 0)
-        received = accepted.any(dim=1)
+        if not self.sparse_mix:
+            edges = self._dense_edges(r, fires, online, forced)
+        elif self._sparse_padded:
+            edges = self._padded_edges(r, fires, online, forced)
+        else:
+            edges = self._segment_edges(r, fires, online, forced)
+        received = edges.accepted > 0
 
         # The probes' merge and train deltas: the mix and the local update
         # are separate phases here, so the split is exact.
@@ -253,15 +455,13 @@ class All2AllGossipSimulator(GossipSimulator):
             if deltas:
                 train_sq = sq_param_distance(model.params, pre_train, spans)
         ages = model.n_updates
-        live_e = live.view((n, n) + (1,) * (ages.dim() - 1))
-        in_age = torch.where(live_e, ages[None], torch.zeros_like(
-            ages[None])).amax(dim=1)
-        mixed = select_rows(received, self._mix(model.params, w_eff),
-                            model.params)
+        mixed = select_rows(received, edges.mix(model.params), model.params)
         if deltas:
             merge_sq = sq_param_distance(mixed, model.params, spans)
         model = ModelState(mixed, model.opt_state,
-                           select_rows(received, torch.maximum(ages, in_age),
+                           select_rows(received,
+                                       torch.maximum(ages,
+                                                     edges.in_age(ages)),
                                        ages))
         if self.handler.mode != CreateModelMode.UPDATE_MERGE:
             pre_train = model.params
@@ -272,43 +472,42 @@ class All2AllGossipSimulator(GossipSimulator):
         local, glob = self._maybe_eval(state, r, last_round)
         state.round = r + 1
         zero = torch.zeros((), dtype=torch.int64, device=dev)
-        fails = FailureCounts(n_drop, n_offline, zero, n_chaos)
         stats = {
-            "sent": n_sent,
-            "failed": fails.total(),
-            "failed_drop": n_drop,
-            "failed_offline": n_offline,
+            "sent": edges.sent,
+            "failed": FailureCounts(edges.drop, edges.offline, zero,
+                                    edges.chaos).total(),
+            "failed_drop": edges.drop,
+            "failed_offline": edges.offline,
             "failed_overflow": zero,
             # No mailbox and one merge: zero, kept so that the report's
             # columns line up across simulators.
             "mailbox_hwm": zero,
             "compact_slots": zero,
             "wide_slots": zero,
-            "size": n_sent * self._model_size(),
+            "size": edges.sent * self._model_size(),
             "local": local,
             "global": glob,
         }
         if self.chaos is not None:
-            stats["failed_chaos"] = n_chaos
+            stats["failed_chaos"] = edges.chaos
             if self._chaos_probes_on():
                 stats.update(self._chaos_stats(state, r))
         if self.probes is not None:
-            stats.update(self._a2a_probe_stats(state, accepted, merge_sq,
-                                               train_sq))
+            stats.update(self._a2a_probe_stats(state, edges.accepted,
+                                               merge_sq, train_sq))
         if self._health_slots_on():
             # The mixing weights are the one quantity this round owns that
             # the engine's vitals cannot see: a non-finite weight poisons
             # every row it touches before any param goes bad.
-            stats["health_mix_nonfinite"] = \
-                (~torch.isfinite(w_eff)).sum(dtype=torch.int32)
+            stats["health_mix_nonfinite"] = edges.nonfinite
         return stats
 
-    def _a2a_probe_stats(self, state: SimState, accepted, merge_sq,
+    def _a2a_probe_stats(self, state: SimState, acc, merge_sq,
                          train_sq) -> dict:
         """The round's ``probe_*`` entries. Every mixed contribution is a
         round-start snapshot: staleness is 0, the whole histogram sits in
-        bucket 0, and the accepted merges are the live in-edges with a
-        positive weight."""
+        bucket 0, and the accepted merges ``acc`` are each node's live
+        in-edges with a positive weight."""
         cfg = self.probes
         dev = self.device
         out: dict = {}
@@ -317,7 +516,6 @@ class All2AllGossipSimulator(GossipSimulator):
             out["probe_consensus_mean"] = cm
             out["probe_consensus_max"] = cx
             out["probe_consensus_per_layer"] = cl
-        acc = accepted.sum(dim=1, dtype=torch.int32)
         if cfg.staleness:
             hist = torch.zeros(cfg.staleness_buckets, dtype=torch.int32,
                                device=dev)
@@ -337,7 +535,13 @@ class All2AllGossipSimulator(GossipSimulator):
         """Broadcast mixing: every in-neighbour's send reaches a node each
         round, thinned by the per-edge drop draw and the receiver's online
         draw."""
-        mix = self.mixing.cpu().numpy()
-        adj = np.asarray(self.topology.adjacency).astype(bool)
-        indeg = (adj & (mix > 0)).sum(axis=1).astype(np.float64)
+        if self.sparse_mix:
+            rows = self.mixing.rows.cpu().numpy()
+            w = self.mixing.edge_w.cpu().numpy()
+            indeg = np.bincount(rows[w > 0], minlength=self.n_nodes
+                                ).astype(np.float64)
+        else:
+            mix = self.mixing.cpu().numpy()
+            adj = np.asarray(self.topology.adjacency).astype(bool)
+            indeg = (adj & (mix > 0)).sum(axis=1).astype(np.float64)
         return indeg * (1.0 - self.drop_prob) * self.online_prob

@@ -12,7 +12,8 @@ and chaos arrays within 1e-5 of the value plus 1e-6
 (``torch_pairs.assert_same_telemetry``), and ``rounds_to_reconverge``
 equal. All2All's partition gap and the token simulator's reactions under
 chaos are held the same way; PENS refuses edge faults as the JAX simulator
-does; the sparse forms raise until sparse topologies are ported.
+does; the sparse topology's CSR and slot mask forms equal the JAX
+package's.
 """
 
 import warnings
@@ -275,15 +276,36 @@ def test_masked_peer_draws_are_cached_per_mask():
 
 
 def test_sparse_forms_raise():
-    """Chaos over a topology without a dense adjacency raises until
-    sparse topologies are ported."""
-    class Sparse:
+    """Over a sparse topology the schedule's CSR and slot forms equal the
+    JAX package's (the canonical pair order is the same for dense and
+    CSR, so the churn draws land on the same edges); edge faults over a
+    topology with neither a CSR nor a dense adjacency raise."""
+    jtopo = jcore.SparseTopology.random_regular(48, 4, seed=5)
+    topo = tcore.SparseTopology.random_regular(48, 4, seed=5)
+    cfg = ChaosConfig(
+        partitions=(PartitionEpisode(components=(tuple(range(20)),),
+                                     start=1, stop=4),),
+        churn=ChurnProcess(keep_frac=0.6, start=2, stop=8, period=2,
+                           seed=4), horizon=9)
+    got = build_fault_schedule(cfg, topo, 0.1)
+    want = jfaults.build_fault_schedule(
+        jfaults.ChaosConfig.from_dict(cfg.to_dict()), jtopo, 0.1)
+    for f in ("mask_idx", "component_id", "csr_masks", "slot_masks"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    assert got.edge_masks == () and got.csr_masks.shape[1] == 48 * 4
+    # The CSR masks are the dense masks read along the CSR edges.
+    dense = build_fault_schedule(cfg, topo.to_dense(), 0.1)
+    rows = np.repeat(np.arange(48), topo.degrees)
+    np.testing.assert_array_equal(
+        got.csr_masks, dense.edge_masks[:, rows, topo.indices])
+
+    class Neither:
         num_nodes = N
         adjacency = None
 
-    cfg = SCENARIOS["partition"]
-    with pytest.raises(NotImplementedError, match="dense"):
-        build_fault_schedule(cfg, Sparse(), 0.0)
+    with pytest.raises(TypeError):
+        build_fault_schedule(SCENARIOS["partition"], Neither(), 0.0)
     # Node faults alone need no edge table.
-    sched = build_fault_schedule(SCENARIOS["outage"], Sparse(), 0.0)
-    assert sched.edge_masks == ()
+    sched = build_fault_schedule(SCENARIOS["outage"], Neither(), 0.0)
+    assert sched.edge_masks == () and sched.slot_masks == ()

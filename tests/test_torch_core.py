@@ -27,10 +27,14 @@ def test_random_regular_equals_networkx(n, d, seed):
 
 
 def test_random_regular_refuses_what_it_cannot_build():
-    with pytest.raises(NotImplementedError):
-        tcore.Topology.random_regular(10, 3, backend="native")
-    with pytest.raises(NotImplementedError):
-        tcore.Topology.random_regular(2048, 4, backend="auto")
+    """The impossible ``(n, d)`` raise on either backend; the native
+    backend builds the JAX package's native edge set."""
+    np.testing.assert_array_equal(
+        tcore.Topology.random_regular(10, 3, backend="native").adjacency,
+        np.asarray(jcore.Topology.random_regular(10, 3,
+                                                 backend="native").adjacency))
+    with pytest.raises(ValueError):
+        tcore.Topology.random_regular(9, 3, backend="native")
     with pytest.raises(ValueError):
         tcore.Topology.random_regular(9, 3)   # n * d odd
     with pytest.raises(ValueError):
@@ -50,13 +54,17 @@ def test_barabasi_albert_equals_networkx(n, m, seed):
 
 
 def test_barabasi_albert_refuses_what_it_cannot_build():
-    with pytest.raises(NotImplementedError):
-        tcore.Topology.barabasi_albert(10, 3, backend="native")
-    with pytest.raises(NotImplementedError):
-        tcore.Topology.barabasi_albert(2048, 3, backend="auto")
+    """``m`` outside ``[1, n)`` raises on either backend; the native
+    backend builds the JAX package's native edge set."""
+    np.testing.assert_array_equal(
+        tcore.Topology.barabasi_albert(10, 3, backend="native").adjacency,
+        np.asarray(jcore.Topology.barabasi_albert(10, 3,
+                                                  backend="native").adjacency))
     for m in (0, 10):
         with pytest.raises(ValueError):
             tcore.Topology.barabasi_albert(10, m)
+        with pytest.raises(ValueError):
+            tcore.Topology.barabasi_albert(10, m, backend="native")
 
 
 @pytest.mark.parametrize("kind", ["ba", "regular", "ring", "clique"])
@@ -77,11 +85,6 @@ def test_mixing_matrices_match_jax(kind):
             np.asarray(jcore.mixing_weight_rows(want, jt)))
     mh = tcore.metropolis_hastings_mixing(tt)
     np.testing.assert_array_equal(mh, mh.T)
-
-
-def test_mixing_refuses_a_sparse_topology():
-    with pytest.raises(NotImplementedError):
-        tcore.uniform_mixing(object())
 
 
 @pytest.mark.parametrize("n,k", [(7, 1), (10, 3)])

@@ -30,8 +30,7 @@ import optax
 import pytest
 import torch
 
-from gossipy_tpu.core import AntiEntropyProtocol, CreateModelMode, \
-    SparseTopology, Topology
+from gossipy_tpu.core import AntiEntropyProtocol, CreateModelMode, Topology
 from gossipy_tpu.data import ClassificationDataHandler, DataDispatcher
 from gossipy_tpu.handlers import SGDHandler, losses
 from gossipy_tpu.models import LogisticRegression
@@ -217,30 +216,20 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 @pytest.mark.parametrize("option", [
     {"metrics": True},
     {"tracing": True},
-    {"topology": lambda: SparseTopology(N, np.array([[0, 1], [1, 2]]))},
     {"perf": True},
-    {"topology": lambda: tcore.Topology.random_regular(N, 3,
-                                                       backend="native")},
     {"mesh": object()},
-    # The generators' default backend ("auto") takes the native generator
-    # from 2048 nodes on, which is not ported: it raises.
-    {"topology": lambda: tcore.Topology.random_regular(2048, 4)},
-    {"topology": lambda: tcore.Topology.barabasi_albert(2048, 3)},
     {"ledger": True},
-    {"topology": lambda: tcore.Topology.random_regular(2048, 4,
-                                                       backend="auto")},
     {"cohort": 4},
 ])
 def test_unported_options_raise(option):
     option = dict(option)
     mode = option.pop("create_model_mode",
                       tcore.CreateModelMode.MERGE_UPDATE)
-    topology = option.pop("topology", lambda: tcore.Topology.clique(N))
     th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
                      input_shape=(D_FEAT,), create_model_mode=mode)
     with pytest.raises(NotImplementedError):
-        TGossipSimulator(th, topology(), data(), mailbox_slots=K,
-                         device="cpu", **option)
+        TGossipSimulator(th, tcore.Topology.clique(N), data(),
+                         mailbox_slots=K, device="cpu", **option)
 
 
 def test_pretraining_matches_jax_init_nodes():

@@ -12,7 +12,8 @@
   the host with those modules blocked and no socket able to connect; the
   flagship and All2All twins with ``--probes --sentinels --chaos`` too,
   and their summaries' ``probes``, ``health`` and ``chaos`` entries have
-  the keys the JAX scripts' ``finish`` gives.
+  the keys the JAX scripts' ``finish`` gives. The scale twin's two rows
+  run so too, their sparse topology built by the native generator.
 """
 
 import ast
@@ -87,7 +88,8 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.simulation.faults, "
         "gossipy_tpu_torch.telemetry.probes, "
         "gossipy_tpu_torch.telemetry.health, "
-        "gossipy_tpu_torch.telemetry.cost\n"
+        "gossipy_tpu_torch.telemetry.cost, gossipy_tpu_torch.native, "
+        "gossipy_tpu_torch.examples.scale\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -162,6 +164,35 @@ def test_paper_twin_runs_with_jax_blocked(twin):
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     assert summary["sent_messages"] > 0, summary
     assert np.isfinite(summary["final"][metric]), summary
+
+
+@pytest.mark.parametrize("args", [[], ["--all2all"],
+                                  ["--all2all", "--sparse-mix-form",
+                                   "padded"]])
+def test_scale_twin_runs_with_jax_blocked(args):
+    argv = args + ["--device", "cpu", "--nodes", "300", "--rounds", "3"]
+    code = (
+        "import sys, socket, json\n"
+        f"for m in {BANNED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "class NoNet(socket.socket):\n"
+        "    def connect(self, *a):\n"
+        "        raise OSError('no network')\n"
+        "socket.socket = NoNet\n"
+        "from gossipy_tpu_torch import native\n"
+        "assert native.available()\n"
+        "import gossipy_tpu_torch.examples.scale as twin\n"
+        f"out = twin.main({argv!r})\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["nodes"] == 300 and summary["degree"] == 20
+    assert summary["sent_messages"] > 0, summary
+    assert np.isfinite(summary["final_global_accuracy"]), summary
+    assert summary["rounds_per_s"] > 0
 
 
 # The JAX scripts' summary of a run with probes, sentinels and chaos:

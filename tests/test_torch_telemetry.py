@@ -332,8 +332,8 @@ def test_all2all_probes_and_mixing_sentinel_match_jax():
 
 def test_topology_default_backend_is_the_references():
     """The default call gives the JAX default's edge set below the native
-    threshold and raises at and above it (where the JAX default takes the
-    native generator the port does not have yet)."""
+    threshold and at and above it, where both take the native
+    generator."""
     for n, d, seed in ((30, 4, 1), (101, 6, 3)):
         np.testing.assert_array_equal(
             tcore.Topology.random_regular(n, d, seed=seed).adjacency,
@@ -345,9 +345,12 @@ def test_topology_default_backend_is_the_references():
                        .adjacency))
     big = tcore.Topology.NATIVE_THRESHOLD
     assert big == jcore.Topology.NATIVE_THRESHOLD
-    with pytest.raises(NotImplementedError, match="native"):
-        tcore.Topology.random_regular(big, 4, seed=42)
-    with pytest.raises(NotImplementedError, match="native"):
-        tcore.Topology.barabasi_albert(big, 3, seed=42)
+    np.testing.assert_array_equal(
+        tcore.Topology.random_regular(big, 4, seed=42).adjacency,
+        np.asarray(jcore.Topology.random_regular(big, 4, seed=42).adjacency))
+    np.testing.assert_array_equal(
+        tcore.Topology.barabasi_albert(big, 3, seed=42).adjacency,
+        np.asarray(jcore.Topology.barabasi_albert(big, 3, seed=42)
+                   .adjacency))
     assert tcore.Topology.random_regular(
         big, 4, seed=42, backend="networkx").degrees.min() == 4

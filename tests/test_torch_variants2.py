@@ -85,8 +85,7 @@ def test_all2all_refuses_what_is_not_ported():
     topo = topology("ba")
     mix = tcore.uniform_mixing(topo)
     handler = logreg("weighted")[1]
-    for kw in (dict(ring_mix=True), dict(sparse_mix_form="segment"),
-               dict(mesh=object())):
+    for kw in (dict(ring_mix=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             tsimulation.All2AllGossipSimulator(handler, topo, small_data(),
                                                mixing=mix, device="cpu",

@@ -107,6 +107,28 @@ class JaxDraws(DrawProvider):
         p = _sample_peers(key, self._adj[1])
         return torch.as_tensor(np.array(p), device=adjacency.device).long()
 
+    def csr_peers(self, r, csr, sub=0, purpose=K_PEER, fold=0):
+        """``SparseTopology.sample_peers``: ``randint`` into each CSR
+        row."""
+        if getattr(self, "_csr", (None,))[0] is not csr:
+            self._csr = (csr, tuple(jnp.asarray(t.cpu().numpy(), jnp.int32)
+                                    for t in csr))
+        key = self._hook_key(r, purpose, sub)
+        if fold:
+            key = jax.random.fold_in(key, fold)
+        p = _csr_peers(key, *self._csr[1])
+        return torch.as_tensor(np.array(p),
+                               device=csr.degrees.device).long()
+
+    def slot_peers(self, r, nbr, alive, sub=0, purpose=K_PEER):
+        """The JAX engine's sparse chaos draw (``_chaos_masked_peers``,
+        slot form): a categorical over the alive slots of the padded
+        neighbour table."""
+        p = _slot_peers(self._hook_key(r, purpose, sub),
+                        jnp.asarray(nbr.cpu().numpy(), jnp.int32),
+                        jnp.asarray(alive.cpu().numpy()))
+        return torch.as_tensor(np.array(p), device=nbr.device).long()
+
     def bernoulli(self, r, purpose, p, n, device, sub=0):
         shape = (n,) if isinstance(n, int) else tuple(n)
         b = jax.random.bernoulli(self._key(r, purpose, sub), p, shape)
@@ -176,3 +198,23 @@ def _sample_masks(payload, shapes, sample_size):
 
 
 _sample_peers = jax.jit(sample_peers)
+
+
+@jax.jit
+def _csr_peers(key, indptr, indices, degrees):
+    """``gossipy_tpu.core.SparseTopology.sample_peers`` over the CSR
+    arrays."""
+    r = jax.random.randint(key, degrees.shape, 0, jnp.maximum(degrees, 1),
+                           dtype=jnp.int32)
+    peers = indices[indptr[:-1] + r]
+    return jnp.where(degrees > 0, peers, -1).astype(jnp.int32)
+
+
+@jax.jit
+def _slot_peers(key, nbr, alive):
+    """The slot form of ``GossipSimulator._chaos_masked_peers``."""
+    logits = jnp.where(alive, 0.0, -jnp.inf)
+    slot = jax.random.categorical(key, logits, axis=-1)
+    has = alive.any(axis=-1)
+    peers = nbr[jnp.arange(nbr.shape[0]), jnp.clip(slot, 0, nbr.shape[1] - 1)]
+    return jnp.where(has, peers, -1).astype(jnp.int32)

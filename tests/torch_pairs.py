@@ -69,16 +69,16 @@ PATHS = {"plain": (False, None), "plain-compact": (False, 4),
          "multi-compact": ("multi", 4)}
 
 
-def small_data(signed=False):
-    """12 nodes of a linearly separable 10-feature set (labels 0/1, or
-    ±1 floats when ``signed``)."""
+def small_data(signed=False, n=N):
+    """``n`` (12) nodes of a linearly separable 10-feature set, 24 samples
+    a node (labels 0/1, or ±1 floats when ``signed``)."""
     rng = np.random.default_rng(11)
-    X = rng.normal(size=(24 * N, D_FEAT)).astype(np.float32)
+    X = rng.normal(size=(24 * n, D_FEAT)).astype(np.float32)
     y = (X @ rng.normal(size=D_FEAT) > 0).astype(np.int64)
     if signed:
         y = (2 * y - 1).astype(np.float32)
     disp = DataDispatcher(ClassificationDataHandler(X, y, test_size=0.25,
-                                                    seed=1), n=N)
+                                                    seed=1), n=n)
     return disp.stacked()
 
 
@@ -285,10 +285,21 @@ def jax_kw(kw):
     return out
 
 
+def jax_topology(topo):
+    """The JAX package's topology of the port's ``topo``: the same dense
+    adjacency, or the same CSR arrays (rebuilt from the undirected
+    pairs)."""
+    if isinstance(topo, tcore.SparseTopology):
+        pairs = np.stack(tfaults._undirected_pairs(topo), axis=1)
+        return jcore.SparseTopology(topo.num_nodes, pairs)
+    return jcore.Topology(topo.adjacency)
+
+
 def make(name, handlers, topo, data, key, mixing=None, **kw):
-    """The variant ``name`` in both engines: ``(jsim, tsim)``."""
+    """The variant ``name`` in both engines over ``topo`` (dense or
+    sparse): ``(jsim, tsim)``."""
     jh, thd = handlers
-    jtopo = jcore.Topology(topo.adjacency)
+    jtopo = jax_topology(topo)
     jextra, textra = {}, {}
     if mixing is not None:
         jextra["mixing"] = getattr(jcore, mixing)(jtopo)
