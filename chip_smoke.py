@@ -17,10 +17,21 @@ Phases, each printed as it runs; any failure exits non-zero:
    ring, rows of 73,420 columns, the 10 CIFAR10Net leaves, K = 4 or one
    slot) and at ragged shapes (F not a multiple of 4; leaf edges inside a
    4-column word); ring rows (or int8 scales) behind empty slots are NaN
-   or Inf where the kernel must not read them. For each: the max abs
-   error, the device time of one call of the kernel and of the plain
+   or Inf where the kernel must not read them, and -0.0 in p. For each:
+   the max abs error and the count of elements whose bits differ (both
+   must be 0), the device time of one call of the kernel and of the plain
    version (CUDA graph of 20 calls, replayed between CUDA events, median
    of 50), and the least time the card could take, with what bounds it.
+   Then the K1/K2 sweep (``merge_sweep``; ``[kernels] <shape> ...``
+   lines, as every K1/K2 check prints): K1 and K2 at the shapes the
+   paths give them (SWEEP: the scale row, the ladder rung, Giaretta,
+   Ormandi, the north star, the flagship, phase 4's rows), each bit-equal
+   to its plain version, timed, with its bound and share, a K1 and a K2
+   call at the scale shape profiled as one kernel on the card, and at
+   the routes' edges (SWEEP_EDGE_*: 1 to 132 columns, 1 to 64 slots,
+   half live, empty slots whose w_self is not 1) on float32, bf16 and
+   int8 rings; K1's lines also give ``eager_call_ms``, one eager call on
+   the host's clock.
 4. paths: a 64-node CIFAR10Net gossip run on the card (clique, PUSH,
    MERGE_UPDATE, 4-slot mailbox, SGD 0.05, batch 32, synthetic 32x32x3
    data with 64 images per node), on each deliver path: the single-pass
@@ -84,11 +95,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    boxes), params within REF_TOL. K1, K2 and K3 against their plain
    versions, timed, at the shapes the north star gives them (100 rows of
    LogReg's 116-column stride, the derived 6 slots or one, a two-cell
-   ring). (b) Each leg timed: a warm-up, then
-   BENCH_ROUNDS rounds from the same initial state and the same draws,
-   the card synchronised before the host clock stops; rounds/s, final
-   global accuracy, the kernels' launches (counts set to 0 just before),
-   one profiled round's idle share. (c) The paper examples' network model
+   ring; K1's numbers are ``at_northstar_shape``). (b) Each leg timed: a
+   warm-up, then BENCH_ROUNDS rounds from the same initial state and the
+   same draws, the card synchronised before the host clock stops;
+   rounds/s, final global accuracy, the kernels' launches (counts set to
+   0 just before), one profiled round's idle share. (c) The paper
+   examples' network model
    (``UniformDelay(0, 10)``, 10% drops, 20% online, ``sampling_eval=0.1``)
    in 10-round card-against-CPU runs: on the single-pass deliver with a
    bf16 ring (K2), with PUSH_PULL on the single-pass deliver (K1 in the
@@ -238,7 +250,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    share, the phase times, ``memory_budget()`` beside
    ``max_memory_allocated``), K1 against its plain version, timed, at
    that shape (``at_scale_shape``), the LADDER_NODES rung on the same
-   path (LADDER_ROUNDS rounds), and the All2All row at SCALE_NODES nodes,
+   path (LADDER_ROUNDS rounds; K1 at its shape, ``at_ladder_shape``), and
+   the All2All row at SCALE_NODES nodes,
    SCALE_A2A_ROUNDS rounds, in the segment and the padded form.
 
 The last lines are the card's name and power limit, one JSON object with
@@ -415,48 +428,34 @@ def merge_tables(rng, n: int, d: int, k: int):
     return idx, (1.0 - wp).astype(np.float32), wp
 
 
-def check_merge(torch, merge, n, d, f, k, seed, rate):
-    """K1 against its plain version; times and bound at this shape."""
-    rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
-    p = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
-    h = rng.normal(size=(d * n, f)).astype(np.float32)
-    h[n:] = np.nan          # only empty slots point past the first cell
-    h[n::5] = np.inf
-    h = torch.from_numpy(h).to(dev)
-    idx, ws, wp = merge_tables(rng, n, d, k)
-    idx_t = torch.from_numpy(idx).to(dev)
-    ws_t = torch.from_numpy(ws).to(dev)
-    wp_t = torch.from_numpy(wp).to(dev)
-    args = (p, h, idx_t, ws_t, wp_t)
-    got = merge.gather_merge_multi_cuda(*args)
-    want = merge.gather_merge_multi_reference(*args)
+def sweep_tables(rng, n: int, d: int, k: int, live: float):
+    """Tables with each slot live with probability ``live``, naming a row
+    of the first ring cell; an empty slot names a row of another cell and
+    carries wp = 0 and, in one of four, ws = 0.75 (the kernel may not take
+    an empty slot's ws for 1)."""
+    on = rng.uniform(size=(n, k)) < live
+    idx = np.where(on, rng.integers(0, n, (n, k)),
+                   n + rng.integers(0, (d - 1) * n, (n, k)))
+    wp = np.where(on, rng.uniform(0.1, 0.9, (n, k)), 0.0).astype(np.float32)
+    ws = np.where(on, 1.0 - wp,
+                  np.where(rng.uniform(size=(n, k)) < 0.25, 0.75, 1.0))
+    return idx.astype(np.int64), ws.astype(np.float32), wp
+
+
+def check_equal(torch, name, got, want, shape) -> float:
+    """Raise unless ``got`` is finite and bit-equal to ``want`` (a zero's
+    sign included); returns the max abs error."""
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
-        raise RuntimeError("K1 output is not finite (NaN rows leaked)")
+        raise RuntimeError(f"{name} output is not finite (NaN rows leaked) "
+                           f"at {shape}")
     err = float((got - want).abs().max())
-    if err > KERNEL_TOL:
-        raise RuntimeError(f"K1 disagrees with its plain version: max abs "
-                           f"err {err} > {KERNEL_TOL} at {(n, d * n, f, k)}")
-    # Least work: p read once, out written once, each live ring row read
-    # once, the [N, K] tables read once; per element a live slot costs a
-    # multiply, a multiply and an add, an empty one a multiply and an add.
-    live = int((wp != 0).sum())
-    live_rows = len(np.unique(idx[wp != 0]))
-    nbytes = 4 * f * (2 * n + live_rows) + n * k * (8 + 4 + 4)
-    flops = f * (3 * live + 2 * (n * k - live))
-    ms = time_ms(torch, lambda: merge.gather_merge_multi_cuda(*args))
-    plain_ms = time_ms(torch,
-                       lambda: merge.gather_merge_multi_reference(*args))
-    eager_ms = call_ms(torch, lambda: merge.gather_merge_multi_cuda(*args))
-    bound_ms, bound_by = bound(nbytes, flops, rate)
-    log(f"[kernels] gather_merge_multi n={n} m={d * n} f={f} k={k} "
-        f"live_slots={live} max_abs_err={err} ms={ms:.5f} "
-        f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
-        f"eager_call_ms={eager_ms:.5f} ({nbytes} bytes, {flops} flops, "
-        f"bound by {bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if err > KERNEL_TOL or bad:
+        raise RuntimeError(f"{name} disagrees with its plain version: max "
+                           f"abs err {err} > {KERNEL_TOL} or {bad} elements "
+                           f"of other bits at {shape}")
+    return err
 
 
 def wire_ring(torch, rng, m, f, n_leaves, wire, dev):
@@ -470,90 +469,200 @@ def wire_ring(torch, rng, m, f, n_leaves, wire, dev):
     return h.to(dev, getattr(torch, wire)), None
 
 
-def check_wire_kernel(torch, merge, slots, wire, n, d, f, k, starts, seed,
-                      rate):
-    """K2 (``slots="multi"``), K3 or K4 (``slots="single"``) against its
-    plain version; times and bound at this shape. For K2 every ring row
-    (bfloat16) or scale (int8) that only empty slots name is NaN or Inf."""
+def check_flat(torch, merge, wire, n, d, f, starts, seed, rate):
+    """K3 (float32 ring) or K4 against its plain version; times and bound
+    at this shape."""
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     m = d * n
-    p = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(dev)
+    p = rng.normal(size=(n, f)).astype(np.float32)
+    p[::3, f // 2] = -0.0
+    p = torch.from_numpy(p).to(dev)
     h, scale = wire_ring(torch, rng, m, f, len(starts), wire, dev)
-    idx, ws, wp = merge_tables(rng, n, d, k)
-    if slots == "multi":
-        if scale is not None:
-            scale[n:] = np.nan
-            scale[n::5] = np.inf
-        else:
-            h[n:] = float("nan")
-            h[n::5] = float("inf")
-    else:
-        idx, ws, wp = idx[:, :1], ws[:, :1], wp[:, :1]
+    idx, ws, wp = merge_tables(rng, n, d, 1)
     scale_t = None if scale is None else torch.from_numpy(scale).to(dev)
     starts_t = None if scale is None else torch.tensor(
         starts, dtype=torch.int32, device=dev)
-    tabs = [torch.from_numpy(a).to(dev) for a in (idx, ws, wp)]
-    if slots == "multi":
-        name = merge.KERNEL_MULTI_DQ
-        args = (p, h, *tabs)
+    args = (p, h, *(torch.from_numpy(a[:, 0]).to(dev) for a in (idx, ws, wp)))
+    name = merge.KERNEL_FLAT if wire == "float32" else merge.KERNEL_FLAT_DQ
 
-        def kernel():
-            return merge.gather_merge_multi_dq_cuda(*args, scale_t, starts_t)
+    def kernel():
+        return merge.gather_merge_flat_cuda(*args, scale_t, starts_t)
 
-        def plain():
-            return merge.gather_merge_multi_reference(*args, scale_t,
-                                                      starts_t)
-    else:
-        name = merge.KERNEL_FLAT_DQ if (wire != "float32") \
-            else merge.KERNEL_FLAT
-        args = (p, h, *(t[:, 0] for t in tabs))
-
-        def kernel():
-            return merge.gather_merge_flat_cuda(*args, scale_t, starts_t)
-
-        def plain():
-            return merge.gather_merge_reference(*args, scale_t, starts_t)
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
-        raise RuntimeError(f"{name} [{wire}] output is not finite")
-    err = float((got - want).abs().max())
-    shape = (n, m, f, k, len(starts))
-    if err > KERNEL_TOL:
-        raise RuntimeError(f"{name} [{wire}] disagrees with its plain "
-                           f"version: max abs err {err} > {KERNEL_TOL} at "
-                           f"{shape}")
-    # Least work: p read once, out written once, each ring row the
-    # function reads once at wire width (the live ones for K2; every
-    # receiver's for K3/K4, which have no zero-weight mask) with its L
-    # scales, the tables and leaf starts once. Per element: a live slot is
-    # a multiply (the scale, int8 only), a multiply and the blend's
-    # multiply and add; an empty slot of K2 the blend's multiply and add.
-    isz = ITEMSIZE[wire]
+    def plain():
+        return merge.gather_merge_reference(*args, scale_t, starts_t)
+    err = check_equal(torch, f"{name} [{wire}]", kernel(), plain(),
+                      (n, m, f, len(starts)))
+    # Least work: p read once, out written once, each receiver's ring row
+    # once at wire width (no zero-weight mask) with its L scales, the
+    # tables and leaf starts once. Per element: a multiply (the scale,
+    # int8 only), a multiply and the blend's multiply and add.
     n_scales = 0 if scale is None else len(starts)
-    live = int((wp != 0).sum())
-    if slots == "multi":
-        rows = len(np.unique(idx[wp != 0]))
-        reads = live
-        flops = f * (3 * live + 2 * (n * k - live))
-    else:
-        rows = len(np.unique(idx))
-        reads = n
-        flops = f * 3 * n
-    if scale is not None:
-        flops += f * reads
-    nbytes = (4 * f * 2 * n + isz * f * rows + n * k * (8 + 4 + 4)
+    rows = len(np.unique(idx[:, 0]))
+    flops = f * 3 * n + (0 if scale is None else f * n)
+    nbytes = (4 * f * 2 * n + ITEMSIZE[wire] * f * rows + n * (8 + 4 + 4)
               + 4 * n_scales * rows + 4 * n_scales)
     ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, plain)
     bound_ms, bound_by = bound(nbytes, flops, rate)
-    log(f"[kernels] {name} [{wire}] n={n} m={m} f={f} k={k} "
-        f"leaves={len(starts)} live_slots={live} max_abs_err={err} "
-        f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
-        f"({nbytes} bytes, {flops} flops, bound by {bound_by})")
+    log(f"[kernels] {name} [{wire}] n={n} m={m} f={f} leaves={len(starts)} "
+        f"max_abs_err={err} ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"bound_ms={bound_ms:.5f} ({nbytes} bytes, {flops} flops, bound by "
+        f"{bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+# Phase 3's K1/K2 sweep: (label, n, ring cells, F (None: CIFAR10Net's
+# stride), K, the K2 rings it also runs). Giaretta's and Ormandi's rows are
+# the shapes phases 10 and 9 derive (4,141 nodes of AdaLine(57)'s 60
+# columns; K = 59 over 2 cells, K = 8 over 3), the north star's and the
+# flagship's phases 7 and 8's (K = 6), the scale and ladder rows phase
+# 12's, the last the first slice's (phase 4's 64 CIFAR10Net nodes).
+SWEEP = (("scale", 50_000, 2, 116, 6, ("bfloat16",)),
+         ("ladder", 100_000, 2, 116, 6, ()),
+         ("giaretta", 4141, 2, 60, 59, ("bfloat16",)),
+         ("ormandi", 4141, 3, 60, 8, ("bfloat16",)),
+         ("northstar", 100, 2, 116, 6, ("bfloat16",)),
+         ("flagship", 100, 2, None, 6, ("bfloat16", "int8")),
+         ("phase3", N_NODES, 2, None, SLOTS, ("bfloat16", "int8")))
+# The routes' edges, each with K1 and K2 on bf16 and int8 rings: rows of 1
+# to 132 columns (1 and 3: the scalar form; 132: the first wide row), 1 to
+# 64 slots, half of them live, SWEEP_EDGE_N rows (a multiple of no
+# route's rows per block).
+SWEEP_EDGE_F = (1, 3, 4, 60, 116, 128, 132)
+SWEEP_EDGE_K = (1, 59, 64)
+SWEEP_EDGE_N = 37
+SWEEP_EDGE_LIVE = 0.5
+
+
+def multi_inputs(torch, rng, wire, n, d, f, k, starts, live=None):
+    """K1's or K2's operands on the card and the least bytes and operations
+    of the call. Every ring row past the first cell (named by empty slots
+    only) is NaN or Inf (an int8 ring's scales there); -0.0 in a column of
+    every third row of p and of the first cell, so the sign of a zero
+    shows whether every slot was folded. Tables: ``live`` as
+    :func:`sweep_tables`, None as :func:`merge_tables`. Least work: p read
+    once, out written once, each live ring row once at wire width with its
+    scales, the tables once (int64 indices); a live slot a multiply (the
+    scale, if any), a multiply and the blend's multiply and add per
+    element, an empty one the blend's two."""
+    p = rng.normal(size=(n, f)).astype(np.float32)
+    h = rng.normal(size=(d * n, f)).astype(np.float32)
+    p[::3, f // 2] = -0.0
+    h[:n, f // 2] = -0.0
+    h[n:] = np.nan
+    h[n::5] = np.inf
+    idx, ws, wp = (merge_tables(rng, n, d, k) if live is None
+                   else sweep_tables(rng, n, d, k, live))
+    p, h, idx_t, ws_t, wp_t = (torch.from_numpy(a).cuda()
+                               for a in (p, h, idx, ws, wp))
+    scale = st = None
+    if wire == "int8":
+        m = d * n
+        h = torch.from_numpy(rng.integers(-127, 128, (m, f)).astype(
+            np.int8)).cuda()
+        sc = rng.uniform(0.001, 0.02, (m, len(starts))).astype(np.float32)
+        sc[n:] = np.nan
+        sc[n::5] = np.inf
+        scale = torch.from_numpy(sc).cuda()
+        st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    elif wire != "float32":
+        h = h.to(getattr(torch, wire))
+    on = wp != 0
+    live_n = int(on.sum())
+    rows = len(np.unique(idx[on]))
+    n_scales = 0 if scale is None else len(starts)
+    nbytes = (4 * f * 2 * n + ITEMSIZE[wire] * f * rows + n * k * (8 + 4 + 4)
+              + 4 * n_scales * (rows + 1))
+    flops = f * (3 * live_n + 2 * (n * k - live_n))
+    if scale is not None:
+        flops += f * live_n
+    return (p, h, idx_t, ws_t, wp_t, scale, st), nbytes, flops, live_n
+
+
+def check_multi(torch, merge, label, wire, n, d, f, k, seed, rate,
+                starts=(0,), live=None, plain=True) -> dict:
+    """K1 (float32 ring) or K2 at one shape (``label``) against its plain
+    version, bit for bit; its device time (and the plain version's, with
+    ``plain``), bound and share; for K1 also the host-clock time of one
+    eager call (``eager_call_ms``: the wrapper's Python, its launch and
+    the kernel). ``starts``: the int8 ring's leaf starts. At the sweep's
+    scale shape (``label`` "scale", phase 3's first profiler session) a
+    call must show the profiler one kernel on the card and nothing
+    else."""
+    rng = np.random.default_rng(seed)
+    args, nbytes, flops, live_n = multi_inputs(torch, rng, wire, n, d, f, k,
+                                               starts, live)
+    name = merge.KERNEL if wire == "float32" else \
+        f"{merge.KERNEL_MULTI_DQ}[{wire}]"
+    n_leaves = 0 if args[5] is None else args[5].shape[1]
+    plan = merge.launch_plan(n, f, k, args[1].dtype, True,
+                             args[5] is not None)
+
+    def kernel():
+        return merge.gather_merge_multi(*args[:5], args[5], args[6])
+    err = check_equal(torch, f"{name} {label}", kernel(),
+                      merge.gather_merge_multi_reference(*args),
+                      (n, d * n, f, k, n_leaves))
+    if label == "scale":  # one launch a call: no kernel beside it
+        rows, _ = device_rows(torch, kernel)
+        ran = [(e.key, e.count) for e in rows
+               if not e.key.startswith("Activity")]
+        if not ran:
+            raise RuntimeError(f"{name} {label}: the profiler recorded no "
+                               "device work, so one launch a call is not "
+                               "shown")
+        if len(ran) != 1 or ran[0][1] != 1 or "multi_rows" not in \
+                ran[0][0]:
+            raise RuntimeError(f"{name} {label}: a call ran {ran} on the "
+                               "card, not one launch of its kernel")
+        log(f"[kernels] {label} {name}: one call, one kernel on the card "
+            f"({ran[0][0][:60]}...)")
+    bound_ms, bound_by = bound(nbytes, flops, rate)
+    out = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+               ms=time_ms(torch, kernel))
+    if wire == "float32":
+        out["eager_call_ms"] = call_ms(torch, kernel)
+    if plain:
+        out["plain_ms"] = time_ms(
+            torch, lambda: merge.gather_merge_multi_reference(*args))
+    out["share"] = bound_ms / out["ms"]
+    route = (f"slot walk grid {plan.grid}" if plan.slots else
+             f"wide grid {plan.grid}" if plan.wide else
+             f"rows G={plan.group} {plan.rows_per_block} a block") + \
+        f" in_flight={plan.in_flight}"
+    extra = "".join(f" {key}={out[key]:.5f}" for key in (
+        "plain_ms", "eager_call_ms") if key in out)
+    log(f"[kernels] {label} {name} n={n} m={d * n} f={f} k={k} "
+        f"leaves={n_leaves} live_slots={live_n} "
+        f"{'vec' if plan.vec else 'scalar'} {route} max_abs_err={err} "
+        f"ms={out['ms']:.5f}{extra} bound_ms={bound_ms:.5f} "
+        f"share={out['share']:.3f} ({nbytes} bytes, bound by {bound_by})")
+    return out
+
+
+def merge_sweep(torch, merge, rate, stride, starts) -> dict:
+    """Phase 3's sweep of K1 and K2 over SWEEP and the route edges; returns
+    ``{(label, wire): numbers}`` for SWEEP's shapes. ``stride`` and
+    ``starts``: CIFAR10Net's row and leaves."""
+    numbers = {}
+    for seed, (label, n, d, f, k, wires) in enumerate(SWEEP, start=71):
+        f = stride if f is None else f
+        st = starts if f == stride else [0, f // 2]
+        for wire in ("float32",) + wires:
+            numbers[(label, wire)] = check_multi(
+                torch, merge, label, wire, n, d, f, k, seed, rate, st)
+    seed = 90
+    for f in SWEEP_EDGE_F:
+        st = sorted({0, f // 3, 2 * f // 3})
+        for k in SWEEP_EDGE_K:
+            for wire in ("float32", "bfloat16", "int8"):
+                seed += 1
+                check_multi(torch, merge, "edge", wire, SWEEP_EDGE_N, 2, f,
+                            k, seed, rate, st, live=SWEEP_EDGE_LIVE,
+                            plain=False)
+    return numbers
 
 
 def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
@@ -588,10 +697,17 @@ def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
     return sim, state
 
 
-def profile(torch, fn, label: str):
-    """``fn`` once under torch.profiler: the kernels that take the card's
-    time, in order, and the card's idle share of the call's wall time,
-    which it returns (None when the profiler saw no device time)."""
+def dev_us(e) -> float:
+    """A profiler row's device time in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    return 0.0
+
+
+def device_rows(torch, fn):
+    """``fn`` once under torch.profiler: its rows of device work (kernels,
+    copies) and the call's wall time in microseconds."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
     torch.cuda.synchronize()
@@ -601,14 +717,17 @@ def profile(torch, fn, label: str):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return rows, wall_us
 
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        return 0.0
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+def profile(torch, fn, label: str):
+    """``fn`` once under torch.profiler: the kernels that take the card's
+    time, in order (and K1/K2's row wherever it falls), and the card's
+    idle share of the call's wall time, which it returns (None when the
+    profiler saw no device time)."""
+    kernels, wall_us = device_rows(torch, fn)
     busy = sum(dev_us(e) for e in kernels)
     if busy <= 0:
         log("[profile] the profiler recorded no device time")
@@ -616,7 +735,8 @@ def profile(torch, fn, label: str):
     log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / wall_us:.3f}")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    for e in ranked[:8] + [e for e in ranked[8:] if "::multi_" in e.key]:
         log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {e.count:5d}x "
             f"{e.key[:90]}")
     return 1 - busy / wall_us
@@ -939,9 +1059,9 @@ def ns_timed(torch, merge, label: str, fused) -> dict:
             "launches": launches, "idle_share": idle}
 
 
-def northstar_phase(torch, merge, rate) -> dict:
+def northstar_phase(torch, merge, rate) -> tuple:
     """Phase 7 (a)-(c); returns the launches per path of each (kernel,
-    ring format)."""
+    ring format) and K1's numbers at the north star's shape."""
     from gossipy_tpu_torch.core import AntiEntropyProtocol, UniformDelay
     paths = {}
     # (a) the two legs, card against CPU
@@ -953,11 +1073,12 @@ def northstar_phase(torch, merge, rate) -> dict:
     sim, _ = northstar_sim(torch, "cpu")
     layout = sim.handler.layout
     starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
-    check_merge(torch, merge, NS_NODES, 2, layout.stride, sim.K, 21, rate)
-    check_wire_kernel(torch, merge, "multi", "bfloat16", NS_NODES, 2,
-                      layout.stride, sim.K, starts, 22, rate)
-    check_wire_kernel(torch, merge, "single", "float32", NS_NODES, 2,
-                      layout.stride, 1, starts, 23, rate)
+    at_shape = check_multi(torch, merge, "north star", "float32", NS_NODES,
+                           2, layout.stride, sim.K, 21, rate)
+    check_multi(torch, merge, "north star", "bfloat16", NS_NODES, 2,
+                layout.stride, sim.K, 22, rate, starts)
+    check_flat(torch, merge, "float32", NS_NODES, 2, layout.stride, starts,
+               23, rate)
     # (b) rounds per second of each leg
     for label, fused in (("default", False), ("multi", "multi")):
         out = ns_timed(torch, merge, label, fused)
@@ -987,7 +1108,7 @@ def northstar_phase(torch, merge, rate) -> dict:
                                f"tables ({out['stats']})")
         for k, v in out["launches"].items():
             paths.setdefault((k, wire), {})[label] = v
-    return paths
+    return paths, at_shape
 
 
 def flagship_run(torch, merge, flag, stacked, n, bf16, wire, device,
@@ -1194,14 +1315,10 @@ def flagship_phase(torch, merge, rate) -> tuple:
                               device="cuda")
     layout = probe.handler.layout
     starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
-    shape = dict(n=FLAG_NODES, d=2, f=layout.stride, k=probe.K)
-    at_shape = {("multi", "float32"): check_merge(
-        torch, merge, shape["n"], shape["d"], shape["f"], shape["k"], 31,
-        rate)}
-    for seed, wire in enumerate(("bfloat16", "int8"), start=32):
-        at_shape[("multi", wire)] = check_wire_kernel(
-            torch, merge, "multi", wire, shape["n"], shape["d"], shape["f"],
-            shape["k"], starts, seed, rate)
+    at_shape = {("multi", wire): check_multi(
+        torch, merge, "flagship", wire, FLAG_NODES, 2, layout.stride,
+        probe.K, seed, rate, starts)
+        for seed, wire in enumerate(FLAG_WIRES, start=31)}
     del probe
     legs = {}
     for wire in FLAG_WIRES:
@@ -1398,7 +1515,8 @@ def papers_phase(torch, merge, rate) -> tuple:
     # stride, the derived K, the ring's D cells.
     probe, state = paper_sim(torch, "ormandi", sets, 0, "cpu")
     depth = state.history_ages.shape[0]
-    at_ormandi = check_merge(torch, merge, probe.n_nodes, depth,
+    at_ormandi = check_multi(torch, merge, "Ormandi", "float32",
+                             probe.n_nodes, depth,
                              probe.handler.layout.stride, probe.K, 41, rate)
     del probe, state
     for name in PAPERS:
@@ -1774,17 +1892,17 @@ def variants_phase(torch, merge, rate) -> tuple:
     # stride, the derived K of the hubs' fan-in, the ring's cells; K3 and
     # K4 at the token north star's: 100 rows of LogReg's 116, one slot.
     probe, state = variant_sim(torch, "giaretta-vanilla", sets, True, "cpu")
-    shapes = {"giaretta": check_merge(
-        torch, merge, probe.n_nodes, state.history_ages.shape[0],
-        probe.handler.layout.stride, probe.K, 51, rate)}
+    shapes = {"giaretta": check_multi(
+        torch, merge, "Giaretta", "float32", probe.n_nodes,
+        state.history_ages.shape[0], probe.handler.layout.stride, probe.K,
+        51, rate)}
     probe, state = variant_sim(torch, "tokenized-float32", sets, True, "cpu")
     layout = probe.handler.layout
     starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
     for seed, wire in enumerate(("float32", "bfloat16"), start=52):
-        shapes[("tokenized", wire)] = check_wire_kernel(
-            torch, merge, "single", wire, probe.n_nodes,
-            state.history_ages.shape[0], layout.stride, 1, starts, seed,
-            rate)
+        shapes[("tokenized", wire)] = check_flat(
+            torch, merge, wire, probe.n_nodes, state.history_ages.shape[0],
+            layout.stride, starts, seed, rate)
     del probe, state
     for label, _, _ in VARIANTS:
         out = variant_timed(torch, merge, label, sets)
@@ -2417,7 +2535,7 @@ def sparse_phase(torch, merge, rate) -> tuple:
     CPU; (b) the vanilla scale row at SCALE_NODES nodes, K1 timed at its
     shape, the LADDER_NODES rung, the All2All row in both sparse forms.
     Returns the launches per (kernel, ring) and run, and K1's numbers at
-    the scale row's shape."""
+    the scale row's and the ladder rung's shapes."""
     from gossipy_tpu_torch import native
     t0 = time.perf_counter()
     if not native.available():
@@ -2445,12 +2563,16 @@ def sparse_phase(torch, merge, rate) -> tuple:
         f"scale-{SCALE_NODES}"] = out["launches"][merge.KERNEL]
     # K1 at the scale row's shape: 50,000 rows of LogReg's stride, the
     # derived K, the ring's cells.
-    at_scale = check_merge(torch, merge, SCALE_NODES, out["D"],
-                           out["stride"], out["K"], 61, rate)
+    at_scale = check_multi(torch, merge, "scale row", "float32",
+                           SCALE_NODES, out["D"], out["stride"], out["K"],
+                           61, rate)
     ladder = scale_timed(torch, merge, LADDER_NODES, LADDER_ROUNDS,
                          phases=False)
     paths[(merge.KERNEL, "float32")][f"scale-{LADDER_NODES}"] = \
         ladder["launches"][merge.KERNEL]
+    at_ladder = check_multi(torch, merge, "ladder rung", "float32",
+                            LADDER_NODES, ladder["D"], ladder["stride"],
+                            ladder["K"], 62, rate)
     a2a = {form: scale_timed(torch, merge, SCALE_NODES, SCALE_A2A_ROUNDS,
                              all2all=True, form=form)
            for form in ("segment", "padded")}
@@ -2459,7 +2581,7 @@ def sparse_phase(torch, merge, rate) -> tuple:
         f"{ladder['rounds_per_s']:.2f}, all2all {SCALE_NODES} segment "
         f"{a2a['segment']['rounds_per_s']:.2f}, padded "
         f"{a2a['padded']['rounds_per_s']:.2f}")
-    return paths, at_scale
+    return paths, at_scale, at_ladder
 
 
 def tensor_rate(name: str) -> float:
@@ -2617,22 +2739,10 @@ def sdpa_backend(torch, fn) -> str:
     shows no device kernel (a later profiler session in one process may
     record none), the backend the dispatcher chooses for ``fn``'s
     operands, ``fn.sdpa_args``, by name."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
     fn()
-    torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and dev_us(e) > 0 and not e.key.startswith(
-                   ("Activity", "Memcpy", "Memset"))]
+    rows, _ = device_rows(torch, fn)
+    kernels = [e for e in rows if dev_us(e) > 0 and not e.key.startswith(
+        ("Activity", "Memcpy", "Memset"))]
     if kernels:
         return max(kernels, key=dev_us).key
     from torch.nn.attention import SDPBackend
@@ -3273,23 +3383,25 @@ def main() -> int:
                         input_shape=(32, 32, 3)).layout
     stride = layout.stride
     starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
-    k1 = check_merge(torch, merge, N_NODES, 2, stride, SLOTS, 1, rate)
-    check_merge(torch, merge, N_NODES, 2, stride - 2, SLOTS, 2, rate)
-    check_merge(torch, merge, 5, 2, 37, 3, 3, rate)
     # Ragged shapes: F = 37 (the scalar form) and F = 44 with leaf edges at
     # columns 5, 6, 13 and 30, inside 4-column words (the vector form).
     ragged = ((5, 37, [0, 5, 6, 17]), (6, 44, [0, 5, 6, 13, 30]))
     numbers = {}
-    for slots, wire in (("multi", "bfloat16"), ("multi", "int8"),
-                        ("single", "float32"), ("single", "bfloat16"),
-                        ("single", "int8")):
-        k = SLOTS if slots == "multi" else 1
-        numbers[(slots, wire)] = check_wire_kernel(
-            torch, merge, slots, wire, N_NODES, 2, stride, k, starts, 11,
-            rate)
+    for wire in ("float32", "bfloat16", "int8"):
+        numbers[("multi", wire)] = check_multi(
+            torch, merge, "phase 4", wire, N_NODES, 2, stride, SLOTS, 11,
+            rate, starts)
+        numbers[("single", wire)] = check_flat(
+            torch, merge, wire, N_NODES, 2, stride, starts, 11, rate)
         for seed, (n, f, st) in enumerate(ragged, start=12):
-            check_wire_kernel(torch, merge, slots, wire, n, 2, f, 3 if k > 1
-                              else 1, st, seed, rate)
+            check_multi(torch, merge, "ragged", wire, n, 2, f, 3, seed, rate,
+                        st)
+            check_flat(torch, merge, wire, n, 2, f, st, seed, rate)
+    check_multi(torch, merge, "ragged", "float32", N_NODES, 2, stride - 2,
+                SLOTS, 2, rate)
+    t0 = time.perf_counter()
+    sweep = merge_sweep(torch, merge, rate, stride, starts)
+    log(f"[kernels] K1/K2 sweep took {time.perf_counter() - t0:.1f} s")
 
     # 4. the paths: first the fp32 single-pass fused deliver
     sim, state = cifar_sim(torch, N_NODES, 64, 32, "cuda", ROUNDS + 1)
@@ -3335,7 +3447,7 @@ def main() -> int:
     k5 = attention_phase(torch, rate, name)
 
     # 7. the north-star configuration and the examples' network model
-    ns_paths = northstar_phase(torch, merge, rate)
+    ns_paths, at_northstar = northstar_phase(torch, merge, rate)
 
     # 8. the 100-node CIFAR-10 flagship
     flag_paths, at_flagship, flag_ms = flagship_phase(torch, merge, rate)
@@ -3363,7 +3475,7 @@ def main() -> int:
 
     # 12. sparse topologies at population scale
     t0 = time.perf_counter()
-    sparse_paths, at_scale = sparse_phase(torch, merge, rate)
+    sparse_paths, at_scale, at_ladder = sparse_phase(torch, merge, rate)
     for key, by_path in sparse_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[sparse] phase 12 took {time.perf_counter() - t0:.1f} s")
@@ -3379,12 +3491,16 @@ def main() -> int:
                 "launches_by_path": ns_paths.get((kernel, wire or "float32"),
                                                  {})}
 
-    kernels = [entry(merge.KERNEL, None, "gather_merge_multi.cu", 76, k1,
-                     launches)]
+    kernels = [entry(merge.KERNEL, None, "gather_merge_multi.cu", 76,
+                     numbers[("multi", "float32")], launches)]
     kernels[0]["at_flagship_shape"] = at_flagship[("multi", "float32")]
     kernels[0]["at_ormandi_shape"] = at_ormandi
     kernels[0]["at_giaretta_shape"] = at_variants["giaretta"]
     kernels[0]["at_scale_shape"] = at_scale
+    kernels[0]["at_northstar_shape"] = at_northstar
+    kernels[0]["at_ladder_shape"] = at_ladder
+    kernels[0]["sweep"] = {label: nums for (label, wire), nums
+                           in sweep.items() if wire == "float32"}
     for slots, wire, label, kernel, source, line in (
             ("multi", "bfloat16", "multi-bf16", merge.KERNEL_MULTI_DQ,
              "gather_merge_multi.cu", 100),
@@ -3401,6 +3517,9 @@ def main() -> int:
                              leg_launches[label][kernel]))
         if (slots, wire) in at_flagship:
             kernels[-1]["at_flagship_shape"] = at_flagship[(slots, wire)]
+        if slots == "multi":
+            kernels[-1]["sweep"] = {label: nums for (label, w), nums
+                                    in sweep.items() if w == wire}
         if slots == "single" and ("tokenized", wire) in at_variants:
             kernels[-1]["at_tokenized_shape"] = at_variants[("tokenized",
                                                              wire)]

@@ -36,7 +36,10 @@ K4     ``_dq_kernel``              single, wire format     ``gather_merge_flat.c
 =====  ==========================  ======================  ======================
 
 "Wire format" means a bfloat16 ring, or any ring with a scale (an int8
-ring always has one). Each
+ring always has one). K1 and K2 read the ``[N, K]`` index table as the
+engine makes it, int64, so a call is one launch; :func:`launch_plan` maps
+their rows onto the card (a group of lanes a row for rows of up to 32
+words, a block per row tile for wider ones). Each
 public function runs the plain PyTorch version (``*_reference``) on CPU
 tensors, and on CUDA tensors launches its kernel or raises: it never falls
 back from the card to the plain version. Every launch adds one to
@@ -52,8 +55,9 @@ it keeps each node's parameters in one flat row already.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -71,7 +75,17 @@ SOURCES = {KERNEL: "gather_merge_multi",
            KERNEL_FLAT_DQ: "gather_merge_flat"}
 MAX_SLOTS = 64     # kMaxSlots in the CUDA sources
 MAX_LEAVES = 256   # wire::kMaxLeaves
-MAX_SCALES = 8192  # K x L scale floats of the multi-slot kernel's block
+MAX_SCALES = 8192  # K x L scales K2 stages for one row on the wide route
+# K1/K2's launch limits (kWarp, kMaxThreads, kTableRegs in
+# gather_merge_multi.cu), and the grid's.
+WARP = 32
+BLOCK = 256
+TABLE_REGS = 2     # a lane holds 2 slots of its row's tables: K <= 2 group
+WIDE_WORDS = 2     # words a lane takes on the wide route for K <= 8
+MAX_RING_ROWS = 2**31 - 1  # the kernels keep a ring row index in 32 bits
+MAX_GRID_X = 2**31 - 1
+MAX_GRID_Y = 65535
+SMS = 132          # the H100 SXM's multiprocessors: fewer rows are "few"
 # Ring storage types and their codes in the CUDA sources (wire_rows.cuh).
 WIRE_FORMATS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -164,6 +178,123 @@ def _check_wire_scale(caller: str, h: torch.Tensor, scale) -> None:
 
 # -- multi slot: K1 and K2 ---------------------------------------------------
 
+class MultiPlan(NamedTuple):
+    """How K1/K2 map an ``[N, F]`` call onto the card.
+
+    A row is ``words`` words: 4 columns each in the vector form (``vec``:
+    F a multiple of 4 and the operands aligned), 1 in the scalar form. On
+    the narrow route a group of ``group`` lanes (a power of two up to a
+    warp) takes a row, one word a lane, and a block of ``threads`` lanes
+    holds ``rows_per_block`` rows; the grid is ``(ceil(N / rows), 1)``.
+    On the wide route (``wide``: more than 32 words) a block of 256 lanes
+    takes a tile of ``256 * words_per_lane`` words of one row, each warp a
+    group; the grid is ``(N, tiles)``. Lane ``s % group`` of a group holds
+    slots ``s`` and ``s + group`` of the row's tables, so ``K <= 2
+    group``. ``in_flight``: the events (live slots, or empty ones whose
+    w_self is not 1) whose peer words a lane loads before it folds them.
+    For K > 8, 8 events and one word a lane on either route; for K <= 8,
+    4 and one on the narrow route, 2 and two on the wide one.
+
+    ``slots`` (``in_flight`` 1): the slot walk, a block per row tile of
+    ``threads`` words, one word a lane, the tables in shared memory and
+    every slot (K > 8) or the events (K <= 8) folded one at a time. It
+    takes the wide route with a scale table, and calls of fewer than
+    ``SMS`` rows with K > 8, which leave most of the card idle and where a
+    table with many live slots costs the event walk a pass per
+    ``in_flight`` events."""
+    vec: bool
+    wide: bool
+    group: int
+    threads: int
+    grid: tuple
+    words: int
+    rows_per_block: int
+    words_per_lane: int
+    in_flight: int
+
+    @property
+    def slots(self) -> bool:
+        return self.in_flight == 1
+
+    def as_args(self):
+        """The eight int64 values the C entry points take."""
+        return (ctypes.c_int64 * 8)(int(self.vec), int(self.wide), self.group,
+                                    self.threads, *self.grid,
+                                    self.words_per_lane, self.in_flight)
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, f: int, k: int, ring_dtype=torch.float32,
+                aligned: bool = True, scaled: bool = False) -> MultiPlan:
+    """K1/K2's :class:`MultiPlan` for ``n`` rows of ``f`` columns, ``k``
+    slots, a ring of ``ring_dtype`` (``scaled``: with a scale table, as an
+    int8 ring always is) and operands ``aligned`` for the vector form (p
+    and out to 16 bytes, ring rows to 4 values). Raises where the kernel
+    cannot run the call: too many slots, or a grid past the card's
+    limits."""
+    if ring_dtype not in WIRE_FORMATS:
+        raise TypeError(f"ring dtype {ring_dtype} is not a wire format")
+    if not 1 <= k <= MAX_SLOTS:
+        raise ValueError(f"1 to {MAX_SLOTS} slots, got {k}")
+    if n < 1 or f < 1:
+        raise ValueError(f"no rows or columns: [{n}, {f}]")
+    scaled = scaled or ring_dtype == torch.int8
+    vec = aligned and f % 4 == 0
+    words = f // 4 if vec else f
+    wide = words > WARP
+    slots = (wide and scaled) or (k > 8 and n < SMS)
+    if wide or slots:
+        group, rows = WARP, 1
+        in_flight, per_lane = ((1, 1) if slots else (8, 1) if k > 8
+                               else (2, WIDE_WORDS))
+        # A narrow row's slot walk takes a warp, or 256 lanes to stage
+        # its K x L scales.
+        threads = BLOCK if wide or scaled else WARP
+        grid = (n, -(-words // (threads * per_lane)))
+    else:
+        # Enough lanes for the row's words and for its slots.
+        group = max(_pow2_at_least(words),
+                    _pow2_at_least(-(-k // TABLE_REGS)))
+        rows, per_lane, in_flight = BLOCK // group, 1, 4 if k <= 8 else 8
+        threads = rows * group
+        grid = (-(-n // rows), 1)
+    if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y:
+        raise ValueError(f"[{n}, {f}] needs grid {grid}, past the card's "
+                         f"({MAX_GRID_X}, {MAX_GRID_Y})")
+    return MultiPlan(vec, wide, group, threads, grid, words, rows, per_lane,
+                     in_flight)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_args(n: int, f: int, k: int, ring_dtype, aligned: bool,
+               scaled: bool):
+    return launch_plan(n, f, k, ring_dtype, aligned, scaled).as_args()
+
+
+def _plan_for(p: torch.Tensor, h: torch.Tensor, out: torch.Tensor, k: int,
+              scaled: bool):
+    """The plan's eight values for this call, as the C entry points take
+    them."""
+    if h.shape[0] > MAX_RING_ROWS:
+        raise ValueError(f"at most {MAX_RING_ROWS} ring rows, got "
+                         f"{h.shape[0]}")
+    aligned = (p.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+               and h.data_ptr() % (4 * h.element_size()) == 0)
+    return _plan_args(p.shape[0], p.shape[1], k, h.dtype, aligned, scaled)
+
+
+def _index_table(idx: torch.Tensor) -> torch.Tensor:
+    """The index table as the kernels read it: int64, never cast (a cast
+    would be a second kernel a call)."""
+    if idx.dtype != torch.int64:
+        raise TypeError(f"idx must be int64, got {idx.dtype}")
+    return idx.contiguous()
+
+
 def gather_merge_multi_reference(p: torch.Tensor, h: torch.Tensor,
                                  idx: torch.Tensor, w_self: torch.Tensor,
                                  w_peer: torch.Tensor,
@@ -213,19 +344,19 @@ def gather_merge_multi_cuda(p: torch.Tensor, h: torch.Tensor,
         raise TypeError("K1 merges a float32 ring; gather_merge_multi_dq_cuda "
                         "takes the wire formats")
     n, k = idx.shape
-    if k > MAX_SLOTS:
-        raise ValueError(f"at most {MAX_SLOTS} slots, got {k}")
     f = p.shape[1]
-    idx32 = idx.to(torch.int32).contiguous()
+    tab = _index_table(idx)
     ws = w_self.to(torch.float32).contiguous()
     wp = w_peer.to(torch.float32).contiguous()
     out = torch.empty_like(p)
+    plan = _plan_for(p, h, out, k, False)
     fn = _build.function(SOURCES[KERNEL], "gather_merge_multi",
                          [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
-                         + [ctypes.c_void_p])
+                         + [ctypes.c_void_p] * 2)
     with torch.cuda.device(p.device):
-        rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(), ws.data_ptr(),
-                wp.data_ptr(), out.data_ptr(), n, f, k, _build.stream(p))
+        rc = fn(p.data_ptr(), h.data_ptr(), tab.data_ptr(), ws.data_ptr(),
+                wp.data_ptr(), out.data_ptr(), n, f, k, plan,
+                _build.stream(p))
     _build.raise_if_failed(KERNEL, rc)
     LAUNCHES[KERNEL] += 1
     return out
@@ -247,10 +378,8 @@ def gather_merge_multi_dq_cuda(p: torch.Tensor, h: torch.Tensor,
                                       p.shape[1])
     _check_devices(p, scale)
     n, k = idx.shape
-    if k > MAX_SLOTS:
-        raise ValueError(f"at most {MAX_SLOTS} slots, got {k}")
     f = p.shape[1]
-    idx32 = idx.to(torch.int32).contiguous()
+    tab = _index_table(idx)
     ws = w_self.to(torch.float32).contiguous()
     wp = w_peer.to(torch.float32).contiguous()
     starts = None
@@ -263,17 +392,18 @@ def gather_merge_multi_dq_cuda(p: torch.Tensor, h: torch.Tensor,
         scale = scale.to(torch.float32).contiguous()
         starts = _starts_on(leaf_starts, p.device)
     out = torch.empty_like(p)
+    plan = _plan_for(p, h, out, k, scale is not None)
     fn = _build.function(SOURCES[KERNEL_MULTI_DQ], "gather_merge_multi_dq",
                          [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                          + [ctypes.c_void_p] * 5
                          + [ctypes.c_int64, ctypes.c_void_p]
-                         + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+                         + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2)
     with torch.cuda.device(p.device):
         rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
-                idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
+                tab.data_ptr(), ws.data_ptr(), wp.data_ptr(),
                 None if scale is None else scale.data_ptr(),
                 None if starts is None else starts.data_ptr(), n_leaves,
-                out.data_ptr(), n, f, k, _build.stream(p))
+                out.data_ptr(), n, f, k, plan, _build.stream(p))
     _build.raise_if_failed(KERNEL_MULTI_DQ, rc)
     LAUNCHES[KERNEL_MULTI_DQ] += 1
     return out
