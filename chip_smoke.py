@@ -31,7 +31,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    the routes' edges (SWEEP_EDGE_*: 1 to 132 columns, 1 to 64 slots,
    half live, empty slots whose w_self is not 1) on float32, bf16 and
    int8 rings; K1's lines also give ``eager_call_ms``, one eager call on
-   the host's clock.
+   the host's clock. K3's and K4's lines (``check_flat``, here and at
+   the token north star's shape in phase 10) give ``ms``, a call of the
+   wrapper with its int64 -> int32 index cast, beside
+   ``kernel_only_ms``, the kernel launched through its C entry point on
+   an int32 table made outside the timed call (``flat_launcher``, held
+   bit-equal too).
 4. paths: a 64-node CIFAR10Net gossip run on the card (clique, PUSH,
    MERGE_UPDATE, 4-slot mailbox, SGD 0.05, batch 32, synthetic 32x32x3
    data with 64 images per node), on each deliver path: the single-pass
@@ -254,6 +259,28 @@ Phases, each printed as it runs; any failure exits non-zero:
    the All2All row at SCALE_NODES nodes,
    SCALE_A2A_ROUNDS rounds, in the segment and the padded form.
 
+13. sequential: the sequential high-fidelity engine
+   (``SequentialGossipSimulator``), which launches no merge kernel. (a)
+   On the card and on the CPU from the same seeds (``TorchDraws(3)``),
+   SEQ_CHECK_ROUNDS rounds at SEQ_CHECK_NODES nodes of the audit twin's
+   configuration (``examples/audit_fidelity.py``) in each of SEQ_CHECKS:
+   PUSH with drops and offline receivers, PUSH_PULL with random delays,
+   async nodes, the randomised token account, pass-through and the
+   neighbour cache (on a Barabasi-Albert graph), chaos (outage,
+   partition, drop and delay spikes) with probes and sentinels: the same
+   per-message event stream, accounting, causes, total size, balances
+   and ages; params within REF_TOL plus REF_TOL of their magnitude; the
+   telemetry as phase 11 holds it; each run's feature seen; no kernel
+   launch. (b) The north-star configuration (``northstar_parts``)
+   through the sequential engine on the card: a warm-up round, one round
+   measured, then the rounds that fit SEQ_TARGET_S (at most
+   SEQ_MAX_ROUNDS): ms/round, messages/s, the final accuracy beside
+   phase 7's default leg after as many rounds; one profiled round's
+   device launches per message and idle share. (c) The audit twin at its
+   defaults, plain and ``--tokenized``: its JSON line; K1 launches in the
+   plain twin's bulk leg (the tokenized bulk simulator defaults to the
+   plain deliver, which launches none).
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -261,6 +288,7 @@ every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
@@ -469,9 +497,52 @@ def wire_ring(torch, rng, m, f, n_leaves, wire, dev):
     return h.to(dev, getattr(torch, wire)), None
 
 
+def flat_launcher(torch, merge, p, h, idx, ws, wp, scale, starts):
+    """A call of K3 (float32 ring, no scale) or K4 through its C entry
+    point with the int32 index table made here, once: what
+    ``gather_merge_flat_cuda`` launches without its int64 -> int32 cast
+    (not counted in ``merge.LAUNCHES``)."""
+    from gossipy_tpu_torch.ops import _build
+    idx32 = idx.to(torch.int32).contiguous()
+    out = torch.empty_like(p)
+    n, f = p.shape
+    if h.dtype == torch.float32 and scale is None:
+        fn = _build.function(merge.SOURCES[merge.KERNEL_FLAT],
+                             "gather_merge_flat",
+                             [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+                             + [ctypes.c_void_p])
+
+        def launch():
+            rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(),
+                    ws.data_ptr(), wp.data_ptr(), out.data_ptr(), n, f,
+                    _build.stream(p))
+            _build.raise_if_failed(merge.KERNEL_FLAT, rc)
+            return out
+        return launch
+    fn = _build.function(merge.SOURCES[merge.KERNEL_FLAT_DQ],
+                         "gather_merge_flat_dq",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                         + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int64, ctypes.c_void_p]
+                         + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
+    n_leaves = 0 if scale is None else scale.shape[1]
+
+    def launch():
+        rc = fn(p.data_ptr(), h.data_ptr(), merge.WIRE_FORMATS[h.dtype],
+                idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
+                None if scale is None else scale.data_ptr(),
+                None if starts is None else starts.data_ptr(), n_leaves,
+                out.data_ptr(), n, f, _build.stream(p))
+        _build.raise_if_failed(merge.KERNEL_FLAT_DQ, rc)
+        return out
+    return launch
+
+
 def check_flat(torch, merge, wire, n, d, f, starts, seed, rate):
     """K3 (float32 ring) or K4 against its plain version; times and bound
-    at this shape."""
+    at this shape. ``ms`` is a call of the wrapper, its index cast
+    included; ``kernel_only_ms`` the kernel launched on an int32 table
+    made outside the timed call, held bit-equal too."""
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     m = d * n
@@ -493,6 +564,9 @@ def check_flat(torch, merge, wire, n, d, f, starts, seed, rate):
         return merge.gather_merge_reference(*args, scale_t, starts_t)
     err = check_equal(torch, f"{name} [{wire}]", kernel(), plain(),
                       (n, m, f, len(starts)))
+    bare = flat_launcher(torch, merge, *args, scale_t, starts_t)
+    check_equal(torch, f"{name} [{wire}] on an int32 table", bare(), plain(),
+                (n, m, f, len(starts)))
     # Least work: p read once, out written once, each receiver's ring row
     # once at wire width (no zero-weight mask) with its L scales, the
     # tables and leaf starts once. Per element: a multiply (the scale,
@@ -503,14 +577,15 @@ def check_flat(torch, merge, wire, n, d, f, starts, seed, rate):
     nbytes = (4 * f * 2 * n + ITEMSIZE[wire] * f * rows + n * (8 + 4 + 4)
               + 4 * n_scales * rows + 4 * n_scales)
     ms = time_ms(torch, kernel)
+    kernel_only_ms = time_ms(torch, bare)
     plain_ms = time_ms(torch, plain)
     bound_ms, bound_by = bound(nbytes, flops, rate)
     log(f"[kernels] {name} [{wire}] n={n} m={m} f={f} leaves={len(starts)} "
-        f"max_abs_err={err} ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"bound_ms={bound_ms:.5f} ({nbytes} bytes, {flops} flops, bound by "
-        f"{bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+        f"max_abs_err={err} ms={ms:.5f} kernel_only_ms={kernel_only_ms:.5f} "
+        f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} ({nbytes} bytes, "
+        f"{flops} flops, bound by {bound_by})")
+    return dict(max_abs_err=err, ms=ms, kernel_only_ms=kernel_only_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 # Phase 3's K1/K2 sweep: (label, n, ring cells, F (None: CIFAR10Net's
@@ -854,20 +929,15 @@ def card_vs_cpu(torch, merge, label: str, fused, wire: str) -> None:
                            "run")
 
 
-def northstar_sim(torch, device, seed: int = 42, **kw):
-    """``bench.py::build_sim`` through the port's entry points, on
-    ``device``, with the draws of ``TorchDraws(seed)`` and the initial
-    weights of a generator seeded with ``seed``; ``kw`` goes to the
-    simulator (the default deliver unless it names another)."""
-    from gossipy_tpu_torch.core import (AntiEntropyProtocol, CreateModelMode,
-                                        Topology)
+def northstar_parts():
+    """``bench.py::build_sim``'s data, topology and handler through the
+    port's entry points: ``(stacked, topology, handler)``."""
+    from gossipy_tpu_torch.core import CreateModelMode, Topology
     from gossipy_tpu_torch.data import (ClassificationDataHandler,
                                         DataDispatcher,
                                         load_classification_dataset)
     from gossipy_tpu_torch.handlers import SGDHandler, losses
     from gossipy_tpu_torch.models import LogisticRegression
-    from gossipy_tpu_torch.random import TorchDraws
-    from gossipy_tpu_torch.simulation import GossipSimulator
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # the offline stand-in's note
@@ -881,6 +951,19 @@ def northstar_sim(torch, device, seed: int = 42, **kw):
                          learning_rate=0.1, local_epochs=1, batch_size=32,
                          n_classes=2, input_shape=(d,),
                          create_model_mode=CreateModelMode.MERGE_UPDATE)
+    return stacked, topology, handler
+
+
+def northstar_sim(torch, device, seed: int = 42, **kw):
+    """``bench.py::build_sim`` through the port's entry points, on
+    ``device``, with the draws of ``TorchDraws(seed)`` and the initial
+    weights of a generator seeded with ``seed``; ``kw`` goes to the
+    simulator (the default deliver unless it names another)."""
+    from gossipy_tpu_torch.core import AntiEntropyProtocol
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import GossipSimulator
+
+    stacked, topology, handler = northstar_parts()
     kw = {"fused_merge": False, "protocol": AntiEntropyProtocol.PUSH, **kw}
     sim = GossipSimulator(handler, topology, stacked, delta=100,
                           draws=TorchDraws(seed), device=device, **kw)
@@ -1056,12 +1139,14 @@ def ns_timed(torch, merge, label: str, fused) -> dict:
         f" {acc}; launches {launches}; idle share of one round {idle}")
     phase_times(torch, sim, state, f"north star {label}")
     return {"rounds_per_s": BENCH_ROUNDS / wall, "accuracy": acc,
-            "launches": launches, "idle_share": idle}
+            "launches": launches, "idle_share": idle,
+            "curve": rep.curves(local=False)["accuracy"]}
 
 
 def northstar_phase(torch, merge, rate) -> tuple:
     """Phase 7 (a)-(c); returns the launches per path of each (kernel,
-    ring format) and K1's numbers at the north star's shape."""
+    ring format), K1's numbers at the north star's shape and each timed
+    leg's numbers (``ns_timed``) by label."""
     from gossipy_tpu_torch.core import AntiEntropyProtocol, UniformDelay
     paths = {}
     # (a) the two legs, card against CPU
@@ -1080,8 +1165,9 @@ def northstar_phase(torch, merge, rate) -> tuple:
     check_flat(torch, merge, "float32", NS_NODES, 2, layout.stride, starts,
                23, rate)
     # (b) rounds per second of each leg
+    legs = {}
     for label, fused in (("default", False), ("multi", "multi")):
-        out = ns_timed(torch, merge, label, fused)
+        out = legs[label] = ns_timed(torch, merge, label, fused)
         for k, v in out["launches"].items():
             paths.setdefault((k, "float32"), {})[f"northstar-{label}"] = v
     # (c) the paper examples' network model
@@ -1108,7 +1194,7 @@ def northstar_phase(torch, merge, rate) -> tuple:
                                f"tables ({out['stats']})")
         for k, v in out["launches"].items():
             paths.setdefault((k, wire), {})[label] = v
-    return paths, at_shape
+    return paths, at_shape, legs
 
 
 def flagship_run(torch, merge, flag, stacked, n, bf16, wire, device,
@@ -2584,6 +2670,277 @@ def sparse_phase(torch, merge, rate) -> tuple:
     return paths, at_scale, at_ladder
 
 
+# -- phase 13: the sequential high-fidelity engine ---------------------------
+
+SEQ_CHECK_NODES = 16        # the card-against-CPU runs
+SEQ_CHECK_ROUNDS = 6
+# Phase 13 (a)'s configurations of the sequential engine.
+SEQ_CHECKS = ("push-drop-online", "push_pull-delay", "async", "tokenized",
+              "passthrough", "cache_neigh", "chaos")
+SEQ_TARGET_S = 30.0         # the timed north-star run's aim (one round
+SEQ_MAX_ROUNDS = 100        # measured first decides its rounds)
+
+
+def message_log():
+    """A receiver keeping every per-message event, ``(failed, t, round,
+    sender, receiver, type, size)``."""
+    from gossipy_tpu_torch.simulation import SimulationEventReceiver
+
+    class MessageLog(SimulationEventReceiver):
+        def __init__(self):
+            self.events = []
+
+        def update_single_message(self, failed, msg):
+            self.events.append((bool(failed), msg.t, msg.round, msg.sender,
+                                msg.receiver, int(msg.msg_type), msg.size))
+    return MessageLog()
+
+
+def seq_check_sim(torch, label: str, device):
+    """Phase 13 (a)'s configuration ``label`` of the sequential engine at
+    SEQ_CHECK_NODES nodes: the audit twin's data and handler
+    (``examples/audit_fidelity.py``), its random regular graph (a
+    Barabasi-Albert one for the two variants, whose degrees then
+    differ), draws from ``TorchDraws(3)``, weights from a generator
+    seeded with 3. Returns the simulator, its state and its message
+    log."""
+    from gossipy_tpu_torch.core import AntiEntropyProtocol, Topology, \
+        UniformDelay
+    from gossipy_tpu_torch.examples.audit_fidelity import DELTA, \
+        audit_data, audit_handler
+    from gossipy_tpu_torch.flow_control import RandomizedTokenAccount
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import ChaosConfig, FaultSpike, \
+        OutageEpisode, PartitionEpisode, SequentialGossipSimulator
+    n, half = SEQ_CHECK_NODES, SEQ_CHECK_NODES // 2
+    stacked, topo = audit_data(n, 7)
+    delay = UniformDelay(0, 10)
+    chaos = ChaosConfig(
+        outages=(OutageEpisode(nodes=(0, 1, 2), start=1, stop=3),),
+        partitions=(PartitionEpisode(components=(
+            tuple(range(half)), tuple(range(half, n))), start=2, stop=4),),
+        spikes=(FaultSpike(start=1, stop=3, drop_prob=0.3,
+                           delay_scale=2.0),),
+        horizon=SEQ_CHECK_ROUNDS)
+    kw = {"push-drop-online": dict(drop_prob=0.2, online_prob=0.8),
+          "push_pull-delay": dict(protocol=AntiEntropyProtocol.PUSH_PULL,
+                                  delay=UniformDelay(0, 30)),
+          "async": dict(sync=False, delay=delay),
+          "tokenized": dict(token_account=RandomizedTokenAccount(C=4, A=2),
+                            delay=delay),
+          "passthrough": dict(variant="passthrough"),
+          "cache_neigh": dict(variant="cache_neigh", delay=delay),
+          "chaos": dict(chaos=chaos, probes=True, sentinels=True,
+                        delay=delay)}[label]
+    if label in ("passthrough", "cache_neigh"):
+        topo = Topology.barabasi_albert(n, 2, seed=1, backend="networkx")
+    sim = SequentialGossipSimulator(audit_handler(), topo, stacked,
+                                    delta=DELTA, draws=TorchDraws(3),
+                                    device=device, **kw)
+    messages = message_log()
+    sim.add_receiver(messages)
+    return sim, sim.init_nodes(torch.Generator().manual_seed(3)), messages
+
+
+def seq_card_vs_cpu(torch, merge, label: str) -> None:
+    """SEQ_CHECK_ROUNDS rounds of configuration ``label`` on the CPU and
+    on the card from the same seeds: the same message stream (every
+    per-message event, in order), per-round accounting and causes, total
+    size, token balances and ages; params within REF_TOL plus REF_TOL of
+    their magnitude; the probe, health and chaos arrays as phase 11 holds
+    them; the run's own feature seen (drops and offline receivers,
+    replies, off-phase sends, same-tick reactions, chaos failures). The
+    sequential path launches no kernel."""
+    from gossipy_tpu_torch.core import MessageType
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sim, state, messages = seq_check_sim(torch, label, dev)
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, rep = sim.start(state, n_rounds=SEQ_CHECK_ROUNDS)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (state, rep, messages.events,
+                     {k: v for k, v in merge.LAUNCHES.items() if v},
+                     time.perf_counter() - t0)
+    (st_c, r_c, ev_c, _, s_c), (st_g, r_g, ev_g, l_g, s_g) = \
+        runs["cpu"], runs["cuda"]
+    if ev_c != ev_g:
+        first = next(i for i, (a, b) in enumerate(zip(ev_c, ev_g)) if a != b) \
+            if len(ev_c) == len(ev_g) else min(len(ev_c), len(ev_g))
+        raise RuntimeError(f"sequential {label}: card and CPU message streams "
+                           f"differ at event {first} ({len(ev_c)} and "
+                           f"{len(ev_g)} events)")
+    for field in ("sent_per_round", "failed_per_round"):
+        if not np.array_equal(getattr(r_c, field), getattr(r_g, field)):
+            raise RuntimeError(f"sequential {label}: card and CPU differ in "
+                               f"{field}")
+    for cause, v in r_c.failed_per_cause.items():
+        if not np.array_equal(v, r_g.failed_per_cause[cause]):
+            raise RuntimeError(f"sequential {label}: card and CPU differ in "
+                               f"{cause}")
+    if r_c.total_size != r_g.total_size or not torch.equal(
+            st_c.model.n_updates, st_g.model.n_updates.cpu()):
+        raise RuntimeError(f"sequential {label}: card and CPU differ in "
+                           "total size or ages")
+    if (st_c.balance is None) != (st_g.balance is None) or (
+            st_c.balance is not None
+            and not np.array_equal(st_c.balance, st_g.balance)):
+        raise RuntimeError(f"sequential {label}: token balances differ")
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    diff = (p_c - p_g).abs()
+    worst = float((diff - REF_TOL - REF_TOL * p_c.abs()).max())
+    tel = (check_same_telemetry(f"sequential {label}", r_c, r_g)
+           if telemetry_fields(r_c) else None)
+    acc_c, acc_g = r_c.final("accuracy"), r_g.final("accuracy")
+    causes = {c: int(v.sum()) for c, v in r_g.failed_per_cause.items()}
+    sends = [e for e in ev_g if not e[0]]
+    replies = sum(e[5] == int(MessageType.REPLY) for e in sends)
+    phase = st_g.phase
+    off_phase = sum(e[1] % sim.delta != int(phase[e[3]]) for e in sends) \
+        if sim.sync else None
+    log(f"[sequential] {label}: {SEQ_CHECK_ROUNDS} rounds, card vs CPU: "
+        f"{len(ev_g)} message events equal, sent "
+        f"{int(r_g.sent_per_round.sum())}, failed {causes}, replies "
+        f"{replies}, off-phase sends {off_phase}, balances "
+        f"{None if st_g.balance is None else int(st_g.balance.sum())}, max "
+        f"abs param diff {float(diff.max()):.3e}, worst margin to the "
+        f"tolerance {worst:.3e} (<= 0 passes), telemetry margin {tel}; final "
+        f"accuracy card {acc_g}, CPU {acc_c}; {s_g:.2f} s card, {s_c:.2f} s "
+        f"CPU; launches {l_g}")
+    if worst > 0 or not np.isfinite(acc_g) or not sends:
+        raise RuntimeError(f"sequential {label}: the card run does not "
+                           "agree with the CPU run")
+    if l_g:
+        raise RuntimeError(f"sequential {label}: launches {l_g}; the "
+                           "sequential path launches no kernel")
+    need = {"push-drop-online": causes["drop"] > 0 and causes["offline"] > 0,
+            "push_pull-delay": replies > 0,
+            "tokenized": bool(off_phase),
+            "chaos": causes.get("chaos", 0) > 0}.get(label, True)
+    if not need:
+        raise RuntimeError(f"sequential {label}: the run shows none of what "
+                           "the configuration is there for")
+    if st_g.model.params.device.type != "cuda":
+        raise RuntimeError(f"sequential {label}: the card run's state is on "
+                           f"{st_g.model.params.device}")
+
+
+def seq_timed(torch, merge, bulk: dict) -> dict:
+    """The north-star configuration (``northstar_parts``) through the
+    sequential engine on the card: a warm-up round, one measured round,
+    then as many rounds as fit SEQ_TARGET_S (at most SEQ_MAX_ROUNDS),
+    timed; one more round profiled for its kernel launches per message
+    and the card's idle share. ``bulk`` is phase 7's default-deliver
+    leg (``ns_timed``): its accuracy after as many rounds is printed
+    beside."""
+    from gossipy_tpu_torch.core import AntiEntropyProtocol
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import SequentialGossipSimulator
+    stacked, topology, handler = northstar_parts()
+    t0 = time.perf_counter()
+    sim = SequentialGossipSimulator(handler, topology, stacked, delta=100,
+                                    protocol=AntiEntropyProtocol.PUSH,
+                                    draws=TorchDraws(42), device="cuda")
+    state = sim.init_nodes(torch.Generator().manual_seed(42))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    state, _ = sim.start(state, n_rounds=1)        # warm-up round
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, one = sim.start(state, n_rounds=1)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    rounds = max(1, min(SEQ_MAX_ROUNDS, int(SEQ_TARGET_S / one_s)))
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    sent = int(rep.sent_per_round.sum())
+    acc = rep.final("accuracy")
+    done = int(state.round)
+    if launches or not np.isfinite(acc) or sent == 0 \
+            or not torch.isfinite(state.model.params).all():
+        raise RuntimeError(f"sequential north star: launches {launches}, "
+                           f"sent {sent}, accuracy {acc}")
+    box = {}
+
+    def profiled():
+        box["rep"] = sim.start(state, n_rounds=1)[1]
+    rows, wall_us = device_rows(torch, profiled)
+    busy = sum(dev_us(e) for e in rows)
+    n_launch = sum(e.count for e in rows)
+    msgs = int(box["rep"].sent_per_round.sum())
+    idle = 1 - busy / wall_us if busy > 0 else None
+    curve = bulk["curve"]
+    at_bulk = float(curve[done - 1]) if done <= len(curve) else None
+    log(f"[sequential] north star, one measured round {one_s * 1e3:.1f} ms, "
+        f"set-up {setup:.2f} s; {rounds} timed rounds in {wall:.3f} s = "
+        f"{wall / rounds * 1e3:.3f} ms/round, {sent / wall:.1f} messages/s "
+        f"({sent} sent, {int(rep.failed_per_round.sum())} failed); final "
+        f"global accuracy after {done} rounds {acc}, the bulk engine's "
+        f"(phase 7, default deliver) after {done} rounds {at_bulk} and after "
+        f"{len(curve)} {bulk['accuracy']}; merge-kernel launches {launches}")
+    log(f"[sequential] north star, one profiled round with eval: wall "
+        f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle "
+        f"share {idle}, {n_launch} device launches for {msgs} messages = "
+        f"{n_launch / max(msgs, 1):.1f} a message")
+    for e in sorted(rows, key=dev_us, reverse=True)[:6]:
+        log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {e.count:6d}x "
+            f"{e.key[:90]}")
+    return {"ms_per_round": wall / rounds * 1e3, "messages_per_s": sent / wall,
+            "rounds": rounds, "accuracy": acc, "bulk_accuracy": at_bulk,
+            "launches_per_message": n_launch / max(msgs, 1),
+            "idle_share": idle}
+
+
+def audit_twin(torch, merge) -> dict:
+    """The audit twin at its defaults on the card, plain and
+    ``--tokenized``: its JSON line, and the merge kernels its legs
+    launched (the sequential legs none: (a) and (b) hold that). The plain
+    twin's bulk leg takes the single-pass deliver: K1 must launch. The
+    tokenized bulk simulator's token hook refuses the single pass, so its
+    default is the plain deliver. Returns the launches by run."""
+    from gossipy_tpu_torch.examples import audit_fidelity
+    out = {}
+    for label, argv in (("audit-twin", []),
+                        ("audit-twin-tokenized", ["--tokenized"])):
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = audit_fidelity.main(argv)
+        torch.cuda.synchronize()
+        launches = out[label] = {k: v for k, v in merge.LAUNCHES.items()
+                                 if v}
+        log(f"[sequential] {label}: {time.perf_counter() - t0:.2f} s, "
+            f"launches {launches}, max accuracy gap "
+            f"{summary['max_accuracy_gap']}")
+        acc = summary["final"]
+        if not (np.isfinite(acc["accuracy_bulk"])
+                and np.isfinite(acc["accuracy_sequential"])):
+            raise RuntimeError(f"{label}: non-finite accuracy {summary}")
+    if not out["audit-twin"].get(merge.KERNEL):
+        raise RuntimeError(f"audit twin: K1 never launched in the bulk leg "
+                           f"({out['audit-twin']})")
+    return out
+
+
+def sequential_phase(torch, merge, bulk: dict) -> dict:
+    """Phase 13: (a) each SEQ_CHECKS configuration on the card against
+    the CPU; (b) the north star through the sequential engine, timed;
+    (c) the audit twin. Returns the launches per (kernel, ring) and
+    run."""
+    for label in SEQ_CHECKS:
+        seq_card_vs_cpu(torch, merge, label)
+    seq_timed(torch, merge, bulk)
+    paths = {}
+    for run, launches in audit_twin(torch, merge).items():
+        for k, v in launches.items():
+            paths.setdefault((k, "float32"), {})[run] = v
+    return paths
+
+
 def tensor_rate(name: str) -> float:
     for key, rate in TENSOR_FLOPS:
         if key in name:
@@ -3447,7 +3804,7 @@ def main() -> int:
     k5 = attention_phase(torch, rate, name)
 
     # 7. the north-star configuration and the examples' network model
-    ns_paths, at_northstar = northstar_phase(torch, merge, rate)
+    ns_paths, at_northstar, ns_legs = northstar_phase(torch, merge, rate)
 
     # 8. the 100-node CIFAR-10 flagship
     flag_paths, at_flagship, flag_ms = flagship_phase(torch, merge, rate)
@@ -3480,6 +3837,13 @@ def main() -> int:
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[sparse] phase 12 took {time.perf_counter() - t0:.1f} s")
 
+    # 13. the sequential high-fidelity engine
+    t0 = time.perf_counter()
+    seq_paths = sequential_phase(torch, merge, ns_legs["default"])
+    for key, by_path in seq_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[sequential] phase 13 took {time.perf_counter() - t0:.1f} s")
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -3488,6 +3852,8 @@ def main() -> int:
                 "ms": nums["ms"], "plain_ms": nums["plain_ms"],
                 "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
                 "library_ms": None,
+                **({"kernel_only_ms": nums["kernel_only_ms"]}
+                   if "kernel_only_ms" in nums else {}),
                 "launches_by_path": ns_paths.get((kernel, wire or "float32"),
                                                  {})}
 

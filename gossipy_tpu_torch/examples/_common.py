@@ -22,8 +22,8 @@ from ..simulation.faults import ChaosConfig, PartitionEpisode, \
 from ..utils import plot_evaluation
 
 
-def make_parser(description: str, rounds: int, nodes: Optional[int] = None
-                ) -> argparse.ArgumentParser:
+def make_parser(description: str, rounds: int, nodes: Optional[int] = None,
+                with_plot: bool = True) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description.split("\n\n")[0])
     p.add_argument("--rounds", type=int, default=rounds,
                    help=f"simulation rounds (reference config: {rounds})")
@@ -31,8 +31,9 @@ def make_parser(description: str, rounds: int, nodes: Optional[int] = None
         p.add_argument("--nodes", type=int, default=nodes,
                        help=f"number of gossip nodes (reference config: "
                             f"{nodes or 'one per sample'})")
-    p.add_argument("--plot", type=str, default=None,
-                   help="save metric curves to this path (PNG)")
+    if with_plot:
+        p.add_argument("--plot", type=str, default=None,
+                       help="save metric curves to this path (PNG)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p

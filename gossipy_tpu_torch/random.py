@@ -18,6 +18,17 @@ purpose key of :meth:`DrawProvider.bernoulli` and
 :meth:`DrawProvider.choice`) from the base ``_round_key(r, K_FIRE)``
 folded with ``f``.
 
+The sequential engine (:mod:`~gossipy_tpu_torch.simulation.sequential`)
+draws by event, not by round: the JAX engine seeds two host generators
+from ``split(key)[0]`` (:meth:`DrawProvider.seq_host_seeds`) and takes
+every other draw from ``fold_in(split(key)[1], e)``, ``e`` one counter
+that every handler call, delay sample and token reaction advances
+(:meth:`DrawProvider.event_orders`, :meth:`DrawProvider.event_randint`,
+:meth:`DrawProvider.event_uniform`). Its ``init_nodes`` keys node ``i``'s
+pre-training on ``fold_in(k_up, i)``
+(:meth:`DrawProvider.seq_init_permutations`) and its phases on one host
+seed (:meth:`DrawProvider.seq_init_seed`).
+
 A uniform peer is drawn in the topology's form, as the JAX package draws
 it: a categorical over a dense adjacency row (:meth:`DrawProvider.peers`),
 a ``randint`` into a sparse topology's CSR row
@@ -181,6 +192,43 @@ class DrawProvider:
         """
         raise NotImplementedError
 
+    # -- the sequential engine's draws, by event --------------------------
+
+    def seq_init_seed(self) -> int:
+        """The seed of the host generator the sequential ``init_nodes``
+        draws its send offsets (or periods) from."""
+        raise NotImplementedError
+
+    def seq_init_permutations(self, n: int, epochs: int, s: int,
+                              device: torch.device) -> torch.Tensor:
+        """The sequential ``init_nodes``' pre-training orders, ``[n,
+        max(epochs, 1), s]`` as :meth:`init_permutations` gives them, node
+        ``i``'s drawn from its own key (the JAX ``fold_in(k_up, i)``)."""
+        raise NotImplementedError
+
+    def seq_host_seeds(self) -> tuple[int, int]:
+        """The seeds of a sequential run's two host generators: the
+        scheduling one (orders, peers, drops, online draws, token gates,
+        sampled evaluation) and the variants' (accept draws, cache
+        pops)."""
+        raise NotImplementedError
+
+    def event_orders(self, e: int, epochs: int, s: int,
+                     split: bool = False) -> torch.Tensor:
+        """Event ``e``'s shard orders for one node's update, ``[1,
+        max(epochs, 1), s]`` (``split``: ``[1, 2 max(epochs, 1), s]``, the
+        two halves of the UPDATE_MERGE ``call``), on the CPU."""
+        raise NotImplementedError
+
+    def event_randint(self, e: int, lo: int, hi: int) -> int:
+        """Event ``e``'s integer uniform in ``[lo, hi]`` (a delay)."""
+        raise NotImplementedError
+
+    def event_uniform(self, e: int) -> float:
+        """Event ``e``'s float32 uniform in ``[0, 1)`` (a token
+        reaction's rounding)."""
+        raise NotImplementedError
+
 
 class TorchDraws(DrawProvider):
     """The default provider: one seeded CPU ``torch.Generator``.
@@ -203,6 +251,14 @@ class TorchDraws(DrawProvider):
     def _perms(self, n: int, epochs: int, s: int) -> torch.Tensor:
         u = torch.rand((n, max(epochs, 1), s), generator=self.generator)
         return torch.argsort(u, dim=-1)
+
+    def _orders(self, n: int, epochs: int, s: int, split: bool
+                ) -> torch.Tensor:
+        """:meth:`_perms`, or with ``split`` two of them side by side."""
+        if split:
+            return torch.cat([self._perms(n, epochs, s) for _ in range(2)],
+                             dim=1)
+        return self._perms(n, epochs, s)
 
     def init_phase(self, n, delta, device):
         return torch.randint(0, delta, (n,), generator=self.generator,
@@ -291,8 +347,25 @@ class TorchDraws(DrawProvider):
 
     def update_permutations(self, r, purposes, first_k, epochs, s,
                             split=False):
-        n = first_k.shape[0]
-        if split:
-            both = [self._perms(n, epochs, s) for _ in range(2)]
-            return torch.cat(both, dim=1).to(first_k.device)
-        return self._perms(n, epochs, s).to(first_k.device)
+        return self._orders(first_k.shape[0], epochs, s, split).to(
+            first_k.device)
+
+    def seq_init_seed(self):
+        return int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self.generator))
+
+    seq_init_permutations = init_permutations
+
+    def seq_host_seeds(self):
+        a, b = torch.randint(0, 2 ** 31 - 1, (2,),
+                             generator=self.generator).tolist()
+        return int(a), int(b)
+
+    def event_orders(self, e, epochs, s, split=False):
+        return self._orders(1, epochs, s, split)
+
+    def event_randint(self, e, lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=self.generator))
+
+    def event_uniform(self, e):
+        return float(torch.rand((1,), generator=self.generator))

@@ -1,5 +1,5 @@
-"""The gossip simulation engine, its variants, its events, its scheduled
-faults and its report."""
+"""The gossip simulation engine, its variants, the sequential
+high-fidelity engine, its events, its scheduled faults and its report."""
 
 from .engine import GossipSimulator, Mailbox, SimState
 from .events import CallbackReceiver, JSONLinesReceiver, ProgressReceiver, \
@@ -11,17 +11,19 @@ from .nodes import CacheNeighGossipSimulator, PassThroughGossipSimulator, \
     PartitioningGossipSimulator, PENSGossipSimulator, \
     SamplingGossipSimulator, build_neighbor_table
 from .report import SimulationReport
+from .sequential import MessageRecord, SequentialGossipSimulator, SeqState
 from .variants import All2AllGossipSimulator, TokenizedGossipSimulator, \
     TokenizedPartitioningGossipSimulator
 
 __all__ = ["All2AllGossipSimulator", "CacheNeighGossipSimulator",
            "CallbackReceiver", "ChaosConfig", "ChurnProcess",
            "FaultSchedule", "FaultSpike", "GossipSimulator",
-           "JSONLinesReceiver", "Mailbox", "OutageEpisode",
+           "JSONLinesReceiver", "Mailbox", "MessageRecord", "OutageEpisode",
            "PENSGossipSimulator", "PartitionEpisode",
            "PartitioningGossipSimulator", "PassThroughGossipSimulator",
            "ProgressReceiver", "SamplingGossipSimulator",
-           "SimState", "SimulationEventReceiver", "SimulationEventSender",
+           "SeqState", "SequentialGossipSimulator", "SimState",
+           "SimulationEventReceiver", "SimulationEventSender",
            "SimulationReport", "TokenizedGossipSimulator",
            "TokenizedPartitioningGossipSimulator", "build_fault_schedule",
            "build_neighbor_table", "rounds_to_reconverge"]

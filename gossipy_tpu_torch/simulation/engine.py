@@ -242,6 +242,64 @@ def _rank_within_group(key: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+def _mean_metrics(res: dict, names: list, node_mask: torch.Tensor
+                  ) -> torch.Tensor:
+    vals = torch.stack([res[k] for k in names], dim=-1)
+    w = node_mask.to(torch.float32)
+    tot = w.sum()
+    mean = (vals * w[:, None]).sum(0) / torch.clamp(tot, min=1.0)
+    return torch.where(tot > 0, mean, torch.full_like(mean, float("nan")))
+
+
+def metric_names(handler, data: dict, device) -> list:
+    """The sorted names of the metrics ``handler.evaluate`` gives, from
+    one freshly initialised row on one sample of ``data`` (its local test
+    set, else its training set)."""
+    key = "xte" if "xte" in data else "xtr"
+    d = tuple(data[p + key[1:]][:1, :1] for p in "xym")
+    params = handler.init(torch.Generator().manual_seed(0), device).params
+    return sorted(handler.evaluate(ModelState(params[None], (), None), d))
+
+
+@torch.no_grad()
+def population_metrics(handler, params: torch.Tensor, data: dict,
+                       names: list, idx: Optional[torch.Tensor] = None):
+    """``(local, global)``: the mean metric vectors (``names`` order) of
+    the rows ``params`` (of the rows ``idx`` only, when given) on their
+    own test shards (``xte``, ``yte``, ``mte`` of ``data``, nodes with no
+    test sample left out) and on the shared eval set (``x_eval``,
+    ``y_eval``), pushed through the model in chunks of at most
+    ``EVAL_ROWS`` rows; an all-NaN vector where ``data`` has no such set
+    or no node a test sample."""
+    dev = params.device
+    nan = torch.full((len(names),), float("nan"), device=dev)
+    if idx is not None:
+        params = params[idx]
+    m = params.shape[0]
+    local = nan
+    if "xte" in data:
+        d = tuple(data[k] if idx is None else data[k][idx]
+                  for k in ("xte", "yte", "mte"))
+        res = handler.evaluate(ModelState(params, (), None), d)
+        local = _mean_metrics(res, names, d[2].sum(dim=1) > 0)
+    glob = nan
+    if "x_eval" in data:
+        xe, ye = data["x_eval"], data["y_eval"]
+        me = torch.ones(xe.shape[0], device=dev)
+        chunk = max(1, EVAL_ROWS // max(1, xe.shape[0]))
+        parts = []
+        for lo in range(0, m, chunk):
+            p = params[lo:lo + chunk]
+            c = p.shape[0]
+            d = (xe.expand(c, *xe.shape), ye.expand(c, *ye.shape),
+                 me.expand(c, *me.shape))
+            parts.append(handler.evaluate(ModelState(p, (), None), d))
+        res = {k: torch.cat([part[k] for part in parts]) for k in names}
+        glob = _mean_metrics(res, names,
+                             torch.ones(m, dtype=torch.bool, device=dev))
+    return local, glob
+
+
 class GossipSimulator(SimulationEventSender):
     """Vanilla gossip simulator.
 
@@ -1396,23 +1454,9 @@ class GossipSimulator(SimulationEventSender):
 
     def _metric_keys(self) -> list:
         if self._metric_names is None:
-            key = "xte" if self.has_local_test else "xtr"
-            ykey, mkey = "y" + key[1:], "m" + key[1:]
-            d = (self.data[key][:1, :1], self.data[ykey][:1, :1],
-                 self.data[mkey][:1, :1])
-            params = self.handler.init(torch.Generator().manual_seed(0),
-                                       self.device).params
-            res = self.handler.evaluate(ModelState(params[None], (), None),
-                                        d)
-            self._metric_names = sorted(res.keys())
+            self._metric_names = metric_names(self.handler, self.data,
+                                              self.device)
         return self._metric_names
-
-    def _mean_metrics(self, res: dict, node_mask: torch.Tensor):
-        vals = torch.stack([res[k] for k in self._metric_keys()], dim=-1)
-        w = node_mask.to(torch.float32)
-        tot = w.sum()
-        mean = (vals * w[:, None]).sum(0) / torch.clamp(tot, min=1.0)
-        return torch.where(tot > 0, mean, torch.full_like(mean, float("nan")))
 
     def _n_eval_nodes(self) -> int:
         """How many nodes an evaluation reads: ``max(int(N *
@@ -1421,43 +1465,15 @@ class GossipSimulator(SimulationEventSender):
             return max(int(self.n_nodes * self.sampling_eval), 1)
         return self.n_nodes
 
-    @torch.no_grad()
     def _eval_phase(self, state: SimState, r: int):
         """Mean local and global metrics over the nodes, or over the
         ``eval_subset`` drawn for round ``r`` with ``sampling_eval``."""
-        names = self._metric_keys()
-        nan = torch.full((len(names),), float("nan"), device=self.device)
-        model = ModelState(state.model.params, (), None)
-        data = self.data
+        idx = None
         if self.sampling_eval > 0:
             idx = self.draws.eval_subset(r, self.n_nodes,
                                          self._n_eval_nodes(), self.device)
-            model = ModelState(model.params[idx], (), None)
-            if self.has_local_test:
-                data = {k: data[k][idx] for k in ("xte", "yte", "mte")}
-        m = model.params.shape[0]
-        local = nan
-        if self.has_local_test:
-            d = (data["xte"], data["yte"], data["mte"])
-            res = self.handler.evaluate(model, d)
-            local = self._mean_metrics(res, data["mte"].sum(dim=1) > 0)
-        glob = nan
-        if self.has_global_eval:
-            xe, ye = self.data["x_eval"], self.data["y_eval"]
-            me = torch.ones(xe.shape[0], device=self.device)
-            chunk = max(1, EVAL_ROWS // max(1, xe.shape[0]))
-            parts = []
-            for lo in range(0, m, chunk):
-                p = model.params[lo:lo + chunk]
-                c = p.shape[0]
-                d = (xe.expand(c, *xe.shape), ye.expand(c, *ye.shape),
-                     me.expand(c, *me.shape))
-                parts.append(self.handler.evaluate(ModelState(p, (), None),
-                                                   d))
-            res = {k: torch.cat([part[k] for part in parts]) for k in names}
-            glob = self._mean_metrics(
-                res, torch.ones(m, dtype=torch.bool, device=self.device))
-        return local, glob
+        return population_metrics(self.handler, state.model.params,
+                                  self.data, self._metric_keys(), idx)
 
     def _maybe_eval(self, state: SimState, r: int, last_round=None):
         """``_eval_phase`` every ``eval_every`` rounds and on the run's last

@@ -8,8 +8,9 @@
   only (the data dispatcher, the report) give array-equal output on the
   same inputs (the partitioners and the synthetic images:
   ``test_torch_data.py``).
-- The flagship twin and the eight paper-example twins run end to end on
-  the host with those modules blocked and no socket able to connect; the
+- The flagship twin, the eight paper-example twins and the audit twin
+  (plain and ``--tokenized``) run end to end on the host with those
+  modules blocked and no socket able to connect; the
   flagship and All2All twins with ``--probes --sentinels --chaos`` too,
   and their summaries' ``probes``, ``health`` and ``chaos`` entries have
   the keys the JAX scripts' ``finish`` gives. The scale twin's two rows
@@ -89,7 +90,9 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.telemetry.probes, "
         "gossipy_tpu_torch.telemetry.health, "
         "gossipy_tpu_torch.telemetry.cost, gossipy_tpu_torch.native, "
-        "gossipy_tpu_torch.examples.scale\n"
+        "gossipy_tpu_torch.examples.scale, "
+        "gossipy_tpu_torch.simulation.sequential, "
+        "gossipy_tpu_torch.examples.audit_fidelity\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -164,6 +167,36 @@ def test_paper_twin_runs_with_jax_blocked(twin):
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     assert summary["sent_messages"] > 0, summary
     assert np.isfinite(summary["final"][metric]), summary
+
+
+@pytest.mark.parametrize("args", [[], ["--tokenized"]])
+def test_audit_twin_runs_with_jax_blocked(args):
+    """The audit twin (the bulk and the sequential engine, a few seeds
+    each) at a host size, with the JAX modules blocked and no socket
+    able to connect: its summary has the JAX script's keys."""
+    argv = args + ["--device", "cpu", "--nodes", "8", "--rounds", "2",
+                   "--seeds", "2"]
+    code = (
+        "import sys, socket, json\n"
+        f"for m in {BANNED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "class NoNet(socket.socket):\n"
+        "    def connect(self, *a):\n"
+        "        raise OSError('no network')\n"
+        "socket.socket = NoNet\n"
+        "import gossipy_tpu_torch.examples.audit_fidelity as twin\n"
+        f"out = twin.main({argv!r})\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(summary) == ["final", "max_accuracy_gap", "max_sent_gap",
+                               "nodes", "rounds", "seeds",
+                               "tail_accuracy_gap", "tokenized"]
+    assert summary["tokenized"] == bool(args)
+    assert all(np.isfinite(v) for v in summary["final"].values()), summary
 
 
 @pytest.mark.parametrize("args", [[], ["--all2all"],

@@ -14,8 +14,12 @@ their JAX expressions: the token gate and the reactive rounding as
 ``categorical`` over ``0 / -inf`` logits, the pass-through accept as
 ``bernoulli(fold_in(split(call key, n)[i], 911), p)``, and the sampled
 merge's mask as ``sample_mask(fold_in(PRNGKey(0x5A11), payload), ...)``
-(``gossipy_tpu/simulation/nodes.py``). Test-only: the port itself never
-imports JAX.
+(``gossipy_tpu/simulation/nodes.py``). The sequential engine's draws
+replay ``gossipy_tpu/simulation/sequential.py``: host seeds from
+``split(key)[0]`` (its ``fold_in(., 7)`` for the variants), every event
+draw from ``fold_in(split(key)[1], e)``, the pre-training keys
+``fold_in(k_up, i)`` and the phase seed from ``k_phase``. Test-only: the
+port itself never imports JAX.
 """
 
 from __future__ import annotations
@@ -167,6 +171,38 @@ class JaxDraws(DrawProvider):
         idx = jax.random.permutation(self._key(r, K_EVAL), n)[:n_pick]
         return torch.as_tensor(np.array(idx), device=device).long()
 
+    # -- the sequential engine (sequential.py:288-330, 384-393, 456-459) --
+
+    def seq_init_seed(self):
+        return int(jax.random.randint(self.k_phase, (), 0, 2 ** 31 - 1))
+
+    def seq_init_permutations(self, n, epochs, s, device):
+        keys = _fold_keys(self.k_up, n)
+        return torch.as_tensor(perms_from_keys(keys, epochs, s),
+                               device=device).long()
+
+    def seq_host_seeds(self):
+        k_host = jax.random.split(self.base)[0]
+        return (int(jax.random.randint(k_host, (), 0, 2 ** 31 - 1)),
+                int(jax.random.randint(jax.random.fold_in(k_host, 7), (), 0,
+                                       2 ** 31 - 1)))
+
+    def _event_key(self, e):
+        if getattr(self, "_ev_base", (None,))[0] is not self.base:
+            self._ev_base = (self.base, jax.random.split(self.base)[1])
+        return jax.random.fold_in(self._ev_base[1], e)
+
+    def event_orders(self, e, epochs, s, split=False):
+        keys = self._event_key(e)[None]
+        return torch.as_tensor(perms_from_keys(keys, epochs, s,
+                                               split)).long()
+
+    def event_randint(self, e, lo, hi):
+        return int(_event_randint(self._event_key(e), lo, hi + 1)[0])
+
+    def event_uniform(self, e):
+        return float(_event_uniform(self._event_key(e))[0])
+
     def update_permutations(self, r, purposes, first_k, epochs, s,
                             split=False):
         n = first_k.shape[0]
@@ -175,6 +211,24 @@ class JaxDraws(DrawProvider):
         keys = tabs[jnp.asarray(first_k.cpu().numpy()), jnp.arange(n)]
         return torch.as_tensor(perms_from_keys(keys, epochs, s, split),
                                device=first_k.device).long()
+
+
+@functools.partial(jax.jit, static_argnums=(1,))
+def _fold_keys(key, n):
+    """``fold_in(key, i)`` for ``i`` in ``range(n)``."""
+    return jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(n))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _event_randint(key, lo, hi):
+    """A delay sample: ``randint(key, (1,), lo, hi, int32)``."""
+    return jax.random.randint(key, (1,), lo, hi, dtype=jnp.int32)
+
+
+@jax.jit
+def _event_uniform(key):
+    """What ``bernoulli(key, p)`` of a ``[1]`` ``p`` compares with ``p``."""
+    return jax.random.uniform(key, (1,))
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))

@@ -456,3 +456,119 @@ def assert_same_telemetry(jrep, trep, rtol=1e-5, atol=1e-6,
         np.testing.assert_array_equal(trep.failed_per_cause["chaos"],
                                       jrep.failed_per_cause["chaos"])
     return seen
+
+
+# -- the sequential engine ---------------------------------------------------
+
+class MessageLog:
+    """A receiver mixin keeping every per-message event as ``(failed, t,
+    round, sender, receiver, type, size)`` and every replayed round's
+    ``update_message`` and failure causes."""
+
+    def __init__(self):
+        self.events, self.rounds = [], []
+
+    def update_single_message(self, failed, msg):
+        self.events.append((bool(failed), msg.t, msg.round, msg.sender,
+                            msg.receiver, int(msg.msg_type), msg.size))
+
+    def update_message(self, round, sent, failed, size):
+        self.rounds.append((round, sent, failed, size))
+
+    def update_failure_causes(self, round, causes):
+        self.rounds.append((round, dict(causes)))
+
+
+def message_logs():
+    """A :class:`MessageLog` receiver for each package: ``(jax, port)``."""
+    class JaxLog(MessageLog, jsimulation.SimulationEventReceiver):
+        pass
+
+    class PortLog(MessageLog, tsimulation.SimulationEventReceiver):
+        pass
+    return JaxLog(), PortLog()
+
+
+def stack_models(models):
+    """The JAX sequential engine's ``List[ModelState]`` as one stacked
+    state of numpy leaves."""
+    return jax.tree.map(lambda *ls: np.stack([np.asarray(a) for a in ls]),
+                        *models)
+
+
+def seq_to_port_state(tsim, jst):
+    """The JAX sequential state (its per-node models stacked, its phases
+    and balances) as the port's round-0 ``SeqState``."""
+    stacked = stack_models(jst.models)
+    layout = tsim.handler.layout
+    params = params_from_jax(stacked.params, layout)
+    rule = getattr(tsim.handler, "optimizer", None)
+    opt = () if rule is None else opt_state_from_jax(stacked.opt_state,
+                                                     layout, rule)
+    n_up = torch.as_tensor(np.asarray(stacked.n_updates))
+    return tsim.init_state(TModelState(params, opt, n_up), jst.phase,
+                           jst.balance)
+
+
+def seq_pair(handlers_, topo, data, key, delta=20, **kw):
+    """The sequential engine of both packages over ``topo`` with the
+    port's ``kw`` translated, the port drawing from the oracle of the run
+    key ``fold_in(key, 1)`` and init key ``key``; each with a
+    :class:`MessageLog`. Returns ``(jsim, tsim, jlog, tlog)``."""
+    jh, thd = handlers_
+    run_key = jax.random.fold_in(key, 1)
+    jsim = jsimulation.SequentialGossipSimulator(
+        jh, jax_topology(topo), data, delta=delta, **jax_kw(kw))
+    tsim = tsimulation.SequentialGossipSimulator(
+        thd, topo, data, delta=delta, draws=JaxDraws(run_key, init_key=key),
+        device="cpu", **kw)
+    jlog, tlog = message_logs()
+    jsim.add_receiver(jlog)
+    tsim.add_receiver(tlog)
+    return jsim, tsim, jlog, tlog
+
+
+def assert_same_seq_run(jsim, tsim, jst, tst, jrep, trep, jlog, tlog,
+                        param_tol=1e-5, param_rtol=0.0, metric_tol=1e-5):
+    """Two sequential runs: the message streams, the replayed rounds, the
+    per-round accounting and causes, the total size, the balances, the
+    phases and the ages exactly; params within ``param_tol`` plus
+    ``param_rtol`` of the value; the metric curves within
+    ``metric_tol``; the probe, health and chaos arrays as
+    :func:`assert_same_telemetry` holds them. ``jlog`` None: the
+    message logs are not compared."""
+    if jlog is not None:
+        assert tlog.events == jlog.events
+        assert tlog.rounds == jlog.rounds
+    assert tst.round == jst.round
+    for field in ("sent_per_round", "failed_per_round"):
+        np.testing.assert_array_equal(getattr(trep, field),
+                                      getattr(jrep, field), err_msg=field)
+    assert sorted(trep.failed_per_cause) == sorted(jrep.failed_per_cause)
+    for cause, want in jrep.failed_per_cause.items():
+        np.testing.assert_array_equal(trep.failed_per_cause[cause], want,
+                                      err_msg=cause)
+    assert trep.total_size == jrep.total_size
+    np.testing.assert_array_equal(tst.phase, np.asarray(jst.phase))
+    if jst.balance is None:
+        assert tst.balance is None
+    else:
+        np.testing.assert_array_equal(tst.balance, np.asarray(jst.balance))
+    stacked = stack_models(jst.models)
+    np.testing.assert_array_equal(tst.model.n_updates.numpy(),
+                                  stacked.n_updates)
+    got = params_to_numpy(tst.model.params, tsim.handler.layout)
+    for k, v in flatten_names(stacked.params).items():
+        want = np.asarray(v)
+        diff = np.abs(got[k] - want)
+        assert (diff <= param_tol + param_rtol * np.abs(want)).all(), \
+            (k, float(diff.max()))
+    for local in (True, False):
+        if not (jsim.has_local_test if local else jsim.has_global_eval):
+            continue
+        tc, jc = trep.curves(local), jrep.curves(local)
+        assert sorted(tc) == sorted(jc)
+        for m in jc:
+            np.testing.assert_allclose(tc[m], jc[m], rtol=0, atol=metric_tol,
+                                       err_msg=m)
+    assert_same_telemetry(jrep, trep)
