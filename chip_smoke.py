@@ -27,7 +27,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    paths give them (SWEEP: the scale row, the ladder rung, Giaretta,
    Ormandi, the north star, the flagship, phase 4's rows), each bit-equal
    to its plain version, timed, with its bound and share, a K1 and a K2
-   call at the scale shape profiled as one kernel on the card, and at
+   call at the scale shape profiled as one kernel on the card (counted in
+   a CUDA graph that captured it where the profiler records nothing), and at
    the routes' edges (SWEEP_EDGE_*: 1 to 132 columns, 1 to 64 slots,
    half live, empty slots whose w_self is not 1) on float32, bf16 and
    int8 rings; K1's lines also give ``eager_call_ms``, one eager call on
@@ -281,6 +282,45 @@ Phases, each printed as it runs; any failure exits non-zero:
    plain twin's bulk leg (the tokenized bulk simulator defaults to the
    plain deliver, which launches none).
 
+14. configs, checkpoints and recovery: ``gossipy_tpu_torch.config``,
+   ``checkpoint``, the engine's ``save``/``load``/``check_memory_budget``
+   and ``tracing=``, and ``telemetry.health.FlightRecorder`` with
+   ``replay_bundle``. (a) ``models/nn.py::_lecun_normal``'s values at
+   LECUN_PIN's seed and shape from the card machine's torch, which must
+   be the pinned bits; every ``examples/configs/*.json`` (not
+   ``service/``) read as it is and built through ``build_experiment`` on
+   the card and on the CPU: equal knobs (the simulator's class and timing,
+   the handler's hyperparameters, the partition), topology edges, shards
+   and mixing weights; CONFIG_CHECKED (LogReg, linear, k-means and MF
+   configs at their own widths) CONFIG_CHECK_ROUNDS rounds card against
+   CPU from the configs' seeds as phase 9 holds them, K1 once a round on
+   ``spambase_100``'s single pass (``MergeAudit``), no launch on the plain
+   paths; CONFIG_CARD_ONLY (the 100-node CIFAR10Net flagship, Onoszko's
+   PENS at 5 nodes of 10,000 images) CONFIG_CARD_ROUNDS rounds on the
+   card with their launches counted, Onoszko's through its first PENS
+   phase-1 merge, which must move exactly the nodes that merged. (b) Checkpoints: ``spambase_100``
+   as 2 x CKPT_ROUNDS rounds straight against CKPT_ROUNDS, ``save``, a
+   fresh simulator's ``load`` and CKPT_ROUNDS more, bit-equal in every
+   leaf with equal accounting and K1 in both; the same on a bf16 and an
+   int8 ring (K2, CKPT_SHORT) and on ``hegedus_2021``'s tokens (``aux``,
+   CKPT_TOKEN); an int8 checkpoint of the card loaded on the CPU and the
+   reverse, equal to the element with the draw state; phase 13's
+   sequential configuration through ``CheckpointManager`` (CKPT_SEQ),
+   the message stream and state of the same chunks run straight; save
+   and load ms and the bytes. (c) Recovery: ``spambase_100`` with
+   sentinels and a NaN written into one node before a known round
+   (REC_NAN_AT) under ``FlightRecorder(chunk=REC_CHUNK)``: the bundle
+   (the JAX bundle's five files) of the last healthy chunk start, and
+   ``replay_bundle`` on a fresh simulator matching it with the leaf, the
+   node and the phase. (d) The flagship config's ``check_memory_budget``
+   against ``torch.cuda.mem_get_info``, then a limit one byte below the
+   budget: ``MemoryBudgetExceeded`` with no launch. (e)
+   ``spambase_100.json`` through ``run_experiment`` on the card:
+   BENCH_ROUNDS rounds after a warm-up, the build and pre-training inside
+   the clock, then ``start`` alone, beside phase 7's legs; the final
+   accuracy, K1's launches, one round's idle share; ``tracing=`` on
+   against off in interleaved halves of TRACE_HALF_ROUNDS rounds.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -360,6 +400,16 @@ NATIVE_DIGESTS = {
     ("barabasi_albert", (4141, 10, 42)):
         "547ee97e7aae343ce97c1fea261e79164285c8dd63bfa8a4044c0620e1a521d9",
 }
+
+
+# ``models/nn.py::_lecun_normal((57, 2), 57, Generator().manual_seed(0))``:
+# its first six values as float32 bit patterns. Phase 14 draws them with
+# the card machine's torch and fails unless they are these
+# (``tests/test_torch_models.py::test_lecun_normal_pinned`` holds the
+# same values on the host's torch).
+LECUN_PIN = {"seed": 0, "shape": (57, 2),
+             "bits": (1048290957, 1033913533, 3161465076, 1044841987,
+                      1029340760, 1038873588)}
 
 
 def edge_digest(edges) -> str:
@@ -664,8 +714,8 @@ def check_multi(torch, merge, label, wire, n, d, f, k, seed, rate,
     eager call (``eager_call_ms``: the wrapper's Python, its launch and
     the kernel). ``starts``: the int8 ring's leaf starts. At the sweep's
     scale shape (``label`` "scale", phase 3's first profiler session) a
-    call must show the profiler one kernel on the card and nothing
-    else."""
+    call must put one kernel on the card and nothing else
+    (:func:`one_launch`)."""
     rng = np.random.default_rng(seed)
     args, nbytes, flops, live_n = multi_inputs(torch, rng, wire, n, d, f, k,
                                                starts, live)
@@ -681,19 +731,7 @@ def check_multi(torch, merge, label, wire, n, d, f, k, seed, rate,
                       merge.gather_merge_multi_reference(*args),
                       (n, d * n, f, k, n_leaves))
     if label == "scale":  # one launch a call: no kernel beside it
-        rows, _ = device_rows(torch, kernel)
-        ran = [(e.key, e.count) for e in rows
-               if not e.key.startswith("Activity")]
-        if not ran:
-            raise RuntimeError(f"{name} {label}: the profiler recorded no "
-                               "device work, so one launch a call is not "
-                               "shown")
-        if len(ran) != 1 or ran[0][1] != 1 or "multi_rows" not in \
-                ran[0][0]:
-            raise RuntimeError(f"{name} {label}: a call ran {ran} on the "
-                               "card, not one launch of its kernel")
-        log(f"[kernels] {label} {name}: one call, one kernel on the card "
-            f"({ran[0][0][:60]}...)")
+        one_launch(torch, merge, kernel, f"{name} {label}", "multi_rows")
     bound_ms, bound_by = bound(nbytes, flops, rate)
     out = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                ms=time_ms(torch, kernel))
@@ -780,6 +818,12 @@ def dev_us(e) -> float:
     return 0.0
 
 
+# Profiler sessions the one-launch check runs before it falls back on a
+# CUDA graph; CU_GRAPH_NODE_TYPE_KERNEL.
+PROFILE_TRIES = 3
+GRAPH_KERNEL_NODE = 0
+
+
 def device_rows(torch, fn):
     """``fn`` once under torch.profiler: its rows of device work (kernels,
     copies) and the call's wall time in microseconds."""
@@ -795,6 +839,72 @@ def device_rows(torch, fn):
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     return rows, wall_us
+
+
+def one_launch(torch, merge, fn, label: str, marker: str) -> None:
+    """One ``fn()`` call puts one kernel on the card (its name holding
+    ``marker``) and nothing else. The profiler shows it; a session of it
+    may record no device work at all (CUPTI drops a session now and then),
+    so up to PROFILE_TRIES sessions are run, and when none records any,
+    the call is captured in a CUDA graph, which must hold one node, a
+    kernel node, while the wrapper counts one launch."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        rows, _ = device_rows(torch, fn)
+        ran = [(e.key, e.count) for e in rows
+               if not e.key.startswith("Activity")]
+        if ran:
+            break
+        log(f"[kernels] {label}: profiler session {attempt} of "
+            f"{PROFILE_TRIES} recorded no device work")
+    else:
+        before = sum(merge.LAUNCHES.values())
+        types = graph_node_types(torch, fn)
+        counted = sum(merge.LAUNCHES.values()) - before
+        if types != [GRAPH_KERNEL_NODE] or counted != 1:
+            raise RuntimeError(f"{label}: a call captured in a CUDA graph "
+                               f"holds nodes of types {types} and counted "
+                               f"{counted} launches, not one kernel")
+        log(f"[kernels] {label}: one call, one kernel node in a CUDA graph "
+            "that captured it (the profiler recorded nothing)")
+        return
+    if len(ran) != 1 or ran[0][1] != 1 or marker not in ran[0][0]:
+        raise RuntimeError(f"{label}: a call ran {ran} on the card, not one "
+                           "launch of its kernel")
+    log(f"[kernels] {label}: one call, one kernel on the card "
+        f"({ran[0][0][:60]}...)")
+
+
+def graph_node_types(torch, fn) -> list:
+    """The node types (CUgraphNodeType; 0 a kernel) of a CUDA graph that
+    captured one ``fn()`` call, read through libcuda: what the call puts
+    on its stream, counted without the profiler. ``fn`` must have run
+    once already (its module loaded, its plan cached)."""
+    import ctypes
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:    # a release that keeps the graph anyway
+        graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(raw, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    if rc == 0 and count.value:
+        rc = cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count))
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rc = rc or cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                           ctypes.byref(kind))
+        types.append(kind.value)
+    graph.reset()
+    if rc != 0:
+        raise RuntimeError(f"reading a captured CUDA graph: CUresult {rc}")
+    return types
 
 
 def profile(torch, fn, label: str):
@@ -2941,6 +3051,605 @@ def sequential_phase(torch, merge, bulk: dict) -> dict:
     return paths
 
 
+# -- phase 14: configs, checkpoints and recovery ------------------------------
+
+CONFIG_CHECKED = ("spambase_100", "all2all", "berta_2014", "danner_2023",
+                  "giaretta_2019", "hegedus_2020", "hegedus_2021")
+CONFIG_CHECK_ROUNDS = 5
+CONFIG_CARD_ONLY = ("cifar10_100nodes", "onoszko_2021")
+# Onoszko starts untrained, and a PENS node merges (and then trains, ~25 s
+# an update pass on the card) only once it has buffered n_sampled = 4
+# models: under the config's seed the first merge falls in round 2 (a host
+# run finds it; no update runs before it, so it does not depend on the
+# weights), so 3 rounds.
+CONFIG_CARD_ROUNDS = {"cifar10_100nodes": 2, "onoszko_2021": 3}
+CKPT_ROUNDS = 10            # spambase_100: 2 x 10 rounds against 20
+CKPT_SHORT = 5              # the bf16 and int8 rings
+CKPT_TOKEN = 15             # the token config (its nodes bank tokens
+                            # before they send)
+CKPT_SEQ = ("push-drop-online", 3, 2, 9)   # phase 13's label, interval,
+                                            # kept, rounds
+REC_NAN_AT = (3, 7)         # (node, round) of the recorder run's NaN
+REC_CHUNK = 5
+REC_ROUNDS = 15
+TRACE_HALF_ROUNDS = 150
+
+
+def config_names() -> list:
+    """The shipped configs, ``examples/configs/*.json`` (not
+    ``service/``), by name."""
+    import glob
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    return sorted(os.path.basename(p)[:-5] for p in glob.glob(
+        os.path.join(here, "examples", "configs", "*.json")))
+
+
+def load_config(name: str, **changes):
+    import dataclasses
+    import os
+
+    from gossipy_tpu_torch.config import ExperimentConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = ExperimentConfig.from_json(os.path.join(here, "examples",
+                                                  "configs", name + ".json"))
+    return dataclasses.replace(cfg, **changes)
+
+
+@contextlib.contextmanager
+def images_once():
+    """The image stand-ins made once for the phase (each build of an image
+    config would make its 60,000 images again)."""
+    from gossipy_tpu_torch import data
+    saved = data.get_CIFAR10, data.get_FashionMNIST
+    cache = {}
+
+    def once(name, fn):
+        def get(allow_synthetic=True):
+            if name not in cache:
+                cache[name] = fn(allow_synthetic)
+            return cache[name]
+        return get
+    data.get_CIFAR10 = once("cifar10", saved[0])
+    data.get_FashionMNIST = once("fmnist", saved[1])
+    try:
+        yield
+    finally:
+        data.get_CIFAR10, data.get_FashionMNIST = saved
+
+
+def build_config(name: str, device, **changes):
+    """``build_experiment`` of a shipped config on ``device``."""
+    from gossipy_tpu_torch.config import build_experiment
+    cfg = load_config(name, **changes)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the offline stand-ins' notes
+        sim, disp = build_experiment(cfg, device=device)
+    return cfg, sim, disp
+
+
+def sim_knobs(sim) -> dict:
+    """The simulator's class and timing knobs and its handler's
+    hyperparameters, as comparable values."""
+    h = sim.handler
+    out = {"class": type(sim).__name__, "handler": type(h).__name__,
+           "protocol": int(sim.protocol), "delay": repr(sim.delay),
+           "account": repr(getattr(sim, "account", None))}
+    for a in ("n_nodes", "delta", "drop_prob", "online_prob",
+              "sampling_eval", "sync", "eval_every", "K", "Kr", "F",
+              "history_dtype", "fused_merge", "_compact_cap", "n_sampled",
+              "m_top", "step1_rounds"):
+        if hasattr(sim, a):
+            out[a] = getattr(sim, a)
+    for a in ("mode", "local_epochs", "batch_size", "n_classes",
+              "input_shape", "learning_rate", "k", "alpha", "matching",
+              "reg", "lr", "L", "sample_size", "compute_dtype"):
+        if hasattr(h, a):
+            out["handler." + a] = str(getattr(h, a))
+    part = getattr(h, "partition", None)
+    if part is not None:
+        out["partition"] = part.part_of.tolist()
+    return out
+
+
+def check_same_build(torch, name, a, b) -> None:
+    """Two builds of one config (CPU and card): the same knobs, topology
+    edges, shards, and (All2All) mixing weights."""
+    if sim_knobs(a) != sim_knobs(b):
+        raise RuntimeError(f"config {name}: the builds' knobs differ: "
+                           f"{sim_knobs(a)} against {sim_knobs(b)}")
+    if not np.array_equal(np.asarray(a.topology.adjacency),
+                          np.asarray(b.topology.adjacency)):
+        raise RuntimeError(f"config {name}: the builds' edges differ")
+    if sorted(a.data) != sorted(b.data) or not all(
+            torch.equal(a.data[k].cpu(), b.data[k].cpu()) for k in a.data):
+        raise RuntimeError(f"config {name}: the builds' shards differ")
+    if hasattr(a, "mixing") and not torch.equal(
+            torch.as_tensor(a.mixing).cpu(), torch.as_tensor(b.mixing).cpu()):
+        raise RuntimeError(f"config {name}: the builds' mixing differs")
+
+
+def config_card_vs_cpu(torch, merge, name: str, cpu, card) -> dict:
+    """Phase 14 (a), one config at its own width: CONFIG_CHECK_ROUNDS
+    rounds on the CPU and on the card from the config's seeds; equal
+    accounting, boxes, ages and ``aux``, params within REF_TOL plus
+    REF_TOL of their magnitude, K1 once a round with messages on the
+    single-pass deliver (every call bit-equal to its plain version,
+    ``MergeAudit``), no launch elsewhere. Returns the card run's
+    launches."""
+    from gossipy_tpu_torch import set_seed
+    runs = {}
+    for dev, sim in (("cpu", cpu), ("cuda", card)):
+        cfg = load_config(name)
+        state = sim.init_nodes(set_seed(cfg.seed),
+                               common_init=cfg.common_init)
+        merge.reset_launch_counts()
+        audit = MergeAudit(torch, merge, sim)
+        t0 = time.perf_counter()
+        with audit if dev == "cuda" else contextlib.nullcontext():
+            state, rep = sim.start(state, n_rounds=CONFIG_CHECK_ROUNDS)
+        runs[dev] = (state, rep, {k: v for k, v in merge.LAUNCHES.items()
+                                  if v}, audit.stats,
+                     time.perf_counter() - t0)
+    (st_c, r_c, l_c, _, t_c), (st_g, r_g, l_g, stats, t_g) = \
+        runs["cpu"], runs["cuda"]
+    label = f"config {name}"
+    check_same_accounting(torch, label, st_c, st_g, r_c, r_g)
+    check_same_aux(torch, label, st_c, st_g, REF_TOL)
+    p_c, p_g = st_c.model.params, st_g.model.params.cpu()
+    diff = (p_c - p_g).abs()
+    worst = float((diff - REF_TOL * (1.0 + p_c.abs())).max())
+    with_msgs = rounds_with_messages(r_g)
+    kernel = {"float32": merge.KERNEL}.get(card.history_dtype,
+                                           merge.KERNEL_MULTI_DQ)
+    want = {kernel: with_msgs} if card.fused_merge == "multi" else {}
+    log(f"[config] {name} card vs CPU: {type(card).__name__}, "
+        f"{card.n_nodes} nodes, deliver {card.fused_merge or 'plain'}, "
+        f"{CONFIG_CHECK_ROUNDS} rounds: sent {int(r_g.sent_per_round.sum())}"
+        f", failed {int(r_g.failed_per_round.sum())}; max abs param diff "
+        f"{float(diff.max()):.3e}, worst margin to the tolerance "
+        f"{worst:.3e} (<= 0 passes); launches card {l_g}, CPU {l_c}; merge "
+        f"calls held to the plain versions {stats}; CPU {t_c:.2f} s, card "
+        f"{t_g:.2f} s")
+    if worst > 0 or not torch.isfinite(st_g.model.params).all():
+        raise RuntimeError(f"{label}: the card run does not agree with the "
+                           "CPU run")
+    if l_c or l_g != want or (want and with_msgs == 0):
+        raise RuntimeError(f"{label}: launches card {l_g}, CPU {l_c}; the "
+                           f"path makes {want}")
+    return l_g
+
+
+def config_card_only(torch, merge, name: str, sim) -> dict:
+    """Phase 14 (a), a CIFAR10Net config at its full width on the card
+    only: CONFIG_CARD_ROUNDS rounds from the config's seeds (Onoszko
+    without the pre-training pass, whose 3 local epochs over 10,000 images
+    a node take ~20 s), finite params and accuracy, K1 launches
+    counted. Onoszko's run must hold a PENS phase-1 merge (a nonzero
+    neighbour counter), and the params must have moved from the initial
+    ones on exactly the nodes that merged (merge and update), nowhere
+    else. Returns the launches and the state."""
+    from gossipy_tpu_torch import set_seed
+    cfg = load_config(name)
+    state = sim.init_nodes(set_seed(cfg.seed), common_init=cfg.common_init,
+                           local_train=name != "onoszko_2021")
+    rounds = CONFIG_CARD_ROUNDS[name]
+    p0 = state.model.params.clone()
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    acc = rep.final("accuracy")
+    with_msgs = rounds_with_messages(rep)
+    want = {merge.KERNEL: with_msgs} if sim.fused_merge == "multi" else {}
+    moved = (state.model.params != p0).any(dim=1).cpu()
+    merged = None
+    if "neigh_counter" in state.aux:
+        merged = (state.aux["neigh_counter"].sum(dim=-1) > 0).cpu()
+    log(f"[config] {name} on the card: {type(sim).__name__}, {sim.n_nodes}"
+        f" nodes, {int(sim.data['mtr'].sum())} training images, deliver "
+        f"{sim.fused_merge or 'plain'}, bf16 compute "
+        f"{sim.handler.compute_dtype is not None}, {rounds} "
+        f"rounds in {wall:.2f} s; sent {int(rep.sent_per_round.sum())}; "
+        f"final sampled accuracy {acc}; params moved on "
+        f"{int(moved.sum())} of {sim.n_nodes} nodes"
+        + ("" if merged is None else " "
+           f"{moved.nonzero().flatten().tolist()}, PENS phase-1 merged "
+           f"nodes {merged.nonzero().flatten().tolist()}")
+        + f"; launches {launches}")
+    if not torch.isfinite(state.model.params).all() or not np.isfinite(acc):
+        raise RuntimeError(f"config {name}: non-finite params or accuracy")
+    if not moved.any() or (merged is not None and
+                           not torch.equal(moved, merged)):
+        raise RuntimeError(f"config {name}: no params moved, or they moved "
+                           "on other nodes than the PENS merges")
+    if launches != want:
+        raise RuntimeError(f"config {name}: launches {launches}; the path "
+                           f"makes {want}")
+    return launches, state
+
+
+def memory_budget_check(torch, merge, sim) -> None:
+    """Phase 14 (d): the flagship config's budget against the card's total
+    memory (``torch.cuda.mem_get_info``), then a limit one byte below
+    the budget: ``MemoryBudgetExceeded`` before any launch."""
+    from gossipy_tpu_torch.simulation.engine import MemoryBudgetExceeded
+    budget = sim.check_memory_budget()
+    total = budget["total_bytes"]
+    free, card = torch.cuda.mem_get_info()
+    merge.reset_launch_counts()
+    before = dict(merge.LAUNCHES)
+    try:
+        sim.check_memory_budget(limit_bytes=total - 1)
+    except MemoryBudgetExceeded as e:
+        err = e
+    else:
+        raise RuntimeError("memory budget: a limit below the budget passed")
+    if dict(merge.LAUNCHES) != before or any(merge.LAUNCHES.values()):
+        raise RuntimeError("memory budget: a kernel launched during the "
+                           "check")
+    log(f"[memory] flagship config: budget {total} bytes "
+        f"({total / 2**30:.3f} GiB; dominant {err.dominant_term} "
+        f"{budget[err.dominant_term]} bytes) against the card's "
+        f"{card} bytes ({free} free): passes; with limit {total - 1}: "
+        f"MemoryBudgetExceeded ({err}); launches before and after "
+        f"{ {k: v for k, v in merge.LAUNCHES.items() if v} }")
+
+
+def states_equal(torch, a, b) -> bool:
+    from gossipy_tpu_torch.checkpoint import flatten_state
+    fa, fb = flatten_state(a), flatten_state(b)
+    if sorted(fa) != sorted(fb):
+        return False
+    for k, v in fa.items():
+        w = fb[k]
+        if isinstance(v, torch.Tensor):
+            if v.dtype != w.dtype or v.shape != w.shape or not torch.equal(
+                    v.cpu(), w.cpu()):
+                return False
+        elif isinstance(v, np.ndarray):
+            if not np.array_equal(v, w):
+                return False
+        elif v != w:
+            return False
+    return True
+
+
+def ckpt_resume(torch, merge, label: str, name: str, rounds: int,
+                tmp: str, **params) -> dict:
+    """Phase 14 (b): a config's run of ``2 rounds`` rounds straight, and
+    again as ``rounds`` rounds, ``save``, a FRESH simulator's ``load`` and
+    ``rounds`` more, on the card: bit-equal states (every leaf, the ring
+    and ``aux`` included), equal accounting, the merge kernel launched in
+    both. Returns the launches of each run."""
+    import os
+
+    from gossipy_tpu_torch import set_seed
+    from gossipy_tpu_torch.simulation.report import SimulationReport
+    changes = {"simulator_params": params} if params else {}
+    cfg, sim, _ = build_config(name, "cuda", **changes)
+    state = sim.init_nodes(set_seed(cfg.seed))
+    merge.reset_launch_counts()
+    full, r_full = sim.start(state, n_rounds=2 * rounds)
+    l_full = {k: v for k, v in merge.LAUNCHES.items() if v}
+    _, sim_a, _ = build_config(name, "cuda", **changes)
+    part = sim_a.init_nodes(set_seed(cfg.seed))
+    merge.reset_launch_counts()
+    part, r_a = sim_a.start(part, n_rounds=rounds)
+    torch.cuda.synchronize()
+    path = os.path.join(tmp, label)
+    t0 = time.perf_counter()
+    sim_a.save(path, part)
+    t_save = time.perf_counter() - t0
+    _, sim_b, _ = build_config(name, "cuda", **changes)
+    t0 = time.perf_counter()
+    resumed, _ = sim_b.load(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    resumed, r_b = sim_b.start(resumed, n_rounds=rounds)
+    l_split = {k: v for k, v in merge.LAUNCHES.items() if v}
+    r_split = SimulationReport.concatenate([r_a, r_b])
+    same = states_equal(torch, full, resumed)
+    for field in ("sent_per_round", "failed_per_round",
+                  "mailbox_hwm_per_round", "compact_slots_per_round",
+                  "wide_slots_per_round"):
+        same = same and np.array_equal(getattr(r_full, field),
+                                       getattr(r_split, field))
+    log(f"[checkpoint] {label}: {type(sim).__name__}, ring "
+        f"{sim.history_dtype}, deliver {sim.fused_merge or 'plain'}, "
+        f"{2 * rounds} rounds straight against {rounds} + save + load + "
+        f"{rounds}: bit-equal {same}; launches straight {l_full}, split "
+        f"{l_split}; checkpoint {os.path.getsize(path)} bytes, save "
+        f"{t_save * 1e3:.1f} ms, load {t_load * 1e3:.1f} ms (its template "
+        f"included)")
+    kernel = {"float32": merge.KERNEL}.get(sim.history_dtype,
+                                           merge.KERNEL_MULTI_DQ)
+    if not same:
+        raise RuntimeError(f"checkpoint {label}: the resumed run is not "
+                           "the straight run")
+    if sim.fused_merge == "multi" and not (l_full.get(kernel)
+                                           and l_split.get(kernel)):
+        raise RuntimeError(f"checkpoint {label}: {kernel} did not launch "
+                           "in both runs")
+    return {"straight": l_full, "resumed": l_split}
+
+
+def ckpt_cross_device(torch, tmp: str) -> None:
+    """Phase 14 (b): a card checkpoint loaded on the CPU and a CPU one on
+    the card, equal to the element."""
+    import os
+
+    from gossipy_tpu_torch import set_seed
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        cfg, sim, _ = build_config("spambase_100", src,
+                                   simulator_params={
+                                       "history_dtype": "int8"})
+        state, _ = sim.start(sim.init_nodes(set_seed(cfg.seed)), 3)
+        path = os.path.join(tmp, f"cross-{src}")
+        sim.save(path, state)
+        _, other, _ = build_config("spambase_100", dst,
+                                   simulator_params={
+                                       "history_dtype": "int8"})
+        loaded, draws = other.load(path)
+        same = states_equal(torch, state, loaded)
+        where = loaded.model.params.device.type == other.device.type
+        gen = torch.equal(draws.get_state()["generator"],
+                          sim.draws.get_state()["generator"])
+        ok = same and where and gen
+        log(f"[checkpoint] a {src} checkpoint (int8 ring, 3 rounds) loaded "
+            f"on the {dst}: equal to the element {same}, on the {dst} "
+            f"{where}, the draw state equal {gen}")
+        if not ok:
+            raise RuntimeError(f"checkpoint: {src} -> {dst} differs")
+
+
+def ckpt_sequential(torch, tmp: str) -> None:
+    """Phase 14 (b): the sequential engine (phase 13's configuration
+    ``CKPT_SEQ[0]``, 16 nodes) through ``CheckpointManager`` (interval 3,
+    2 kept) to round 6, then a fresh simulator and manager resume from the
+    latest to round 9: the message stream and the state equal the same
+    3-round chunks run straight (a sequential ``start`` begins with empty
+    queues, as in the JAX engine)."""
+    import os
+
+    from gossipy_tpu_torch.checkpoint import CheckpointManager
+    label, interval, keep, rounds = CKPT_SEQ
+    ref, st, ref_log = seq_check_sim(torch, label, "cuda")
+    for _ in range(rounds // interval):
+        st, _ = ref.start(st, n_rounds=interval)
+    a, st_a, log_a = seq_check_sim(torch, label, "cuda")
+    d = os.path.join(tmp, "seq")
+    mgr = CheckpointManager(d, interval=interval, max_to_keep=keep)
+    mgr.run(a, st_a, until_round=rounds - interval)
+    resumed_from = mgr.latest()
+    b, _, log_b = seq_check_sim(torch, label, "cuda")
+    mgr2 = CheckpointManager(d, interval=interval, max_to_keep=keep)
+    final = mgr2.run(b, b.init_nodes(local_train=False), until_round=rounds)
+    ok = (log_a.events + log_b.events == ref_log.events
+          and states_equal(torch, st, final))
+    log(f"[checkpoint] sequential {label}, {a.n_nodes} nodes: manager to "
+        f"round {rounds - interval}, a fresh manager from round "
+        f"{resumed_from} to {final.round} (kept {mgr2.checkpoints()}): "
+        f"{len(ref_log.events)} messages, the straight chunks' stream and "
+        f"state {ok}")
+    if not ok or mgr2.checkpoints() != [rounds - interval, rounds]:
+        raise RuntimeError("checkpoint: the sequential run through the "
+                           "manager differs")
+
+
+def poison(sim, node: int, at: int) -> None:
+    """Write a NaN into ``node``'s first parameter before round ``at``'s
+    snapshot (an instance hook: the round and the replay's per-phase
+    re-run both call it)."""
+    pre_send = sim._pre_send
+
+    def hook(state, r):
+        pre_send(state, r)
+        if r == at:
+            state.model.params[node, 0] = float("nan")
+    sim._pre_send = hook
+
+
+def recovery(torch, merge, tmp: str) -> dict:
+    """Phase 14 (c): the north-star config with sentinels, a NaN written
+    into node REC_NAN_AT[0] before round REC_NAN_AT[1], under
+    ``FlightRecorder(chunk=REC_CHUNK)``: the bundle of the last healthy
+    chunk start, then ``replay_bundle`` on a fresh simulator. Returns the
+    recorded run's launches."""
+    import json
+    import os
+
+    from gossipy_tpu_torch import set_seed
+    from gossipy_tpu_torch.telemetry import FlightRecorder, replay_bundle
+    node, at = REC_NAN_AT
+    cfg, sim, _ = build_config("spambase_100", "cuda",
+                               simulator_params={"sentinels": True})
+    poison(sim, node, at)
+    state = sim.init_nodes(set_seed(cfg.seed))
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, reports, bundle = FlightRecorder(os.path.join(tmp, "fr"),
+                                        chunk=REC_CHUNK).run(sim, state,
+                                                             REC_ROUNDS)
+    t_rec = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    verdict = json.load(open(os.path.join(bundle, "verdict.json")))
+    _, fresh, _ = build_config("spambase_100", "cuda",
+                               simulator_params={"sentinels": True})
+    poison(fresh, node, at)
+    t0 = time.perf_counter()
+    replay = replay_bundle(bundle, fresh)
+    t_rep = time.perf_counter() - t0
+    files = sorted(os.listdir(bundle))
+    log(f"[recovery] NaN into node {node} before round {at}, chunks of "
+        f"{REC_CHUNK}: {len(reports)} chunks recorded in {t_rec:.2f} s, "
+        f"bundle {os.path.basename(bundle)} {files}; verdict "
+        f"{json.dumps(verdict)}; replay on a fresh simulator ({t_rep:.2f} "
+        f"s) {json.dumps(replay)}; launches {launches}")
+    want_start = (at // REC_CHUNK) * REC_CHUNK
+    ok = (verdict["kind"] == "sentinel"
+          and verdict["chunk_start_round"] == want_start
+          and verdict["first_bad_round"] == at
+          and replay["matches_recorded"] is True
+          and replay["leaf"] == "Dense_0/bias" and node in replay["nodes"]
+          and replay["phase"] == "send"
+          and files == ["checkpoint", "checkpoint.meta.json",
+                        "events.jsonl", "manifest.json", "verdict.json"]
+          and launches.get(merge.KERNEL, 0) > 0)
+    if not ok:
+        raise RuntimeError("recovery: the bundle or its replay is not what "
+                           "the run recorded")
+    return launches
+
+
+def config_timed(torch, merge, ns_legs: dict) -> dict:
+    """Phase 14 (e): ``spambase_100.json`` through ``run_experiment`` on
+    the card, BENCH_ROUNDS rounds after a warm-up (the build and the
+    pre-training pass inside the clock, the card synchronised before it
+    stops), then ``start`` alone on a built state, beside phase 7's legs;
+    one profiled round's idle share; then ``tracing=`` on against off in
+    interleaved halves of TRACE_HALF_ROUNDS rounds. Returns the launches
+    of the timed run."""
+    from gossipy_tpu_torch import set_seed
+    from gossipy_tpu_torch.config import run_experiment
+    from gossipy_tpu_torch.telemetry import Tracer, trace_report
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        run_experiment(load_config("spambase_100",
+                                   n_rounds=NS_WARMUP_ROUNDS))
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, rep = run_experiment(load_config("spambase_100",
+                                                n_rounds=BENCH_ROUNDS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    with_msgs = rounds_with_messages(rep)
+    acc = rep.final("accuracy")
+    if launches != {merge.KERNEL: with_msgs} or with_msgs != BENCH_ROUNDS \
+            or not np.isfinite(acc):
+        raise RuntimeError(f"config timed: launches {launches} for "
+                           f"{with_msgs} rounds with messages, accuracy "
+                           f"{acc}")
+    cfg, sim, _ = build_config("spambase_100", "cuda")
+    st = sim.init_nodes(set_seed(cfg.seed))
+    st, _ = sim.start(st, n_rounds=NS_WARMUP_ROUNDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, rep2 = sim.start(st, n_rounds=BENCH_ROUNDS)
+    torch.cuda.synchronize()
+    wall_start = time.perf_counter() - t0
+    idle = profile(torch, lambda: sim._round(st),
+                   "spambase_100 config, one round with eval")
+    legs = {k: (round(v["rounds_per_s"], 2), v["accuracy"])
+            for k, v in ns_legs.items()}
+    log(f"[config] spambase_100.json through run_experiment on the card: "
+        f"build, pre-training and {BENCH_ROUNDS} rounds in {wall:.3f} s = "
+        f"{BENCH_ROUNDS / wall:.2f} rounds/s; start alone "
+        f"{BENCH_ROUNDS} rounds in {wall_start:.3f} s = "
+        f"{BENCH_ROUNDS / wall_start:.2f} rounds/s; final global accuracy "
+        f"{acc}; K1 launches {launches}; idle share of one round {idle}; "
+        f"phase 7's legs (rounds/s, accuracy) {legs}")
+    # tracing= on against off, interleaved halves on one process.
+    runs = {}
+    for label, kw in (("off", {}), ("on", {"tracing": Tracer()})):
+        _, s, _ = build_config("spambase_100", "cuda", simulator_params=kw)
+        runs[label] = [s, s.init_nodes(set_seed(cfg.seed)), 0.0]
+        runs[label][1], _ = s.start(runs[label][1], NS_WARMUP_ROUNDS)
+    torch.cuda.synchronize()
+    for label in ("off", "on", "on", "off"):
+        s, state, _ = runs[label]
+        t0 = time.perf_counter()
+        state, _ = s.start(state, n_rounds=TRACE_HALF_ROUNDS)
+        torch.cuda.synchronize()
+        runs[label][1] = state
+        runs[label][2] += time.perf_counter() - t0
+    rate = {k: 2 * TRACE_HALF_ROUNDS / v[2] for k, v in runs.items()}
+    totals = trace_report(runs["on"][0].tracer.snapshot())["totals"]
+    log(f"[config] tracing on against off, {2 * TRACE_HALF_ROUNDS} rounds "
+        f"each in interleaved halves: off {rate['off']:.2f} rounds/s, on "
+        f"{rate['on']:.2f} rounds/s, share of off "
+        f"{rate['on'] / rate['off']:.4f}; trace totals {json.dumps(totals)}")
+    return launches
+
+
+def config_phase(torch, merge, ns_legs: dict) -> dict:
+    """Phase 14 (a)-(e); returns the launches per (kernel, ring format)
+    and run."""
+    import shutil
+    import tempfile
+
+    from gossipy_tpu_torch.models import nn as tnn
+    x = tnn._lecun_normal(LECUN_PIN["shape"], LECUN_PIN["shape"][0],
+                          torch.Generator().manual_seed(LECUN_PIN["seed"]))
+    bits = tuple(x.flatten()[:6].numpy().view(np.uint32).tolist())
+    log(f"[weights] _lecun_normal{LECUN_PIN['shape']} at seed "
+        f"{LECUN_PIN['seed']} on torch {torch.__version__}: "
+        f"{[float(v) for v in x.flatten()[:6]]}, bits {list(bits)}, pinned "
+        f"{list(LECUN_PIN['bits'])}: equal {bits == LECUN_PIN['bits']}")
+    if bits != LECUN_PIN["bits"]:
+        raise RuntimeError("the initial weights differ from the pinned "
+                           "ones on this torch")
+    paths = {}
+
+    def keep(run, launches, wire="float32"):
+        """The launches of ``run`` on a ``wire`` ring, by (kernel, ring)."""
+        for k, v in launches.items():
+            quantized = k in (merge.KERNEL_MULTI_DQ, merge.KERNEL_FLAT_DQ)
+            paths.setdefault((k, wire if quantized else "float32"),
+                             {})[run] = v
+
+    # (a) every shipped config built on the card and on the CPU
+    t0 = time.perf_counter()
+    with images_once():
+        for name in config_names():
+            _, cpu, _ = build_config(name, "cpu")
+            _, card, _ = build_config(name, "cuda")
+            check_same_build(torch, name, cpu, card)
+            log(f"[config] {name}: {type(card).__name__}, {card.n_nodes} "
+                "nodes, built alike on the card and the CPU")
+            if name in CONFIG_CHECKED:
+                keep(f"config-{name}",
+                     config_card_vs_cpu(torch, merge, name, cpu, card))
+            elif name in CONFIG_CARD_ONLY:
+                launches, _ = config_card_only(torch, merge, name, card)
+                keep(f"config-{name}", launches)
+                if name == "cifar10_100nodes":
+                    # (d) the memory budget
+                    memory_budget_check(torch, merge, card)
+            del cpu, card
+            torch.cuda.empty_cache()
+    log(f"[config] (a) and (d) took {time.perf_counter() - t0:.1f} s")
+    # (b) checkpoints
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gossipy-ckpt-")
+    try:
+        out = ckpt_resume(torch, merge, "spambase_100", "spambase_100",
+                          CKPT_ROUNDS, tmp)
+        keep("ckpt-spambase_100", out["resumed"])
+        for wire in ("bfloat16", "int8"):
+            out = ckpt_resume(torch, merge, f"spambase_100-{wire}",
+                              "spambase_100", CKPT_SHORT, tmp,
+                              history_dtype=wire)
+            keep(f"ckpt-spambase_100-{wire}", out["resumed"], wire)
+        ckpt_resume(torch, merge, "hegedus_2021", "hegedus_2021",
+                    CKPT_TOKEN, tmp)
+        ckpt_cross_device(torch, tmp)
+        ckpt_sequential(torch, tmp)
+        log(f"[checkpoint] (b) took {time.perf_counter() - t0:.1f} s")
+        # (c) recovery
+        keep("recorder-spambase_100", recovery(torch, merge, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (e) timed
+    keep("config-spambase_100-timed", config_timed(torch, merge, ns_legs))
+    return paths
+
+
 def tensor_rate(name: str) -> float:
     for key, rate in TENSOR_FLOPS:
         if key in name:
@@ -3708,8 +4417,14 @@ def main() -> int:
         return 2
     from gossipy_tpu_torch import ops
     from gossipy_tpu_torch.ops import _build, merge
+    started = time.perf_counter()
+
+    def at(phase: int) -> None:
+        log(f"[time] phase {phase} starts at "
+            f"{time.perf_counter() - started:.1f} s")
 
     # 1. device
+    at(1)
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3722,6 +4437,7 @@ def main() -> int:
     log(f"[device] memory rate for the bound: {rate / 1e12} TB/s ({name})")
 
     # 2. build
+    at(2)
     sources = ops.SOURCES
     t0 = time.perf_counter()
     _build.build(sources)
@@ -3734,6 +4450,7 @@ def main() -> int:
                 log(f"[build]   {src}: {line.strip()}")
 
     # 3. kernels against their plain versions
+    at(3)
     from gossipy_tpu_torch.handlers import SGDHandler, losses
     from gossipy_tpu_torch.models import CIFAR10Net
     layout = SGDHandler(CIFAR10Net(), losses.cross_entropy,
@@ -3761,6 +4478,7 @@ def main() -> int:
     log(f"[kernels] K1/K2 sweep took {time.perf_counter() - t0:.1f} s")
 
     # 4. the paths: first the fp32 single-pass fused deliver
+    at(4)
     sim, state = cifar_sim(torch, N_NODES, 64, 32, "cuda", ROUNDS + 1)
     state, _ = sim.start(state, n_rounds=1)     # warm-up round
     torch.cuda.synchronize()
@@ -3796,27 +4514,33 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 5. the card against the CPU on a small run from the same seeds
+    at(5)
     card_vs_cpu(torch, merge, "multi", "multi", "float32")
     for label, fused, wire in LEGS:
         card_vs_cpu(torch, merge, label, fused, wire)
 
     # 6. attention: K5, its gradient and the training demo
+    at(6)
     k5 = attention_phase(torch, rate, name)
 
     # 7. the north-star configuration and the examples' network model
+    at(7)
     ns_paths, at_northstar, ns_legs = northstar_phase(torch, merge, rate)
 
     # 8. the 100-node CIFAR-10 flagship
+    at(8)
     flag_paths, at_flagship, flag_ms = flagship_phase(torch, merge, rate)
     for key, by_path in flag_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
 
     # 9. the four paper examples on the vanilla simulator
+    at(9)
     paper_paths, at_ormandi = papers_phase(torch, merge, rate)
     for key, by_path in paper_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
 
     # 10. the variant simulators and the four examples they carry
+    at(10)
     t0 = time.perf_counter()
     variant_paths, at_variants = variants_phase(torch, merge, rate)
     for key, by_path in variant_paths.items():
@@ -3824,6 +4548,7 @@ def main() -> int:
     log(f"[variants] phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # 11. events, probes, sentinels and chaos
+    at(11)
     t0 = time.perf_counter()
     tel_paths = telemetry_phase(torch, merge, flag_ms)
     for key, by_path in tel_paths.items():
@@ -3831,6 +4556,7 @@ def main() -> int:
     log(f"[telemetry] phase 11 took {time.perf_counter() - t0:.1f} s")
 
     # 12. sparse topologies at population scale
+    at(12)
     t0 = time.perf_counter()
     sparse_paths, at_scale, at_ladder = sparse_phase(torch, merge, rate)
     for key, by_path in sparse_paths.items():
@@ -3838,11 +4564,20 @@ def main() -> int:
     log(f"[sparse] phase 12 took {time.perf_counter() - t0:.1f} s")
 
     # 13. the sequential high-fidelity engine
+    at(13)
     t0 = time.perf_counter()
     seq_paths = sequential_phase(torch, merge, ns_legs["default"])
     for key, by_path in seq_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[sequential] phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # 14. experiment configs, checkpoints and the flight recorder
+    at(14)
+    t0 = time.perf_counter()
+    cfg_paths = config_phase(torch, merge, ns_legs)
+    for key, by_path in cfg_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[config] phase 14 took {time.perf_counter() - t0:.1f} s")
 
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
@@ -3890,6 +4625,7 @@ def main() -> int:
             kernels[-1]["at_tokenized_shape"] = at_variants[("tokenized",
                                                              wire)]
     kernels.extend(k5)
+    log(f"[time] all phases took {time.perf_counter() - started:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

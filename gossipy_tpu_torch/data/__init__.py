@@ -10,12 +10,14 @@ rows); :func:`to_device` moves that dict onto the run's device.
 :func:`load_classification_dataset` gives the UCI names the JAX package's
 offline stand-in (its deterministic synthetic data, without trying the
 download first) and scales the features with :func:`standard_scale`, a
-numpy copy of scikit-learn's ``StandardScaler``. :func:`get_CIFAR10`
-gives the JAX package's synthetic CIFAR-10 stand-in (no download is
-tried, and no archive is read). :func:`load_recsys_dataset` gives the
-JAX package's synthetic MovieLens stand-in (no download is tried), which
-:class:`RecSysDataDispatcher` stacks one user a node. The sklearn
-built-ins, svmlight files and the other loaders are still to be ported.
+numpy copy of scikit-learn's ``StandardScaler``; a file path loads as
+svmlight through a numpy reader (:func:`load_svmlight`).
+:func:`get_CIFAR10`, :func:`get_FashionMNIST` and :func:`get_FEMNIST`
+give the JAX package's synthetic stand-ins (no download is tried, and no
+archive is read). :func:`load_recsys_dataset` gives the JAX package's
+synthetic MovieLens stand-in (no download is tried), which
+:class:`RecSysDataDispatcher` stacks one user a node. The scikit-learn
+built-ins raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from .handler import ClassificationDataHandler, ClusteringDataHandler, \
 __all__ = ["AssignmentHandler", "DataDispatcher", "ClassificationDataHandler",
            "ClusteringDataHandler", "DataHandler", "RecSysDataDispatcher",
            "RecSysDataHandler", "RegressionDataHandler", "get_CIFAR10",
+           "get_FEMNIST", "get_FashionMNIST", "load_svmlight",
            "load_classification_dataset", "load_recsys_dataset",
            "standard_scale", "to_device", "SYNTHETIC_DATA_VERSION",
            "UCI_SHAPES", "RECSYS_SHAPES"]
@@ -122,8 +125,10 @@ def load_classification_dataset(name: str = "spambase",
     """A classification dataset as ``(X [n, d] float32, y [n] int64)``.
 
     The UCI names (:data:`UCI_SHAPES`) give the JAX package's offline
-    stand-in, with its warning; no download is tried. The scikit-learn
-    built-ins and svmlight files raise ``NotImplementedError``.
+    stand-in, with its warning; no download is tried. A ``name`` that is
+    an existing file loads as svmlight (:func:`load_svmlight`), its labels
+    encoded to ``0..C-1`` in sorted order, as the JAX package loads one.
+    The scikit-learn built-ins raise ``NotImplementedError``.
     ``normalize`` applies :func:`standard_scale`.
     """
     key = name.lower()
@@ -138,9 +143,8 @@ def load_classification_dataset(name: str = "spambase",
             f"deterministic synthetic stand-in of shape ({n}, {d}).")
         X, y = _synthetic_classification(key, n, d, c)
     elif os.path.isfile(name):
-        raise NotImplementedError(
-            f"{name!r} would load as an svmlight file, which needs "
-            "scikit-learn's reader; it is not ported yet")
+        X, y = load_svmlight(name)
+        y = _label_encode(y.tolist())
     else:
         raise ValueError(f"Unknown dataset: {key}")
     X = np.asarray(X, dtype=np.float32)
@@ -148,6 +152,48 @@ def load_classification_dataset(name: str = "spambase",
     if normalize:
         X = standard_scale(X)
     return X, y
+
+
+def _label_encode(values) -> np.ndarray:
+    """Sorted-unique label encoding (sklearn ``LabelEncoder`` semantics)."""
+    classes = {v: i for i, v in enumerate(sorted(set(values)))}
+    return np.array([classes[v] for v in values], dtype=np.int64)
+
+
+def load_svmlight(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """An svmlight / libsvm file as dense ``(X [n, d] float64, y [n]
+    float64)``, as scikit-learn's ``load_svmlight_file`` reads it with its
+    defaults: ``label index:value ...`` lines, ``#`` comments and
+    ``qid:`` tokens skipped, the indices of a line sorted and unique (else
+    ``ValueError``) and taken as one-based unless some index is 0 (its
+    ``zero_based="auto"``); ``d`` is the largest
+    index plus one. A numpy reader: the machine with the card has no
+    scikit-learn."""
+    labels, rows = [], []
+    with open(path) as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            label, *pairs = line.split()
+            labels.append(float(label))
+            row = []
+            for pair in pairs:
+                k, v = pair.split(":", 1)
+                if k != "qid":
+                    row.append((int(k), float(v)))
+            if any(a[0] >= b[0] for a, b in zip(row, row[1:])):
+                raise ValueError("Feature indices in SVMlight/LibSVM data "
+                                 "file should be sorted and unique.")
+            rows.append(row)
+    indices = [k for row in rows for k, _ in row]
+    shift = 1 if indices and min(indices) > 0 else 0
+    d = (max(indices) + 1 - shift) if indices else 0
+    X = np.zeros((len(rows), d), dtype=np.float64)
+    for i, row in enumerate(rows):
+        for k, v in row:
+            X[i, k - shift] = v
+    return X, np.asarray(labels, dtype=np.float64)
 
 
 def load_recsys_dataset(name: str = "ml-100k",
@@ -220,6 +266,57 @@ def get_CIFAR10(allow_synthetic: bool = True):
     Xtr, ytr = _synthetic_images("cifar10-train", 50_000, (32, 32, 3), 10)
     Xte, yte = _synthetic_images("cifar10-test", 10_000, (32, 32, 3), 10)
     return (Xtr, ytr), (Xte, yte)
+
+
+def get_FashionMNIST(allow_synthetic: bool = True):
+    """FashionMNIST train and test sets as NHWC float32 numpy arrays,
+    ``((X [60000, 28, 28, 1], y), (X [10000, 28, 28, 1], y))``: the JAX
+    package's offline stand-in (:func:`_synthetic_images` under the names
+    ``fmnist-train`` and ``fmnist-test``), value for value, with its
+    warning. No archive is read and no download is tried;
+    ``allow_synthetic=False`` raises."""
+    if not allow_synthetic:
+        raise FileNotFoundError(
+            "the real FashionMNIST set needs its idx archives, which the "
+            "port does not load; pass allow_synthetic=True for the "
+            "synthetic stand-in")
+    warnings.warn("FashionMNIST substituted with synthetic 28x28x1 data "
+                  "(no egress).")
+    Xtr, ytr = _synthetic_images("fmnist-train", 60_000, (28, 28, 1), 10)
+    Xte, yte = _synthetic_images("fmnist-test", 10_000, (28, 28, 1), 10)
+    return (Xtr, ytr), (Xte, yte)
+
+
+def get_FEMNIST(n_writers: int = 100, allow_synthetic: bool = True):
+    """Federated EMNIST as per-writer shards of 28x28 character images:
+    ``((X, y, assignment), (X, y, assignment))`` for the train and test
+    splits, ``assignment[i]`` writer ``i``'s row indices. The JAX
+    package's offline stand-in, value for value (62 classes, shard sizes
+    drawn log-normally from the name-keyed generator, the cursors
+    advancing from writer to writer), with its warning. No archive is
+    read; ``allow_synthetic=False`` raises."""
+    if not allow_synthetic:
+        raise FileNotFoundError(
+            "the real FEMNIST set needs femnist.tar.gz, which the port "
+            "does not load; pass allow_synthetic=True for the synthetic "
+            "stand-in")
+    warnings.warn("FEMNIST substituted with synthetic per-writer 28x28 data "
+                  "(no egress).")
+    rng = _name_seeded_rng("femnist")
+    n_classes = 62
+    sizes_tr = np.maximum((rng.lognormal(4.5, 0.4, n_writers)).astype(int), 8)
+    sizes_te = np.maximum(sizes_tr // 5, 2)
+
+    def build(sizes, tag):
+        X, y = _synthetic_images(f"femnist-{tag}", int(sizes.sum()),
+                                 (28, 28, 1), n_classes)
+        assignment, cursor = [], 0
+        for size in sizes:
+            assignment.append(np.arange(cursor, cursor + int(size)))
+            cursor += int(size)
+        return X, y, assignment
+
+    return build(sizes_tr, "train"), build(sizes_te, "test")
 
 
 class AssignmentHandler:

@@ -81,14 +81,33 @@ def _xavier_uniform(shape, fan_in, fan_out, generator):
     return (2.0 * u - 1.0) * limit
 
 
+# The standard normal CDF at -2 and 2: the truncation bounds of flax's
+# truncated normal, as probabilities.
+_PHI_LO = 0.5 * math.erfc(math.sqrt(2.0))
+_PHI_HI = 1.0 - _PHI_LO
+
+
 def _lecun_normal(shape, fan_in, generator):
-    # flax's default Dense init: a normal truncated at two standard
-    # deviations, rescaled so the variance is 1 / fan_in.
+    """flax's default Dense init: a normal truncated at two standard
+    deviations, rescaled so the variance is ``1 / fan_in``.
+
+    Drawn by the inverse CDF in the module itself: one float64 uniform
+    per value mapped into ``[Phi(-2), Phi(2)]``, then ``erfinv`` and the
+    scale ``std * sqrt(2)``. No rejection loop and no algorithm of the
+    torch release, so one seed gives the same weights on every
+    installation."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    t = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
-                                generator=generator)
-    return t
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    p = _PHI_LO + (_PHI_HI - _PHI_LO) * u
+    z = torch.erfinv(2.0 * p - 1.0) * (std * math.sqrt(2.0))
+    return z.to(torch.float32)
+
+
+def param_count(params: dict) -> int:
+    """Total number of scalars in a model's ``{name: tensor}`` parameters
+    (its ``init``), as the JAX package counts a pytree's leaves; a flat
+    row's padding columns are not parameters (``ParamLayout.width``)."""
+    return sum(int(t.numel()) for t in params.values())
 
 
 def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):

@@ -45,7 +45,7 @@ online draws and updates, and the neighbour cache's pop and merge.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -156,6 +156,18 @@ class DrawProvider:
         each row's 31-bit ``payload`` (padding columns False)."""
         raise NotImplementedError
 
+    def get_state(self) -> Optional[dict]:
+        """What a checkpoint must keep for a run to continue with the same
+        draws: None for a provider keyed on the round and the purpose (the
+        JAX engine's keys, the oracle), whose draws need no state; a
+        stream provider gives its stream's state (:class:`TorchDraws`)."""
+        return None
+
+    def set_state(self, state: Optional[dict]) -> None:
+        """Resume from a :meth:`get_state` result."""
+        if state is not None:
+            raise ValueError(f"{type(self).__name__} keeps no draw state")
+
     def derive(self, tag: int) -> "DrawProvider":
         """The provider of a run segment keyed on ``tag`` (PENS's second
         phase runs under the JAX base key ``fold_in(key, 2)``); a stream
@@ -237,6 +249,10 @@ class TorchDraws(DrawProvider):
     seed gives the same draws on the CPU and on the card (a run on each can
     then be held against the other). The values are few (``[n]`` masks and
     peers, ``[n, epochs, s]`` shard orders), so the copy is small.
+
+    The draws are one stream: they do not depend on the round, so a run
+    continues with the same draws only from the generator's state, which
+    a checkpoint keeps (:meth:`get_state`, :meth:`set_state`).
     """
 
     def __init__(self, seed: int = 42):
@@ -247,6 +263,14 @@ class TorchDraws(DrawProvider):
         # provider's life so that alternating between them copies nothing.
         # A sparse topology's neighbour lists are its CSR arrays already.
         self._neighbours: dict = {}
+
+    def get_state(self) -> dict:
+        """The generator's state (a uint8 tensor, a copy)."""
+        return {"generator": self.generator.get_state()}
+
+    def set_state(self, state) -> None:
+        # A checkpoint read onto the card holds the state on the card.
+        self.generator.set_state(state["generator"].cpu())
 
     def _perms(self, n: int, epochs: int, s: int) -> torch.Tensor:
         u = torch.rand((n, max(epochs, 1), s), generator=self.generator)

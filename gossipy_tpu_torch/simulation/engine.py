@@ -94,8 +94,13 @@ models, sampled evaluation, the three deliver paths with wide and compact
 dispatch, the three ring formats, every create-model mode (UPDATE_MERGE on
 the plain path, as in the JAX engine), handlers with and without optimizer
 state or shard orders (``BaseHandler``'s defaults), dense and sparse
-topologies, probes, sentinels and chaos, event receivers,
-:meth:`GossipSimulator.memory_budget` and
+topologies, probes, sentinels and chaos, event receivers, host span
+tracing (``tracing=``; no ``engine.compile`` span, as nothing compiles),
+:meth:`GossipSimulator.memory_budget` and its
+:meth:`GossipSimulator.check_memory_budget`,
+:meth:`GossipSimulator.run_manifest`, :meth:`GossipSimulator.save` and
+:meth:`GossipSimulator.load` (:mod:`gossipy_tpu_torch.checkpoint`, the
+draw state kept beside the state) and
 :meth:`GossipSimulator.run_repetitions`. Every other option of the JAX
 engine raises ``NotImplementedError``.
 """
@@ -104,6 +109,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import warnings
 from typing import NamedTuple, Optional, Union
 
@@ -122,6 +128,8 @@ from ..random import K_CALL, K_DELAY, K_DROP, K_EXTRA, K_ONLINE, K_PEER, \
 from ..telemetry import FailureCounts
 from ..telemetry.health import HEALTH_STAT_KEYS, HealthCarry, \
     SentinelConfig, health_event_row, health_round_stats, nonfinite_total
+from ..telemetry.tracing import WAIT_CAT, attach_device_spans, \
+    ensure_tracer, span
 from ..telemetry.probes import PROBE_STAT_KEYS, ProbeAccum, ProbeConfig, \
     consensus_stats, param_layer_names, probe_event_row, \
     probe_stats_from_accum, sq_param_distance
@@ -300,6 +308,28 @@ def population_metrics(handler, params: torch.Tensor, data: dict,
     return local, glob
 
 
+class MemoryBudgetExceeded(RuntimeError):
+    """The predicted device-memory footprint exceeds the card's budget.
+
+    Raised by :meth:`GossipSimulator.check_memory_budget` before any
+    launch, naming the predicted bytes, the limit and the dominant term;
+    carries ``predicted_bytes``, ``limit_bytes``, ``dominant_term`` and
+    the whole ``budget`` dict."""
+
+    def __init__(self, predicted_bytes: int, limit_bytes: int,
+                 dominant_term: str, budget: dict):
+        self.predicted_bytes = int(predicted_bytes)
+        self.limit_bytes = int(limit_bytes)
+        self.dominant_term = dominant_term
+        self.budget = budget
+        super().__init__(
+            f"memory budget refused: predicted "
+            f"{predicted_bytes / 2**30:.2f} GB exceeds the "
+            f"{limit_bytes / 2**30:.2f} GB limit; dominant term "
+            f"{dominant_term} = {budget.get(dominant_term, 0) / 2**30:.2f} "
+            "GB")
+
+
 class GossipSimulator(SimulationEventSender):
     """Vanilla gossip simulator.
 
@@ -325,6 +355,10 @@ class GossipSimulator(SimulationEventSender):
     probes, sentinels, chaos
         As in the JAX engine: ``ProbeConfig`` or bool, ``SentinelConfig``
         or bool, ``ChaosConfig`` or dict.
+    tracing : None | bool | Tracer
+        Host span tracing (:mod:`~gossipy_tpu_torch.telemetry.tracing`):
+        ``True`` records into the process-default tracer, a ``Tracer``
+        into itself; None does no tracing work.
     draws : DrawProvider | None
         Source of every random draw of the run (default
         :class:`~gossipy_tpu_torch.random.TorchDraws` seeded with 42).
@@ -373,7 +407,7 @@ class GossipSimulator(SimulationEventSender):
             raise ValueError(f"unknown history_dtype {history_dtype!r}; "
                              "options: " + ", ".join(self._HISTORY_DTYPES))
         unported = {"mesh": mesh, "perf": perf, "metrics": metrics,
-                    "cohort": cohort, "tracing": tracing, "ledger": ledger}
+                    "cohort": cohort, "ledger": ledger}
         for name, val in unported.items():
             if val is not None:
                 raise NotImplementedError(f"{name}= is not ported yet")
@@ -458,6 +492,14 @@ class GossipSimulator(SimulationEventSender):
             and handler.mode == CreateModelMode.MERGE_UPDATE
             and not self._overridden(["_apply_receive", "_receive_rows"]))
         self._init_chaos(ChaosConfig.coerce(chaos))
+        # Host-side span tracing (telemetry.tracing): None (no tracing
+        # work at all), True (the process-default tracer) or a Tracer.
+        if tracing is None or tracing is False:
+            self.tracer = None
+        elif tracing is True:
+            self.tracer = ensure_tracer()
+        else:
+            self.tracer = tracing
 
     def _init_chaos(self, chaos: Optional[ChaosConfig]) -> None:
         """Compile the chaos config into its tables: on the host (the
@@ -761,6 +803,70 @@ class GossipSimulator(SimulationEventSender):
         out["total_bytes"] = sum(v for k, v in out.items()
                                  if k.endswith("_bytes"))
         return out
+
+    def check_memory_budget(self, limit_bytes: Optional[int] = None
+                            ) -> dict:
+        """Predict and refuse: raise :class:`MemoryBudgetExceeded` when
+        :meth:`memory_budget`'s total will not fit, before any launch.
+        Returns the budget when it fits (or when no limit is known).
+
+        The limit, first hit wins: ``limit_bytes``; the
+        ``GOSSIPY_TPU_MEMORY_LIMIT`` variable (bytes); on the card, its
+        total memory (``torch.cuda.mem_get_info()[1]``). A CPU run has no
+        limit and passes, as on the JAX package's CPU backend. The budget
+        is a floor (no activations, no allocator workspace), so what is
+        refused here was certain to fail later."""
+        budget = self.memory_budget()
+        limit = limit_bytes
+        if limit is None:
+            env = os.environ.get("GOSSIPY_TPU_MEMORY_LIMIT")
+            if env:
+                limit = int(float(env))
+        if limit is None and self.device.type == "cuda":
+            limit = torch.cuda.mem_get_info(self.device)[1]
+        if limit is None:
+            return budget
+        predicted = int(budget["total_bytes"])
+        if predicted > int(limit):
+            terms = {k: v for k, v in budget.items()
+                     if k.endswith("_bytes") and k != "total_bytes"
+                     and v is not None}
+            dominant = max(terms, key=terms.get) if terms else "total_bytes"
+            raise MemoryBudgetExceeded(predicted, int(limit), dominant,
+                                       budget)
+        return budget
+
+    def run_manifest(self, extra: Optional[dict] = None):
+        """The run's :class:`~gossipy_tpu_torch.telemetry.manifest.
+        RunManifest`: config snapshot, backend and versions, git
+        revision, :meth:`memory_budget`, and (with ``tracing=``) the
+        trace's totals; ``perf`` is None (``perf=`` is not ported). Host
+        side only, before or after a run."""
+        from ..telemetry.manifest import RunManifest
+        return RunManifest.from_simulator(self, extra=extra)
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, path: str, state: SimState, draws=None) -> str:
+        """Checkpoint ``state`` and the draw state of ``draws`` (default:
+        the simulator's own provider) to the file ``path``
+        (:func:`gossipy_tpu_torch.checkpoint.save_checkpoint`)."""
+        from ..checkpoint import save_checkpoint
+        return save_checkpoint(path, state,
+                               draws=self.draws if draws is None else draws)
+
+    def load(self, path: str, mesh=None):
+        """Restore ``(state, draws)`` saved by :meth:`save`, on a simulator
+        built with the same configuration: the template is
+        ``init_nodes(local_train=False)`` (which, as in the JAX engine,
+        also resets the sentinels' carry), and the saved draw state goes
+        into the simulator's own provider, returned as ``draws`` (None
+        when the checkpoint kept none). ``mesh`` is not ported."""
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported yet")
+        from ..checkpoint import restore_checkpoint
+        template = self.init_nodes(local_train=False)
+        return restore_checkpoint(path, template, self.draws)
 
     def _age_shape(self) -> tuple:
         """The shape of one node's age (``()``, or ``(P,)`` for a
@@ -1718,8 +1824,33 @@ class GossipSimulator(SimulationEventSender):
         state and a report. The per-round counters stay on the device
         until the run ends, unless a live receiver is attached: each
         round is then copied to the host and notified as it ends. After
-        the run, the other receivers get every round replayed."""
+        the run, the other receivers get every round replayed.
+
+        With ``tracing=`` the call is an ``engine.start`` span (a run
+        window: ``round_start``, ``rounds``) holding ``engine.run`` (a
+        wait, closed after the card is synchronised, with one
+        ``device.execute`` span laid under it) and ``engine.report``.
+        Without it, no tracing work is done."""
+        tr = self.tracer
         first_round = state.round
+        if tr is None:
+            rows = self._run_rounds(state, n_rounds)
+            return state, self._finish_run(first_round, rows, n_rounds)
+        with span("engine.start", cat="engine", tracer=tr,
+                  round_start=first_round, rounds=n_rounds):
+            with span("engine.run", cat=WAIT_CAT, tracer=tr) as sp_run:
+                rows = self._run_rounds(state, n_rounds)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            attach_device_spans(tr, sp_run.ts_us, sp_run.dur_us,
+                                args={"n_rounds": n_rounds})
+            with span("engine.report", cat="engine", tracer=tr):
+                report = self._finish_run(first_round, rows, n_rounds)
+        return state, report
+
+    def _run_rounds(self, state: SimState, n_rounds: int) -> list:
+        """The rounds of one :meth:`start` call: their stats rows, still
+        on the device (a live receiver gets each as it ends)."""
         last = state.round + n_rounds - 1
         if self.sentinels is not None and self._health_carry is None:
             self._health_carry = self._health_zero_carry()
@@ -1729,6 +1860,11 @@ class GossipSimulator(SimulationEventSender):
             rows.append(self._run_round(state, last))
             if live:
                 self._emit_live(state.round, rows[-1])
+        return rows
+
+    def _finish_run(self, first_round: int, rows: list, n_rounds: int
+                    ) -> SimulationReport:
+        """The rows on the host, the report, the replayed events."""
         stats = {}
         for k in rows[0] if rows else ():
             vals = [torch.as_tensor(row[k], device=self.device) for row in rows]
@@ -1736,7 +1872,7 @@ class GossipSimulator(SimulationEventSender):
         report = self._build_report(stats, n_rounds)
         if rows:
             self.replay_events(first_round, stats, self._metric_keys())
-        return state, report
+        return report
 
     def _emit_live(self, round_no: int, row: dict) -> None:
         """Notify the live receivers of one finished round (1-based

@@ -15,19 +15,52 @@ never the row's padding, and never the history ring:
 - a per-round ``health_trip`` flag: a non-finite count or a divergence
   flag fired this round.
 
-The flight recorder and the bundle replay of the JAX module are not
-ported yet.
+And the flight recorder (:class:`FlightRecorder`): it drives a run in
+chunks and, when a sentinel trips, the run raises, or the watchdog fires,
+writes a repro bundle (the last healthy state and its draw state through
+:mod:`gossipy_tpu_torch.checkpoint`, the run manifest, the trailing
+telemetry events, the verdict). :func:`replay_bundle` restores a bundle
+into a fresh simulator and replays it round by round, naming the first
+divergent round, parameter leaf and node set, and re-runs the offending
+round phase by phase (:func:`localize_first_nonfinite`) to name the
+engine phase that made the first non-finite value.
+
+Bundle directory schema (``BUNDLE_VERSION`` 1), the JAX package's files::
+
+    <bundle>/
+      checkpoint            the last HEALTHY state and the draw state at
+                            its round (``torch.save``; see checkpoint.py)
+      checkpoint.meta.json  {"bundle_version", "kind", "round"}
+      manifest.json         the simulator's RunManifest
+                            (extra.flight_recorder carries the bundle block)
+      verdict.json          {"bundle_version", "kind": "sentinel" |
+                             "exception" | "watchdog", "chunk_start_round",
+                             "first_bad_round" | null, "detail": {...},
+                             "perf": null}
+      events.jsonl          trailing telemetry events from the sink ring
+                            (the per-round rows the recorder mirrors in),
+                            oldest first
+
+The JAX recorder also appends each bundle to a run ledger when
+``GOSSIPY_TPU_LEDGER`` is set; the port has no ledger yet, so its
+recorder refuses to run while that variable is set.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import threading
+import warnings
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
-from .probes import Spans, leaf_columns
+from .probes import Spans, leaf_columns, param_layer_names
+
+BUNDLE_VERSION = 1
 
 
 @dataclass(frozen=True)
@@ -254,3 +287,377 @@ def health_event_row(vals: dict) -> Optional[dict]:
     if "health_trip" in vals:
         row["trip"] = bool(int(vals["health_trip"]))
     return row or None
+
+
+# -- flight recorder --------------------------------------------------------
+
+
+def _first_trip_index(report) -> Optional[int]:
+    """0-based index of the first tripped round in a report's
+    ``health_trip`` array, or None."""
+    trips = getattr(report, "health_trip", None)
+    if trips is None:
+        return None
+    idx = np.nonzero(np.asarray(trips) > 0)[0]
+    return int(idx[0]) if idx.size else None
+
+
+def _sim_spans(sim):
+    layout = sim.handler.layout
+    return [(layout.offsets[name], int(np.prod(shape)))
+            for name, shape in layout.leaves]
+
+
+class FlightRecorder:
+    """Chunked runner that captures a repro bundle on anomaly.
+
+    Drives ``sim.start`` in ``chunk``-round segments, keeping a copy of
+    each segment's start state and draw state as the last healthy
+    checkpoint (``start`` updates its state in place, so the copy is what
+    survives a tripped chunk). On the first tripped sentinel round, an
+    exception out of ``start``, or the per-chunk watchdog deadline, the
+    bundle is written (see the module doc for its files) and recording
+    stops. The recorder mirrors each round's event row into the process
+    telemetry sink (kind ``"round"``), so the bundle's ``events.jsonl``
+    carries the trailing per-round history; when the sink ring's eviction
+    truncated that window, a warning says so once.
+
+    Usage::
+
+        rec = FlightRecorder(out_dir, chunk=50)
+        state, reports, bundle = rec.run(sim, state, n_rounds=1000)
+        if bundle is not None:
+            ...  # replay_bundle(bundle, fresh_sim) localizes the fault
+    """
+
+    def __init__(self, out_dir: str, chunk: int = 50,
+                 trailing_rounds: int = 64,
+                 watchdog_seconds: Optional[float] = None):
+        self.out_dir = os.path.abspath(out_dir)
+        self.chunk = int(chunk)
+        assert self.chunk >= 1
+        self.trailing_rounds = int(trailing_rounds)
+        self.watchdog_seconds = watchdog_seconds
+        self.bundle_path: Optional[str] = None
+        self._rounds_recorded = 0
+        self._warned_truncated = False
+
+    # -- bundle writing ----------------------------------------------------
+
+    def _write_bundle(self, sim, state, draws, kind: str,
+                      chunk_start_round: int,
+                      first_bad_round: Optional[int] = None,
+                      detail: Optional[dict] = None) -> str:
+        """Write the repro bundle for ``state`` (the last HEALTHY state, at
+        round ``chunk_start_round``, with ``draws`` the draw state taken
+        then). Returns the bundle path."""
+        from ..checkpoint import save_checkpoint
+        from .sink import get_sink
+        from .tracing import span
+
+        name = f"bundle_r{chunk_start_round:06d}_{kind}"
+        path = os.path.join(self.out_dir, name)
+        with span("flight_recorder.write_bundle", cat="checkpoint",
+                  kind=kind, round=int(chunk_start_round)):
+            os.makedirs(path, exist_ok=True)
+            save_checkpoint(os.path.join(path, "checkpoint"), state,
+                            draws=draws,
+                            meta={"bundle_version": BUNDLE_VERSION,
+                                  "kind": kind,
+                                  "round": int(chunk_start_round)})
+
+            detail = dict(detail or {})
+            chaos_cfg = getattr(sim, "chaos", None)
+            if chaos_cfg is not None and "chaos_windows" not in detail:
+                # The fault windows active at the tripped round and at the
+                # checkpoint round (a heal-induced trip fires just after
+                # its window closes).
+                at = (first_bad_round if first_bad_round is not None
+                      else chunk_start_round)
+                try:
+                    detail["chaos_windows"] = chaos_cfg.active_at(at)
+                    detail["chaos_windows_at_checkpoint"] = \
+                        chaos_cfg.active_at(chunk_start_round)
+                    detail["chaos_horizon"] = int(chaos_cfg.horizon)
+                except Exception:  # verdict context is best-effort
+                    pass
+            verdict = {
+                "bundle_version": BUNDLE_VERSION,
+                "kind": kind,
+                "chunk_start_round": int(chunk_start_round),
+                "first_bad_round": (int(first_bad_round)
+                                    if first_bad_round is not None else None),
+                "detail": detail,
+                # The JAX verdict's performance context: None without
+                # perf= (not ported).
+                "perf": None,
+            }
+            with open(os.path.join(path, "verdict.json"), "w") as fh:
+                json.dump(verdict, fh, indent=2)
+                fh.write("\n")
+
+            try:
+                sim.run_manifest(extra={"flight_recorder": {
+                    "bundle_version": BUNDLE_VERSION, "kind": kind,
+                    "chunk_start_round": int(chunk_start_round),
+                    "trailing_rounds": self.trailing_rounds,
+                }}).save(os.path.join(path, "manifest.json"))
+            except Exception as e:  # manifest is context, not the evidence
+                warnings.warn("flight recorder could not collect the run "
+                              f"manifest: {e!r}")
+
+            sink = get_sink()
+            events = sink.events()
+            round_events = [e for e in events if e.kind == "round"]
+            want = min(self.trailing_rounds, self._rounds_recorded)
+            if len(round_events) < want and sink.dropped_events > 0 \
+                    and not self._warned_truncated:
+                self._warned_truncated = True
+                warnings.warn(
+                    "flight recorder trailing window truncated: the "
+                    "telemetry "
+                    f"sink ring evicted {sink.dropped_events} events "
+                    f"(maxlen {sink.maxlen}); the bundle carries "
+                    f"{len(round_events)} of the requested {want} trailing "
+                    "rounds. Install a larger TelemetrySink to keep more.")
+            with open(os.path.join(path, "events.jsonl"), "w") as fh:
+                for ev in events[-max(self.trailing_rounds, 1) * 2:]:
+                    fh.write(json.dumps(ev.to_dict()) + "\n")
+
+        self.bundle_path = path
+        return path
+
+    def write_bundle(self, sim, state, draws, kind: str,
+                     chunk_start_round: int,
+                     first_bad_round: Optional[int] = None,
+                     detail: Optional[dict] = None,
+                     rounds_recorded: Optional[int] = None) -> str:
+        """Bundle capture for chunk loops the recorder does not own: ``state``
+        must be the last HEALTHY state at round ``chunk_start_round`` and
+        ``draws`` its draw state (a provider, or
+        :func:`gossipy_tpu_torch.checkpoint.draw_record` taken then).
+        ``rounds_recorded`` tells the trailing-window check how many rounds
+        the loop mirrored into the sink. Returns the bundle path."""
+        if rounds_recorded is not None:
+            self._rounds_recorded = int(rounds_recorded)
+        return self._write_bundle(sim, state, draws, kind, chunk_start_round,
+                                  first_bad_round=first_bad_round,
+                                  detail=detail)
+
+    # -- driving -----------------------------------------------------------
+
+    def run(self, sim, state, n_rounds: int, draws=None
+            ) -> tuple[Any, list, Optional[str]]:
+        """Run ``n_rounds`` rounds in chunks; returns ``(state, reports,
+        bundle_path)``, ``bundle_path`` None for a clean run. ``draws`` is
+        the run's provider, installed as ``sim.draws`` when given. On an
+        exception out of ``sim.start`` the bundle is written first, then
+        the exception re-raised."""
+        assert getattr(sim, "sentinels", None) is not None, \
+            "FlightRecorder needs a sentinel-enabled simulator " \
+            "(GossipSimulator(sentinels=True))"
+        if os.environ.get("GOSSIPY_TPU_LEDGER"):
+            raise NotImplementedError(
+                "GOSSIPY_TPU_LEDGER is set, but the run ledger is not "
+                "ported yet: the recorder would not ingest its bundles")
+        from ..checkpoint import clone_state, draw_record
+        from ..simulation.events import CallbackReceiver
+        from .sink import emit_event
+
+        if draws is not None:
+            sim.draws = draws
+        tap = CallbackReceiver(
+            lambda row: emit_event("round", row), live=False)
+        sim.add_receiver(tap)
+        reports: list = []
+        bundle: Optional[str] = None
+        try:
+            done = 0
+            while done < n_rounds:
+                c = min(self.chunk, n_rounds - done)
+                start_state = clone_state(state)
+                start_draws = draw_record(sim.draws)
+                start_round = int(state.round)
+                timer = None
+                if self.watchdog_seconds is not None:
+                    timer = threading.Timer(
+                        self.watchdog_seconds, self._write_bundle,
+                        args=(sim, start_state, start_draws, "watchdog",
+                              start_round),
+                        kwargs={"detail": {
+                            "watchdog_seconds": self.watchdog_seconds}})
+                    timer.daemon = True
+                    timer.start()
+                try:
+                    state, report = sim.start(state, n_rounds=c)
+                    dev = getattr(sim, "device", None)
+                    if dev is not None and dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                except Exception as e:
+                    bundle = self._write_bundle(
+                        sim, start_state, start_draws, "exception",
+                        start_round, detail={"error": repr(e)[:500]})
+                    raise
+                finally:
+                    if timer is not None:
+                        timer.cancel()
+                self._rounds_recorded += c
+                reports.append(report)
+                idx = _first_trip_index(report)
+                if idx is not None:
+                    bundle = self._write_bundle(
+                        sim, start_state, start_draws, "sentinel",
+                        start_round, first_bad_round=start_round + idx,
+                        detail=_trip_detail(sim, report, idx))
+                    break
+                done += c
+        finally:
+            sim.remove_receiver(tap)
+        if bundle is None and self.bundle_path is not None:
+            bundle = self.bundle_path  # the watchdog fired mid-chunk
+        return state, reports, bundle
+
+
+def _trip_detail(sim, report, idx: int) -> dict:
+    """JSON-able summary of the tripped round ``idx`` (0-based within the
+    report) for the bundle verdict."""
+    detail: dict = {}
+
+    def arr(name):
+        v = getattr(report, name, None)
+        return None if v is None else np.asarray(v[idx])
+
+    nf = arr("health_nonfinite_params")
+    if nf is not None:
+        detail["nonfinite_params_total"] = int(nf.sum())
+        if nf.sum() > 0:
+            names = param_layer_names(sim.handler.layout)
+            bad = [names[i] if i < len(names) else str(i)
+                   for i in np.nonzero(nf > 0)[0]]
+            detail["nonfinite_leaves"] = bad
+    flags = arr("health_diverged_per_node")
+    if flags is not None:
+        detail["diverged_nodes"] = [int(i) for i in
+                                    np.nonzero(flags > 0)[0][:32]]
+    for name, key in (("health_delta_norm", "delta_norm"),
+                      ("health_param_norm_max", "param_norm_max")):
+        v = arr(name)
+        if v is not None:
+            # Strict JSON: a NaN vital serializes as null.
+            detail[key] = float(v) if np.isfinite(v) else None
+    return detail
+
+
+# -- replay -----------------------------------------------------------------
+
+
+def localize_first_nonfinite(sim, state, draws=None) -> dict:
+    """Re-run ONE round phase by phase on a copy of ``state`` and name the
+    first engine phase after which the params hold a non-finite value
+    (``"send"``, ``"receive_merge"``, ``"reply"``, else
+    ``"eval_or_none"``). ``draws`` (a draw record, or None for a provider
+    keyed on the round) sets ``sim.draws`` to the round's start first, so
+    the phases draw what the round drew. Only simulators on the base
+    round decomposition are localized; a variant whose ``_round`` is its
+    own (All2All) reports ``"round"``."""
+    from ..checkpoint import clone_state
+    from ..simulation.engine import GossipSimulator
+    if getattr(type(sim), "_round", None) is not GossipSimulator._round:
+        return {"phase": "round"}
+    if draws is not None:
+        sim.draws.set_state(draws["state"])
+    st = clone_state(state)
+    spans = _sim_spans(sim)
+    r = st.round
+    sim._pre_send(st, r)
+    sim._snapshot(st, r)
+    sim._send_phase(st, r)
+    phases = [("send", st.model.params.clone())]
+    sim._deliver_phase(st, r)
+    phases.append(("receive_merge", st.model.params.clone()))
+    sim._reply_phase(st, r)
+    phases.append(("reply", st.model.params))
+    for phase, params in phases:
+        if int(nonfinite_total(params, spans)) > 0:
+            return {"phase": phase}
+    return {"phase": "eval_or_none"}
+
+
+def replay_bundle(bundle_dir: str, sim, max_rounds: Optional[int] = None,
+                  localize: bool = True) -> dict:
+    """Restore a flight-recorder bundle into ``sim`` and replay forward
+    until the first tripped round.
+
+    ``sim`` must be built with the SAME configuration as the recorded run
+    (the bundle's ``manifest.json`` ``config`` block says what it was),
+    with sentinels on. The bundle's draw state goes into ``sim.draws``;
+    rounds are replayed one at a time (a chunked run draws what a straight
+    one draws), each round's sentinel verdict read back on the host, so
+    the first divergent round, parameter leaf and node set are named
+    exactly.
+
+    Returns a verdict dict::
+
+        {"first_bad_round": int | None,     # absolute round index
+         "trip": "nonfinite" | "divergence" | None,
+         "leaf": str | None,                # first non-finite leaf
+         "leaf_index": int | None,
+         "nodes": [int, ...],               # affected node ids (<= 32)
+         "nonfinite_per_leaf": [int, ...],
+         "phase": str | None,               # per-phase localization
+         "start_round": int,
+         "matches_recorded": bool | None}   # against the bundle's verdict
+    """
+    assert getattr(sim, "sentinels", None) is not None, \
+        "replay needs a sentinel-enabled simulator (sentinels=True)"
+    from ..checkpoint import clone_state, draw_record, restore_checkpoint
+
+    with open(os.path.join(bundle_dir, "verdict.json")) as fh:
+        recorded = json.load(fh)
+
+    template = sim.init_nodes(local_train=False)
+    state, _ = restore_checkpoint(os.path.join(bundle_dir, "checkpoint"),
+                                  template, sim.draws)
+    start_round = int(state.round)
+
+    if max_rounds is None:
+        if recorded.get("first_bad_round") is not None:
+            max_rounds = recorded["first_bad_round"] - start_round + 1
+        else:
+            max_rounds = 64
+    names = param_layer_names(sim.handler.layout)
+    spans = _sim_spans(sim)
+
+    verdict: dict = {"first_bad_round": None, "trip": None, "leaf": None,
+                     "leaf_index": None, "nodes": [],
+                     "nonfinite_per_leaf": None, "phase": None,
+                     "start_round": start_round, "matches_recorded": None}
+    for j in range(max_rounds):
+        prev, prev_draws = clone_state(state), draw_record(sim.draws)
+        state, report = sim.start(state, n_rounds=1)
+        if _first_trip_index(report) is None:
+            continue
+        verdict["first_bad_round"] = start_round + j
+        counts = nonfinite_counts(state.model.params, spans).cpu().numpy()
+        verdict["nonfinite_per_leaf"] = [int(c) for c in counts]
+        if counts.sum() > 0:
+            verdict["trip"] = "nonfinite"
+            li = int(np.nonzero(counts > 0)[0][0])
+            verdict["leaf_index"] = li
+            verdict["leaf"] = names[li] if li < len(names) else str(li)
+            o, w = spans[li]
+            rows = ~torch.isfinite(state.model.params[:, o:o + w]).all(dim=1)
+            verdict["nodes"] = [int(i) for i in
+                                torch.nonzero(rows).flatten()[:32].tolist()]
+            if localize:
+                verdict["phase"] = localize_first_nonfinite(
+                    sim, prev, prev_draws)["phase"]
+        else:
+            verdict["trip"] = "divergence"
+            flags = np.asarray(report.health_diverged_per_node[0])
+            verdict["nodes"] = [int(i) for i in np.nonzero(flags > 0)[0][:32]]
+        break
+    if recorded.get("first_bad_round") is not None:
+        verdict["matches_recorded"] = (
+            verdict["first_bad_round"] == recorded["first_bad_round"])
+    return verdict

@@ -1,8 +1,9 @@
 """Evaluation metrics over masked, batched scores, and the curve plot.
 
 Counterpart of the metrics in ``gossipy_tpu/utils.py`` (classification,
-the ±1 linear learners', NMI and RMSE) and of its ``plot_evaluation``.
-Every function takes any number of leading axes (the engine passes one
+the ±1 linear learners', NMI and RMSE), of its ``plot_evaluation`` and
+of its two helpers for code ported from the reference,
+``choice_not_n`` and ``params_allclose``. Every metric takes any number of leading axes (the engine passes one
 row per node) and reduces only the sample axis; ``mask`` marks real rows
 (1.0) against padding (0.0).
 """
@@ -159,6 +160,56 @@ def rmse(pred: torch.Tensor, target: torch.Tensor,
         return torch.sqrt(err2.mean(dim=-1))
     return torch.sqrt(_safe_div((err2 * mask).sum(dim=-1),
                                 mask.sum(dim=-1)))
+
+
+def choice_not_n(mn: int, mx: int, notn: int,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A uniform random int in ``[mn, mx]`` excluding ``notn``, as a 0-d
+    int64 tensor drawn from ``generator``: the JAX package's shift form
+    (draw from a range one smaller and step over the excluded value), with
+    no rejection loop. A ``notn`` outside the range excludes nothing."""
+    if not mn <= notn <= mx:
+        return torch.randint(mn, mx + 1, (), generator=generator)
+    if mn >= mx:
+        raise ValueError(
+            f"no value in [{mn}, {mx}] left after excluding {notn}")
+    v = torch.randint(mn, mx, (), generator=generator)   # [mn, mx - 1]
+    return torch.where(v >= notn, v + 1, v)
+
+
+def _leaves(tree):
+    """``(structure, leaves)`` of nested dicts, lists and tuples (a
+    NamedTuple keeps its type) over tensors and arrays."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_leaves(tree[k]) for k in keys]
+        return (("dict", tuple(keys), tuple(p[0] for p in parts)),
+                [x for p in parts for x in p[1]])
+    if isinstance(tree, (list, tuple)):
+        parts = [_leaves(v) for v in tree]
+        return ((type(tree).__name__, len(tree), tuple(p[0] for p in parts)),
+                [x for p in parts for x in p[1]])
+    return ("leaf",), [tree]
+
+
+def params_allclose(p1, p2, rtol: float = 1e-5, atol: float = 1e-7) -> bool:
+    """Parameter equality within ``rtol``/``atol`` (the reference's
+    ``torch_models_eq``): two tensors, or two nests of dicts, lists and
+    tuples of tensors or arrays; False when the structures or a shape
+    differ."""
+    s1, l1 = _leaves(p1)
+    s2, l2 = _leaves(p2)
+    if s1 != s2:
+        return False
+    for a, b in zip(l1, l2):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        if a.shape != b.shape:
+            return False
+        if not torch.allclose(a.to(torch.float64).cpu(),
+                              b.to(torch.float64).cpu(), rtol=rtol,
+                              atol=atol):
+            return False
+    return True
 
 
 def plot_evaluation(evals: list, title: str = "Untitled plot",

@@ -57,10 +57,25 @@ def test_sklearn_builtins_raise(name):
 
 
 def test_svmlight_file_and_unknown_name_raise(tmp_path):
+    """An svmlight file loads through the port's numpy reader as the JAX
+    package loads it through scikit-learn's (one-based indices, a
+    comment, a ``qid`` token, labels encoded in sorted order; the
+    features scaled); an unknown name raises."""
+    from gossipy_tpu.data import load_classification_dataset as jload
     path = tmp_path / "train.dat"
-    path.write_text("1 1:0.5\n")
-    with pytest.raises(NotImplementedError, match="svmlight"):
-        tdata.load_classification_dataset(os.fspath(path))
+    path.write_text("1 1:0.5 3:2.0 # a comment\n-1 qid:3 2:1.5\n\n"
+                    "+1 1:-0.25 4:1\n2 2:0.75 3:-1\n")
+    for normalize in (False, True):
+        X, y = tdata.load_classification_dataset(os.fspath(path),
+                                                 normalize=normalize)
+        jX, jy = jload(os.fspath(path), normalize=normalize)
+        assert X.dtype == jX.dtype and y.dtype == jy.dtype
+        np.testing.assert_allclose(X, jX, rtol=1e-6, atol=1e-7)
+        np.testing.assert_array_equal(y, jy)
+    path.write_text("1 3:1 2:1\n")
+    for load in (tdata.load_classification_dataset, jload):
+        with pytest.raises(ValueError, match="sorted and unique"):
+            load(os.fspath(path))
     with pytest.raises(ValueError, match="Unknown dataset"):
         tdata.load_classification_dataset("no-such-dataset")
 

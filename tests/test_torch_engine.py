@@ -215,7 +215,7 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize("option", [
     {"metrics": True},
-    {"tracing": True},
+    {"cohort": {"size": 4}},
     {"perf": True},
     {"mesh": object()},
     {"ledger": True},

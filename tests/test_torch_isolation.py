@@ -7,7 +7,10 @@
 - The modules the port copies from the JAX package because they are numpy
   only (the data dispatcher, the report) give array-equal output on the
   same inputs (the partitioners and the synthetic images:
-  ``test_torch_data.py``).
+  ``test_torch_data.py``); the two it copies because they are standard
+  library only (``telemetry/sink.py``, ``telemetry/tracing.py``) hold the
+  original's code after their docstrings, the tracer's default process
+  name aside (their results: ``test_torch_flight.py``).
 - The flagship twin, the eight paper-example twins and the audit twin
   (plain and ``--tokenized``) run end to end on the host with those
   modules blocked and no socket able to connect; the
@@ -92,7 +95,13 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.telemetry.cost, gossipy_tpu_torch.native, "
         "gossipy_tpu_torch.examples.scale, "
         "gossipy_tpu_torch.simulation.sequential, "
-        "gossipy_tpu_torch.examples.audit_fidelity\n"
+        "gossipy_tpu_torch.examples.audit_fidelity, "
+        "gossipy_tpu_torch.config, gossipy_tpu_torch.checkpoint, "
+        "gossipy_tpu_torch.telemetry.sink, "
+        "gossipy_tpu_torch.telemetry.tracing, "
+        "gossipy_tpu_torch.telemetry.manifest, "
+        "gossipy_tpu_torch.examples.main_from_config, "
+        "gossipy_tpu_torch.examples.replay_bundle\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -363,3 +372,65 @@ def test_report_matches_original():
     # A report saved by one package loads in the other.
     e = SimulationReport.from_dict(b.to_dict())
     assert json.dumps(e.to_dict()) == json.dumps(a.to_dict())
+
+
+def _body(path):
+    """A module's code after its docstring."""
+    src = path.read_text()
+    return src[src.index('"""', 3) + 3:]
+
+
+# The copies' only departures from the originals' code: the tracer's
+# default process name, and three comment words (a chunked run loop is a
+# "runner" here).
+COPY_EDITS = (('f"gossipy_tpu/{self.pid}"', 'f"gossipy_tpu_torch/{self.pid}"'),
+              ("multi-tenant drivers tag", "multi-tenant runners tag"),
+              ("the time a streaming driver would recover",
+               "the time a streaming runner would recover"),
+              ("for today's synchronous drivers,",
+               "for today's synchronous runners,"))
+
+
+@pytest.mark.parametrize("name", ["sink", "tracing"])
+def test_copied_stdlib_module_equals_original(name):
+    port = _body(REPO / "gossipy_tpu_torch" / "telemetry" / f"{name}.py")
+    orig = _body(REPO / "gossipy_tpu" / "telemetry" / f"{name}.py")
+    for old, new in COPY_EDITS:
+        orig = orig.replace(old, new)
+    assert port == orig
+
+
+def test_config_and_replay_twins_run_with_jax_blocked(tmp_path):
+    """``main_from_config`` on the north-star config cut to 12 nodes and 3
+    rounds, and ``replay_bundle --record`` (the demo's NaN run recorded,
+    then replayed): no JAX module, no socket that may connect."""
+    cfg = json.loads((REPO / "examples" / "configs" /
+                      "spambase_100.json").read_text())
+    cfg.update(n_nodes=12, subsample=600, n_rounds=3,
+               topology_params={"degree": 4, "seed": 42})
+    (tmp_path / "exp.json").write_text(json.dumps(cfg))
+    code = (
+        "import sys, socket, json\n"
+        f"for m in {BANNED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "class NoNet(socket.socket):\n"
+        "    def connect(self, *a):\n"
+        "        raise OSError('no network')\n"
+        "socket.socket = NoNet\n"
+        "import warnings\n"
+        "warnings.simplefilter('ignore')\n"
+        "from gossipy_tpu_torch.examples import main_from_config, "
+        "replay_bundle\n"
+        f"out = main_from_config.main([{str(tmp_path / 'exp.json')!r}, "
+        "'--device', 'cpu'])\n"
+        f"v = replay_bundle.main(['--record', {str(tmp_path / 'fr')!r}, "
+        "'--device', 'cpu'])\n"
+        "print(json.dumps({'out': out, 'v': v}))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["out"]["rounds"] == 3 and got["out"]["sent_messages"] > 0
+    assert np.isfinite(got["out"]["final"]["accuracy"])
+    assert got["v"]["matches_recorded"] is True

@@ -191,6 +191,55 @@ def test_init_distributions_match_flax(which):
                                    rtol=0.15, err_msg=name)
 
 
+# ``_lecun_normal((57, 2), 57, torch.Generator().manual_seed(0))``: its
+# first six values as float32 bit patterns (the north star's LogReg
+# kernel). ``chip_smoke.LECUN_PIN`` holds the same values, which the card's
+# torch must give too.
+LECUN_BITS = (1048290957, 1033913533, 3161465076, 1044841987, 1029340760,
+              1038873588)
+
+
+def test_lecun_normal_pinned():
+    """The truncated normal is drawn in the module (inverse CDF over one
+    float64 uniform each), not by the torch release's sampler: pinned
+    values at a fixed seed and shape, equal to what chip_smoke checks on
+    the card; every value within two standard deviations; the variance
+    ``1 / fan_in`` within sampling error; ``trunc_normal_`` never
+    called."""
+    import math
+
+    import chip_smoke
+    from gossipy_tpu_torch.models import nn as tnn
+    seed, shape = chip_smoke.LECUN_PIN["seed"], chip_smoke.LECUN_PIN["shape"]
+    assert (seed, shape) == (0, (57, 2))
+    x = tnn._lecun_normal(shape, shape[0], torch.Generator().manual_seed(seed))
+    assert x.dtype == torch.float32 and x.shape == shape
+    bits = tuple(x.flatten()[:6].numpy().view(np.uint32).tolist())
+    assert bits == LECUN_BITS == chip_smoke.LECUN_PIN["bits"]
+    fan_in, n = 40, 200_000
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    y = tnn._lecun_normal((n,), fan_in, torch.Generator().manual_seed(1))
+    assert float(y.abs().max()) <= 2 * std
+    var = float(y.double().var())
+    # The variance estimate's standard error is ~ sqrt(2 / n) var (less
+    # for the truncated normal); 5 of them.
+    assert abs(var * fan_in - 1.0) < 5 * math.sqrt(2.0 / n)
+    assert "trunc_normal_" not in open(tnn.__file__).read()
+
+
+def test_param_count():
+    from gossipy_tpu.models import param_count as jcount
+    from gossipy_tpu_torch.models import param_count
+    for jmodel, tmodel, shape in (
+            (LogisticRegression(57, 2), TLogReg(57, 2), (57,)),
+            (CIFAR10Net(), TCIFAR10Net(), (32, 32, 3))):
+        want = jcount(jmodel.init(jax.random.PRNGKey(0),
+                                  jnp.zeros((1,) + shape))["params"])
+        tp = tmodel.init(torch.Generator().manual_seed(0))
+        layout = ParamLayout(tmodel.leaves)
+        assert param_count(tp) == layout.width == want
+
+
 @pytest.mark.parametrize("loss", ["mse", "binary_cross_entropy"])
 @pytest.mark.parametrize("mask_kind", ["partial", "empty", "none"])
 def test_regression_and_binary_losses(loss, mask_kind):
