@@ -193,7 +193,7 @@ Phases, each printed as it runs; any failure exits non-zero:
    at the token north star's (100 rows of 116 columns, one slot). (b)
    Each at full width (4,141 nodes; 100; 5 nodes
    and 50,000 images) for VARIANT_ROUNDS rounds (Onoszko: a window of
-   ONOSZKO_ROUNDS rounds holding a phase-1 merge and 2 phase-2 rounds,
+   ONOSZKO_ROUNDS rounds holding a phase-1 merge and a phase-2 round,
    and its ms per local step): ms/round, the final sampled accuracy, the
    launches, one profiled round's idle share (Onoszko: of 30 local
    steps), the phase times, ``memory_budget()`` beside
@@ -321,6 +321,32 @@ Phases, each printed as it runs; any failure exits non-zero:
    accuracy, K1's launches, one round's idle share; ``tracing=`` on
    against off in interleaved halves of TRACE_HALF_ROUNDS rounds.
 
+15. performance, metrics and the run ledger: the engine's ``perf=``,
+   ``metrics=`` and ``ledger=``, ``start(profile_dir=...)`` and the phase
+   ranges (``telemetry.cost``, ``metrics``, ``ledger``, ``scopes``). (a)
+   The north star on K1 as PERF_CHUNKS segments, once with every
+   host-side option on (``tracing=`` too), once with all off, from the
+   same seeds: every state leaf bit-equal, every report array equal, K1
+   once a round with messages in both. (b) Three north-star legs on K1
+   in PERF_TURNS interleaved turns of PERF_TURN_ROUNDS rounds: off, all
+   on, and off with the phase ranges made null (this script only): each
+   leg's rounds/s and its share. (c) The north star with ``perf=`` for
+   PERF_NS_ROUNDS rounds and the flagship config (``cifar10_100nodes``)
+   with ``perf=`` for PERF_FLAG_ROUNDS rounds, each one ``start``: the card's name and its peak from the peak
+   table, the analytic FLOPs a round equal to the same configuration's
+   count on the CPU, perf's ms/round within PERF_AGREE of the host clock
+   around the same ``start``, ``mfu_est`` = flops / (s x peak), the
+   banked ``hbm_peak_bytes`` beside ``memory_budget()``. (d)
+   PROFILE_ROUNDS north-star rounds under ``start(profile_dir=...)``: the
+   trace holds the four round phases, ``phase_times_from_trace`` gives
+   each a positive device time, their sum within the trace's device
+   time; ``examples/profile_round.py``'s ``profile`` at
+   ATTRIBUTION_ROUNDS rounds: its three legs sum to the whole round
+   within PERF_AGREE. (e) The metrics registry of (a) against the
+   reports' sent and failed by cause; its ledger, one row a segment
+   under one run id; phase 14's recovery run under
+   ``GOSSIPY_TPU_LEDGER``: one bundle row.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -352,10 +378,10 @@ MEMORY_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
 # fp32 outside the tensor cores, H100 SXM (NVIDIA's data sheet); the folds
 # are elementwise, so no tensor-core rate applies.
 FP32_FLOPS = 67e12
-# Dense bf16 tensor-core rate of each H100 part (NVIDIA data sheets), the
-# bound of attention's two products: a bf16 x bf16 product is exact in f32.
-TENSOR_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
-                ("H100", 989e12))
+# The dense bf16 tensor-core rate of each H100 part is the port's
+# telemetry.cost.PEAK_FLOPS (NVIDIA data sheets), read by tensor_rate: the
+# bound of attention's two products (a bf16 x bf16 product is exact in
+# f32) and the MFU's denominator are one table.
 # The TF32 tensor-core rate is half the bf16 one on every H100 part (the
 # same data sheets): the bound of the 3xTF32 route's three products.
 TF32_PER_BF16 = 0.5
@@ -377,7 +403,7 @@ FLAG_NODES = 100
 FLAG_ROUNDS = 10            # timed rounds of each ring leg
 FLAG_CHECK_NODES = 16       # the card-against-CPU runs
 FLAG_CHECK_SUBSAMPLE = 2048
-FLAG_CHECK_ROUNDS = 3
+FLAG_CHECK_ROUNDS = 2
 FLAG_WIRES = ("float32", "bfloat16", "int8")
 
 # The paths of phase 4 after the first: (label, fused_merge, history_dtype).
@@ -826,9 +852,14 @@ GRAPH_KERNEL_NODE = 0
 
 def device_rows(torch, fn):
     """``fn`` once under torch.profiler: its rows of device work (kernels,
-    copies) and the call's wall time in microseconds."""
+    copies) and the call's wall time in microseconds. The engine's phase
+    ranges (``telemetry.scopes``) also come back as device rows, each
+    spanning the kernels it holds; they are not work and are left out."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
+
+    from gossipy_tpu_torch.telemetry import scopes
+    ranges = set(scopes.ROUND_PHASES) | {scopes.PHASE_REPLY}
     torch.cuda.synchronize()
     with trace(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
@@ -837,7 +868,8 @@ def device_rows(torch, fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.key not in ranges]
     return rows, wall_us
 
 
@@ -1746,9 +1778,10 @@ VARIANT_CHECK_ROUNDS = 8
 ONOSZKO_CHECK = dict(subsample=96, step1_rounds=3, rounds=5)
 # Timed rounds at full width: Giaretta's and All2All's reference 100,
 # 100 of Hegedus 2021's 1000, 100 of the tokenized north star. Onoszko's
-# window is cut to ONOSZKO_STEP1 phase-1 rounds (of 100) and 2 phase-2
-# rounds (of 400): 3 local epochs at batch 8 make 3,750 steps an update
-# pass. Under seed 42 the first phase-1 merge falls in round 2 (the
+# window is cut to ONOSZKO_STEP1 phase-1 rounds (of 100) and 1 phase-2
+# round (of 400): 3 local epochs at batch 8 make 3,750 steps an update
+# pass. A second phase-2 round (~60 s) ran the same code on the state the
+# first left and checked nothing the first does not. Under seed 42 the first phase-1 merge falls in round 2 (the
 # message flow does not depend on the weights: a host run with the
 # updates stubbed out finds it); the timed run fails if it holds none.
 # Its profile covers ONOSZKO_PROFILE_ROWS samples of each shard (30
@@ -1756,7 +1789,7 @@ ONOSZKO_CHECK = dict(subsample=96, step1_rounds=3, rounds=5)
 VARIANT_ROUNDS = {"giaretta": 100, "hegedus2021": 100, "all2all": 100,
                   "tokenized": 100}
 ONOSZKO_STEP1 = 3
-ONOSZKO_ROUNDS = ONOSZKO_STEP1 + 2
+ONOSZKO_ROUNDS = ONOSZKO_STEP1 + 1
 ONOSZKO_PROFILE_ROWS = 80
 
 
@@ -1989,7 +2022,7 @@ def variant_timed(torch, merge, label: str, sets: dict) -> dict:
     rounds), the memory budget beside the peak allocation, one profiled
     round's idle share and the phase times. Onoszko's window runs from
     round 0 (its first phase is part of what is timed) and must hold a
-    phase-1 merge and two phase-2 rounds; its ms per local step is
+    phase-1 merge and a phase-2 round; its ms per local step is
     printed."""
     example = next(v[1] for v in VARIANTS if v[0] == label)
     onoszko = example == "onoszko"
@@ -2022,10 +2055,9 @@ def variant_timed(torch, merge, label: str, sets: dict) -> dict:
     extra = ""
     if onoszko:
         merged = int(state.aux["neigh_counter"].sum())
-        if merged == 0 or rounds - ONOSZKO_STEP1 < 2:
+        if merged == 0 or rounds - ONOSZKO_STEP1 < 1:
             raise RuntimeError("variants onoszko: the timed window holds no "
-                               "phase-1 merge or fewer than 2 phase-2 "
-                               "rounds")
+                               "phase-1 merge or no phase-2 round")
         steps_fn, steps = onoszko_steps(torch, sim, state)
         steps_fn()
         torch.cuda.synchronize()
@@ -3650,11 +3682,407 @@ def config_phase(torch, merge, ns_legs: dict) -> dict:
     return paths
 
 
+# -- phase 15: performance, metrics and the run ledger ----------------------
+
+PERF_CHUNKS = (10, 10)      # (a), (e): the north star's two segments
+PERF_TURNS = 4              # (b): the legs' turns (in order, then in
+PERF_TURN_ROUNDS = 50       # reverse, and again), and the rounds of each
+PERF_NS_ROUNDS = 100        # (c): the north star's rounds with perf=
+PERF_FLAG_ROUNDS = 2        # (c): the flagship config's rounds
+PROFILE_ROUNDS = 3          # (d): the profiled north-star rounds
+ATTRIBUTION_ROUNDS = 100    # (d): each leg of profile_round's attribution
+PERF_AGREE = 0.05           # (c): perf's ms/round against the host clock;
+                            # (d): the legs' sum against the whole round
+
+
+def perf_kw(torch, ledger_path: str) -> dict:
+    """Every host-side option on: ``perf``, ``metrics``, ``ledger`` (at
+    ``ledger_path``) and ``tracing`` (a tracer of its own)."""
+    from gossipy_tpu_torch.telemetry import Tracer
+    return {"perf": True, "metrics": True, "ledger": ledger_path,
+            "tracing": Tracer()}
+
+
+def report_arrays(rep) -> dict:
+    """Every per-round array of a report (and its total size) by name."""
+    d = rep.to_dict()
+    return {k: v for k, v in d.items() if not k.startswith("perf")}
+
+
+def perf_equality(torch, merge, tmp: str) -> dict:
+    """Phase 15 (a) and the first half of (e): two fresh north-star runs
+    on K1 from the same seeds, each as PERF_CHUNKS segments, one with
+    every host-side option on, one with all off: every leaf of the state
+    bit-equal, every report array equal, equal K1 launches (once a round
+    with messages); the fresh metrics registry's engine counters equal
+    the reports' sent and failed by cause; the ledger holds one row a
+    segment under one run id. Returns the launches by run."""
+    import os
+
+    from gossipy_tpu_torch.simulation import SimulationReport
+    from gossipy_tpu_torch.telemetry import MetricsRegistry, RunLedger, \
+        set_registry
+    ledger_path = os.path.join(tmp, "ledger-a.jsonl")
+    registry = MetricsRegistry()
+    prev = set_registry(registry)
+    runs = {}
+    try:
+        for label, kw in (("off", {}), ("on", perf_kw(torch, ledger_path))):
+            sim, state = northstar_sim(torch, "cuda", fused_merge="multi",
+                                       **kw)
+            merge.reset_launch_counts()
+            reps = []
+            for n in PERF_CHUNKS:
+                state, rep = sim.start(state, n_rounds=n)
+                reps.append(rep)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+            runs[label] = (sim, state, SimulationReport.concatenate(reps),
+                           launches)
+    finally:
+        set_registry(prev)
+    (_, st_off, rep_off, l_off), (sim, st_on, rep_on, l_on) = \
+        runs["off"], runs["on"]
+    same_state = states_equal(torch, st_off, st_on)
+    a_off, a_on = report_arrays(rep_off), report_arrays(rep_on)
+    same_report = sorted(a_off) == sorted(a_on) and all(
+        json.dumps(a_off[k]) == json.dumps(a_on[k]) for k in a_off)
+    with_msgs = rounds_with_messages(rep_off)
+    rounds = sum(PERF_CHUNKS)
+    perf_rows = rep_on.perf_round_ms is not None and \
+        rep_off.perf_round_ms is None
+    log(f"[perf] (a) north star on K1, {rounds} rounds in segments "
+        f"{list(PERF_CHUNKS)}, all host-side options on against off: state "
+        f"bit-equal {same_state}, report arrays equal {same_report}, perf "
+        f"rows only with perf= {perf_rows}; launches on {l_on}, off {l_off}"
+        f" for {with_msgs} rounds with messages")
+    if not (same_state and same_report and perf_rows) or l_on != l_off \
+            or l_on != {merge.KERNEL: with_msgs} or with_msgs == 0:
+        raise RuntimeError("perf (a): the run with the host-side options on "
+                           "differs from the run with them off")
+    # (e) the metrics registry and the ledger of the same run
+    snap = registry.snapshot()["metrics"]
+
+    def counter(name, **labels):
+        want = {"simulator": "GossipSimulator", **labels}
+        rows = [r["value"] for r in snap[name]["series"]
+                if r["labels"] == want]
+        return rows[0] if rows else None
+    got = {"rounds": counter("engine_rounds_total"),
+           "sent": counter("engine_messages_sent_total")}
+    want = {"rounds": float(rounds), "sent": float(rep_on.sent_messages)}
+    for cause, arr in rep_on.failed_per_cause.items():
+        got[cause] = counter("engine_messages_failed_total", cause=cause)
+        want[cause] = float(np.asarray(arr).sum())
+    rows = RunLedger(ledger_path).read()
+    ids = {r["run_id"] for r in rows["rows"]}
+    segs = [r["extra"] for r in rows["rows"]]
+    log(f"[perf] (e) metrics registry {got}, the reports {want}; ledger "
+        f"{len(rows['rows'])} rows ({rows['skipped']} skipped), run ids "
+        f"{sorted(ids)}, segments {segs}, headline "
+        f"{rows['rows'][-1]['metrics'] if rows['rows'] else None}")
+    if got != want or len(rows["rows"]) != len(PERF_CHUNKS) or \
+            len(ids) != 1 or rows["skipped"] or \
+            [s["rounds"] for s in segs] != list(PERF_CHUNKS):
+        raise RuntimeError("perf (e): the registry or the ledger does not "
+                           "hold the run")
+    return {"perf-off": l_off[merge.KERNEL], "perf-on": l_on[merge.KERNEL]}
+
+
+def null_scopes(sim):
+    """``sim`` with ``telemetry.scopes.phase_scope`` a null context while
+    its ``start`` runs (this script only: the scopes' own cost)."""
+    from gossipy_tpu_torch.telemetry import scopes
+    start = sim.start
+
+    def run(*a, **kw):
+        saved = scopes.phase_scope
+        scopes.phase_scope = lambda name: contextlib.nullcontext()
+        try:
+            return start(*a, **kw)
+        finally:
+            scopes.phase_scope = saved
+    sim.start = run
+    return sim
+
+
+def perf_timed(torch, merge, tmp: str) -> dict:
+    """Phase 15 (b) and the north star of (c): three legs of the north
+    star on K1, each a warm-up round on its own simulator, then
+    PERF_TURNS x PERF_TURN_ROUNDS rounds on a fresh one in interleaved
+    turns (the legs in order, then in reverse, and again; the card
+    synchronised before the host clock stops each ``start``): every
+    option off; every option on; off with the phase ranges made null.
+    K1 once a round with messages, no other launch. Then (c): the north
+    star with ``perf=`` alone, a warm-up round and PERF_NS_ROUNDS rounds
+    in one ``start``, its ``perf_summary`` held by :func:`perf_check`.
+    Returns the launches by leg."""
+    import os
+
+    from gossipy_tpu_torch.telemetry import analytic_round_cost
+
+    def build(label):
+        kw = perf_kw(torch, os.path.join(tmp, "ledger-b.jsonl")) \
+            if label == "on" else {}
+        sim, state = northstar_sim(torch, "cuda", fused_merge="multi", **kw)
+        return (null_scopes(sim) if label == "scopes-off" else sim), state
+    order = ["off", "on", "scopes-off"]
+    for label in order:
+        sim, state = build(label)
+        sim.start(state, n_rounds=1)
+    torch.cuda.synchronize()
+    runs = {label: list(build(label)) + [0.0, {}, []] for label in order}
+    for turn in range(PERF_TURNS):
+        for label in (order if turn % 2 == 0 else order[::-1]):
+            run = runs[label]
+            merge.reset_launch_counts()
+            t0 = time.perf_counter()
+            run[1], rep = run[0].start(run[1], n_rounds=PERF_TURN_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run[2] += wall
+            for k, v in merge.LAUNCHES.items():
+                if v:
+                    run[3][k] = run[3].get(k, 0) + v
+            run[4].append((wall, rep))
+    rate, out = {}, {}
+    for label in order:
+        sim, state, wall, launches, calls = runs[label]
+        with_msgs = sum(rounds_with_messages(rep) for _, rep in calls)
+        acc = calls[-1][1].final("accuracy")
+        if launches != {merge.KERNEL: with_msgs} or with_msgs == 0 or \
+                not torch.isfinite(state.model.params).all() or \
+                not np.isfinite(acc):
+            raise RuntimeError(f"perf (b) {label}: launches {launches} for "
+                               f"{with_msgs} rounds with messages, accuracy "
+                               f"{acc}")
+        rate[label] = PERF_TURNS * PERF_TURN_ROUNDS / wall
+        out[f"perf-timed-{label}"] = launches[merge.KERNEL]
+        log(f"[perf] (b) {label}: {PERF_TURNS * PERF_TURN_ROUNDS} rounds "
+            f"in {wall:.3f} s = {rate[label]:.2f} rounds/s; final accuracy "
+            f"{acc}; launches {launches}")
+    log(f"[perf] (b) share of off: every option on "
+        f"{rate['on'] / rate['off']:.4f}; the phase ranges' own cost, off "
+        f"against off with null ranges: {rate['off'] / rate['scopes-off']:.4f}"
+        " of the null-range rate")
+    # (c) perf= alone: the host clock around one start holds the rounds
+    # and the report (the ledger's fsync'd append and manifest, some
+    # 30-60 ms a start on the card's machine, would sit in it too).
+    sim, state = northstar_sim(torch, "cuda", fused_merge="multi",
+                               perf=True)
+    state, _ = sim.start(state, n_rounds=1)
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=PERF_NS_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    if launches != {merge.KERNEL: rounds_with_messages(rep)}:
+        raise RuntimeError(f"perf (c) north star: launches {launches}")
+    out["perf-northstar"] = launches[merge.KERNEL]
+    cpu_sim, _ = northstar_sim(torch, "cpu", fused_merge="multi")
+    cpu_flops = analytic_round_cost(cpu_sim)["flops_per_round"]
+    perf_check(torch, "north star", sim.perf_summary(),
+               torch.cuda.get_device_name(0), cpu_flops,
+               wall / PERF_NS_ROUNDS, sim.memory_budget())
+    return out
+
+
+def perf_check(torch, label, summary, name, cpu_flops, host_s_per_round,
+               budget) -> None:
+    """Phase 15 (c) on one simulator's ``perf_summary`` after a timed
+    ``start``."""
+    from gossipy_tpu_torch.telemetry import cost
+    last = summary["last_run"]
+    flops = summary["analytic"]["flops_per_round"]
+    s = last["ms_per_round"] / 1e3
+    mfu = flops / (s * cost.PEAK_FLOPS[name])
+    agree = abs(s - host_s_per_round) / host_s_per_round
+    log(f"[perf] (c) {label}: device {summary['device_kind']!r} peak "
+        f"{summary['peak_flops']:.4g} FLOP/s; analytic FLOPs a round "
+        f"{flops:.6g} (the CPU's count {cpu_flops:.6g}; executed "
+        f"{summary['analytic']['flops_per_round_executed']:.6g}, bytes "
+        f"{summary['analytic']['bytes_per_round']:.6g}); perf ms/round "
+        f"{last['ms_per_round']:.4f} against the host clock's "
+        f"{host_s_per_round * 1e3:.4f} ({agree:.2%} apart); mfu_est "
+        f"{last['mfu_est']:.6e} (flops / (s x peak) = {mfu:.6e}); "
+        f"hbm_peak_bytes {summary['hbm_peak_bytes']} beside memory_budget() "
+        f"{budget['total_bytes']}; cold {last['cold']}")
+    if summary["device_kind"] != name or \
+            summary["peak_flops"] != cost.PEAK_FLOPS[name] or \
+            flops != cpu_flops or agree > PERF_AGREE or \
+            abs(last["mfu_est"] - mfu) > 1e-6 * mfu or \
+            not summary["hbm_peak_bytes"]:
+        raise RuntimeError(f"perf (c) {label}: the perf summary does not "
+                           "hold what the run measured")
+
+
+def perf_flagship(torch, merge) -> dict:
+    """Phase 15 (c) on the flagship: the CIFAR10Net config of phase 14
+    with ``perf=``, PERF_FLAG_ROUNDS rounds on the card after its
+    pre-training pass, its perf summary held as the north star's, the
+    analytic count against the same config built on the CPU. Returns the
+    launches."""
+    from gossipy_tpu_torch import set_seed
+    from gossipy_tpu_torch.telemetry import analytic_round_cost
+    name = torch.cuda.get_device_name(0)
+    with images_once():
+        _, cpu, _ = build_config("cifar10_100nodes", "cpu")
+        cpu_flops = analytic_round_cost(cpu)["flops_per_round"]
+        del cpu
+        cfg, sim, _ = build_config("cifar10_100nodes", "cuda",
+                                   simulator_params={"perf": True})
+    state = sim.init_nodes(set_seed(cfg.seed), common_init=cfg.common_init)
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=PERF_FLAG_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    with_msgs = rounds_with_messages(rep)
+    if launches != {merge.KERNEL: with_msgs} or with_msgs == 0 or \
+            not torch.isfinite(state.model.params).all():
+        raise RuntimeError(f"perf (c) flagship: launches {launches} for "
+                           f"{with_msgs} rounds with messages")
+    perf_check(torch, "flagship config", sim.perf_summary(), name,
+               cpu_flops, wall / PERF_FLAG_ROUNDS, sim.memory_budget())
+    del sim, state
+    torch.cuda.empty_cache()
+    return {"perf-flagship": launches[merge.KERNEL]}
+
+
+def trace_device_us(path: str) -> float:
+    """The summed duration of a Chrome trace's device events (kernels,
+    copies, fills), in µs."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    events = doc.get("traceEvents", doc) if isinstance(doc, dict) else doc
+    return sum(float(e.get("dur", 0.0)) for e in events
+               if isinstance(e, dict) and e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def perf_phases(torch, merge, tmp: str) -> dict:
+    """Phase 15 (d): PROFILE_ROUNDS north-star rounds under
+    ``start(profile_dir=...)`` after a warm-up round: the trace holds the
+    four round phases, ``phase_times_from_trace`` gives each a positive
+    device time (the route it took named), their sum no greater than the
+    profiled rounds' device time; then ``examples/profile_round.py``'s
+    ``profile`` at ATTRIBUTION_ROUNDS rounds: the three legs sum to the
+    whole round within PERF_AGREE. Returns the launches."""
+    import os
+
+    from gossipy_tpu_torch.examples import profile_round
+    from gossipy_tpu_torch.telemetry import ROUND_PHASES, \
+        phase_times_from_trace, phases_in_trace_dir
+    trace_dir = os.path.join(tmp, "profile")
+    sim, state = northstar_sim(torch, "cuda", fused_merge="multi")
+    state, _ = sim.start(state, n_rounds=1)
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    state, rep = sim.start(state, n_rounds=PROFILE_ROUNDS,
+                           profile_dir=trace_dir)
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    detail: dict = {}
+    phase_ms = phase_times_from_trace(trace_dir, detail=detail)
+    found = phases_in_trace_dir(trace_dir)
+    device_ms = trace_device_us(detail["file"]) / 1e3 if detail else None
+    total = sum(phase_ms.values()) if phase_ms else None
+    log(f"[perf] (d) {PROFILE_ROUNDS} profiled north-star rounds: phases "
+        f"in the trace {found}; device ms by phase "
+        f"{ {k: round(v, 4) for k, v in (phase_ms or {}).items()} } (route "
+        f"{detail.get('route')}), sum {total} of the trace's device "
+        f"{device_ms} ms; launches {launches}")
+    if found != list(ROUND_PHASES) or phase_ms is None or \
+            sorted(phase_ms) != sorted(ROUND_PHASES) or \
+            min(phase_ms.values()) <= 0 or total > device_ms or \
+            launches != {merge.KERNEL: rounds_with_messages(rep)}:
+        raise RuntimeError("perf (d): the profiled trace does not give the "
+                           "four phases' device time")
+    merge.reset_launch_counts()
+    row = profile_round.profile(n_nodes=NS_NODES, rounds=ATTRIBUTION_ROUNDS,
+                                device="cuda")
+    k1 = merge.LAUNCHES[merge.KERNEL]
+    att = row["attribution"]
+    legs = sum(att["phases_ms"].values())
+    agree = abs(legs - att["full_ms"]) / att["full_ms"]
+    log(f"[perf] (d) profile_round at {ATTRIBUTION_ROUNDS} rounds: "
+        f"{json.dumps(row['ms_per_round'])}; legs sum {legs:.4f} against "
+        f"the whole {att['full_ms']:.4f} ms ({agree:.2%} apart); analytic "
+        f"FLOPs a round {row['analytic']['flops_per_round']:.6g}, achieved "
+        f"{row['achieved_gflops_per_s']} GFLOP/s; K1 launches {k1}")
+    if agree > PERF_AGREE or k1 == 0:
+        raise RuntimeError("perf (d): the attribution's legs do not sum to "
+                           "the whole round")
+    return {"perf-profiled": launches[merge.KERNEL],
+            "perf-attribution": k1}
+
+
+def perf_recovery(torch, merge, tmp: str) -> dict:
+    """Phase 15 (e), the flight recorder: phase 14's recovery run with
+    ``GOSSIPY_TPU_LEDGER`` naming a ledger: one bundle row (the sentinel
+    verdict inline, the bundle and its verdict as artifacts) beside the
+    engine rows the recorded and the replayed simulators append. Returns
+    the launches."""
+    import os
+
+    from gossipy_tpu_torch.telemetry import RunLedger
+    path = os.path.join(tmp, "ledger-e.jsonl")
+    saved = os.environ.get("GOSSIPY_TPU_LEDGER")
+    os.environ["GOSSIPY_TPU_LEDGER"] = path
+    try:
+        launches = recovery(torch, merge, os.path.join(tmp, "rec"))
+    finally:
+        if saved is None:
+            del os.environ["GOSSIPY_TPU_LEDGER"]
+        else:
+            os.environ["GOSSIPY_TPU_LEDGER"] = saved
+    rows = RunLedger(path).rows()
+    bundles = [r for r in rows if r.get("kind") == "bundle"]
+    engine = [r for r in rows if r.get("kind") == "engine"]
+    log(f"[perf] (e) recovery under GOSSIPY_TPU_LEDGER: {len(rows)} rows, "
+        f"{len(bundles)} bundle row(s) "
+        f"{[(r['failure']['kind'], sorted(r['artifacts'])) for r in bundles]}"
+        f", {len(engine)} engine rows under "
+        f"{len({r['run_id'] for r in engine})} run ids")
+    if len(bundles) != 1 or bundles[0]["failure"]["kind"] != "sentinel" or \
+            sorted(bundles[0]["artifacts"]) != ["bundle", "verdict"]:
+        raise RuntimeError("perf (e): the recorder did not append its "
+                           "bundle row")
+    return {"perf-recovery": launches.get(merge.KERNEL, 0)}
+
+
+def perf_phase(torch, merge) -> dict:
+    """Phase 15 (a)-(e); returns K1's launches by run."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="gossipy-perf-")
+    runs = {}
+    try:
+        for step in (perf_equality, perf_timed, perf_phases,
+                     perf_recovery):
+            t0 = time.perf_counter()
+            runs.update(step(torch, merge, tmp))
+            log(f"[perf] {step.__name__} took "
+                f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        runs.update(perf_flagship(torch, merge))
+        log(f"[perf] perf_flagship took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {(merge.KERNEL, "float32"): runs}
+
+
 def tensor_rate(name: str) -> float:
-    for key, rate in TENSOR_FLOPS:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no tensor-core rate known for {name!r}")
+    """The card's dense bf16 tensor-core rate: the port's peak table
+    (``telemetry.cost.PEAK_FLOPS``), by ``torch.cuda.get_device_name``."""
+    from gossipy_tpu_torch.telemetry.cost import peak_flops
+    rate = peak_flops(name)
+    if rate is None:
+        raise RuntimeError(f"no tensor-core rate known for {name!r}")
+    return rate
 
 
 def hop_arrays(sl_q, sl_k, dim, dv, carry, seed, neg, masked_rows=0):
@@ -4578,6 +5006,14 @@ def main() -> int:
     for key, by_path in cfg_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[config] phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # 15. performance, metrics and the run ledger
+    at(15)
+    t0 = time.perf_counter()
+    perf_paths = perf_phase(torch, merge)
+    for key, by_path in perf_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[perf] phase 15 took {time.perf_counter() - t0:.1f} s")
 
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",

@@ -1,7 +1,8 @@
 """The gossip simulation engine, its variants, the sequential
 high-fidelity engine, its events, its scheduled faults and its report."""
 
-from .engine import GossipSimulator, Mailbox, SimState
+from .engine import GossipSimulator, Mailbox, MemoryBudgetExceeded, \
+    SimState
 from .events import CallbackReceiver, JSONLinesReceiver, ProgressReceiver, \
     SimulationEventReceiver, SimulationEventSender
 from .faults import ChaosConfig, ChurnProcess, FaultSchedule, FaultSpike, \
@@ -18,7 +19,8 @@ from .variants import All2AllGossipSimulator, TokenizedGossipSimulator, \
 __all__ = ["All2AllGossipSimulator", "CacheNeighGossipSimulator",
            "CallbackReceiver", "ChaosConfig", "ChurnProcess",
            "FaultSchedule", "FaultSpike", "GossipSimulator",
-           "JSONLinesReceiver", "Mailbox", "MessageRecord", "OutageEpisode",
+           "JSONLinesReceiver", "Mailbox", "MemoryBudgetExceeded",
+           "MessageRecord", "OutageEpisode",
            "PENSGossipSimulator", "PartitionEpisode",
            "PartitioningGossipSimulator", "PassThroughGossipSimulator",
            "ProgressReceiver", "SamplingGossipSimulator",

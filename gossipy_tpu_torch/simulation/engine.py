@@ -77,6 +77,26 @@ the round computes none of it):
   draw over the alive slots of the padded neighbour table, the JAX
   engine's ``"slot"`` form), drop and delay spikes.
 
+Host-side observability, as in the JAX engine (each off by default;
+none of it runs inside a round, draws or launches, so a run with all of
+it on is bit-identical to the same run with it off):
+
+- ``perf=`` (:mod:`~gossipy_tpu_torch.telemetry.cost`): one card
+  synchronisation per ``start()``, the run's ms/round and MFU (the
+  analytic per-round FLOPs over the measured round, against the card's
+  bf16 peak) as ``perf_*`` report rows and ``update_perf`` events, the
+  call's peak allocation banked, and :meth:`GossipSimulator.perf_summary`;
+- ``metrics=`` (:mod:`~gossipy_tpu_torch.telemetry.metrics`): each
+  finished ``start()`` feeds the process registry's engine counters, and
+  the event stream's rows carry cumulative totals;
+- ``ledger=`` (:mod:`~gossipy_tpu_torch.telemetry.ledger`): each finished
+  ``start()`` appends its digest row, segments of one chunked run under
+  one run id;
+- ``start(profile_dir=...)``: the run under ``torch.profiler``, its
+  Chrome trace exported into the directory. The round's phases are
+  ``record_function`` ranges (:mod:`~gossipy_tpu_torch.telemetry.scopes`)
+  whatever the options.
+
 The topology is a dense :class:`~gossipy_tpu_torch.core.Topology` or a
 :class:`~gossipy_tpu_torch.core.SparseTopology`. Over the second nothing
 ``[N, N]`` exists: peers are drawn into the CSR rows
@@ -96,6 +116,7 @@ the plain path, as in the JAX engine), handlers with and without optimizer
 state or shard orders (``BaseHandler``'s defaults), dense and sparse
 topologies, probes, sentinels and chaos, event receivers, host span
 tracing (``tracing=``; no ``engine.compile`` span, as nothing compiles),
+``perf=``, ``metrics=``, ``ledger=`` and ``profile_dir=``,
 :meth:`GossipSimulator.memory_budget` and its
 :meth:`GossipSimulator.check_memory_budget`,
 :meth:`GossipSimulator.run_manifest`, :meth:`GossipSimulator.save` and
@@ -122,12 +143,20 @@ from ..core import AntiEntropyProtocol, ConstantDelay, CreateModelMode, \
 from ..data import to_device
 from ..handlers.base import ModelState, PeerModel, select_rows, \
     select_state
+from ..ops import _build
 from ..ops.merge import column_leaves, gather_merge_flat, gather_merge_multi
 from ..random import K_CALL, K_DELAY, K_DROP, K_EXTRA, K_ONLINE, K_PEER, \
     K_REPLY_DELAY, K_REPLY_DROP, DrawProvider, TorchDraws
 from ..telemetry import FailureCounts
+from ..telemetry import scopes as _scopes
+from ..telemetry.cost import PERF_STAT_KEYS, CostReport, PerfConfig, \
+    analytic_round_cost, current_device_kind, mfu_estimate, peak_flops, \
+    phase_times_from_trace
 from ..telemetry.health import HEALTH_STAT_KEYS, HealthCarry, \
     SentinelConfig, health_event_row, health_round_stats, nonfinite_total
+from ..telemetry.ledger import ingest_manifest, resolve_ledger
+from ..telemetry.metrics import observe_engine_run
+from ..telemetry.sink import emit_event
 from ..telemetry.tracing import WAIT_CAT, attach_device_spans, \
     ensure_tracer, span
 from ..telemetry.probes import PROBE_STAT_KEYS, ProbeAccum, ProbeConfig, \
@@ -359,6 +388,16 @@ class GossipSimulator(SimulationEventSender):
         Host span tracing (:mod:`~gossipy_tpu_torch.telemetry.tracing`):
         ``True`` records into the process-default tracer, a ``Tracer``
         into itself; None does no tracing work.
+    perf : None | bool | PerfConfig
+        Performance observability (:mod:`~gossipy_tpu_torch.telemetry.
+        cost`); :meth:`perf_summary` reads it.
+    metrics : bool
+        Feed the process metrics registry
+        (:mod:`~gossipy_tpu_torch.telemetry.metrics`) after each run.
+    ledger : None | False | str | RunLedger
+        The run ledger (:mod:`~gossipy_tpu_torch.telemetry.ledger`):
+        None consults ``GOSSIPY_TPU_LEDGER`` (unset: off), False is off, a
+        path or a ``RunLedger`` is explicit.
     draws : DrawProvider | None
         Source of every random draw of the run (default
         :class:`~gossipy_tpu_torch.random.TorchDraws` seeded with 42).
@@ -406,8 +445,7 @@ class GossipSimulator(SimulationEventSender):
         if history_dtype not in self._HISTORY_DTYPES:
             raise ValueError(f"unknown history_dtype {history_dtype!r}; "
                              "options: " + ", ".join(self._HISTORY_DTYPES))
-        unported = {"mesh": mesh, "perf": perf, "metrics": metrics,
-                    "cohort": cohort, "ledger": ledger}
+        unported = {"mesh": mesh, "cohort": cohort}
         for name, val in unported.items():
             if val is not None:
                 raise NotImplementedError(f"{name}= is not ported yet")
@@ -500,6 +538,21 @@ class GossipSimulator(SimulationEventSender):
             self.tracer = ensure_tracer()
         else:
             self.tracer = tracing
+        # Performance observability (telemetry.cost), the metrics feed
+        # (telemetry.metrics) and the run ledger (telemetry.ledger): host
+        # side, after a run; the rounds are the same with them on or off.
+        self.perf: Optional[PerfConfig] = PerfConfig.coerce(perf)
+        self._cost_reports: list = []
+        self._perf_last: Optional[dict] = None
+        self._analytic: Optional[dict] = None
+        self.metrics_enabled: bool = bool(metrics)
+        self._metrics_base = {"rounds": 0, "sent": 0, "failed": 0}
+        self.ledger = resolve_ledger(ledger)
+        self._ledger_run_id: Optional[str] = None
+        if self.perf is not None:
+            # The MFU numerator, counted once here (set-up), so that no
+            # start() pays for it.
+            self._analytic_cost()
 
     def _init_chaos(self, chaos: Optional[ChaosConfig]) -> None:
         """Compile the chaos config into its tables: on the host (the
@@ -618,6 +671,13 @@ class GossipSimulator(SimulationEventSender):
         lam_max = self._lam_max()
         p_over = self._poisson_tail(lam_max, self.K) if lam_max > 0 else 0.0
         if p_over > 1e-3:
+            emit_event("mailbox_undersized", {
+                "mailbox_slots": self.K,
+                "lam_max": lam_max,
+                "p_overflow_per_node_round": p_over,
+                "n_nodes": self.n_nodes,
+                "simulator": type(self).__name__,
+            })
             warnings.warn(
                 f"mailbox_slots={self.K} may overflow on this topology: "
                 f"worst-case expected same-round fan-in {lam_max:.1f} gives "
@@ -839,9 +899,9 @@ class GossipSimulator(SimulationEventSender):
     def run_manifest(self, extra: Optional[dict] = None):
         """The run's :class:`~gossipy_tpu_torch.telemetry.manifest.
         RunManifest`: config snapshot, backend and versions, git
-        revision, :meth:`memory_budget`, and (with ``tracing=``) the
-        trace's totals; ``perf`` is None (``perf=`` is not ported). Host
-        side only, before or after a run."""
+        revision, :meth:`memory_budget`, (with ``tracing=``) the trace's
+        totals and (with ``perf=``) :meth:`perf_summary`. Host side only,
+        before or after a run."""
         from ..telemetry.manifest import RunManifest
         return RunManifest.from_simulator(self, extra=extra)
 
@@ -1274,7 +1334,8 @@ class GossipSimulator(SimulationEventSender):
         ``node_ids`` and draws per row from the slot's stream ``call``
         (:meth:`DrawProvider.row_uniform`), so that it stays
         compaction-safe."""
-        return self.handler.call(models, peer, data, perms, extra_arg)
+        with _scopes.phase_scope(_scopes.PHASE_TRAIN):
+            return self.handler.call(models, peer, data, perms, extra_arg)
 
     def _fused_receive(self, state: SimState, send_round, sender, valid,
                        perms) -> torch.Tensor:
@@ -1295,9 +1356,10 @@ class GossipSimulator(SimulationEventSender):
         merged = gather_merge_flat(model.params, ring, cell * n + s, w_self,
                                    w_peer, scale, starts)
         ages = torch.maximum(model.n_updates, state.history_ages[cell, s])
-        updated = self.handler.update(
-            ModelState(merged, model.opt_state, ages), self._local_data(),
-            perms)
+        with _scopes.phase_scope(_scopes.PHASE_TRAIN):
+            updated = self.handler.update(
+                ModelState(merged, model.opt_state, ages),
+                self._local_data(), perms)
         state.model = select_state(valid, updated, model)
         return merged
 
@@ -1334,8 +1396,9 @@ class GossipSimulator(SimulationEventSender):
         live_ages = torch.where(apply_t, peer_ages,
                                 torch.zeros_like(peer_ages)).amax(dim=1)
         ages = torch.maximum(model.n_updates, live_ages)
-        updated = self.handler.update(
-            ModelState(merged, model.opt_state, ages), data, perms)
+        with _scopes.phase_scope(_scopes.PHASE_TRAIN):
+            updated = self.handler.update(
+                ModelState(merged, model.opt_state, ages), data, perms)
         return select_state(row_valid, updated, model), merged
 
     def _fused_multi_apply(self, state: SimState, sr_t, sender_t, apply_t,
@@ -1770,13 +1833,26 @@ class GossipSimulator(SimulationEventSender):
         """One round, in place; returns the round's stats (0-d tensors and
         metric rows, still on the device)."""
         r = state.round
-        self._pre_send(state, r)
-        self._snapshot(state, r)
-        n_sent, fail_s, size = self._send_phase(state, r)
-        fail_d, diag, n_replies, reply_size = self._deliver_phase(state, r)
-        fail_r, reply_compact, reply_wide, reply_pa = \
-            self._reply_phase(state, r)
-        local, glob = self._maybe_eval(state, r, last_round)
+        # The phase ranges (telemetry.scopes): a profiled run shows named
+        # bands; gossipy.train nests inside receive_merge and reply
+        # around the handler's update pass. A PUSH round has no reply.
+        scope = _scopes.phase_scope
+        with scope(_scopes.PHASE_SEND):
+            self._pre_send(state, r)
+            self._snapshot(state, r)
+            n_sent, fail_s, size = self._send_phase(state, r)
+        with scope(_scopes.PHASE_RECEIVE_MERGE):
+            fail_d, diag, n_replies, reply_size = \
+                self._deliver_phase(state, r)
+        if self.protocol == AntiEntropyProtocol.PUSH:
+            fail_r, reply_compact, reply_wide, reply_pa = \
+                self._reply_phase(state, r)
+        else:
+            with scope(_scopes.PHASE_REPLY):
+                fail_r, reply_compact, reply_wide, reply_pa = \
+                    self._reply_phase(state, r)
+        with scope(_scopes.PHASE_EVAL):
+            local, glob = self._maybe_eval(state, r, last_round)
         state.round = r + 1
         fails = self._fc_zeros() + fail_s + fail_d + fail_r
         stats = {
@@ -1818,7 +1894,8 @@ class GossipSimulator(SimulationEventSender):
         stats.update(hstats)
         return stats
 
-    def start(self, state: SimState, n_rounds: int = 100
+    def start(self, state: SimState, n_rounds: int = 100,
+              profile_dir: Optional[str] = None
               ) -> tuple[SimState, SimulationReport]:
         """Run ``n_rounds`` rounds on ``state`` (in place); returns the
         state and a report. The per-round counters stay on the device
@@ -1826,27 +1903,85 @@ class GossipSimulator(SimulationEventSender):
         round is then copied to the host and notified as it ends. After
         the run, the other receivers get every round replayed.
 
+        ``profile_dir`` runs the rounds under ``torch.profiler`` (CPU
+        activity, and CUDA activity on the card) and exports its Chrome
+        trace into the directory (:meth:`_profiled_rounds`).
+
         With ``tracing=`` the call is an ``engine.start`` span (a run
         window: ``round_start``, ``rounds``) holding ``engine.run`` (a
         wait, closed after the card is synchronised, with one
-        ``device.execute`` span laid under it) and ``engine.report``.
-        Without it, no tracing work is done."""
+        ``device.execute`` span laid under it, or one span a phase from
+        the profiler trace of ``profile_dir``) and ``engine.report``.
+        With ``perf=`` timing or ``tracing=``, the card is synchronised
+        once when the rounds end; otherwise not at all until the report
+        copies the counters. The digest row of ``ledger=`` is appended
+        after the report."""
         tr = self.tracer
         first_round = state.round
-        if tr is None:
-            rows = self._run_rounds(state, n_rounds)
-            return state, self._finish_run(first_round, rows, n_rounds)
+        perf_timing = self.perf is not None and self.perf.timing
+        cuda = self.device.type == "cuda"
+        if self.perf is not None and self.perf.cost and cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        loaded = len(_build._LOADED)
         with span("engine.start", cat="engine", tracer=tr,
                   round_start=first_round, rounds=n_rounds):
             with span("engine.run", cat=WAIT_CAT, tracer=tr) as sp_run:
-                rows = self._run_rounds(state, n_rounds)
-                if self.device.type == "cuda":
+                if profile_dir is None:
+                    rows = self._run_rounds(state, n_rounds)
+                else:
+                    rows = self._profiled_rounds(state, n_rounds,
+                                                 profile_dir)
+                if cuda and (perf_timing or tr is not None):
                     torch.cuda.synchronize(self.device)
-            attach_device_spans(tr, sp_run.ts_us, sp_run.dur_us,
-                                args={"n_rounds": n_rounds})
+            exec_seconds = sp_run.duration
+            # A kernel built or loaded during the run folds its build
+            # into the measured time.
+            cold = len(_build._LOADED) != loaded
+            if tr is not None:
+                phase_ms = None
+                if profile_dir is not None:
+                    try:
+                        phase_ms = phase_times_from_trace(profile_dir)
+                    except Exception:
+                        phase_ms = None
+                attach_device_spans(tr, sp_run.ts_us, sp_run.dur_us,
+                                    phase_ms=phase_ms,
+                                    args={"n_rounds": n_rounds})
             with span("engine.report", cat="engine", tracer=tr):
-                report = self._finish_run(first_round, rows, n_rounds)
+                report = self._finish_run(
+                    first_round, rows, n_rounds,
+                    exec_seconds if perf_timing else None, cold)
+        # Outside the run window: the digest append is ledger
+        # bookkeeping. exec_seconds measured the run only when the card
+        # was synchronised before the clock stopped.
+        self._ledger_append(report, n_rounds,
+                            exec_seconds if (perf_timing or tr is not None)
+                            else None, round_start=first_round)
         return state, report
+
+    def _profiled_rounds(self, state: SimState, n_rounds: int,
+                         profile_dir: str) -> list:
+        """:meth:`_run_rounds` under ``torch.profiler`` (CPU activity,
+        and CUDA activity on the card, synchronised before the profiler
+        stops), its Chrome trace exported as ``<simulator>_r<first
+        round>_<ns>.json`` into ``profile_dir``
+        (:func:`~gossipy_tpu_torch.telemetry.cost.phase_times_from_trace`
+        reads it)."""
+        import time as _time
+
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        name = (f"{type(self).__name__}_r{state.round}_"
+                f"{_time.time_ns()}.json")
+        with profile(activities=activities) as prof:
+            rows = self._run_rounds(state, n_rounds)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, name))
+        return rows
 
     def _run_rounds(self, state: SimState, n_rounds: int) -> list:
         """The rounds of one :meth:`start` call: their stats rows, still
@@ -1862,17 +1997,171 @@ class GossipSimulator(SimulationEventSender):
                 self._emit_live(state.round, rows[-1])
         return rows
 
-    def _finish_run(self, first_round: int, rows: list, n_rounds: int
-                    ) -> SimulationReport:
-        """The rows on the host, the report, the replayed events."""
+    def _finish_run(self, first_round: int, rows: list, n_rounds: int,
+                    exec_seconds: Optional[float] = None,
+                    cold: bool = False) -> SimulationReport:
+        """The rows on the host, the ``perf_*`` rows (when ``perf=``
+        timed the run), the report, the metrics feed, the replayed
+        events."""
         stats = {}
         for k in rows[0] if rows else ():
             vals = [torch.as_tensor(row[k], device=self.device) for row in rows]
             stats[k] = torch.stack(vals).cpu().numpy()
+        if self.perf is not None and self.perf.cost:
+            self._record_cost(n_rounds)
+        if exec_seconds is not None:
+            self._attach_perf_stats(stats, n_rounds, exec_seconds, cold)
         report = self._build_report(stats, n_rounds)
+        if self.metrics_enabled:
+            self._feed_metrics(stats, report, n_rounds)
         if rows:
             self.replay_events(first_round, stats, self._metric_keys())
         return report
+
+    # -- performance observability (telemetry.cost; host side only) ---------
+
+    def _device_kind(self) -> Optional[str]:
+        """The card's name (``torch.cuda.get_device_name``), or ``"cpu"``
+        for a CPU simulator."""
+        if self.device.type != "cuda":
+            return "cpu"
+        return current_device_kind()
+
+    def _record_cost(self, n_rounds: int) -> None:
+        """Bank this ``start()``'s :class:`~gossipy_tpu_torch.telemetry.
+        cost.CostReport`: the XLA fields None, the call's peak allocation
+        in ``extra`` (None on the CPU)."""
+        peak = (int(torch.cuda.max_memory_allocated(self.device))
+                if self.device.type == "cuda" else None)
+        self._cost_reports.append(CostReport(
+            label=f"start[{n_rounds}r]", n_rounds=n_rounds,
+            extra={"max_memory_allocated": peak}))
+
+    def _analytic_cost(self) -> Optional[dict]:
+        """:func:`~gossipy_tpu_torch.telemetry.cost.analytic_round_cost`,
+        counted once per simulator, when it is built with ``perf=`` (on
+        ``meta`` tensors: no allocation, no launch, no draw)."""
+        if self._analytic is None:
+            self._analytic = analytic_round_cost(self) or {}
+        return self._analytic or None
+
+    def _attach_perf_stats(self, stats: dict, n_rounds: int,
+                           exec_seconds: float, cold: bool) -> dict:
+        """Stamp the run's measured time into ``stats`` as per-round
+        ``perf_*`` rows (uniform within this ``start()``) and remember
+        the summary for :meth:`perf_summary`."""
+        per_round_s = exec_seconds / max(n_rounds, 1)
+        # The MFU numerator: the analytic count (the JAX engine reads
+        # XLA's count of the compiled round).
+        analytic = self._analytic_cost()
+        flops_pr = analytic["flops_per_round"] if analytic else None
+        mfu = mfu_estimate(flops_pr, per_round_s, self._device_kind())
+        stats["perf_round_ms"] = np.full((n_rounds,), per_round_s * 1e3,
+                                         np.float64)
+        stats["perf_mfu_est"] = np.full(
+            (n_rounds,), np.nan if mfu is None else mfu, np.float32)
+        self._perf_last = {
+            "rounds": n_rounds,
+            "seconds": exec_seconds,
+            "ms_per_round": per_round_s * 1e3,
+            "mfu_est": mfu,
+            "flops_per_round": flops_pr,
+            # A kernel built during the run folds its build into the
+            # measurement.
+            "cold": bool(cold),
+        }
+        return stats
+
+    def _feed_metrics(self, stats: dict, report, n_rounds: int) -> dict:
+        """The metrics feed of one finished segment (``metrics=True``):
+        the process registry's engine counters from the report's
+        per-cause failure arrays, and per-round CUMULATIVE counter rows
+        (over the simulator's lifetime, so chunked runs keep monotone
+        counters across ``start()`` calls) for the JSONL ``metrics``
+        field."""
+        sent = np.asarray(report.sent_per_round, np.int64)
+        failed = np.asarray(report.failed_per_round, np.int64)
+        if report.failed_per_cause is not None:
+            by_cause = {c: float(np.asarray(a).sum())
+                        for c, a in report.failed_per_cause.items()}
+        else:
+            by_cause = {"all": float(failed.sum())}
+        observe_engine_run(type(self).__name__, n_rounds,
+                           float(sent.sum()), by_cause)
+        base = self._metrics_base
+        sent_cum = base["sent"] + np.cumsum(sent)
+        failed_cum = base["failed"] + np.cumsum(failed)
+        stats["metrics_rows"] = [
+            {"rounds_total": base["rounds"] + i + 1,
+             "sent_total": int(sent_cum[i]),
+             "failed_total": int(failed_cum[i])}
+            for i in range(n_rounds)]
+        base["rounds"] += n_rounds
+        base["sent"] = int(sent_cum[-1]) if n_rounds else base["sent"]
+        base["failed"] = int(failed_cum[-1]) if n_rounds else base["failed"]
+        return stats
+
+    def perf_summary(self) -> Optional[dict]:
+        """The manifest and bundle-verdict ``perf`` block (None when
+        ``perf=`` is off), with the JAX engine's keys: the banked
+        reports, the analytic estimate, the last run's timing and MFU,
+        and the peak table's entry for the card. The port compiles
+        nothing: ``compile_count`` is 0, ``flops_per_round_xla`` and
+        ``bytes_per_round_xla`` are None (and there is no
+        ``analytic_vs_xla_flops_ratio``); ``hbm_peak_bytes`` is the
+        largest banked ``max_memory_allocated``. Null-safe: a CPU run
+        reports its FLOPs with a null MFU (no peak)."""
+        if self.perf is None:
+            return None
+        kind = self._device_kind()
+        analytic = self._analytic_cost() if self.perf.analytic else None
+        peaks = [cr.extra.get("max_memory_allocated")
+                 for cr in self._cost_reports]
+        return {
+            "config": self.perf.to_dict(),
+            "device_kind": kind,
+            "peak_flops": peak_flops(kind),
+            "compile_count": 0,
+            "flops_per_round_xla": None,
+            "bytes_per_round_xla": None,
+            "hbm_peak_bytes": max((p for p in peaks if p is not None),
+                                  default=None),
+            "analytic": analytic,
+            "last_run": self._perf_last,
+            "programs": [cr.to_dict() for cr in self._cost_reports],
+        }
+
+    def _ledger_append(self, report, n_rounds: int,
+                       exec_seconds: Optional[float],
+                       round_start: Optional[int] = None) -> Optional[dict]:
+        """Append this segment's digest row to the run ledger (no-op
+        without one). Host side, after the run, best-effort: never raises
+        into a finished run. Segments of one chunked run share the
+        simulator's ledger run id."""
+        if self.ledger is None:
+            return None
+        try:
+            metrics: dict = {}
+            if exec_seconds and exec_seconds > 0:
+                metrics["rounds_per_sec"] = round(n_rounds / exec_seconds,
+                                                  3)
+            perf_last = self._perf_last or {}
+            metrics["mfu_est"] = perf_last.get("mfu_est")
+            for name in ("accuracy", "auc", "f1"):
+                acc = report.final(name)
+                if acc == acc:  # the first non-NaN eval metric
+                    metrics["final_accuracy"] = acc
+                    break
+            extra = {"rounds": int(n_rounds)}
+            if round_start is not None:
+                extra["round_start"] = int(round_start)
+            row = ingest_manifest(
+                self.ledger, self.run_manifest(), kind="engine",
+                run_id=self._ledger_run_id, metrics=metrics, extra=extra)
+            self._ledger_run_id = row["run_id"]
+            return row
+        except Exception:
+            return None
 
     def _emit_live(self, round_no: int, row: dict) -> None:
         """Notify the live receivers of one finished round (1-based
@@ -1900,6 +2189,16 @@ class GossipSimulator(SimulationEventSender):
             health=health_event_row(pick(HEALTH_STAT_KEYS)),
             chaos=chaos_event_row(pick(("failed_chaos",)
                                        + CHAOS_PROBE_KEYS)))
+        if "health_trip" in vals and int(vals["health_trip"]) > 0:
+            # The JAX engine's sentinel_trip leaves the running program
+            # by a host callback; here it is sent once the tripped
+            # round's values are on the host.
+            nf = vals.get("health_nonfinite_params")
+            emit_event("sentinel_trip", {
+                "round": int(round_no),
+                "nonfinite_params": int(np.sum(nf)) if nf is not None
+                else 0,
+                "simulator": type(self).__name__})
 
     def run_repetitions(self, n_rounds: int, seeds, local_train: bool = True,
                         common_init: bool = False, draws=None
@@ -1942,7 +2241,7 @@ class GossipSimulator(SimulationEventSender):
         if self.chaos is not None:
             causes["chaos"] = get("failed_chaos", empty_i)
         extras = {k: stats[k] for k in PROBE_STAT_KEYS + HEALTH_STAT_KEYS
-                  + CHAOS_PROBE_KEYS if k in stats}
+                  + CHAOS_PROBE_KEYS + PERF_STAT_KEYS if k in stats}
         if self.probes is not None:
             if self.probes.consensus:
                 extras["probe_layer_names"] = self._probe_layer_names()
@@ -1951,7 +2250,7 @@ class GossipSimulator(SimulationEventSender):
                     self._probe_expected_fanin(), np.float64)
         if self._health_slots_on():
             extras["health_layer_names"] = self._probe_layer_names()
-        return SimulationReport(
+        report = SimulationReport(
             metric_names=self._metric_keys(),
             local_evals=(get("local", np.zeros((0, m)))
                          if self.has_local_test else None),
@@ -1966,3 +2265,23 @@ class GossipSimulator(SimulationEventSender):
             wide_slots=get("wide_slots", empty_i),
             **extras,
         )
+        if self.probes is not None:
+            self._emit_probe_summary(report)
+        return report
+
+    def _emit_probe_summary(self, report: SimulationReport) -> None:
+        """One ``probes_summary`` sink event per built report: the run's
+        gossip dynamics in brief (the per-round detail lives in the
+        report and the ``update_probes`` events)."""
+        data: dict = {"simulator": type(self).__name__,
+                      "probes": self.probes.to_dict()}
+        cm = report.probe_consensus_mean
+        if cm is not None and len(cm):
+            data["consensus_first"] = float(cm[0])
+            data["consensus_last"] = float(cm[-1])
+        if report.probe_stale_max is not None and len(report.probe_stale_max):
+            data["stale_max"] = int(np.max(report.probe_stale_max))
+        acc = report.probe_accepted_per_node
+        if acc is not None:
+            data["accepted_total"] = int(np.sum(acc))
+        emit_event("probes_summary", data)

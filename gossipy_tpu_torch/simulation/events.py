@@ -87,20 +87,18 @@ class SimulationEventReceiver:
 
     def update_perf(self, round: int, perf: dict) -> None:
         """Per-round performance stats (fired only by runs with ``perf=``
-        enabled; the JAX package's ``telemetry.cost``, not ported).
-        ``perf`` carries the JSON-able row — subsets of ``round_ms``
+        enabled; see :mod:`gossipy_tpu_torch.telemetry.cost`). ``perf``
+        carries the JSON-able row — subsets of ``round_ms``
         (host-measured wall ms, uniform within one ``start()`` segment)
-        and ``mfu_est``
-        (null off known accelerators). The values are HOST-derived after
+        and ``mfu_est`` (null off known cards). The values are HOST-derived after
         the segment finishes, so — unlike the probe/health/chaos rows —
         they replay only (live receivers saw the round before its timing
         existed). Fired after ``update_chaos``."""
 
     def update_metrics(self, round: int, metrics: dict) -> None:
         """Per-round cumulative engine counters (fired only by runs with
-        ``metrics=`` enabled; the JAX package's ``telemetry.metrics``, not
-        ported).
-        ``metrics`` carries engine-LIFETIME monotone totals —
+        ``metrics=`` enabled; see
+        :mod:`gossipy_tpu_torch.telemetry.metrics`). ``metrics`` carries engine-LIFETIME monotone totals —
         ``rounds_total``, ``sent_total``, ``failed_total`` — so a
         tailing dashboard reads counters straight off the stream.
         Host-derived after the segment finishes (like ``update_perf``),

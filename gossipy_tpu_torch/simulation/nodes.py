@@ -429,16 +429,17 @@ class PENSGossipSimulator(GossipSimulator):
             aux["selected"].to(torch.float32) * thresh
         aux["best"] = best & (self.nbr_table >= 0)
 
-    def start(self, state: SimState, n_rounds: int = 100):
+    def start(self, state: SimState, n_rounds: int = 100, **kwargs):
         """Run ``n_rounds`` rounds: the phase-1 rounds left before
         ``step1_rounds`` (by the state's round, so a continued run resumes
         in the right phase), then the phase switch and the rest under
-        ``draws.derive(2)``. The last round of each segment evaluates."""
+        ``draws.derive(2)``. The last round of each segment evaluates.
+        ``kwargs`` (``profile_dir``) go to each segment's ``start``."""
         r1 = max(0, min(self.step1_rounds - state.round, n_rounds))
         reports = []
         if r1 > 0:
             self._step = 1
-            state, rep = super().start(state, n_rounds=r1)
+            state, rep = super().start(state, n_rounds=r1, **kwargs)
             reports.append(rep)
         if n_rounds - r1 > 0:
             self._select_neighbors(state)
@@ -446,7 +447,8 @@ class PENSGossipSimulator(GossipSimulator):
             saved = self.draws
             self.draws = saved.derive(2)
             try:
-                state, rep = super().start(state, n_rounds=n_rounds - r1)
+                state, rep = super().start(state, n_rounds=n_rounds - r1,
+                                           **kwargs)
             finally:
                 self.draws = saved
             reports.append(rep)

@@ -30,6 +30,7 @@ from ..random import K_A2A_DROP, K_A2A_ONLINE, K_A2A_UPDATE, \
     K_REACT_DELAY, K_REACT_DROP, K_REACT_EXTRA, K_REACT_PEER, \
     K_REACT_SLOT, K_TOKEN_GATE
 from ..telemetry import FailureCounts
+from ..telemetry import scopes as _scopes
 from ..telemetry.probes import consensus_stats, sq_param_distance
 from .engine import _PROTO_TO_MSG, GossipSimulator, SimState
 from .nodes import PartitioningGossipSimulator
@@ -296,7 +297,8 @@ class All2AllGossipSimulator(GossipSimulator):
         perms = self._update_orders(
             r, [K_A2A_UPDATE],
             torch.zeros(self.n_nodes, dtype=torch.int64, device=self.device))
-        updated = self.handler.update(model, self._local_data(), perms)
+        with _scopes.phase_scope(_scopes.PHASE_TRAIN):
+            updated = self.handler.update(model, self._local_data(), perms)
         return select_state(fires, updated, model)
 
     def _chaos_mask_idx(self, r: int) -> Optional[int]:
@@ -423,23 +425,27 @@ class All2AllGossipSimulator(GossipSimulator):
     def _round(self, state: SimState, last_round=None) -> dict:
         r = state.round
         n, dev = self.n_nodes, self.device
-        self._snapshot(state, r)
-        fires, _ = self._fire_mask(state, r, 0)
-        online = self.draws.bernoulli(r, K_A2A_ONLINE, self.online_prob, n,
-                                      dev)
-        forced = None
-        if self.chaos is not None:
-            # A scheduled outage silences a node on both sides of the
-            # broadcast; partitions and churn mask the mixed edges.
-            forced = self._chaos_forced_offline(r)
-            fires = fires & ~forced
-            online = online & ~forced
-        if not self.sparse_mix:
-            edges = self._dense_edges(r, fires, online, forced)
-        elif self._sparse_padded:
-            edges = self._padded_edges(r, fires, online, forced)
-        else:
-            edges = self._segment_edges(r, fires, online, forced)
+        # The phase ranges (telemetry.scopes), as in the JAX variant: the
+        # snapshot and the edge draws are the send, the mix the
+        # receive_merge, the local update (_train) the train.
+        with _scopes.phase_scope(_scopes.PHASE_SEND):
+            self._snapshot(state, r)
+            fires, _ = self._fire_mask(state, r, 0)
+            online = self.draws.bernoulli(r, K_A2A_ONLINE, self.online_prob,
+                                          n, dev)
+            forced = None
+            if self.chaos is not None:
+                # A scheduled outage silences a node on both sides of the
+                # broadcast; partitions and churn mask the mixed edges.
+                forced = self._chaos_forced_offline(r)
+                fires = fires & ~forced
+                online = online & ~forced
+            if not self.sparse_mix:
+                edges = self._dense_edges(r, fires, online, forced)
+            elif self._sparse_padded:
+                edges = self._padded_edges(r, fires, online, forced)
+            else:
+                edges = self._segment_edges(r, fires, online, forced)
         received = edges.accepted > 0
 
         # The probes' merge and train deltas: the mix and the local update
@@ -454,22 +460,25 @@ class All2AllGossipSimulator(GossipSimulator):
             model = self._train(model, fires, r)
             if deltas:
                 train_sq = sq_param_distance(model.params, pre_train, spans)
-        ages = model.n_updates
-        mixed = select_rows(received, edges.mix(model.params), model.params)
-        if deltas:
-            merge_sq = sq_param_distance(mixed, model.params, spans)
-        model = ModelState(mixed, model.opt_state,
-                           select_rows(received,
-                                       torch.maximum(ages,
-                                                     edges.in_age(ages)),
-                                       ages))
+        with _scopes.phase_scope(_scopes.PHASE_RECEIVE_MERGE):
+            ages = model.n_updates
+            mixed = select_rows(received, edges.mix(model.params),
+                                model.params)
+            if deltas:
+                merge_sq = sq_param_distance(mixed, model.params, spans)
+            model = ModelState(mixed, model.opt_state,
+                               select_rows(received,
+                                           torch.maximum(ages,
+                                                         edges.in_age(ages)),
+                                           ages))
         if self.handler.mode != CreateModelMode.UPDATE_MERGE:
             pre_train = model.params
             model = self._train(model, fires, r)
             if deltas:
                 train_sq = sq_param_distance(model.params, pre_train, spans)
         state.model = model
-        local, glob = self._maybe_eval(state, r, last_round)
+        with _scopes.phase_scope(_scopes.PHASE_EVAL):
+            local, glob = self._maybe_eval(state, r, last_round)
         state.round = r + 1
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         stats = {

@@ -36,14 +36,17 @@ Bundle directory schema (``BUNDLE_VERSION`` 1), the JAX package's files::
       verdict.json          {"bundle_version", "kind": "sentinel" |
                              "exception" | "watchdog", "chunk_start_round",
                              "first_bad_round" | null, "detail": {...},
-                             "perf": null}
+                             "perf": {last_round_ms, hbm_peak_bytes,
+                                      flops_per_round_xla (null),
+                                      compile_count (0), mfu_est}
+                                     | null (perf= runs only)}
       events.jsonl          trailing telemetry events from the sink ring
                             (the per-round rows the recorder mirrors in),
                             oldest first
 
-The JAX recorder also appends each bundle to a run ledger when
-``GOSSIPY_TPU_LEDGER`` is set; the port has no ledger yet, so its
-recorder refuses to run while that variable is set.
+When ``GOSSIPY_TPU_LEDGER`` names a run ledger, each bundle is appended
+to it as one failure row (:func:`~gossipy_tpu_torch.telemetry.ledger.
+ingest_bundle`), as in the JAX recorder.
 """
 
 from __future__ import annotations
@@ -388,9 +391,9 @@ class FlightRecorder:
                 "first_bad_round": (int(first_bad_round)
                                     if first_bad_round is not None else None),
                 "detail": detail,
-                # The JAX verdict's performance context: None without
-                # perf= (not ported).
-                "perf": None,
+                # The performance context of a perf= run (its last
+                # round's ms, MFU and peak allocation); None without.
+                "perf": _verdict_perf(sim),
             }
             with open(os.path.join(path, "verdict.json"), "w") as fh:
                 json.dump(verdict, fh, indent=2)
@@ -425,6 +428,16 @@ class FlightRecorder:
                     fh.write(json.dumps(ev.to_dict()) + "\n")
 
         self.bundle_path = path
+        # A bundle is a run-ledger row (the verdict inline, the bundle
+        # and its verdict as hashed artifacts) when GOSSIPY_TPU_LEDGER
+        # names a ledger; best-effort, like the manifest.
+        try:
+            from .ledger import ingest_bundle, resolve_ledger
+            led = resolve_ledger(None)
+            if led is not None:
+                ingest_bundle(led, path)
+        except Exception:
+            pass
         return path
 
     def write_bundle(self, sim, state, draws, kind: str,
@@ -456,10 +469,6 @@ class FlightRecorder:
         assert getattr(sim, "sentinels", None) is not None, \
             "FlightRecorder needs a sentinel-enabled simulator " \
             "(GossipSimulator(sentinels=True))"
-        if os.environ.get("GOSSIPY_TPU_LEDGER"):
-            raise NotImplementedError(
-                "GOSSIPY_TPU_LEDGER is set, but the run ledger is not "
-                "ported yet: the recorder would not ingest its bundles")
         from ..checkpoint import clone_state, draw_record
         from ..simulation.events import CallbackReceiver
         from .sink import emit_event
@@ -516,6 +525,27 @@ class FlightRecorder:
         if bundle is None and self.bundle_path is not None:
             bundle = self.bundle_path  # the watchdog fired mid-chunk
         return state, reports, bundle
+
+
+def _verdict_perf(sim) -> Optional[dict]:
+    """The bundle verdict's ``perf`` section from the simulator's
+    :meth:`perf_summary`: None without ``perf=``, and best-effort always
+    (the perf context must never mask the failure being recorded)."""
+    try:
+        summary = (sim.perf_summary()
+                   if hasattr(sim, "perf_summary") else None)
+    except Exception:
+        return None
+    if summary is None:
+        return None
+    last = summary.get("last_run") or {}
+    return {
+        "last_round_ms": last.get("ms_per_round"),
+        "mfu_est": last.get("mfu_est"),
+        "hbm_peak_bytes": summary.get("hbm_peak_bytes"),
+        "flops_per_round_xla": summary.get("flops_per_round_xla"),
+        "compile_count": summary.get("compile_count"),
+    }
 
 
 def _trip_detail(sim, report, idx: int) -> dict:

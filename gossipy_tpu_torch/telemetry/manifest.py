@@ -13,9 +13,10 @@ the device:
 - the engine's ``memory_budget()`` output.
 
 The port compiles nothing, so ``compile_seconds`` and
-``compilation_cache`` stay None; it has no mesh (``mesh`` None) and no
-``perf=`` (``perf`` None). ``trace`` carries :func:`.tracing.trace_report`'s
-totals when the simulator records a trace.
+``compilation_cache`` stay None; it has no mesh (``mesh`` None).
+``perf`` is the simulator's ``perf_summary()`` when it runs with
+``perf=``, and ``trace`` carries :func:`.tracing.trace_report`'s totals
+when it records a trace.
 """
 
 from __future__ import annotations
@@ -137,17 +138,25 @@ def _config_snapshot(sim: Any) -> dict:
     delay = getattr(sim, "delay", None)
     if delay is not None:
         snap["delay"] = repr(delay)
-    for attr in ("probes", "sentinels", "chaos"):
+    for attr in ("probes", "sentinels", "chaos", "perf"):
         if hasattr(sim, attr):
             cfg = getattr(sim, attr)
             snap[attr] = cfg.to_dict() if cfg is not None else None
-    if hasattr(sim, "topology"):
-        snap["partition_rules"] = None
     if hasattr(sim, "tracer"):
         # The bulk engine. Its constructor refuses the JAX engine's
-        # perf=, cohort=, metrics= and ledger= (not ported), so they are off.
-        snap.update(perf=None, cohort=None, metrics=False,
-                    tracing=sim.tracer is not None, ledger=False)
+        # cohort= (not ported), so cohort mode is off.
+        snap["cohort"] = None
+    if hasattr(sim, "topology"):
+        snap["partition_rules"] = None
+    if hasattr(sim, "metrics_enabled"):
+        # Whether this run fed the process metrics registry.
+        snap["metrics"] = bool(sim.metrics_enabled)
+    if hasattr(sim, "tracer"):
+        snap["tracing"] = sim.tracer is not None
+    if hasattr(sim, "ledger"):
+        # Whether this run appended digest rows to a run ledger (left out
+        # of the ledger's own config fingerprint).
+        snap["ledger"] = sim.ledger is not None
     return snap
 
 
@@ -194,6 +203,14 @@ class RunManifest:
                           "maxlen": sink.maxlen}
         except Exception:
             sink_stats = None
+        perf = None
+        if getattr(sim, "perf", None) is not None:
+            # The performance block: the analytic estimate, the last
+            # run's timing and MFU, the banked peaks; best-effort.
+            try:
+                perf = sim.perf_summary()
+            except Exception:
+                perf = None
         trace = None
         if getattr(sim, "tracer", None) is not None:
             try:
@@ -212,7 +229,7 @@ class RunManifest:
             compile_seconds=None,
             compilation_cache=None,
             telemetry_sink=sink_stats,
-            perf=None,
+            perf=perf,
             trace=trace,
             extra=dict(extra or {}),
         )

@@ -6,9 +6,8 @@ word aside): each diagnostic lands here as a :class:`TelemetryEvent` (a
 ``kind`` tag and a JSON-able payload), kept in an in-memory ring and
 optionally mirrored to a JSONL file, so a run harness can assert on them,
 a dashboard can tail them, and a post-mortem (the flight recorder's
-``events.jsonl``) can read what the engine knew. ``close`` writes the metrics registry's snapshot
-only where a ``metrics`` module sits beside this one, which the port does
-not have yet.
+``events.jsonl``) can read what the engine knew. ``close`` writes the process metrics
+registry's snapshot (:mod:`.metrics`) into the mirror.
 
 Usage::
 

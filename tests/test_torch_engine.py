@@ -214,11 +214,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"metrics": True},
     {"cohort": {"size": 4}},
-    {"perf": True},
     {"mesh": object()},
-    {"ledger": True},
     {"cohort": 4},
 ])
 def test_unported_options_raise(option):

@@ -16,7 +16,7 @@ recorder, held against the JAX package's.
   from the last healthy state, with the JAX recorder's
   ``first_bad_round``, leaves, node and phase on the same run under the
   oracle; ``replay_bundle`` matches; the watchdog and exception bundles;
-  the ledger variable raises.
+  with the ledger variable set, the bundle is a ledger row.
 """
 
 import json
@@ -84,17 +84,36 @@ def _sink_run(mod, path):
     return out
 
 
+def _strip_ts(obj):
+    if isinstance(obj, dict):
+        return {k: _strip_ts(v) for k, v in obj.items() if k != "ts"}
+    if isinstance(obj, list):
+        return [_strip_ts(v) for v in obj]
+    return obj
+
+
 def test_sink_matches_jax(tmp_path):
-    """The JAX sink's ``close`` mirrors its process metrics registry into
-    the file when another test of the process recorded a metric; the port
-    has no registry. Both run here with an empty one."""
+    """Each sink's ``close`` mirrors its package's process metrics
+    registry into the file: with the same metrics recorded in both, the
+    two files end with the same ``metrics_snapshot`` line (its stamps
+    aside) after the same events."""
     from gossipy_tpu.telemetry import metrics as jmetrics
-    prev = jmetrics.set_registry(jmetrics.MetricsRegistry())
+    from gossipy_tpu_torch.telemetry import metrics as tmetrics
+    regs = (jmetrics.MetricsRegistry(), tmetrics.MetricsRegistry())
+    prev = (jmetrics.set_registry(regs[0]), tmetrics.set_registry(regs[1]))
     try:
-        assert _sink_run(sink, tmp_path / "p.jsonl") == \
-            _sink_run(jsink, tmp_path / "j.jsonl")
+        for reg in regs:
+            reg.counter("engine_rounds_total", "rounds",
+                        ("simulator",)).labels(simulator="s").inc(3)
+            reg.histogram("round_seconds").observe(0.25)
+        p = _sink_run(sink, tmp_path / "p.jsonl")
+        j = _sink_run(jsink, tmp_path / "j.jsonl")
     finally:
-        jmetrics.set_registry(prev)
+        jmetrics.set_registry(prev[0])
+        tmetrics.set_registry(prev[1])
+    assert [line["kind"] for line in p["lines"]][-2:] == \
+        ["metrics_snapshot", "sink_closed"]
+    assert _strip_ts(p) == _strip_ts(j)
 
 
 def _snapshot(mod, pid):
@@ -421,17 +440,24 @@ def test_watchdog_fires_on_stalled_chunk(tmp_path):
 
 def test_recorder_refusals(tmp_path, monkeypatch):
     """No sentinels: an assertion, as in the JAX recorder. The ledger
-    variable set: ``NotImplementedError`` (the port has no ledger to
-    ingest the bundle into)."""
+    variable set: the recorder runs and its bundle lands in the ledger
+    as one failure row, beside the recorded simulator's engine rows."""
     from gossipy_tpu_torch.examples.replay_bundle import demo_sim
+    from gossipy_tpu_torch.telemetry import RunLedger
     sim = demo_sim("cpu", poison=None)
     sim.sentinels = None
     with pytest.raises(AssertionError, match="sentinel-enabled"):
         FlightRecorder(str(tmp_path)).run(sim, sim.init_nodes(), 2)
-    sim = demo_sim("cpu")
     monkeypatch.setenv("GOSSIPY_TPU_LEDGER", str(tmp_path / "ledger"))
-    with pytest.raises(NotImplementedError, match="ledger"):
-        FlightRecorder(str(tmp_path)).run(sim, sim.init_nodes(), 2)
+    sim = demo_sim("cpu")
+    _, _, bundle = FlightRecorder(str(tmp_path)).run(sim, sim.init_nodes(),
+                                                     2)
+    rows = RunLedger(str(tmp_path / "ledger")).rows()
+    bundles = [r for r in rows if r["kind"] == "bundle"]
+    assert len(bundles) == 1 and bundle is not None
+    assert bundles[0]["artifacts"]["bundle"]["path"] == bundle
+    assert bundles[0]["failure"]["kind"] == "sentinel"
+    assert all(r["kind"] == "engine" for r in rows if r not in bundles)
 
 
 def test_trailing_window_truncation_warns_once(tmp_path):

@@ -7,17 +7,23 @@
 - The modules the port copies from the JAX package because they are numpy
   only (the data dispatcher, the report) give array-equal output on the
   same inputs (the partitioners and the synthetic images:
-  ``test_torch_data.py``); the two it copies because they are standard
-  library only (``telemetry/sink.py``, ``telemetry/tracing.py``) hold the
-  original's code after their docstrings, the tracer's default process
-  name aside (their results: ``test_torch_flight.py``).
+  ``test_torch_data.py``); the four it copies because they are standard
+  library only (``telemetry/sink.py``, ``tracing.py``, ``metrics.py``,
+  ``ledger.py``) hold the original's code after their docstrings, the
+  tracer's default process name and the package in docstring
+  cross-references aside (their results: ``test_torch_flight.py``,
+  ``test_torch_metrics.py``, ``test_torch_ledger.py``).
 - The flagship twin, the eight paper-example twins and the audit twin
   (plain and ``--tokenized``) run end to end on the host with those
   modules blocked and no socket able to connect; the
   flagship and All2All twins with ``--probes --sentinels --chaos`` too,
   and their summaries' ``probes``, ``health`` and ``chaos`` entries have
   the keys the JAX scripts' ``finish`` gives. The scale twin's two rows
-  run so too, their sparse topology built by the native generator.
+  run so too, their sparse topology built by the native generator, and
+  the ``profile_round``, ``ledger`` and ``trace_report`` twins.
+- The port's ``telemetry``, ``simulation`` and root packages export every
+  name the JAX package's export, but for an allowance that names the
+  queue item (ROADMAP.md) that ports each.
 """
 
 import ast
@@ -101,7 +107,13 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.telemetry.tracing, "
         "gossipy_tpu_torch.telemetry.manifest, "
         "gossipy_tpu_torch.examples.main_from_config, "
-        "gossipy_tpu_torch.examples.replay_bundle\n"
+        "gossipy_tpu_torch.examples.replay_bundle, "
+        "gossipy_tpu_torch.telemetry.metrics, "
+        "gossipy_tpu_torch.telemetry.ledger, "
+        "gossipy_tpu_torch.telemetry.scopes, "
+        "gossipy_tpu_torch.examples.profile_round, "
+        "gossipy_tpu_torch.examples.ledger, "
+        "gossipy_tpu_torch.examples.trace_report\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -381,17 +393,25 @@ def _body(path):
 
 
 # The copies' only departures from the originals' code: the tracer's
-# default process name, and three comment words (a chunked run loop is a
-# "runner" here).
+# default process name, four comment words (a chunked run loop is a
+# "runner" here, a bench row's file a "bench capsule"), and the package
+# named in the docstrings' cross-references
+# (``metrics.py``'s usage example, ``from gossipy_tpu.telemetry.metrics
+# import get_registry``, sits in its module docstring, which the port
+# writes anew).
 COPY_EDITS = (('f"gossipy_tpu/{self.pid}"', 'f"gossipy_tpu_torch/{self.pid}"'),
               ("multi-tenant drivers tag", "multi-tenant runners tag"),
               ("the time a streaming driver would recover",
                "the time a streaming runner would recover"),
               ("for today's synchronous drivers,",
-               "for today's synchronous runners,"))
+               "for today's synchronous runners,"),
+              ("from gossipy_tpu.telemetry.metrics import",
+               "from gossipy_tpu_torch.telemetry.metrics import"),
+              ("~gossipy_tpu.telemetry.", "~gossipy_tpu_torch.telemetry."),
+              ("bench row / driver capsule", "bench row / bench capsule"))
 
 
-@pytest.mark.parametrize("name", ["sink", "tracing"])
+@pytest.mark.parametrize("name", ["sink", "tracing", "metrics", "ledger"])
 def test_copied_stdlib_module_equals_original(name):
     port = _body(REPO / "gossipy_tpu_torch" / "telemetry" / f"{name}.py")
     orig = _body(REPO / "gossipy_tpu" / "telemetry" / f"{name}.py")
@@ -434,3 +454,132 @@ def test_config_and_replay_twins_run_with_jax_blocked(tmp_path):
     assert got["out"]["rounds"] == 3 and got["out"]["sent_messages"] > 0
     assert np.isfinite(got["out"]["final"]["accuracy"])
     assert got["v"]["matches_recorded"] is True
+
+
+# Names of the JAX package's exports the port does not export yet, each
+# with the queue item of ROADMAP.md that brings it: the cohort pool (queue
+# 1 item 6), the root's device singleton and log filter (item 12); the
+# compilation cache and ``jax`` mean nothing to a package that compiles
+# nothing.
+EXPORT_ALLOWANCE = {
+    "gossipy_tpu.simulation": {"CohortConfig": 6, "CohortPool": 6,
+                               "PoolStore": 6, "NominalTopology": 6},
+    "gossipy_tpu": {"GlobalSettings": 12, "DuplicateFilter": 12,
+                    "compilation_cache_stats": None,
+                    "enable_compilation_cache": None, "jax": None},
+}
+
+
+def _public_names(mod) -> list:
+    """``__all__``, or, for a module without one, its public top-level
+    names that are not its own subpackages."""
+    import types
+    if hasattr(mod, "__all__"):
+        return list(mod.__all__)
+    return [n for n, v in vars(mod).items() if not n.startswith("_")
+            and not (isinstance(v, types.ModuleType)
+                     and v.__name__.startswith(mod.__name__ + "."))]
+
+
+@pytest.mark.parametrize("ref", ["gossipy_tpu.telemetry",
+                                 "gossipy_tpu.simulation", "gossipy_tpu"])
+def test_package_exports_match_reference(ref):
+    """Every name the JAX package exports from ``telemetry``,
+    ``simulation`` and its root is exported by the port's counterpart,
+    or stands in the allowance with the queue item that ports it; no name
+    in the allowance is exported already."""
+    import importlib
+    jmod = importlib.import_module(ref)
+    tmod = importlib.import_module(ref.replace("gossipy_tpu",
+                                               "gossipy_tpu_torch", 1))
+    allowed = EXPORT_ALLOWANCE.get(ref, {})
+    missing = [n for n in _public_names(jmod)
+               if not hasattr(tmod, n) and n not in allowed]
+    assert missing == []
+    assert [n for n in allowed if hasattr(tmod, n)] == []
+    if hasattr(tmod, "__all__"):
+        assert [n for n in tmod.__all__ if not hasattr(tmod, n)] == []
+
+
+def _blocked(code: str) -> str:
+    return ("import sys, socket, json\n"
+            f"for m in {BANNED!r}:\n"
+            "    sys.modules[m] = None\n"
+            "class NoNet(socket.socket):\n"
+            "    def connect(self, *a):\n"
+            "        raise OSError('no network')\n"
+            "socket.socket = NoNet\n"
+            "import warnings\n"
+            "warnings.simplefilter('ignore')\n" + code)
+
+
+def _run_blocked(code: str):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("GOSSIPY_TPU_LEDGER", None)
+    out = subprocess.run([sys.executable, "-c", _blocked(code)], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_profile_round_twin_runs_with_jax_blocked(tmp_path):
+    """``profile_round`` on the host with ``--trace``: the JAX script's
+    row keys, the three legs summing to the whole, the analytic cost, the
+    four phases found in the trace and their ms."""
+    trace = str(tmp_path / "trace")
+    row = _run_blocked(
+        "from gossipy_tpu_torch.examples import profile_round\n"
+        "row = profile_round.main(['--device', 'cpu', '--nodes', '12', "
+        f"'--rounds', '2', '--trace', {trace!r}, '--probes'])\n"
+        "print(json.dumps(row))\n")
+    for k in ("config", "backend", "device_kind", "n_nodes",
+              "rounds_per_call", "ms_per_round", "note",
+              "phase_scopes_in_hlo", "phase_scopes_expected",
+              "xla_per_round", "hbm_peak_bytes", "achieved_gflops_per_s"):
+        assert k in row, k
+    assert row["backend"] == "cpu" and row["n_nodes"] == 12
+    ms = row["ms_per_round"]
+    legs = ms["eval"] + ms["train_one_epoch"] + ms["exchange_and_overhead"]
+    assert abs(legs - ms["full"]) <= 0.05 * ms["full"] + 2e-3
+    assert "probes_marginal" in ms
+    assert row["analytic"]["flops_per_round"] > 0
+    assert row["phase_scopes_in_trace"] == row["phase_scopes_expected"]
+    assert sorted(row["trace_phase_ms_per_round"]) == \
+        sorted(row["phase_scopes_expected"])
+    assert row["trace_route"] == "cpu"
+
+
+def test_ledger_and_trace_report_twins_run_with_jax_blocked(tmp_path):
+    """A traced, ledgered north-star run at 12 nodes, then the ledger
+    twin's list, show, diff, trend and merge over its rows, and the
+    trace_report twin over its saved trace."""
+    led, trace = str(tmp_path / "l.jsonl"), str(tmp_path / "trace.json")
+    out = _run_blocked(
+        "import torch\n"
+        "from gossipy_tpu_torch.examples import ledger, trace_report\n"
+        "from gossipy_tpu_torch.examples.profile_round import build_sim\n"
+        "from gossipy_tpu_torch.telemetry import Tracer\n"
+        "tr = Tracer()\n"
+        "sim = build_sim(False, 12, device='cpu')\n"
+        f"sim.ledger = __import__('gossipy_tpu_torch.telemetry', "
+        f"fromlist=['x']).RunLedger({led!r})\n"
+        "sim.tracer = tr\n"
+        "st = sim.init_nodes()\n"
+        "st, _ = sim.start(st, n_rounds=2)\n"
+        "st, _ = sim.start(st, n_rounds=2)\n"
+        f"tr.save({trace!r})\n"
+        f"rc = [ledger.main(['list', {led!r}, '--out', "
+        f"{str(tmp_path / 'list.md')!r}]),\n"
+        f"      ledger.main(['show', {led!r}, '@-1']),\n"
+        f"      ledger.main(['diff', {led!r}, '@0', '@1', '--json']),\n"
+        f"      ledger.main(['trend', {led!r}, '--metric', "
+        "'rounds_per_sec', '--max-regress', '10']),\n"
+        f"      ledger.main(['merge', {str(tmp_path / 'm.jsonl')!r}, "
+        f"{led!r}]),\n"
+        f"      trace_report.main([{trace!r}])]\n"
+        "print(json.dumps(rc))\n")
+    assert out == [0, 0, 0, 0, 0, 0]
+    assert "2 row(s)" in (tmp_path / "list.md").read_text()
+    report = json.loads((tmp_path / "trace_report.json").read_text())
+    assert report["n_windows"] == 2 and report["totals"]["rounds"] == 4
