@@ -124,7 +124,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    ``label_dirichlet_skew(0.5)``, CIFAR10Net under weight decay 1e-3 and
    SGD 0.05, batch 32, MERGE_UPDATE, PUSH on ``random_regular(100, 20,
    seed=42)``, a 10% sampled eval every round, common init, the
-   single-pass deliver. (a) 16 nodes, 2048 images, 3 rounds on the card
+   single-pass deliver. (a) 16 nodes, 2048 images, FLAG_CHECK_ROUNDS
+   rounds on the card
    and on the CPU from the same seeds, fp32 compute with an fp32 ring,
    then bf16 compute with fp32, bf16 and int8 rings: accounting, boxes
    and ages equal, params by the rule of PERF.md §2 (a ReLU or max-pool
@@ -347,6 +348,40 @@ Phases, each printed as it runs; any failure exits non-zero:
    under one run id; phase 14's recovery run under
    ``GOSSIPY_TPU_LEDGER``: one bundle row.
 
+16. cohort: active-cohort rounds over a host pool
+   (``gossipy_tpu_torch.simulation.cohort``: ``CohortConfig``,
+   ``CohortPool``, ``NominalTopology``, ``PoolStore``, the prefetch
+   pipeline). (a) ``bench.py::bench_cohort``'s configuration at its
+   defaults: ``NominalTopology(COHORT_NOMINAL)``,
+   ``CohortConfig(size=COHORT_SIZE)``, LogReg(57, 2) under SGD 0.1,
+   batch 4, one local epoch, PUSH, ``delta=100``, a 1% sampled eval on
+   the run's last round, an fp32 ring, a bank of 4C shards (node ``i``
+   reads shard ``i % 4C``), the default deliver (K1 once a round). The
+   pool's init time; COHORT_ROUNDS warm-up rounds and COHORT_ROUNDS timed
+   ones (the card synchronised before the host clock stops, the counts
+   set to 0 just before), serial and with ``prefetch=2``, from one pool:
+   rounds/s, their ratio, the streamed pool bit-identical to the serial
+   one, K1's launches, a profiled ``start``'s idle share; a traced serial
+   and a traced streamed run of COHORT_TRACE_ROUNDS rounds
+   (``trace_report``'s ``overlap_frac`` and ``host_blocked_frac``); the
+   coverage after both runs monotone and within (0.5, 1] of R C / N;
+   an lr = 0 run of COHORT_AVG_ROUNDS rounds that must shrink the pool's
+   param variance; ``memory_budget()``'s cohort numbers beside
+   ``max_memory_allocated``. (b) At COHORT_PLAIN_NOMINAL, one pool and
+   one draw state, COHORT_PLAIN_ROUNDS rounds on K1 (every call bit-equal
+   to its plain version, ``MergeAudit``), on the same path with K1's
+   plain version in its place (the pool bit-equal, no launch), and on the
+   plain deliver (the same cohorts, touched rows, coverage and sends).
+   (c) The ``examples/cohort_smoke.py`` configuration (N = 96, C = 24)
+   on the CPU and on the card from one pool and draw state,
+   COHORT_CHECK_ROUNDS rounds on an fp32 ring (K1) and a bf16 ring (K2):
+   accounting, ages, phases and touched rows equal, params within
+   REF_TOL (plus half a bf16 step), every merge call audited. (d) The
+   twin's eight checks on the card, its 100M-node disk pool included.
+   (e) K1 against its plain version, timed, at the cohort shape
+   (``at_cohort_shape``: C rows of LogReg's stride, the derived K, the
+   ring's cells).
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -403,7 +438,9 @@ FLAG_NODES = 100
 FLAG_ROUNDS = 10            # timed rounds of each ring leg
 FLAG_CHECK_NODES = 16       # the card-against-CPU runs
 FLAG_CHECK_SUBSAMPLE = 2048
-FLAG_CHECK_ROUNDS = 2
+FLAG_CHECK_ROUNDS = 1       # one round of messages (K1/K2 audited); the
+                            # second round's CPU update pass paid for
+                            # phase 16
 FLAG_WIRES = ("float32", "bfloat16", "int8")
 
 # The paths of phase 4 after the first: (label, fused_merge, history_dtype).
@@ -1846,7 +1883,12 @@ def variant_sim(torch, label: str, sets: dict, full: bool, device,
                                   bf16=bf16)
     else:
         return tokenized_northstar(torch, device, seed, variant)
-    state = sim.init_nodes(torch.Generator().manual_seed(seed))
+    # Onoszko's timed window at full width starts without the pre-training
+    # pass (an update pass, ~22 s, outside the window; its first merge
+    # falls in round 2 whatever the weights): paid for phase 16. The cut
+    # checks pre-train as the example does.
+    state = sim.init_nodes(torch.Generator().manual_seed(seed),
+                           local_train=not (full and example == "onoszko"))
     return sim, state
 
 
@@ -2151,7 +2193,9 @@ TEL_A2A_CHECK_NODES = 32
 TEL_NAN_CLEAN = 2           # clean rounds before the NaN is written
 TEL_NAN_ROUNDS = 3          # rounds after it
 TEL_NAN_AT = (7, 0)         # (node, column) the NaN is written to
-TEL_BENCH_ROUNDS = BENCH_ROUNDS
+TEL_BENCH_ROUNDS = 150      # the interleaved legs' shares sit inside the
+                            # host's noise at 300 as at 150; 150 pays for
+                            # phase 16
 
 
 def telemetry_kw(nodes: int, rounds: int) -> dict:
@@ -3104,7 +3148,8 @@ CKPT_SEQ = ("push-drop-online", 3, 2, 9)   # phase 13's label, interval,
 REC_NAN_AT = (3, 7)         # (node, round) of the recorder run's NaN
 REC_CHUNK = 5
 REC_ROUNDS = 15
-TRACE_HALF_ROUNDS = 150
+TRACE_HALF_ROUNDS = 50      # tracing's cost sits inside the host's noise
+                            # at any length; 50 pays for phase 16
 
 
 def config_names() -> list:
@@ -3686,7 +3731,8 @@ def config_phase(torch, merge, ns_legs: dict) -> dict:
 
 PERF_CHUNKS = (10, 10)      # (a), (e): the north star's two segments
 PERF_TURNS = 4              # (b): the legs' turns (in order, then in
-PERF_TURN_ROUNDS = 50       # reverse, and again), and the rounds of each
+PERF_TURN_ROUNDS = 25       # reverse, and again), and the rounds of each
+                            # (50 until phase 16 needed the time)
 PERF_NS_ROUNDS = 100        # (c): the north star's rounds with perf=
 PERF_FLAG_ROUNDS = 2        # (c): the flagship config's rounds
 PROFILE_ROUNDS = 3          # (d): the profiled north-star rounds
@@ -4073,6 +4119,364 @@ def perf_phase(torch, merge) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {(merge.KERNEL, "float32"): runs}
+
+
+# -- phase 16: active-cohort rounds --------------------------------------------
+
+COHORT_NOMINAL = 1_000_000  # bench.py::bench_cohort's defaults
+COHORT_SIZE = 1024
+COHORT_ROUNDS = 50          # the warm-up's and the timed run's rounds
+COHORT_PREFETCH = 2
+COHORT_FEATURES = 57
+COHORT_TRACE_ROUNDS = 20    # each traced run's rounds
+COHORT_PROFILE_ROUNDS = 4   # the profiled start's rounds (idle share)
+COHORT_AVG_ROUNDS = 30      # the lr = 0 run (tests/test_cohort.py's
+                            # TestMillionNodePool)
+COHORT_PLAIN_NOMINAL = 100_000  # (b): K1 against the plain leg
+COHORT_PLAIN_ROUNDS = 10
+COHORT_CHECK_ROUNDS = 10    # (c): the twin's configuration, card vs CPU
+
+
+_COHORT_DATA = {}
+
+
+def cohort_data() -> dict:
+    """``bench.py::bench_cohort``'s data bank: P = 4C = 4096 shards of 4
+    synthetic 57-feature samples with a linear label (node ``i`` reads
+    shard ``i % P``), the eval set capped at 2048 samples."""
+    if "stacked" not in _COHORT_DATA:
+        from gossipy_tpu_torch.data import ClassificationDataHandler, \
+            DataDispatcher
+        rng = np.random.default_rng(42)
+        w = rng.normal(size=COHORT_FEATURES)
+        shards = 4 * COHORT_SIZE
+        X = rng.normal(size=(4 * shards, COHORT_FEATURES)).astype(
+            np.float32)
+        y = (X @ w > 0).astype(np.int64)
+        eval_cap = min(2048, int(0.2 * len(X)))
+        _COHORT_DATA["stacked"] = DataDispatcher(
+            ClassificationDataHandler(X, y, test_size=eval_cap / len(X)),
+            n=shards, eval_on_user=False).stacked()
+    return _COHORT_DATA["stacked"]
+
+
+def cohort_sim(torch, nominal: int, device, lr: float = 0.1,
+               prefetch: int = 0, rounds: int = COHORT_ROUNDS, draws=None,
+               **kw):
+    """``bench.py::bench_cohort``'s simulator: ``NominalTopology``,
+    ``CohortConfig(size=1024)``, LogReg(57, 2) under SGD ``lr``, batch
+    4, one local epoch, MERGE_UPDATE, PUSH, ``delta=100``, a 1% sampled
+    eval on the run's last round, an fp32 ring; ``TorchDraws(42)`` moved
+    to the state ``draws`` when given."""
+    from gossipy_tpu_torch.handlers import SGDHandler, losses
+    from gossipy_tpu_torch.models import LogisticRegression
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import CohortConfig, GossipSimulator, \
+        NominalTopology
+    h = SGDHandler(LogisticRegression(COHORT_FEATURES, 2),
+                   losses.cross_entropy, learning_rate=lr, local_epochs=1,
+                   batch_size=4, n_classes=2,
+                   input_shape=(COHORT_FEATURES,))
+    sim = GossipSimulator(h, NominalTopology(nominal), cohort_data(),
+                          delta=100, sampling_eval=0.01, eval_every=rounds,
+                          cohort=CohortConfig(size=COHORT_SIZE,
+                                              prefetch=prefetch),
+                          draws=TorchDraws(42), device=device, **kw)
+    if draws is not None:
+        sim.draws.set_state(draws)
+    return sim
+
+
+def pool_variance(torch, params) -> float:
+    """The pool's total param variance, in float64 on the card."""
+    p = torch.from_numpy(params).cuda().double()
+    return float(((p - p.mean(0)) ** 2).sum())
+
+
+def cohort_launch_check(merge, label, rep, launches, kernel) -> int:
+    """``kernel`` launched once a round with messages, nothing else."""
+    with_msgs = int(((rep.compact_slots_per_round
+                      + rep.wide_slots_per_round) > 0).sum())
+    if launches != {kernel: with_msgs} or with_msgs == 0:
+        raise RuntimeError(f"cohort {label}: launches {launches}, the path "
+                           f"makes {kernel} once a round with messages "
+                           f"({with_msgs})")
+    return with_msgs
+
+
+def cohort_timed(torch, merge) -> dict:
+    """Phase 16 (a): the full-width configuration on the card, serial and
+    ``prefetch=2``, from one pool."""
+    from gossipy_tpu_torch.examples import cohort_smoke as cs
+    from gossipy_tpu_torch.telemetry.tracing import Tracer, trace_report
+    torch.cuda.empty_cache()
+    sim = cohort_sim(torch, COHORT_NOMINAL, "cuda")
+    t0 = time.perf_counter()
+    pool0 = sim.init_cohort_pool(torch.Generator().manual_seed(42))
+    init_s = time.perf_counter() - t0
+    draws0 = sim.draws.get_state()
+    budget = sim.memory_budget()
+    torch.cuda.reset_peak_memory_stats()
+    legs = {}
+    for tag, prefetch in (("serial", 0), ("stream", COHORT_PREFETCH)):
+        s = sim if prefetch == 0 else cohort_sim(
+            torch, COHORT_NOMINAL, "cuda", prefetch=prefetch, draws=draws0)
+        warm, rep_w = s.start(pool0, n_rounds=COHORT_ROUNDS)
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        pool, rep = s.start(warm, n_rounds=COHORT_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+        cohort_launch_check(merge, tag, rep, launches, merge.KERNEL)
+        idle = profile(torch, lambda: s.start(pool, COHORT_PROFILE_ROUNDS),
+                       f"cohort {tag}, {COHORT_PROFILE_ROUNDS} rounds")
+        legs[tag] = dict(warm=warm, pool=pool, rep_w=rep_w, rep=rep,
+                         wall=wall, launches=launches, idle=idle, sim=s)
+    ser, st = legs["serial"], legs["stream"]
+    if not (cs.same_pools(ser["warm"], st["warm"])
+            and cs.same_pools(ser["pool"], st["pool"])):
+        raise RuntimeError("cohort: the streamed pool is not bit-identical "
+                           "to the serial pool")
+    peak = torch.cuda.max_memory_allocated()
+    cov = np.concatenate([ser["rep_w"].cohort_coverage,
+                          ser["rep"].cohort_coverage])
+    expected = 2 * COHORT_ROUNDS * COHORT_SIZE / COHORT_NOMINAL
+    acc = ser["rep"].final("accuracy")
+    if not ((np.diff(cov) >= 0).all() and 0.5 * expected < cov[-1]
+            <= expected + 1e-9):
+        raise RuntimeError(f"cohort: coverage {cov[-1]} not monotone within "
+                           f"(0.5, 1] x {expected}")
+    if not (np.isfinite(ser["pool"].model.params).all()
+            and np.isfinite(acc)):
+        raise RuntimeError("cohort: non-finite params or accuracy")
+    traced = {}
+    for tag, prefetch in (("serial", 0), ("stream", COHORT_PREFETCH)):
+        tr = Tracer(process_name=f"chip_smoke.cohort.{tag}")
+        s = cohort_sim(torch, COHORT_NOMINAL, "cuda", prefetch=prefetch,
+                       draws=draws0, tracing=tr)
+        s.start(pool0, n_rounds=COHORT_TRACE_ROUNDS)
+        report = trace_report(tr.snapshot())
+        traced[tag] = report["totals"]
+        log(f"[cohort] traced {tag}: critical path " + ", ".join(
+            f"{row['name']} {row['ms']:.1f} ms"
+            for row in report["critical_path"][:8]))
+    avg = cohort_sim(torch, COHORT_NOMINAL, "cuda", lr=0.0,
+                     rounds=COHORT_AVG_ROUNDS, draws=draws0)
+    v0 = pool_variance(torch, pool0.model.params)
+    pool_avg, _ = avg.start(pool0, n_rounds=COHORT_AVG_ROUNDS)
+    v1 = pool_variance(torch, pool_avg.model.params)
+    if not 0 < v1 < v0:
+        raise RuntimeError(f"cohort: lr = 0 rounds did not shrink the pool's "
+                           f"variance ({v0} -> {v1})")
+    rates = {tag: COHORT_ROUNDS / legs[tag]["wall"] for tag in legs}
+    log(f"[cohort] nominal {COHORT_NOMINAL}, C {COHORT_SIZE}, K {sim.K}, "
+        f"D {sim._history_depth(sim._model_size())}, deliver "
+        f"{sim.fused_merge}: pool init {init_s:.3f} s; {COHORT_ROUNDS} "
+        f"rounds serial {legs['serial']['wall']:.3f} s = "
+        f"{rates['serial']:.2f} rounds/s, prefetch={COHORT_PREFETCH} "
+        f"{legs['stream']['wall']:.3f} s = {rates['stream']:.2f} rounds/s, "
+        f"stream/serial {rates['stream'] / rates['serial']:.4f}; streamed "
+        f"pool bit-identical to serial; K1 launches serial "
+        f"{ser['launches']}, stream {st['launches']}; idle share serial "
+        f"{ser['idle']}, stream {st['idle']}; traced {COHORT_TRACE_ROUNDS} "
+        f"rounds: overlap_frac serial {traced['serial']['overlap_frac']}, "
+        f"stream {traced['stream']['overlap_frac']}, host_blocked_frac "
+        f"serial {traced['serial']['host_blocked_frac']}, stream "
+        f"{traced['stream']['host_blocked_frac']}; coverage after "
+        f"{2 * COHORT_ROUNDS} rounds {float(cov[-1])} (R C / N = "
+        f"{expected}); final accuracy {acc}; lr = 0, "
+        f"{COHORT_AVG_ROUNDS} rounds: pool variance {v0:.6f} -> {v1:.6f} "
+        f"({v1 / v0:.6f}); memory budget: cohort_pool_resident "
+        f"{budget['cohort_pool_resident']} B, cohort_active_total "
+        f"{budget['cohort_active_total']} B, "
+        f"cohort_materialized_prediction "
+        f"{budget['cohort_materialized_prediction']} B; "
+        f"max_memory_allocated {peak} B")
+    shape = (sim._history_depth(sim._model_size()),
+             sim.handler.layout.stride, sim.K)
+    return {"serial": ser["launches"][merge.KERNEL],
+            "stream": st["launches"][merge.KERNEL], "shape": shape,
+            "draws": draws0}
+
+
+def cohort_plain_leg(torch, merge) -> dict:
+    """Phase 16 (b): the same pool and seed at nominal
+    COHORT_PLAIN_NOMINAL on K1 (every call held to its plain version on
+    its own tables), on the same path with K1's plain version in its
+    place (params bit-equal), and on the plain deliver
+    (``fused_merge=False``: the same cohorts, touched rows, coverage and
+    sends; its own updates)."""
+    from gossipy_tpu_torch.examples import cohort_smoke as cs
+    from gossipy_tpu_torch.simulation import engine
+    base = cohort_sim(torch, COHORT_PLAIN_NOMINAL, "cuda",
+                      rounds=COHORT_PLAIN_ROUNDS)
+    pool0 = base.init_cohort_pool(torch.Generator().manual_seed(7))
+    draws0 = base.draws.get_state()
+    runs = {}
+    for label, fused in (("k1", None), ("k1-plain-version", None),
+                         ("plain", False)):
+        kw = {} if fused is None else {"fused_merge": fused}
+        sim = cohort_sim(torch, COHORT_PLAIN_NOMINAL, "cuda",
+                         rounds=COHORT_PLAIN_ROUNDS, draws=draws0, **kw)
+        merge.reset_launch_counts()
+        audit = MergeAudit(torch, merge, sim)
+        saved = engine.gather_merge_multi
+        if label == "k1-plain-version":
+            engine.gather_merge_multi = merge.gather_merge_multi_reference
+        try:
+            with audit if label == "k1" else contextlib.nullcontext():
+                pool, rep = sim.start(pool0, n_rounds=COHORT_PLAIN_ROUNDS)
+        finally:
+            engine.gather_merge_multi = saved
+        runs[label] = (pool, rep, {k: v for k, v in merge.LAUNCHES.items()
+                                   if v}, audit.stats)
+    (pk, rk, lk, stats), (pp, rp, lp, _), (pd, rd, ld, _) = (
+        runs["k1"], runs["k1-plain-version"], runs["plain"])
+    launches = cohort_launch_check(merge, "k1 leg", rk, lk, merge.KERNEL)
+    if lp or ld:
+        raise RuntimeError(f"cohort: the plain legs launched {lp}, {ld}")
+    if not cs.same_pools(pk, pp):
+        raise RuntimeError("cohort: K1's pool differs from its plain "
+                           "version's on the same path")
+    for field in ("sent_per_round", "failed_per_round",
+                  "compact_slots_per_round", "wide_slots_per_round",
+                  "cohort_coverage"):
+        if not np.array_equal(getattr(rk, field), getattr(rp, field)):
+            raise RuntimeError(f"cohort: K1 and its plain version differ in "
+                               f"{field}")
+    for field in ("sent_per_round", "cohort_coverage",
+                  "cohort_active_nodes"):
+        if not np.array_equal(getattr(rk, field), getattr(rd, field)):
+            raise RuntimeError(f"cohort: the K1 and plain legs differ in "
+                               f"{field}")
+    if not np.array_equal(pk.touched, pd.touched):
+        raise RuntimeError("cohort: the K1 and plain legs sampled other "
+                           "cohorts")
+    log(f"[cohort] (b) nominal {COHORT_PLAIN_NOMINAL}, "
+        f"{COHORT_PLAIN_ROUNDS} rounds from one pool: K1 launches {lk}, "
+        f"every call bit-equal to its plain version ({stats}); K1's pool "
+        f"bit-equal to the same path with K1's plain version (launches "
+        f"{lp}); the plain deliver (launches {ld}) samples the same "
+        f"cohorts (touched {int(pd.touched.sum())} rows) and sends "
+        f"{int(rd.sent_per_round.sum())}, fails "
+        f"{int(rd.failed_per_round.sum())} (K1 leg "
+        f"{int(rk.failed_per_round.sum())}); final accuracy K1 "
+        f"{rk.final('accuracy')}, plain {rd.final('accuracy')}")
+    return {"plain-check": launches}
+
+
+def cohort_twin_sim(torch, device, wire: str):
+    """``examples/cohort_smoke.py``'s N = 96, C = 24 configuration on a
+    ``wire`` ring."""
+    from gossipy_tpu_torch.core import Topology
+    from gossipy_tpu_torch.examples import cohort_smoke as cs
+    from gossipy_tpu_torch.random import TorchDraws
+    from gossipy_tpu_torch.simulation import CohortConfig, GossipSimulator
+    return GossipSimulator(
+        cs.handler(), Topology.random_regular(cs.N_NOMINAL, 6, seed=3),
+        cs.stacked(cs.N_NOMINAL, 6, cs.D, 0.25), delta=20,
+        cohort=CohortConfig(size=cs.C), history_dtype=wire,
+        draws=TorchDraws(cs.SEED), device=device)
+
+
+def cohort_card_vs_cpu(torch, merge, wire: str) -> int:
+    """Phase 16 (c): the twin's configuration on the CPU and on the card
+    from one pool and one draw state: the same cohorts and accounting
+    exactly, params within REF_TOL plus a ring step; every merge call of
+    the card run bit-equal to its plain version."""
+    from gossipy_tpu_torch.examples import cohort_smoke as cs
+    runs = {}
+    pool0 = draws0 = None
+    for dev in ("cpu", "cuda"):
+        sim = cohort_twin_sim(torch, dev, wire)
+        if pool0 is None:
+            pool0 = sim.init_cohort_pool(torch.Generator().manual_seed(11))
+            draws0 = sim.draws.get_state()
+        sim.draws.set_state(draws0)
+        merge.reset_launch_counts()
+        audit = MergeAudit(torch, merge, sim)
+        with audit if dev == "cuda" else contextlib.nullcontext():
+            pool, rep = sim.start(pool0, n_rounds=COHORT_CHECK_ROUNDS)
+        runs[dev] = (pool, rep, {k: v for k, v in merge.LAUNCHES.items()
+                                 if v}, audit.stats)
+    (pc, rc, lc, _), (pg, rg, lg, stats) = runs["cpu"], runs["cuda"]
+    label = f"card vs CPU {wire}"
+    kernel = merge.KERNEL if wire == "float32" else merge.KERNEL_MULTI_DQ
+    launches = cohort_launch_check(merge, label, rg, lg, kernel)
+    for field in ("sent_per_round", "failed_per_round",
+                  "mailbox_hwm_per_round", "compact_slots_per_round",
+                  "wide_slots_per_round", "cohort_coverage"):
+        if not np.array_equal(getattr(rc, field), getattr(rg, field)):
+            raise RuntimeError(f"cohort {label}: {field} differs")
+    for a, b in zip(cs.pool_leaves(pc)[1:], cs.pool_leaves(pg)[1:]):
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"cohort {label}: ages, phases, keys or "
+                               "touched rows differ")
+    p_c, p_g = pc.model.params, pg.model.params
+    tol = REF_TOL + (2.0 ** -8 * np.abs(p_c) if wire == "bfloat16" else 0)
+    diff = np.abs(p_c - p_g)
+    worst = float((diff - tol).max())
+    log(f"[cohort] (c) {label}: {COHORT_CHECK_ROUNDS} rounds, sent "
+        f"{int(rg.sent_per_round.sum())}, coverage "
+        f"{float(rg.cohort_coverage[-1])}; max abs param diff "
+        f"{float(diff.max()):.3e}, worst margin {worst:.3e} (<= 0 passes); "
+        f"launches card {lg}, CPU {lc}; merge calls held to the plain "
+        f"version {stats}")
+    if worst > 0 or lc:
+        raise RuntimeError(f"cohort {label}: card and CPU disagree")
+    return launches
+
+
+def cohort_phase(torch, merge, rate) -> tuple:
+    """Phase 16: (a) the full-width configuration (``cohort_timed``),
+    (b) K1 against the plain leg (``cohort_plain_leg``), (c) card against
+    CPU on an fp32 and a bf16 ring (K2), (d) the ``examples/
+    cohort_smoke.py`` twin's eight checks, (e) K1 alone at the cohort
+    shape. Returns the launches by (kernel, ring) and run and K1's
+    numbers at the cohort shape."""
+    import shutil
+
+    from gossipy_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    timed = cohort_timed(torch, merge)
+    log(f"[cohort] (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths = {(merge.KERNEL, "float32"): {
+        "cohort-serial": timed["serial"], "cohort-stream": timed["stream"],
+        **{f"cohort-{k}": v for k, v in cohort_plain_leg(torch,
+                                                         merge).items()},
+        "cohort-card-vs-cpu": cohort_card_vs_cpu(torch, merge,
+                                                 "float32")},
+        (merge.KERNEL_MULTI_DQ, "bfloat16"): {
+            "cohort-card-vs-cpu": cohort_card_vs_cpu(torch, merge,
+                                                     "bfloat16")}}
+    log(f"[cohort] (b), (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # A process of its own, as a user runs it (its peak RSS is the disk
+    # pool's check), writing inside the checkout (the build directory).
+    out = _build.BUILD_DIR / "cohort_smoke"
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "gossipy_tpu_torch.examples.cohort_smoke",
+             "--out", str(out)], capture_output=True, text=True,
+            timeout=600, cwd=str(_build.PKG_DIR.parent))
+        if proc.returncode != 0:
+            raise RuntimeError("the cohort_smoke twin failed:\n"
+                               + proc.stdout[-3000:] + proc.stderr[-3000:])
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"[cohort] (d) the cohort_smoke twin: all eight checks passed in "
+        f"{time.perf_counter() - t0:.1f} s: sent {rec['sent_per_round']}, "
+        f"sequential replay {rec['seq_replay_sent']}, coverage "
+        f"{rec['coverage_final']}, trace {rec['trace']}, stream A/B "
+        f"{rec['stream_ab']}, disk pool {rec['pool_100m']}")
+    d, stride, k = timed["shape"]
+    at_cohort = check_multi(torch, merge, "cohort", "float32", COHORT_SIZE,
+                            d, stride, k, 64, rate)
+    return paths, at_cohort
 
 
 def tensor_rate(name: str) -> float:
@@ -5015,6 +5419,14 @@ def main() -> int:
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[perf] phase 15 took {time.perf_counter() - t0:.1f} s")
 
+    # 16. active-cohort rounds over a host pool
+    at(16)
+    t0 = time.perf_counter()
+    cohort_paths, at_cohort = cohort_phase(torch, merge, rate)
+    for key, by_path in cohort_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[cohort] phase 16 took {time.perf_counter() - t0:.1f} s")
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -5036,6 +5448,7 @@ def main() -> int:
     kernels[0]["at_scale_shape"] = at_scale
     kernels[0]["at_northstar_shape"] = at_northstar
     kernels[0]["at_ladder_shape"] = at_ladder
+    kernels[0]["at_cohort_shape"] = at_cohort
     kernels[0]["sweep"] = {label: nums for (label, wire), nums
                            in sweep.items() if wire == "float32"}
     for slots, wire, label, kernel, source, line in (

@@ -15,8 +15,10 @@ port's pieces: the optax rules onto :mod:`gossipy_tpu_torch.optim`
 ``compute_dtype=torch.bfloat16``, the partitioned handler's template onto
 the model's :class:`~gossipy_tpu_torch.models.nn.ParamLayout`, and
 ``metropolis`` mixing onto :func:`~gossipy_tpu_torch.core.
-metropolis_hastings_mixing`. The ``cohort`` field raises
-``NotImplementedError`` (cohort mode is not ported).
+metropolis_hastings_mixing`. The ``cohort`` field builds a
+:class:`~gossipy_tpu_torch.simulation.cohort.CohortConfig` (the base
+simulator only), and :func:`run_experiment` then inits a resident pool
+(``init_cohort_pool``) in place of ``init_nodes``.
 
 Seeding: the simulator draws from ``TorchDraws(cfg.seed)`` and
 ``init_nodes`` from the generator ``set_seed(cfg.seed)`` gives, so one
@@ -244,8 +246,13 @@ def _simulator(cfg: "ExperimentConfig", handler, topology, data, device):
         from .simulation.faults import ChaosConfig
         common["chaos"] = ChaosConfig.from_dict(cfg.chaos)
     if cfg.cohort is not None:
-        raise NotImplementedError("cohort mode (the cohort field) is not "
-                                  "ported yet")
+        # Validated at build; only the base engine drives the resident
+        # pool's segment loop.
+        if cfg.simulator != "gossip":
+            raise ValueError("cohort mode requires simulator 'gossip' "
+                             f"(got {cfg.simulator!r})")
+        from .simulation.cohort import CohortConfig
+        common["cohort"] = CohortConfig.from_dict(cfg.cohort)
     common.update(cfg.simulator_params)
     common.update(draws=TorchDraws(cfg.seed), device=device)
     kind = cfg.simulator
@@ -353,8 +360,12 @@ class ExperimentConfig:
     drop_prob: float = 0.0
     online_prob: float = 1.0
     chaos: Optional[dict] = None         # ChaosConfig.to_dict() form
-    cohort: Optional[dict] = None        # the JAX package's cohort mode
-                                         # (not ported: raises at build)
+    cohort: Optional[dict] = None        # CohortConfig.to_dict() form:
+                                         # sampled active-cohort mode
+                                         # (simulation.cohort); n_nodes
+                                         # is the NOMINAL population, a
+                                         # round puts cohort["size"] on
+                                         # the device
     sampling_eval: float = 0.0
     sync: bool = True
     eval_every: int = 1
@@ -580,5 +591,8 @@ def run_experiment(cfg: ExperimentConfig, data: Optional[tuple] = None,
     if cfg.repetitions > 1:
         return sim.run_repetitions(cfg.n_rounds, repetition_seeds(cfg),
                                    common_init=cfg.common_init)
+    if getattr(sim, "cohort", None) is not None:
+        pool = sim.init_cohort_pool(generator, common_init=cfg.common_init)
+        return sim.start(pool, n_rounds=cfg.n_rounds)
     state = sim.init_nodes(generator, common_init=cfg.common_init)
     return sim.start(state, n_rounds=cfg.n_rounds)

@@ -71,6 +71,14 @@ class BaseHandler:
         any step: none by default."""
         return ()
 
+    def init_rows(self, b: int, draw) -> Optional[ModelState]:
+        """``b`` nodes' initial states at once on the host, their
+        uniforms from ``draw(count, dtype)`` (a ``[b, count]`` tensor;
+        :func:`~gossipy_tpu_torch.models.nn.init_rows`), or None where the
+        handler's init draws in a way a block cannot reproduce: the caller
+        then inits node by node."""
+        return None
+
     def orders_per_update(self) -> Optional[int]:
         """The ``epochs`` of the shard orders one local update takes from
         the engine's draw provider, or None when it draws none (the JAX

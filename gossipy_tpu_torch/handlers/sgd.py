@@ -24,7 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..compression import ModelPartition, sampled_merge
 from ..core import CreateModelMode
-from ..models.nn import ParamLayout, init_flat
+from ..models.nn import ParamLayout, init_flat, init_rows
 from ..optim import Optimizer, apply_updates, sgd
 from ..utils import classification_metrics
 from .base import BaseHandler, ModelState, PeerModel, select_state
@@ -111,6 +111,17 @@ class SGDHandler(BaseHandler):
         params = init_flat(self.model, self.layout, generator).to(dev)
         return ModelState(params, self.optimizer.init(params),
                           torch.zeros((), dtype=torch.int32, device=dev))
+
+    def init_rows(self, b: int, draw) -> Optional[ModelState]:
+        """``b`` nodes' :meth:`init` at once on the host (the model's
+        draws as columns of ``draw``'s uniforms; None when its draws mix
+        dtypes)."""
+        params = init_rows(self.model, self.layout, b, draw)
+        if params is None:
+            return None
+        age = self.init(torch.Generator(), "cpu").n_updates
+        return ModelState(params, self.init_opt_state(params),
+                          age.expand(b, *age.shape).clone())
 
     # -- training ----------------------------------------------------------
 

@@ -75,9 +75,39 @@ class ParamLayout:
         return flat
 
 
+class RowDraws:
+    """Stands in for a generator while a model's ``init`` runs once for a
+    block of nodes (:func:`init_rows`): each draw takes its columns of the
+    ``[b, count]`` uniforms ``u`` in order, so the block's row ``i`` holds
+    what the ``i``-th of ``b`` inits drawn one after another would hold.
+    With ``u`` None (the counting pass) a draw counts its values and
+    dtype and returns zeros."""
+
+    def __init__(self, u: Optional[torch.Tensor] = None):
+        self.u = u
+        self.count = 0
+        self.dtypes = set()
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        n = math.prod(shape)
+        self.dtypes.add(dtype)
+        lo, self.count = self.count, self.count + n
+        if self.u is None:
+            return torch.zeros(shape, dtype=dtype)
+        return self.u[:, lo:lo + n].reshape((self.u.shape[0],) + tuple(shape))
+
+
+def _uniform(shape, generator, dtype) -> torch.Tensor:
+    """``torch.rand`` under ``generator``, or a block's columns when it is
+    a :class:`RowDraws`."""
+    if isinstance(generator, RowDraws):
+        return generator.take(shape, dtype)
+    return torch.rand(shape, generator=generator, dtype=dtype)
+
+
 def _xavier_uniform(shape, fan_in, fan_out, generator):
     limit = math.sqrt(6.0 / (fan_in + fan_out))
-    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    u = _uniform(shape, generator, torch.float32)
     return (2.0 * u - 1.0) * limit
 
 
@@ -97,7 +127,7 @@ def _lecun_normal(shape, fan_in, generator):
     torch release, so one seed gives the same weights on every
     installation."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = _uniform(shape, generator, torch.float64)
     p = _PHI_LO + (_PHI_HI - _PHI_LO) * u
     z = torch.erfinv(2.0 * p - 1.0) * (std * math.sqrt(2.0))
     return z.to(torch.float32)
@@ -314,3 +344,25 @@ def init_flat(model, layout: ParamLayout, generator: Optional[torch.Generator]
     """One node's initial parameters as a flat ``[stride]`` CPU row."""
     g = generator if generator is not None else torch.Generator()
     return layout.flatten(model.init(g))
+
+
+def init_rows(model, layout: ParamLayout, b: int, draw
+              ) -> Optional[torch.Tensor]:
+    """``b`` nodes' initial parameters at once, ``[b, stride]`` on the
+    host: ``model.init`` runs once over a :class:`RowDraws` whose
+    uniforms ``draw(count, dtype)`` gives as ``[b, count]``, every value
+    transformed elementwise as one init transforms it. With ``draw`` =
+    ``torch.rand((b, count), generator=g, dtype=dtype)`` the rows equal
+    ``b`` calls of :func:`init_flat` under ``g``, bit for bit (a CPU
+    generator draws serially). None when the model's draws mix dtypes
+    (their order in one stream could not be cut into columns)."""
+    probe = RowDraws()
+    model.init(probe)
+    if len(probe.dtypes) > 1:
+        return None
+    dtype = probe.dtypes.pop() if probe.dtypes else torch.float32
+    leaves = model.init(RowDraws(draw(probe.count, dtype)))
+    shapes = dict(layout.leaves)
+    return layout.flatten({
+        k: v if v.dim() > len(shapes[k]) else v.expand(b, *shapes[k])
+        for k, v in leaves.items()})

@@ -36,6 +36,13 @@ a ``randint`` into a sparse topology's CSR row
 over the alive slots of the padded neighbour table
 (:meth:`DrawProvider.slot_peers`).
 
+Active-cohort rounds (:mod:`~gossipy_tpu_torch.simulation.cohort`) draw a
+peer over the C materialized nodes with no ``[C, C]`` clique
+(:meth:`DrawProvider.cohort_peers`, ``(i + 1 + randint(0, C - 1)) % C``)
+and sample their cohorts from seed material
+(:meth:`DrawProvider.cohort_seed_material`), never from a provider's
+stream: a prefetch thread samples ahead of the rounds.
+
 The simulator variants draw under the JAX package's variant tags
 (``>= 9000``): the token gate ``K_TOKEN_GATE``, reactive rounding
 ``K_REACT_SLOT + k``, the reaction waves ``K_REACT_PEER``, ``_DROP``,
@@ -122,6 +129,22 @@ class DrawProvider:
         slot = self.choice(r, purpose, alive, sub).clamp(0, nbr.shape[1] - 1)
         peers = nbr.gather(1, slot[:, None]).squeeze(1).long()
         return torch.where(alive.any(dim=1), peers, -1)
+
+    def cohort_peers(self, r: int, c: int, device: torch.device,
+                     sub: int = 0, purpose: int = K_PEER) -> torch.Tensor:
+        """One uniform peer other than itself for each of ``c`` cohort
+        nodes, ``(i + 1 + u_i) % c`` with ``u_i`` a uniform integer in
+        ``[0, c - 2]`` (the JAX ``_CohortRoundTopology.sample_peers``: no
+        ``[c, c]`` clique), int64 on ``device``; keys as in
+        :meth:`peers`."""
+        raise NotImplementedError
+
+    def cohort_seed_material(self) -> list:
+        """The integers a cohort schedule is seeded from
+        (``simulation.cohort.sample_cohort``): a pure function of the
+        provider, never a draw from its stream, so that cohorts sampled
+        ahead of the rounds leave every round's draws as they are."""
+        raise NotImplementedError
 
     def bernoulli(self, r: int, purpose: int, p: float, n, device:
                   torch.device, sub: int = 0) -> torch.Tensor:
@@ -256,6 +279,7 @@ class TorchDraws(DrawProvider):
     """
 
     def __init__(self, seed: int = 42):
+        self.seed = int(seed)
         self.generator = torch.Generator().manual_seed(seed)
         # id(adjacency) -> (adjacency, degrees, row starts, ids): one entry
         # per dense adjacency tensor a run draws over (the topology's, and
@@ -265,12 +289,14 @@ class TorchDraws(DrawProvider):
         self._neighbours: dict = {}
 
     def get_state(self) -> dict:
-        """The generator's state (a uint8 tensor, a copy)."""
-        return {"generator": self.generator.get_state()}
+        """The generator's state (a uint8 tensor, a copy) and the seed
+        (the cohort schedule's material)."""
+        return {"generator": self.generator.get_state(), "seed": self.seed}
 
     def set_state(self, state) -> None:
         # A checkpoint read onto the card holds the state on the card.
         self.generator.set_state(state["generator"].cpu())
+        self.seed = int(state.get("seed", self.seed))
 
     def _perms(self, n: int, epochs: int, s: int) -> torch.Tensor:
         u = torch.rand((n, max(epochs, 1), s), generator=self.generator)
@@ -337,6 +363,15 @@ class TorchDraws(DrawProvider):
         k = torch.minimum((u * deg).to(torch.int64), deg - 1).clamp(min=0)
         pos = torch.where(has_peer, csr.indptr[:-1] + k, 0)
         return torch.where(has_peer, csr.indices[pos], -1)
+
+    def cohort_peers(self, r, c, device, sub=0, purpose=K_PEER):
+        u = torch.randint(0, c - 1, (c,), generator=self.generator,
+                          dtype=torch.int64)
+        return ((torch.arange(c) + 1 + u) % c).to(device)
+
+    def cohort_seed_material(self):
+        """The seed, as two 32-bit words."""
+        return [self.seed & 0xFFFFFFFF, (self.seed >> 32) & 0xFFFFFFFF]
 
     def bernoulli(self, r, purpose, p, n, device, sub=0):
         shape = (n,) if isinstance(n, int) else tuple(n)

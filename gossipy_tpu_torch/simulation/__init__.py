@@ -1,6 +1,8 @@
 """The gossip simulation engine, its variants, the sequential
-high-fidelity engine, its events, its scheduled faults and its report."""
+high-fidelity engine, active-cohort rounds over a host pool, its events,
+its scheduled faults and its report."""
 
+from .cohort import CohortConfig, CohortPool, NominalTopology, PoolStore
 from .engine import GossipSimulator, Mailbox, MemoryBudgetExceeded, \
     SimState
 from .events import CallbackReceiver, JSONLinesReceiver, ProgressReceiver, \
@@ -18,11 +20,13 @@ from .variants import All2AllGossipSimulator, TokenizedGossipSimulator, \
 
 __all__ = ["All2AllGossipSimulator", "CacheNeighGossipSimulator",
            "CallbackReceiver", "ChaosConfig", "ChurnProcess",
+           "CohortConfig", "CohortPool",
            "FaultSchedule", "FaultSpike", "GossipSimulator",
            "JSONLinesReceiver", "Mailbox", "MemoryBudgetExceeded",
-           "MessageRecord", "OutageEpisode",
+           "MessageRecord", "NominalTopology", "OutageEpisode",
            "PENSGossipSimulator", "PartitionEpisode",
            "PartitioningGossipSimulator", "PassThroughGossipSimulator",
+           "PoolStore",
            "ProgressReceiver", "SamplingGossipSimulator",
            "SeqState", "SequentialGossipSimulator", "SimState",
            "SimulationEventReceiver", "SimulationEventSender",

@@ -122,8 +122,10 @@ tracing (``tracing=``; no ``engine.compile`` span, as nothing compiles),
 :meth:`GossipSimulator.run_manifest`, :meth:`GossipSimulator.save` and
 :meth:`GossipSimulator.load` (:mod:`gossipy_tpu_torch.checkpoint`, the
 draw state kept beside the state) and
-:meth:`GossipSimulator.run_repetitions`. Every other option of the JAX
-engine raises ``NotImplementedError``.
+:meth:`GossipSimulator.run_repetitions`, and active-cohort rounds
+(``cohort=``, :mod:`~gossipy_tpu_torch.simulation.cohort`: a host pool of
+nominal N, a ``[C]``-wide round a segment). ``mesh=`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -162,6 +164,8 @@ from ..telemetry.tracing import WAIT_CAT, attach_device_spans, \
 from ..telemetry.probes import PROBE_STAT_KEYS, ProbeAccum, ProbeConfig, \
     consensus_stats, param_layer_names, probe_event_row, \
     probe_stats_from_accum, sq_param_distance
+from .cohort import COHORT_STAT_KEYS, CohortConfig, NominalTopology, \
+    _CohortRoundTopology, setup_cohort
 from .events import SimulationEventSender
 from .faults import CHAOS_PROBE_KEYS, ChaosConfig, build_fault_schedule, \
     chaos_event_row, chaos_round_stats
@@ -398,6 +402,14 @@ class GossipSimulator(SimulationEventSender):
         The run ledger (:mod:`~gossipy_tpu_torch.telemetry.ledger`):
         None consults ``GOSSIPY_TPU_LEDGER`` (unset: off), False is off, a
         path or a ``RunLedger`` is explicit.
+    cohort : CohortConfig | int | dict | None
+        Sampled active-cohort mode (:mod:`~gossipy_tpu_torch.simulation.
+        cohort`): ``topology`` names the nominal population (a real
+        topology, or a :class:`~gossipy_tpu_torch.simulation.cohort.
+        NominalTopology` size in resample mode), the population lives in
+        a host :class:`~gossipy_tpu_torch.simulation.cohort.CohortPool`
+        (:meth:`init_cohort_pool`) and each round puts only C sampled
+        nodes on the device.
     draws : DrawProvider | None
         Source of every random draw of the run (default
         :class:`~gossipy_tpu_torch.random.TorchDraws` seeded with 42).
@@ -445,10 +457,31 @@ class GossipSimulator(SimulationEventSender):
         if history_dtype not in self._HISTORY_DTYPES:
             raise ValueError(f"unknown history_dtype {history_dtype!r}; "
                              "options: " + ", ".join(self._HISTORY_DTYPES))
-        unported = {"mesh": mesh, "cohort": cohort}
-        for name, val in unported.items():
-            if val is not None:
-                raise NotImplementedError(f"{name}= is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported yet")
+        # Sampled active-cohort mode (simulation.cohort): ``topology``
+        # names the NOMINAL population (a real graph, or a
+        # NominalTopology size) and is swapped here for the C-node round
+        # world the rest of construction sizes against; the population
+        # lives in a host-resident CohortPool (init_cohort_pool), and
+        # start() drives gather -> [C]-round -> scatter segments.
+        self.cohort = CohortConfig.coerce(cohort)
+        self.nominal_topology = None
+        self.nominal_n = int(topology.num_nodes)
+        # The live disk-backed pool store (CohortConfig.pool_dir), owned
+        # by init_cohort_pool/load; None otherwise.
+        self._pool_store = None
+        if self.cohort is not None:
+            if chaos is not None:
+                raise ValueError(
+                    "cohort mode and chaos scheduling are mutually "
+                    "exclusive (fault schedules are nominal-population-"
+                    "indexed; the active cohort rotates)")
+            topology = setup_cohort(self, topology)
+        elif isinstance(topology, NominalTopology):
+            raise ValueError("NominalTopology is a population size for "
+                             "cohort= runs; a run without cohort= needs a "
+                             "Topology or a SparseTopology")
         if fused_merge is None:
             fused_merge = ("multi" if self._fused_refusal(handler, "multi")
                            is None else False)
@@ -459,7 +492,8 @@ class GossipSimulator(SimulationEventSender):
         elif fused_merge not in ("multi", "per_slot"):
             raise ValueError(f"unknown fused_merge mode {fused_merge!r}; "
                              "options: False, True/'multi', 'per_slot'")
-        if not isinstance(topology, (Topology, SparseTopology)):
+        if not isinstance(topology, (Topology, SparseTopology,
+                                     _CohortRoundTopology)):
             raise TypeError("topology must be a Topology or a SparseTopology,"
                             f" got {type(topology).__name__}")
         if max_fires_per_round is None:
@@ -502,8 +536,8 @@ class GossipSimulator(SimulationEventSender):
         self.has_global_eval = "x_eval" in self.data
         # The topology on the device, in its own form: the dense bool
         # adjacency, or the CSR neighbour lists (and no [N, N] at all).
-        self._adj = None if self._sparse else topology.adjacency_on(
-            self.device)
+        self._adj = (None if self._sparse or self.cohort is not None
+                     else topology.adjacency_on(self.device))
         self._csr = topology.csr_on(self.device) if self._sparse else None
         self._metric_names: Optional[list] = None
         # The leaves of the flat row: start columns (the kernels' leaf
@@ -628,7 +662,11 @@ class GossipSimulator(SimulationEventSender):
         """Per-node expected same-round fan-in under uniform peer draws:
         ``lam_i = sum_{j -> i} F / deg_j`` (computed once): a column sum of
         the dense adjacency, or each CSR row's ``F / deg`` scattered into
-        its neighbours (``np.add.at``, O(E))."""
+        its neighbours (``np.add.at``, O(E)). A cohort round draws over
+        the active cohort (or its induced subgraph, whose fan-in the same
+        draw bounds): exactly F per node, no nominal-topology scan."""
+        if self._lam_vec is None and self.cohort is not None:
+            self._lam_vec = np.full(self.n_nodes, float(self.F))
         if self._lam_vec is None:
             deg = np.maximum(self.topology.degrees.astype(np.float64), 1.0)
             inv = self.F / deg
@@ -827,7 +865,12 @@ class GossipSimulator(SimulationEventSender):
         - ``data_bytes``: the stacked data on the device;
         - ``eval_peak_bytes``: the global evaluation's transient
           (:meth:`_eval_peak_bytes`);
-        - ``total_bytes``: the sum of the ``_bytes`` terms.
+        - ``total_bytes``: the sum of the ``_bytes`` terms;
+        - with ``cohort=``, those terms price the ``[C]``-wide round, and
+          ``cohort_size``, ``nominal_n``, ``cohort_pool_resident`` (the
+          host pool's bytes), ``cohort_active_total``,
+          ``cohort_materialized_prediction`` (the N-scaled terms
+          materialized) and ``cohort_pool_disk_backed`` are added.
 
         The port's rows are ``stride`` wide (the layout pads each row to a
         multiple of 4 floats), so its params, optimizer and ring terms
@@ -862,6 +905,25 @@ class GossipSimulator(SimulationEventSender):
         }
         out["total_bytes"] = sum(v for k, v in out.items()
                                  if k.endswith("_bytes"))
+        if self.cohort is not None:
+            # The keys above price the ACTIVE [C]-wide round (n == C);
+            # the pool prices the nominal population's durable state on
+            # the host, named without ``_bytes`` so the device total stays
+            # the active round's. ``materialized_prediction``: the
+            # N-scaled terms as a materialized run would hold them.
+            from .cohort import pool_bytes
+            n_scaled = sum(out[k] for k in (
+                "model_and_opt_bytes", "history_ring_bytes",
+                "history_ages_bytes", "aux_bytes", "mailbox_bytes",
+                "reply_box_bytes"))
+            out["cohort_size"] = self.n_nodes
+            out["nominal_n"] = self.nominal_n
+            out["cohort_pool_resident"] = pool_bytes(self)
+            out["cohort_active_total"] = out["total_bytes"]
+            out["cohort_materialized_prediction"] = (
+                int(n_scaled * (self.nominal_n / max(self.n_nodes, 1)))
+                + out["data_bytes"] + out["eval_peak_bytes"])
+            out["cohort_pool_disk_backed"] = bool(self.cohort.pool_dir)
         return out
 
     def check_memory_budget(self, limit_bytes: Optional[int] = None
@@ -910,10 +972,17 @@ class GossipSimulator(SimulationEventSender):
     def save(self, path: str, state: SimState, draws=None) -> str:
         """Checkpoint ``state`` and the draw state of ``draws`` (default:
         the simulator's own provider) to the file ``path``
-        (:func:`gossipy_tpu_torch.checkpoint.save_checkpoint`)."""
+        (:func:`gossipy_tpu_torch.checkpoint.save_checkpoint`). A
+        disk-backed cohort pool is checkpointed as hole-preserving copies
+        of its files into the directory ``path``
+        (:func:`~gossipy_tpu_torch.simulation.cohort.save_pool_store`)."""
+        draws = self.draws if draws is None else draws
+        if self.cohort is not None:
+            from .cohort import is_mmap_pool, save_pool_store
+            if is_mmap_pool(state):
+                return save_pool_store(self, state, path, draws)
         from ..checkpoint import save_checkpoint
-        return save_checkpoint(path, state,
-                               draws=self.draws if draws is None else draws)
+        return save_checkpoint(path, state, draws=draws)
 
     def load(self, path: str, mesh=None):
         """Restore ``(state, draws)`` saved by :meth:`save`, on a simulator
@@ -921,10 +990,21 @@ class GossipSimulator(SimulationEventSender):
         ``init_nodes(local_train=False)`` (which, as in the JAX engine,
         also resets the sentinels' carry), and the saved draw state goes
         into the simulator's own provider, returned as ``draws`` (None
-        when the checkpoint kept none). ``mesh`` is not ported."""
+        when the checkpoint kept none). ``mesh`` is not ported.
+
+        In cohort mode the unit is the resident
+        :class:`~gossipy_tpu_torch.simulation.cohort.CohortPool`, and the
+        template a zero-filled pool (no init at restore); a pool-store
+        directory is copied into a work directory and opened there."""
         if mesh is not None:
             raise NotImplementedError("mesh= is not ported yet")
         from ..checkpoint import restore_checkpoint
+        if self.cohort is not None:
+            from .cohort import is_pool_store_dir, load_pool_checkpoint, \
+                pool_template
+            if is_pool_store_dir(path):
+                return load_pool_checkpoint(self, path)
+            return restore_checkpoint(path, pool_template(self), self.draws)
         template = self.init_nodes(local_train=False)
         return restore_checkpoint(path, template, self.draws)
 
@@ -973,6 +1053,11 @@ class GossipSimulator(SimulationEventSender):
         ``common_init=True`` gives every node the same initial weights; the
         pre-training pass still diversifies them.
         """
+        if self.cohort is not None:
+            raise ValueError(
+                "cohort mode keeps the population in a resident pool — "
+                "use init_cohort_pool() and start(pool, ...) instead of "
+                "init_nodes()")
         n = self.n_nodes
         self._health_carry = None   # a fresh population, a fresh EMA
         g = generator if generator is not None \
@@ -1001,6 +1086,21 @@ class GossipSimulator(SimulationEventSender):
         else:
             phase = self.draws.init_period(n, self.delta, self.device)
         return self.init_state(model, phase)
+
+    def init_cohort_pool(self, generator: Optional[torch.Generator] = None,
+                         common_init: bool = False,
+                         local_train: bool = False,
+                         block: Optional[int] = None):
+        """Cohort-mode population init: the resident
+        :class:`~gossipy_tpu_torch.simulation.cohort.CohortPool` of
+        nominal size N on the host, built in blocks
+        (:func:`gossipy_tpu_torch.simulation.cohort.init_cohort_pool`)."""
+        if self.cohort is None:
+            raise ValueError("init_cohort_pool requires cohort=; use "
+                             "init_nodes() for materialized populations")
+        from .cohort import init_cohort_pool
+        return init_cohort_pool(self, generator, common_init=common_init,
+                                local_train=local_train, block=block)
 
     def init_state(self, model: ModelState, phase: torch.Tensor) -> SimState:
         """A round-0 state around given node models (their optimizer
@@ -1040,7 +1140,16 @@ class GossipSimulator(SimulationEventSender):
 
     def _select_peers(self, state: SimState, r: int, f: int) -> torch.Tensor:
         """Sub-fire ``f``'s peer of every node (``-1``: none), over the
-        round's alive edges under chaos partitions or churn."""
+        round's alive edges under chaos partitions or churn. A cohort
+        round draws over the cohort, or in induced mode over the
+        cohort-local neighbour table riding ``state.aux["cohort_nbr"]``
+        (a node with no neighbour in the cohort gets -1)."""
+        if self.cohort is not None:
+            if self.cohort.peer_mode == "induced":
+                nbr = state.aux["cohort_nbr"]
+                return self.draws.slot_peers(r, nbr, nbr >= 0, sub=f)
+            return self.draws.cohort_peers(r, self.n_nodes, self.device,
+                                           sub=f)
         return self._chaos_masked_peers(r, sub=f)
 
     def _send_gate(self, state: SimState, active: torch.Tensor,
@@ -1915,7 +2024,19 @@ class GossipSimulator(SimulationEventSender):
         With ``perf=`` timing or ``tracing=``, the card is synchronised
         once when the rounds end; otherwise not at all until the report
         copies the counters. The digest row of ``ledger=`` is appended
-        after the report."""
+        after the report.
+
+        In cohort mode ``state`` is the resident :class:`~gossipy_tpu_torch.
+        simulation.cohort.CohortPool` and the call is the host-driven
+        gather -> [C]-round -> scatter segment loop
+        (:func:`~gossipy_tpu_torch.simulation.cohort.cohort_start`;
+        ``profile_dir`` does not apply); returns ``(pool, report)``."""
+        if self.cohort is not None:
+            from .cohort import cohort_start
+            out = cohort_start(self, state, n_rounds)
+            self._ledger_append(out[1], n_rounds, None,
+                                round_start=int(state.round))
+            return out
         tr = self.tracer
         first_round = state.round
         perf_timing = self.perf is not None and self.perf.timing
@@ -1999,14 +2120,17 @@ class GossipSimulator(SimulationEventSender):
 
     def _finish_run(self, first_round: int, rows: list, n_rounds: int,
                     exec_seconds: Optional[float] = None,
-                    cold: bool = False) -> SimulationReport:
-        """The rows on the host, the ``perf_*`` rows (when ``perf=``
-        timed the run), the report, the metrics feed, the replayed
-        events."""
+                    cold: bool = False, extra: Optional[dict] = None,
+                    include_live: bool = False) -> SimulationReport:
+        """The rows on the host (with the host arrays ``extra``: a cohort
+        run's accounting), the ``perf_*`` rows (when ``perf=`` timed the
+        run), the report, the metrics feed, the replayed events (to the
+        live receivers too with ``include_live``)."""
         stats = {}
         for k in rows[0] if rows else ():
             vals = [torch.as_tensor(row[k], device=self.device) for row in rows]
             stats[k] = torch.stack(vals).cpu().numpy()
+        stats.update(extra or {})
         if self.perf is not None and self.perf.cost:
             self._record_cost(n_rounds)
         if exec_seconds is not None:
@@ -2015,7 +2139,8 @@ class GossipSimulator(SimulationEventSender):
         if self.metrics_enabled:
             self._feed_metrics(stats, report, n_rounds)
         if rows:
-            self.replay_events(first_round, stats, self._metric_keys())
+            self.replay_events(first_round, stats, self._metric_keys(),
+                               include_live=include_live)
         return report
 
     # -- performance observability (telemetry.cost; host side only) ---------
@@ -2210,6 +2335,9 @@ class GossipSimulator(SimulationEventSender):
         final states and one report each. The JAX engine runs them as one
         vmapped program from split keys; the simulator's own draw
         provider is restored afterwards."""
+        if self.cohort is not None:
+            raise ValueError("cohort mode is host-driven per segment; run "
+                             "start() per seed against separate pools")
         if draws is not None and len(draws) != len(seeds):
             raise ValueError(f"{len(draws)} draw providers for "
                              f"{len(seeds)} repetitions")
@@ -2241,7 +2369,8 @@ class GossipSimulator(SimulationEventSender):
         if self.chaos is not None:
             causes["chaos"] = get("failed_chaos", empty_i)
         extras = {k: stats[k] for k in PROBE_STAT_KEYS + HEALTH_STAT_KEYS
-                  + CHAOS_PROBE_KEYS + PERF_STAT_KEYS if k in stats}
+                  + CHAOS_PROBE_KEYS + PERF_STAT_KEYS + COHORT_STAT_KEYS
+                  if k in stats}
         if self.probes is not None:
             if self.probes.consensus:
                 extras["probe_layer_names"] = self._probe_layer_names()

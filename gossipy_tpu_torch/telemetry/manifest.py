@@ -142,10 +142,18 @@ def _config_snapshot(sim: Any) -> dict:
         if hasattr(sim, attr):
             cfg = getattr(sim, attr)
             snap[attr] = cfg.to_dict() if cfg is not None else None
-    if hasattr(sim, "tracer"):
-        # The bulk engine. Its constructor refuses the JAX engine's
-        # cohort= (not ported), so cohort mode is off.
-        snap["cohort"] = None
+    if hasattr(sim, "cohort"):
+        # The active CohortConfig (simulation.cohort) or None; a cohort
+        # run also records the nominal population (``n_nodes`` is the
+        # cohort width C there) and the nominal topology's class the
+        # C-node round world replaced.
+        cohort = sim.cohort
+        snap["cohort"] = cohort.to_dict() if cohort is not None else None
+        if cohort is not None:
+            snap["nominal_n"] = getattr(sim, "nominal_n", None)
+            nom = getattr(sim, "nominal_topology", None)
+            if nom is not None:
+                snap["topology"] = type(nom).__name__
     if hasattr(sim, "topology"):
         snap["partition_rules"] = None
     if hasattr(sim, "metrics_enabled"):

@@ -188,12 +188,20 @@ def test_bad_build_raises_alike(bad):
 
 
 def test_cohort_and_cuda(monkeypatch):
-    """The cohort field is not ported; without a card the build raises
-    unless ``device="cpu"``."""
-    cfg = tconfig.ExperimentConfig(**BASE, cohort={"size": 4})
-    with pytest.raises(NotImplementedError, match="cohort"):
-        tconfig.build_experiment(cfg, spambase(), device="cpu")
+    """The cohort field builds a cohort experiment on the CPU (the pool
+    and the C-wide rounds of ``run_experiment``); without a card the
+    build and the run raise unless ``device="cpu"``."""
+    from gossipy_tpu_torch.simulation import CohortPool
+    cfg = tconfig.ExperimentConfig(**{**BASE, "n_rounds": 2},
+                                   cohort={"size": 4})
+    sim, _ = tconfig.build_experiment(cfg, spambase(), device="cpu")
+    assert (sim.n_nodes, sim.nominal_n, sim.cohort.size) == (4, 12, 4)
+    pool, rep = tconfig.run_experiment(cfg, spambase(), device="cpu")
+    assert isinstance(pool, CohortPool) and pool.round == 2
+    assert (rep.cohort_active_nodes == 4).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tconfig.build_experiment(cfg, spambase())
     cfg = tconfig.ExperimentConfig(**{**BASE, "n_rounds": 1})
     with pytest.raises(RuntimeError, match="CUDA"):
         tconfig.run_experiment(cfg, spambase())

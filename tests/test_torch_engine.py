@@ -214,19 +214,31 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"cohort": {"size": 4}},
     {"mesh": object()},
-    {"cohort": 4},
+    {"cohort": 4, "chaos": {"outages": [{"nodes": [0], "start": 1,
+                                         "stop": 2}], "horizon": 3},
+     "raises": ValueError},
+    {"cohort": {"size": 4}, "simulator": "PassThroughGossipSimulator",
+     "raises": ValueError},
+    {"topology": "nominal", "raises": ValueError},
 ])
 def test_unported_options_raise(option):
+    """``mesh=`` is not ported; of cohort mode's options, ``chaos=``, a
+    variant simulator and a NominalTopology without ``cohort=`` raise, as
+    in the JAX engine."""
+    from gossipy_tpu_torch import simulation as tsimulation
     option = dict(option)
     mode = option.pop("create_model_mode",
                       tcore.CreateModelMode.MERGE_UPDATE)
+    raises = option.pop("raises", NotImplementedError)
+    cls = getattr(tsimulation, option.pop("simulator", "GossipSimulator"))
+    topo = tcore.Topology.clique(N)
+    if option.pop("topology", None) == "nominal":
+        topo = tsimulation.NominalTopology(N)
     th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
                      input_shape=(D_FEAT,), create_model_mode=mode)
-    with pytest.raises(NotImplementedError):
-        TGossipSimulator(th, tcore.Topology.clique(N), data(),
-                         mailbox_slots=K, device="cpu", **option)
+    with pytest.raises(raises):
+        cls(th, topo, data(), mailbox_slots=K, device="cpu", **option)
 
 
 def test_pretraining_matches_jax_init_nodes():

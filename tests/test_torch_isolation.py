@@ -457,13 +457,10 @@ def test_config_and_replay_twins_run_with_jax_blocked(tmp_path):
 
 
 # Names of the JAX package's exports the port does not export yet, each
-# with the queue item of ROADMAP.md that brings it: the cohort pool (queue
-# 1 item 6), the root's device singleton and log filter (item 12); the
-# compilation cache and ``jax`` mean nothing to a package that compiles
-# nothing.
+# with the queue item of ROADMAP.md that brings it: the root's device
+# singleton and log filter (item 12); the compilation cache and ``jax``
+# mean nothing to a package that compiles nothing.
 EXPORT_ALLOWANCE = {
-    "gossipy_tpu.simulation": {"CohortConfig": 6, "CohortPool": 6,
-                               "PoolStore": 6, "NominalTopology": 6},
     "gossipy_tpu": {"GlobalSettings": 12, "DuplicateFilter": 12,
                     "compilation_cache_stats": None,
                     "enable_compilation_cache": None, "jax": None},

@@ -5,11 +5,11 @@ The JAX engine derives every draw of round ``r`` and purpose ``p`` from
 ``fold_in(fold_in(base, r), p)`` (``GossipSimulator._round_key``), and
 ``init_nodes(key)`` splits ``key`` into ``(k_init, k_phase, k_up)``. The
 oracle recomputes those keys with ``jax.random`` and hands the values to
-the port as tensors. Sub-fire ``f > 0`` of an async round folds ``f``
-into each purpose key and draws its peers from ``fold_in(_round_key(r,
-K_FIRE), f)`` as the base (engine.py ``_send_phase``), as do the other
-send-hook draws (``uniform``, ``choice``). The variants' draws replay
-their JAX expressions: the token gate and the reactive rounding as
+the port as tensors. Sub-fire ``f > 0`` of an async round folds ``f`` into
+each purpose key and draws its peers from ``fold_in(_round_key(r, K_FIRE),
+f)`` as the base (engine.py ``_send_phase``), as do the other send-hook
+draws (``uniform``, ``choice``, ``cohort_peers``). The variants' draws
+replay their JAX expressions: the token gate and the reactive rounding as
 ``uniform(key) < p``, the neighbour cache's pop and PENS's pick as
 ``categorical`` over ``0 / -inf`` logits, the pass-through accept as
 ``bernoulli(fold_in(split(call key, n)[i], 911), p)``, and the sampled
@@ -133,6 +133,17 @@ class JaxDraws(DrawProvider):
                         jnp.asarray(alive.cpu().numpy()))
         return torch.as_tensor(np.array(p), device=nbr.device).long()
 
+    def cohort_peers(self, r, c, device, sub=0, purpose=K_PEER):
+        """``_CohortRoundTopology.sample_peers`` under the send hook's
+        key (cohort.py:181-184)."""
+        p = _cohort_peers(self._hook_key(r, purpose, sub), c)
+        return torch.as_tensor(np.array(p), device=device).long()
+
+    def cohort_seed_material(self):
+        """``cohort._seed_material(key)`` of the run's key."""
+        return [int(x) for x in np.asarray(self.base).ravel().astype(
+            np.uint32)]
+
     def bernoulli(self, r, purpose, p, n, device, sub=0):
         shape = (n,) if isinstance(n, int) else tuple(n)
         b = jax.random.bernoulli(self._key(r, purpose, sub), p, shape)
@@ -211,6 +222,13 @@ class JaxDraws(DrawProvider):
         keys = tabs[jnp.asarray(first_k.cpu().numpy()), jnp.arange(n)]
         return torch.as_tensor(perms_from_keys(keys, epochs, s, split),
                                device=first_k.device).long()
+
+
+@functools.partial(jax.jit, static_argnums=(1,))
+def _cohort_peers(key, c):
+    """``(i + 1 + randint(key, (c,), 0, c - 1)) % c``."""
+    r = jax.random.randint(key, (c,), 0, c - 1, dtype=jnp.int32)
+    return (jnp.arange(c, dtype=jnp.int32) + 1 + r) % c
 
 
 @functools.partial(jax.jit, static_argnums=(1,))
