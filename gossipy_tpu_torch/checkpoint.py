@@ -232,8 +232,9 @@ def slice_lane(tree: Any, i: int) -> Any:
     """Lane ``i`` of a batched state (a leading batch axis on every array
     leaf) as host numpy arrays, the solo-shaped state a checkpoint or a
     bundle takes; 0-d leaves and Python scalars pass through. A list of
-    states (``run_repetitions``' result in the port) gives its ``i``-th
-    entry on the host."""
+    states (``run_repetitions``' result in the port, the service's lanes)
+    gives its ``i``-th entry on the host. A bfloat16 leaf (a bf16 ring),
+    which numpy has no type for, stays a tensor, copied to the host."""
     if isinstance(tree, list):
         tree = tree[i]
         take = lambda a: a
@@ -242,6 +243,9 @@ def slice_lane(tree: Any, i: int) -> Any:
     flat = flatten_state(tree)
     out = {}
     for k, v in flat.items():
+        if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            out[k] = take(v.detach().cpu()).clone()
+            continue
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu().numpy()
         out[k] = take(np.array(v)) if isinstance(v, np.ndarray) else v

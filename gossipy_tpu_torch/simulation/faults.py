@@ -261,6 +261,18 @@ class FaultSchedule(NamedTuple):
         return self.forced_offline.shape[0]
 
 
+def schedule_shape_summary(sched: FaultSchedule) -> dict:
+    """Shapes and dtypes of a schedule's arrays, the part of a chaos
+    config that decides a service bucket (the values are the tenant's
+    own): ``{field: [shape, dtype] or None}``, the JAX function's dict
+    (the schedule's tables are numpy on the host)."""
+    out = {}
+    for name, v in sched._asdict().items():
+        out[name] = (None if isinstance(v, tuple)
+                     else [list(np.shape(v)), str(np.asarray(v).dtype)])
+    return out
+
+
 def _undirected_pairs(topology):
     """(pi, pj) int64 arrays of the topology's undirected edges, sorted
     lexicographically: the canonical pair ordering every churn draw and

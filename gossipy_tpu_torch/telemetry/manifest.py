@@ -195,8 +195,12 @@ class RunManifest:
 
     @classmethod
     def from_simulator(cls, sim: Any,
-                       extra: Optional[dict] = None) -> "RunManifest":
-        """Collect the manifest for ``sim``."""
+                       extra: Optional[dict] = None,
+                       config_overrides: Optional[dict] = None
+                       ) -> "RunManifest":
+        """Collect the manifest for ``sim``. ``config_overrides`` patches
+        entries of the config snapshot after collection (the service
+        stamps each tenant's seed and name into its manifest)."""
         budget = None
         if hasattr(sim, "memory_budget"):
             try:
@@ -226,8 +230,11 @@ class RunManifest:
                 trace = trace_report(sim.tracer.snapshot())["totals"]
             except Exception:
                 trace = None
+        config = _config_snapshot(sim)
+        if config_overrides:
+            config.update(config_overrides)
         return cls(
-            config=_config_snapshot(sim),
+            config=config,
             backend=_backend_info(getattr(sim, "device", None)),
             versions=_versions(),
             git_rev=git_revision(),

@@ -20,15 +20,18 @@
   and their summaries' ``probes``, ``health`` and ``chaos`` entries have
   the keys the JAX scripts' ``finish`` gives. The scale twin's two rows
   run so too, their sparse topology built by the native generator, and
-  the ``profile_round``, ``ledger`` and ``trace_report`` twins.
-- The port's ``telemetry``, ``simulation`` and root packages export every
-  name the JAX package's export, but for an allowance that names the
-  queue item (ROADMAP.md) that ports each.
+  the ``profile_round``, ``ledger`` and ``trace_report`` twins, and the
+  four service twins (``main_service``, ``serve``, ``loadgen``,
+  ``service_top``), their stdout lines with the JAX scripts' keys.
+- The port's ``telemetry``, ``simulation``, ``service`` and root
+  packages export every name the JAX package's export, but for an
+  allowance that names the queue item (ROADMAP.md) that ports each.
 """
 
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -479,7 +482,8 @@ def _public_names(mod) -> list:
 
 
 @pytest.mark.parametrize("ref", ["gossipy_tpu.telemetry",
-                                 "gossipy_tpu.simulation", "gossipy_tpu"])
+                                 "gossipy_tpu.simulation", "gossipy_tpu",
+                                 "gossipy_tpu.service"])
 def test_package_exports_match_reference(ref):
     """Every name the JAX package exports from ``telemetry``,
     ``simulation`` and its root is exported by the port's counterpart,
@@ -580,3 +584,81 @@ def test_ledger_and_trace_report_twins_run_with_jax_blocked(tmp_path):
     assert "2 row(s)" in (tmp_path / "list.md").read_text()
     report = json.loads((tmp_path / "trace_report.json").read_text())
     assert report["n_windows"] == 2 and report["totals"]["rounds"] == 4
+
+
+def _printed_keys(script: Path) -> list:
+    """The keys of the dict literal a JAX script prints with
+    ``json.dumps({...})``: its stdout line's keys."""
+    tree = ast.parse(script.read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+                == "dumps" and node.args
+                and isinstance(node.args[0], ast.Dict)):
+            return sorted(k.value for k in node.args[0].keys)
+    raise AssertionError(f"{script}: no json.dumps of a dict literal")
+
+
+def test_service_twins_run_with_jax_blocked(tmp_path):
+    """The four service twins on the host at a tiny size, no JAX module
+    and no socket that may connect: ``main_service`` (16 nodes, 4
+    rounds), ``serve`` over a two-tenant spec file, ``loadgen`` (3
+    tenants, time scale 0.001) and ``service_top --once`` on the metrics
+    directory loadgen wrote. Their stdout lines have the JAX scripts'
+    keys."""
+    spec = {"tenants": [
+        {"tenant": name, "config": {
+            "n_nodes": 12, "subsample": 300, "n_rounds": 4, "delta": 20,
+            "batch_size": 8, "topology_params": {"degree": 4},
+            "seed": seed}} for name, seed in (("a", 1), ("b", 2))]}
+    (tmp_path / "specs.json").write_text(json.dumps(spec))
+    out = _run_blocked(
+        "import contextlib, io\n"
+        "from gossipy_tpu_torch.examples import main_service, serve, "
+        "loadgen, service_top\n"
+        "def line(fn, argv):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        rc = fn(argv)\n"
+        "    return rc, buf.getvalue()\n"
+        "d = " + repr(str(tmp_path)) + "\n"
+        "rows = {}\n"
+        "rc, o = line(main_service.main, ['--device', 'cpu', '--rounds', "
+        "'4', '--nodes', '16', '--out', d + '/ms'])\n"
+        "rows['main_service'] = json.loads(o.splitlines()[-1])\n"
+        "rc, o = line(serve.main, [d + '/specs.json', '--out', d + '/sv', "
+        "'--slice', '2', '--device', 'cpu'])\n"
+        "rows['serve'] = [rc, json.loads(o.splitlines()[-1])]\n"
+        "rc, o = line(loadgen.main, ['--out', d + '/lg', '--tenants', '3', "
+        "'--time-scale', '0.001', '--device', 'cpu'])\n"
+        "rows['loadgen'] = [rc, json.loads(o.splitlines()[-1])]\n"
+        "rc, o = line(service_top.main, [d + '/lg/metrics', '--once'])\n"
+        "rows['service_top'] = [rc, o]\n"
+        "print(json.dumps(rows))\n")
+    ms = out["main_service"]
+    assert sorted(ms) == _printed_keys(REPO / "examples" / "main_service.py")
+    assert ms["n_buckets"] == 2
+    assert ms["tenants"]["mallory"]["status"] == "evicted"
+    assert ms["tenants"]["mallory"]["bundle"]
+    assert {ms["tenants"][t]["status"] for t in ("alice", "bob", "carol")} \
+        == {"done"}
+    rc, sv = out["serve"]
+    assert rc == 0
+    assert sorted(sv) == _printed_keys(REPO / "scripts" / "serve.py")
+    assert sv["tenants"] == {"a": "done", "b": "done"}
+    assert sv["n_buckets"] == 1
+    rc, row = out["loadgen"]
+    assert rc == 0
+    from gossipy_tpu.service import RunQueue, slo_row
+    from gossipy_tpu.telemetry.metrics import MetricsRegistry
+    want = slo_row(RunQueue(), MetricsRegistry(), 1.0)
+    added = re.findall(r'row\["raw"\]\["(\w+)"\]\s*=',
+                       (REPO / "scripts" / "loadgen.py").read_text())
+    assert sorted(row) == sorted(want)
+    assert sorted(row["raw"]) == sorted(set(want["raw"]) | set(added))
+    assert row["raw"]["ttfr_missing"] == [] and row["raw"]["n_done"] == 3
+    rc, board = out["service_top"]
+    assert rc == 0
+    # One process: the board shows the three runs' shared registry.
+    assert board.startswith("gossipy_tpu_torch service")
+    assert "latency (ms)" in board
+    assert all(t in board for t in ("t000-s0", "t001-s1", "t002-s0"))
