@@ -31,7 +31,7 @@ Phases, each printed as it runs; any failure exits non-zero:
    a CUDA graph that captured it where the profiler records nothing), and at
    the routes' edges (SWEEP_EDGE_*: 1 to 132 columns, 1 to 64 slots,
    half live, empty slots whose w_self is not 1) on float32, bf16 and
-   int8 rings; K1's lines also give ``eager_call_ms``, one eager call on
+   int8 rings, bit-equality only (untimed); K1's lines also give ``eager_call_ms``, one eager call on
    the host's clock. K3's and K4's lines (``check_flat``, here and at
    the token north star's shape in phase 10) give ``ms``, a call of the
    wrapper with its int64 -> int32 index cast, beside
@@ -406,6 +406,34 @@ Phases, each printed as it runs; any failure exits non-zero:
    host; counts set to 0 just before each ``serve``); in (a) and (d)
    every call is bit-equal to its plain version (``ServiceAudit``).
 
+18. parallel: the parallel layer (``gossipy_tpu_torch.parallel``: the
+   rule registry, meshes, the ring collectives) on a virtual mesh of
+   MESH_POSITIONS positions on the one card, every hop a kernel launch.
+   (a) ``sharded_gather_merge_multi`` at the north star's shape (100
+   rows, 116 columns, K = 6, 25 rows a position) and the flagship's (100
+   rows of CIFAR10Net's stride): the ring with K1 on every hop bit-equal
+   to the same ring with K1's plain version on every hop, within
+   MESH_TOL of the unsharded K1 call, 16 launches a call, device ms of
+   the ring, the plain ring and the unsharded call beside the bound
+   (K1's ``at_sharded_shape``). (b) ``spambase_100.json`` at full width
+   with ``mesh=``, MESH_ROUNDS rounds: the card against the same virtual
+   mesh on the CPU (accounting exact, params within REF_TOL), against the
+   card's unsharded K1 run (sent and failed equal, params within
+   MESH_TOL, accuracy within 1e-4), its rounds/s beside phase 7's K1
+   leg; a bf16-ring run widened before the ring (K1 on every hop, no K2)
+   against the unsharded bf16 run (K2), within MESH_TOL plus half a bf16
+   step. (c) ``All2AllGossipSimulator(mesh=, ring_mix=True)`` at the
+   ``main_all2all`` twin's width against the dense mix, MESH_A2A_ROUNDS
+   rounds. (d) ``ring_attention(flash=True)`` at S = ATTN_S, D = Dv =
+   ATTN_D in f32 and bf16, causal and not, against the unsharded
+   ``flash_attention`` (f32 within 1e-4 of its largest magnitude, bf16
+   within one bf16 step), 16 hops (launches) a call, its device ms
+   beside the unsharded call and the bound (K5's ``at_ring_shape``); the
+   f32 gradients of q, k and v through the ring against the unsharded
+   ones, under a fixed unit-scale upstream gradient (within 1e-3 of the
+   gradients' largest magnitude). (e) The demo twin with ``--devices 4`` (960 K5 launches in 60
+   steps) against ``--devices 1``.
+
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
@@ -459,7 +487,7 @@ ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
 # examples/configs/cifar10_100nodes.json) through its twin,
 # gossipy_tpu_torch/examples/main_cifar10_100nodes.py.
 FLAG_NODES = 100
-FLAG_ROUNDS = 10            # timed rounds of each ring leg
+FLAG_ROUNDS = 5             # timed rounds of each ring leg
 FLAG_CHECK_NODES = 16       # the card-against-CPU runs
 FLAG_CHECK_SUBSAMPLE = 2048
 FLAG_CHECK_ROUNDS = 1       # one round of messages (K1/K2 audited); the
@@ -794,12 +822,13 @@ def multi_inputs(torch, rng, wire, n, d, f, k, starts, live=None):
 
 
 def check_multi(torch, merge, label, wire, n, d, f, k, seed, rate,
-                starts=(0,), live=None, plain=True) -> dict:
+                starts=(0,), live=None, plain=True, timed=True) -> dict:
     """K1 (float32 ring) or K2 at one shape (``label``) against its plain
     version, bit for bit; its device time (and the plain version's, with
     ``plain``), bound and share; for K1 also the host-clock time of one
     eager call (``eager_call_ms``: the wrapper's Python, its launch and
-    the kernel). ``starts``: the int8 ring's leaf starts. At the sweep's
+    the kernel); ``timed=False`` checks the bits only (the route edges).
+    ``starts``: the int8 ring's leaf starts. At the sweep's
     scale shape (``label`` "scale", phase 3's first profiler session) a
     call must put one kernel on the card and nothing else
     (:func:`one_launch`)."""
@@ -820,6 +849,10 @@ def check_multi(torch, merge, label, wire, n, d, f, k, seed, rate,
     if label == "scale":  # one launch a call: no kernel beside it
         one_launch(torch, merge, kernel, f"{name} {label}", "multi_rows")
     bound_ms, bound_by = bound(nbytes, flops, rate)
+    if not timed:
+        log(f"[kernels] {label} {name} n={n} m={d * n} f={f} k={k} "
+            f"leaves={n_leaves} live_slots={live_n} max_abs_err={err}")
+        return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
     out = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                ms=time_ms(torch, kernel))
     if wire == "float32":
@@ -861,7 +894,7 @@ def merge_sweep(torch, merge, rate, stride, starts) -> dict:
                 seed += 1
                 check_multi(torch, merge, "edge", wire, SWEEP_EDGE_N, 2, f,
                             k, seed, rate, st, live=SWEEP_EDGE_LIVE,
-                            plain=False)
+                            plain=False, timed=False)
     return numbers
 
 
@@ -5673,6 +5706,374 @@ def attention_diagnostics(torch) -> None:
             f"one training step with K5 at S={s_len} D={dim} f32")
 
 
+
+# -- phase 18: the parallel layer on a virtual mesh ----------------------------
+
+MESH_POSITIONS = 4          # a virtual mesh of 4 positions on cuda:0
+MESH_ROUNDS = 20            # (b): the engine's mesh= run
+MESH_A2A_ROUNDS = 10        # (c)
+MESH_TOL = (1e-5, 1e-4)     # (abs, rel): the composed form's reassociation
+                            # (tests/test_parallel.py:179-227)
+
+
+def virtual_mesh(device, n: int = MESH_POSITIONS):
+    from gossipy_tpu_torch import parallel
+    return parallel.make_mesh(n, devices=[device] * n)
+
+
+def within(a, b, tol=MESH_TOL) -> float:
+    """The worst margin of ``|a - b| <= abs + rel |b|`` (<= 0 passes)."""
+    return float(((a - b).abs() - tol[0] - tol[1] * b.abs()).max())
+
+
+def sharded_merge_check(torch, merge, label, n, f, k, seed, rate) -> dict:
+    """Phase 18 (a) at one shape: ``sharded_gather_merge_multi`` on a
+    4-position virtual mesh, K1 on every hop, bit-equal to the same ring
+    with K1's plain version on every hop, within MESH_TOL of the unsharded
+    K1 call; device ms a call of the ring (K1 and its plain ring) and of
+    the unsharded call, launches a call, and the bound of the work (that
+    of the unsharded call: the same function)."""
+    from gossipy_tpu_torch.parallel import collectives as coll
+    mesh = virtual_mesh("cuda")
+    d = 2
+    rng = np.random.default_rng(seed)
+    idx, ws, wp = merge_tables(rng, n, d, k)
+    p = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).cuda()
+    h = torch.from_numpy(rng.normal(size=(d, n, f)).astype(np.float32)).cuda()
+    idx_t, ws_t, wp_t = (torch.from_numpy(a).cuda() for a in (idx, ws, wp))
+
+    def ring(fold):
+        return coll._sharded_merge(p, h, idx_t, ws_t, wp_t, mesh, None, None,
+                                   None, fold)
+
+    def kernel_ring():
+        return coll.sharded_gather_merge_multi(p, h, idx_t, ws_t, wp_t, mesh)
+
+    def flat():
+        return merge.gather_merge_multi(p, h.view(d * n, f), idx_t, ws_t,
+                                        wp_t)
+
+    merge.reset_launch_counts()
+    got = kernel_ring()
+    torch.cuda.synchronize()
+    launches = dict(merge.LAUNCHES)
+    err = check_equal(torch, f"K1 ring {label}", got,
+                      ring(merge.gather_merge_multi_reference),
+                      (n, d * n, f, k, MESH_POSITIONS))
+    want = flat()
+    worst = within(got, want)
+    on = wp != 0
+    rows = len(np.unique(idx[on]))
+    nbytes = 4 * f * 2 * n + 4 * f * rows + n * k * (8 + 4 + 4)
+    flops = f * (3 * int(on.sum()) + 2 * (n * k - int(on.sum())))
+    bound_ms, bound_by = bound(nbytes, flops, rate)
+    out = dict(max_abs_err=err, max_abs_err_vs_unsharded=float(
+        (got - want).abs().max()), margin_vs_unsharded=worst,
+        launches_per_call=launches.get(merge.KERNEL, 0),
+        positions=MESH_POSITIONS, rows_per_position=n // MESH_POSITIONS,
+        ms=time_ms(torch, kernel_ring),
+        plain_ms=time_ms(torch, lambda: ring(
+            merge.gather_merge_multi_reference)),
+        unsharded_ms=time_ms(torch, flat), unsharded_launches=1,
+        bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[parallel] (a) {label}: sharded_gather_merge_multi n={n} f={f} "
+        f"k={k} on {MESH_POSITIONS} positions ({n // MESH_POSITIONS} rows "
+        f"each): K1 ring vs plain ring max_abs_err={err}; vs the unsharded "
+        f"K1 call max abs diff {out['max_abs_err_vs_unsharded']:.3e}, "
+        f"margin {worst:.3e} (<= 0 passes); launches {launches} a call "
+        f"(one unsharded); ms ring {out['ms']:.5f}, plain ring "
+        f"{out['plain_ms']:.5f}, unsharded {out['unsharded_ms']:.5f}, bound "
+        f"{bound_ms:.5f} ({bound_by})")
+    if worst > 0 or launches != {merge.KERNEL: MESH_POSITIONS ** 2}:
+        raise RuntimeError(f"K1 ring {label}: off the unsharded call or "
+                           f"launched {launches}")
+    return out
+
+
+def mesh_config_run(torch, merge, device, mesh, wire="float32",
+                    rounds=MESH_ROUNDS):
+    """``spambase_100.json`` at full width on ``device`` (``mesh``: the
+    sharded fused deliver, else the unsharded K1 one), ``rounds`` rounds
+    from the config's seed: ``(sim, state, report, wall s, launches)``."""
+    from gossipy_tpu_torch import parallel, set_seed
+    from gossipy_tpu_torch.config import build_experiment
+    cfg = load_config("spambase_100", n_rounds=rounds, simulator_params={
+        "fused_merge": "multi", "history_dtype": wire})
+    gen = set_seed(cfg.seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the offline stand-in's note
+        sim, _ = build_experiment(cfg, device=device, mesh=mesh)
+    state = sim.init_nodes(gen)
+    if mesh is not None:
+        state = parallel.shard_state(state, mesh)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=rounds)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return sim, state, rep, wall, {k: v for k, v in merge.LAUNCHES.items()
+                                   if v}
+
+
+def mesh_engine_check(torch, merge, ns_k1_rps) -> dict:
+    """Phase 18 (b): ``GossipSimulator(mesh=)`` on ``spambase_100.json``
+    at full width, MESH_ROUNDS rounds: the card against the same virtual
+    mesh on the CPU (phase 7's rule, accounting exact), against the
+    card's unsharded K1 run (sent and failed equal, params within
+    MESH_TOL, accuracy within 1e-4), its rounds/s beside phase 7's K1
+    leg, and one bf16-ring run (widened before the ring: K1 on every hop,
+    no K2) against the unsharded bf16 run (K2)."""
+    runs = {}
+    for tag, device, sharded, wire in (
+            ("card", "cuda", True, "float32"), ("cpu", "cpu", True,
+                                                "float32"),
+            ("flat", "cuda", False, "float32"),
+            ("card-bf16", "cuda", True, "bfloat16"),
+            ("flat-bf16", "cuda", False, "bfloat16")):
+        mesh = virtual_mesh(device) if sharded else None
+        runs[tag] = mesh_config_run(torch, merge, device, mesh, wire)
+    sim, st_g, r_g, wall, l_g = runs["card"]
+    _, st_c, r_c, _, l_c = runs["cpu"]
+    check_same_accounting(torch, "mesh card vs CPU", st_c, st_g, r_c, r_g)
+    tol = REF_TOL + ring_step(torch, sim, st_c, "float32")
+    cpu_margin = float(((st_c.model.params - st_g.model.params.cpu()).abs()
+                        - tol).max())
+    with_msgs = int(((r_g.compact_slots_per_round
+                      + r_g.wide_slots_per_round) > 0).sum())
+    want = {merge.KERNEL: with_msgs * MESH_POSITIONS ** 2}
+    if cpu_margin > 0 or l_c or l_g != want:
+        raise RuntimeError(f"mesh run: card vs CPU margin {cpu_margin}, "
+                           f"launches card {l_g} (want {want}), CPU {l_c}")
+    out = {"rounds": MESH_ROUNDS, "launches": l_g,
+           "rounds_per_s": MESH_ROUNDS / wall, "cpu_margin": cpu_margin,
+           "northstar_k1_rounds_per_s": ns_k1_rps}
+    for tag, flat_tag in (("card", "flat"), ("card-bf16", "flat-bf16")):
+        _, st_s, r_s, wall_s, l_s = runs[tag]
+        _, st_f, r_f, wall_f, l_f = runs[flat_tag]
+        # A bf16 ring adds one encoding step: a merged value within
+        # rounding of a bf16 boundary encodes one step apart.
+        step = ring_step(torch, sim, st_f, "bfloat16" if "bf16" in tag
+                         else "float32")
+        margin = float(((st_s.model.params - st_f.model.params).abs()
+                        - MESH_TOL[0] - MESH_TOL[1] * st_f.model.params.abs()
+                        - step).max())
+        acc_diff = abs(r_s.final("accuracy") - r_f.final("accuracy")) \
+            if tag == "card" else 0.0
+        same = (np.array_equal(r_s.sent_per_round, r_f.sent_per_round)
+                and np.array_equal(r_s.failed_per_round, r_f.failed_per_round))
+        log(f"[parallel] (b) {tag}: spambase_100.json, {MESH_ROUNDS} rounds "
+            f"on {MESH_POSITIONS} positions: {MESH_ROUNDS / wall_s:.2f} "
+            f"rounds/s (unsharded {MESH_ROUNDS / wall_f:.2f}; phase 7's K1 "
+            f"leg {ns_k1_rps:.2f}); sent {int(r_s.sent_per_round.sum())} "
+            f"failed {int(r_s.failed_per_round.sum())} (unsharded "
+            f"{int(r_f.sent_per_round.sum())}, "
+            f"{int(r_f.failed_per_round.sum())}); params vs unsharded max "
+            f"abs diff {float((st_s.model.params - st_f.model.params).abs().max()):.3e}"
+            f", margin {margin:.3e}; accuracy {r_s.final('accuracy')} vs "
+            f"{r_f.final('accuracy')}; launches {l_s} (unsharded {l_f})")
+        if not same or margin > 0 or acc_diff > 1e-4 or set(l_s) != {
+                merge.KERNEL}:
+            raise RuntimeError(f"mesh run {tag}: off the unsharded run")
+        out[tag] = {"rounds_per_s": MESH_ROUNDS / wall_s,
+                    "unsharded_rounds_per_s": MESH_ROUNDS / wall_f,
+                    "margin": margin, "accuracy": r_s.final("accuracy"),
+                    "launches": l_s, "unsharded_launches": l_f}
+    log(f"[parallel] (b) card vs CPU on the virtual mesh: accounting equal, "
+        f"params margin {cpu_margin:.3e} (<= 0 passes)")
+    return out
+
+
+def mesh_all2all_check(torch, merge) -> dict:
+    """Phase 18 (c): ``All2AllGossipSimulator(mesh=, ring_mix=True)`` at
+    the ``main_all2all`` twin's width (100 nodes, uniform mixing) against
+    the dense mix from the same seeds: accounting equal, params within
+    MESH_TOL; no merge kernel launches (the mix is a product)."""
+    from gossipy_tpu_torch.examples import main_all2all as a2a
+    stacked, dim = a2a.all2all_data(100)
+    mesh = virtual_mesh("cuda")
+    runs = {}
+    for ring in (False, True):
+        sim = a2a.all2all_sim(stacked, dim, device="cuda", mesh=mesh,
+                              ring_mix=ring)
+        state = sim.init_nodes(torch.Generator().manual_seed(42))
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, rep = sim.start(state, n_rounds=MESH_A2A_ROUNDS)
+        torch.cuda.synchronize()
+        runs[ring] = (state, rep, time.perf_counter() - t0,
+                      {k: v for k, v in merge.LAUNCHES.items() if v})
+    (st_d, r_d, w_d, l_d), (st_r, r_r, w_r, l_r) = runs[False], runs[True]
+    margin = within(st_r.model.params, st_d.model.params)
+    same = all(np.array_equal(getattr(r_d, f), getattr(r_r, f)) for f in (
+        "sent_per_round", "failed_per_round"))
+    log(f"[parallel] (c) All2All ring_mix=True, 100 nodes on "
+        f"{MESH_POSITIONS} positions, {MESH_A2A_ROUNDS} rounds: "
+        f"{w_r / MESH_A2A_ROUNDS * 1e3:.3f} ms/round (dense "
+        f"{w_d / MESH_A2A_ROUNDS * 1e3:.3f}); sent "
+        f"{int(r_r.sent_per_round.sum())} (dense "
+        f"{int(r_d.sent_per_round.sum())}); params vs dense margin "
+        f"{margin:.3e}; accuracy {r_r.final('accuracy')} vs "
+        f"{r_d.final('accuracy')}; launches {l_r}")
+    if not same or margin > 0 or l_r or l_d:
+        raise RuntimeError("All2All ring_mix: off the dense mix")
+    return {"margin": margin, "ms_per_round": w_r / MESH_A2A_ROUNDS * 1e3}
+
+
+def ring_attention_check(torch, rate, name) -> dict:
+    """Phase 18 (d): ``ring_attention(flash=True)`` on a 4-position virtual
+    mesh at S = ATTN_S, D = Dv = ATTN_D, in f32 (the 3xTF32 route) and
+    bf16, causal and not, against the unsharded ``flash_attention`` on the
+    card (f32 within 1e-4 of the output's largest magnitude; bf16 within
+    one bf16 step at each row's largest magnitude); the gradients of q, k
+    and v through the ring in f32 against the unsharded ones, both
+    pulled back from one fixed upstream gradient of unit scale, within
+    1e-3 of the gradients' largest magnitude (a zero or wrong gradient
+    through the ring is off by that magnitude); device ms a call,
+    launches a call
+    (counts set to 0 just before), beside the unsharded call and the
+    bound of the work."""
+    from gossipy_tpu_torch.ops import attention as attn
+    from gossipy_tpu_torch.parallel.collectives import ring_attention
+    mesh = virtual_mesh("cuda")
+    s_len, dim = ATTN_S, ATTN_D
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        route = attn.route(dtype, dim, dim)
+        q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim, dtype,
+                               "initial", 50)[:3]
+        for causal in (False, True):
+            attn.LAUNCHES.clear()
+            got = ring_attention(q, k, v, mesh, causal=causal, flash=True)
+            torch.cuda.synchronize()
+            launches = {kk: v_ for kk, v_ in attn.LAUNCHES.items() if v_}
+            want = attn.flash_attention(q, k, v, causal=causal)
+            if dtype == torch.bfloat16:
+                err = bf16_steps(torch, got, want)
+                ok = err <= 1.0
+            else:
+                err = float((got - want).abs().max())
+                ok = err <= 1e-4 * float(want.abs().max())
+            hops = MESH_POSITIONS ** 2
+            want_l = {attn.KERNEL: hops, route: hops}
+            if dtype == torch.float32:
+                want_l[attn.SPLIT_KERNEL] = hops
+            ms = time_ms(torch, lambda: ring_attention(
+                q, k, v, mesh, causal=causal, flash=True), reps=4, iters=10)
+            flat_ms = time_ms(torch, lambda: attn.flash_attention(
+                q, k, v, causal=causal), reps=4, iters=10)
+            flop_rate = tensor_rate(name) * (
+                1.0 if dtype == torch.bfloat16 else TF32_PER_BF16 / 3)
+            bound_ms, bound_by = attention_bound(
+                rate, flop_rate, s_len, dim, causal,
+                2 if dtype == torch.bfloat16 else 4)[:2]
+            key = f"{route}{'-causal' if causal else ''}"
+            out[key] = dict(route=route, causal=causal, err=err,
+                            launches_per_call=launches, ms=ms,
+                            unsharded_ms=flat_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, positions=MESH_POSITIONS)
+            log(f"[parallel] (d) ring_attention flash=True S={s_len} "
+                f"D=Dv={dim} {str(dtype).split('.')[-1]} causal={causal} on "
+                f"{MESH_POSITIONS} positions: vs unsharded flash_attention "
+                f"{'bf16 steps' if dtype == torch.bfloat16 else 'max abs err'}"
+                f" {err:.3e}; launches {launches} a call; {ms:.5f} ms a call"
+                f" (unsharded {flat_ms:.5f}); bound {bound_ms:.5f} "
+                f"({bound_by})")
+            if not ok or launches != want_l or not bool(
+                    torch.isfinite(got).all()):
+                raise RuntimeError(f"ring_attention {key}: off the unsharded "
+                                   f"call or launched {launches}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    q, k, v = hop_operands(torch, attn, s_len, s_len, dim, dim,
+                           torch.float32, "initial", 51)[:3]
+    g_out = torch.randn(s_len, dim, generator=torch.Generator().manual_seed(
+        52)).cuda()
+    for causal in (False, True):
+        def grads(fn):
+            inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(fn(*inputs), inputs, g_out)
+        attn.LAUNCHES.clear()
+        g_r = grads(lambda a, b, c: ring_attention(a, b, c, mesh,
+                                                   causal=causal, flash=True))
+        torch.cuda.synchronize()
+        launches = attn.LAUNCHES[attn.KERNEL]
+        g_f = grads(lambda a, b, c: attn.flash_attention(a, b, c,
+                                                         causal=causal))
+        errs = [float((a - b).abs().max()) for a, b in zip(g_r, g_f)]
+        scales = [float(g.abs().max()) for g in g_f]
+        ok = all(np.isfinite(e) and e < 1e-3 * sc
+                 for e, sc in zip(errs, scales))
+        log(f"[parallel] (d) gradients of q, k, v through the ring, f32 "
+            f"causal={causal}, unit-scale upstream gradient: max abs err "
+            + ", ".join(f"{e:.3e} of {sc:.3e}" for e, sc in zip(errs,
+                                                                 scales))
+            + f" (limit 1e-3 of each scale) vs the unsharded gradients; "
+            f"K5 launches in forward + backward {launches}")
+        if not ok or launches != MESH_POSITIONS ** 2:
+            raise RuntimeError("ring_attention's gradient is off the "
+                               "unsharded one")
+        out[f"grad{'-causal' if causal else ''}"] = dict(err=errs,
+                                                          scale=scales)
+        del g_r, g_f
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_demo_check(torch) -> dict:
+    """Phase 18 (e): the demo twin with ``--devices 4`` (a virtual mesh of 4
+    positions on the card, K5 on every hop) against ``--devices 1``: the
+    loss falls and every step's loss agrees within 1e-4 relative."""
+    from gossipy_tpu_torch.examples import demo_ring_attention as demo
+    from gossipy_tpu_torch.ops import attention as attn
+    attn.LAUNCHES.clear()
+    ring = demo.run(devices=MESH_POSITIONS, device="cuda")
+    launches = attn.LAUNCHES[attn.KERNEL]
+    one = demo.run(devices=1, device="cuda")
+    x_np, tgt_np, rng = demo.make_task(256, 32, 42)
+    params = demo.params_from_numpy(demo.init_params(32, rng), "cuda")
+    x, tgt = torch.from_numpy(x_np).cuda(), torch.from_numpy(tgt_np).cuda()
+    l4, _ = demo.train(params, x, tgt, 10, attention=demo.ring_attention_on(
+        MESH_POSITIONS, "cuda"))
+    l1, _ = demo.train(params, x, tgt, 10)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l4, l1))
+    log(f"[parallel] (e) demo --devices {MESH_POSITIONS}: {json.dumps(ring)}"
+        f"; --devices 1: {json.dumps(one)}; K5 launches "
+        f"{launches} in 60 steps; 10 steps' losses max rel diff {rel:.3e}")
+    if not ring["learned"] or rel > 1e-4 or launches != 60 * \
+            MESH_POSITIONS ** 2:
+        raise RuntimeError("the ring demo did not learn, or it is off the "
+                           "one-device demo")
+    return {"launches": launches, "rel": rel}
+
+
+def parallel_phase(torch, merge, rate, name, ns_k1_rps) -> tuple:
+    """Phase 18: (a) K1 on the ring at the north star's and the
+    flagship's shapes, (b) the engine's mesh=, (c) All2All's ring_mix,
+    (d) K5 on the ring, (e) the ring demo. Returns the launches per path
+    of each (kernel, ring format), K1's ``at_sharded_shape`` and K5's
+    ``at_ring_shape`` numbers."""
+    from gossipy_tpu_torch.handlers import SGDHandler, losses
+    from gossipy_tpu_torch.models import CIFAR10Net
+    flag_stride = SGDHandler(CIFAR10Net(), losses.cross_entropy,
+                             input_shape=(32, 32, 3)).layout.stride
+    at_sharded = {
+        "northstar": sharded_merge_check(torch, merge, "northstar", NS_NODES,
+                                         116, 6, 81, rate),
+        "flagship": sharded_merge_check(torch, merge, "flagship", FLAG_NODES,
+                                        flag_stride, 6, 82, rate)}
+    engine = mesh_engine_check(torch, merge, ns_k1_rps)
+    mesh_all2all_check(torch, merge)
+    at_ring = ring_attention_check(torch, rate, name)
+    ring_demo_check(torch)
+    paths = {(merge.KERNEL, "float32"): {
+        "mesh-engine": engine["launches"][merge.KERNEL],
+        "mesh-engine-bf16": engine["card-bf16"]["launches"][merge.KERNEL]}}
+    return paths, at_sharded, at_ring
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5868,6 +6269,15 @@ def main() -> int:
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[service] phase 17 took {time.perf_counter() - t0:.1f} s")
 
+    # 18. the parallel layer on a virtual mesh
+    at(18)
+    t0 = time.perf_counter()
+    par_paths, at_sharded, at_ring = parallel_phase(
+        torch, merge, rate, name, ns_legs["multi"]["rounds_per_s"])
+    for key, by_path in par_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[parallel] phase 18 took {time.perf_counter() - t0:.1f} s")
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -5890,6 +6300,7 @@ def main() -> int:
     kernels[0]["at_northstar_shape"] = at_northstar
     kernels[0]["at_ladder_shape"] = at_ladder
     kernels[0]["at_cohort_shape"] = at_cohort
+    kernels[0]["at_sharded_shape"] = at_sharded
     kernels[0]["sweep"] = {label: nums for (label, wire), nums
                            in sweep.items() if wire == "float32"}
     for slots, wire, label, kernel, source, line in (
@@ -5914,6 +6325,15 @@ def main() -> int:
         if slots == "single" and ("tokenized", wire) in at_variants:
             kernels[-1]["at_tokenized_shape"] = at_variants[("tokenized",
                                                              wire)]
+    for entry in k5:
+        ring = {("causal" if v["causal"] else "noncausal"): v
+                for v in at_ring.values()
+                if isinstance(v, dict) and v.get("route") == entry["name"]}
+        if ring:
+            entry["at_ring_shape"] = ring
+            if entry["name"] == "flash_hop[f32]":
+                ring["gradient"] = {k: v for k, v in at_ring.items()
+                                    if k.startswith("grad")}
     kernels.extend(k5)
     log(f"[time] all phases took {time.perf_counter() - started:.1f} s")
     log(smi)

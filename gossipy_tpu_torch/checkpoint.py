@@ -38,6 +38,11 @@ and ``history_dtype`` too (the ring is checkpointed in its wire format,
 bf16 and int8 rings at their reduced size, the int8 scales as
 ``history_scale``).
 
+A mesh restore (``restore_checkpoint(..., mesh=)``, which
+``GossipSimulator.load(mesh=)`` passes) places the restored state per the
+partition-rule registry (:func:`gossipy_tpu_torch.parallel.shard_state`):
+the placement is derived, never assembled here.
+
 The file is the port's own format: a JAX (orbax) checkpoint is not
 readable here, nor the reverse.
 """
@@ -252,7 +257,8 @@ def slice_lane(tree: Any, i: int) -> Any:
     return _rebuild(tree, out)
 
 
-def restore_checkpoint(path: str, template_state: Any, template_draws=None):
+def restore_checkpoint(path: str, template_state: Any, template_draws=None,
+                       mesh=None):
     """Restore ``(state, draws)`` from ``path``.
 
     ``template_state`` (a fresh ``sim.init_nodes(local_train=False)``
@@ -264,7 +270,17 @@ def restore_checkpoint(path: str, template_state: Any, template_draws=None):
     back in a new provider. ``draws`` is None when the checkpoint kept
     none (a provider keyed on the round); a ``template_draws`` that has a
     draw state (a stream) is refused then with ``ValueError``, since the
-    resumed run would draw from its fresh stream."""
+    resumed run would draw from its fresh stream. With ``mesh`` the
+    restored state is placed per the rule registry (:func:`~gossipy_tpu_
+    torch.parallel.shard_state`)."""
+    state, draws = _restore(path, template_state, template_draws)
+    if mesh is not None:
+        from .parallel import shard_state
+        state = shard_state(state, mesh)
+    return state, draws
+
+
+def _restore(path: str, template_state: Any, template_draws):
     from .telemetry.tracing import span
     path = os.path.abspath(path)
     with span("checkpoint.restore", cat="checkpoint", path=path):

@@ -217,7 +217,8 @@ def _token_account(cfg: "ExperimentConfig"):
     return accounts[acc_kind](**cfg.token_account_params)
 
 
-def _simulator(cfg: "ExperimentConfig", handler, topology, data, device):
+def _simulator(cfg: "ExperimentConfig", handler, topology, data, device,
+               mesh=None):
     from .random import TorchDraws
     from .simulation import (
         All2AllGossipSimulator,
@@ -256,6 +257,11 @@ def _simulator(cfg: "ExperimentConfig", handler, topology, data, device):
     common.update(cfg.simulator_params)
     common.update(draws=TorchDraws(cfg.seed), device=device)
     kind = cfg.simulator
+    if mesh is not None:
+        if kind not in ("gossip", "all2all"):
+            raise ValueError(f"simulator {kind!r} takes no mesh; the "
+                             "'gossip' and 'all2all' simulators do")
+        common["mesh"] = mesh
     if kind == "gossip":
         return GossipSimulator(handler, topology, data, **common)
     if kind == "sequential":
@@ -435,9 +441,11 @@ class ExperimentConfig:
 # --------------------------------------------------------------------------
 
 def build_experiment(cfg: ExperimentConfig, data: Optional[tuple] = None,
-                     device=None) -> tuple[Any, Any]:
+                     device=None, mesh=None) -> tuple[Any, Any]:
     """Instantiate ``(simulator, dispatcher)`` from a config, the
     simulator on ``device`` (``cuda`` unless ``"cpu"`` is given).
+    ``mesh`` goes to the simulator (the ``gossip`` and ``all2all``
+    kinds; :mod:`gossipy_tpu_torch.parallel`).
 
     ``data``: optional pre-loaded ``(X, y)`` (``(ratings, n_users,
     n_items)`` for recsys) overriding ``cfg.dataset``.
@@ -474,7 +482,7 @@ def build_experiment(cfg: ExperimentConfig, data: Optional[tuple] = None,
                              dict(cfg.topology_params), cfg.topology_backend,
                              cfg.sparse_topology)
         return _simulator(cfg, handler, topology, disp.stacked(),
-                          device), disp
+                          device, mesh), disp
 
     def subsample(X, y, n):
         # A seeded shuffle before slicing (some loaders sort by class).
@@ -565,7 +573,8 @@ def build_experiment(cfg: ExperimentConfig, data: Optional[tuple] = None,
     topology = _topology(cfg.topology, n_nodes,
                          dict(cfg.topology_params), cfg.topology_backend,
                          cfg.sparse_topology)
-    sim = _simulator(cfg, handler, topology, disp.stacked(), device)
+    sim = _simulator(cfg, handler, topology, disp.stacked(), device,
+                     mesh)
     return sim, disp
 
 
@@ -575,9 +584,10 @@ def repetition_seeds(cfg: ExperimentConfig) -> list[int]:
 
 
 def run_experiment(cfg: ExperimentConfig, data: Optional[tuple] = None,
-                   device=None):
+                   device=None, mesh=None):
     """Build and run the experiment on ``device`` (``cuda`` unless
-    ``"cpu"`` is given).
+    ``"cpu"`` is given), with ``mesh`` given to the simulator
+    (:func:`build_experiment`).
 
     Returns ``(state, SimulationReport)``; with ``cfg.repetitions > 1``,
     ``(states, [SimulationReport])``: repetition ``i`` runs the seed
@@ -587,7 +597,7 @@ def run_experiment(cfg: ExperimentConfig, data: Optional[tuple] = None,
     from . import set_seed
 
     generator = set_seed(cfg.seed)
-    sim, _ = build_experiment(cfg, data, device)
+    sim, _ = build_experiment(cfg, data, device, mesh=mesh)
     if cfg.repetitions > 1:
         return sim.run_repetitions(cfg.n_rounds, repetition_seeds(cfg),
                                    common_init=cfg.common_init)

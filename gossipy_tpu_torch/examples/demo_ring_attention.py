@@ -4,15 +4,19 @@
 Trains a one-layer attention model on a retrieval task: every position
 must attend back to the sequence start and reproduce its content, which
 only attention can solve. The JAX demo shards the sequence over a ring of
-devices; on a ring of one device that is one hop over the whole sequence,
-i.e. :func:`gossipy_tpu_torch.ops.flash_attention` with ``causal=False``,
-which launches the flash-attention hop kernel (K5) once per forward on the
-card. Gradients go through the hop's hand-derived backward; the optimizer
+devices (re-executing under a virtual CPU mesh when fewer are attached);
+``--devices N`` runs the same ring over a virtual mesh of N positions on
+the one device (:func:`gossipy_tpu_torch.parallel.collectives.
+ring_attention`, K5 on every hop: N² launches a forward on the card). On a
+ring of one device that is one hop over the whole sequence, i.e.
+:func:`gossipy_tpu_torch.ops.flash_attention` with ``causal=False``, one
+K5 launch a forward. Gradients go through the hop's hand-derived backward; the optimizer
 is :func:`gossipy_tpu_torch.optim.adam` (0.02), as the JAX demo's
 ``optax.adam``.
 
 Run: ``python -m gossipy_tpu_torch.examples.demo_ring_attention
-[--seq-len 256] [--dim 32] [--steps 60] [--seed 42] [--device cpu]``. It
+[--devices 1] [--seq-len 256] [--dim 32] [--steps 60] [--seed 42]
+[--device cpu]``. It
 runs on ``cuda`` unless given ``--device cpu`` and prints one JSON line.
 The task data come from ``numpy.random.default_rng(seed)`` as in the JAX
 demo; the initial weights come from the same generator (the JAX demo draws
@@ -89,19 +93,34 @@ def train(params: dict, x: torch.Tensor, tgt: torch.Tensor, steps: int,
     return losses, params
 
 
+def ring_attention_on(devices: int, device) -> callable:
+    """The attention function of a ring of ``devices`` positions on
+    ``device`` (a virtual mesh): :func:`flash_attention` for one."""
+    if devices == 1:
+        return flash_attention
+    from gossipy_tpu_torch.parallel import make_mesh
+    from gossipy_tpu_torch.parallel.collectives import ring_attention
+    mesh = make_mesh(devices, devices=[device] * devices)
+
+    def attention(q, k, v, causal=False):
+        return ring_attention(q, k, v, mesh, causal=causal, flash=True)
+    return attention
+
+
 def run(seq_len: int = 256, dim: int = 32, steps: int = 60, seed: int = 42,
         devices: int = 1, device=None, log_every: int = 0) -> dict:
     """The demo; returns its JSON record."""
-    if devices != 1:
-        raise NotImplementedError(
-            "the port runs ring attention on one device; the ring over "
-            "several devices (torch.distributed) is not ported yet")
+    if devices < 1 or seq_len % devices:
+        raise ValueError(f"--devices {devices} must divide --seq-len "
+                         f"{seq_len}")
     dev = resolve_device(device)
     x_np, tgt_np, rng = make_task(seq_len, dim, seed)
     params = params_from_numpy(init_params(dim, rng), dev)
     x = torch.as_tensor(x_np, device=dev)
     tgt = torch.as_tensor(tgt_np, device=dev)
-    losses, _ = train(params, x, tgt, steps, log_every=log_every)
+    losses, _ = train(params, x, tgt, steps,
+                      attention=ring_attention_on(devices, dev),
+                      log_every=log_every)
     return {
         "demo": "ring_attention_training",
         "devices": devices,
@@ -116,7 +135,8 @@ def run(seq_len: int = 256, dim: int = 32, steps: int = 60, seed: int = 42,
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--devices", type=int, default=1,
-                        help="ring size; only 1 is ported")
+                        help="ring size: a virtual mesh of this many "
+                        "positions on the one device")
     parser.add_argument("--seq-len", type=int, default=256)
     parser.add_argument("--dim", type=int, default=32)
     parser.add_argument("--steps", type=int, default=60)

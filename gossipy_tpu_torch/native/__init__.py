@@ -13,6 +13,8 @@ The library is built at first use with ``g++ -O3 -shared -fPIC
 -std=c++17`` into ``gossipy_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source and the flags, as
 ``ops/_build.py`` names the CUDA kernels; nothing is built at import.
+``pool_rows.cpp`` (:mod:`~gossipy_tpu_torch.native.rows`, the port's own)
+is built the same way: the cohort pool's row copies, off the GIL.
 :func:`available` says whether it could be built; every other entry point
 raises when it cannot.
 """
@@ -39,31 +41,38 @@ _lib: Optional[ctypes.CDLL] = None
 _error: Optional[str] = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes()
+def library_path(src: Path = SRC, stem: str = "graphgen") -> Path:
+    digest = hashlib.sha256(src.read_bytes()
                             + " ".join(CXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libgraphgen-{digest[:16]}.so"
+    return BUILD_DIR / f"lib{stem}-{digest[:16]}.so"
 
 
-def _build() -> Path:
-    """Compile the library unless this source's build is there already;
-    raises with the compiler's output when it fails."""
-    path = library_path()
+def build_library(src: Path = SRC, stem: str = "graphgen",
+                  extra_flags=()) -> Path:
+    """Compile ``src`` into ``_build/lib<stem>-<hash>.so`` unless that
+    build is there already; raises with the compiler's output when it
+    fails."""
+    path = library_path(src, stem)
     if path.exists():
         return path
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native graph generators are "
+        raise RuntimeError(f"g++ not found: the native {stem} library is "
                            "built with the host's C++ compiler")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([cxx, *CXX_FLAGS, *extra_flags, str(src), "-o",
+                           str(tmp)], capture_output=True, text=True,
+                          timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed (rc {proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)
     return path
+
+
+def _build() -> Path:
+    return build_library()
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

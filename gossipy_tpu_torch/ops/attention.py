@@ -758,6 +758,18 @@ def flash_hop_update(q, k_c, v_c, m, l, acc, q_off: Offset, k_off: Offset,
 
 
 def _attention(q, k, v, causal, block_k, kernel):
+    if q.dim() < 2 or k.dim() != q.dim() or v.dim() != q.dim():
+        raise ValueError("q, k and v must be [..., S, D] with the same "
+                         "leading axes")
+    if q.dim() > 2:
+        # A head or batch axis: one hop (one launch on the card) a head,
+        # as the JAX package's users jax.vmap over heads.
+        lead = tuple(q.shape[:-2])
+        qf, kf, vf = (t.reshape((-1,) + tuple(t.shape[-2:]))
+                      for t in (q, k, v))
+        outs = [_attention(qf[i], kf[i], vf[i], causal, block_k, kernel)
+                for i in range(qf.shape[0])]
+        return torch.stack(outs).reshape(lead + tuple(outs[0].shape))
     s_len, dim = q.shape
     wd = torch.float64 if q.dtype == torch.float64 else torch.float32
     m0 = torch.full((s_len,), _NEG, dtype=wd, device=q.device)
@@ -772,8 +784,9 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = BLOCK_Q,
                     block_k: int = BLOCK_K):
     """Single-device attention, ``softmax(q k^T / sqrt(D)) v``, as one hop
     over the whole sequence: one K5 launch on CUDA tensors, the plain
-    version on CPU tensors. One head, ``[S, D]`` inputs (a head or batch
-    axis is not ported yet); returns ``[S, Dv]`` in ``q``'s type.
+    version on CPU tensors. ``[S, D]`` inputs, or ``[..., S, D]`` with
+    leading head or batch axes (one launch a head); returns ``[..., S,
+    Dv]`` in ``q``'s type.
     ``block_q`` and ``block_k`` match the JAX signature and act as in
     :func:`flash_hop_update`: ignored on the card."""
     if q.device.type not in ("cpu", "cuda"):

@@ -148,7 +148,7 @@ def shape_signature(request: RunRequest, sim: Any) -> ShapeSignature:
 
 def build_request(request: RunRequest, handle: Optional[RunHandle] = None,
                   sentinels_default: bool = True,
-                  device=None) -> BuiltRun:
+                  device=None, mesh=None) -> BuiltRun:
     """Build a request into a :class:`BuiltRun` on ``device`` (``cuda``
     unless ``"cpu"`` is given): seed the host RNGs as ``run_experiment``
     does (``set_seed(cfg.seed)`` for the init, the simulator's own
@@ -160,7 +160,8 @@ def build_request(request: RunRequest, handle: Optional[RunHandle] = None,
     says otherwise: eviction on a trip (the service's failure isolation)
     needs the ``health_trip`` flag. It is done on a copy of the config
     and is part of the signature, so a tenant that configured the
-    sentinels itself buckets apart.
+    sentinels itself buckets apart. ``mesh`` goes to the simulator
+    (``GossipService(mesh=)``).
     """
     from .. import set_seed
     from ..config import build_experiment
@@ -172,7 +173,7 @@ def build_request(request: RunRequest, handle: Optional[RunHandle] = None,
                                    "sentinels": True})
         request = dataclasses.replace(request, config=cfg)
     key = set_seed(cfg.seed)
-    sim, _ = build_experiment(cfg, request.data, device)
+    sim, _ = build_experiment(cfg, request.data, device, mesh=mesh)
     if handle is None:
         handle = RunHandle(request=request)
     else:

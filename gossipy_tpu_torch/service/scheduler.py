@@ -147,8 +147,12 @@ class _BucketRuntime:
     def __init__(self, bucket: Bucket, out_root: str, slice_rounds: int,
                  keep_repro: bool, events_jsonl: bool,
                  registry: Optional[MetricsRegistry] = None,
-                 tracer=None, ledger=None):
+                 mesh=None, tracer=None, ledger=None):
         self.bucket = bucket
+        self.mesh = mesh
+        # The bucket's placement on the mesh (batch_dims=1: the node axis
+        # past the lane axis), from the rule registry; None without one.
+        self.placement = self.data_placement = None
         # Run ledger (telemetry.ledger), shared across the session's
         # buckets: every finalized tenant appends one digest row.
         self.ledger = ledger
@@ -235,6 +239,8 @@ class _BucketRuntime:
         with sp_i:
             self.states = [self._init_lane(i)
                            for i in range(self.bucket.size)]
+            if self.mesh is not None:
+                self._place_on_mesh()
             if self.sim.device.type == "cuda":
                 torch.cuda.synchronize(self.sim.device)
         self._m["compile"].labels(bucket=self._digest8,
@@ -250,6 +256,30 @@ class _BucketRuntime:
             "slice_rounds": self.slice_rounds,
             "total_rounds": self.total_rounds,
         })
+
+    def _place_on_mesh(self) -> None:
+        """Each lane's state and data placed per the rule registry (whole
+        tensors on a virtual mesh's device, their placement recorded), and
+        the bucket's ``[T, ...]`` placement with ``batch_dims=1``."""
+        from .. import parallel
+        from ..parallel import rules
+
+        def batched(tree):
+            t = len(self.states)
+            return rules.tree_map_with_path(
+                lambda _, x: (torch.empty((t,) + tuple(x.shape),
+                                          dtype=x.dtype, device="meta")
+                              if isinstance(x, torch.Tensor) else x), tree)
+
+        self.states = [parallel.shard_state(s, self.mesh)
+                       for s in self.states]
+        for r in self.bucket.runs:
+            r.sim.data = parallel.shard_data(r.sim.data, self.mesh)
+        self.placement = parallel.state_shardings(
+            batched(self.states[0]), self.mesh, batch_dims=1)
+        self.data_placement = rules.named_shardings(
+            batched(self.sim.data), self.mesh, rules=parallel.DATA_RULES,
+            batch_dims=1)
 
     # -- slice driving -----------------------------------------------------
 
@@ -646,7 +676,12 @@ class GossipService:
     one slice at a time. ``keep_repro=False`` skips the per-slice host
     copies (faster slicing, but evictions lose their repro bundles).
     Every bucket runs on ``device`` (``cuda`` unless ``"cpu"`` is
-    given). ``mesh=`` is not ported (ROADMAP.md queue 1 item 8).
+    given). ``mesh=`` (a virtual mesh on ``device``,
+    :mod:`gossipy_tpu_torch.parallel`) builds each lane's simulator with
+    that mesh (its deliver a ring over the node axis), places each lane's
+    state and data per the partition-rule registry, and records the
+    bucket's placement with ``batch_dims=1`` (``_BucketRuntime.placement``
+    and ``data_placement``: the node axis past the lane axis).
     """
 
     def __init__(self, out_dir: str, slice_rounds: int = 25,
@@ -655,11 +690,13 @@ class GossipService:
                  metrics_dir: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  mesh=None, tracing=None, ledger=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GossipService(mesh=...) is not ported yet (ROADMAP.md "
-                "queue 1 item 8, parallel/)")
         self.device = resolve_device(device)
+        if mesh is not None:
+            from ..parallel import _ACROSS_CARDS, canonical_device
+            if not mesh.is_virtual() or mesh.device() != canonical_device(
+                    self.device):
+                raise NotImplementedError(_ACROSS_CARDS)
+        self.mesh = mesh
         self.out_dir = os.path.abspath(out_dir)
         os.makedirs(self.out_dir, exist_ok=True)
         self.slice_rounds = int(slice_rounds)
@@ -753,7 +790,7 @@ class ServiceSession:
                 built.append(build_request(
                     h.request, handle=h,
                     sentinels_default=svc.sentinels_default,
-                    device=svc.device))
+                    device=svc.device, mesh=svc.mesh))
             except Exception as e:
                 h.status = RunStatus.FAILED
                 h.error = repr(e)[:500]
@@ -767,8 +804,8 @@ class ServiceSession:
         })
         new = [_BucketRuntime(b, svc.out_dir, svc.slice_rounds,
                               svc.keep_repro, svc.events_jsonl,
-                              registry=svc.registry, tracer=svc.tracer,
-                              ledger=svc.ledger)
+                              registry=svc.registry, mesh=svc.mesh,
+                              tracer=svc.tracer, ledger=svc.ledger)
                for b in buckets]
         for rt in new:
             rt.initialize()

@@ -37,17 +37,25 @@ the JAX package's schedule for the same material), never from the
 provider's stream; the rounds draw as the engine's do, keyed on the
 absolute round (a restored pool continues the same schedule).
 
-The streaming driver (``CohortConfig(prefetch=k)``) stages up to ``k``
-future cohorts on a thread (sample, gather into pinned buffers, and on
-the card the host-to-device copy on a side stream with an event the
-round's stream waits on) and scatters finished cohorts on another (the
-outputs copied off the card into pinned buffers, an event the scatter
-waits on). On the card the overlap comes from CUDA's asynchronous copies
-and launches, not from a released GIL: the eager round holds the GIL
-while it launches. A staged gather overlays the outputs not yet
-scattered, and the launch patches in those that landed after its
-snapshot (:func:`_patch_rows`), so the streamed run is bit-identical to
-the serial one.
+The streaming driver (``CohortConfig(prefetch=k)``) keeps the host out
+of the round's way. The eager round gives up and takes back the GIL at
+every op, so a Python helper thread either waits for the GIL for as long
+as the round launches, or makes each op wait for it: the former stager
+and flusher threads did both (on one card host a streamed run hid almost
+none of its host work behind the rounds). Now the pool's row copies (the
+gathers into pinned stage slots allocated once, the scatters, the
+touched count) run
+on the native row worker (:mod:`gossipy_tpu_torch.native.rows`), a C++
+thread that never takes the GIL, in the order they are queued: as a
+segment's rounds start, the previous segment's scatter and the gathers of
+the next ``k`` cohorts are queued, so they run behind the rounds. Once a
+segment's rounds are launched, and before the host waits for them, the
+round's thread stages the next cohort (its rows to the card, its [C]
+state, its data rows), taking the rows the two cohorts share from the
+finished segment's state on the card. The run's cohort schedule is drawn
+up front. A gather sees every output scattered before it; the newer ones
+are laid over it at staging, newest last, so the streamed run is
+bit-identical to the serial one.
 
 Disk-backed pools (``CohortConfig(pool_dir=...)``, :class:`PoolStore`):
 every pool leaf is an ``np.memmap`` over a sparse file, rows are
@@ -63,6 +71,7 @@ import json
 import os
 import shutil
 import threading
+import time
 import warnings
 from typing import Any, NamedTuple, Optional, Union
 
@@ -823,86 +832,114 @@ def _local_neighbor_table(sim, idx: np.ndarray) -> np.ndarray:
 # -- the driver --------------------------------------------------------------
 
 class _Staged:
-    """One staged cohort: host-gathered rows, and on the card their copy
-    in flight on the side stream (``dev``, ``ready``)."""
+    """One staged cohort: its ids, the slot of host buffers its pool rows
+    are gathered into, and the gather's job on the row worker (None once
+    waited for, or when it ran inline)."""
 
-    __slots__ = ("s", "r0", "seg", "idx", "host", "model_rows",
-                 "phase_rows", "nbr", "data", "seen", "ts_us", "dev",
-                 "ready")
+    __slots__ = ("s", "r0", "seg", "idx", "idx_t", "slot", "host", "job",
+                 "base", "ts_us")
 
 
 class _Out:
     """One segment's durable outputs on the host: ``(idx, model leaves,
-    phase)``; on the card the copies are in flight until :meth:`wait`
-    (the event recorded after them)."""
+    phase)`` as CPU tensors in a slot of host buffers; on the card the
+    copies are in flight until :meth:`wait` (the event recorded after
+    them)."""
 
-    __slots__ = ("idx", "model", "phase", "event")
-
-    def __init__(self, idx, model, phase, event=None):
-        self.idx, self.model, self.phase, self.event = \
-            idx, model, phase, event
+    __slots__ = ("r0", "seg", "idx", "host", "event", "job", "ts_us")
 
     def wait(self) -> "_Out":
         if self.event is not None:
             self.event.synchronize()
+            self.event = None
         return self
 
 
-def _patch_rows(staged: _Staged, out: _Out) -> Optional[np.ndarray]:
-    """Overlay a finished segment's output rows onto a staged gather: the
-    rows of ``staged.idx`` also in ``out.idx`` (both sorted ascending)
-    take the fresher values. Applying outputs oldest first makes the
-    staged rows what a serial gather would have read: the streaming ≡
-    serial bit-identity hinges on it. Returns the mask of rows hit (None
-    when none)."""
-    out.wait()
-    if out.idx.size == 0 or staged.idx.size == 0:
+class _Slots:
+    """Host buffers allocated once and reused segment after segment:
+    ``n`` slots of one ``[rows, ...]`` buffer a leaf (pinned on the card,
+    the source or the target of an asynchronous copy), and for each slot
+    the event after the last copy that reads it, waited on before the slot
+    is written again."""
+
+    def __init__(self, leaves: list, rows: int, n: int, pinned: bool):
+        self.bufs = [[torch.empty((rows,) + tuple(l.shape[1:]),
+                                  dtype=_torch_dtype(l.dtype),
+                                  pin_memory=pinned) for l in leaves]
+                     for _ in range(n)]
+        self.events: list = [None] * n
+
+    def take(self, s: int) -> tuple[int, list]:
+        i = s % len(self.bufs)
+        ev = self.events[i]
+        if ev is not None:
+            ev.synchronize()
+            self.events[i] = None
+        return i, self.bufs[i]
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _mesh_fingerprint(mesh):
+    """Hashable mesh identity: its axes and its positions (device, rank,
+    id)."""
+    if mesh is None:
         return None
-    pos = np.searchsorted(out.idx, staged.idx)
-    pos = np.minimum(pos, out.idx.size - 1)
-    hit = out.idx[pos] == staged.idx
-    if not hit.any():
-        return None
-    src = pos[hit]
-    for dst, row in zip(staged.model_rows, out.model):
-        dst[hit] = row[src]
-    staged.phase_rows[hit] = out.phase[src]
-    return hit
+    return (tuple(mesh.axis_names),
+            tuple((str(p.device), int(p.rank), int(p.id))
+                  for p in np.ravel(mesh.devices)))
 
 
-def _host_rows(leaf, idx: np.ndarray, pinned: bool) -> torch.Tensor:
-    """``leaf[idx]`` as a new CPU tensor (in pinned memory on the card,
-    the source of an asynchronous copy: the copy's event keeps the
-    allocator from reusing it early)."""
-    if not pinned:
-        return torch.from_numpy(np.take(leaf, idx, axis=0))
-    buf = torch.empty((idx.size,) + tuple(leaf.shape[1:]),
-                      dtype=torch.from_numpy(np.empty(0, leaf.dtype)).dtype,
-                      pin_memory=True)
-    np.take(leaf, idx, axis=0, out=buf.numpy())
-    return buf
+def _validate_cohort_mesh(sim, mesh) -> None:
+    """Cohort rounds on a mesh need C to split evenly over the node axis
+    (the registry's rules put every [C]-leading leaf there)."""
+    from ..parallel import rules as _rules
+    span_sz = _rules.node_axis_size(mesh)
+    c = int(sim.cohort.size)
+    if c % span_sz:
+        raise ValueError(
+            f"cohort size {c} is not divisible by the mesh node-axis "
+            f"extent {span_sz} (axes {_rules.node_axis_entry(mesh)!r}); "
+            "sharded gather/scatter needs equal per-device rows")
 
 
-def _pinned_like(t: torch.Tensor) -> torch.Tensor:
-    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+# The trace track of the native row worker's gathers and scatters.
+_ROWS_TID = 1000
 
 
-def cohort_start(sim, pool: CohortPool, n_rounds: int):
+def _worker_span(tr, name: str, t0: float, t1: float, r0: int) -> None:
+    """A span of the row worker, whose ``t0``/``t1`` are on the
+    ``perf_counter`` clock, on the tracer's timeline."""
+    if tr is None:
+        return
+    now = time.perf_counter()
+    tr.add_complete(name, tr._now_us() + (t0 - now) * 1e6, (t1 - t0) * 1e6,
+                    cat="cohort", tid=_ROWS_TID, args={"window": r0})
+
+
+def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
     """Run ``n_rounds`` active-cohort rounds against the resident pool.
 
-    A host-driven segment loop: per segment, sample the cohort
-    (deterministic in the seed material and the absolute round), gather
-    its pool rows, build the ``[C]`` state (``init_state`` at round
-    ``r0``, the ring holding the gathered params), run the segment's
-    rounds (the run's last absolute round evaluates), copy the durable
-    outputs off the card and scatter them into the pool. Returns ``(pool,
-    SimulationReport)``: the engine's per-round arrays at cohort width
-    plus ``cohort_coverage`` and ``cohort_active_nodes``. The caller's
-    RAM pool is not mutated; a disk-backed pool updates in place.
+    A host-driven segment loop: per segment, take the cohort
+    (deterministic in the seed material and the absolute round; the run's
+    schedule is drawn up front), gather its pool rows, build the ``[C]``
+    state (``init_state`` at round ``r0``, the ring holding the gathered
+    params), run the segment's rounds (the run's last absolute round
+    evaluates), copy the durable outputs off the card and scatter them
+    into the pool. Returns ``(pool, SimulationReport)``: the engine's
+    per-round arrays at cohort width plus ``cohort_coverage`` and
+    ``cohort_active_nodes``. The caller's RAM pool is not mutated; a
+    disk-backed pool updates in place.
 
     ``CohortConfig(prefetch=k)`` pipelines the loop (module doc), with
-    the same result bit for bit.
+    the same result bit for bit. ``mesh`` places each segment's ``[C]``
+    state and data rows per the partition-rule registry
+    (:func:`~gossipy_tpu_torch.parallel.shard_state`); C must divide its
+    node axis.
     """
+    from ..native import rows as native_rows
     from ..ops import _build
 
     if not isinstance(pool, CohortPool):
@@ -911,6 +948,9 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int):
             f"got {type(pool).__name__}")
     cfg: CohortConfig = sim.cohort
     c, n = cfg.size, sim.nominal_n
+    if mesh is not None:
+        _validate_cohort_mesh(sim, mesh)
+        from .. import parallel as _parallel
     p_rows = _pool_data_rows(sim)
     first_round = int(pool.round)
     last_round = first_round + n_rounds - 1
@@ -935,7 +975,8 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int):
 
     pool = _host_pool(pool, copy=store is None)
     model_leaves = _leaves(pool.model)
-    phase_leaf = pool.phase
+    leaves = model_leaves + [pool.phase]
+    k = len(model_leaves)
     touched = pool.touched
     touched_count = int(np.count_nonzero(touched))
     rows_all: list = []
@@ -944,9 +985,9 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int):
     induced = cfg.peer_mode == "induced"
     material = sim.draws.cohort_seed_material()
     bank = dict(sim.data)
-    pernode_keys = [k for k in bank if k not in ("x_eval", "y_eval")]
-    eval_data = {k: v for k, v in bank.items() if k in ("x_eval", "y_eval")}
-    side = torch.cuda.Stream(dev) if cuda and depth > 0 else None
+    pernode_keys = [key for key in bank if key not in ("x_eval", "y_eval")]
+    eval_data = {key: v for key, v in bank.items()
+                 if key in ("x_eval", "y_eval")}
     if sim.sentinels is not None and sim._health_carry is None:
         sim._health_carry = sim._health_zero_carry()
     loaded = len(_build._LOADED)
@@ -957,105 +998,105 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int):
         seg = min(cfg.rounds_per_cohort, n_rounds - done)
         plan.append((first_round + done, seg))
         done += seg
-
-    pend_lock = threading.Lock() if depth > 0 else None
-    pending: dict[int, _Out] = {}
+    # The run's cohort schedule, drawn up front before the first launch
+    # (it depends on the seed material and the round alone).
+    with span("cohort.schedule", cat="cohort", tracer=tr,
+              segments=len(plan)):
+        schedule = [sample_cohort(material, r0, n, c) for r0, _ in plan]
+    rows_c = schedule[0].size if schedule else 0
+    # Host buffers a slot: the staged gathers (up to depth + 1 cohorts
+    # staged at once) and the outputs (kept until scattered and past the
+    # launch-time patches of the next depth + 1 segments).
+    stage_slots = _Slots(leaves, rows_c, depth + 2, cuda)
+    out_slots = _Slots(leaves, rows_c, depth + 3, cuda)
+    worker = native_rows.Worker() if depth > 0 else None
+    if worker is not None and tr is not None:
+        tr._meta(tr.pid, _ROWS_TID, "thread_name", {"name": "cohort-rows"})
 
     def data_rows(idx_t: torch.Tensor) -> dict:
         """The cohort's per-node data: row ``i % P`` of the bank."""
         rows = idx_t % p_rows
         return {key: bank[key][rows] for key in pernode_keys}
 
-    def upload(st: _Staged) -> None:
-        """The staged rows' copy to the card and the gather of their data
-        rows there: on the side stream with an event when a stager runs
-        ahead, else on the round's stream (on the CPU the rows
-        themselves)."""
-        host = st.host + [torch.from_numpy(st.idx)] + (
-            [torch.from_numpy(st.nbr)] if st.nbr is not None else [])
-        if side is None:
-            st.dev = [t.to(dev, non_blocking=cuda) for t in host]
-            if st.data is None:
-                st.data = data_rows(st.dev[len(st.host)])
-            st.ready = None
-            return
-        with torch.cuda.stream(side):
-            st.dev = [t.to(dev, non_blocking=True) for t in host]
-            st.data = data_rows(st.dev[len(st.host)])
-            st.ready = torch.cuda.Event()
-            st.ready.record(side)
-
-    def stage_job(s: int, r0: int, seg: int) -> _Staged:
-        """Sample and gather one cohort (the stager thread under
-        prefetch, inline otherwise). Under prefetch the gather snapshots
-        the not-yet-scattered outputs FIRST, gathers the pool rows, then
-        overlays the snapshot oldest first: a row torn by a concurrent
-        scatter belongs to a snapshotted output and is overwritten
-        whole."""
+    def gather(s: int) -> _Staged:
+        """Take segment ``s``'s cohort and gather its pool rows into a
+        stage slot: inline when serial, else queued on the row worker,
+        behind every scatter queued before it."""
         st = _Staged()
-        st.s, st.r0, st.seg = s, r0, seg
+        st.s, (st.r0, st.seg) = s, plan[s]
         with span("cohort.sample", cat="cohort", tracer=tr,
-                  window=r0) as sp_s:
-            st.idx = sample_cohort(material, r0, n, c)
-        st.ts_us = sp_s.ts_us
-        with span("cohort.gather", cat="cohort", tracer=tr, window=r0):
+                  window=st.r0) as sp_s:
+            st.idx = schedule[s]
+            st.idx_t = torch.from_numpy(st.idx)
             if store is not None:
                 store.ensure_rows(sim, st.idx)
-            if pend_lock is not None:
-                with pend_lock:
-                    snap = [pending[o] for o in sorted(pending)]
-                    st.seen = set(pending)
-            else:
-                snap, st.seen = [], set()
-            st.host = [_host_rows(l, st.idx, cuda)
-                       for l in model_leaves + [phase_leaf]]
-            st.model_rows = [t.numpy() for t in st.host[:-1]]
-            st.phase_rows = st.host[-1].numpy()
-            for out in snap:
-                _patch_rows(st, out)
-            st.nbr = (_local_neighbor_table(sim, st.idx) if induced
-                      else None)
-            st.dev = st.ready = None
-            # On the CPU the data rows are gathered here, off the
-            # round's thread; on the card with the copy.
-            st.data = None if cuda else data_rows(torch.from_numpy(st.idx))
-            if side is not None:
-                upload(st)
+            # The slot's last upload must have read it.
+            st.slot, st.host = stage_slots.take(s)
+        st.ts_us = sp_s.ts_us
+        st.job = None
+        if worker is None:
+            with span("cohort.gather", cat="cohort", tracer=tr,
+                      window=st.r0):
+                native_rows.gather(leaves, st.host, st.idx)
+        else:
+            st.job = worker.gather(leaves, st.host, st.idx)
         return st
 
-    def launch(st: _Staged, patched: Optional[np.ndarray]) -> _Out:
-        """Build the [C] state from the staged rows, run the segment's
-        rounds, and start the copy of the durable outputs off the card
-        (main thread only: the sentinels' carry and the stats stay in
-        order). ``patched``: the staged rows a launch-time patch
-        changed after their copy to the card started."""
-        r0, seg = st.r0, st.seg
-        with span("cohort.stage", cat="cohort", tracer=tr, window=r0):
-            if st.dev is None:
-                upload(st)
-                patched = None      # the copy holds the patches already
-            else:
-                cur = torch.cuda.current_stream(dev)
-                cur.wait_event(st.ready)
-                for t in st.dev + list(st.data.values()):
-                    t.record_stream(cur)
-            vals = st.dev
-            if patched is not None:
-                # Rows an output landed on after the copy started: their
-                # fresher values, copied again on the round's stream.
-                rows = torch.from_numpy(np.flatnonzero(patched)).to(dev)
-                host = st.model_rows + [st.phase_rows]
-                for i, a in enumerate(host):
-                    vals[i].index_copy_(0, rows, torch.from_numpy(
-                        a[patched]).to(dev))
-            k = len(model_leaves)
-            model = _unleaves(vals[:k])
-            state = sim.init_state(model, vals[k])
-            state.round = r0
+    def prepare(st: _Staged, newer: list, carry=None) -> tuple:
+        """Patch in the outputs ``newer`` than the gather (ascending, so
+        the newest write wins, as in the serial loop), copy the rows to the
+        card and build the [C] state and its data rows:
+        ``(state, data)``. ``carry``, ``(prev_state, prev_idx)``, is the
+        cohort whose rounds are still in flight: the rows it shares with
+        this one are taken from its final state on the device, the rows a
+        serial gather would read from the pool after its scatter."""
+        if st.job is not None:
+            t0, t1, _ = worker.wait(st.job)
+            _worker_span(tr, "cohort.gather", t0, t1, st.r0)
+            st.job = None
+        with span("cohort.stage", cat="cohort", tracer=tr, window=st.r0):
+            for out in newer:
+                native_rows.patch(st.host, st.idx, out.wait().host, out.idx)
+            host = st.host + [st.idx_t] + (
+                [torch.from_numpy(_local_neighbor_table(sim, st.idx))]
+                if induced else [])
+            vals = [t.to(dev, non_blocking=cuda) for t in host]
+            if cuda:
+                # The slot is free again once these copies have read it.
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                stage_slots.events[st.slot] = ev
+            if carry is not None:
+                prev, prev_idx = carry
+                _, pos, pos_prev = np.intersect1d(
+                    st.idx, prev_idx, assume_unique=True,
+                    return_indices=True)
+                if pos.size:
+                    at = torch.from_numpy(pos.astype(np.int64)).to(dev)
+                    src = torch.from_numpy(pos_prev.astype(np.int64)).to(dev)
+                    for v, t in zip(vals[:k + 1],
+                                    _leaves(prev.model) + [prev.phase]):
+                        v.index_copy_(0, at, t.index_select(0, src).to(
+                            v.dtype))
+            state = sim.init_state(_unleaves(vals[:k]), vals[k])
+            state.round = st.r0
             if induced:
                 state.aux["cohort_nbr"] = vals[k + 2]
             data_c = dict(eval_data)
-            data_c.update(st.data)
+            data_c.update(data_rows(vals[k + 1]))
+            if mesh is not None:
+                state = _parallel.shard_state(state, mesh)
+                data_c = _parallel.shard_data(data_c, mesh)
+        return state, data_c
+
+    def run(st: _Staged, state, data_c, on_run=None, ahead=None) -> _Out:
+        """Run the segment's rounds and start the copy of the durable
+        outputs off the card. ``on_run`` is called as the rounds start,
+        ``ahead`` once they are launched, before the host waits for them
+        (where streaming stages the next cohort)."""
+        r0, seg = st.r0, st.seg
+        if on_run is not None:
+            on_run()
         with span("cohort.run", cat=WAIT_CAT, tracer=tr,
                   window=r0) as sp_r:
             sim.data = data_c
@@ -1064,6 +1105,8 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int):
                     rows_all.append(sim._run_round(state, last_round))
             finally:
                 sim.data = bank
+            if ahead is not None:
+                ahead(state)
             if tr is not None and cuda:
                 # The run span closes at the execution's end, not at
                 # the last launch.
@@ -1071,102 +1114,45 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int):
         if tr is not None:
             attach_device_spans(tr, sp_r.ts_us, sp_r.dur_us,
                                 args={"segment_rounds": seg, "window": r0})
+        out = _Out()
+        out.r0, out.seg, out.idx, out.ts_us = r0, seg, st.idx, st.ts_us
+        out.job = out.event = None
         with span("cohort.fetch", cat="cohort", tracer=tr, window=r0):
-            outs = _leaves(state.model) + [state.phase]
+            _, out.host = out_slots.take(st.s)
+            for b, t in zip(out.host, _leaves(state.model) + [state.phase]):
+                b.copy_(t, non_blocking=cuda)
             if cuda:
-                bufs = [_pinned_like(t) for t in outs]
-                for b, t in zip(bufs, outs):
-                    b.copy_(t, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(dev))
-                host = [b.numpy() for b in bufs]
-            else:
-                event = None
-                host = [t.numpy().copy() for t in outs]
-        return _Out(st.idx, host[:k], host[k], event)
+                out.event = torch.cuda.Event()
+                out.event.record(torch.cuda.current_stream(dev))
+        return out
 
-    def flush_job(st: _Staged, out: _Out) -> None:
-        """Scatter one segment's outputs into the pool (the flusher
-        thread under prefetch, inline otherwise). Flushes are FIFO, so
-        the incremental coverage matches the serial schedule exactly."""
+    def count(out: _Out, newly: int) -> None:
+        """A scattered segment's coverage (in segment order)."""
         nonlocal touched_count
-        out.wait()
-        with span("cohort.scatter", cat="cohort", tracer=tr,
-                  window=st.r0):
-            for dst, src in zip(model_leaves, out.model):
-                dst[st.idx] = src
-            phase_leaf[st.idx] = out.phase
-            newly = int(np.count_nonzero(~touched[st.idx]))
-            touched[st.idx] = True
         touched_count += newly
-        coverage.extend([touched_count / float(n)] * st.seg)
-        if pend_lock is not None:
-            with pend_lock:
-                pending.pop(st.s, None)
-            if tr is not None and st.ts_us is not None:
-                # Streaming windows overlap in time: each is one complete
-                # event, [sample start, scatter end].
-                tr.add_complete(
-                    "cohort.segment", st.ts_us,
-                    tr._now_us() - st.ts_us, cat="cohort",
-                    args={"round_start": st.r0, "rounds": st.seg,
-                          "streaming": True})
+        coverage.extend([touched_count / float(n)] * out.seg)
 
     sp_all = span("cohort.start", cat="cohort", tracer=tr,
                   total_rounds=n_rounds, cohort_size=c, prefetch=depth)
     with sp_all:
-        if depth == 0:
+        if worker is None:
             for s, (r0, seg) in enumerate(plan):
                 with span("cohort.segment", cat="cohort", tracer=tr,
                           round_start=r0, rounds=seg):
-                    st = stage_job(s, r0, seg)
-                    flush_job(st, launch(st, None))
+                    st = gather(s)
+                    out = run(st, *prepare(st, []))
+                    out.wait()
+                    with span("cohort.scatter", cat="cohort", tracer=tr,
+                              window=r0):
+                        newly = native_rows.scatter(leaves, out.host,
+                                                    out.idx, touched)
+                    count(out, newly)
         else:
-            from concurrent.futures import ThreadPoolExecutor
-            stager = ThreadPoolExecutor(
-                1, thread_name_prefix="cohort-stage")
-            flusher = ThreadPoolExecutor(
-                1, thread_name_prefix="cohort-flush")
-            stage_futs: dict[int, Any] = {}
-            recent: dict[int, _Out] = {}
-            flush_fut = None
             try:
-                for s, (r0, seg) in enumerate(plan):
-                    for j in range(s, min(s + depth + 1, len(plan))):
-                        if j not in stage_futs:
-                            stage_futs[j] = stager.submit(
-                                stage_job, j, *plan[j])
-                    st = stage_futs.pop(s).result()
-                    # Launch-time patch: outputs that landed after the
-                    # staged gather's snapshot, in ascending order so the
-                    # newest write wins, as in the serial loop. Only
-                    # outputs NEWER than everything the snapshot saw: one
-                    # absent from it but older than its newest was
-                    # scattered before the snapshot (flushes are FIFO),
-                    # so the gather holds it already.
-                    cut = max(st.seen) if st.seen else -1
-                    patched = None
-                    for o in sorted(recent):
-                        if o > cut:
-                            hit = _patch_rows(st, recent[o])
-                            if hit is not None:
-                                patched = hit if patched is None \
-                                    else patched | hit
-                    out = launch(st, patched)
-                    if flush_fut is not None:
-                        # At most one scatter in flight.
-                        flush_fut.result()
-                    with pend_lock:
-                        pending[s] = out
-                    recent[s] = out
-                    for o in [o for o in recent if o < s - depth]:
-                        del recent[o]
-                    flush_fut = flusher.submit(flush_job, st, out)
-                if flush_fut is not None:
-                    flush_fut.result()
+                _stream(plan, depth, worker, gather, prepare, run,
+                        count, leaves, touched, out_slots, tr)
             finally:
-                stager.shutdown(wait=True)
-                flusher.shutdown(wait=True)
+                worker.close()
 
     extra = {"cohort_coverage": np.asarray(coverage, np.float32),
              "cohort_active_nodes": np.full((n_rounds,), c, np.int32)}
@@ -1185,3 +1171,86 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int):
                           node_key=pool.node_key, touched=touched,
                           round=first_round + n_rounds)
     return new_pool, report
+
+
+def _stream(plan, depth, worker, gather, prepare, run, count, leaves,
+            touched, out_slots, tr) -> None:
+    """The streaming loop. The row worker runs gathers and scatters in the
+    order they are queued, on a native thread that never takes the GIL;
+    this thread stages each cohort while the previous segment's rounds
+    are in flight.
+
+    At segment ``s``: the scatter of ``s - 1`` (its copy off the card
+    done) and the gathers of the cohorts up to ``s + depth`` are queued as
+    ``s``'s rounds start, so they run behind the rounds; a gather sees
+    every output scattered before it (``base``, the last such segment).
+    Once ``s``'s rounds are launched, and before the host waits for them,
+    cohort ``s + 1`` is staged: its gather waited for, the host outputs
+    newer than its ``base`` patched in (newest last), its [C] state built,
+    and the rows it shares with cohort ``s`` taken from ``s``'s final
+    state on the device (``prepare``'s ``carry``), so the staged state is
+    what a serial gather would build: the streaming ≡ serial bit-identity
+    hinges on it. Scatters finish in order; each adds its coverage and
+    closes its segment's trace window."""
+    n_seg = len(plan)
+    staged: dict = {}
+    outs: dict = {}          # segment -> _Out, until no stage needs it
+    scattered = -1           # the last segment whose scatter is queued
+    collected = -1           # the last segment whose scatter is waited for
+    gathered = -1            # the last segment whose gather is queued
+
+    def collect(upto: int) -> None:
+        nonlocal collected
+        while collected < min(upto, scattered):
+            collected += 1
+            out = outs[collected]
+            t0, t1, newly = worker.wait(out.job)
+            _worker_span(tr, "cohort.scatter", t0, t1, out.r0)
+            count(out, newly)
+            if tr is not None and out.ts_us is not None:
+                # Streaming windows overlap in time: each is one complete
+                # event, [sample start, scatter end].
+                end = tr._now_us() + (t1 - time.perf_counter()) * 1e6
+                tr.add_complete("cohort.segment", out.ts_us,
+                                end - out.ts_us, cat="cohort",
+                                args={"round_start": out.r0,
+                                      "rounds": out.seg, "streaming": True})
+
+    def queue(s: int) -> None:
+        """Queue the scatter of ``s - 1``, then the gathers up to
+        ``s + depth``."""
+        nonlocal scattered, gathered
+        if s > 0:
+            out = outs[s - 1].wait()
+            out.job = worker.scatter(leaves, out.host, out.idx, touched)
+            scattered = s - 1
+        while gathered < min(s + depth, n_seg - 1):
+            gathered += 1
+            staged[gathered] = gather(gathered)
+            staged[gathered].base = scattered
+
+    def stage(j: int, carry=None) -> tuple:
+        st = staged.pop(j)
+        return st, prepare(st, [outs[o] for o in sorted(outs)
+                                if st.base < o < j - 1], carry)
+
+    queue(0)
+    st, (state, data_c) = stage(0)
+    for s in range(n_seg):
+        nxt = {}
+
+        def ahead(done_state, s=s, st=st, nxt=nxt):
+            # Stage cohort s + 1 behind s's rounds.
+            if s + 1 < n_seg:
+                st1, (state1, data1) = stage(s + 1, (done_state, st.idx))
+                nxt["staged"] = (st1, state1, data1)
+
+        collect(s - len(out_slots.bufs))
+        outs[s] = run(st, state, data_c, on_run=lambda s=s: queue(s),
+                      ahead=ahead)
+        for o in [o for o in outs if o <= collected and o < s - depth - 1]:
+            del outs[o]
+        if s + 1 < n_seg:
+            st, state, data_c = nxt["staged"]
+    queue(n_seg)
+    collect(n_seg - 1)

@@ -124,8 +124,10 @@ tracing (``tracing=``; no ``engine.compile`` span, as nothing compiles),
 draw state kept beside the state) and
 :meth:`GossipSimulator.run_repetitions`, and active-cohort rounds
 (``cohort=``, :mod:`~gossipy_tpu_torch.simulation.cohort`: a host pool of
-nominal N, a ``[C]``-wide round a segment). ``mesh=`` raises
-``NotImplementedError``.
+nominal N, a ``[C]``-wide round a segment), and ``mesh=``
+(:mod:`gossipy_tpu_torch.parallel`: the single-pass fused deliver as a
+ring over the mesh's node axis, K1 on every hop; ``load(mesh=)``
+restores into the mesh's placement).
 """
 
 from __future__ import annotations
@@ -457,8 +459,6 @@ class GossipSimulator(SimulationEventSender):
         if history_dtype not in self._HISTORY_DTYPES:
             raise ValueError(f"unknown history_dtype {history_dtype!r}; "
                              "options: " + ", ".join(self._HISTORY_DTYPES))
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet")
         # Sampled active-cohort mode (simulation.cohort): ``topology``
         # names the NOMINAL population (a real graph, or a
         # NominalTopology size) and is swapped here for the C-node round
@@ -506,6 +506,9 @@ class GossipSimulator(SimulationEventSender):
         refusal = fused_merge and self._fused_refusal(handler, fused_merge)
         if refusal:
             raise ValueError(refusal)
+        if mesh is not None and fused_merge != "multi":
+            raise ValueError("GossipSimulator(mesh=) shards the single-pass "
+                             "fused deliver; pass fused_merge=True/'multi'")
 
         self.device = resolve_device(device)
         self.handler = handler
@@ -529,6 +532,7 @@ class GossipSimulator(SimulationEventSender):
         self.Kr = int(reply_slots)
         self._warn_if_mailbox_undersized()
         self._compact_cap = self._compact_capacity(compact_deliver)
+        self._init_mesh(mesh)
         self._message_size = message_size
         self.draws = draws if draws is not None else TorchDraws(42)
         self.data = to_device(data, self.device)
@@ -587,6 +591,33 @@ class GossipSimulator(SimulationEventSender):
             # The MFU numerator, counted once here (set-up), so that no
             # start() pays for it.
             self._analytic_cost()
+
+    def _init_mesh(self, mesh) -> None:
+        """The mesh-sharded fused deliver (JAX engine.py:624-639, :681-684):
+        the multi-slot merge runs as a ring over the mesh's node axis
+        (:func:`~gossipy_tpu_torch.parallel.collectives.
+        sharded_gather_merge_multi`), one K1 launch a position a hop. The
+        node count must divide the ring, the compacted pass (a row subset
+        the ring cannot re-shard) is refused, and the mesh's positions must
+        all name this simulator's device (a state across cards is not
+        ported)."""
+        self.mesh = mesh
+        if mesh is None:
+            return
+        from ..parallel import _ACROSS_CARDS, _node_axis_entry, \
+            canonical_device
+        from ..parallel.collectives import _axis_size
+        self._fused_ring_axis = _node_axis_entry(mesh, None)
+        if self.n_nodes % _axis_size(mesh, self._fused_ring_axis):
+            raise ValueError("node count must divide the mesh's node axes "
+                             "for the sharded fused deliver")
+        if self._compact_cap is not None:
+            raise ValueError("compact_deliver gathers a [cap] row subset, "
+                             "which the mesh-sharded fused deliver cannot "
+                             "re-shard; use one or the other")
+        if not mesh.is_virtual() or mesh.device() != canonical_device(
+                self.device):
+            raise NotImplementedError(_ACROSS_CARDS)
 
     def _init_chaos(self, chaos: Optional[ChaosConfig]) -> None:
         """Compile the chaos config into its tables: on the host (the
@@ -990,14 +1021,15 @@ class GossipSimulator(SimulationEventSender):
         ``init_nodes(local_train=False)`` (which, as in the JAX engine,
         also resets the sentinels' carry), and the saved draw state goes
         into the simulator's own provider, returned as ``draws`` (None
-        when the checkpoint kept none). ``mesh`` is not ported.
+        when the checkpoint kept none). ``mesh`` restores into the
+        mesh's placement (:func:`~gossipy_tpu_torch.parallel.shard_state`
+        of the template: on a virtual mesh the leaves stay whole on its
+        device, their placement recorded).
 
         In cohort mode the unit is the resident
         :class:`~gossipy_tpu_torch.simulation.cohort.CohortPool`, and the
         template a zero-filled pool (no init at restore); a pool-store
         directory is copied into a work directory and opened there."""
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet")
         from ..checkpoint import restore_checkpoint
         if self.cohort is not None:
             from .cohort import is_pool_store_dir, load_pool_checkpoint, \
@@ -1006,7 +1038,10 @@ class GossipSimulator(SimulationEventSender):
                 return load_pool_checkpoint(self, path)
             return restore_checkpoint(path, pool_template(self), self.draws)
         template = self.init_nodes(local_train=False)
-        return restore_checkpoint(path, template, self.draws)
+        if mesh is not None:
+            from ..parallel import shard_state
+            template = shard_state(template, mesh)
+        return restore_checkpoint(path, template, self.draws, mesh=mesh)
 
     def _age_shape(self) -> tuple:
         """The shape of one node's age (``()``, or ``(P,)`` for a
@@ -1499,9 +1534,18 @@ class GossipSimulator(SimulationEventSender):
         rows and the kernel's merged params."""
         flat_idx, w_self, w_peer, peer_ages = self._fused_multi_tables(
             state, sr_t, sender_t, apply_t)
-        ring, scale, starts = self._ring(state)
-        merged = gather_merge_multi(model.params, ring, flat_idx, w_self,
-                                    w_peer, scale, starts)
+        if self.mesh is not None:
+            from ..parallel.collectives import sharded_gather_merge_multi
+            merged = sharded_gather_merge_multi(
+                model.params, state.history_params, flat_idx, w_self, w_peer,
+                self.mesh, scales=state.history_scale,
+                axis_name=self._fused_ring_axis,
+                leaf_starts=(None if state.history_scale is None
+                             else self._leaf_starts))
+        else:
+            ring, scale, starts = self._ring(state)
+            merged = gather_merge_multi(model.params, ring, flat_idx, w_self,
+                                        w_peer, scale, starts)
         live_ages = torch.where(apply_t, peer_ages,
                                 torch.zeros_like(peer_ages)).amax(dim=1)
         ages = torch.maximum(model.n_updates, live_ages)
@@ -2004,7 +2048,7 @@ class GossipSimulator(SimulationEventSender):
         return stats
 
     def start(self, state: SimState, n_rounds: int = 100,
-              profile_dir: Optional[str] = None
+              profile_dir: Optional[str] = None, mesh=None
               ) -> tuple[SimState, SimulationReport]:
         """Run ``n_rounds`` rounds on ``state`` (in place); returns the
         state and a report. The per-round counters stay on the device
@@ -2030,13 +2074,22 @@ class GossipSimulator(SimulationEventSender):
         simulation.cohort.CohortPool` and the call is the host-driven
         gather -> [C]-round -> scatter segment loop
         (:func:`~gossipy_tpu_torch.simulation.cohort.cohort_start`;
-        ``profile_dir`` does not apply); returns ``(pool, report)``."""
+        ``profile_dir`` does not apply); returns ``(pool, report)``.
+        ``mesh`` (cohort mode only) places each segment's ``[C]`` state
+        and data rows per the partition-rule registry
+        (:mod:`~gossipy_tpu_torch.parallel.rules`); C must divide the
+        mesh's node axis."""
         if self.cohort is not None:
             from .cohort import cohort_start
-            out = cohort_start(self, state, n_rounds)
+            out = cohort_start(self, state, n_rounds, mesh=mesh)
             self._ledger_append(out[1], n_rounds, None,
                                 round_start=int(state.round))
             return out
+        if mesh is not None:
+            raise ValueError(
+                "start(mesh=) is the cohort-mode sharded-round path; for "
+                "materialized populations place the state up front with "
+                "parallel.shard_state(state, mesh)")
         tr = self.tracer
         first_round = state.round
         perf_timing = self.perf is not None and self.perf.timing

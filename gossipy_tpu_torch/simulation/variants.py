@@ -11,8 +11,9 @@ Counterpart of ``gossipy_tpu/simulation/variants.py``:
   is one matrix product ``W_eff @ P`` over the flat rows, or over a sparse
   topology a gather and a per-receiver sum over the O(E) edges.
 
-The mesh and the ring schedule of the all-to-all round are not ported
-yet.
+With ``mesh=`` and ``ring_mix=True`` the all-to-all mixing product runs
+as a ring over the mesh's node axis
+(:func:`~gossipy_tpu_torch.parallel.collectives.ring_mix_pytree`).
 """
 
 from __future__ import annotations
@@ -198,6 +199,13 @@ class All2AllGossipSimulator(GossipSimulator):
 
     ``"auto"`` takes ``"segment"``: the JAX package's rule off the TPU, so
     a run on the card and one on the CPU make the same draws.
+
+    With ``ring_mix=True`` (requires ``mesh``) the dense mixing product
+    runs as a ring matmul over the mesh's node axis
+    (:func:`~gossipy_tpu_torch.parallel.collectives.ring_mix_pytree`): on
+    an fp32 wire the single product, on a bf16 or int8 wire the exact
+    diagonal plus the off-diagonal product over the wire's round trip.
+    Sparse mixing refuses it.
     """
 
     def __init__(self, *args, mixing, mesh=None, ring_mix: bool = False,
@@ -205,9 +213,6 @@ class All2AllGossipSimulator(GossipSimulator):
         if sparse_mix_form not in ("auto", "padded", "segment"):
             raise ValueError(f"unknown sparse_mix_form {sparse_mix_form!r}; "
                              "options: auto, padded, segment")
-        if mesh is not None or ring_mix:
-            raise NotImplementedError("mesh= and ring_mix= are not ported "
-                                      "yet")
         kwargs.setdefault("protocol", AntiEntropyProtocol.PUSH)
         # The round never reads the mailbox: one slot keeps it small.
         kwargs.setdefault("mailbox_slots", 1)
@@ -217,6 +222,7 @@ class All2AllGossipSimulator(GossipSimulator):
             raise ValueError("All2AllNode only supports PUSH protocol.")
         self.sparse_mix = isinstance(mixing, SparseMixing)
         self._sparse_padded = False
+        self._init_ring_mix(mesh, ring_mix)
         if self.sparse_mix:
             self._init_sparse_mixing(mixing, sparse_mix_form)
             return
@@ -230,6 +236,32 @@ class All2AllGossipSimulator(GossipSimulator):
             raise ValueError(f"mixing is {tuple(w.shape)}, the topology has "
                              f"{self.n_nodes} nodes")
         self.mixing = w
+
+    def _init_ring_mix(self, mesh, ring_mix: bool) -> None:
+        """The ring schedule of the mixing product (JAX variants.py:
+        295-307): over the same axes the node dimension is placed on, the
+        node count dividing the ring."""
+        self.mesh = mesh
+        self.ring_mix = bool(ring_mix)
+        if mesh is not None:
+            from ..parallel import _ACROSS_CARDS, canonical_device
+            if not mesh.is_virtual() or mesh.device() != canonical_device(
+                    self.device):
+                raise NotImplementedError(_ACROSS_CARDS)
+        if not self.ring_mix:
+            return
+        if mesh is None:
+            raise ValueError("ring_mix=True requires a mesh")
+        if self.sparse_mix:
+            raise ValueError("ring_mix schedules the dense mixing matmul; "
+                             "use the segment-sum sparse path without a "
+                             "ring")
+        from ..parallel import _node_axis_entry
+        from ..parallel.collectives import _axis_size
+        self._ring_axis = _node_axis_entry(mesh, None)
+        if self.n_nodes % _axis_size(mesh, self._ring_axis):
+            raise ValueError("node count must divide the mesh's node axes "
+                             "for ring_mix")
 
     def _init_sparse_mixing(self, mixing: SparseMixing, form: str) -> None:
         """Check the edge weights, move them to the device and, for the
@@ -280,11 +312,20 @@ class All2AllGossipSimulator(GossipSimulator):
         """Broadcast mixing loses no message to a full mailbox."""
 
     def _mix(self, params: torch.Tensor, w_eff: torch.Tensor) -> torch.Tensor:
+        if self.ring_mix:
+            from ..parallel.collectives import ring_mix_pytree
+
+            def mm(w, x):
+                return ring_mix_pytree(w, x, self.mesh, self._ring_axis)
+        else:
+            def mm(w, x):
+                return w @ x
         if self.history_dtype == "float32":
-            return w_eff @ params
+            return mm(w_eff, params)
         w_diag = torch.diagonal(w_eff)
         w_off = w_eff - torch.diag(w_diag)
-        return w_diag[:, None] * params + w_off @ self._wire_roundtrip(params)
+        return w_diag[:, None] * params + mm(w_off,
+                                             self._wire_roundtrip(params))
 
     def _wire(self, params: torch.Tensor) -> torch.Tensor:
         """What the peers receive of ``params``: the rows themselves on an

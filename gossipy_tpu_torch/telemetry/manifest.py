@@ -13,7 +13,10 @@ the device:
 - the engine's ``memory_budget()`` output.
 
 The port compiles nothing, so ``compile_seconds`` and
-``compilation_cache`` stay None; it has no mesh (``mesh`` None).
+``compilation_cache`` stay None. ``mesh`` is the simulator's mesh
+(``axis_names`` and ``shape``, :mod:`gossipy_tpu_torch.parallel`), None
+without one, and the config's ``partition_rules`` the rule table every
+placement derives from (``parallel/rules.py``).
 ``perf`` is the simulator's ``perf_summary()`` when it runs with
 ``perf=``, and ``trace`` carries :func:`.tracing.trace_report`'s totals
 when it records a trace.
@@ -108,8 +111,7 @@ def _backend_info(device=None) -> dict:
 def _config_snapshot(sim: Any) -> dict:
     """Config dict from a simulator's public attributes, read with
     ``getattr`` so every engine (the variants, the sequential engine)
-    gives one; absent knobs are omitted. The JAX package's keys; the
-    port has no partition-rule table (``partition_rules`` None)."""
+    gives one; absent knobs are omitted. The JAX package's keys."""
     snap: dict = {"simulator": type(sim).__name__}
     handler = getattr(sim, "handler", None)
     if handler is not None:
@@ -155,7 +157,10 @@ def _config_snapshot(sim: Any) -> dict:
             if nom is not None:
                 snap["topology"] = type(nom).__name__
     if hasattr(sim, "topology"):
-        snap["partition_rules"] = None
+        # The partition-rule table (parallel/rules.py) every placement of
+        # a run on a mesh derives from.
+        from ..parallel.rules import STATE_RULES, rules_table
+        snap["partition_rules"] = rules_table(STATE_RULES)
     if hasattr(sim, "metrics_enabled"):
         # Whether this run fed the process metrics registry.
         snap["metrics"] = bool(sim.metrics_enabled)
@@ -169,8 +174,13 @@ def _config_snapshot(sim: Any) -> dict:
 
 
 def _mesh_info(sim: Any) -> Optional[dict]:
-    """None: the port runs on one device and has no mesh."""
-    return None
+    """The simulator's mesh as its axis names and sizes (None without
+    one)."""
+    mesh = getattr(sim, "mesh", None)
+    if mesh is None:
+        return None
+    return {"axis_names": list(mesh.axis_names),
+            "shape": {str(k): int(v) for k, v in dict(mesh.shape).items()}}
 
 
 @dataclass

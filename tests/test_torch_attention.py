@@ -464,5 +464,9 @@ def test_demo_runs_on_cpu_and_refuses_a_ring():
     rec = demo.run(seq_len=32, dim=8, steps=3, seed=1, device="cpu")
     assert rec["devices"] == 1 and rec["seq_len"] == 32
     assert np.isfinite(rec["loss_first"]) and np.isfinite(rec["loss_last"])
-    with pytest.raises(NotImplementedError):
-        demo.run(seq_len=32, dim=8, steps=1, devices=2, device="cpu")
+    ring = demo.run(seq_len=32, dim=8, steps=3, seed=1, devices=2,
+                    device="cpu")
+    assert ring["devices"] == 2 and ring["per_device_kv_rows"] == 16
+    assert ring["loss_first"] == pytest.approx(rec["loss_first"], abs=1e-4)
+    with pytest.raises(ValueError, match="divide"):
+        demo.run(seq_len=32, dim=8, steps=1, devices=3, device="cpu")

@@ -214,7 +214,7 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": object()},
+    {"mesh": "across processes"},
     {"cohort": 4, "chaos": {"outages": [{"nodes": [0], "start": 1,
                                          "stop": 2}], "horizon": 3},
      "raises": ValueError},
@@ -223,9 +223,10 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     {"topology": "nominal", "raises": ValueError},
 ])
 def test_unported_options_raise(option):
-    """``mesh=`` is not ported; of cohort mode's options, ``chaos=``, a
-    variant simulator and a NominalTopology without ``cohort=`` raise, as
-    in the JAX engine."""
+    """A mesh across processes (the state placed across cards is not
+    ported) raises; of cohort mode's options, ``chaos=``, a variant
+    simulator and a NominalTopology without ``cohort=`` raise, as in the
+    JAX engine."""
     from gossipy_tpu_torch import simulation as tsimulation
     option = dict(option)
     mode = option.pop("create_model_mode",
@@ -235,6 +236,11 @@ def test_unported_options_raise(option):
     topo = tcore.Topology.clique(N)
     if option.pop("topology", None) == "nominal":
         topo = tsimulation.NominalTopology(N)
+    if option.get("mesh") == "across processes":
+        from gossipy_tpu_torch import parallel
+        option["mesh"] = parallel.make_mesh(devices=[
+            parallel.Position(torch.device("cpu"), rank, rank)
+            for rank in (0, 1)])
     th = TSGDHandler(TLogReg(D_FEAT, 2), tlosses.cross_entropy,
                      input_shape=(D_FEAT,), create_model_mode=mode)
     with pytest.raises(raises):

@@ -116,7 +116,9 @@ def test_package_imports_with_jax_blocked():
         "gossipy_tpu_torch.telemetry.scopes, "
         "gossipy_tpu_torch.examples.profile_round, "
         "gossipy_tpu_torch.examples.ledger, "
-        "gossipy_tpu_torch.examples.trace_report\n"
+        "gossipy_tpu_torch.examples.trace_report, "
+        "gossipy_tpu_torch.parallel, gossipy_tpu_torch.parallel.rules, "
+        "gossipy_tpu_torch.parallel.collectives\n"
         # The north-star set-up, with no socket that may connect.
         "import socket, warnings\n"
         "class NoNet(socket.socket):\n"
@@ -483,10 +485,12 @@ def _public_names(mod) -> list:
 
 @pytest.mark.parametrize("ref", ["gossipy_tpu.telemetry",
                                  "gossipy_tpu.simulation", "gossipy_tpu",
-                                 "gossipy_tpu.service"])
+                                 "gossipy_tpu.service",
+                                 "gossipy_tpu.parallel"])
 def test_package_exports_match_reference(ref):
     """Every name the JAX package exports from ``telemetry``,
-    ``simulation`` and its root is exported by the port's counterpart,
+    ``simulation``, ``service``, ``parallel`` and its root is exported by
+    the port's counterpart,
     or stands in the allowance with the queue item that ports it; no name
     in the allowance is exported already."""
     import importlib

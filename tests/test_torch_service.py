@@ -38,6 +38,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from gossipy_tpu import checkpoint as jcheckpoint
 from gossipy_tpu import core as jcore
@@ -507,8 +508,14 @@ def test_tenant_tagged_sink_routing(served):
 
 
 def test_unported_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tservice.GossipService(str(tmp_path), mesh=object(), device="cpu")
+    """A mesh across processes (the state placed across cards, queue 1
+    item 13) is refused; a virtual mesh is the ported one."""
+    from gossipy_tpu_torch import parallel
+    across = parallel.make_mesh(devices=[
+        parallel.Position(torch.device("cpu"), rank, rank)
+        for rank in (0, 1)])
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        tservice.GossipService(str(tmp_path), mesh=across, device="cpu")
 
 
 # -- 5. the SLO harness ------------------------------------------------------------

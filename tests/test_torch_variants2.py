@@ -85,8 +85,14 @@ def test_all2all_refuses_what_is_not_ported():
     topo = topology("ba")
     mix = tcore.uniform_mixing(topo)
     handler = logreg("weighted")[1]
-    for kw in (dict(ring_mix=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
+    from gossipy_tpu_torch import parallel
+    across = parallel.make_mesh(devices=[
+        parallel.Position(torch.device("cpu"), rank, rank)
+        for rank in (0, 1)])
+    for kw, err in ((dict(ring_mix=True), ValueError),
+                    (dict(mesh=across), NotImplementedError),
+                    (dict(mesh=across, ring_mix=True), NotImplementedError)):
+        with pytest.raises(err):
             tsimulation.All2AllGossipSimulator(handler, topo, small_data(),
                                                mixing=mix, device="cpu",
                                                **kw)
