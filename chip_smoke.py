@@ -26,7 +26,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    lines, as every K1/K2 check prints): K1 and K2 at the shapes the
    paths give them (SWEEP: the scale row, the ladder rung, Giaretta,
    Ormandi, the north star, the flagship, phase 4's rows), each bit-equal
-   to its plain version, timed, with its bound and share, a K1 and a K2
+   to its plain version, timed (the median of SWEEP_ITERS replays), with
+   its bound and share, a K1 and a K2
    call at the scale shape profiled as one kernel on the card (counted in
    a CUDA graph that captured it where the profiler records nothing), and at
    the routes' edges (SWEEP_EDGE_*: 1 to 132 columns, 1 to 64 slots,
@@ -433,6 +434,34 @@ Phases, each printed as it runs; any failure exits non-zero:
    ones, under a fixed unit-scale upstream gradient (within 1e-3 of the
    gradients' largest magnitude). (e) The demo twin with ``--devices 4`` (960 K5 launches in 60
    steps) against ``--devices 1``.
+19. analysis and forensics (``gossipy_tpu_torch.analysis`` and the twins
+   of the JAX scripts), each part's launch counts set to 0 just before
+   it and read just after, ``LAUNCHES`` equal to the kernel-entry log
+   (``ENTRIES``) for every kernel. (a) ``examples/program_gate.py`` on
+   the card: the launch gate (unfused 0, fused multi 1, fused compact 1
+   kernel entries a round), the eleven identity pairs of the JAX gate
+   (every op of two rounds of ``start`` equal, the host syncs included),
+   the eleven fingerprints logged (the golden holds the host's torch
+   only). (b) ``examples/fused_smoke.py``: the directed-cycle parity at
+   K = 4 (fp32 multi bit-equal to the unfused deliver, the int8 ring
+   through K2 within 1e-6, accounting equal), the launch property, and
+   the deliver A/B on a 16-node CIFAR10Net clique (``receive_merge`` ms
+   a round from the profiler, multi below per_slot). (c)
+   ``examples/scale_ladder.py`` at LADDER_RUNGS (LADDER_RUNG_ROUNDS
+   rounds each; predicted budget, FLOPs and linear-in-N time beside the
+   measured ms/round, rounds/s, ``mfu_est`` and the run's peak
+   allocation), then a ``--fail-at`` run over FAIL_RUNGS whose verdict
+   must name the failing rung, its budget and peak and the last healthy
+   rung, its bundle written. (d) ``examples/microbench_components.py``
+   at the flagship's widths, MICRO_REPS timed calls a component. (e)
+   ``examples/chaos_smoke.py`` (the gap opens and closes, the chunked
+   run bit-identical, the sequential engine's story) and
+   ``examples/ci_smoke_artifact.py`` (its artifacts and self-checks, and
+   a poisoned run that trips and writes its bundle). (f)
+   ``examples/baseline.py``'s MLP for BASELINE_EPOCHS epochs on the card
+   and on the CPU from the same seeds: it learns (accuracy above
+   BASELINE_MIN_ACC), and the two agree within REF_TOL on params and
+   BASELINE_METRIC_TOL on the metrics.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -443,6 +472,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -770,6 +800,9 @@ SWEEP = (("scale", 50_000, 2, 116, 6, ("bfloat16",)),
 # to 132 columns (1 and 3: the scalar form; 132: the first wide row), 1 to
 # 64 slots, half of them live, SWEEP_EDGE_N rows (a multiple of no
 # route's rows per block).
+# The sweep's timed replays a median is taken over (phase 3's own checks
+# take 50): cut to pay for phase 19.
+SWEEP_ITERS = 15
 SWEEP_EDGE_F = (1, 3, 4, 60, 116, 128, 132)
 SWEEP_EDGE_K = (1, 59, 64)
 SWEEP_EDGE_N = 37
@@ -822,13 +855,15 @@ def multi_inputs(torch, rng, wire, n, d, f, k, starts, live=None):
 
 
 def check_multi(torch, merge, label, wire, n, d, f, k, seed, rate,
-                starts=(0,), live=None, plain=True, timed=True) -> dict:
+                starts=(0,), live=None, plain=True, timed=True,
+                iters: int = 50) -> dict:
     """K1 (float32 ring) or K2 at one shape (``label``) against its plain
     version, bit for bit; its device time (and the plain version's, with
     ``plain``), bound and share; for K1 also the host-clock time of one
     eager call (``eager_call_ms``: the wrapper's Python, its launch and
     the kernel); ``timed=False`` checks the bits only (the route edges).
-    ``starts``: the int8 ring's leaf starts. At the sweep's
+    ``starts``: the int8 ring's leaf starts; ``iters``: the timed
+    replays (and eager calls) a median is taken over. At the sweep's
     scale shape (``label`` "scale", phase 3's first profiler session) a
     call must put one kernel on the card and nothing else
     (:func:`one_launch`)."""
@@ -854,12 +889,13 @@ def check_multi(torch, merge, label, wire, n, d, f, k, seed, rate,
             f"leaves={n_leaves} live_slots={live_n} max_abs_err={err}")
         return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
     out = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-               ms=time_ms(torch, kernel))
+               ms=time_ms(torch, kernel, iters=iters))
     if wire == "float32":
-        out["eager_call_ms"] = call_ms(torch, kernel)
+        out["eager_call_ms"] = call_ms(torch, kernel, iters=iters)
     if plain:
         out["plain_ms"] = time_ms(
-            torch, lambda: merge.gather_merge_multi_reference(*args))
+            torch, lambda: merge.gather_merge_multi_reference(*args),
+            iters=iters)
     out["share"] = bound_ms / out["ms"]
     route = (f"slot walk grid {plan.grid}" if plan.slots else
              f"wide grid {plan.grid}" if plan.wide else
@@ -885,7 +921,8 @@ def merge_sweep(torch, merge, rate, stride, starts) -> dict:
         st = starts if f == stride else [0, f // 2]
         for wire in ("float32",) + wires:
             numbers[(label, wire)] = check_multi(
-                torch, merge, label, wire, n, d, f, k, seed, rate, st)
+                torch, merge, label, wire, n, d, f, k, seed, rate, st,
+                iters=SWEEP_ITERS)
     seed = 90
     for f in SWEEP_EDGE_F:
         st = sorted({0, f // 3, 2 * f // 3})
@@ -6049,6 +6086,233 @@ def ring_demo_check(torch) -> dict:
     return {"launches": launches, "rel": rel}
 
 
+# Phase 19: the analysis layer and the forensic twins.
+LADDER_RUNGS = (1_000, 10_000, 100_000)
+LADDER_RUNG_ROUNDS = 5
+FAIL_RUNGS = (1_000, 2_000)          # the --fail-at run fails the second
+MICRO_REPS = 10
+BASELINE_EPOCHS = 2
+BASELINE_MIN_ACC = 0.8               # the spambase stand-in's Bayes: 0.90
+BASELINE_METRIC_TOL = 1e-3
+
+
+def _counted(merge, label: str, fn, need: tuple = ()) -> tuple:
+    """Run ``fn()`` with the launch counts set to 0 just before and read
+    just after; ``LAUNCHES`` must equal the kernel-entry log for every
+    kernel, and every kernel in ``need`` must have launched. Returns
+    ``(fn's result, {kernel: launches})``."""
+    from gossipy_tpu_torch.analysis import program
+    merge.reset_launch_counts()
+    out = fn()
+    launches = {k: merge.LAUNCHES[k] for k in program.kernel_ids()
+                if merge.LAUNCHES[k]}
+    bad = program.launch_mismatches()
+    if bad:
+        raise RuntimeError(f"{label}: LAUNCHES != kernel entries {bad}")
+    missing = [k for k in need if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"{label}: {missing} never launched")
+    log(f"[analysis] {label}: launches {launches} (= kernel entries)")
+    return out, launches
+
+
+def analysis_gate(torch, merge, tmp: str) -> dict:
+    """(a): the program gate on the card."""
+    from gossipy_tpu_torch.examples import program_gate
+    path = os.path.join(tmp, "gate.json")
+    rc, launches = _counted(
+        merge, "(a) program gate",
+        lambda: program_gate.main(["--report", path]), (merge.KERNEL,))
+    report = json.loads(open(path).read())
+    if rc != 0:
+        raise RuntimeError(f"(a) program gate failed: {report['failures']}")
+    return {"launches": launches, "report": report}
+
+
+def analysis_fused(torch, merge, tmp: str) -> dict:
+    """(b): the fused smoke (K1 and K2)."""
+    from gossipy_tpu_torch.examples import fused_smoke
+    out = os.path.join(tmp, "fused")
+    rc, launches = _counted(
+        merge, "(b) fused smoke",
+        lambda: fused_smoke.main(["--out", out, "--ledger",
+                                  os.path.join(tmp, "ledger.jsonl")]),
+        (merge.KERNEL, merge.KERNEL_MULTI_DQ))
+    report = json.loads(open(os.path.join(out, "fused_smoke.json")).read())
+    if rc != 0:
+        raise RuntimeError(f"(b) fused smoke failed: {report['failures']}")
+    log(f"[analysis] (b) parity {json.dumps(report['parity'])}")
+    log(f"[analysis] (b) deliver A/B "
+        f"{json.dumps(report['ab']['raw']['deliver_ms_per_round'])} ms a "
+        f"round ({report['ab']['config']}); train "
+        f"{json.dumps(report['ab']['raw']['train_ms_per_round'])}")
+    return {"launches": launches, "report": report}
+
+
+def analysis_ladder(torch, merge, tmp: str) -> dict:
+    """(c): the ladder and its --fail-at verdict."""
+    from gossipy_tpu_torch.examples import scale_ladder
+    out = os.path.join(tmp, "ladder")
+    rc, launches = _counted(
+        merge, "(c) ladder",
+        lambda: scale_ladder.main([
+            "--rungs", ",".join(str(n) for n in LADDER_RUNGS),
+            "--rounds", str(LADDER_RUNG_ROUNDS), "--out", out]),
+        (merge.KERNEL,))
+    ladder = json.loads(open(os.path.join(out, "ladder.json")).read())
+    if rc != 0:
+        raise RuntimeError(f"(c) ladder failed: {ladder['verdict']}")
+    for row in ladder["rungs"]:
+        p, m = row["predicted"], row["measured"]
+        log(f"[analysis] (c) rung {row['n_nodes']}: predicted "
+            f"{p['total_bytes']} bytes, {p['flops_per_round']} FLOPs a "
+            f"round, {p['ms_per_round']} ms/round; measured "
+            f"{m['ms_per_round']:.3f} ms/round, {m['rounds_per_sec']:.2f} "
+            f"rounds/s, mfu_est {m['mfu_est']}, peak {m['hbm_peak_bytes']} "
+            f"bytes (budget/peak "
+            f"{row.get('memory_predicted_over_measured')}; time "
+            f"predicted/measured {row.get('time_predicted_over_measured')})")
+    for line in open(os.path.join(out, "ladder.md")).read().splitlines():
+        log(f"[analysis] (c) {line}")
+    fail_out = os.path.join(tmp, "ladder_fail")
+    rc = scale_ladder.main([
+        "--rungs", ",".join(str(n) for n in FAIL_RUNGS), "--rounds", "3",
+        "--out", fail_out, "--fail-at", str(FAIL_RUNGS[-1])])
+    verdict = json.loads(open(os.path.join(fail_out, "ladder.json"))
+                         .read())["verdict"]
+    ok = (rc == 1 and verdict is not None
+          and verdict["failed_rung"] == FAIL_RUNGS[-1]
+          and verdict["last_healthy_rung"] == FAIL_RUNGS[0]
+          and verdict["budget_bytes"] and verdict["peak_bytes"]
+          and verdict["bundle"] and os.path.isdir(verdict["bundle"]))
+    log(f"[analysis] (c) --fail-at {FAIL_RUNGS[-1]}: rc {rc}, verdict "
+        f"rung {verdict and verdict['failed_rung']}, last healthy "
+        f"{verdict and verdict['last_healthy_rung']}, budget "
+        f"{verdict and verdict['budget_bytes']}, peak "
+        f"{verdict and verdict['peak_bytes']}, bundle "
+        f"{verdict and verdict['bundle']}")
+    if not ok:
+        raise RuntimeError(f"(c) the --fail-at verdict is wrong: {verdict}")
+    return {"launches": launches, "ladder": ladder, "verdict": verdict}
+
+
+def analysis_micro(torch) -> dict:
+    """(d): the flagship round's components."""
+    from gossipy_tpu_torch.examples import microbench_components
+    out = microbench_components.run(small=False, reps=MICRO_REPS)
+    log(f"[analysis] (d) {json.dumps(out)}")
+    comp = out["components"]
+    if not all(v is None or (isinstance(v, (int, float)) and v > 0)
+               for v in comp.values()):
+        raise RuntimeError(f"(d) a component did not time: {comp}")
+    return out
+
+
+def analysis_smokes(torch, merge, tmp: str) -> dict:
+    """(e): the chaos smoke and the artifact smoke (and its trip)."""
+    from gossipy_tpu_torch.examples import chaos_smoke, ci_smoke_artifact
+    rc, chaos_launches = _counted(
+        merge, "(e) chaos smoke",
+        lambda: chaos_smoke.main(["--out", os.path.join(tmp, "chaos")]),
+        (merge.KERNEL,))
+    verdict = json.loads(open(os.path.join(tmp, "chaos",
+                                           "chaos_verdict.json")).read())
+    if rc != 0:
+        raise RuntimeError(f"(e) chaos smoke failed: {verdict['checks']}")
+    log(f"[analysis] (e) chaos gap {verdict['gap_per_round']}, "
+        f"reconverged {verdict['rounds_to_reconverge_after_heal']} "
+        "round(s) after the heal")
+    art, art_launches = _counted(
+        merge, "(e) artifact smoke",
+        lambda: ci_smoke_artifact.main(["--out", os.path.join(tmp, "ci")]),
+        (merge.KERNEL,))
+    trip = os.path.join(tmp, "ci_trip")
+    try:
+        ci_smoke_artifact.main(["--out", trip, "--poison", "3"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    bundles = [d for d in os.listdir(trip) if d.startswith("bundle_")]
+    log(f"[analysis] (e) artifacts {art}; the poisoned run exited {code} "
+        f"with {bundles}")
+    if code != 2 or not bundles:
+        raise RuntimeError("(e) the poisoned artifact run did not trip and "
+                           "write its bundle")
+    return {"launches": {"chaos": chaos_launches,
+                         "artifact": art_launches}}
+
+
+def analysis_baseline(torch) -> dict:
+    """(f): the baseline MLP on the card and on the CPU."""
+    from gossipy_tpu_torch.data import ClassificationDataHandler, \
+        load_classification_dataset
+    from gossipy_tpu_torch.examples import baseline
+    X, y = load_classification_dataset("spambase")
+    dh = ClassificationDataHandler(X, y, test_size=0.1, seed=42)
+    t0 = time.perf_counter()
+    card = baseline.torch_mlp(dh, n_epochs=BASELINE_EPOCHS, seed=42,
+                              device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = baseline.torch_mlp(dh, n_epochs=BASELINE_EPOCHS, seed=42,
+                             device="cpu")
+    cpu_s = time.perf_counter() - t0
+    a = card.pop("_state").params.cpu().double()
+    b = cpu.pop("_state").params.double()
+    err = float((a - b).abs().max())
+    tol = REF_TOL + REF_TOL * float(b.abs().max())
+    gaps = {k: abs(card[k] - cpu[k]) for k in card}
+    log(f"[analysis] (f) baseline MLP, {BASELINE_EPOCHS} epochs: card "
+        f"{json.dumps(card)} in {card_s:.2f} s, cpu {json.dumps(cpu)} in "
+        f"{cpu_s:.2f} s; params max |card - cpu| {err:.3e} (tol "
+        f"{tol:.3e}), metric gaps {json.dumps(gaps)}")
+    if card["accuracy"] < BASELINE_MIN_ACC or err > tol or \
+            max(gaps.values()) > BASELINE_METRIC_TOL:
+        raise RuntimeError("(f) the baseline MLP did not learn, or the card "
+                           "and the CPU disagree")
+    return {"card": card, "cpu": cpu, "param_err": err}
+
+
+def analysis_phase(torch, merge) -> dict:
+    """Phase 19: (a)-(f). Returns the launches per path of each (kernel,
+    ring format)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p19_")
+    timings = {}
+    t0 = time.perf_counter()
+    gate = analysis_gate(torch, merge, tmp)
+    timings["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused = analysis_fused(torch, merge, tmp)
+    timings["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ladder = analysis_ladder(torch, merge, tmp)
+    timings["c"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    analysis_micro(torch)
+    timings["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smokes = analysis_smokes(torch, merge, tmp)
+    timings["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    analysis_baseline(torch)
+    timings["f"] = time.perf_counter() - t0
+    log(f"[analysis] seconds by part {json.dumps(timings)}")
+    k1 = merge.KERNEL
+    paths = {(k1, "float32"): {
+        "gate": gate["launches"].get(k1, 0),
+        "fused-smoke": fused["launches"].get(k1, 0),
+        "ladder": ladder["launches"].get(k1, 0),
+        "chaos-smoke": smokes["launches"]["chaos"].get(k1, 0),
+        "artifact-smoke": smokes["launches"]["artifact"].get(k1, 0)},
+        (merge.KERNEL_MULTI_DQ, "int8"): {
+        "fused-smoke-int8": fused["launches"].get(merge.KERNEL_MULTI_DQ, 0)}}
+    return paths
+
+
 def parallel_phase(torch, merge, rate, name, ns_k1_rps) -> tuple:
     """Phase 18: (a) K1 on the ring at the north star's and the
     flagship's shapes, (b) the engine's mesh=, (c) All2All's ring_mix,
@@ -6277,6 +6541,14 @@ def main() -> int:
     for key, by_path in par_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[parallel] phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    # 19. the analysis layer and the forensic twins
+    at(19)
+    t0 = time.perf_counter()
+    ana_paths = analysis_phase(torch, merge)
+    for key, by_path in ana_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[analysis] phase 19 took {time.perf_counter() - t0:.1f} s")
 
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",

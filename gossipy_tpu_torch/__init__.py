@@ -12,7 +12,8 @@ hop of ``ops/attention.py``) are CUDA C++ kernels in ``csrc/``, built with
 This package imports nothing of JAX and nothing of :mod:`gossipy_tpu`.
 
 Every entry point runs on ``cuda`` unless the caller passes
-``device="cpu"``; without a card it raises instead of falling back.
+``device="cpu"`` (or names the host in :class:`GlobalSettings`); without a
+card it raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -25,17 +26,78 @@ import torch
 
 __version__ = "0.1.0"
 
+class DuplicateFilter(logging.Filter):
+    """Suppress repeated log records: a message already seen is dropped
+    (the JAX package's filter, as the original gossipy's)."""
+
+    def __init__(self):
+        super().__init__()
+        self._seen: set[str] = set()
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        msg = record.getMessage()
+        if msg in self._seen:
+            return False
+        self._seen.add(msg)
+        return True
+
+
 LOG = logging.getLogger("gossipy_tpu_torch")
+LOG.addFilter(DuplicateFilter())
+
+
+class GlobalSettings:
+    """The process's default device, a singleton (the original gossipy's
+    device singleton; the JAX package's records a platform string).
+
+    :meth:`get_device` is ``"cuda"`` unless :meth:`set_device` named the
+    host (``"cpu"``); :func:`resolve_device` reads it for every entry point
+    called without ``device=``. Nothing falls back to the CPU because no
+    card was found: :meth:`auto_device` picks the card, and raises without
+    one.
+    """
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+            cls._instance._device = None
+        return cls._instance
+
+    def set_device(self, device: str | None = None) -> None:
+        """``"cuda"``, ``"cpu"``, or None for the default (the card)."""
+        if device is not None and str(device).split(":")[0] not in (
+                "cuda", "cpu"):
+            raise ValueError(f"unsupported device {device!r}; use 'cuda' "
+                             "or 'cpu'")
+        self._device = None if device is None else str(device)
+
+    def auto_device(self) -> str:
+        """Select the card (the original's ``auto_device`` prefers CUDA);
+        raises when no CUDA device is available."""
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; name the host with "
+                "GlobalSettings().set_device('cpu')")
+        self._device = "cuda"
+        return self._device
+
+    def get_device(self) -> str:
+        return self._device or "cuda"
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` by default.
+    """The device an entry point runs on: ``device``, else
+    :meth:`GlobalSettings.get_device` (``cuda`` by default).
 
-    ``None`` means the card; it raises when CUDA is not available, so a run
-    never lands on the CPU by accident. Pass ``device="cpu"`` (as the tests
-    do) to run the plain PyTorch versions on the host.
+    The card raises when CUDA is not available, so a run never lands on
+    the CPU by accident. Pass ``device="cpu"`` (as the tests do), or
+    ``GlobalSettings().set_device("cpu")``, to run the plain PyTorch
+    versions on the host.
     """
-    dev = torch.device("cuda" if device is None else device)
+    dev = torch.device(GlobalSettings().get_device() if device is None
+                       else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "gossipy_tpu_torch runs on CUDA by default and no CUDA device "

@@ -17,7 +17,9 @@ give the JAX package's synthetic stand-ins (no download is tried, and no
 archive is read). :func:`load_recsys_dataset` gives the JAX package's
 synthetic MovieLens stand-in (no download is tried), which
 :class:`RecSysDataDispatcher` stacks one user a node. The scikit-learn
-built-ins raise ``NotImplementedError``.
+built-ins (iris, breast_cancer, digits, wine) load from scikit-learn's
+bundled data where scikit-learn is installed, and raise ``ImportError``
+naming it where it is not (the card's machine has none).
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ RECSYS_SHAPES = {"ml-100k": (943, 1682, 100_000),
                  "ml-10m": (69_878, 10_677, 10_000_054),
                  "ml-20m": (138_493, 26_744, 20_000_263)}
 
-# The scikit-learn built-ins of the JAX package's loader.
+# The scikit-learn built-ins of the JAX package's loader (loaded from
+# scikit-learn's bundled data where it is installed).
 _SKLEARN_BUILTINS = ("iris", "breast", "breast_cancer", "digits", "wine")
 
 
@@ -128,15 +131,16 @@ def load_classification_dataset(name: str = "spambase",
     stand-in, with its warning; no download is tried. A ``name`` that is
     an existing file loads as svmlight (:func:`load_svmlight`), its labels
     encoded to ``0..C-1`` in sorted order, as the JAX package loads one.
-    The scikit-learn built-ins raise ``NotImplementedError``.
-    ``normalize`` applies :func:`standard_scale`.
+    The scikit-learn built-ins (iris, breast / breast_cancer, digits,
+    wine) load from the data that ships inside scikit-learn, imported at
+    the call (nothing is downloaded); without scikit-learn they raise an
+    ``ImportError`` that names it. ``normalize`` applies
+    :func:`standard_scale`.
     """
     key = name.lower()
     if key in _SKLEARN_BUILTINS:
-        raise NotImplementedError(
-            f"dataset {name!r} is a scikit-learn built-in; the port does not "
-            "depend on scikit-learn, and its loader is not ported yet")
-    if key in UCI_SHAPES:
+        X, y = _load_sklearn_builtin(key)
+    elif key in UCI_SHAPES:
         n, d, c = UCI_SHAPES[key]
         warnings.warn(
             f"Dataset '{key}' could not be downloaded (no egress?); using a "
@@ -152,6 +156,24 @@ def load_classification_dataset(name: str = "spambase",
     if normalize:
         X = standard_scale(X)
     return X, y
+
+
+def _load_sklearn_builtin(key: str):
+    """One of scikit-learn's bundled sets as ``(X, y)``, through a lazy
+    ``sklearn.datasets`` import, as the JAX package loads it."""
+    loader = {"iris": "load_iris", "breast": "load_breast_cancer",
+              "breast_cancer": "load_breast_cancer",
+              "digits": "load_digits", "wine": "load_wine"}[key]
+    # Imported at the call: the port has no import-time (or hard)
+    # dependency on scikit-learn.
+    try:
+        import sklearn.datasets as sk_datasets
+    except ImportError as e:
+        raise ImportError(
+            f"dataset {key!r} is a scikit-learn built-in and scikit-learn "
+            "is not installed; install scikit-learn, or load another "
+            "dataset") from e
+    return getattr(sk_datasets, loader)(return_X_y=True)
 
 
 def _label_encode(values) -> np.ndarray:

@@ -55,7 +55,7 @@ def exact_match(cost) -> np.ndarray:
     ``[k]``."""
     from scipy.optimize import linear_sum_assignment
     c = cost.detach().cpu().numpy() if isinstance(cost, torch.Tensor) \
-        else np.asarray(cost)
+        else np.asarray(cost)  # tracelint: disable=np-in-round
     rows, cols = linear_sum_assignment(c)
     out = np.zeros(c.shape[0], dtype=np.int32)
     out[rows] = cols.astype(np.int32)

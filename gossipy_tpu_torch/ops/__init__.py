@@ -1,7 +1,7 @@
 """Hand-written kernels and their plain PyTorch versions."""
 
 from . import attention, merge
-from ._build import LAUNCHES, reset_launch_counts
+from ._build import ENTRIES, LAUNCHES, reset_launch_counts
 from .attention import (flash_attention, flash_attention_reference,
                         flash_hop_update, flash_hop_update_cuda,
                         flash_hop_update_reference,
@@ -19,8 +19,8 @@ from .merge import (column_leaves, gather_merge_flat, gather_merge_flat_cuda,
 # them.
 SOURCES = sorted(set(merge.SOURCES.values()) | set(attention.SOURCES.values()))
 
-__all__ = ["LAUNCHES", "SOURCES", "column_leaves", "flash_attention",
-           "flash_attention_reference", "flash_hop_update",
+__all__ = ["ENTRIES", "LAUNCHES", "SOURCES", "column_leaves",
+           "flash_attention", "flash_attention_reference", "flash_hop_update",
            "flash_hop_update_cuda", "flash_hop_update_reference",
            "flash_hop_update_split_reference",
            "flash_hop_update_tf32_reference",

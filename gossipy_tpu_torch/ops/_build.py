@@ -13,6 +13,16 @@ PyTorch's current stream (:func:`stream`), raise on a launch error
 (:func:`raise_if_failed`) and count each launch in :data:`LAUNCHES`, one
 counter per kernel, shared by every kernel of the package.
 
+Each kernel's dispatch function (the public wrapper that picks the
+kernel on a CUDA tensor and the plain version on a CPU tensor) calls
+:func:`kernel_entry` as it is entered, on both routes: :data:`ENTRIES`
+counts those calls per kernel, and every listener added with
+:func:`add_entry_listener` hears them in call order. On the card
+``LAUNCHES`` equals ``ENTRIES`` for every kernel; on the host only
+``ENTRIES`` counts. The kernels are bound through ``ctypes``, so a
+``TorchDispatchMode`` never sees them: the entry log is how the op trace
+of ``analysis.program`` sees a kernel.
+
 Flags: ``-O3 --fmad=false`` (no multiply-add contraction, so a kernel
 rounds as its plain PyTorch version does) and ``-Xptxas -v`` (registers,
 shared memory and spills per kernel, kept in ``_build/<name>.log``).
@@ -45,8 +55,33 @@ _LOADED: dict = {}
 LAUNCHES: collections.Counter = collections.Counter()
 
 
+# Calls of each kernel's dispatch function, on the card and on the host.
+ENTRIES: collections.Counter = collections.Counter()
+
+_ENTRY_LISTENERS: list = []
+
+
 def reset_launch_counts() -> None:
+    """Set :data:`LAUNCHES` and :data:`ENTRIES` to 0."""
     LAUNCHES.clear()
+    ENTRIES.clear()
+
+
+def kernel_entry(name: str) -> None:
+    """Count one call of kernel ``name``'s dispatch function and tell the
+    listeners, in call order."""
+    ENTRIES[name] += 1
+    for fn in _ENTRY_LISTENERS:
+        fn(name)
+
+
+def add_entry_listener(fn) -> None:
+    """Call ``fn(kernel name)`` at every :func:`kernel_entry`."""
+    _ENTRY_LISTENERS.append(fn)
+
+
+def remove_entry_listener(fn) -> None:
+    _ENTRY_LISTENERS.remove(fn)
 
 
 def nvcc_path() -> str:

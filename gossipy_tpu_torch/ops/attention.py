@@ -37,7 +37,10 @@ tensor-core routes' own arithmetic (their work lists and tiles, the split
 of their operands, partial carries merged); the CPU tests use them, the
 card's path does not. On CUDA tensors K5 launches or raises. Every launch
 adds one to ``LAUNCHES["flash_hop"]`` and one to its route's count; the
-pre-pass adds one to ``LAUNCHES["tf32_split"]``.
+pre-pass adds one to ``LAUNCHES["tf32_split"]``. Every hop that
+:func:`flash_hop_update` or :func:`flash_attention` takes, on either
+route, adds one to ``_build.ENTRIES["flash_hop"]`` (the kernel-entry
+log); :func:`flash_attention_reference` adds none.
 
 The gradient is the JAX package's hand-derived backward (``_hop_bwd_math``)
 in plain PyTorch under :class:`torch.autograd.Function`: it recomputes the
@@ -104,7 +107,7 @@ def _offset(x: Offset) -> int:
             raise ValueError(f"an offset must be an int or a 0-d tensor, got "
                              f"shape {tuple(x.shape)}")
         return int(x.item())
-    return int(x)
+    return int(x)  # tracelint: disable=host-sync (a Python int here)
 
 
 def _work_dtype(*tensors) -> torch.dtype:
@@ -725,7 +728,12 @@ class _HopUpdate(torch.autograd.Function):
 
 
 def _hop(q, k_c, v_c, m, l, acc, q_off, k_off, scale, causal, block_k,
-         kernel: bool):
+         kernel: bool, entry: bool = True):
+    """One hop through :class:`_HopUpdate`; ``entry`` counts it in the
+    kernel-entry log (``_build.ENTRIES["flash_hop"]``), as the dispatch
+    functions do on either route and the plain yardstick does not."""
+    if entry:
+        _build.kernel_entry(KERNEL)
     return _HopUpdate.apply(q, k_c, v_c, m, l, acc, _offset(q_off),
                             _offset(k_off), float(scale), bool(causal),
                             int(block_k), kernel)
@@ -757,7 +765,7 @@ def flash_hop_update(q, k_c, v_c, m, l, acc, q_off: Offset, k_off: Offset,
                 kernel=q.device.type == "cuda")
 
 
-def _attention(q, k, v, causal, block_k, kernel):
+def _attention(q, k, v, causal, block_k, kernel, entry: bool = True):
     if q.dim() < 2 or k.dim() != q.dim() or v.dim() != q.dim():
         raise ValueError("q, k and v must be [..., S, D] with the same "
                          "leading axes")
@@ -767,8 +775,8 @@ def _attention(q, k, v, causal, block_k, kernel):
         lead = tuple(q.shape[:-2])
         qf, kf, vf = (t.reshape((-1,) + tuple(t.shape[-2:]))
                       for t in (q, k, v))
-        outs = [_attention(qf[i], kf[i], vf[i], causal, block_k, kernel)
-                for i in range(qf.shape[0])]
+        outs = [_attention(qf[i], kf[i], vf[i], causal, block_k, kernel,
+                           entry) for i in range(qf.shape[0])]
         return torch.stack(outs).reshape(lead + tuple(outs[0].shape))
     s_len, dim = q.shape
     wd = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -776,7 +784,7 @@ def _attention(q, k, v, causal, block_k, kernel):
     l0 = torch.zeros((s_len,), dtype=wd, device=q.device)
     acc0 = torch.zeros((s_len, v.shape[1]), dtype=wd, device=q.device)
     m, l, acc = _hop(q, k, v, m0, l0, acc0, 0, 0, 1.0 / math.sqrt(dim),
-                     causal, block_k, kernel)
+                     causal, block_k, kernel, entry)
     return (acc / torch.clamp(l, min=1e-30)[:, None]).to(q.dtype)
 
 
@@ -802,4 +810,4 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     """:func:`flash_attention` through the plain version of K5 on any
     device, with the same backward: the yardstick K5 is held and timed
     against on the card."""
-    return _attention(q, k, v, causal, block_k, kernel=False)
+    return _attention(q, k, v, causal, block_k, kernel=False, entry=False)

@@ -43,7 +43,9 @@ words, a block per row tile for wider ones). Each
 public function runs the plain PyTorch version (``*_reference``) on CPU
 tensors, and on CUDA tensors launches its kernel or raises: it never falls
 back from the card to the plain version. Every launch adds one to
-``LAUNCHES[<kernel>]``.
+``LAUNCHES[<kernel>]``; every call of :func:`gather_merge_multi` and
+:func:`gather_merge_flat`, on either route, one to
+``_build.ENTRIES[<kernel>]`` (the kernel-entry log).
 
 The ``*_pytree`` forms take per-leaf dicts, as the JAX package's pytree
 forms do, and make one launch over their concatenation (the JAX package's
@@ -417,12 +419,15 @@ def gather_merge_multi(p: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     no scale) or K2 (otherwise), on CPU tensors the plain version. Returns
     a new tensor; ``p`` is not modified."""
     _check_multi(p, h, idx, w_self, w_peer)
+    kernel = (KERNEL if h.dtype == torch.float32 and scale is None
+              else KERNEL_MULTI_DQ)
+    _build.kernel_entry(kernel)
     if p.device.type == "cpu":
         return gather_merge_multi_reference(p, h, idx, w_self, w_peer, scale,
                                             leaf_starts)
     if p.device.type != "cuda":
         raise ValueError(f"no gather_merge_multi for device {p.device}")
-    if h.dtype == torch.float32 and scale is None:
+    if kernel == KERNEL:
         return gather_merge_multi_cuda(p, h, idx, w_self, w_peer)
     return gather_merge_multi_dq_cuda(p, h, idx, w_self, w_peer, scale,
                                       leaf_starts)
@@ -525,6 +530,8 @@ def gather_merge_flat(p: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     tensors K3 (float32 ring, no scale) or K4 (otherwise), on CPU tensors
     the plain version. ``idx`` is ``[N]``, the weights ``[N]``."""
     _check_flat(p, h, idx, w_self, w_peer)
+    _build.kernel_entry(KERNEL_FLAT if h.dtype == torch.float32
+                        and scale is None else KERNEL_FLAT_DQ)
     if p.device.type == "cpu":
         return gather_merge_reference(p, h, idx, w_self, w_peer, scale,
                                       leaf_starts)

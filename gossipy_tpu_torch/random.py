@@ -343,7 +343,8 @@ class TorchDraws(DrawProvider):
         u = torch.rand(deg.shape, generator=self.generator,
                        dtype=torch.float64)
         has_peer = deg > 0
-        if not bool(has_peer.any()):
+        # The neighbour lists are host tensors: no sync.
+        if not bool(has_peer.any()):  # tracelint: disable=host-sync
             return torch.full(deg.shape, -1, dtype=torch.int64,
                               device=adjacency.device)
         k = torch.minimum((u * deg).to(torch.int64), deg - 1).clamp(min=0)

@@ -428,7 +428,7 @@ def _host_pool(pool: CohortPool, copy: bool = False) -> CohortPool:
     def h(leaf):
         if isinstance(leaf, np.memmap):
             return leaf
-        a = np.asarray(leaf)
+        a = np.asarray(leaf)  # tracelint: disable=np-in-round (host pool)
         return a.copy() if copy or not a.flags.writeable else a
     return CohortPool(model=_unleaves([h(l) for l in _leaves(pool.model)]),
                       phase=h(pool.phase), node_key=h(pool.node_key),
@@ -1068,9 +1068,11 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
                 stage_slots.events[st.slot] = ev
             if carry is not None:
                 prev, prev_idx = carry
-                _, pos, pos_prev = np.intersect1d(
+                # Host ids of the two cohorts (no tensor).
+                found = np.intersect1d(  # tracelint: disable=np-in-round
                     st.idx, prev_idx, assume_unique=True,
                     return_indices=True)
+                _, pos, pos_prev = found
                 if pos.size:
                     at = torch.from_numpy(pos.astype(np.int64)).to(dev)
                     src = torch.from_numpy(pos_prev.astype(np.int64)).to(dev)

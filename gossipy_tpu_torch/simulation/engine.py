@@ -421,6 +421,8 @@ class GossipSimulator(SimulationEventSender):
 
     _SLOT_FLOOR = 6
     _SLOT_CAP = 64
+    # memory_budget's one-node terms (_one_node_terms), made once.
+    _one_node: Optional[tuple] = None
     _HISTORY_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                        "int8": torch.int8}
 
@@ -911,11 +913,9 @@ class GossipSimulator(SimulationEventSender):
         """
         n = self.n_nodes
         layout = self.handler.layout
-        one = self.handler.init_opt_state(torch.zeros(1, layout.stride))
-        age_shape = self._age_shape()
+        age_shape, opt_bytes, aux_bytes = self._one_node_terms()
         ages = 4 * math.prod(age_shape)
-        per_node = (4 * layout.stride + ages
-                    + sum(t.numel() * t.element_size() for t in one))
+        per_node = 4 * layout.stride + ages + opt_bytes
         D = self._history_depth(self._model_size())
         sidecar = (4 * D * n * len(layout.leaves)
                    if self.history_dtype == "int8" else 0)
@@ -927,7 +927,7 @@ class GossipSimulator(SimulationEventSender):
             "history_dtype": self.history_dtype,
             "history_ages_bytes": ages * D * n,
             "history_depth": D,
-            "aux_bytes": self._aux_bytes(age_shape),
+            "aux_bytes": aux_bytes,
             "mailbox_bytes": 4 * 4 * D * n * self.K,
             "reply_box_bytes": 4 * 4 * D * n * self.Kr,
             "data_bytes": sum(t.numel() * t.element_size()
@@ -1043,6 +1043,22 @@ class GossipSimulator(SimulationEventSender):
             template = shard_state(template, mesh)
         return restore_checkpoint(path, template, self.draws, mesh=mesh)
 
+    def _one_node_terms(self) -> tuple:
+        """``(age shape, optimizer bytes of one node, aux bytes)``, from a
+        host model of one node and meta tensors, made once per simulator.
+        ``memory_budget`` reads them, and the run ledger's manifest reads
+        ``memory_budget`` after every ``start()``: they are made with the
+        state (:meth:`init_state`, after a variant's own construction),
+        so that a ledgered ``start()`` runs no op of its own."""
+        if self._one_node is None:
+            one = self.handler.init_opt_state(
+                torch.zeros(1, self.handler.layout.stride))
+            age_shape = self._age_shape()
+            self._one_node = (age_shape,
+                              sum(t.numel() * t.element_size() for t in one),
+                              self._aux_bytes(age_shape))
+        return self._one_node
+
     def _age_shape(self) -> tuple:
         """The shape of one node's age (``()``, or ``(P,)`` for a
         partitioned handler)."""
@@ -1143,6 +1159,10 @@ class GossipSimulator(SimulationEventSender):
         every cell, the mailbox and reply box are empty, and ``aux`` is
         the variant's initial state (:meth:`_init_aux`)."""
         n = self.n_nodes
+        # The memory budget's one-node terms, made once here (set-up), so
+        # that no start() runs ops for them (the ledger's manifest reads
+        # the budget after every start()).
+        self._one_node_terms()
         params = model.params.to(self.device, torch.float32).contiguous()
         opt_state = tuple(t.to(self.device) for t in model.opt_state)
         n_updates = model.n_updates.to(self.device, torch.int32)
@@ -2355,7 +2375,7 @@ class GossipSimulator(SimulationEventSender):
         def pick(keys):
             return {k: vals[k] for k in keys if k in vals}
 
-        def metrics(v):
+        def metrics(v: np.ndarray):
             if np.all(np.isnan(v)):
                 return None
             return {k: float(x) for k, x in zip(names, v)}

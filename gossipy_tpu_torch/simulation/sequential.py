@@ -295,7 +295,9 @@ class SequentialGossipSimulator(SimulationEventSender):
         if balance is None and self.account is not None:
             balance = self.account.init_balance(self.n_nodes).numpy()
         return SeqState(model=model,
-                        phase=np.asarray(phase, dtype=np.int64).copy(),
+                        # The phases are host values.
+                        phase=np.asarray(  # tracelint: disable=np-in-round
+                            phase, dtype=np.int64).copy(),
                         balance=None if balance is None
                         else np.asarray(balance, dtype=np.int32).copy())
 
@@ -454,7 +456,8 @@ class SequentialGossipSimulator(SimulationEventSender):
             for rx in self._receivers_list():
                 rx.update_single_message(failed, rec)
 
-        def schedule(rec: MessageRecord, payload, t: int, is_reply=False):
+        def schedule(rec: MessageRecord, payload, t: int,
+                     is_reply: bool = False):
             """Drop or delay a message just sent; count and notify it.
             Replies count as sent at delivery, as the reference notifies
             them in its reply drain: a dropped reply only fails."""
@@ -496,7 +499,8 @@ class SequentialGossipSimulator(SimulationEventSender):
 
         merge_sq = train_sq = None
 
-        def receive(p: _Pending, t: int, r: int, is_online) -> None:
+        def receive(p: _Pending, t: int, r: int,
+                    is_online: np.ndarray) -> None:
             nonlocal merge_sq, train_sq
             i = p.rec.receiver
             if self.chaos is not None and self._forced_at(round0 + r)[i]:
@@ -603,8 +607,10 @@ class SequentialGossipSimulator(SimulationEventSender):
                     if forced is not None and forced[i]:
                         continue   # a scheduled outage: no sends either
                     if self.account is not None:
+                        # state.balance is a host numpy array.
+                        bal = int(state.balance[i])  # tracelint: disable=all
                         p = float(self.account.proactive(torch.tensor(
-                            [int(state.balance[i])], dtype=torch.int32))[0])
+                            [bal], dtype=torch.int32))[0])
                         if rng.random() >= p:
                             state.balance[i] += 1   # bank a token
                             continue

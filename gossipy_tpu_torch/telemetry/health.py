@@ -223,7 +223,8 @@ def health_round_stats(cfg: SentinelConfig, hc: HealthCarry,
     norms = per_node_param_norm(params, spans)
     if cfg.divergence:
         seeded = hc.rounds_seen > 0
-        ema = hc.norm_ema if seeded else norms
+        # rounds_seen is a host int: no sync.
+        ema = hc.norm_ema if seeded else norms  # tracelint: disable=host-sync
         threshold = cfg.divergence_factor * ema.clamp(min=cfg.norm_floor)
         flags = ((norms > threshold) & seeded).to(torch.int32)
         # Non-finite norms stay out of the EMA (one NaN round must not

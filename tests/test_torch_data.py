@@ -51,8 +51,14 @@ def test_standard_scale_zero_std_column():
 
 
 @pytest.mark.parametrize("name", ["iris", "breast", "digits", "wine"])
-def test_sklearn_builtins_raise(name):
-    with pytest.raises(NotImplementedError, match="scikit-learn"):
+def test_sklearn_builtins_raise(name, monkeypatch):
+    """Without scikit-learn (the card's machine has none) a built-in
+    raises an ImportError that names it; with it, it loads
+    (tests/test_torch_baseline.py holds the arrays to the JAX loader's)."""
+    import sys
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
+    with pytest.raises(ImportError, match="scikit-learn"):
         tdata.load_classification_dataset(name)
 
 
