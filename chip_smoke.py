@@ -462,6 +462,21 @@ Phases, each printed as it runs; any failure exits non-zero:
    and on the CPU from the same seeds: it learns (accuracy above
    BASELINE_MIN_ACC), and the two agree within REF_TOL on params and
    BASELINE_METRIC_TOL on the metrics.
+20. the contract entry twin (``gossipy_tpu_torch/entry.py``, the
+   counterpart of ``__graft_entry__.py``). (a) ``entry()`` on the card:
+   ``fn(*args)`` gives finite ``[8, 10]`` logits; on a numpy-seeded batch
+   the card's logits within REF_TOL of the largest |logit| of the CPU's
+   from the same params. (b) ``dryrun_multichip(ENTRY_DEVICES)`` on a
+   virtual 2 x 2 (nodes, model) mesh of the card, its summary line and
+   launches; then each of its four legs on the card (counts set to 0
+   just before and read just after) against the same leg on the CPU from
+   the same draws: the main round (clique, PUSH_PULL, ``UniformDelay(0,
+   15)``, pinned compaction; K1) and the sparse round (K1) with equal
+   accounting, boxes and ages, params within REF_TOL and accuracy within
+   ENTRY_ACC_TOL; causal ring attention, K5's f32 route on every hop,
+   within 1e-5 of the plain ring and REF_TOL of the CPU's; the All2All
+   ring-mix round, a product with no launch. (c) The API reference
+   generator (``examples/gen_api_docs.py``) renders every page here.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -471,6 +486,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import io
 import json
 import os
 import statistics
@@ -6313,6 +6329,156 @@ def analysis_phase(torch, merge) -> dict:
     return paths
 
 
+# Phase 20: the contract entry twin.
+ENTRY_DEVICES = 4           # dryrun_multichip(4): a 2 x 2 (nodes, model)
+                            # virtual mesh on cuda:0
+ENTRY_ACC_TOL = 1e-4
+ENTRY_LEGS = ("main", "ring", "sparse", "all2all")
+
+
+def entry_forward_check(torch) -> dict:
+    """Phase 20 (a): ``entry()`` on the card gives finite ``[8, 10]``
+    logits on its zeros; on a numpy-seeded batch the card's logits from
+    those params against the CPU's from the same params (copied) within
+    REF_TOL of the largest |logit|; the CPU ``entry`` makes the same
+    params bit for bit."""
+    from gossipy_tpu_torch import entry as tentry
+    fn, (params, x) = tentry.entry()
+    out = fn(params, x)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (8, 10) or out.device.type != "cuda" or not bool(
+            torch.isfinite(out).all()):
+        raise RuntimeError(f"entry(): logits {tuple(out.shape)} on "
+                           f"{out.device}, finite {bool(torch.isfinite(out).all())}")
+    _, (cpu_params, _) = tentry.entry(device="cpu")
+    same = all(torch.equal(params[k].cpu(), cpu_params[k]) for k in params)
+    x_np = np.random.default_rng(20).normal(size=(8, 32, 32, 3)).astype(
+        np.float32)
+    card = fn(params, torch.from_numpy(x_np).cuda()).cpu()
+    cpu = fn(cpu_params, torch.from_numpy(x_np))
+    err = float((card - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    log(f"[entry] (a) entry(): fn(*args) {tuple(out.shape)} on {out.device}"
+        f", finite; a numpy-seeded batch: card vs CPU logits max abs err "
+        f"{err:.3e} of largest |logit| {scale:.3e} (limit {REF_TOL} of "
+        f"it); params equal to the CPU entry's: {same}")
+    if not same or not err <= REF_TOL * scale:
+        raise RuntimeError("entry(): the card's forward step is off the "
+                           "CPU's")
+    return {"max_abs_err": err, "scale": scale}
+
+
+def entry_leg_check(torch, merge, name, card_setup, cpu_setup) -> dict:
+    """One dryrun leg on the card (counts set to 0 just before and read
+    just after) and on the CPU from the same draws and seeds: accounting,
+    boxes and ages equal, params within REF_TOL, accuracy within
+    ENTRY_ACC_TOL; the ring's card output within REF_TOL of the CPU's.
+    On the card every kernel entry launches its kernel, and the card's
+    kernel entries equal the CPU's."""
+    from gossipy_tpu_torch import entry as tentry
+    from gossipy_tpu_torch.analysis import program
+    fn = getattr(tentry, f"{name}_leg")
+    merge.reset_launch_counts()
+    card = fn(card_setup)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+    unlaunched = program.launch_mismatches()
+    cpu = fn(cpu_setup)
+    label = f"entry leg {name}"
+    if launches != card.launches or unlaunched:
+        raise RuntimeError(f"{label}: counted {launches}, the leg "
+                           f"{card.launches}; launches != entries "
+                           f"{unlaunched}")
+    if name == "ring":
+        err = float((card.flash.cpu() - cpu.flash).abs().max())
+        margin = err - REF_TOL
+        out = {"max_diff_flash_plain": card.max_diff, "card_vs_cpu": err}
+        msg = (f"flash vs plain max diff {card.max_diff:.3e} (limit "
+               f"{tentry.RING_ATOL}); card vs CPU ring {err:.3e}")
+    else:
+        check_same_accounting(torch, label, cpu.state, card.state,
+                              cpu.report, card.report)
+        diff = (card.state.model.params.cpu() - cpu.state.model.params).abs()
+        margin = float((diff - REF_TOL).max())
+        acc_diff = abs(card.accuracy - cpu.accuracy)
+        if acc_diff > ENTRY_ACC_TOL:
+            margin = max(margin, acc_diff)
+        out = {"accuracy": card.accuracy, "cpu_accuracy": cpu.accuracy,
+               "params_max_abs_diff": float(diff.max())}
+        msg = (f"accuracy {card.accuracy} (CPU {cpu.accuracy}); sent "
+               f"{int(card.report.sent_per_round.sum())}, accounting equal; "
+               f"params vs CPU max abs diff {float(diff.max()):.3e} (limit "
+               f"{REF_TOL})")
+    log(f"[entry] (b) leg {name}: {msg}; launches {launches} (CPU kernel "
+        f"entries {cpu.entries})")
+    if margin > 0 or card.entries != cpu.entries:
+        raise RuntimeError(f"{label}: off the CPU leg or launched "
+                           f"{launches} against {cpu.entries} entries")
+    out["launches"] = launches
+    return out
+
+
+def entry_phase(torch, merge) -> dict:
+    """Phase 20: (a) ``entry()``, (b) ``dryrun_multichip(ENTRY_DEVICES)``
+    on a virtual mesh of the card and each of its legs against the same
+    leg on the CPU, (c) the API reference generator. Returns the launches
+    per path of each (kernel, ring format) and K5 f32's."""
+    import tempfile
+    from gossipy_tpu_torch import entry as tentry
+    from gossipy_tpu_torch.examples import gen_api_docs
+    from gossipy_tpu_torch.ops import attention as attn
+    timings = {}
+    t0 = time.perf_counter()
+    entry_forward_check(torch)
+    timings["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    merge.reset_launch_counts()
+    whole = tentry.dryrun_multichip(ENTRY_DEVICES)
+    torch.cuda.synchronize()
+    total = {k: v for k, v in merge.LAUNCHES.items() if v}
+    log(f"[entry] (b) dryrun_multichip({ENTRY_DEVICES}): {json.dumps(whole)}"
+        f"; launches in all {total}")
+    card_setup = tentry.dryrun_setup(ENTRY_DEVICES)
+    cpu_setup = tentry.dryrun_setup(ENTRY_DEVICES, device="cpu")
+    legs = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=r"mailbox_slots=")
+        for name in ENTRY_LEGS:
+            legs[name] = entry_leg_check(torch, merge, name, card_setup,
+                                         cpu_setup)
+    f32 = attn.route(torch.float32, tentry.RING_DIM, tentry.RING_DIM)
+    k1 = merge.KERNEL
+    by_leg = {name: (leg["launches"].get(k1, 0),
+                     leg["launches"].get(f32, 0))
+              for name, leg in legs.items()}
+    log(f"[entry] (b) launches by leg (K1, {f32}): "
+        + ", ".join(f"{n} {a}, {b}" for n, (a, b) in by_leg.items()))
+    if not (by_leg["main"][0] and by_leg["sparse"][0] and by_leg["ring"][1]
+            and not any(legs["all2all"]["launches"].values())
+            and whole["launches"] == {n: leg["launches"]
+                                      for n, leg in legs.items()}):
+        raise RuntimeError(f"dryrun: a leg's kernel did not launch, the "
+                           f"product leg launched, or the whole dryrun's "
+                           f"launches differ from its legs': {by_leg}")
+    timings["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p20_") as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            pages = gen_api_docs.main(out_dir=tmp)
+        files = sorted(os.listdir(tmp))
+    want = sorted([gen_api_docs.page_name(m) for m in gen_api_docs.MODULES]
+                  + ["index.md"])
+    log(f"[entry] (c) the API reference: {pages} module pages and the "
+        f"index rendered here, no JAX")
+    if files != want:
+        raise RuntimeError("the API reference did not render every page")
+    timings["c"] = time.perf_counter() - t0
+    log(f"[entry] seconds by part {json.dumps(timings)}")
+    return {(k1, "float32"): {"entry": by_leg["main"][0]
+                              + by_leg["sparse"][0]},
+            (f32, "float32"): {"entry": by_leg["ring"][1]}}
+
+
 def parallel_phase(torch, merge, rate, name, ns_k1_rps) -> tuple:
     """Phase 18: (a) K1 on the ring at the north star's and the
     flagship's shapes, (b) the engine's mesh=, (c) All2All's ring_mix,
@@ -6550,6 +6716,14 @@ def main() -> int:
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[analysis] phase 19 took {time.perf_counter() - t0:.1f} s")
 
+    # 20. the contract entry twin
+    at(20)
+    t0 = time.perf_counter()
+    entry_paths = entry_phase(torch, merge)
+    for key, by_path in entry_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[entry] phase 20 took {time.perf_counter() - t0:.1f} s")
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -6598,6 +6772,8 @@ def main() -> int:
             kernels[-1]["at_tokenized_shape"] = at_variants[("tokenized",
                                                              wire)]
     for entry in k5:
+        if (entry["name"], "float32") in ns_paths:
+            entry["launches_by_path"] = ns_paths[(entry["name"], "float32")]
         ring = {("causal" if v["causal"] else "noncausal"): v
                 for v in at_ring.values()
                 if isinstance(v, dict) and v.get("route") == entry["name"]}

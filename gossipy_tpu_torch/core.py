@@ -181,6 +181,28 @@ class Topology:
         """The adjacency as a bool tensor on ``device``."""
         return torch.as_tensor(self.adjacency, device=device)
 
+    def sample_peers(self, generator: torch.Generator) -> torch.Tensor:
+        """One uniform neighbour for every node under ``generator``, int32
+        ``[N]`` on the host; -1 for a node with no neighbour (callers mask
+        those sends). :func:`sample_peers` over this adjacency."""
+        return sample_peers(generator, self.adjacency)
+
+
+def sample_peers(generator: torch.Generator, adjacency) -> torch.Tensor:
+    """One uniform neighbour for every row of a bool adjacency ``[N, N]``
+    (numpy or a tensor), int32 ``[N]`` on the adjacency's device; -1 for
+    a row with no neighbour.
+
+    The engine's own draw: :meth:`~gossipy_tpu_torch.random.TorchDraws.
+    peers` with the caller's CPU ``generator`` as its stream, so the same
+    generator state gives the peers a run would draw. The JAX package's
+    ``sample_peers(key, adjacency)`` is a categorical under a threefry
+    key; the two agree in law, not in values.
+    """
+    from .random import TorchDraws
+    adj = torch.as_tensor(adjacency, dtype=torch.bool)
+    return TorchDraws(generator=generator).peers(0, adj).to(torch.int32)
+
 
 # The pairing algorithm of networkx 3.6.1's ``random_regular_graph``
 # (networkx/generators/random_graphs.py:524), its preferential
@@ -408,6 +430,17 @@ class SparseTopology:
             "SparseTopology does not materialize a dense adjacency; use "
             "Topology for features that need one or from_dense/to_dense for "
             "small N")
+
+    def sample_peers(self, generator: torch.Generator) -> torch.Tensor:
+        """One uniform neighbour for every node under ``generator``, int32
+        ``[N]`` on the host; -1 for an isolated node: a ``randint(degree)``
+        into each CSR row, the engine's own draw
+        (:meth:`~gossipy_tpu_torch.random.TorchDraws.csr_peers`). The same
+        generator state gives the peers :meth:`Topology.sample_peers` gives
+        over the dense adjacency of the same graph."""
+        from .random import TorchDraws
+        return TorchDraws(generator=generator).csr_peers(
+            0, self.csr_on("cpu")).to(torch.int32)
 
     def csr_on(self, device: torch.device) -> CSR:
         """The neighbour lists on ``device``, copied once per device."""

@@ -278,9 +278,16 @@ class TorchDraws(DrawProvider):
     a checkpoint keeps (:meth:`get_state`, :meth:`set_state`).
     """
 
-    def __init__(self, seed: int = 42):
-        self.seed = int(seed)
-        self.generator = torch.Generator().manual_seed(seed)
+    def __init__(self, seed: int = 42,
+                 generator: Optional[torch.Generator] = None):
+        """A generator seeded with ``seed``, or the caller's CPU
+        ``generator`` itself (its seed is then its ``initial_seed()``)."""
+        if generator is not None:
+            self.seed = int(generator.initial_seed())
+            self.generator = generator
+        else:
+            self.seed = int(seed)
+            self.generator = torch.Generator().manual_seed(seed)
         # id(adjacency) -> (adjacency, degrees, row starts, ids): one entry
         # per dense adjacency tensor a run draws over (the topology's, and
         # under chaos one per distinct edge-alive mask), kept for the

@@ -50,9 +50,9 @@ class SimulationEventReceiver:
 
     def update_single_message(self, failed: bool, msg) -> None:
         """Per-MESSAGE event (the reference's ``update_message(failed,
-        msg)`` granularity, simul.py:55-66). Only the JAX package's
-        sequential engine emits these (not ported); the round engine has no
-        per-message host boundary."""
+        msg)`` granularity, simul.py:55-66). Only the sequential engine
+        (:mod:`gossipy_tpu_torch.simulation.sequential`) emits these; the
+        round engine has no per-message host boundary."""
 
     def update_probes(self, round: int, probes: dict) -> None:
         """Per-round gossip-dynamics probe values (fired only by runs with
@@ -106,7 +106,7 @@ class SimulationEventReceiver:
 
     def update_cohort(self, round: int, cohort: dict) -> None:
         """Per-round active-cohort accounting (fired only by ``cohort=``
-        runs; the JAX package's ``simulation.cohort``, not ported).
+        runs; :mod:`gossipy_tpu_torch.simulation.cohort`).
         ``cohort`` carries ``coverage`` (fraction of the nominal pool any
         cohort has touched so far) and ``active_nodes`` (the materialized
         cohort width C). Host-driven segment loop — replay-only, like

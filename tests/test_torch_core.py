@@ -141,3 +141,92 @@ def test_torch_draws_cover_the_new_draws():
     period = d.init_period(500, 100, cpu)
     assert period.dtype == torch.int32 and period.min() >= 1
     assert 90 < float(period.float().mean()) < 110
+
+
+# -- the public peer draw ----------------------------------------------------
+
+def peer_draws(kind, gen, topo):
+    if kind == "dense":
+        return topo.sample_peers(gen)
+    if kind == "csr":
+        return tcore.SparseTopology.from_dense(topo).sample_peers(gen)
+    return tcore.sample_peers(gen, topo.adjacency)
+
+
+@pytest.mark.parametrize("kind", ["dense", "csr", "function"])
+def test_sample_peers_draws_a_neighbour_per_node(kind):
+    """int32 ``[N]``, the reference's dtype, each a neighbour of its
+    node."""
+    topo = tcore.Topology.barabasi_albert(40, 2, seed=3)
+    got = peer_draws(kind, torch.Generator().manual_seed(0), topo)
+    want = jcore.Topology(topo.adjacency).sample_peers(jax.random.PRNGKey(0))
+    assert got.dtype == torch.int32 and str(want.dtype) == "int32"
+    assert tuple(got.shape) == tuple(want.shape) == (40,)
+    for i, p in enumerate(got.tolist()):
+        assert topo.adjacency[i, p]
+
+
+@pytest.mark.parametrize("kind", ["dense", "csr", "function"])
+def test_sample_peers_gives_minus_one_to_an_isolated_node(kind):
+    adj = np.zeros((6, 6), dtype=bool)
+    for a, b in ((0, 1), (1, 2), (2, 0), (4, 5)):
+        adj[a, b] = adj[b, a] = True
+    topo = tcore.Topology(adj)
+    got = peer_draws(kind, torch.Generator().manual_seed(1), topo)
+    assert got[3] == -1 and (got[[0, 1, 2, 4, 5]] >= 0).all()
+    jgot = np.asarray(jcore.Topology(adj).sample_peers(jax.random.PRNGKey(1)))
+    assert jgot[3] == -1
+    none = peer_draws(kind, torch.Generator().manual_seed(1),
+                      tcore.Topology(np.zeros((4, 4), dtype=bool)))
+    assert none.dtype == torch.int32 and none.tolist() == [-1] * 4
+
+
+@pytest.mark.parametrize("kind", ["dense", "csr"])
+def test_sample_peers_is_uniform_over_the_neighbours(kind):
+    """Over 3000 draws at a fixed seed, each node's neighbours by a
+    chi-square test (p > 0.001) on a graph of mixed degrees."""
+    from scipy import stats
+    topo = tcore.Topology.barabasi_albert(30, 2, seed=5)
+    gen = torch.Generator().manual_seed(11)
+    draws = 3000
+    counts = np.zeros((30, 30))
+    for _ in range(draws):
+        counts[np.arange(30), peer_draws(kind, gen, topo).numpy()] += 1
+    assert (counts[~topo.adjacency] == 0).all()
+    deg = topo.degrees.astype(float)
+    expected = (draws / deg)[:, None] * topo.adjacency
+    chi2 = float((((counts - expected) ** 2)[topo.adjacency]
+                  / expected[topo.adjacency]).sum())
+    dof = int((deg - 1).sum())
+    assert stats.chi2.sf(chi2, dof) > 1e-3, (chi2, dof)
+
+
+def test_sample_peers_is_the_engine_s_draw():
+    """Equal to ``TorchDraws(generator).peers`` and ``csr_peers`` for the
+    same generator state, and it advances the stream as they do."""
+    topo = tcore.Topology.random_regular(24, 5, seed=2)
+    sparse = tcore.SparseTopology.from_dense(topo)
+    adj = torch.as_tensor(topo.adjacency)
+    for seed in (0, 7):
+        a, b, c, d = (torch.Generator().manual_seed(seed) for _ in range(4))
+        got = tcore.sample_peers(a, topo.adjacency)
+        want = TorchDraws(generator=b).peers(0, adj)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        got_csr = sparse.sample_peers(c)
+        want_csr = TorchDraws(generator=d).csr_peers(0, sparse.csr_on("cpu"))
+        np.testing.assert_array_equal(got_csr.numpy(), want_csr.numpy())
+        for g in (b, c, d):
+            assert torch.equal(a.get_state(), g.get_state())
+    draws = TorchDraws(generator=torch.Generator().manual_seed(4))
+    assert draws.seed == 4
+
+
+def test_dense_and_csr_sample_equal_peers():
+    """One graph, one generator state: the dense and the CSR draw give
+    the same peers, round after round."""
+    topo = tcore.Topology.erdos_renyi(50, 0.1, seed=1)
+    sparse = tcore.SparseTopology.from_dense(topo)
+    g1, g2 = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    for _ in range(5):
+        np.testing.assert_array_equal(topo.sample_peers(g1).numpy(),
+                                      sparse.sample_peers(g2).numpy())
