@@ -319,7 +319,7 @@ Phases, each printed as it runs; any failure exits non-zero:
    against ``torch.cuda.mem_get_info``, then a limit one byte below the
    budget: ``MemoryBudgetExceeded`` with no launch. (e)
    ``spambase_100.json`` through ``run_experiment`` on the card:
-   BENCH_ROUNDS rounds after a warm-up, the build and pre-training inside
+   CONFIG_TIMED_ROUNDS rounds after a warm-up, the build and pre-training inside
    the clock, then ``start`` alone, beside phase 7's legs; the final
    accuracy, K1's launches, one round's idle share; ``tracing=`` on
    against off in interleaved halves of TRACE_HALF_ROUNDS rounds.
@@ -477,6 +477,27 @@ Phases, each printed as it runs; any failure exits non-zero:
    within 1e-5 of the plain ring and REF_TOL of the CPU's; the All2All
    ring-mix round, a product with no launch. (c) The API reference
    generator (``examples/gen_api_docs.py``) renders every page here.
+21. one gossip run across processes: the parent (its kernels built in
+   phase 2) starts RANKS processes of this script (``--rank``), both on
+   ``cuda:0``; each joins the process group by
+   ``parallel.init_distributed`` (ranks that share a card take gloo, a
+   chunk crossing through pinned host buffers) and builds a 2-position
+   mesh over every rank's positions, each rank holding its own rows of
+   every node-axis leaf. On that mesh: (a) phase 7's north star at full
+   width (100 nodes, 50 a rank, the multi deliver: K1 a position a hop of
+   the sharded merge), a 2-round warm-up, a fresh init, then
+   RANK_NS_ROUNDS rounds timed; (b) phase 4's 64-node CIFAR10Net clique
+   (rows of 73,420 floats), a warm-up round, a fresh init, then
+   RANK_FLAG_ROUNDS rounds; (c) ``ring_attention`` in f32, causal, at
+   phase 18's shape (K5's f32 route on every hop). Each leg runs the same
+   way in the parent on a 2-position virtual mesh of the card, and (a)
+   unsharded too: both ranks' accounting equal to the virtual mesh's,
+   their rows of every leaf, their metrics and their ring outputs
+   bit-equal to it, the ring within 1e-4 of the output's largest
+   magnitude of the unsharded ``flash_attention``; rounds/s of the two
+   ranks beside the virtual mesh and the unsharded run, K1 and K5
+   launches per rank (counts set to 0 just before each leg), the
+   transport and the bytes a hop moves.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -953,7 +974,7 @@ def merge_sweep(torch, merge, rate, stride, starts) -> dict:
 
 def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
               seed: int = 0, fused_merge="multi", history_dtype="float32",
-              compact_deliver=None):
+              compact_deliver=None, mesh=None):
     from gossipy_tpu_torch.core import AntiEntropyProtocol, Topology
     from gossipy_tpu_torch.data import (ClassificationDataHandler,
                                         DataDispatcher)
@@ -977,7 +998,7 @@ def cifar_sim(torch, n: int, per_node: int, batch: int, device, eval_every,
                           compact_deliver=compact_deliver,
                           history_dtype=history_dtype,
                           mailbox_slots=SLOTS, draws=TorchDraws(seed),
-                          device=device)
+                          mesh=mesh, device=device)
     state = sim.init_nodes(torch.Generator().manual_seed(seed),
                            common_init=True)
     return sim, state
@@ -3275,6 +3296,9 @@ REC_CHUNK = 5
 REC_ROUNDS = 15
 TRACE_HALF_ROUNDS = 50      # tracing's cost sits inside the host's noise
                             # at any length; 50 pays for phase 16
+CONFIG_TIMED_ROUNDS = 100   # (e): run_experiment's and start's timed
+                            # rounds (300 until phase 21 needed the time:
+                            # the same config as phase 7's 300-round legs)
 
 
 def config_names() -> list:
@@ -3711,14 +3735,15 @@ def config_timed(torch, merge, ns_legs: dict) -> dict:
         torch.cuda.synchronize()
         merge.reset_launch_counts()
         t0 = time.perf_counter()
-        state, rep = run_experiment(load_config("spambase_100",
-                                                n_rounds=BENCH_ROUNDS))
+        state, rep = run_experiment(load_config(
+            "spambase_100", n_rounds=CONFIG_TIMED_ROUNDS))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {k: v for k, v in merge.LAUNCHES.items() if v}
     with_msgs = rounds_with_messages(rep)
     acc = rep.final("accuracy")
-    if launches != {merge.KERNEL: with_msgs} or with_msgs != BENCH_ROUNDS \
+    if launches != {merge.KERNEL: with_msgs} or \
+            with_msgs != CONFIG_TIMED_ROUNDS \
             or not np.isfinite(acc):
         raise RuntimeError(f"config timed: launches {launches} for "
                            f"{with_msgs} rounds with messages, accuracy "
@@ -3728,7 +3753,7 @@ def config_timed(torch, merge, ns_legs: dict) -> dict:
     st, _ = sim.start(st, n_rounds=NS_WARMUP_ROUNDS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, rep2 = sim.start(st, n_rounds=BENCH_ROUNDS)
+    st, rep2 = sim.start(st, n_rounds=CONFIG_TIMED_ROUNDS)
     torch.cuda.synchronize()
     wall_start = time.perf_counter() - t0
     idle = profile(torch, lambda: sim._round(st),
@@ -3736,10 +3761,11 @@ def config_timed(torch, merge, ns_legs: dict) -> dict:
     legs = {k: (round(v["rounds_per_s"], 2), v["accuracy"])
             for k, v in ns_legs.items()}
     log(f"[config] spambase_100.json through run_experiment on the card: "
-        f"build, pre-training and {BENCH_ROUNDS} rounds in {wall:.3f} s = "
-        f"{BENCH_ROUNDS / wall:.2f} rounds/s; start alone "
-        f"{BENCH_ROUNDS} rounds in {wall_start:.3f} s = "
-        f"{BENCH_ROUNDS / wall_start:.2f} rounds/s; final global accuracy "
+        f"build, pre-training and {CONFIG_TIMED_ROUNDS} rounds in "
+        f"{wall:.3f} s = {CONFIG_TIMED_ROUNDS / wall:.2f} rounds/s; start "
+        f"alone {CONFIG_TIMED_ROUNDS} rounds in {wall_start:.3f} s = "
+        f"{CONFIG_TIMED_ROUNDS / wall_start:.2f} rounds/s; final global "
+        f"accuracy "
         f"{acc}; K1 launches {launches}; idle share of one round {idle}; "
         f"phase 7's legs (rounds/s, accuracy) {legs}")
     # tracing= on against off, interleaved halves on one process.
@@ -6504,6 +6530,334 @@ def parallel_phase(torch, merge, rate, name, ns_k1_rps) -> tuple:
     return paths, at_sharded, at_ring
 
 
+# -- phase 21: one gossip run across processes ---------------------------------
+
+RANKS = 2                   # processes, both on cuda:0
+RANK_NS_ROUNDS = 100        # (a): the north star's timed rounds
+RANK_FLAG_ROUNDS = 3        # (b): the CIFAR10Net clique's rounds
+RANK_RING_CALLS = 10        # (c): timed ring calls (host clock)
+RANK_TIMEOUT_S = 420        # the ranks' whole run, reaped at the limit
+RANK_GROUP_TIMEOUT_S = 300  # a collective that waits longer fails
+
+
+def split_update(torch, handler, parts: int) -> None:
+    """Make ``handler.update`` run its rows in ``parts`` equal batches, one
+    call each, as ``parts`` ranks run theirs: the single-process
+    reference of a run across ranks for a model whose update rounds by
+    its batch count on the card (CIFAR10Net's does; LogReg's does
+    not)."""
+    from gossipy_tpu_torch.handlers import ModelState
+    whole = handler.update
+
+    def update(model, data, perms):
+        h = model.params.shape[0] // parts
+        outs = [whole(ModelState(
+            model.params[i * h:(i + 1) * h],
+            tuple(t[i * h:(i + 1) * h] for t in model.opt_state),
+            model.n_updates[i * h:(i + 1) * h]),
+            tuple(d[i * h:(i + 1) * h] for d in data),
+            None if perms is None else perms[i * h:(i + 1) * h])
+            for i in range(parts)]
+        return ModelState(torch.cat([o.params for o in outs]),
+                          tuple(torch.cat(ts) for ts in zip(
+                              *[o.opt_state for o in outs])),
+                          torch.cat([o.n_updates for o in outs]))
+
+    handler.update = update
+
+
+def ranks_legs(torch, merge, mesh, split: bool = False) -> dict:
+    """Phase 21's legs on ``mesh`` (``None``: the unsharded north star
+    alone): what this process holds after each (its rows of every leaf,
+    on the host), the report, the launches and the transfers of each
+    leg (counts set to 0 just before it), and its times. ``split``
+    (a virtual mesh) runs the CIFAR10Net leg alone, its update in
+    RANKS batches (:func:`split_update`)."""
+    from gossipy_tpu_torch.ops import attention as attn
+    from gossipy_tpu_torch.parallel import rules
+    from gossipy_tpu_torch.parallel.collectives import TRANSFERS, \
+        ring_attention
+
+    def rows(state):
+        return {p: x.detach().cpu().clone() for p, x in
+                rules.named_leaves(state) if isinstance(x, torch.Tensor)}
+
+    def timed(sim, state, rounds):
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        TRANSFERS.clear()
+        t0 = time.perf_counter()
+        state, rep = sim.start(state, n_rounds=rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return dict(leaves=rows(state), report=rep.to_dict(), wall=wall,
+                    launches={k: v for k, v in merge.LAUNCHES.items() if v},
+                    transfers=dict(TRANSFERS))
+
+    out = {}
+    if not split:
+        sim, state = northstar_sim(torch, "cuda", fused_merge="multi",
+                                   mesh=mesh)
+        sim.start(state, n_rounds=2)       # warm-up
+        state = sim.init_nodes(torch.Generator().manual_seed(42))
+        out["northstar"] = timed(sim, state, RANK_NS_ROUNDS)
+        del sim, state
+    if mesh is None:
+        return out
+    sim, state = cifar_sim(torch, N_NODES, 64, 32, "cuda",
+                           RANK_FLAG_ROUNDS + 1, mesh=mesh)
+    if split:
+        split_update(torch, sim.handler, RANKS)
+    sim.start(state, n_rounds=1)       # warm-up
+    state = sim.init_nodes(torch.Generator().manual_seed(0),
+                           common_init=True)
+    out["flagship"] = timed(sim, state, RANK_FLAG_ROUNDS)
+    del sim, state
+    torch.cuda.empty_cache()
+    if split:
+        return out
+    q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
+                           torch.float32, "initial", 50)[:3]
+    sl = mesh.node_rows(ATTN_S)
+    q, k, v = (t[sl].contiguous() for t in (q, k, v))
+
+    def ring():
+        return ring_attention(q, k, v, mesh, causal=True, flash=True)
+
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    TRANSFERS.clear()
+    got = ring()
+    torch.cuda.synchronize()
+    out["ring"] = dict(out=got.cpu(), launches={
+        kk: vv for kk, vv in merge.LAUNCHES.items() if vv},
+        transfers=dict(TRANSFERS), ms=call_ms(torch, ring,
+                                              iters=RANK_RING_CALLS))
+    return out
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 21 (``chip_smoke.py --rank RANK PORT WORKDIR``):
+    join the group on ``cuda:0``, run :func:`ranks_legs` on the mesh over
+    every rank's positions and save what this rank holds."""
+    import datetime
+
+    import torch
+    from gossipy_tpu_torch import parallel
+    from gossipy_tpu_torch.ops import merge
+    rank, port, workdir = int(argv[0]), argv[1], argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = parallel.init_distributed(
+        f"localhost:{port}", RANKS, rank, device="cuda:0",
+        timeout=datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S))
+    try:
+        mesh = parallel.make_mesh(devices=parallel.devices("cuda:0"))
+        out = ranks_legs(torch, merge, mesh)
+        out.update(backend=backend, mesh=repr(mesh),
+                   rows=str(mesh.node_rows(NS_NODES)))
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_ranks(workdir: str) -> list:
+    """The RANKS processes of phase 21, on a free port of this host."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.abspath(__file__)
+    return [subprocess.Popen(
+        [sys.executable, here, "--rank", str(r), str(port), workdir],
+        cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
+
+
+def reap_ranks(procs) -> list:
+    """Each rank's output, read together; a rank still running at
+    RANK_TIMEOUT_S is killed (so is every rank when one fails)."""
+    import threading
+    outs = [""] * len(procs)
+
+    def drain(i):
+        outs[i] = procs[i].communicate()[0]
+
+    threads = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=RANK_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for t in threads:
+        t.join(timeout=10)
+    return outs
+
+
+ACCOUNTING = ("sent_per_round", "failed_per_round", "failed_per_cause",
+              "mailbox_hwm_per_round", "compact_slots_per_round",
+              "wide_slots_per_round", "sent_messages", "failed_messages",
+              "total_size")
+
+
+def rank_against(torch, label, rank, got, want) -> float:
+    """One rank's leg against a virtual mesh's: the accounting exact,
+    every leaf's rows and the whole report bit-equal. Returns the largest
+    param difference."""
+    half = {p: (1 if p.startswith(("history", "mailbox", "reply_box"))
+                else 0) for p in want["leaves"]}
+    for key in ACCOUNTING:
+        if got["report"].get(key) != want["report"].get(key):
+            raise RuntimeError(f"ranks {label} rank {rank}: {key} differs "
+                               "from the virtual mesh run")
+    worst = 0.0
+    for path, x in want["leaves"].items():
+        dim = half[path]
+        n = x.shape[dim] // RANKS
+        mine = x.narrow(dim, rank * n, n)
+        diff = float((got["leaves"][path].double() - mine.double()).abs()
+                     .max()) if mine.numel() else 0.0
+        if path == "model/params":
+            worst = diff
+        if not torch.equal(got["leaves"][path], mine):
+            raise RuntimeError(f"ranks {label} rank {rank}: {path} differs "
+                               f"from the virtual mesh's rows (max abs "
+                               f"{diff:.3e})")
+    if json.dumps(got["report"], sort_keys=True) != json.dumps(
+            want["report"], sort_keys=True):
+        raise RuntimeError(f"ranks {label} rank {rank}: the report "
+                           "(metrics) differs from the virtual mesh's")
+    return worst
+
+
+def ranks_phase(torch, merge, smi) -> dict:
+    """Phase 21: the legs on RANKS processes of the card against the same
+    legs on a 2-position virtual mesh here (and the unsharded north
+    star); returns K1's and K5's launches by rank and leg."""
+    import shutil
+    import tempfile
+
+    from gossipy_tpu_torch.ops import attention as attn
+    want = ranks_legs(torch, merge, virtual_mesh("cuda", RANKS))
+    flat = ranks_legs(torch, merge, None)["northstar"]
+    # CIFAR10Net's update in one batch of 64 nodes rounds otherwise than
+    # in two of 32 on the card: the ranks are held bit-equal to a virtual
+    # mesh that splits its update as they do, and their distance to the
+    # whole-batch one is printed beside that of the split reference.
+    split = ranks_legs(torch, merge, virtual_mesh("cuda", RANKS),
+                       split=True)["flagship"]
+    split_gap = float((split["leaves"]["model/params"]
+                       - want["flagship"]["leaves"]["model/params"]).abs()
+                      .max())
+    q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
+                           torch.float32, "initial", 50)[:3]
+    unsharded = attn.flash_attention(q, k, v, causal=True).cpu()
+    del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="gossipy-ranks-")
+    try:
+        t0 = time.perf_counter()
+        procs = start_ranks(workdir)
+        outs = reap_ranks(procs)
+        ranks_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} exited {p.returncode}:\n"
+                                   f"{text[-4000:]}")
+        got = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                          map_location="cpu", weights_only=False)
+               for r in range(RANKS)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    paths = {}
+    route = attn.route(torch.float32, ATTN_D, ATTN_D)
+    for r, mine in enumerate(got):
+        log(f"[ranks] rank {r}: {mine['mesh']}, transport "
+            f"{mine['backend']}, rows {mine['rows']} of the north star")
+        if mine["backend"] != "gloo":
+            raise RuntimeError(f"rank {r}: ranks on one card joined by "
+                               f"{mine['backend']}")
+        for leg in ("northstar", "flagship"):
+            ref = split if leg == "flagship" else want[leg]
+            diff = rank_against(torch, leg, r, mine[leg], ref)
+            whole_gap = float((mine[leg]["leaves"]["model/params"]
+                               - want[leg]["leaves"]["model/params"].narrow(
+                                   0, r * N_NODES // RANKS if leg ==
+                                   "flagship" else r * NS_NODES // RANKS,
+                                   mine[leg]["leaves"]["model/params"]
+                                   .shape[0])).abs().max())
+            t = mine[leg]["transfers"]
+            rounds = RANK_NS_ROUNDS if leg == "northstar" else \
+                RANK_FLAG_ROUNDS
+            l_r, l_v = mine[leg]["launches"], want[leg]["launches"]
+            rep = mine[leg]["report"]
+            with_msgs = sum(1 for a, b in zip(rep["compact_slots_per_round"],
+                                              rep["wide_slots_per_round"])
+                            if a + b)
+            if l_r != {merge.KERNEL: 2 * with_msgs} or l_v != {
+                    merge.KERNEL: 4 * with_msgs} or not with_msgs:
+                raise RuntimeError(f"ranks {leg} rank {r}: launches {l_r} "
+                                   f"(virtual mesh {l_v}) for {with_msgs} "
+                                   "rounds with messages")
+            hop = t.get("ring_bytes", 0) / max(t.get("ring_hops", 1), 1)
+            log(f"[ranks] ({'a' if leg == 'northstar' else 'b'}) {leg} rank "
+                f"{r}: {rounds} rounds in {mine[leg]['wall']:.3f} s = "
+                f"{rounds / mine[leg]['wall']:.2f} rounds/s (2-position "
+                f"virtual mesh {rounds / want[leg]['wall']:.2f}"
+                + (f", unsharded {rounds / flat['wall']:.2f}"
+                   if leg == "northstar" else "")
+                + f"); accounting, rows and report bit-equal to the virtual "
+                f"mesh{' with its update split as the ranks split it' if leg == 'flagship' else ''}"
+                f" (params max abs diff {diff:.3e}; to the virtual mesh's "
+                f"whole-batch update {whole_gap:.3e}"
+                + (f", the split reference's own {split_gap:.3e}"
+                   if leg == "flagship" else "") + "); sent "
+                f"{sum(rep['sent_per_round'])} failed "
+                f"{sum(rep['failed_per_round'])}; final accuracy "
+                f"{rep['global_evals'][-1]}; K1 launches {l_r} on this rank "
+                f"(virtual mesh {l_v}); transport {mine['backend']}: "
+                f"{t.get('ring_hops', 0)} ring hops across the ranks, "
+                f"{hop:.0f} B a hop, staged through host buffers "
+                f"{t.get('staged_bytes', 0)} B, {t.get('gathers', 0)} "
+                f"gathers ({t.get('gather_bytes', 0)} B), "
+                f"{t.get('reduces', 0)} sums; {smi}")
+            paths.setdefault((merge.KERNEL, "float32"), {})[
+                f"ranks-{leg}-rank{r}"] = l_r[merge.KERNEL]
+        ring, ring_v = mine["ring"], want["ring"]
+        sl = slice(r * ATTN_S // RANKS, (r + 1) * ATTN_S // RANKS)
+        err = float((ring["out"] - unsharded[sl]).abs().max())
+        scale = float(unsharded.abs().max())
+        same = torch.equal(ring["out"], ring_v["out"][sl])
+        want_l = {attn.KERNEL: RANKS, route: RANKS, attn.SPLIT_KERNEL: RANKS}
+        t = ring["transfers"]
+        log(f"[ranks] (c) ring_attention f32 causal S={ATTN_S} D={ATTN_D} "
+            f"rank {r}: vs the unsharded flash_attention max abs err "
+            f"{err:.3e} of {scale:.3e} (limit 1e-4 of it); bit-equal to the "
+            f"virtual mesh's ring {same}; launches {ring['launches']} on "
+            f"this rank (virtual mesh {ring_v['launches']}); "
+            f"{ring['ms']:.3f} ms a call (host clock; virtual mesh "
+            f"{ring_v['ms']:.3f}); {t.get('ring_hops', 0)} hop across the "
+            f"ranks, {t.get('ring_bytes', 0)} B, staged "
+            f"{t.get('staged_bytes', 0)} B; {smi}")
+        if not same or err > 1e-4 * scale or ring["launches"] != want_l:
+            raise RuntimeError(f"ranks ring rank {r}: off the virtual mesh "
+                               f"or the unsharded call, or launched "
+                               f"{ring['launches']}")
+        paths.setdefault((route, "float32"), {})[f"ranks-ring-rank{r}"] = \
+            ring["launches"][route]
+    log(f"[ranks] {RANKS} ranks started, ran and reaped in {ranks_s:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6724,6 +7078,14 @@ def main() -> int:
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[entry] phase 20 took {time.perf_counter() - t0:.1f} s")
 
+    # 21. one gossip run across two ranks on the card
+    at(21)
+    t0 = time.perf_counter()
+    rank_paths = ranks_phase(torch, merge, smi)
+    for key, by_path in rank_paths.items():
+        ns_paths.setdefault(key, {}).update(by_path)
+    log(f"[ranks] phase 21 took {time.perf_counter() - t0:.1f} s")
+
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",
                 "route": "cuda", "source": f"gossipy_tpu_torch/csrc/{source}",
@@ -6793,4 +7155,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

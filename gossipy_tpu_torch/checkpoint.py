@@ -272,7 +272,10 @@ def restore_checkpoint(path: str, template_state: Any, template_draws=None,
     draw state (a stream) is refused then with ``ValueError``, since the
     resumed run would draw from its fresh stream. With ``mesh`` the
     restored state is placed per the rule registry (:func:`~gossipy_tpu_
-    torch.parallel.shard_state`)."""
+    torch.parallel.shard_state`); a mesh across ranks is refused."""
+    if mesh is not None and mesh.spans_ranks():
+        from .parallel import across_ranks_refusal
+        raise NotImplementedError(across_ranks_refusal("a checkpoint"))
     state, draws = _restore(path, template_state, template_draws)
     if mesh is not None:
         from .parallel import shard_state

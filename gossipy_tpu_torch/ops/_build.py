@@ -7,6 +7,11 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 headers and the flags, and loaded with ``ctypes``. Nothing is built at import: the
 first wrapper call on a CUDA tensor builds what it needs. :func:`build`
 starts one ``nvcc`` per source, all at once, and waits for them together.
+A build is safe across processes (the ranks of a process group that
+reach a kernel together): each source's build holds a file lock
+(``_build/<name>.lock``) while it checks for, compiles and renames the
+library into place, so one process compiles and the others wait and
+load what it wrote; a library appears only whole (an atomic rename).
 
 The wrappers bind an entry point with :func:`function`, launch on
 PyTorch's current stream (:func:`stream`), raise on a launch error
@@ -31,7 +36,9 @@ shared memory and spills per kernel, kept in ``_build/<name>.log``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -105,30 +112,52 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+@contextlib.contextmanager
+def _locked(names):
+    """Hold the build lock of every named source (taken in sorted order,
+    so two processes never wait on each other)."""
+    files = []
+    try:
+        for name in sorted(set(names)):
+            f = open(BUILD_DIR / f"{name}.lock", "a")
+            files.append(f)
+            fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+    finally:
+        for f in reversed(files):
+            fcntl.flock(f, fcntl.LOCK_UN)
+            f.close()
+
+
 def build(names) -> dict:
     """Compile every named source whose library is missing, one ``nvcc``
-    each, all started together. Returns ``{name: library path}``; raises
-    with the compiler's output when one fails."""
+    each, all started together, under the sources' build locks (a
+    process that finds a source locked waits, then finds its library).
+    Returns ``{name: library path}``; raises with the compiler's output
+    when one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
-    procs = {}
-    for name, path in paths.items():
-        if path.exists():
-            continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp)
-    failed = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name} (rc {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, paths[name])
+    if all(path.exists() for path in paths.values()):
+        return paths
+    with _locked(paths):
+        procs = {}
+        for name, path in paths.items():
+            if path.exists():
+                continue
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp)
+        failed = []
+        for name, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            (BUILD_DIR / f"{name}.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name} (rc {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths

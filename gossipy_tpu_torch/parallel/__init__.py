@@ -18,18 +18,30 @@ machine with one card. The ring algorithms, their per-hop kernels and
 their numerics are the real ones there; only the speed of a link
 between cards is not.
 
-Placement: on a mesh whose positions all name one device of this
-process, :func:`shard_state` and :func:`shard_data` keep every leaf a
-whole tensor on that device and record its resolved placement
-(:func:`sharding_of`). On a mesh over several distinct devices or
-processes they raise: the round's state placed across cards is not
-ported (ROADMAP.md queue 1 item 13). The collectives do run across
-cards (``.to(device, non_blocking=True)``) and across processes
-(``torch.distributed.batch_isend_irecv``) after :func:`init_distributed`.
+A **mesh across ranks** is one whose positions belong to several
+processes of a process group (:func:`init_distributed`, then
+``make_mesh()`` over :func:`devices`): the counterpart of the JAX
+package's multi-controller mesh. Each rank owns a contiguous run of the
+node axis (:meth:`Mesh.node_rows`) on its one device
+(:meth:`Mesh.local_device`), and the chunks cross processes over the
+group's transport (:attr:`Mesh.transport`: NCCL for ranks on cards of
+their own, gloo for ranks that share a card or run on the CPU).
+
+Placement: on a virtual mesh :func:`shard_state` and :func:`shard_data`
+keep every leaf a whole tensor on the mesh's device; on a mesh across
+ranks they keep this rank's rows of every node-axis leaf (``[N, ...]``
+becomes ``[N/R, ...]``, ``[D, N, ...]`` becomes ``[D, N/R, ...]``) and
+every replicated leaf whole. Either way each leaf's resolved placement
+and global shape are recorded (:func:`sharding_of`). The positions of
+ONE process on several cards are refused: that needs a machine with
+several cards (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
+import socket
 import weakref
 from typing import NamedTuple, Optional, Sequence
 
@@ -60,14 +72,23 @@ __all__ = [
     "init_distributed", "make_mesh", "make_mesh_2d", "make_mesh_tp",
     "state_shardings", "shard_state", "shard_data",
     "Mesh", "Position", "PartitionSpec", "NamedSharding", "devices",
-    "sharding_of",
+    "sharding_of", "ring_positions", "record_local_state",
+    "choose_transport",
 ]
 
-# What a placement across several cards or processes waits for.
-_ACROSS_CARDS = ("placing the round's state across several cards or "
-                 "processes is not ported (ROADMAP.md queue 1 item 13); "
-                 "use a mesh whose positions all name one device of this "
-                 "process (make_mesh(n, devices=[dev] * n))")
+# What a mesh of one process on several devices waits for.
+_ACROSS_CARDS = ("the positions of one process on several devices (or on "
+                 "another device than the simulator's) are not ported "
+                 "(ROADMAP.md queue 1 item 13: several cards need a machine "
+                 "with several cards); use make_mesh(n, devices=[dev] * n) "
+                 "in one process, or one device a rank across processes")
+
+
+def across_ranks_refusal(what: str) -> str:
+    """The message of a use still refused on a mesh across ranks."""
+    return (f"{what} on a mesh across processes is not ported (ROADMAP.md "
+            "queue 1 item 13); run it on a mesh whose positions all name "
+            "one device of this process")
 
 
 class Position(NamedTuple):
@@ -98,10 +119,18 @@ def _rank() -> int:
         else 0
 
 
+def _group_up() -> bool:
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized()
+
+
 class Mesh:
     """Positions laid out over named axes (``jax.sharding.Mesh``'s
     counterpart): ``devices`` is the ndarray of :class:`Position`,
-    ``axis_names`` the axes, ``shape`` the axis sizes as a dict."""
+    ``axis_names`` the axes, ``shape`` the axis sizes as a dict.
+    ``transport`` is how chunks cross processes on a mesh across ranks
+    (the process group's backend, ``"gloo"`` or ``"nccl"``; None on a
+    one-process mesh, or with no process group up)."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
         arr = np.empty(np.shape(devices), dtype=object)
@@ -114,6 +143,8 @@ class Mesh:
                              f"{tuple(axis_names)}")
         self.devices = arr
         self.axis_names = tuple(axis_names)
+        self.transport = (torch.distributed.get_backend()
+                          if self.spans_ranks() and _group_up() else None)
 
     @property
     def shape(self) -> dict:
@@ -127,6 +158,14 @@ class Mesh:
     def positions(self) -> list:
         return list(self.devices.ravel())
 
+    def ranks(self) -> list:
+        """The ranks that own positions, sorted."""
+        return sorted({p.rank for p in self.positions})
+
+    def spans_ranks(self) -> bool:
+        """True when the positions belong to more than one process."""
+        return len(self.ranks()) > 1
+
     def is_virtual(self) -> bool:
         """True when every position names one device of this process."""
         me = _rank()
@@ -134,36 +173,173 @@ class Mesh:
                 and all(p.rank == me for p in self.positions))
 
     def device(self) -> torch.device:
-        """The one device of a virtual mesh; raises on any other mesh."""
+        """The one device of a virtual mesh; raises on any other mesh (on a
+        mesh across ranks, :meth:`local_device` is this rank's)."""
         if not self.is_virtual():
             raise NotImplementedError(_ACROSS_CARDS)
         return self.positions[0].device
 
+    def local_positions(self) -> list:
+        """This process's positions, in mesh order."""
+        me = _rank()
+        return [p for p in self.positions if p.rank == me]
+
+    def local_device(self) -> torch.device:
+        """The one device of this process's positions: the device of a
+        virtual mesh, or this rank's on a mesh across ranks. One process's
+        positions on several devices are refused."""
+        devs = {p.device for p in self.local_positions()}
+        if not devs:
+            raise ValueError(f"this process (rank {_rank()}) owns no "
+                             "position of the mesh")
+        if len(devs) > 1:
+            raise NotImplementedError(_ACROSS_CARDS)
+        return devs.pop()
+
+    def node_rows(self, n: int, axis_name=None) -> slice:
+        """This rank's rows of an ``n``-row node axis: its positions'
+        rows, a contiguous run in ring order (every row on a one-process
+        mesh)."""
+        ring = ring_positions(self, axis_name)
+        if n % len(ring):
+            raise ValueError(f"{n} rows do not split over the "
+                             f"{len(ring)} positions of the node axis")
+        me = _rank()
+        mine = [m for m, p in enumerate(ring) if p.rank == me]
+        if not mine:
+            raise ValueError(f"this process (rank {me}) owns no position "
+                             "of the node axis")
+        if mine != list(range(mine[0], mine[0] + len(mine))):
+            raise ValueError(f"rank {me}'s positions {mine} are not "
+                             "contiguous along the node axis")
+        per = n // len(ring)
+        return slice(mine[0] * per, (mine[-1] + 1) * per)
+
+    def check_across_ranks(self) -> None:
+        """Raise unless this mesh across ranks can run here: a process
+        group up and owning every rank, a transport that carries this
+        rank's device, one device a rank, the same count of node-axis
+        positions on every rank, and no model axis."""
+        if not _group_up():
+            raise RuntimeError(
+                f"{self!r} spans ranks {self.ranks()} but no process group "
+                "is up: call parallel.init_distributed(address, world, "
+                "rank) first")
+        world = torch.distributed.get_world_size()
+        if self.ranks() != list(range(world)):
+            raise ValueError(f"{self!r} spans ranks {self.ranks()}, the "
+                             f"process group has {world}")
+        if rules.MODEL_AXIS in self.axis_names:
+            raise NotImplementedError(across_ranks_refusal(
+                "a model axis (tensor parallelism)"))
+        dev = self.local_device()
+        transport = torch.distributed.get_backend()
+        if transport == "nccl" and dev.type != "cuda":
+            raise ValueError(f"the NCCL transport cannot carry {dev}; "
+                             "ranks on the CPU join by gloo")
+        ring = ring_positions(self)
+        counts = {r: sum(p.rank == r for p in ring) for r in self.ranks()}
+        if len(set(counts.values())) != 1:
+            raise ValueError(f"node-axis positions a rank {counts}: every "
+                             "rank must own as many")
+        self.node_rows(len(ring))
+
     def __repr__(self) -> str:
         devs = sorted({str(p.device) for p in self.positions})
+        extra = "" if self.transport is None else \
+            f", transport={self.transport!r}"
         return (f"Mesh({self.shape}, devices={devs}, "
-                f"ranks={sorted({p.rank for p in self.positions})})")
+                f"ranks={self.ranks()}{extra})")
+
+
+def ring_positions(mesh: Mesh, axis_name=None) -> list:
+    """The positions a ring over the node axis (``axis_name``, default the
+    mesh-derived node placement) visits, in ring order: the flattened
+    order of the ring's axes, at index 0 along any other axis."""
+    entry = rules.node_axis_entry(mesh, axis_name)
+    names = entry if isinstance(entry, tuple) else (entry,)
+    axes = [mesh.axis_names.index(a) for a in names]
+    rest = [i for i in range(len(mesh.axis_names)) if i not in axes]
+    arr = np.transpose(mesh.devices, axes + rest)
+    arr = arr.reshape((-1,) + arr.shape[len(axes):])
+    return list(arr[(slice(None),) + (0,) * len(rest)])
+
+
+def _card_identity(dev: torch.device) -> str:
+    """A name of ``dev`` that two processes on one card share and two
+    cards never do: the card's UUID (its host and bus id where torch does
+    not give one), or ``"cpu"``."""
+    if dev.type != "cuda":
+        return "cpu"
+    props = torch.cuda.get_device_properties(dev)
+    uuid = getattr(props, "uuid", None)
+    if uuid is not None:
+        return f"cuda-{uuid}"
+    bus = getattr(props, "pci_bus_id", dev.index)
+    return f"cuda-{socket.gethostname()}-{bus}"
+
+
+def choose_transport(identities: Sequence[str]) -> str:
+    """The backend for ranks on these devices (:func:`_card_identity`, one
+    a rank): NCCL when every rank has a card of its own, gloo when two
+    share a card or one runs on the CPU (NCCL refuses two ranks on one
+    card)."""
+    ids = list(identities)
+    if all(i != "cpu" for i in ids) and len(set(ids)) == len(ids):
+        return "nccl"
+    return "gloo"
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     **kwargs) -> None:
+                     device=None, **kwargs) -> str:
     """Join (or form) a process group before building a mesh over several
-    processes: ``torch.distributed.init_process_group`` at
-    ``tcp://<coordinator_address>`` with the world size and this
-    process's rank (gloo on the CPU, NCCL with a card, unless
-    ``backend=`` says otherwise; other keywords pass through). After it,
-    :func:`devices` lists every rank's positions."""
+    processes, and return its backend.
+
+    ``coordinator_address`` is ``host:port`` (rank 0 listens there),
+    ``num_processes`` the world size and ``process_id`` this process's
+    rank; ``device`` is the device this rank runs on (default: the
+    current card when one is visible, else the CPU; a card is made the
+    current one). Unless ``backend=`` names one, the backend follows
+    where the ranks are: every rank's device is exchanged over a store at
+    the address first, then NCCL when each rank has a card of its own,
+    gloo when ranks share a card or run on the CPU
+    (:func:`choose_transport`). ``timeout=`` (a ``timedelta``) bounds the
+    exchange and the group's operations; other keywords pass through to
+    ``torch.distributed.init_process_group``. After it, :func:`devices`
+    lists every rank's positions."""
     dist = torch.distributed
-    backend = kwargs.pop("backend", None) or (
-        "nccl" if torch.cuda.is_available() else "gloo")
-    addr = coordinator_address
-    if addr is not None and "://" not in addr:
-        addr = f"tcp://{addr}"
-    dist.init_process_group(backend, init_method=addr,
-                            world_size=num_processes, rank=process_id,
-                            **kwargs)
+    backend = kwargs.pop("backend", None)
+    timeout = kwargs.get("timeout") or datetime.timedelta(minutes=10)
+    dev = canonical_device(device if device is not None else (
+        "cuda" if torch.cuda.is_available() else "cpu"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if coordinator_address is None or num_processes is None \
+            or process_id is None:
+        # The launcher's environment (MASTER_ADDR, RANK, ...) forms the
+        # group; the backend follows this rank's device alone.
+        dist.init_process_group(backend or (
+            "nccl" if dev.type == "cuda" else "gloo"), **kwargs)
+        return dist.get_backend()
+    addr = coordinator_address.split("://")[-1]
+    host, port = addr.rsplit(":", 1)
+    world, rank = int(num_processes), int(process_id)
+    store = dist.TCPStore(host, int(port), world, rank == 0, timeout=timeout)
+    store.set(f"gossipy/device/{rank}", _card_identity(dev))
+    keys = [f"gossipy/device/{r}" for r in range(world)]
+    store.wait(keys, timeout)
+    ids = [store.get(k).decode() for k in keys]
+    fits = choose_transport(ids)
+    if backend is None:
+        backend = fits
+    elif backend == "nccl" and fits != "nccl":
+        raise ValueError(f"NCCL cannot join ranks on {ids}: two ranks share "
+                         "a card or one runs on the CPU; use gloo")
+    dist.init_process_group(backend, store=dist.PrefixStore("group", store),
+                            world_size=world, rank=rank, **kwargs)
+    return backend
 
 
 def _local_devices(device=None) -> list:
@@ -333,16 +509,32 @@ def sharding_of(leaf) -> Optional[NamedSharding]:
     return hit[1]
 
 
+def _same_mesh(a, b) -> bool:
+    return a is b or (a.axis_names == b.axis_names
+                      and a.positions == b.positions)
+
+
 def _place_leaf(x, sharding: NamedSharding):
-    """One leaf where its placement says: a whole tensor on the mesh's
-    device (a virtual mesh), its placement recorded."""
-    dev = sharding.mesh.device()
+    """One leaf where its placement says, its placement and global shape
+    recorded: a whole tensor on the mesh's device (a virtual mesh), or on
+    a mesh across ranks this rank's rows of a node-axis leaf (a leaf
+    already placed on this mesh stays as it is) and a replicated leaf
+    whole, on this rank's device."""
+    mesh = sharding.mesh
     if not isinstance(x, torch.Tensor):
         if isinstance(x, (int, float, bool)):
             return x
         x = torch.as_tensor(np.asarray(x))
-    out = x.to(dev)
-    _record(out, sharding)
+    if not mesh.spans_ranks():
+        out = x.to(mesh.device())
+        _record(out, dataclasses.replace(sharding,
+                                         global_shape=tuple(x.shape)))
+        return out
+    placed = sharding_of(x)
+    if placed is not None and _same_mesh(placed.mesh, mesh):
+        return x
+    out = rules.local_rows(x, sharding).to(mesh.local_device())
+    _record(out, dataclasses.replace(sharding, global_shape=tuple(x.shape)))
     return out
 
 
@@ -361,13 +553,43 @@ def state_shardings(state, mesh: Mesh, axis_name=None, model_axis=None,
                                  batch_dims=batch_dims)
 
 
+def record_local_state(state, mesh: Mesh, axis_name=None) -> None:
+    """Record the placement of a state built on a mesh across ranks whose
+    node-axis leaves already hold this rank's rows (the engine's
+    ``init_state``), so that :func:`shard_state` keeps it as it is."""
+    ring = ring_positions(mesh, axis_name)
+    share = len(ring) // sum(p.rank == _rank() for p in ring)
+    shardings = dict(rules.named_leaves(state_shardings(state, mesh,
+                                                        axis_name)))
+    for path, leaf in rules.named_leaves(state):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        sh = shardings[path]
+        shape = list(leaf.shape)
+        dim = rules.node_dim(sh.spec, mesh)
+        if dim is not None:
+            shape[dim] *= share
+        _record(leaf, dataclasses.replace(sh, global_shape=tuple(shape)))
+
+
+def _check_placeable(mesh: Mesh) -> None:
+    if mesh.spans_ranks():
+        mesh.check_across_ranks()
+    elif not mesh.is_virtual():
+        raise NotImplementedError(_ACROSS_CARDS)
+
+
 def shard_state(state, mesh: Mesh, axis_name=None, model_axis=None,
                 batch_dims: int = 0):
     """Place a SimState onto the mesh per the rule registry. On a virtual
-    mesh each leaf stays whole on the mesh's device, its placement
-    recorded (:func:`sharding_of`); on any other mesh this raises."""
-    if not mesh.is_virtual():
-        raise NotImplementedError(_ACROSS_CARDS)
+    mesh each leaf stays whole on the mesh's device; on a mesh across
+    ranks each node-axis leaf keeps this rank's rows (``[N, ...]`` ->
+    ``[N/R, ...]``, ``[D, N, ...]`` -> ``[D, N/R, ...]``; a leaf already
+    placed on this mesh, as ``init_nodes`` leaves it, stays as it is) and
+    the replicated ones stay whole. Placements are recorded
+    (:func:`sharding_of`). One process's positions on several cards
+    raise."""
+    _check_placeable(mesh)
     shardings = state_shardings(state, mesh, axis_name, model_axis,
                                 batch_dims)
     leaves = dict(rules.named_leaves(shardings))
@@ -377,10 +599,10 @@ def shard_state(state, mesh: Mesh, axis_name=None, model_axis=None,
 def shard_data(data: dict, mesh: Mesh, axis_name=None,
                batch_dims: int = 0) -> dict:
     """Place stacked data per :data:`DATA_RULES`: per-node arrays on the
-    node axis, the shared eval set replicated; whole tensors on a virtual
-    mesh's device, as :func:`shard_state`."""
-    if not mesh.is_virtual():
-        raise NotImplementedError(_ACROSS_CARDS)
+    node axis (this rank's rows on a mesh across ranks), the shared eval
+    set replicated; whole tensors on a virtual mesh's device, as
+    :func:`shard_state`."""
+    _check_placeable(mesh)
     arrs = {k: v if isinstance(v, torch.Tensor)
             else torch.as_tensor(np.asarray(v)) for k, v in data.items()}
     shardings = rules.named_shardings(arrs, mesh, rules=DATA_RULES,

@@ -11,7 +11,15 @@ position, ``i -> i - 1 mod d`` (the last rotation is skipped). After
 ``s`` hops position ``m`` holds the chunk that started at ``(m + s) %
 d``. A rotation between two positions on one device passes the tensor as
 it is; between two cards it is ``.to(device, non_blocking=True)``;
-between processes ``torch.distributed.batch_isend_irecv``.
+between processes ``torch.distributed.batch_isend_irecv``. Gloo's
+point-to-point carries host tensors only, so where ranks are joined by
+gloo a chunk on a card crosses through pinned host buffers (copied out
+before the send, in after the receive); NCCL carries it as it is.
+:data:`TRANSFERS` counts what crosses processes.
+
+Process-group helpers for the engine on a mesh across ranks:
+:func:`rank_all_gather` (every rank's rows, in node order) and
+:func:`rank_all_reduce`.
 
 - :func:`ring_all_gather`: every position assembles the whole array.
 - :func:`ring_mixed_matmul` / :func:`ring_mix_pytree`: the all-to-all
@@ -32,6 +40,7 @@ hops run the plain versions.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Callable, Optional
 
@@ -40,9 +49,82 @@ import torch
 
 from ..ops import attention as _attention
 from ..ops import merge as _merge
-from . import _node_axis_entry, _rank
+from . import _node_axis_entry, _rank, ring_positions
 
 _NEG = _attention._NEG
+
+# What crossed processes: ``ring_hops`` (rotations with a cross-process
+# send), ``ring_bytes`` (the bytes this rank sent in them), ``staged_bytes``
+# (bytes copied through host buffers for gloo, both ways), ``gathers``
+# and ``gather_bytes`` (:func:`rank_all_gather`, this rank's share),
+# ``reduces`` (:func:`rank_all_reduce`).
+TRANSFERS: collections.Counter = collections.Counter()
+
+
+def _staged() -> bool:
+    """Whether chunks on a card cross processes through host buffers
+    (the group's transport is gloo)."""
+    return torch.distributed.get_backend() == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a pinned host buffer (a card's tensor), counted; a host
+    tensor as it is."""
+    if t.device.type != "cuda":
+        return t.contiguous()
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    TRANSFERS["staged_bytes"] += buf.numel() * buf.element_size()
+    return buf
+
+
+def _host_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty receive buffer for ``t``: pinned on the host for a card's
+    tensor under gloo, else like ``t``."""
+    if t.device.type == "cuda" and _staged():
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return torch.empty_like(t)
+
+
+def _from_host(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if buf.device == like.device:
+        return buf
+    TRANSFERS["staged_bytes"] += buf.numel() * buf.element_size()
+    return buf.to(like.device)
+
+
+def _rank_order(mesh) -> list:
+    """The ranks in node order (by their first node-axis position)."""
+    first: dict = {}
+    for m, p in enumerate(ring_positions(mesh)):
+        first.setdefault(p.rank, m)
+    return sorted(first, key=first.get)
+
+
+def rank_all_gather(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (its rows of a node-axis leaf) concatenated along
+    ``dim`` in node order, on ``x``'s device: a collective every rank of
+    the mesh calls with a tensor of one shape. Under gloo a card's tensor
+    crosses through host buffers."""
+    dist = torch.distributed
+    send = _to_host(x) if _staged() else x.contiguous()
+    parts = [torch.empty_like(send) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, send)
+    TRANSFERS["gathers"] += 1
+    TRANSFERS["gather_bytes"] += send.numel() * send.element_size()
+    out = torch.cat([parts[r] for r in _rank_order(mesh)], dim=dim)
+    return _from_host(out, x)
+
+
+def rank_all_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (``op="sum"``) or maxed (``"max"``) over the ranks of
+    the process group, on ``x``'s device (a new tensor)."""
+    dist = torch.distributed
+    buf = _to_host(x).clone() if _staged() else x.clone()
+    dist.all_reduce(buf, {"sum": dist.ReduceOp.SUM,
+                          "max": dist.ReduceOp.MAX}[op])
+    TRANSFERS["reduces"] += 1
+    return _from_host(buf, x)
 
 
 def _ring_perm(d: int):
@@ -68,13 +150,7 @@ class _Ring:
     positions at index 0 along them), and the ones this process owns."""
 
     def __init__(self, mesh, axis_name):
-        names = axis_name if isinstance(axis_name, tuple) else (axis_name,)
-        axes = [mesh.axis_names.index(a) for a in names]
-        rest = [i for i in range(len(mesh.axis_names)) if i not in axes]
-        arr = np.transpose(mesh.devices, axes + rest)
-        arr = arr.reshape((-1,) + arr.shape[len(axes):])
-        arr = arr[(slice(None),) + (0,) * len(rest)]
-        self.positions = list(arr)
+        self.positions = ring_positions(mesh, axis_name)
         self.d = len(self.positions)
         me = _rank()
         self.local = [m for m, p in enumerate(self.positions) if p.rank == me]
@@ -106,7 +182,8 @@ class _Ring:
     def rotate(self, chunks: dict) -> dict:
         """One hop of the ring: position ``m`` receives the chunk of
         position ``m + 1`` (a tensor, or a tuple of tensors that travel
-        together)."""
+        together). Across processes the chunks go by
+        ``batch_isend_irecv``, through host buffers under gloo."""
         d = self.d
         out: dict = {}
         ops: list = []
@@ -118,24 +195,31 @@ class _Ring:
                 out[m] = _move(chunks[src], self.device(m))
             else:
                 like = chunks[m]
-                bufs = tuple(torch.empty_like(t) for t in _as_tuple(like))
+                bufs = tuple(_host_like(t) for t in _as_tuple(like))
                 recv[m] = bufs
                 for j, b in enumerate(bufs):
                     ops.append(dist.P2POp(dist.irecv, b,
                                           self.positions[src].rank,
                                           tag=src * 8 + j))
+        sent = 0
         for m in self.local:
             dst = (m - 1) % d
             if dst not in self._slot:
                 for j, t in enumerate(_as_tuple(chunks[m])):
-                    ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                    t = _to_host(t) if _staged() else t.contiguous()
+                    sent += t.numel() * t.element_size()
+                    ops.append(dist.P2POp(dist.isend, t,
                                           self.positions[dst].rank,
                                           tag=m * 8 + j))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+            TRANSFERS["ring_hops"] += 1
+            TRANSFERS["ring_bytes"] += sent
             for m, bufs in recv.items():
-                out[m] = bufs if isinstance(chunks[m], tuple) else bufs[0]
+                got = tuple(_from_host(b, t) for b, t in
+                            zip(bufs, _as_tuple(chunks[m])))
+                out[m] = got if isinstance(chunks[m], tuple) else got[0]
         return out
 
 

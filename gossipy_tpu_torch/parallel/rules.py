@@ -282,10 +282,13 @@ def partition_specs(tree, mesh, rules=STATE_RULES, axis_name=None,
 class NamedSharding:
     """A leaf's placement: the mesh and its resolved spec. ``device_set``
     holds the mesh's distinct devices (one on a virtual mesh over a
-    single card)."""
+    single card); ``global_shape`` is the whole leaf's shape where a leaf
+    was placed (on a mesh across ranks each rank holds a slice of it)."""
 
     mesh: Any
     spec: PartitionSpec
+    global_shape: Optional[tuple] = dataclasses.field(default=None,
+                                                      compare=False)
 
     @property
     def device_set(self) -> set:
@@ -303,6 +306,28 @@ class NamedSharding:
         return size
 
 
+def node_dim(spec: PartitionSpec, mesh) -> Optional[int]:
+    """The leaf dimension a resolved spec puts the node axis on (None for
+    a replicated leaf)."""
+    model = model_axis_entry(mesh)
+    for i, e in enumerate(spec):
+        if e is not None and e != model:
+            return i
+    return None
+
+
+def local_rows(x, sharding: "NamedSharding"):
+    """This rank's slice of a whole leaf under its placement: the rows
+    :meth:`Mesh.node_rows` gives along the spec's node dimension (the
+    leaf itself when it is replicated)."""
+    dim = node_dim(sharding.spec, sharding.mesh)
+    if dim is None:
+        return x
+    entry = sharding.spec[dim]
+    rows = sharding.mesh.node_rows(x.shape[dim], entry)
+    return x.narrow(dim, rows.start, rows.stop - rows.start)
+
+
 def named_shardings(tree, mesh, rules=STATE_RULES, axis_name=None,
                     model_axis=None, batch_dims: int = 0):
     """``tree``-shaped tree of :class:`NamedSharding` (the resolved
@@ -318,7 +343,10 @@ def make_shard_and_gather_fns(tree, mesh, rules=STATE_RULES, axis_name=None,
     ``(shard_fns, gather_fns)``, two trees matching ``tree``. A shard
     function puts a leaf where its placement says (the mesh's device: on
     a mesh whose positions all name one device the leaf stays whole
-    there); a gather function returns the leaf as a host numpy array."""
+    there; on a mesh across ranks this rank's rows); a gather function
+    returns the whole leaf as a host numpy array (on a mesh across ranks
+    every rank's rows brought together in node order, a collective that
+    every rank calls)."""
     from . import _place_leaf
 
     shardings = named_shardings(tree, mesh, rules, axis_name, model_axis,
@@ -328,8 +356,11 @@ def make_shard_and_gather_fns(tree, mesh, rules=STATE_RULES, axis_name=None,
         return lambda x: _place_leaf(x, sh)
 
     def make_gather(sh):
-        del sh
-        return _to_host
+        dim = node_dim(sh.spec, mesh)
+        if not mesh.spans_ranks() or dim is None:
+            return _to_host
+        from .collectives import rank_all_gather
+        return lambda x: _to_host(rank_all_gather(x, mesh, dim=dim))
 
     return (tree_map_with_path(lambda _, sh: make_shard(sh), shardings),
             tree_map_with_path(lambda _, sh: make_gather(sh), shardings))

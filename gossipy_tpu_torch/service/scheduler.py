@@ -692,7 +692,11 @@ class GossipService:
                  mesh=None, tracing=None, ledger=None, device=None):
         self.device = resolve_device(device)
         if mesh is not None:
-            from ..parallel import _ACROSS_CARDS, canonical_device
+            from ..parallel import _ACROSS_CARDS, across_ranks_refusal, \
+                canonical_device
+            if mesh.spans_ranks():
+                raise NotImplementedError(across_ranks_refusal(
+                    "the gossip service"))
             if not mesh.is_virtual() or mesh.device() != canonical_device(
                     self.device):
                 raise NotImplementedError(_ACROSS_CARDS)

@@ -128,6 +128,20 @@ nominal N, a ``[C]``-wide round a segment), and ``mesh=``
 (:mod:`gossipy_tpu_torch.parallel`: the single-pass fused deliver as a
 ring over the mesh's node axis, K1 on every hop; ``load(mesh=)``
 restores into the mesh's placement).
+
+On a mesh across ranks (``parallel.init_distributed``, then a mesh over
+every rank's positions) each rank holds only its own rows of every
+node-axis leaf and runs the same round on them: every rank draws the
+whole round from the same stream (peers, drops, delays, online, the
+shard orders of the whole population) and computes the ``[N]`` sends
+the same way, then writes only its receivers' rows of the mailbox. Only
+the ring's parameter rows cross ranks, inside the sharded merge; the
+phases and the ring's ages are gathered once a round, the live count
+that picks the deliver's path is summed over the ranks, the eval's
+per-node metrics are gathered so every rank reports the whole
+population, and the receivers' failure counts are summed when the run
+ends. The run equals the single-process run on a virtual mesh of the
+same shape.
 """
 
 from __future__ import annotations
@@ -304,16 +318,74 @@ def metric_names(handler, data: dict, device) -> list:
     return sorted(handler.evaluate(ModelState(params[None], (), None), d))
 
 
+def _global_scores(handler, params: torch.Tensor, data: dict,
+                   names: list) -> dict:
+    """Every row's metrics ``names`` on the shared eval set, pushed
+    through the model in chunks of at most ``EVAL_ROWS`` image rows."""
+    xe, ye = data["x_eval"], data["y_eval"]
+    me = torch.ones(xe.shape[0], device=params.device)
+    chunk = max(1, EVAL_ROWS // max(1, xe.shape[0]))
+    parts = []
+    for lo in range(0, params.shape[0], chunk):
+        p = params[lo:lo + chunk]
+        c = p.shape[0]
+        d = (xe.expand(c, *xe.shape), ye.expand(c, *ye.shape),
+             me.expand(c, *me.shape))
+        parts.append(handler.evaluate(ModelState(p, (), None), d))
+    return {k: torch.cat([part[k] for part in parts]) for k in names}
+
+
+def _gathered_metrics(handler, params: torch.Tensor, data: dict,
+                      names: list, idx: Optional[torch.Tensor], gather):
+    """:func:`population_metrics` over rows that lie on several ranks:
+    each rank scores its own rows, ``gather`` brings the per-node scores
+    of every rank together in node order, and the means run over the
+    whole population (its rows ``idx`` when given), as one process runs
+    them."""
+    nan = torch.full((len(names),), float("nan"), device=params.device)
+    cols = []
+    if "xte" in data:
+        d = tuple(data[k] for k in ("xte", "yte", "mte"))
+        res = handler.evaluate(ModelState(params, (), None), d)
+        cols += [res[k] for k in names] + [(d[2].sum(dim=1) > 0)]
+    if "x_eval" in data:
+        res = _global_scores(handler, params, data, names)
+        cols += [res[k] for k in names]
+    if not cols:
+        return nan, nan
+    every = gather(torch.stack([c.to(torch.float32) for c in cols], dim=1))
+    if idx is not None:
+        every = every[idx]
+    m = len(names)
+    local = glob = nan
+    at = 0
+    if "xte" in data:
+        local = _mean_metrics({k: every[:, i] for i, k in enumerate(names)},
+                              names, every[:, m] > 0)
+        at = m + 1
+    if "x_eval" in data:
+        glob = _mean_metrics({k: every[:, at + i]
+                              for i, k in enumerate(names)}, names,
+                             torch.ones(every.shape[0], dtype=torch.bool,
+                                        device=every.device))
+    return local, glob
+
+
 @torch.no_grad()
 def population_metrics(handler, params: torch.Tensor, data: dict,
-                       names: list, idx: Optional[torch.Tensor] = None):
+                       names: list, idx: Optional[torch.Tensor] = None,
+                       gather=None):
     """``(local, global)``: the mean metric vectors (``names`` order) of
     the rows ``params`` (of the rows ``idx`` only, when given) on their
     own test shards (``xte``, ``yte``, ``mte`` of ``data``, nodes with no
     test sample left out) and on the shared eval set (``x_eval``,
     ``y_eval``), pushed through the model in chunks of at most
     ``EVAL_ROWS`` rows; an all-NaN vector where ``data`` has no such set
-    or no node a test sample."""
+    or no node a test sample. ``gather`` (a mesh across ranks) brings
+    every rank's per-node scores together before the means; ``idx`` then
+    indexes the whole population."""
+    if gather is not None:
+        return _gathered_metrics(handler, params, data, names, idx, gather)
     dev = params.device
     nan = torch.full((len(names),), float("nan"), device=dev)
     if idx is not None:
@@ -327,17 +399,7 @@ def population_metrics(handler, params: torch.Tensor, data: dict,
         local = _mean_metrics(res, names, d[2].sum(dim=1) > 0)
     glob = nan
     if "x_eval" in data:
-        xe, ye = data["x_eval"], data["y_eval"]
-        me = torch.ones(xe.shape[0], device=dev)
-        chunk = max(1, EVAL_ROWS // max(1, xe.shape[0]))
-        parts = []
-        for lo in range(0, m, chunk):
-            p = params[lo:lo + chunk]
-            c = p.shape[0]
-            d = (xe.expand(c, *xe.shape), ye.expand(c, *ye.shape),
-                 me.expand(c, *me.shape))
-            parts.append(handler.evaluate(ModelState(p, (), None), d))
-        res = {k: torch.cat([part[k] for part in parts]) for k in names}
+        res = _global_scores(handler, params, data, names)
         glob = _mean_metrics(res, names,
                              torch.ones(m, dtype=torch.bool, device=dev))
     return local, glob
@@ -537,7 +599,7 @@ class GossipSimulator(SimulationEventSender):
         self._init_mesh(mesh)
         self._message_size = message_size
         self.draws = draws if draws is not None else TorchDraws(42)
-        self.data = to_device(data, self.device)
+        self.data = to_device(self._place_data(data), self.device)
         self.has_local_test = "xte" in self.data
         self.has_global_eval = "x_eval" in self.data
         # The topology on the device, in its own form: the dense bool
@@ -593,6 +655,7 @@ class GossipSimulator(SimulationEventSender):
             # The MFU numerator, counted once here (set-up), so that no
             # start() pays for it.
             self._analytic_cost()
+        self._refuse_across_ranks()
 
     def _init_mesh(self, mesh) -> None:
         """The mesh-sharded fused deliver (JAX engine.py:624-639, :681-684):
@@ -601,9 +664,12 @@ class GossipSimulator(SimulationEventSender):
         sharded_gather_merge_multi`), one K1 launch a position a hop. The
         node count must divide the ring, the compacted pass (a row subset
         the ring cannot re-shard) is refused, and the mesh's positions must
-        all name this simulator's device (a state across cards is not
-        ported)."""
+        all name this simulator's device, or on a mesh across ranks this
+        rank's positions must (one process's positions on several cards
+        are not ported). ``_rows`` is this rank's slice of the node axis
+        on a mesh across ranks, else None."""
         self.mesh = mesh
+        self._rows: Optional[slice] = None
         if mesh is None:
             return
         from ..parallel import _ACROSS_CARDS, _node_axis_entry, \
@@ -617,9 +683,113 @@ class GossipSimulator(SimulationEventSender):
             raise ValueError("compact_deliver gathers a [cap] row subset, "
                              "which the mesh-sharded fused deliver cannot "
                              "re-shard; use one or the other")
+        if mesh.spans_ranks():
+            mesh.check_across_ranks()
+            if mesh.local_device() != canonical_device(self.device):
+                raise ValueError(f"this rank's positions lie on "
+                                 f"{mesh.local_device()}, the simulator on "
+                                 f"{self.device}")
+            self._rows = mesh.node_rows(self.n_nodes, self._fused_ring_axis)
+            return
         if not mesh.is_virtual() or mesh.device() != canonical_device(
                 self.device):
             raise NotImplementedError(_ACROSS_CARDS)
+
+    def _refuse_across_ranks(self) -> None:
+        """The options a mesh across ranks does not run yet (ROADMAP.md
+        queue 1 item 13): variant simulators, cohort rounds, probes,
+        sentinels, chaos, ``perf=``, ``metrics=``, ``ledger=`` and
+        ``tracing=``."""
+        if self._rows is None:
+            return
+        from ..parallel import across_ranks_refusal
+        options = {
+            f"a variant simulator ({type(self).__name__})":
+                type(self) is not GossipSimulator,
+            "cohort=": self.cohort is not None,
+            "probes=": self.probes is not None,
+            "sentinels=": self.sentinels is not None,
+            "chaos=": self.chaos is not None,
+            "perf=": self.perf is not None,
+            "metrics=": self.metrics_enabled,
+            "ledger=": self.ledger is not None,
+            "tracing=": self.tracer is not None,
+        }
+        for what, on in options.items():
+            if on:
+                raise NotImplementedError(across_ranks_refusal(what))
+
+    # -- a mesh across ranks: this rank's rows ------------------------------
+
+    def _own(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of a whole-population tensor (``x`` itself
+        off a mesh across ranks)."""
+        if self._rows is None:
+            return x
+        return x.narrow(dim, self._rows.start,
+                        self._rows.stop - self._rows.start)
+
+    def _everyone(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's rows of a node-axis tensor, in node order (``x``
+        itself off a mesh across ranks): a collective."""
+        if self._rows is None:
+            return x
+        from ..parallel.collectives import rank_all_gather
+        return rank_all_gather(x, self.mesh, dim=dim)
+
+    def _n_rows(self) -> int:
+        """The node rows this process holds."""
+        if self._rows is None:
+            return self.n_nodes
+        return self._rows.stop - self._rows.start
+
+    def _place_data(self, data: dict) -> dict:
+        """On a mesh across ranks, this rank's rows of the per-node data
+        (the shared eval set whole; data placed by ``parallel.shard_data``
+        on this mesh stays as it is)."""
+        if self._rows is None:
+            return data
+        from ..parallel import shard_data
+        placed = shard_data(data, self.mesh, self._fused_ring_axis)
+        for k, v in placed.items():
+            if k not in ("x_eval", "y_eval") and v.shape[0] != \
+                    self._n_rows():
+                raise ValueError(f"data[{k!r}] has {v.shape[0]} rows on "
+                                 f"this rank, its share is {self._n_rows()}")
+        return placed
+
+    def _live_across_ranks(self, any_msg: torch.Tensor,
+                           apply_t: torch.Tensor) -> tuple[int, int]:
+        """The cell's live receivers and occupied slots over every rank:
+        one sum over the ranks, so that every rank takes the same
+        path."""
+        from ..parallel.collectives import rank_all_reduce
+        counts = torch.cat([any_msg.sum().reshape(1),
+                            apply_t.any(dim=0).to(torch.int64)])
+        counts = rank_all_reduce(counts, "sum").tolist()
+        return counts[0], sum(c > 0 for c in counts[1:])
+
+    # The report's per-round counts that each rank takes over its own
+    # receivers (summed over the ranks when a run ends; the high-water
+    # mark is their max); every other count is the same on every rank.
+    _RECEIVER_COUNTS = ("failed_offline", "failed_overflow")
+
+    def _reduce_receiver_counts(self, stats: dict) -> None:
+        """The whole population's receiver counts, in place, and the
+        failed total recounted from its causes."""
+        from ..parallel.collectives import rank_all_reduce
+        keys = [k for k in self._RECEIVER_COUNTS if k in stats]
+        summed = rank_all_reduce(torch.as_tensor(
+            np.stack([stats[k] for k in keys]), device=self.device), "sum")
+        hwm = rank_all_reduce(torch.as_tensor(
+            stats["mailbox_hwm"], device=self.device), "max")
+        summed = summed.cpu().numpy()
+        for i, k in enumerate(keys):
+            stats[k] = summed[i].astype(stats[k].dtype)
+        stats["mailbox_hwm"] = hwm.cpu().numpy().astype(
+            stats["mailbox_hwm"].dtype)
+        stats["failed"] = sum(stats[k] for k in ("failed_drop",
+                                                 *self._RECEIVER_COUNTS))
 
     def _init_chaos(self, chaos: Optional[ChaosConfig]) -> None:
         """Compile the chaos config into its tables: on the host (the
@@ -909,9 +1079,10 @@ class GossipSimulator(SimulationEventSender):
         multiple of 4 floats), so its params, optimizer and ring terms
         count ``stride`` scalars a node where the JAX engine counts the
         model's width. Activations and the allocator's workspace are not
-        counted: the budget is a floor, not a ceiling.
+        counted: the budget is a floor, not a ceiling. On a mesh across
+        ranks the node terms count this rank's rows.
         """
-        n = self.n_nodes
+        n = self._n_rows()
         layout = self.handler.layout
         age_shape, opt_bytes, aux_bytes = self._one_node_terms()
         ages = 4 * math.prod(age_shape)
@@ -1006,7 +1177,9 @@ class GossipSimulator(SimulationEventSender):
         (:func:`gossipy_tpu_torch.checkpoint.save_checkpoint`). A
         disk-backed cohort pool is checkpointed as hole-preserving copies
         of its files into the directory ``path``
-        (:func:`~gossipy_tpu_torch.simulation.cohort.save_pool_store`)."""
+        (:func:`~gossipy_tpu_torch.simulation.cohort.save_pool_store`).
+        A state on a mesh across ranks is refused."""
+        self._refuse_checkpoint(None)
         draws = self.draws if draws is None else draws
         if self.cohort is not None:
             from .cohort import is_mmap_pool, save_pool_store
@@ -1029,7 +1202,9 @@ class GossipSimulator(SimulationEventSender):
         In cohort mode the unit is the resident
         :class:`~gossipy_tpu_torch.simulation.cohort.CohortPool`, and the
         template a zero-filled pool (no init at restore); a pool-store
-        directory is copied into a work directory and opened there."""
+        directory is copied into a work directory and opened there. A
+        mesh across ranks is refused."""
+        self._refuse_checkpoint(mesh)
         from ..checkpoint import restore_checkpoint
         if self.cohort is not None:
             from .cohort import is_pool_store_dir, load_pool_checkpoint, \
@@ -1042,6 +1217,12 @@ class GossipSimulator(SimulationEventSender):
             from ..parallel import shard_state
             template = shard_state(template, mesh)
         return restore_checkpoint(path, template, self.draws, mesh=mesh)
+
+    def _refuse_checkpoint(self, mesh) -> None:
+        if self._rows is not None or (mesh is not None
+                                      and mesh.spans_ranks()):
+            from ..parallel import across_ranks_refusal
+            raise NotImplementedError(across_ranks_refusal("a checkpoint"))
 
     def _one_node_terms(self) -> tuple:
         """``(age shape, optimizer bytes of one node, aux bytes)``, from a
@@ -1068,7 +1249,7 @@ class GossipSimulator(SimulationEventSender):
     def _aux_bytes(self, age_shape: tuple) -> int:
         """Bytes of ``state.aux``, from :meth:`_init_aux` over a model of
         meta tensors (shapes only, nothing allocated)."""
-        n = self.n_nodes
+        n = self._n_rows()
         model = ModelState(
             torch.empty(n, self.handler.layout.stride, device="meta"), (),
             torch.empty((n,) + age_shape, dtype=torch.int32, device="meta"))
@@ -1103,6 +1284,12 @@ class GossipSimulator(SimulationEventSender):
 
         ``common_init=True`` gives every node the same initial weights; the
         pre-training pass still diversifies them.
+
+        On a mesh across ranks every rank draws the whole population (the
+        weights under ``generator``, the pre-training orders and the
+        phases from the draws) and keeps its own rows, so that they equal
+        the single-process run's; the state it returns holds this rank's
+        rows, placed (``parallel.shard_state`` keeps it as it is).
         """
         if self.cohort is not None:
             raise ValueError(
@@ -1113,24 +1300,27 @@ class GossipSimulator(SimulationEventSender):
         self._health_carry = None   # a fresh population, a fresh EMA
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
+        rows = self._n_rows()
         if common_init:
             one = self.handler.init(g, self.device)
-            params = one.params.unsqueeze(0).repeat(n, 1)
+            params = one.params.unsqueeze(0).repeat(rows, 1)
             n_updates = one.n_updates.unsqueeze(0).repeat(
-                n, *[1] * one.n_updates.dim())
+                rows, *[1] * one.n_updates.dim())
         else:
             # One init a node, made on the host and copied in one piece:
             # at population scale a copy per node would dominate.
             inits = [self.handler.init(g, "cpu") for _ in range(n)]
-            params = torch.stack([m.params for m in inits]).to(self.device)
-            n_updates = torch.stack([m.n_updates for m in inits]).to(
+            params = self._own(torch.stack([m.params for m in inits])).to(
                 self.device)
+            n_updates = self._own(torch.stack([m.n_updates for m in inits])
+                                  ).to(self.device)
         model = ModelState(params, self.handler.init_opt_state(params),
                            n_updates.to(torch.int32))
         if local_train:
             epochs = self.handler.orders_per_update()
-            perms = None if epochs is None else self.draws.init_permutations(
-                n, epochs, self.data["mtr"].shape[1], self.device)
+            perms = None if epochs is None else self._own(
+                self.draws.init_permutations(
+                    n, epochs, self.data["mtr"].shape[1], self.device))
             model = self.handler.update(model, self._local_data(), perms)
         if self.sync:
             phase = self.draws.init_phase(n, self.delta, self.device)
@@ -1157,19 +1347,27 @@ class GossipSimulator(SimulationEventSender):
         """A round-0 state around given node models (their optimizer
         state included): the ring holds ``model``'s params, encoded, in
         every cell, the mailbox and reply box are empty, and ``aux`` is
-        the variant's initial state (:meth:`_init_aux`)."""
-        n = self.n_nodes
+        the variant's initial state (:meth:`_init_aux`). On a mesh across
+        ranks ``model`` and ``phase`` hold the whole population or this
+        rank's rows; the state holds this rank's rows, placed."""
         # The memory budget's one-node terms, made once here (set-up), so
         # that no start() runs ops for them (the ledger's manifest reads
         # the budget after every start()).
         self._one_node_terms()
+        if self._rows is not None and model.params.shape[0] == self.n_nodes:
+            model = ModelState(self._own(model.params),
+                               tuple(self._own(t) for t in model.opt_state),
+                               self._own(model.n_updates))
+        if self._rows is not None and phase.shape[0] == self.n_nodes:
+            phase = self._own(phase)
         params = model.params.to(self.device, torch.float32).contiguous()
         opt_state = tuple(t.to(self.device) for t in model.opt_state)
         n_updates = model.n_updates.to(self.device, torch.int32)
+        n = params.shape[0]
         D = self._history_depth(self._model_size())
         stored, scales = self._encode_history_rows(params)
         model = ModelState(params, opt_state, n_updates)
-        return SimState(
+        state = SimState(
             model=model,
             phase=phase.to(self.device, torch.int32),
             history_params=stored.unsqueeze(0).repeat(D, 1, 1),
@@ -1181,6 +1379,10 @@ class GossipSimulator(SimulationEventSender):
                            else scales.unsqueeze(0).repeat(D, 1, 1)),
             aux=self._init_aux(model),
         )
+        if self._rows is not None:
+            from ..parallel import record_local_state
+            record_local_state(state, self.mesh, self._fused_ring_axis)
+        return state
 
     # -- variant hooks (the JAX engine's, engine.py:1324-1409, 2269-2289) -----
 
@@ -1259,34 +1461,46 @@ class GossipSimulator(SimulationEventSender):
         """Allocate slots and write message metadata into ``box`` in place.
         Slot = the target cell's occupancy + the message's rank among this
         batch's messages for the same cell; a message past the last slot
-        overflows. Returns the overflow count."""
+        overflows. Returns the overflow count. On a mesh across ranks the
+        messages are the whole population's, ranked within their cells as
+        one process ranks them; a rank writes (and counts the overflow
+        of) its own receivers' rows."""
         D, n, _ = box.sender.shape
         b = (r + dr) % D
-        recv_c = recv.clamp(0, n - 1)
-        cell_key = torch.where(active, b * n + recv_c,
-                               torch.full_like(recv_c, D * n + 7))
+        N = n if self._rows is None else self.n_nodes
+        recv_c = recv.clamp(0, N - 1)
+        cell_key = torch.where(active, b * N + recv_c,
+                               torch.full_like(recv_c, D * N + 7))
         rank = _rank_within_group(cell_key)
+        mine, local = active, recv_c
+        if self._rows is not None:
+            lo = self._rows.start
+            mine = active & (recv_c >= lo) & (recv_c < lo + n)
+            local = (recv_c - lo).clamp(0, n - 1)
         occ = (box.sender >= 0).sum(dim=2)
-        slot = occ[b, recv_c] + rank
-        ok = active & (slot < slots_cap)
-        n_overflow = (active & (slot >= slots_cap)).sum()
-        where = (b[ok], recv_c[ok], slot[ok])
+        slot = occ[b, local] + rank
+        ok = mine & (slot < slots_cap)
+        n_overflow = (mine & (slot >= slots_cap)).sum()
+        where = (b[ok], local[ok], slot[ok])
         box.sender[where] = sender_ids[ok].to(torch.int32)
         box.send_round[where] = send_round
         box.msg_type[where] = msg_type
         box.extra[where] = extra[ok].to(torch.int32)
         return n_overflow
 
-    def _fire_mask(self, state: SimState, r: int, f: int):
+    def _fire_mask(self, state: SimState, r: int, f: int,
+                   phase: Optional[torch.Tensor] = None):
         """``(fires [N] bool, offset [N])`` of sub-fire ``f``: sync nodes
         fire once, at their offset; an async node fires at every multiple
         of its period inside the round's window ``[r delta, (r + 1)
         delta)``, at that time's offset within the round (every async node
-        fires at time 0, as in the original gossipy)."""
+        fires at time 0, as in the original gossipy). ``phase`` is the
+        whole population's (default ``state.phase``)."""
+        phase = state.phase if phase is None else phase
         if self.sync:
             return (torch.ones(self.n_nodes, dtype=torch.bool,
-                               device=self.device), state.phase.long())
-        period = state.phase.long()
+                               device=self.device), phase.long())
+        period = phase.long()
         lo = r * self.delta
         first = (lo + period - 1) // period * period
         t_f = first + f * period
@@ -1303,9 +1517,11 @@ class GossipSimulator(SimulationEventSender):
         msg_type = int(_PROTO_TO_MSG[self.protocol])
         senders = torch.arange(n, device=dev)
         n_sent, fails = 0, FailureCounts()
+        # Every rank computes the whole population's sends.
+        phase = self._everyone(state.phase)
         # A sync node fires once: sub-fires past the first send nothing.
         for f in range(1 if self.sync else self.F):
-            fires, offset = self._fire_mask(state, r, f)
+            fires, offset = self._fire_mask(state, r, f, phase)
             if self.chaos is not None:
                 # A forced-offline node neither sends nor receives.
                 fires = fires & ~self._chaos_forced_offline(r)
@@ -1364,6 +1580,14 @@ class GossipSimulator(SimulationEventSender):
         epochs = self.handler.orders_per_update()
         if epochs is None:
             return None
+        if self._rows is not None:
+            # The whole population's orders, as one process draws them;
+            # this rank's rows kept.
+            whole = first_k.new_zeros(self.n_nodes)
+            whole[self._rows] = first_k
+            return self._own(self.draws.update_permutations(
+                r, purposes, whole, epochs, self.data["mtr"].shape[1],
+                split=split))
         return self.draws.update_permutations(
             r, purposes, first_k, epochs, self.data["mtr"].shape[1],
             split=split)
@@ -1541,7 +1765,7 @@ class GossipSimulator(SimulationEventSender):
         w_peer = torch.where(apply_t, float(self.handler.merge_peer_weight),
                              0.0).to(torch.float32)
         w_self = 1.0 - w_peer
-        peer_ages = state.history_ages[cell, s]
+        peer_ages = self._everyone(state.history_ages, dim=1)[cell, s]
         return flat_idx, w_self, w_peer, peer_ages
 
     def _fused_multi_merge_update(self, state: SimState, model: ModelState,
@@ -1625,9 +1849,13 @@ class GossipSimulator(SimulationEventSender):
         no per-slot states to bisect). Returns the (compact, wide) slot
         counts."""
         any_msg = apply_t.any(dim=1)
-        n_live, occ_slots = torch.stack(
-            [any_msg.sum(), apply_t.any(dim=0).sum()]).tolist()
-        if n_live == 0:
+        if self._rows is None:
+            n_live, occ_slots = torch.stack(
+                [any_msg.sum(), apply_t.any(dim=0).sum()]).tolist()
+        else:
+            n_live, occ_slots = self._live_across_ranks(any_msg, apply_t)
+        # A host int on both branches (read above).
+        if n_live == 0:  # tracelint: disable=host-sync
             return 0, 0
         first_k = torch.argmax(apply_t.to(torch.int32), dim=1)
         perms = self._update_orders(
@@ -1669,8 +1897,8 @@ class GossipSimulator(SimulationEventSender):
         """The receivers' availability draw of a drain: ``(online,
         forced)``, where a node a scheduled outage forces offline is never
         online (``forced`` is None without chaos)."""
-        online = self.draws.bernoulli(r, purpose, self.online_prob,
-                                      self.n_nodes, self.device)
+        online = self._own(self.draws.bernoulli(r, purpose, self.online_prob,
+                                                self.n_nodes, self.device))
         if self.chaos is None:
             return online, None
         forced = self._chaos_forced_offline(r)
@@ -1726,8 +1954,10 @@ class GossipSimulator(SimulationEventSender):
         if self.protocol != AntiEntropyProtocol.PUSH:
             wants = valid_t & ((ty_t == MessageType.PULL)
                                | (ty_t == MessageType.PUSH_PULL))
+            # Every rank queues the whole population's replies; each
+            # writes its requesters' rows of the reply box.
             n_replies, fail_q, reply_size = self._queue_replies(
-                state, r, sender_t, wants)
+                state, r, self._everyone(sender_t), self._everyone(wants))
             fails = fails + fail_q
         box.clear_cell(b)
         ex_sent, ex_fails, ex_size = self._post_deliver(state, r)
@@ -1814,8 +2044,10 @@ class GossipSimulator(SimulationEventSender):
         if self.sampling_eval > 0:
             idx = self.draws.eval_subset(r, self.n_nodes,
                                          self._n_eval_nodes(), self.device)
+        gather = None if self._rows is None else self._everyone
         return population_metrics(self.handler, state.model.params,
-                                  self.data, self._metric_keys(), idx)
+                                  self.data, self._metric_keys(), idx,
+                                  gather)
 
     def _maybe_eval(self, state: SimState, r: int, last_round=None):
         """``_eval_phase`` every ``eval_every`` rounds and on the run's last
@@ -2110,6 +2342,8 @@ class GossipSimulator(SimulationEventSender):
                 "start(mesh=) is the cohort-mode sharded-round path; for "
                 "materialized populations place the state up front with "
                 "parallel.shard_state(state, mesh)")
+        if self._rows is not None:
+            self._check_own_rows(state)
         tr = self.tracer
         first_round = state.round
         perf_timing = self.perf is not None and self.perf.timing
@@ -2152,6 +2386,20 @@ class GossipSimulator(SimulationEventSender):
                             exec_seconds if (perf_timing or tr is not None)
                             else None, round_start=first_round)
         return state, report
+
+    def _check_own_rows(self, state: SimState) -> None:
+        """On a mesh across ranks: the state holds this rank's rows, and
+        no live receiver waits on a round (it would see this rank's
+        counts alone)."""
+        from ..parallel import across_ranks_refusal
+        if state.model.params.shape[0] != self._n_rows():
+            raise ValueError(
+                f"the state holds {state.model.params.shape[0]} rows; on "
+                f"this mesh across ranks a rank holds {self._n_rows()} "
+                "(place it with init_nodes or parallel.shard_state)")
+        if self.has_live_receivers():
+            raise NotImplementedError(across_ranks_refusal(
+                "a live event receiver"))
 
     def _profiled_rounds(self, state: SimState, n_rounds: int,
                          profile_dir: str) -> list:
@@ -2203,6 +2451,8 @@ class GossipSimulator(SimulationEventSender):
         for k in rows[0] if rows else ():
             vals = [torch.as_tensor(row[k], device=self.device) for row in rows]
             stats[k] = torch.stack(vals).cpu().numpy()
+        if self._rows is not None and rows:
+            self._reduce_receiver_counts(stats)
         stats.update(extra or {})
         if self.perf is not None and self.perf.cost:
             self._record_cost(n_rounds)

@@ -244,7 +244,11 @@ class All2AllGossipSimulator(GossipSimulator):
         self.mesh = mesh
         self.ring_mix = bool(ring_mix)
         if mesh is not None:
-            from ..parallel import _ACROSS_CARDS, canonical_device
+            from ..parallel import _ACROSS_CARDS, across_ranks_refusal, \
+                canonical_device
+            if mesh.spans_ranks():
+                raise NotImplementedError(across_ranks_refusal(
+                    "All2All gossip"))
             if not mesh.is_virtual() or mesh.device() != canonical_device(
                     self.device):
                 raise NotImplementedError(_ACROSS_CARDS)

@@ -1,0 +1,538 @@
+"""One gossip run across two processes: two gloo ranks on the CPU, each
+holding its own rows of a 2-position mesh, run ``GossipSimulator(mesh=)``
+(``parallel.init_distributed``, then ``make_mesh()`` over every rank's
+positions), against the same runs in one process on a 2-position virtual
+mesh and against the JAX package's mesh run.
+
+One spawn of two ranks serves every check; each rank runs these legs
+(``run_legs``) and saves what it holds:
+
+- ``northstar``: the north star's shape at a small size (16 nodes, 8
+  features, ``random_regular(16, 4)``, ``LogisticRegression``, SGD 0.1,
+  batch 32, PUSH, MERGE_UPDATE, the multi deliver), 10 rounds: both
+  ranks' reports equal, equal to the virtual mesh run's, and every rank's
+  rows of every leaf equal to the same rows of the virtual mesh run's
+  state, bit for bit (accounting, mailboxes and ages among them); the
+  gather functions bring the whole state back on every rank;
+- ``network``: the examples' network model across ranks (PUSH_PULL,
+  async nodes, delays, drops, 80% online, sampled eval, an int8 ring), 8
+  rounds: the replies cross ranks; the same checks;
+- ``oracle``: under the JAX draw oracle, from the JAX ``init_nodes``
+  state, 6 rounds against the JAX engine's run on a 2-device mesh:
+  accounting exact, params and metrics within PERF.md section 2's
+  tolerances (``torch_pairs.assert_same_run``);
+- ``ring``: ``ring_attention`` across the ranks (causal, S = 32, D = 8),
+  K5's plain version and the plain hop, against the one-process rings
+  (bit for bit) and the JAX package's ``ring_attention`` (1e-6);
+- ``nohang``: every peer lies on rank 0, so rank 1's receivers never
+  get a message; both ranks finish and equal the virtual mesh run;
+- ``refusals``: every use still refused on a mesh across ranks raises
+  ``NotImplementedError`` naming ROADMAP.md queue 1 item 13.
+
+The ranks reach each other on ``localhost`` at a free port; the spawn
+has TIMEOUT_S and is reaped whatever happens.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+import threading
+import warnings
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gossipy_tpu import core as jcore
+from gossipy_tpu import parallel as jparallel
+from gossipy_tpu import simulation as jsimulation
+from gossipy_tpu.parallel.collectives import \
+    ring_attention as jring_attention
+from gossipy_tpu_torch import core as tcore
+from gossipy_tpu_torch import parallel
+from gossipy_tpu_torch.data import ClassificationDataHandler, DataDispatcher
+from gossipy_tpu_torch.handlers import SGDHandler, losses
+from gossipy_tpu_torch.models import LogisticRegression
+from gossipy_tpu_torch.parallel import rules
+from gossipy_tpu_torch.random import TorchDraws
+from gossipy_tpu_torch.simulation import GossipSimulator
+
+REPO = Path(__file__).resolve().parents[1]
+N, FEAT, ROUNDS = 16, 8, 10
+ORACLE_ROUNDS = 6
+ATTN_S, ATTN_D = 32, 8
+TIMEOUT_S = 150
+
+WORKER = textwrap.dedent("""
+    import datetime, sys
+    import torch
+    sys.path.insert(0, {tests!r})
+    import test_torch_multiprocess_engine as t
+    from gossipy_tpu_torch import parallel
+    rank, port, workdir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    backend = parallel.init_distributed(
+        f"localhost:{{port}}", 2, rank, device="cpu",
+        timeout=datetime.timedelta(seconds=90))
+    try:
+        mesh = parallel.make_mesh(devices=parallel.devices("cpu"))
+        out = t.run_legs(mesh, workdir)
+        out["backend"] = backend
+        out["repr"] = repr(mesh)
+        torch.save(out, f"{{workdir}}/rank{{rank}}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+""")
+
+
+# -- the configurations, in both the ranks and the parent -----------------------
+
+def dataset(seed=0):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=FEAT)
+    X = rng.normal(size=(N * 48, FEAT)).astype(np.float32)
+    y = (X @ w > 0).astype(np.int64)
+    dh = ClassificationDataHandler(X, y, test_size=0.2, seed=42)
+    return DataDispatcher(dh, n=N, eval_on_user=False).stacked()
+
+
+def northstar(mesh, adjacency=None, rounds=ROUNDS, **kw):
+    """The north star's shape at N = 16: ``(sim, state)`` on ``mesh``
+    (the state placed), draws from ``TorchDraws(7)``, weights from a
+    generator seeded 0."""
+    handler = SGDHandler(LogisticRegression(FEAT, 2), losses.cross_entropy,
+                         learning_rate=0.1, local_epochs=1, batch_size=32,
+                         n_classes=2, input_shape=(FEAT,),
+                         create_model_mode=tcore.CreateModelMode.MERGE_UPDATE)
+    topo = (tcore.Topology.random_regular(N, 4, seed=0) if adjacency is None
+            else tcore.Topology(adjacency))
+    kw = {"delta": 100, "protocol": tcore.AntiEntropyProtocol.PUSH, **kw}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim = GossipSimulator(handler, topo,
+                              parallel.shard_data(dataset(), mesh),
+                              fused_merge="multi", mesh=mesh,
+                              draws=TorchDraws(7), device="cpu", **kw)
+    state = parallel.shard_state(
+        sim.init_nodes(torch.Generator().manual_seed(0)), mesh)
+    return sim, state
+
+
+NETWORK = dict(protocol=tcore.AntiEntropyProtocol.PUSH_PULL, sync=False,
+               delta=20, delay=tcore.UniformDelay(0, 30), drop_prob=0.1,
+               online_prob=0.8, sampling_eval=0.5, history_dtype="int8",
+               mailbox_slots=6)
+
+
+def one_sided():
+    """Every node's only peers are nodes 0-7 (rank 0's rows)."""
+    adj = np.zeros((N, N), dtype=bool)
+    adj[:, : N // 2] = True
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+def attention_inputs():
+    rng = np.random.default_rng(5)
+    return tuple(torch.from_numpy(rng.normal(size=(ATTN_S, ATTN_D)).astype(
+        np.float32)) for _ in range(3))
+
+
+def oracle_sim(mesh):
+    """The JAX pair's port side (``torch_pairs.logreg``, 16 nodes of
+    ``small_data``, ``random_regular(16, 4)``) under the oracle."""
+    from torch_oracle import JaxDraws
+    from torch_pairs import logreg, small_data
+    _, th = logreg()
+    key = jax.random.PRNGKey(3)
+    topo = tcore.Topology.random_regular(N, 4, seed=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return GossipSimulator(
+            th, topo, parallel.shard_data(small_data(n=N), mesh), delta=100,
+            fused_merge="multi", mailbox_slots=4, mesh=mesh,
+            draws=JaxDraws(key, init_key=key), device="cpu")
+
+
+def run(sim, state, rounds):
+    state, rep = sim.start(state, n_rounds=rounds)
+    return state, rep
+
+
+def leaves(state) -> dict:
+    return {p: x.clone() for p, x in rules.named_leaves(state)
+            if isinstance(x, torch.Tensor)}
+
+
+def gathered(state, mesh) -> dict:
+    """The whole state on this rank, by the gather functions."""
+    _, gather = parallel.make_shard_and_gather_fns(state, mesh)
+    fns = dict(rules.named_leaves(gather))
+    return {p: fns[p](x) for p, x in rules.named_leaves(state)
+            if isinstance(x, torch.Tensor)}
+
+
+def refusals(mesh) -> dict:
+    """Every use still refused across ranks: its exception and message."""
+    from gossipy_tpu_torch import checkpoint, core
+    from gossipy_tpu_torch.service import GossipService
+    from gossipy_tpu_torch.simulation import All2AllGossipSimulator, \
+        SimulationEventReceiver
+    from gossipy_tpu_torch.telemetry import Tracer
+    grid = np.empty((mesh.size, 1), dtype=object)
+    for i, p in enumerate(mesh.positions):
+        grid[i, 0] = p
+    tp = parallel.Mesh(grid, ("nodes", "model"))
+
+    def sim_with(**kw):
+        return northstar(mesh, rounds=1, **kw)
+
+    class Live(SimulationEventReceiver):
+        live = True
+
+    def live():
+        sim, state = sim_with()
+        sim.add_receiver(Live())
+        sim.start(state, n_rounds=1)
+
+    def cohort_start():
+        sim = GossipSimulator(
+            SGDHandler(LogisticRegression(FEAT, 2), losses.cross_entropy,
+                       input_shape=(FEAT,)), core.Topology.clique(N),
+            dataset(), fused_merge="multi", cohort=8, device="cpu")
+        sim.start(sim.init_cohort_pool(), n_rounds=1, mesh=mesh)
+
+    def a2a():
+        topo = core.Topology.clique(N)
+        All2AllGossipSimulator(
+            SGDHandler(LogisticRegression(FEAT, 2), losses.cross_entropy,
+                       input_shape=(FEAT,)), topo, dataset(),
+            mixing=core.uniform_mixing(topo), mesh=mesh, ring_mix=True,
+            device="cpu")
+
+    class Variant(GossipSimulator):
+        """A variant with a round hook of its own (the package's variants
+        override the receive path, which the multi deliver refuses)."""
+
+        def _pre_send(self, state, r):
+            pass
+
+    def variant():
+        Variant(SGDHandler(LogisticRegression(FEAT, 2), losses.cross_entropy,
+                           input_shape=(FEAT,)), core.Topology.clique(N),
+                dataset(), fused_merge="multi", mesh=mesh, device="cpu")
+
+    def save(path):
+        sim, state = sim_with()
+        sim.save(path, state)
+
+    def restore(path):
+        checkpoint.restore_checkpoint(path, None, mesh=mesh)
+
+    cases = {
+        "all2all": a2a,
+        "service": lambda: GossipService("unused", mesh=mesh,
+                                         device="cpu"),
+        "cohort start(mesh=)": cohort_start,
+        "model axis": lambda: northstar(tp),
+        "variant": variant,
+        "probes": lambda: sim_with(probes=True),
+        "sentinels": lambda: sim_with(sentinels=True),
+        "chaos": lambda: sim_with(chaos={"outages": [
+            {"nodes": [0], "start": 1, "stop": 2}], "horizon": 3}),
+        "perf": lambda: sim_with(perf=True),
+        "metrics": lambda: sim_with(metrics=True),
+        "ledger": lambda: sim_with(ledger="ledger.jsonl"),
+        "tracing": lambda: sim_with(tracing=Tracer()),
+        "checkpoint save": lambda: save("unused.pt"),
+        "checkpoint load": lambda: sim_with()[0].load("unused.pt",
+                                                      mesh=mesh),
+        "restore_checkpoint(mesh=)": lambda: restore("unused.pt"),
+        "live receiver": live,
+    }
+    out = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+            out[name] = "no error"
+        except Exception as e:     # every refusal is reported, not raised
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def run_legs(mesh, workdir) -> dict:
+    """Every leg on this rank: what it holds after each."""
+    out = {}
+    sim, state = northstar(mesh)
+    state, rep = run(sim, state, ROUNDS)
+    out["northstar"] = dict(leaves=leaves(state), report=rep.to_dict(),
+                            whole=gathered(state, mesh),
+                            budget=sim.memory_budget())
+    sim, state = northstar(mesh, **NETWORK)
+    state, rep = run(sim, state, 8)
+    out["network"] = dict(leaves=leaves(state), report=rep.to_dict())
+    sim, state = northstar(mesh, adjacency=one_sided())
+    state, rep = run(sim, state, 3)
+    out["nohang"] = dict(leaves=leaves(state), report=rep.to_dict())
+    init = torch.load(f"{workdir}/oracle_init.pt", weights_only=False)
+    sim = oracle_sim(mesh)
+    state = parallel.shard_state(sim.init_state(*init), mesh)
+    state, rep = run(sim, state, ORACLE_ROUNDS)
+    out["oracle"] = dict(whole=gathered(state, mesh), report=rep)
+    from gossipy_tpu_torch.parallel.collectives import TRANSFERS, \
+        ring_attention
+    q, k, v = attention_inputs()
+    rows = mesh.node_rows(ATTN_S)
+    out["ring"] = {f"flash={flash}": ring_attention(
+        q[rows], k[rows], v[rows], mesh, causal=True, flash=flash)
+        for flash in (True, False)}
+    out["transfers"] = dict(TRANSFERS)
+    out["refusals"] = refusals(mesh)
+    return out
+
+
+# -- the parent -----------------------------------------------------------------
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn(workdir: Path) -> list:
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), str(REPO / "tests")]), OMP_NUM_THREADS="1")
+    script = WORKER.format(tests=str(REPO / "tests"))
+    return [subprocess.Popen(
+        [sys.executable, "-c", script, str(rank), str(port), str(workdir)],
+        cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for rank in (0, 1)]
+
+
+def reap(procs, timeout) -> list:
+    """Every rank's (stdout, stderr), drained together (a full pipe on one
+    rank must not stall the other mid-collective); a rank still running
+    at the limit is killed."""
+    outs = [("", "")] * len(procs)
+
+    def drain(i):
+        outs[i] = procs[i].communicate()
+
+    threads = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for t in threads:
+        t.join(timeout=5)
+    return outs
+
+
+def virtual():
+    return parallel.make_mesh(2, devices=["cpu"] * 2)
+
+
+def rank_rows(x: torch.Tensor, path: str, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s rows of a whole leaf of the virtual mesh's state."""
+    dim = 1 if path.startswith(("history", "mailbox", "reply_box")) else 0
+    half = x.shape[dim] // 2
+    return x.narrow(dim, rank * half, half)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Start the two ranks, run the parent's references while they run,
+    and return ``(rank outputs, references)``."""
+    from torch_pairs import logreg, small_data, to_port_state
+    workdir = tmp_path_factory.mktemp("ranks")
+    jh, th = logreg()
+    key = jax.random.PRNGKey(3)
+    adj = tcore.Topology.random_regular(N, 4, seed=0).adjacency
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jmesh = jparallel.make_mesh(2)
+        jsim = jsimulation.GossipSimulator(
+            jh, jcore.Topology(adj), jparallel.shard_data(small_data(n=N),
+                                                          jmesh),
+            delta=100, fused_merge="multi", mailbox_slots=4, mesh=jmesh)
+    jst0 = jsim.init_nodes(key, common_init=True)
+    tsim = oracle_sim(virtual())
+    st0 = to_port_state(tsim, jst0)
+    torch.save((st0.model, st0.phase), workdir / "oracle_init.pt")
+    procs = spawn(workdir)
+    try:
+        refs = {}
+        for leg, kw, rounds in (("northstar", {}, ROUNDS),
+                                ("network", NETWORK, 8),
+                                ("nohang", {"adjacency": one_sided()}, 3)):
+            sim, state = northstar(virtual(), **kw)
+            state, rep = run(sim, state, rounds)
+            refs[leg] = (leaves(state), rep.to_dict(), sim)
+        jst, jrep = jsim.start(jparallel.shard_state(jst0, jmesh),
+                               n_rounds=ORACLE_ROUNDS, key=key,
+                               donate_state=False)
+        refs["jax"] = (jsim, tsim, st0, jst, jrep)
+    finally:
+        outs = reap(procs, TIMEOUT_S)
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank}:\n{err[-4000:]}"
+    got = [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+           for r in (0, 1)]
+    return got, refs
+
+
+@pytest.mark.parametrize("leg", ["northstar", "network", "nohang"])
+def test_ranks_equal_the_virtual_mesh_run(ranks, leg):
+    """Both ranks report the whole population's run, equal to each other
+    and to the one-process run on a 2-position virtual mesh; each rank
+    holds its rows of every leaf, bit-equal to the same rows there."""
+    got, refs = ranks
+    want_leaves, want_report, _ = refs[leg]
+    for rank in (0, 1):
+        mine = got[rank][leg]
+        assert json.dumps(mine["report"], sort_keys=True) == \
+            json.dumps(want_report, sort_keys=True), rank
+        assert sorted(mine["leaves"]) == sorted(want_leaves)
+        for path, x in want_leaves.items():
+            torch.testing.assert_close(mine["leaves"][path],
+                                       rank_rows(x, path, rank), rtol=0,
+                                       atol=0, msg=f"{leg} {path} r{rank}")
+    rep = got[0][leg]["report"]
+    assert sum(rep["sent_per_round"]) > 0
+    if leg == "network":
+        causes = rep["failed_per_cause"]
+        assert sum(causes["offline"]) > 0 and sum(causes["drop"]) > 0
+
+
+def test_gather_brings_back_the_whole_state(ranks):
+    """``make_shard_and_gather_fns``' gathers on a mesh across ranks give
+    every rank the whole leaf; ``memory_budget`` counts a rank's share."""
+    got, refs = ranks
+    want_leaves, _, sim = refs["northstar"]
+    for rank in (0, 1):
+        whole = got[rank]["northstar"]["whole"]
+        for path, x in want_leaves.items():
+            np.testing.assert_array_equal(whole[path], x.numpy(), path)
+        budget = got[rank]["northstar"]["budget"]
+        full = sim.memory_budget()
+        assert budget["mailbox_bytes"] * 2 == full["mailbox_bytes"]
+        assert budget["model_and_opt_bytes"] * 2 == \
+            full["model_and_opt_bytes"]
+
+
+def test_ranks_match_the_jax_mesh_run(ranks):
+    """Under the JAX draw oracle, the 2-rank run against the JAX engine on
+    a 2-device mesh from the same ``init_nodes`` state: accounting exact,
+    boxes and ages equal, params within 1e-5, metrics within 1e-5."""
+    from torch_pairs import assert_same_run
+    got, refs = ranks
+    jsim, tsim, st0, jst, jrep = refs["jax"]
+    assert jrep.sent_messages > 0
+    for rank in (0, 1):
+        whole = got[rank]["oracle"]["whole"]
+        tst = rules.tree_map_with_path(
+            lambda p, x: torch.as_tensor(whole[p])
+            if isinstance(x, torch.Tensor) else x, st0)
+        tst.round = ORACLE_ROUNDS
+        assert_same_run(jsim, tsim, jst, tst, jrep,
+                        got[rank]["oracle"]["report"])
+
+
+def test_ring_attention_across_ranks(ranks):
+    """``ring_attention`` across the ranks (causal, S = 32, D = 8): each
+    rank's query rows equal the one-process ring's (K5's plain version
+    and the plain hop), and the JAX package's ring within 1e-6."""
+    from gossipy_tpu_torch.parallel.collectives import ring_attention
+    got, _ = ranks
+    q, k, v = attention_inputs()
+    jmesh = jparallel.make_mesh(2)
+    want_jax = np.asarray(jring_attention(*(jax.numpy.asarray(t.numpy())
+                                            for t in (q, k, v)), jmesh,
+                                          causal=True))
+    for flash in (True, False):
+        want = ring_attention(q, k, v, virtual(), causal=True, flash=flash)
+        mine = torch.cat([got[r]["ring"][f"flash={flash}"] for r in (0, 1)])
+        torch.testing.assert_close(mine, want, rtol=0, atol=0)
+        np.testing.assert_allclose(mine.numpy(), want_jax, rtol=0, atol=1e-6)
+
+
+def test_transport_and_hop_bytes(ranks):
+    """Both ranks chose gloo (ranks on the CPU), the mesh records it, and
+    the ring's hops crossed the process boundary."""
+    got, _ = ranks
+    for rank in (0, 1):
+        assert got[rank]["backend"] == "gloo"
+        assert "transport='gloo'" in got[rank]["repr"]
+        moved = got[rank]["transfers"]
+        assert moved["ring_hops"] > 0 and moved["ring_bytes"] > 0
+        assert moved["gathers"] > 0 and moved["reduces"] > 0
+        assert moved.get("staged_bytes", 0) == 0    # host tensors
+
+
+def test_refusals_across_ranks(ranks):
+    """Every use still refused on a mesh across ranks raises
+    ``NotImplementedError`` naming what is missing (ROADMAP.md queue 1
+    item 13)."""
+    got, _ = ranks
+    for rank in (0, 1):
+        for name, what in got[rank]["refusals"].items():
+            assert what.startswith("NotImplementedError"), (name, what)
+            assert "queue 1 item 13" in what, (name, what)
+
+
+def test_choose_transport():
+    """NCCL only when every rank has a card of its own."""
+    assert parallel.choose_transport(["cuda-a", "cuda-b"]) == "nccl"
+    assert parallel.choose_transport(["cuda-a", "cuda-a"]) == "gloo"
+    assert parallel.choose_transport(["cpu", "cpu"]) == "gloo"
+    assert parallel.choose_transport(["cuda-a", "cpu"]) == "gloo"
+
+
+def test_build_is_safe_across_processes(tmp_path, monkeypatch):
+    """Two builds of one source at once: one compiles, the other waits
+    on the source's lock and finds the library whole."""
+    import time
+
+    from gossipy_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a kernel\n")
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys, time
+        open({str(calls)!r}, "a").write("x")
+        time.sleep(0.5)
+        out = sys.argv[sys.argv.index("-o") + 1]
+        open(out, "w").write("library")
+        """))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    paths = []
+    threads = [threading.Thread(target=lambda: paths.append(
+        _build.build(["k"])["k"])) for _ in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert time.perf_counter() - t0 < 30
+    assert len(paths) == 2 and paths[0] == paths[1]
+    assert paths[0].read_text() == "library"
+    assert calls.read_text() == "x"

@@ -91,6 +91,13 @@ def across_processes(n=2):
                               for r in range(n)])
 
 
+def across_cards():
+    """A mesh whose positions name two devices of this process (still
+    refused: one process on several cards)."""
+    return make_mesh(devices=[Position(torch.device("cpu"), 0, 0),
+                              Position(torch.device("cuda", 1), 0, 1)])
+
+
 # -- placement logic ---------------------------------------------------------------
 
 class FakeDev:
@@ -237,9 +244,13 @@ def test_sharded_state_is_distributed(mesh):
     assert placement.positions == 8
     assert placement.device_set == {torch.device("cpu")}
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        shard_state(init(build()), across_processes())
+        shard_state(init(build()), across_cards())
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        shard_data(dataset(), across_processes())
+        shard_data(dataset(), across_cards())
+    # A mesh across processes places this rank's rows, once a process
+    # group is up (tests/test_torch_multiprocess_engine.py).
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        shard_state(init(build()), across_processes())
 
 
 def build_fused(mesh=None, data=None, **kw):
@@ -273,6 +284,8 @@ def test_mesh_refusals(mesh):
     with pytest.raises(ValueError, match="compact_deliver"):
         build_fused(mesh, compact_deliver=4)
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        build_fused(across_cards())
+    with pytest.raises(RuntimeError, match="init_distributed"):
         build_fused(across_processes())
     with pytest.raises(ValueError, match="cohort-mode"):
         sim = build_fused(mesh)
