@@ -497,7 +497,20 @@ Phases, each printed as it runs; any failure exits non-zero:
    magnitude of the unsharded ``flash_attention``; rounds/s of the two
    ranks beside the virtual mesh and the unsharded run, K1 and K5
    launches per rank (counts set to 0 just before each leg), the
-   transport and the bytes a hop moves.
+   transport and the bytes a hop moves. On the same two ranks: (d) (b)'s
+   clique on a 2 x 2 ``(nodes, model)`` mesh (``make_mesh_tp``, two
+   positions a rank); (f) phase 18's 100-node All2All, ``ring_mix`` and
+   dense, RANK_A2A_ROUNDS rounds; (g) the north star with probes,
+   sentinels, a chaos scenario (an outage of rank 0's every node, a
+   partition across the ranks) and a live ``CallbackReceiver``, and the
+   same run without them, RANK_TEL_ROUNDS rounds. Then GRID_RANKS
+   processes: (e) (b)'s clique on a 4 x 2 ``(dcn, nodes)`` mesh
+   (``make_mesh_2d``, two positions a rank). Each is held against the
+   same leg on a virtual mesh of its shape (for (d) and (e) one that
+   splits its update as the ranks do): accounting, rows, report and live
+   rows bit-equal (the two chaos vitals the card sums with atomics within
+   1e-5 of the value plus 1e-6), K1's launches a rank, ms/round beside
+   the virtual mesh's, staged bytes.
 
 The last lines are the card's name and power limit, one JSON object with
 every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -6533,8 +6546,11 @@ def parallel_phase(torch, merge, rate, name, ns_k1_rps) -> tuple:
 # -- phase 21: one gossip run across processes ---------------------------------
 
 RANKS = 2                   # processes, both on cuda:0
+GRID_RANKS = 4              # (e): the (dcn, nodes) spawn's processes
 RANK_NS_ROUNDS = 100        # (a): the north star's timed rounds
-RANK_FLAG_ROUNDS = 3        # (b): the CIFAR10Net clique's rounds
+RANK_FLAG_ROUNDS = 3        # (b), (d), (e): the CIFAR10Net clique's rounds
+RANK_A2A_ROUNDS = 20        # (f): All2All's rounds, each form
+RANK_TEL_ROUNDS = 50        # (g): the north star with telemetry on and off
 RANK_RING_CALLS = 10        # (c): timed ring calls (host clock)
 RANK_TIMEOUT_S = 420        # the ranks' whole run, reaped at the limit
 RANK_GROUP_TIMEOUT_S = 300  # a collective that waits longer fails
@@ -6566,33 +6582,126 @@ def split_update(torch, handler, parts: int) -> None:
     handler.update = update
 
 
+def rank_timed(torch, merge, sim, state, rounds) -> dict:
+    """``rounds`` rounds of ``sim`` timed (the card synchronised on both
+    sides), launch counts and transfers set to 0 just before: what this
+    process holds after them (its rows of every leaf, on the host), the
+    report, the wall time, the launches and the transfers."""
+    from gossipy_tpu_torch.parallel import rules
+    from gossipy_tpu_torch.parallel.collectives import TRANSFERS
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    TRANSFERS.clear()
+    t0 = time.perf_counter()
+    state, rep = sim.start(state, n_rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(leaves={p: x.detach().cpu().clone() for p, x in
+                        rules.named_leaves(state)
+                        if isinstance(x, torch.Tensor)},
+                report=rep.to_dict(), wall=wall,
+                launches={k: v for k, v in merge.LAUNCHES.items() if v},
+                transfers=dict(TRANSFERS))
+
+
+def tp_mesh(devices):
+    """(d): a ``(nodes, model)`` mesh of 2 x 2 positions."""
+    from gossipy_tpu_torch import parallel
+    return parallel.make_mesh_tp(2, 2, devices=devices)
+
+
+def grid_mesh(devices):
+    """(e): a ``(dcn, nodes)`` mesh of 4 x 2 positions."""
+    from gossipy_tpu_torch import parallel
+    return parallel.make_mesh_2d(GRID_RANKS, 2, devices=devices)
+
+
+def rank_positions(per: int) -> list:
+    """Every rank's card as ``per`` positions of its own, in rank order."""
+    from gossipy_tpu_torch import parallel
+    return [parallel.Position(p.device, p.rank, per * p.id + j)
+            for p in parallel.devices("cuda:0") for j in range(per)]
+
+
+def flagship_leg(torch, merge, mesh, split: int = 0) -> dict:
+    """Phase 4's 64-node CIFAR10Net clique on ``mesh``: a warm-up round, a
+    fresh init, then RANK_FLAG_ROUNDS rounds timed; ``split`` (a virtual
+    mesh) runs the update in that many batches (:func:`split_update`)."""
+    sim, state = cifar_sim(torch, N_NODES, 64, 32, "cuda",
+                           RANK_FLAG_ROUNDS + 1, mesh=mesh)
+    if split:
+        split_update(torch, sim.handler, split)
+    sim.start(state, n_rounds=1)       # warm-up
+    state = sim.init_nodes(torch.Generator().manual_seed(0),
+                           common_init=True)
+    out = rank_timed(torch, merge, sim, state, RANK_FLAG_ROUNDS)
+    out.update(mesh=repr(mesh), rows=str(mesh.node_rows(N_NODES)))
+    del sim, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def all2all_legs(torch, merge, mesh) -> dict:
+    """(f): phase 18's All2All twin (100 nodes, uniform mixing) on
+    ``mesh`` with ``ring_mix`` on and off: a warm-up round, a fresh init,
+    then RANK_A2A_ROUNDS rounds timed, each form."""
+    from gossipy_tpu_torch.examples import main_all2all as a2a
+    stacked, dim = a2a.all2all_data(100)
+    out = {}
+    for form in ("ring", "dense"):
+        sim = a2a.all2all_sim(stacked, dim, device="cuda", mesh=mesh,
+                              ring_mix=form == "ring")
+        sim.start(sim.init_nodes(torch.Generator().manual_seed(42)),
+                  n_rounds=1)
+        state = sim.init_nodes(torch.Generator().manual_seed(42))
+        out[form] = rank_timed(torch, merge, sim, state, RANK_A2A_ROUNDS)
+    return out
+
+
+def rank_telemetry_kw() -> dict:
+    """(g)'s options: probes, sentinels and a chaos scenario (an outage of
+    every node of rank 0, rounds 10-19; a partition into even and odd
+    nodes, each component on both ranks, rounds 25-34)."""
+    from gossipy_tpu_torch.simulation import ChaosConfig, OutageEpisode, \
+        PartitionEpisode
+    return dict(probes=True, sentinels=True, chaos=ChaosConfig(
+        outages=(OutageEpisode(nodes=tuple(range(NS_NODES // RANKS)),
+                               start=10, stop=20),),
+        partitions=(PartitionEpisode(components=(
+            tuple(range(0, NS_NODES, 2)), tuple(range(1, NS_NODES, 2))),
+            start=25, stop=35),), horizon=RANK_TEL_ROUNDS))
+
+
+def telemetry_legs(torch, merge, mesh) -> dict:
+    """(g): the north star on ``mesh`` with :func:`rank_telemetry_kw` and
+    a live ``CallbackReceiver`` (``on``), and the same run without them
+    (``off``): a 2-round warm-up, a fresh init, RANK_TEL_ROUNDS rounds
+    timed; ``on`` keeps the live rows."""
+    from gossipy_tpu_torch.simulation import CallbackReceiver
+    out = {}
+    for label, kw in (("on", rank_telemetry_kw()), ("off", {})):
+        sim, state = northstar_sim(torch, "cuda", fused_merge="multi",
+                                   mesh=mesh, **kw)
+        sim.start(state, n_rounds=2)       # warm-up
+        rows: list = []
+        if kw:
+            sim.add_receiver(CallbackReceiver(rows.append, live=True))
+        state = sim.init_nodes(torch.Generator().manual_seed(42))
+        out[label] = rank_timed(torch, merge, sim, state, RANK_TEL_ROUNDS)
+        out[label]["live"] = json.loads(json.dumps(rows, default=float))
+    return out
+
+
 def ranks_legs(torch, merge, mesh, split: bool = False) -> dict:
-    """Phase 21's legs on ``mesh`` (``None``: the unsharded north star
-    alone): what this process holds after each (its rows of every leaf,
-    on the host), the report, the launches and the transfers of each
-    leg (counts set to 0 just before it), and its times. ``split``
+    """Phase 21's legs (a)-(c) on ``mesh`` (``None``: the unsharded north
+    star alone): what this process holds after each (its rows of every
+    leaf, on the host), the report, the launches and the transfers of
+    each leg (counts set to 0 just before it), and its times. ``split``
     (a virtual mesh) runs the CIFAR10Net leg alone, its update in
     RANKS batches (:func:`split_update`)."""
     from gossipy_tpu_torch.ops import attention as attn
-    from gossipy_tpu_torch.parallel import rules
     from gossipy_tpu_torch.parallel.collectives import TRANSFERS, \
         ring_attention
-
-    def rows(state):
-        return {p: x.detach().cpu().clone() for p, x in
-                rules.named_leaves(state) if isinstance(x, torch.Tensor)}
-
-    def timed(sim, state, rounds):
-        torch.cuda.synchronize()
-        merge.reset_launch_counts()
-        TRANSFERS.clear()
-        t0 = time.perf_counter()
-        state, rep = sim.start(state, n_rounds=rounds)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        return dict(leaves=rows(state), report=rep.to_dict(), wall=wall,
-                    launches={k: v for k, v in merge.LAUNCHES.items() if v},
-                    transfers=dict(TRANSFERS))
 
     out = {}
     if not split:
@@ -6600,20 +6709,13 @@ def ranks_legs(torch, merge, mesh, split: bool = False) -> dict:
                                    mesh=mesh)
         sim.start(state, n_rounds=2)       # warm-up
         state = sim.init_nodes(torch.Generator().manual_seed(42))
-        out["northstar"] = timed(sim, state, RANK_NS_ROUNDS)
+        out["northstar"] = rank_timed(torch, merge, sim, state,
+                                      RANK_NS_ROUNDS)
         del sim, state
     if mesh is None:
         return out
-    sim, state = cifar_sim(torch, N_NODES, 64, 32, "cuda",
-                           RANK_FLAG_ROUNDS + 1, mesh=mesh)
-    if split:
-        split_update(torch, sim.handler, RANKS)
-    sim.start(state, n_rounds=1)       # warm-up
-    state = sim.init_nodes(torch.Generator().manual_seed(0),
-                           common_init=True)
-    out["flagship"] = timed(sim, state, RANK_FLAG_ROUNDS)
-    del sim, state
-    torch.cuda.empty_cache()
+    out["flagship"] = flagship_leg(torch, merge, mesh,
+                                   RANKS if split else 0)
     if split:
         return out
     q, k, v = hop_operands(torch, attn, ATTN_S, ATTN_S, ATTN_D, ATTN_D,
@@ -6637,43 +6739,75 @@ def ranks_legs(torch, merge, mesh, split: bool = False) -> dict:
 
 
 def rank_main(argv) -> int:
-    """One rank of phase 21 (``chip_smoke.py --rank RANK PORT WORKDIR``):
-    join the group on ``cuda:0``, run :func:`ranks_legs` on the mesh over
-    every rank's positions and save what this rank holds."""
+    """One rank of phase 21 (``chip_smoke.py --rank RANK PORT WORKDIR
+    SPAWN``): join the group on ``cuda:0`` and save what this rank holds
+    after its legs. The ``pair`` spawn (RANKS processes) runs
+    :func:`ranks_legs` on the mesh over every rank's positions, then (d)
+    on a 2 x 2 ``(nodes, model)`` mesh, (f) and (g); the ``grid`` spawn
+    (GRID_RANKS processes) runs (e) on a 4 x 2 ``(dcn, nodes)`` mesh, two
+    positions a rank."""
     import datetime
 
     import torch
     from gossipy_tpu_torch import parallel
     from gossipy_tpu_torch.ops import merge
-    rank, port, workdir = int(argv[0]), argv[1], argv[2]
+    rank, port, workdir, spawn = int(argv[0]), argv[1], argv[2], argv[3]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     backend = parallel.init_distributed(
-        f"localhost:{port}", RANKS, rank, device="cuda:0",
+        f"localhost:{port}", RANKS if spawn == "pair" else GRID_RANKS, rank,
+        device="cuda:0",
         timeout=datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S))
     try:
-        mesh = parallel.make_mesh(devices=parallel.devices("cuda:0"))
-        out = ranks_legs(torch, merge, mesh)
+        if spawn == "pair":
+            mesh = parallel.make_mesh(devices=parallel.devices("cuda:0"))
+            out = ranks_legs(torch, merge, mesh)
+            out["tp"] = flagship_leg(torch, merge,
+                                     tp_mesh(rank_positions(2)))
+            out["a2a"] = all2all_legs(torch, merge, mesh)
+            out["telemetry"] = telemetry_legs(torch, merge, mesh)
+        else:
+            mesh = grid_mesh(rank_positions(2))
+            out = {"grid": flagship_leg(torch, merge, mesh)}
         out.update(backend=backend, mesh=repr(mesh),
-                   rows=str(mesh.node_rows(NS_NODES)))
-        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+                   rows=str(mesh.node_rows(NS_NODES if spawn == "pair"
+                                           else N_NODES)))
+        torch.save(out, os.path.join(workdir, f"{spawn}{rank}.pt"))
         torch.distributed.barrier()
     finally:
         torch.distributed.destroy_process_group()
     return 0
 
 
-def start_ranks(workdir: str) -> list:
-    """The RANKS processes of phase 21, on a free port of this host."""
+def start_ranks(workdir: str, spawn: str = "pair") -> list:
+    """The processes of one phase-21 spawn (``pair``: RANKS, ``grid``:
+    GRID_RANKS), on a free port of this host."""
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     here = os.path.abspath(__file__)
+    world = RANKS if spawn == "pair" else GRID_RANKS
     return [subprocess.Popen(
-        [sys.executable, here, "--rank", str(r), str(port), workdir],
+        [sys.executable, here, "--rank", str(r), str(port), workdir, spawn],
         cwd=os.path.dirname(here), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def run_spawn(torch, workdir: str, spawn: str) -> tuple:
+    """Start one spawn, reap it, and load what each rank saved; raises
+    when a rank failed. Returns ``(outputs by rank, seconds)``."""
+    t0 = time.perf_counter()
+    procs = start_ranks(workdir, spawn)
+    outs = reap_ranks(procs)
+    seconds = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{spawn} rank {r} exited {p.returncode}:\n"
+                               f"{text[-4000:]}")
+    return [torch.load(os.path.join(workdir, f"{spawn}{r}.pt"),
+                       map_location="cpu", weights_only=False)
+            for r in range(len(procs))], seconds
 
 
 def reap_ranks(procs) -> list:
@@ -6708,10 +6842,40 @@ ACCOUNTING = ("sent_per_round", "failed_per_round", "failed_per_cause",
               "total_size")
 
 
-def rank_against(torch, label, rank, got, want) -> float:
+# The report fields (and their live-row names) the card sums with atomics
+# (``index_add_`` in ``simulation/faults.py::chaos_round_stats``): in no
+# fixed order, so one process's reruns differ in their last bits (3.4e-08
+# at the north star). They are held within
+# ``torch_pairs.assert_same_telemetry``'s tolerance, 1e-5 of the value
+# plus 1e-6; every other field bit for bit.
+ATOMIC_FIELDS = ("chaos_component_gap", "chaos_within_mean",
+                 "component_gap", "within_mean")
+
+
+def same_fields(a, b, key=None) -> list:
+    """The fields where two JSON records differ: every field exactly,
+    those in ATOMIC_FIELDS within 1e-5 relative plus 1e-6."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [key or "keys"]
+        return [f for k in a for f in same_fields(a[k], b[k], k)]
+    if key in ATOMIC_FIELDS and a is not None and b is not None:
+        x, y = np.asarray(a, float), np.asarray(b, float)
+        ok = x.shape == y.shape and bool(np.all(
+            np.abs(x - y) <= 1e-6 + 1e-5 * np.abs(y)))
+        return [] if ok else [key]
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b) \
+            and any(isinstance(v, dict) for v in a):
+        return [f for u, v in zip(a, b) for f in same_fields(u, v, key)]
+    same = json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+    return [] if same else [key]
+
+
+def rank_against(torch, label, rank, got, want, world: int = RANKS
+                 ) -> float:
     """One rank's leg against a virtual mesh's: the accounting exact,
-    every leaf's rows and the whole report bit-equal. Returns the largest
-    param difference."""
+    every leaf's rows, the whole report and the live rows bit-equal.
+    Returns the largest param difference."""
     half = {p: (1 if p.startswith(("history", "mailbox", "reply_box"))
                 else 0) for p in want["leaves"]}
     for key in ACCOUNTING:
@@ -6721,7 +6885,7 @@ def rank_against(torch, label, rank, got, want) -> float:
     worst = 0.0
     for path, x in want["leaves"].items():
         dim = half[path]
-        n = x.shape[dim] // RANKS
+        n = x.shape[dim] // world
         mine = x.narrow(dim, rank * n, n)
         diff = float((got["leaves"][path].double() - mine.double()).abs()
                      .max()) if mine.numel() else 0.0
@@ -6731,21 +6895,29 @@ def rank_against(torch, label, rank, got, want) -> float:
             raise RuntimeError(f"ranks {label} rank {rank}: {path} differs "
                                f"from the virtual mesh's rows (max abs "
                                f"{diff:.3e})")
-    if json.dumps(got["report"], sort_keys=True) != json.dumps(
-            want["report"], sort_keys=True):
-        raise RuntimeError(f"ranks {label} rank {rank}: the report "
-                           "(metrics) differs from the virtual mesh's")
+    off = same_fields(got["report"], want["report"])
+    if off:
+        raise RuntimeError(f"ranks {label} rank {rank}: the report differs "
+                           f"from the virtual mesh's in {sorted(set(off))}")
+    off = same_fields(got.get("live"), want.get("live"))
+    if off:
+        raise RuntimeError(f"ranks {label} rank {rank}: the live rows "
+                           f"differ from the virtual mesh's in "
+                           f"{sorted(set(off))}")
     return worst
 
 
 def ranks_phase(torch, merge, smi) -> dict:
     """Phase 21: the legs on RANKS processes of the card against the same
     legs on a 2-position virtual mesh here (and the unsharded north
-    star); returns K1's and K5's launches by rank and leg."""
+    star), (d) against a 2 x 2 virtual TP mesh and (e), on GRID_RANKS
+    processes, against a 4 x 2 virtual ``(dcn, nodes)`` mesh; returns
+    K1's and K5's launches by rank and leg."""
     import shutil
     import tempfile
 
     from gossipy_tpu_torch.ops import attention as attn
+    t_ref = time.perf_counter()
     want = ranks_legs(torch, merge, virtual_mesh("cuda", RANKS))
     flat = ranks_legs(torch, merge, None)["northstar"]
     # CIFAR10Net's update in one batch of 64 nodes rounds otherwise than
@@ -6763,22 +6935,26 @@ def ranks_phase(torch, merge, smi) -> dict:
     del q, k, v
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # (d) and (e): the virtual meshes of the same shapes, each splitting
+    # its update as the ranks split theirs (the distance to (b)'s
+    # whole-batch run is printed); (f) and (g) on the 2-position virtual
+    # mesh.
+    more = {"tp": flagship_leg(torch, merge, tp_mesh(["cuda"] * 4), RANKS),
+            "whole": want["flagship"],
+            "grid": flagship_leg(torch, merge, grid_mesh(["cuda"] * 8),
+                                 GRID_RANKS),
+            "a2a": all2all_legs(torch, merge, virtual_mesh("cuda", RANKS)),
+            "telemetry": telemetry_legs(torch, merge,
+                                        virtual_mesh("cuda", RANKS))}
+    log(f"[ranks] the parent's references took "
+        f"{time.perf_counter() - t_ref:.1f} s")
     workdir = tempfile.mkdtemp(prefix="gossipy-ranks-")
     try:
-        t0 = time.perf_counter()
-        procs = start_ranks(workdir)
-        outs = reap_ranks(procs)
-        ranks_s = time.perf_counter() - t0
-        for r, (p, text) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                raise RuntimeError(f"rank {r} exited {p.returncode}:\n"
-                                   f"{text[-4000:]}")
-        got = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
-                          map_location="cpu", weights_only=False)
-               for r in range(RANKS)]
+        got, ranks_s = run_spawn(torch, workdir, "pair")
+        grid, grid_s = run_spawn(torch, workdir, "grid")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    paths = {}
+    paths = more_ranks_checks(torch, merge, smi, got, grid, more)
     route = attn.route(torch.float32, ATTN_D, ATTN_D)
     for r, mine in enumerate(got):
         log(f"[ranks] rank {r}: {mine['mesh']}, transport "
@@ -6854,7 +7030,105 @@ def ranks_phase(torch, merge, smi) -> dict:
                                f"{ring['launches']}")
         paths.setdefault((route, "float32"), {})[f"ranks-ring-rank{r}"] = \
             ring["launches"][route]
-    log(f"[ranks] {RANKS} ranks started, ran and reaped in {ranks_s:.1f} s")
+    log(f"[ranks] {RANKS} ranks started, ran and reaped in {ranks_s:.1f} s; "
+        f"{GRID_RANKS} ranks of (e) in {grid_s:.1f} s")
+    return paths
+
+
+def leg_line(mine, ref, rounds) -> str:
+    """A leg's times and transfers on one rank, beside its reference's."""
+    t = mine["transfers"]
+    hop = t.get("ring_bytes", 0) / max(t.get("ring_hops", 1), 1)
+    return (f"{mine['wall'] / rounds * 1e3:.3f} ms/round on this rank "
+            f"(virtual mesh {ref['wall'] / rounds * 1e3:.3f}); "
+            f"{t.get('ring_hops', 0)} ring hops across the ranks, "
+            f"{hop:.0f} B a hop, staged through host buffers "
+            f"{t.get('staged_bytes', 0)} B, {t.get('gathers', 0)} gathers "
+            f"({t.get('gather_bytes', 0)} B), {t.get('reduces', 0)} sums")
+
+
+def k1_launches(merge, label, rank, mine, ref, per_rank, per_ref) -> int:
+    """K1's launches of a leg on a rank (``per_rank`` a round with
+    messages) and on its virtual mesh (``per_ref``); raises otherwise."""
+    rep = mine["report"]
+    with_msgs = sum(1 for a, b in zip(rep["compact_slots_per_round"],
+                                      rep["wide_slots_per_round"]) if a + b)
+    got, want = mine["launches"], ref["launches"]
+    if not with_msgs or got != {merge.KERNEL: per_rank * with_msgs} \
+            or want != {merge.KERNEL: per_ref * with_msgs}:
+        raise RuntimeError(f"ranks {label} rank {rank}: launches {got} "
+                           f"(virtual mesh {want}) for {with_msgs} rounds "
+                           "with messages")
+    return got[merge.KERNEL]
+
+
+def more_ranks_checks(torch, merge, smi, pair, grid, more) -> dict:
+    """Phase 21 (d)-(g): each rank against its virtual mesh (accounting,
+    rows, report and live rows bit-equal), K1's launches and the times;
+    returns K1's launches by leg and rank."""
+    paths: dict = {}
+    k1 = paths.setdefault((merge.KERNEL, "float32"), {})
+    whole = more["whole"]["leaves"]["model/params"]
+    for label, ranks, world, ref, per in (
+            ("tp", pair, RANKS, more["tp"], (2, 4)),
+            ("grid", grid, GRID_RANKS, more["grid"], (16, 64))):
+        for r, mine in enumerate(ranks):
+            leg = mine[label]
+            diff = rank_against(torch, label, r, leg, ref, world)
+            n = N_NODES // world
+            gap = float((leg["leaves"]["model/params"]
+                         - whole[r * n:(r + 1) * n]).abs().max())
+            k1[f"ranks-{label}-rank{r}"] = k1_launches(
+                merge, label, r, leg, ref, *per)
+            log(f"[ranks] ({'d' if label == 'tp' else 'e'}) CIFAR10Net "
+                f"clique on a {leg['mesh']}, rows {leg['rows']}, "
+                f"rank {r}: {RANK_FLAG_ROUNDS} rounds, accounting, rows "
+                f"and report bit-equal to the virtual mesh with its update "
+                f"split as the ranks split it (params max abs diff "
+                f"{diff:.3e}; to (b)'s whole-batch run on 2 positions "
+                f"{gap:.3e}); K1 "
+                f"launches {leg['launches']} on this rank (virtual mesh "
+                f"{ref['launches']}); {leg_line(leg, ref, RANK_FLAG_ROUNDS)}"
+                f"; {smi}")
+    for r, mine in enumerate(pair):
+        for form in ("ring", "dense"):
+            leg, ref = mine["a2a"][form], more["a2a"][form]
+            rank_against(torch, f"a2a-{form}", r, leg, ref)
+            if leg["launches"] or ref["launches"]:
+                raise RuntimeError(f"ranks a2a-{form} rank {r}: a merge "
+                                   f"kernel launched: {leg['launches']}")
+            log(f"[ranks] (f) All2All {form}, 100 nodes, rank {r}: "
+                f"{RANK_A2A_ROUNDS} rounds, accounting, rows and report "
+                f"bit-equal to the 2-position virtual mesh; final accuracy "
+                f"{leg['report']['global_evals'][-1]}; "
+                f"{leg_line(leg, ref, RANK_A2A_ROUNDS)}; {smi}")
+        on, off = mine["telemetry"]["on"], mine["telemetry"]["off"]
+        ref_on, ref_off = more["telemetry"]["on"], more["telemetry"]["off"]
+        rank_against(torch, "telemetry", r, on, ref_on)
+        rank_against(torch, "telemetry-off", r, off, ref_off)
+        k1[f"ranks-telemetry-rank{r}"] = k1_launches(
+            merge, "telemetry", r, on, ref_on, 2, 4)
+        rep = on["report"]
+        if len(on["live"]) != RANK_TEL_ROUNDS or not sum(
+                rep["failed_per_cause"]["chaos"]):
+            raise RuntimeError(f"ranks telemetry rank {r}: "
+                               f"{len(on['live'])} live rows, chaos "
+                               f"failures {rep['failed_per_cause']['chaos']}")
+        log(f"[ranks] (g) north star with probes, sentinels, chaos and a "
+            f"live receiver, rank {r}: {RANK_TEL_ROUNDS} rounds, every "
+            f"report field and live row equal to the virtual mesh's (bit "
+            f"for bit; the chaos gap and within-mean, which the card sums "
+            f"with atomics, within 1e-5 of the value plus 1e-6); "
+            f"{RANK_TEL_ROUNDS / on['wall']:.2f} rounds/s on this rank "
+            f"(the same run without them {RANK_TEL_ROUNDS / off['wall']:.2f}"
+            f"; virtual mesh {RANK_TEL_ROUNDS / ref_on['wall']:.2f} and "
+            f"{RANK_TEL_ROUNDS / ref_off['wall']:.2f}); K1 launches "
+            f"{on['launches']} (without {off['launches']}); chaos "
+            f"failures {sum(rep['failed_per_cause']['chaos'])}, consensus "
+            f"{rep['probe_consensus_mean'][0]:.4f} -> "
+            f"{rep['probe_consensus_mean'][-1]:.4f}, trips "
+            f"{sum(rep['health_trip'])}; {leg_line(on, ref_on, RANK_TEL_ROUNDS)}"
+            f"; {smi}")
     return paths
 
 

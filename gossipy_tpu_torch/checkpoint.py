@@ -275,7 +275,8 @@ def restore_checkpoint(path: str, template_state: Any, template_draws=None,
     torch.parallel.shard_state`); a mesh across ranks is refused."""
     if mesh is not None and mesh.spans_ranks():
         from .parallel import across_ranks_refusal
-        raise NotImplementedError(across_ranks_refusal("a checkpoint"))
+        raise NotImplementedError(
+            across_ranks_refusal("a checkpoint", "checkpoints"))
     state, draws = _restore(path, template_state, template_draws)
     if mesh is not None:
         from .parallel import shard_state

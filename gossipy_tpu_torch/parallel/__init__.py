@@ -35,6 +35,15 @@ every replicated leaf whole. Either way each leaf's resolved placement
 and global shape are recorded (:func:`sharding_of`). The positions of
 ONE process on several cards are refused: that needs a machine with
 several cards (ROADMAP.md queue 1 item 13).
+
+A mesh across ranks may take the JAX package's multi-controller
+layouts: a ``(nodes, model)`` mesh from :func:`make_mesh_tp` (each
+model-axis row within one rank; the model axis places the parameter
+leaves and every rank keeps its nodes' whole rows) and a ``(dcn,
+nodes)`` mesh from :func:`make_mesh_2d` (the node axis is the flattened
+pair, each rank a contiguous run of it). A rank may own several
+positions of either, as ``Position(device, rank, id)`` entries of one
+device.
 """
 
 from __future__ import annotations
@@ -73,22 +82,39 @@ __all__ = [
     "state_shardings", "shard_state", "shard_data",
     "Mesh", "Position", "PartitionSpec", "NamedSharding", "devices",
     "sharding_of", "ring_positions", "record_local_state",
-    "choose_transport",
+    "choose_transport", "ACROSS_RANKS_LEFT",
 ]
+
+# What is left of ROADMAP.md queue 1 item 13, in its order: each use
+# still refused on a mesh across ranks names the entry it waits for.
+ACROSS_RANKS_LEFT = {
+    "checkpoints": "1, checkpoints and the flight recorder",
+    "host telemetry": "2, perf=, metrics=, ledger= and tracing=",
+    "variants": "3, the token and PENS variants and other variant "
+                "simulators",
+    "cohort": "4, a cohort's start(mesh=)",
+    "service": "5, the service",
+    "cards": "6, NCCL ranks on cards of their own and one process on "
+             "several cards",
+}
 
 # What a mesh of one process on several devices waits for.
 _ACROSS_CARDS = ("the positions of one process on several devices (or on "
                  "another device than the simulator's) are not ported "
-                 "(ROADMAP.md queue 1 item 13: several cards need a machine "
-                 "with several cards); use make_mesh(n, devices=[dev] * n) "
-                 "in one process, or one device a rank across processes")
+                 "(ROADMAP.md queue 1 item 13, left "
+                 + ACROSS_RANKS_LEFT["cards"] + ": several cards need a "
+                 "machine with several cards); use make_mesh(n, "
+                 "devices=[dev] * n) in one process, or one device a rank "
+                 "across processes")
 
 
-def across_ranks_refusal(what: str) -> str:
-    """The message of a use still refused on a mesh across ranks."""
+def across_ranks_refusal(what: str, left: str) -> str:
+    """The message of a use still refused on a mesh across ranks: ``left``
+    is its key in :data:`ACROSS_RANKS_LEFT`, the entry of ROADMAP.md queue
+    1 item 13 it waits for."""
     return (f"{what} on a mesh across processes is not ported (ROADMAP.md "
-            "queue 1 item 13); run it on a mesh whose positions all name "
-            "one device of this process")
+            f"queue 1 item 13, left {ACROSS_RANKS_LEFT[left]}); run it on a "
+            "mesh whose positions all name one device of this process")
 
 
 class Position(NamedTuple):
@@ -219,7 +245,9 @@ class Mesh:
         """Raise unless this mesh across ranks can run here: a process
         group up and owning every rank, a transport that carries this
         rank's device, one device a rank, the same count of node-axis
-        positions on every rank, and no model axis."""
+        positions on every rank, and every row of a model axis within one
+        rank (as :func:`make_mesh_tp` lays it out: a rank then holds whole
+        rows of every node, each model-axis position among its own)."""
         if not _group_up():
             raise RuntimeError(
                 f"{self!r} spans ranks {self.ranks()} but no process group "
@@ -229,9 +257,16 @@ class Mesh:
         if self.ranks() != list(range(world)):
             raise ValueError(f"{self!r} spans ranks {self.ranks()}, the "
                              f"process group has {world}")
-        if rules.MODEL_AXIS in self.axis_names:
-            raise NotImplementedError(across_ranks_refusal(
-                "a model axis (tensor parallelism)"))
+        model = rules.model_axis_entry(self)
+        if model is not None:
+            ax = self.axis_names.index(model)
+            lines = np.moveaxis(self.devices, ax, -1).reshape(
+                -1, self.devices.shape[ax])
+            if any(len({p.rank for p in line}) > 1 for line in lines):
+                raise ValueError(f"{self!r}: a row of the model axis spans "
+                                 "two ranks; build the mesh with "
+                                 "make_mesh_tp, which keeps each row "
+                                 "within one process")
         dev = self.local_device()
         transport = torch.distributed.get_backend()
         if transport == "nccl" and dev.type != "cuda":
@@ -300,8 +335,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     ``coordinator_address`` is ``host:port`` (rank 0 listens there),
     ``num_processes`` the world size and ``process_id`` this process's
     rank; ``device`` is the device this rank runs on (default: the
-    current card when one is visible, else the CPU; a card is made the
-    current one). Unless ``backend=`` names one, the backend follows
+    package's device, the current card, which raises when none is
+    visible; pass ``device="cpu"`` for ranks on the host; a card is made
+    the current one). Unless ``backend=`` names one, the backend follows
     where the ranks are: every rank's device is exchanged over a store at
     the address first, then NCCL when each rank has a card of its own,
     gloo when ranks share a card or run on the CPU
@@ -312,8 +348,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     dist = torch.distributed
     backend = kwargs.pop("backend", None)
     timeout = kwargs.get("timeout") or datetime.timedelta(minutes=10)
-    dev = canonical_device(device if device is not None else (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    from .. import resolve_device
+    dev = canonical_device(resolve_device(device))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if coordinator_address is None or num_processes is None \

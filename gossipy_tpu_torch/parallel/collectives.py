@@ -15,7 +15,12 @@ between processes ``torch.distributed.batch_isend_irecv``. Gloo's
 point-to-point carries host tensors only, so where ranks are joined by
 gloo a chunk on a card crosses through pinned host buffers (copied out
 before the send, in after the receive); NCCL carries it as it is.
-:data:`TRANSFERS` counts what crosses processes.
+:data:`TRANSFERS` counts what crosses processes. A rank may own several
+positions of the ring (a ``(dcn, nodes)`` mesh's flattened pair, or the
+node axis of a ``(nodes, model)`` mesh, at index 0 along the model axis),
+a contiguous run of it: a hop passes the chunks between its own
+positions as they are, and only the chunk at each end of the run
+crosses to the neighbouring rank.
 
 Process-group helpers for the engine on a mesh across ranks:
 :func:`rank_all_gather` (every rank's rows, in node order) and

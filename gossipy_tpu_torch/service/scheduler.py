@@ -696,7 +696,7 @@ class GossipService:
                 canonical_device
             if mesh.spans_ranks():
                 raise NotImplementedError(across_ranks_refusal(
-                    "the gossip service"))
+                    "the gossip service", "service"))
             if not mesh.is_virtual() or mesh.device() != canonical_device(
                     self.device):
                 raise NotImplementedError(_ACROSS_CARDS)

@@ -952,7 +952,7 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
         if mesh.spans_ranks():
             from ..parallel import across_ranks_refusal
             raise NotImplementedError(across_ranks_refusal(
-                "start(mesh=) of a cohort"))
+                "start(mesh=) of a cohort", "cohort"))
         _validate_cohort_mesh(sim, mesh)
         from .. import parallel as _parallel
     p_rows = _pool_data_rows(sim)

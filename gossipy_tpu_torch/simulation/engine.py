@@ -140,8 +140,16 @@ phases and the ring's ages are gathered once a round, the live count
 that picks the deliver's path is summed over the ranks, the eval's
 per-node metrics are gathered so every rank reports the whole
 population, and the receivers' failure counts are summed when the run
-ends. The run equals the single-process run on a virtual mesh of the
-same shape.
+ends (and each round for a live receiver, so that every rank's receivers
+see the whole population's round). The probes, the sentinels and the
+chaos vitals read the whole population's rows, gathered (a deliver's
+slot tables and its param rows, the round-end rows once a round), and
+compute as one process does; the round's mailbox high-water mark is the
+largest of the ranks'. A mesh may be 1-D, a ``(nodes, model)`` mesh
+(``make_mesh_tp``: each rank keeps its nodes' whole rows) or a ``(dcn,
+nodes)`` mesh (``make_mesh_2d``: the node ring is the flattened pair).
+The run equals the single-process run on a virtual mesh of the same
+shape.
 """
 
 from __future__ import annotations
@@ -670,6 +678,7 @@ class GossipSimulator(SimulationEventSender):
         on a mesh across ranks, else None."""
         self.mesh = mesh
         self._rows: Optional[slice] = None
+        self._gathered: Optional[tuple] = None
         if mesh is None:
             return
         from ..parallel import _ACROSS_CARDS, _node_axis_entry, \
@@ -684,40 +693,50 @@ class GossipSimulator(SimulationEventSender):
                              "which the mesh-sharded fused deliver cannot "
                              "re-shard; use one or the other")
         if mesh.spans_ranks():
-            mesh.check_across_ranks()
-            if mesh.local_device() != canonical_device(self.device):
-                raise ValueError(f"this rank's positions lie on "
-                                 f"{mesh.local_device()}, the simulator on "
-                                 f"{self.device}")
-            self._rows = mesh.node_rows(self.n_nodes, self._fused_ring_axis)
+            self._join_ranks(mesh)
             return
         if not mesh.is_virtual() or mesh.device() != canonical_device(
                 self.device):
             raise NotImplementedError(_ACROSS_CARDS)
 
+    def _join_ranks(self, mesh) -> None:
+        """Take this rank's share of a mesh across ranks: the mesh checked
+        (:meth:`~gossipy_tpu_torch.parallel.Mesh.check_across_ranks`), its
+        positions on this simulator's device, ``_rows`` this rank's run of
+        the node axis."""
+        from ..parallel import _node_axis_entry, canonical_device
+        mesh.check_across_ranks()
+        if mesh.local_device() != canonical_device(self.device):
+            raise ValueError(f"this rank's positions lie on "
+                             f"{mesh.local_device()}, the simulator on "
+                             f"{self.device}")
+        self._fused_ring_axis = _node_axis_entry(mesh, None)
+        self._rows = mesh.node_rows(self.n_nodes, self._fused_ring_axis)
+
+    # Whether this class runs its round on a mesh across ranks (set in
+    # the class's own body: a subclass that does not set it is refused).
+    _across_ranks = True
+
     def _refuse_across_ranks(self) -> None:
-        """The options a mesh across ranks does not run yet (ROADMAP.md
-        queue 1 item 13): variant simulators, cohort rounds, probes,
-        sentinels, chaos, ``perf=``, ``metrics=``, ``ledger=`` and
-        ``tracing=``."""
+        """The options a mesh across ranks does not run yet, each naming
+        what it waits for in ROADMAP.md queue 1 item 13: variant
+        simulators other than All2All, cohort rounds, ``perf=``,
+        ``metrics=``, ``ledger=`` and ``tracing=``."""
         if self._rows is None:
             return
         from ..parallel import across_ranks_refusal
         options = {
-            f"a variant simulator ({type(self).__name__})":
-                type(self) is not GossipSimulator,
-            "cohort=": self.cohort is not None,
-            "probes=": self.probes is not None,
-            "sentinels=": self.sentinels is not None,
-            "chaos=": self.chaos is not None,
-            "perf=": self.perf is not None,
-            "metrics=": self.metrics_enabled,
-            "ledger=": self.ledger is not None,
-            "tracing=": self.tracer is not None,
+            f"a variant simulator ({type(self).__name__})": (
+                not type(self).__dict__.get("_across_ranks"), "variants"),
+            "cohort=": (self.cohort is not None, "cohort"),
+            "perf=": (self.perf is not None, "host telemetry"),
+            "metrics=": (self.metrics_enabled, "host telemetry"),
+            "ledger=": (self.ledger is not None, "host telemetry"),
+            "tracing=": (self.tracer is not None, "host telemetry"),
         }
-        for what, on in options.items():
+        for what, (on, left) in options.items():
             if on:
-                raise NotImplementedError(across_ranks_refusal(what))
+                raise NotImplementedError(across_ranks_refusal(what, left))
 
     # -- a mesh across ranks: this rank's rows ------------------------------
 
@@ -736,6 +755,19 @@ class GossipSimulator(SimulationEventSender):
             return x
         from ..parallel.collectives import rank_all_gather
         return rank_all_gather(x, self.mesh, dim=dim)
+
+    def _whole_params(self, params: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``params`` (the round-end rows the
+        telemetry reads), gathered once a round: the probes, the chaos
+        vitals and the sentinels compute on the whole population as one
+        process does, so that every rank reports its values bit for
+        bit."""
+        if self._rows is None:
+            return params
+        hit = self._gathered
+        if hit is None or hit[0] is not params:
+            hit = self._gathered = (params, self._everyone(params))
+        return hit[1]
 
     def _n_rows(self) -> int:
         """The node rows this process holds."""
@@ -770,15 +802,19 @@ class GossipSimulator(SimulationEventSender):
         return counts[0], sum(c > 0 for c in counts[1:])
 
     # The report's per-round counts that each rank takes over its own
-    # receivers (summed over the ranks when a run ends; the high-water
-    # mark is their max); every other count is the same on every rank.
-    _RECEIVER_COUNTS = ("failed_offline", "failed_overflow")
+    # receivers (summed over the ranks when a run ends, and each round
+    # for a live receiver; the high-water mark is their max); every other
+    # count is the same on every rank.
+    _RECEIVER_COUNTS = ("failed_offline", "failed_overflow", "failed_chaos")
 
     def _reduce_receiver_counts(self, stats: dict) -> None:
-        """The whole population's receiver counts, in place, and the
-        failed total recounted from its causes."""
+        """The whole population's receiver counts, in place (host arrays
+        of any shape: a run's rows, or one round's), and the failed total
+        recounted from its causes."""
         from ..parallel.collectives import rank_all_reduce
         keys = [k for k in self._RECEIVER_COUNTS if k in stats]
+        if not keys:
+            return
         summed = rank_all_reduce(torch.as_tensor(
             np.stack([stats[k] for k in keys]), device=self.device), "sum")
         hwm = rank_all_reduce(torch.as_tensor(
@@ -788,8 +824,7 @@ class GossipSimulator(SimulationEventSender):
             stats[k] = summed[i].astype(stats[k].dtype)
         stats["mailbox_hwm"] = hwm.cpu().numpy().astype(
             stats["mailbox_hwm"].dtype)
-        stats["failed"] = sum(stats[k] for k in ("failed_drop",
-                                                 *self._RECEIVER_COUNTS))
+        stats["failed"] = sum(stats[k] for k in ("failed_drop", *keys))
 
     def _init_chaos(self, chaos: Optional[ChaosConfig]) -> None:
         """Compile the chaos config into its tables: on the host (the
@@ -1222,7 +1257,8 @@ class GossipSimulator(SimulationEventSender):
         if self._rows is not None or (mesh is not None
                                       and mesh.spans_ranks()):
             from ..parallel import across_ranks_refusal
-            raise NotImplementedError(across_ranks_refusal("a checkpoint"))
+            raise NotImplementedError(
+                across_ranks_refusal("a checkpoint", "checkpoints"))
 
     def _one_node_terms(self) -> tuple:
         """``(age shape, optimizer bytes of one node, aux bytes)``, from a
@@ -1868,15 +1904,29 @@ class GossipSimulator(SimulationEventSender):
         if tel is None:
             return n_compact, n_wide
         spans = self._leaf_spans
+        post = state.model.params
+        if self._rows is not None:
+            # Every rank folds the whole population's cell, as one process
+            # does: the slot tables gathered, and the rows where they are
+            # read.
+            apply_t, sr_t = self._everyone(apply_t), self._everyone(sr_t)
+            any_msg = apply_t.any(dim=1)
+            if tel.pa is not None and self._probe_delta_ok:
+                w = post.shape[1]
+                pre_params, merged, post = (
+                    t.contiguous() for t in self._everyone(torch.cat(
+                        [pre_params, merged, post], dim=1)).split(w, dim=1))
+            elif tel.first_bad is not None:
+                post = self._everyone(post)
         if tel.pa is not None:
             tel.pa = tel.pa.record_slot(apply_t, r - sr_t)
             if self._probe_delta_ok:
                 merged_p = select_rows(any_msg, merged, pre_params)
                 tel.pa = tel.pa.add_deltas(
                     sq_param_distance(merged_p, pre_params, spans),
-                    sq_param_distance(state.model.params, merged_p, spans))
+                    sq_param_distance(post, merged_p, spans))
         if tel.first_bad is not None:
-            bad = nonfinite_total(state.model.params, spans) > 0
+            bad = nonfinite_total(post, spans) > 0
             first_occ = torch.argmax(apply_t.any(dim=0).to(torch.int32))
             tel.first_bad = torch.where(bad, first_occ.to(torch.int32),
                                         tel.first_bad)
@@ -1901,7 +1951,7 @@ class GossipSimulator(SimulationEventSender):
                                                 self.n_nodes, self.device))
         if self.chaos is None:
             return online, None
-        forced = self._chaos_forced_offline(r)
+        forced = self._own(self._chaos_forced_offline(r))
         return online & ~forced, forced
 
     @staticmethod
@@ -2145,7 +2195,7 @@ class GossipSimulator(SimulationEventSender):
                 and self.probes.consensus)
 
     def _chaos_stats(self, state: SimState, r: int) -> dict:
-        return chaos_round_stats(state.model.params,
+        return chaos_round_stats(self._whole_params(state.model.params),
                                  self._chaos_comp[self._chaos_t(r)],
                                  self._chaos_ncomp, self._leaf_spans)
 
@@ -2192,8 +2242,8 @@ class GossipSimulator(SimulationEventSender):
         cfg = self.probes
         out: dict = {}
         if cfg.consensus:
-            cm, cx, cl = consensus_stats(state.model.params,
-                                         self._leaf_spans)
+            cm, cx, cl = consensus_stats(
+                self._whole_params(state.model.params), self._leaf_spans)
             out["probe_consensus_mean"] = cm
             out["probe_consensus_max"] = cx
             out["probe_consensus_per_layer"] = cl
@@ -2226,9 +2276,20 @@ class GossipSimulator(SimulationEventSender):
                       state: SimState, stats: dict
                       ) -> tuple[HealthCarry, dict]:
         """One round's sentinel vitals, after :meth:`_round` (so every
-        variant's round is covered), against the round-start params."""
+        variant's round is covered), against the round-start params. On a
+        mesh across ranks every rank computes them over the whole
+        population (the rows gathered, the round's mailbox high-water
+        mark the largest of the ranks', written back into ``stats``)."""
+        if self._rows is not None:
+            from ..parallel.collectives import rank_all_reduce
+            pre_params = self._everyone(pre_params)
+            if "mailbox_hwm" in stats and self.sentinels.saturation:
+                stats["mailbox_hwm"] = rank_all_reduce(
+                    torch.as_tensor(stats["mailbox_hwm"],
+                                    device=self.device), "max")
         return health_round_stats(
-            self.sentinels, hc, pre_params, state.model.params,
+            self.sentinels, hc, pre_params,
+            self._whole_params(state.model.params),
             stats.get("local"), stats.get("global"), self._leaf_spans,
             mailbox_hwm=stats.get("mailbox_hwm"))
 
@@ -2290,6 +2351,7 @@ class GossipSimulator(SimulationEventSender):
         """:meth:`_round`, then the sentinels' vitals against a copy of the
         round-start params (the round replaces the state's tensors; a copy
         keeps the delta right whatever a hook writes in place)."""
+        self._gathered = None
         if self.sentinels is None:
             return self._round(state, last_round)
         pre_params = state.model.params.clone()
@@ -2388,18 +2450,12 @@ class GossipSimulator(SimulationEventSender):
         return state, report
 
     def _check_own_rows(self, state: SimState) -> None:
-        """On a mesh across ranks: the state holds this rank's rows, and
-        no live receiver waits on a round (it would see this rank's
-        counts alone)."""
-        from ..parallel import across_ranks_refusal
+        """On a mesh across ranks: the state holds this rank's rows."""
         if state.model.params.shape[0] != self._n_rows():
             raise ValueError(
                 f"the state holds {state.model.params.shape[0]} rows; on "
                 f"this mesh across ranks a rank holds {self._n_rows()} "
                 "(place it with init_nodes or parallel.shard_state)")
-        if self.has_live_receivers():
-            raise NotImplementedError(across_ranks_refusal(
-                "a live event receiver"))
 
     def _profiled_rounds(self, state: SimState, n_rounds: int,
                          profile_dir: str) -> list:
@@ -2614,8 +2670,13 @@ class GossipSimulator(SimulationEventSender):
     def _emit_live(self, round_no: int, row: dict) -> None:
         """Notify the live receivers of one finished round (1-based
         ``round_no``): its counters copied to the host, the payloads built
-        as the replay builds them."""
+        as the replay builds them. On a mesh across ranks the receiver
+        counts are first summed (the high-water mark maxed) over the
+        ranks, two collectives a round, so that every rank's receivers
+        see the whole population's round."""
         vals = {k: torch.as_tensor(v).cpu().numpy() for k, v in row.items()}
+        if self._rows is not None:
+            self._reduce_receiver_counts(vals)
         names = self._metric_keys()
         causes = {c: int(vals["failed_" + c])
                   for c in ("drop", "offline", "overflow")}

@@ -17,7 +17,12 @@ Two delivery modes (both can be active):
   The run's counters stay on the device until it ends.
 - *live*: when a receiver declares ``live = True``, the engine notifies it
   at each round boundary, which copies that round's counters to the host:
-  one host sync a round, paid only while a live receiver is attached.
+  one host sync a round, paid only while a live receiver is attached. On
+  a mesh across ranks each rank's live receivers see the whole
+  population's round: the counts a rank takes over its own receivers
+  (``offline``, ``overflow``, ``chaos``, the mailbox high-water mark)
+  are summed (the mark maxed) over the ranks each round, two
+  collectives a round.
 """
 
 from __future__ import annotations

@@ -36,6 +36,16 @@ the JAX package:
   edge); messages already in flight when a partition starts still drain.
 - Rounds at or beyond the schedule ``horizon`` read a trailing baseline
   row: no forced outages, all edges alive, base fault rates.
+- On a mesh across ranks every rank holds the whole tables: the sends
+  and the peer draws are the whole population's on every rank, a rank's
+  receivers read their rows of the outage table, the ``"chaos"``
+  failures are summed over the ranks, and :func:`chaos_round_stats`
+  groups every node's rows (gathered), as one process does. An outage
+  of one rank's every node hangs nothing: the deliver's path is picked
+  from counts summed over the ranks.
+- On the card :func:`chaos_round_stats`' per-component sums
+  (``index_add_``) add with atomics in no fixed order: two runs may
+  differ in the last bits of the gap and the within-component mean.
 """
 
 from __future__ import annotations

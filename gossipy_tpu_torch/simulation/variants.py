@@ -25,6 +25,7 @@ import torch
 
 from ..core import AntiEntropyProtocol, CreateModelMode, MessageType, \
     SparseMixing
+from ..data import to_device
 from ..flow_control import TokenAccount
 from ..handlers.base import ModelState, select_rows, select_state
 from ..random import K_A2A_DROP, K_A2A_ONLINE, K_A2A_UPDATE, \
@@ -206,7 +207,19 @@ class All2AllGossipSimulator(GossipSimulator):
     an fp32 wire the single product, on a bf16 or int8 wire the exact
     diagonal plus the off-diagonal product over the wire's round trip.
     Sparse mixing refuses it.
+
+    On a mesh across ranks (``mesh=`` over every rank's positions) each
+    rank holds its nodes' rows and every rank draws the whole round's
+    edges, so the accounting is the whole population's on every rank.
+    The mix is this rank's rows of ``W_eff @ P``: through the ring
+    (``ring_mix=True``, this rank's rows of ``W_eff`` against the chunks
+    that pass), or the whole product over every rank's rows gathered (a
+    dense or sparse mixing), this rank's rows kept.
     """
+
+    _across_ranks = True
+    # Every rank counts the whole population's edges: nothing to sum.
+    _RECEIVER_COUNTS = ()
 
     def __init__(self, *args, mixing, mesh=None, ring_mix: bool = False,
                  sparse_mix_form: str = "auto", **kwargs):
@@ -243,12 +256,12 @@ class All2AllGossipSimulator(GossipSimulator):
         node count dividing the ring."""
         self.mesh = mesh
         self.ring_mix = bool(ring_mix)
-        if mesh is not None:
-            from ..parallel import _ACROSS_CARDS, across_ranks_refusal, \
-                canonical_device
-            if mesh.spans_ranks():
-                raise NotImplementedError(across_ranks_refusal(
-                    "All2All gossip"))
+        if mesh is not None and mesh.spans_ranks():
+            self._join_ranks(mesh)
+            self.data = to_device(self._place_data(self.data), self.device)
+            self._refuse_across_ranks()
+        elif mesh is not None:
+            from ..parallel import _ACROSS_CARDS, canonical_device
             if not mesh.is_virtual() or mesh.device() != canonical_device(
                     self.device):
                 raise NotImplementedError(_ACROSS_CARDS)
@@ -316,20 +329,34 @@ class All2AllGossipSimulator(GossipSimulator):
         """Broadcast mixing loses no message to a full mailbox."""
 
     def _mix(self, params: torch.Tensor, w_eff: torch.Tensor) -> torch.Tensor:
+        """This process's rows of ``W_eff @ P`` from its rows of
+        ``params`` (``w_eff`` is the whole ``[N, N]`` matrix)."""
         if self.ring_mix:
             from ..parallel.collectives import ring_mix_pytree
 
             def mm(w, x):
-                return ring_mix_pytree(w, x, self.mesh, self._ring_axis)
+                return ring_mix_pytree(self._own(w), x, self.mesh,
+                                       self._ring_axis)
         else:
+            # The whole product, this rank's rows kept: a GEMM of a rank's
+            # rows of ``w`` rounds otherwise on the card than the whole
+            # one (by 2.980e-08 at 100 nodes on two ranks of an H100).
             def mm(w, x):
-                return w @ x
+                return self._own(w @ self._everyone(x))
         if self.history_dtype == "float32":
             return mm(w_eff, params)
         w_diag = torch.diagonal(w_eff)
         w_off = w_eff - torch.diag(w_diag)
-        return w_diag[:, None] * params + mm(w_off,
-                                             self._wire_roundtrip(params))
+        return self._own(w_diag)[:, None] * params + mm(
+            w_off, self._wire_roundtrip(params))
+
+    def _sq_distance(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """:func:`sq_param_distance` of two row stacks over the whole
+        population (one gather of both on a mesh across ranks)."""
+        if self._rows is not None:
+            a, b = (t.contiguous() for t in self._everyone(
+                torch.cat([a, b], dim=1)).split(a.shape[1], dim=1))
+        return sq_param_distance(a, b, self._leaf_spans)
 
     def _wire(self, params: torch.Tensor) -> torch.Tensor:
         """What the peers receive of ``params``: the rows themselves on an
@@ -341,10 +368,11 @@ class All2AllGossipSimulator(GossipSimulator):
     def _train(self, model: ModelState, fires, r: int) -> ModelState:
         perms = self._update_orders(
             r, [K_A2A_UPDATE],
-            torch.zeros(self.n_nodes, dtype=torch.int64, device=self.device))
+            torch.zeros(self._n_rows(), dtype=torch.int64,
+                        device=self.device))
         with _scopes.phase_scope(_scopes.PHASE_TRAIN):
             updated = self.handler.update(model, self._local_data(), perms)
-        return select_state(fires, updated, model)
+        return select_state(self._own(fires), updated, model)
 
     def _chaos_mask_idx(self, r: int) -> Optional[int]:
         """The round's edge-alive mask index under partitions or churn,
@@ -397,9 +425,12 @@ class All2AllGossipSimulator(GossipSimulator):
         self_eff = mix.self_w * inv
 
         def merge(params):
-            return (self_eff[:, None] * params
-                    + torch.einsum("ns,nsd->nd", w_eff,
-                                   self._wire(params)[nbr]))
+            # Every rank's rows in, this rank's out (the identity in one
+            # process).
+            whole = self._everyone(params)
+            return self._own(self_eff[:, None] * whole
+                             + torch.einsum("ns,nsd->nd", w_eff,
+                                            self._wire(whole)[nbr]))
 
         def in_age(ages):
             live_e = live.view(live.shape + (1,) * (ages.dim() - 1))
@@ -435,9 +466,11 @@ class All2AllGossipSimulator(GossipSimulator):
             0, rows, (live & (mix.edge_w > 0)).to(torch.int32))
 
         def merge(params):
-            contrib = w_eff[:, None] * self._wire(params)[senders]
-            return (self_eff[:, None] * params
-                    + torch.zeros_like(params).index_add_(0, rows, contrib))
+            whole = self._everyone(params)
+            contrib = w_eff[:, None] * self._wire(whole)[senders]
+            return self._own(self_eff[:, None] * whole
+                             + torch.zeros_like(whole).index_add_(
+                                 0, rows, contrib))
 
         def in_age(ages):
             tail = (1,) * (ages.dim() - 1)
@@ -475,7 +508,8 @@ class All2AllGossipSimulator(GossipSimulator):
         # receive_merge, the local update (_train) the train.
         with _scopes.phase_scope(_scopes.PHASE_SEND):
             self._snapshot(state, r)
-            fires, _ = self._fire_mask(state, r, 0)
+            fires, _ = self._fire_mask(state, r, 0,
+                                       self._everyone(state.phase))
             online = self.draws.bernoulli(r, K_A2A_ONLINE, self.online_prob,
                                           n, dev)
             forced = None
@@ -491,36 +525,37 @@ class All2AllGossipSimulator(GossipSimulator):
                 edges = self._padded_edges(r, fires, online, forced)
             else:
                 edges = self._segment_edges(r, fires, online, forced)
-        received = edges.accepted > 0
+        # On a mesh across ranks the edges are the whole population's and
+        # the rows this rank's.
+        received = self._own(edges.accepted > 0)
 
         # The probes' merge and train deltas: the mix and the local update
         # are separate phases here, so the split is exact.
         deltas = self.probes is not None and self.probes.mixing
         zero_f = torch.zeros((), dtype=torch.float32, device=dev)
         merge_sq = train_sq = zero_f
-        spans = self._leaf_spans
         model = state.model
         if self.handler.mode == CreateModelMode.UPDATE_MERGE:
             pre_train = model.params
             model = self._train(model, fires, r)
             if deltas:
-                train_sq = sq_param_distance(model.params, pre_train, spans)
+                train_sq = self._sq_distance(model.params, pre_train)
         with _scopes.phase_scope(_scopes.PHASE_RECEIVE_MERGE):
             ages = model.n_updates
             mixed = select_rows(received, edges.mix(model.params),
                                 model.params)
             if deltas:
-                merge_sq = sq_param_distance(mixed, model.params, spans)
+                merge_sq = self._sq_distance(mixed, model.params)
+            in_age = self._own(edges.in_age(self._everyone(ages)))
             model = ModelState(mixed, model.opt_state,
                                select_rows(received,
-                                           torch.maximum(ages,
-                                                         edges.in_age(ages)),
+                                           torch.maximum(ages, in_age),
                                            ages))
         if self.handler.mode != CreateModelMode.UPDATE_MERGE:
             pre_train = model.params
             model = self._train(model, fires, r)
             if deltas:
-                train_sq = sq_param_distance(model.params, pre_train, spans)
+                train_sq = self._sq_distance(model.params, pre_train)
         state.model = model
         with _scopes.phase_scope(_scopes.PHASE_EVAL):
             local, glob = self._maybe_eval(state, r, last_round)
@@ -566,7 +601,8 @@ class All2AllGossipSimulator(GossipSimulator):
         dev = self.device
         out: dict = {}
         if cfg.consensus:
-            cm, cx, cl = consensus_stats(state.model.params, self._leaf_spans)
+            cm, cx, cl = consensus_stats(
+                self._whole_params(state.model.params), self._leaf_spans)
             out["probe_consensus_mean"] = cm
             out["probe_consensus_max"] = cx
             out["probe_consensus_per_layer"] = cl

@@ -15,6 +15,11 @@ never the row's padding, and never the history ring:
 - a per-round ``health_trip`` flag: a non-finite count or a divergence
   flag fired this round.
 
+On a mesh across ranks the engine computes the vitals over the whole
+population on every rank (the round-start and round-end rows gathered,
+the round's mailbox high-water mark the largest of the ranks'), so
+``health_trip`` and every count are the same on every rank.
+
 And the flight recorder (:class:`FlightRecorder`): it drives a run in
 chunks and, when a sentinel trips, the run raises, or the watchdog fires,
 writes a repro bundle (the last healthy state and its draw state through

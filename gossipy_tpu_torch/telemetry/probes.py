@@ -15,7 +15,10 @@ row's padding columns are never read.
   merge-delta vs train-delta norms.
 
 Probes are opt-in (``GossipSimulator(probes=...)``): with ``probes=None``
-the round computes none of this.
+the round computes none of this. On a mesh across ranks the engine folds
+the whole population's slot tables and rows (gathered) into one
+accumulator and computes :func:`consensus_stats` over every node's
+rows, so every rank reports the values one process reports.
 """
 
 from __future__ import annotations

@@ -38,7 +38,7 @@ WORKER = textwrap.dedent("""
     from gossipy_tpu_torch import parallel
     rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     parallel.init_distributed(f"localhost:{{port}}", 2, rank,
-                              backend="gloo",
+                              device="cpu", backend="gloo",
                               timeout=datetime.timedelta(seconds=60))
     try:
         positions = [parallel.Position(p.device, p.rank, 2 * p.id + j)

@@ -26,8 +26,19 @@ One spawn of two ranks serves every check; each rank runs these legs
   (bit for bit) and the JAX package's ``ring_attention`` (1e-6);
 - ``nohang``: every peer lies on rank 0, so rank 1's receivers never
   get a message; both ranks finish and equal the virtual mesh run;
+- ``telemetry``: the oracle leg's configuration with ``probes=True``,
+  ``sentinels=True``, a chaos scenario (an outage of every node of rank
+  0, a partition whose components straddle the ranks) and a live
+  ``CallbackReceiver``, 10 rounds; ``a2a-ring`` and ``a2a-dense``:
+  All2All with uniform mixing on its ring and dense forms, probes and
+  sentinels on, 8 rounds (and ``a2a-sparse``, its segment mix over the
+  CSR form of the same graph). Under the oracle, every rank's rows, report
+  (every ``probe_*``/``health_*``/``chaos_*`` array among them) and live
+  rows equal the virtual mesh run's bit for bit, and the run matches the
+  JAX engine's on a 2-device mesh (``torch_pairs.assert_same_telemetry``);
 - ``refusals``: every use still refused on a mesh across ranks raises
-  ``NotImplementedError`` naming ROADMAP.md queue 1 item 13.
+  ``NotImplementedError`` naming what it waits for in ROADMAP.md queue 1
+  item 13.
 
 The ranks reach each other on ``localhost`` at a free port; the spawn
 has TIMEOUT_S and is reaped whatever happens.
@@ -65,6 +76,7 @@ from gossipy_tpu_torch.simulation import GossipSimulator
 REPO = Path(__file__).resolve().parents[1]
 N, FEAT, ROUNDS = 16, 8, 10
 ORACLE_ROUNDS = 6
+TELEMETRY_ROUNDS, A2A_ROUNDS = 10, 8
 ATTN_S, ATTN_D = 32, 8
 TIMEOUT_S = 150
 
@@ -159,6 +171,85 @@ def oracle_sim(mesh):
             draws=JaxDraws(key, init_key=key), device="cpu")
 
 
+def telemetry_kw():
+    """Probes, sentinels and chaos: an outage of rank 0's every node
+    (rounds 2-4: rank 0's receivers get nothing while rank 1's do), and
+    from round 5 a partition into even and odd nodes (each component on
+    both ranks)."""
+    from gossipy_tpu_torch.simulation import ChaosConfig, OutageEpisode, \
+        PartitionEpisode
+    return dict(probes=True, sentinels=True, chaos=ChaosConfig(
+        outages=(OutageEpisode(nodes=tuple(range(N // 2)), start=2,
+                               stop=5),),
+        partitions=(PartitionEpisode(components=(
+            tuple(range(0, N, 2)), tuple(range(1, N, 2))), start=5,
+            stop=8),), horizon=TELEMETRY_ROUNDS))
+
+
+def telemetry_sim(mesh):
+    """The oracle leg's configuration with every round telemetry on."""
+    from torch_oracle import JaxDraws
+    from torch_pairs import logreg, small_data
+    _, th = logreg()
+    key = jax.random.PRNGKey(3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return GossipSimulator(
+            th, tcore.Topology.random_regular(N, 4, seed=0),
+            parallel.shard_data(small_data(n=N), mesh), delta=100,
+            fused_merge="multi", mailbox_slots=4, mesh=mesh,
+            draws=JaxDraws(key, init_key=key), device="cpu",
+            **telemetry_kw())
+
+
+def a2a_topology(form):
+    """``random_regular(16, 4)``, dense, or as a CSR ``SparseTopology``
+    for the sparse (segment) mix."""
+    from gossipy_tpu_torch.simulation import faults
+    topo = tcore.Topology.random_regular(N, 4, seed=0)
+    if form != "sparse":
+        return topo
+    pairs = np.stack(faults._undirected_pairs(topo), axis=1)
+    return tcore.SparseTopology(N, pairs)
+
+
+def a2a_sim(mesh, form):
+    """All2All with uniform mixing over ``random_regular(16, 4)`` on its
+    ``form`` (``ring``, ``dense`` or ``sparse``), probes and sentinels
+    on, under the oracle."""
+    from gossipy_tpu_torch.simulation import All2AllGossipSimulator
+    from torch_oracle import JaxDraws
+    from torch_pairs import logreg, small_data
+    _, th = logreg()
+    key = jax.random.PRNGKey(4)
+    topo = a2a_topology(form)
+    return All2AllGossipSimulator(
+        th, topo, parallel.shard_data(small_data(n=N), mesh), delta=100,
+        mixing=tcore.uniform_mixing(topo), mesh=mesh,
+        ring_mix=form == "ring", probes=True, sentinels=True,
+        draws=JaxDraws(key, init_key=key), device="cpu")
+
+
+def oracle_legs(mesh, init) -> dict:
+    """The telemetry and All2All legs on ``mesh`` from the oracle leg's
+    initial state: each one's rows, whole state, report and live rows."""
+    from gossipy_tpu_torch.simulation import CallbackReceiver
+    out = {}
+    for leg, rounds in (("telemetry", TELEMETRY_ROUNDS),
+                        ("a2a-ring", A2A_ROUNDS), ("a2a-dense", A2A_ROUNDS),
+                        ("a2a-sparse", A2A_ROUNDS)):
+        sim = telemetry_sim(mesh) if leg == "telemetry" else \
+            a2a_sim(mesh, leg[4:])
+        rows = []
+        if leg == "telemetry":
+            sim.add_receiver(CallbackReceiver(rows.append, live=True))
+        state = parallel.shard_state(sim.init_state(*init), mesh)
+        state, rep = run(sim, state, rounds)
+        out[leg] = dict(leaves=leaves(state), report=rep.to_dict(), run=rep,
+                        whole=gathered(state, mesh), live=rows)
+    return out
+
+
 def run(sim, state, rounds):
     state, rep = sim.start(state, n_rounds=rounds)
     return state, rep
@@ -181,24 +272,11 @@ def refusals(mesh) -> dict:
     """Every use still refused across ranks: its exception and message."""
     from gossipy_tpu_torch import checkpoint, core
     from gossipy_tpu_torch.service import GossipService
-    from gossipy_tpu_torch.simulation import All2AllGossipSimulator, \
-        SimulationEventReceiver
+    from gossipy_tpu_torch.simulation import All2AllGossipSimulator
     from gossipy_tpu_torch.telemetry import Tracer
-    grid = np.empty((mesh.size, 1), dtype=object)
-    for i, p in enumerate(mesh.positions):
-        grid[i, 0] = p
-    tp = parallel.Mesh(grid, ("nodes", "model"))
 
     def sim_with(**kw):
         return northstar(mesh, rounds=1, **kw)
-
-    class Live(SimulationEventReceiver):
-        live = True
-
-    def live():
-        sim, state = sim_with()
-        sim.add_receiver(Live())
-        sim.start(state, n_rounds=1)
 
     def cohort_start():
         sim = GossipSimulator(
@@ -206,14 +284,6 @@ def refusals(mesh) -> dict:
                        input_shape=(FEAT,)), core.Topology.clique(N),
             dataset(), fused_merge="multi", cohort=8, device="cpu")
         sim.start(sim.init_cohort_pool(), n_rounds=1, mesh=mesh)
-
-    def a2a():
-        topo = core.Topology.clique(N)
-        All2AllGossipSimulator(
-            SGDHandler(LogisticRegression(FEAT, 2), losses.cross_entropy,
-                       input_shape=(FEAT,)), topo, dataset(),
-            mixing=core.uniform_mixing(topo), mesh=mesh, ring_mix=True,
-            device="cpu")
 
     class Variant(GossipSimulator):
         """A variant with a round hook of its own (the package's variants
@@ -234,17 +304,22 @@ def refusals(mesh) -> dict:
     def restore(path):
         checkpoint.restore_checkpoint(path, None, mesh=mesh)
 
+    class A2AVariant(All2AllGossipSimulator):
+        """A user's subclass of All2All: refused as every variant is."""
+
+    def a2a_variant():
+        topo = core.Topology.clique(N)
+        A2AVariant(SGDHandler(LogisticRegression(FEAT, 2),
+                              losses.cross_entropy, input_shape=(FEAT,)),
+                   topo, dataset(), mixing=core.uniform_mixing(topo),
+                   mesh=mesh, device="cpu")
+
     cases = {
-        "all2all": a2a,
         "service": lambda: GossipService("unused", mesh=mesh,
                                          device="cpu"),
         "cohort start(mesh=)": cohort_start,
-        "model axis": lambda: northstar(tp),
         "variant": variant,
-        "probes": lambda: sim_with(probes=True),
-        "sentinels": lambda: sim_with(sentinels=True),
-        "chaos": lambda: sim_with(chaos={"outages": [
-            {"nodes": [0], "start": 1, "stop": 2}], "horizon": 3}),
+        "all2all variant": a2a_variant,
         "perf": lambda: sim_with(perf=True),
         "metrics": lambda: sim_with(metrics=True),
         "ledger": lambda: sim_with(ledger="ledger.jsonl"),
@@ -253,7 +328,6 @@ def refusals(mesh) -> dict:
         "checkpoint load": lambda: sim_with()[0].load("unused.pt",
                                                       mesh=mesh),
         "restore_checkpoint(mesh=)": lambda: restore("unused.pt"),
-        "live receiver": live,
     }
     out = {}
     for name, fn in cases.items():
@@ -284,6 +358,7 @@ def run_legs(mesh, workdir) -> dict:
     state = parallel.shard_state(sim.init_state(*init), mesh)
     state, rep = run(sim, state, ORACLE_ROUNDS)
     out["oracle"] = dict(whole=gathered(state, mesh), report=rep)
+    out.update(oracle_legs(mesh, init))
     from gossipy_tpu_torch.parallel.collectives import TRANSFERS, \
         ring_attention
     q, k, v = attention_inputs()
@@ -352,6 +427,30 @@ def rank_rows(x: torch.Tensor, path: str, rank: int) -> torch.Tensor:
     return x.narrow(dim, rank * half, half)
 
 
+def jax_legs(jmesh) -> dict:
+    """The telemetry and All2All legs in the JAX engine on ``jmesh``:
+    ``{leg: (simulator, run key, rounds)}``."""
+    from torch_pairs import jax_kw, jax_topology, logreg, small_data
+    jh, _ = logreg()
+    jtopo = jcore.Topology(tcore.Topology.random_regular(N, 4,
+                                                         seed=0).adjacency)
+    data = jparallel.shard_data(small_data(n=N), jmesh)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = {"telemetry": (jsimulation.GossipSimulator(
+            jh, jtopo, data, delta=100, fused_merge="multi",
+            mailbox_slots=4, mesh=jmesh, **jax_kw(telemetry_kw())),
+            jax.random.PRNGKey(3), TELEMETRY_ROUNDS)}
+        for form in ("ring", "dense", "sparse"):
+            topo = jax_topology(a2a_topology(form))
+            out[f"a2a-{form}"] = (jsimulation.All2AllGossipSimulator(
+                jh, topo, data, delta=100,
+                mixing=jcore.uniform_mixing(topo), mesh=jmesh,
+                ring_mix=form == "ring", probes=True, sentinels=True),
+                jax.random.PRNGKey(4), A2A_ROUNDS)
+    return out
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Start the two ranks, run the parent's references while they run,
@@ -385,6 +484,19 @@ def ranks(tmp_path_factory):
                                n_rounds=ORACLE_ROUNDS, key=key,
                                donate_state=False)
         refs["jax"] = (jsim, tsim, st0, jst, jrep)
+        virt = oracle_legs(virtual(), (st0.model, st0.phase))
+        for leg, (jleg, run_key, rounds) in jax_legs(jmesh).items():
+            want = virt[leg]
+            refs[leg] = (want["leaves"], want["report"], None)
+            refs[f"{leg}-live"] = want["live"]
+            tleg = telemetry_sim(virtual()) if leg == "telemetry" else \
+                a2a_sim(virtual(), leg[4:])
+            jst, jrep = jleg.start(
+                jparallel.shard_state(jleg.init_nodes(key, common_init=True),
+                                      jmesh),
+                n_rounds=rounds, key=run_key, donate_state=False)
+            refs[f"{leg}-jax"] = (jleg, tleg, tleg.init_state(
+                st0.model, st0.phase), jst, jrep)
     finally:
         outs = reap(procs, TIMEOUT_S)
     for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
@@ -394,7 +506,9 @@ def ranks(tmp_path_factory):
     return got, refs
 
 
-@pytest.mark.parametrize("leg", ["northstar", "network", "nohang"])
+@pytest.mark.parametrize("leg", ["northstar", "network", "nohang",
+                                 "telemetry", "a2a-ring", "a2a-dense",
+                                 "a2a-sparse"])
 def test_ranks_equal_the_virtual_mesh_run(ranks, leg):
     """Both ranks report the whole population's run, equal to each other
     and to the one-process run on a 2-position virtual mesh; each rank
@@ -415,6 +529,48 @@ def test_ranks_equal_the_virtual_mesh_run(ranks, leg):
     if leg == "network":
         causes = rep["failed_per_cause"]
         assert sum(causes["offline"]) > 0 and sum(causes["drop"]) > 0
+    if leg == "telemetry":
+        assert sum(rep["failed_per_cause"]["chaos"]) > 0
+        assert max(rep["chaos_active_components"]) == 2
+
+
+@pytest.mark.parametrize("leg", ["telemetry", "a2a-ring", "a2a-dense",
+                                 "a2a-sparse"])
+def test_telemetry_legs_match_the_jax_mesh_run(ranks, leg):
+    """Under the JAX draw oracle, each rank's run of the telemetry and
+    All2All legs against the JAX engine on a 2-device mesh: accounting
+    exact, params and metrics within 1e-5, every probe, health and chaos
+    array within ``torch_pairs.assert_same_telemetry``'s tolerance."""
+    from torch_pairs import assert_same_run, assert_same_telemetry
+    got, refs = ranks
+    jsim, tsim, st0, jst, jrep = refs[f"{leg}-jax"]
+    for rank in (0, 1):
+        mine = got[rank][leg]
+        whole = mine["whole"]
+        tst = rules.tree_map_with_path(
+            lambda p, x: torch.as_tensor(whole[p])
+            if isinstance(x, torch.Tensor) else x, st0)
+        tst.round = jst.round
+        assert_same_run(jsim, tsim, jst, tst, jrep, mine["run"])
+        seen = assert_same_telemetry(jrep, mine["run"])
+        assert "probe_consensus_mean" in seen and "health_trip" in seen
+
+
+def test_live_rows_across_ranks(ranks):
+    """A live receiver on each rank sees every round as it ends, with the
+    whole population's counts (the receiver counts summed over the ranks
+    each round) and payloads: each rank's rows equal the virtual mesh
+    run's, and an outage of every node of rank 0 did not hang."""
+    got, refs = ranks
+    want = refs["telemetry-live"]
+    assert len(want) == TELEMETRY_ROUNDS
+    assert sum(row["failed_by_cause"]["chaos"] for row in want) > 0
+    assert all("probes" in row and "health" in row and "chaos" in row
+               for row in want)
+    for rank in (0, 1):
+        assert json.dumps(got[rank]["telemetry"]["live"], sort_keys=True,
+                          default=float) == json.dumps(
+            want, sort_keys=True, default=float), rank
 
 
 def test_gather_brings_back_the_whole_state(ranks):
@@ -484,13 +640,32 @@ def test_transport_and_hop_bytes(ranks):
 
 def test_refusals_across_ranks(ranks):
     """Every use still refused on a mesh across ranks raises
-    ``NotImplementedError`` naming what is missing (ROADMAP.md queue 1
-    item 13)."""
+    ``NotImplementedError`` naming what is missing and the entry of
+    ROADMAP.md queue 1 item 13 it waits for."""
+    left = {"checkpoint": 1, "restore": 1, "perf": 2, "metrics": 2,
+            "ledger": 2, "tracing": 2, "variant": 3, "all2all variant": 3,
+            "cohort": 4, "service": 5}
     got, _ = ranks
     for rank in (0, 1):
-        for name, what in got[rank]["refusals"].items():
+        refused = got[rank]["refusals"]
+        assert len(refused) == 11
+        for name, what in refused.items():
             assert what.startswith("NotImplementedError"), (name, what)
-            assert "queue 1 item 13" in what, (name, what)
+            item = next(v for k, v in sorted(left.items(),
+                                             key=lambda kv: -len(kv[0]))
+                        if name.startswith(k))
+            assert f"queue 1 item 13, left {item}," in what, (name, what)
+
+
+def test_init_distributed_runs_on_the_card_unless_the_cpu_is_named(
+        monkeypatch):
+    """Without ``device=`` a rank joins on the card, as every entry point
+    runs: with no card visible it raises before it forms a group, and
+    never falls back to the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.init_distributed(f"localhost:{free_port()}", 1, 0)
+    assert not torch.distributed.is_initialized()
 
 
 def test_choose_transport():

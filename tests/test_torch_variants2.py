@@ -86,12 +86,20 @@ def test_all2all_refuses_what_is_not_ported():
     mix = tcore.uniform_mixing(topo)
     handler = logreg("weighted")[1]
     from gossipy_tpu_torch import parallel
+    # All2All runs on a mesh across ranks, which needs a process group;
+    # one process's positions on two devices are not ported.
     across = parallel.make_mesh(devices=[
         parallel.Position(torch.device("cpu"), rank, rank)
         for rank in (0, 1)])
+    two_cards = parallel.make_mesh(devices=[
+        parallel.Position(torch.device("cpu"), 0, 0),
+        parallel.Position(torch.device("cuda", 1), 0, 1)])
     for kw, err in ((dict(ring_mix=True), ValueError),
-                    (dict(mesh=across), NotImplementedError),
-                    (dict(mesh=across, ring_mix=True), NotImplementedError)):
+                    (dict(mesh=across), RuntimeError),
+                    (dict(mesh=across, ring_mix=True), RuntimeError),
+                    (dict(mesh=two_cards), NotImplementedError),
+                    (dict(mesh=two_cards, ring_mix=True),
+                     NotImplementedError)):
         with pytest.raises(err):
             tsimulation.All2AllGossipSimulator(handler, topo, small_data(),
                                                mixing=mix, device="cpu",
