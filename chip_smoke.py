@@ -33,12 +33,14 @@ Phases, each printed as it runs; any failure exits non-zero:
    the routes' edges (SWEEP_EDGE_*: 1 to 132 columns, 1 to 64 slots,
    half live, empty slots whose w_self is not 1) on float32, bf16 and
    int8 rings, bit-equality only (untimed); K1's lines also give ``eager_call_ms``, one eager call on
-   the host's clock. K3's and K4's lines (``check_flat``, here and at
-   the token north star's shape in phase 10) give ``ms``, a call of the
-   wrapper with its int64 -> int32 index cast, beside
-   ``kernel_only_ms``, the kernel launched through its C entry point on
-   an int32 table made outside the timed call (``flat_launcher``, held
-   bit-equal too).
+   the host's clock. K3 and K4 (``check_flat``; float32, bf16 and int8
+   rings) at phase 4's rows, at the ragged shapes and, untimed, at
+   SWEEP_EDGE_F's 1 to 132 columns on SWEEP_EDGE_N rows: bit-equal, a
+   call of ``gather_merge_flat`` one kernel node in a CUDA graph that
+   captured it, the route ``flat_plan`` took; timed, ``ms`` (the
+   wrapper's call) beside the plain version, the bound and the share, at
+   phase 4's rows with the inputs out of the L2 (``time_ms_cold``, as a
+   round's merge finds them) and back to back (``warm_ms``).
 4. paths: a 64-node CIFAR10Net gossip run on the card (clique, PUSH,
    MERGE_UPDATE, 4-slot mailbox, SGD 0.05, batch 32, synthetic 32x32x3
    data with 64 images per node), on each deliver path: the single-pass
@@ -191,8 +193,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    Giaretta vanilla, K3 or K4 once per occupied slot on the token runs,
    none elsewhere), every call bit-equal to its plain version
    (``MergeAudit``). K1 against its plain version, timed, at Giaretta's
-   shape (4,141 rows of the 60-column stride, K = 59), K3 and K4 (bf16)
-   at the token north star's (100 rows of 116 columns, one slot). (b)
+   shape (4,141 rows of the 60-column stride, K = 59), K3 and K4 (bf16
+   and int8) at the token north star's (100 rows of 116 columns, one
+   slot), each one kernel a call. (b)
    Each at full width (4,141 nodes; 100; 5 nodes
    and 50,000 images) for VARIANT_ROUNDS rounds (Onoszko: a window of
    ONOSZKO_ROUNDS phase-1 rounds holding its first PENS merge, which
@@ -519,8 +522,8 @@ every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import io
+import itertools
 import json
 import os
 import statistics
@@ -545,6 +548,7 @@ MEMORY_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
 # fp32 outside the tensor cores, H100 SXM (NVIDIA's data sheet); the folds
 # are elementwise, so no tensor-core rate applies.
 FP32_FLOPS = 67e12
+L2_BYTES = 50 * 2**20   # the H100's L2 cache
 # The dense bf16 tensor-core rate of each H100 part is the port's
 # telemetry.cost.PEAK_FLOPS (NVIDIA data sheets), read by tensor_rate: the
 # bound of attention's two products (a bf16 x bf16 product is exact in
@@ -662,6 +666,22 @@ def time_ms(torch, fn, reps: int = 20, iters: int = 50) -> float:
     return statistics.median(times)
 
 
+def time_ms_cold(torch, fn, args, nbytes: int, iters: int = 50) -> float:
+    """As ``time_ms``, with no call finding its inputs in the L2: the
+    calls rotate over copies of ``args`` (each tensor cloned), enough that
+    the calls between two on one copy move 3 L2s or more (``nbytes``: one
+    call's). On the engine's path a round's other work comes between two
+    merges, so a call there starts cold, as here."""
+    copies = max(2, -(-4 * L2_BYTES // nbytes))
+    sets = [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            for _ in range(copies)]
+    turn = itertools.count()
+
+    def call():
+        return fn(*sets[next(turn) % copies])
+    return time_ms(torch, call, reps=copies * -(-20 // copies), iters=iters)
+
+
 def call_ms(torch, fn, iters: int = 50) -> float:
     """Median host-clock time of one eager call, launch overhead included
     (synchronised after each call)."""
@@ -742,52 +762,16 @@ def wire_ring(torch, rng, m, f, n_leaves, wire, dev):
     return h.to(dev, getattr(torch, wire)), None
 
 
-def flat_launcher(torch, merge, p, h, idx, ws, wp, scale, starts):
-    """A call of K3 (float32 ring, no scale) or K4 through its C entry
-    point with the int32 index table made here, once: what
-    ``gather_merge_flat_cuda`` launches without its int64 -> int32 cast
-    (not counted in ``merge.LAUNCHES``)."""
-    from gossipy_tpu_torch.ops import _build
-    idx32 = idx.to(torch.int32).contiguous()
-    out = torch.empty_like(p)
-    n, f = p.shape
-    if h.dtype == torch.float32 and scale is None:
-        fn = _build.function(merge.SOURCES[merge.KERNEL_FLAT],
-                             "gather_merge_flat",
-                             [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
-                             + [ctypes.c_void_p])
-
-        def launch():
-            rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(),
-                    ws.data_ptr(), wp.data_ptr(), out.data_ptr(), n, f,
-                    _build.stream(p))
-            _build.raise_if_failed(merge.KERNEL_FLAT, rc)
-            return out
-        return launch
-    fn = _build.function(merge.SOURCES[merge.KERNEL_FLAT_DQ],
-                         "gather_merge_flat_dq",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                         + [ctypes.c_void_p] * 5
-                         + [ctypes.c_int64, ctypes.c_void_p]
-                         + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
-    n_leaves = 0 if scale is None else scale.shape[1]
-
-    def launch():
-        rc = fn(p.data_ptr(), h.data_ptr(), merge.WIRE_FORMATS[h.dtype],
-                idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
-                None if scale is None else scale.data_ptr(),
-                None if starts is None else starts.data_ptr(), n_leaves,
-                out.data_ptr(), n, f, _build.stream(p))
-        _build.raise_if_failed(merge.KERNEL_FLAT_DQ, rc)
-        return out
-    return launch
-
-
-def check_flat(torch, merge, wire, n, d, f, starts, seed, rate):
-    """K3 (float32 ring) or K4 against its plain version; times and bound
-    at this shape. ``ms`` is a call of the wrapper, its index cast
-    included; ``kernel_only_ms`` the kernel launched on an int32 table
-    made outside the timed call, held bit-equal too."""
+def check_flat(torch, merge, wire, n, d, f, starts, seed, rate,
+               label: str = "", timed: bool = True) -> dict:
+    """K3 (float32 ring) or K4 against its plain version, bit for bit, at
+    one shape (``label``); a call of ``gather_merge_flat`` must be one
+    kernel (one kernel node in a CUDA graph that captured it, one launch
+    counted). Timed (``timed``): the wrapper's device time, the plain
+    version's, the bound and the share; where a call moves more than a
+    quarter of the L2, these times are ``time_ms_cold``'s, the path's,
+    and ``warm_ms``/``warm_plain_ms`` are ``time_ms``'s back-to-back
+    calls, whose inputs may stay in the L2."""
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     m = d * n
@@ -801,17 +785,31 @@ def check_flat(torch, merge, wire, n, d, f, starts, seed, rate):
         starts, dtype=torch.int32, device=dev)
     args = (p, h, *(torch.from_numpy(a[:, 0]).to(dev) for a in (idx, ws, wp)))
     name = merge.KERNEL_FLAT if wire == "float32" else merge.KERNEL_FLAT_DQ
+    plan = merge.flat_plan(n, f, h.dtype, True, scale is not None)
 
-    def kernel():
-        return merge.gather_merge_flat_cuda(*args, scale_t, starts_t)
+    def kernel(*a):
+        return merge.gather_merge_flat(*(a or args), scale_t, starts_t)
 
-    def plain():
-        return merge.gather_merge_reference(*args, scale_t, starts_t)
-    err = check_equal(torch, f"{name} [{wire}]", kernel(), plain(),
-                      (n, m, f, len(starts)))
-    bare = flat_launcher(torch, merge, *args, scale_t, starts_t)
-    check_equal(torch, f"{name} [{wire}] on an int32 table", bare(), plain(),
-                (n, m, f, len(starts)))
+    def plain(*a):
+        return merge.gather_merge_reference(*(a or args), scale_t, starts_t)
+    shape = (n, m, f, len(starts))
+    err = check_equal(torch, f"{name} [{wire}] {label}", kernel(), plain(),
+                      shape)
+    before = merge.LAUNCHES[name]
+    types = graph_node_types(torch, kernel)
+    counted = merge.LAUNCHES[name] - before
+    if types != [GRAPH_KERNEL_NODE] or counted != 1:
+        raise RuntimeError(f"{name} [{wire}] at {shape}: a call captured in "
+                           f"a CUDA graph holds nodes of types {types} and "
+                           f"counted {counted} launches, not one kernel")
+    route = (f"{'vec' if plan.vec else 'scalar'} "
+             + (f"wide grid {plan.grid} tile={plan.tile} "
+                f"words_per_lane={plan.words_per_lane}" if plan.wide else
+                f"rows G={plan.group} {plan.rows_per_block} a block grid "
+                f"{plan.grid}"))
+    head = (f"[kernels] {name} [{wire}] {label} n={n} m={m} f={f} "
+            f"leaves={len(starts)} {route} one kernel a call "
+            f"max_abs_err={err}")
     # Least work: p read once, out written once, each receiver's ring row
     # once at wire width (no zero-weight mask) with its L scales, the
     # tables and leaf starts once. Per element: a multiply (the scale,
@@ -821,16 +819,25 @@ def check_flat(torch, merge, wire, n, d, f, starts, seed, rate):
     flops = f * 3 * n + (0 if scale is None else f * n)
     nbytes = (4 * f * 2 * n + ITEMSIZE[wire] * f * rows + n * (8 + 4 + 4)
               + 4 * n_scales * rows + 4 * n_scales)
-    ms = time_ms(torch, kernel)
-    kernel_only_ms = time_ms(torch, bare)
-    plain_ms = time_ms(torch, plain)
     bound_ms, bound_by = bound(nbytes, flops, rate)
-    log(f"[kernels] {name} [{wire}] n={n} m={m} f={f} leaves={len(starts)} "
-        f"max_abs_err={err} ms={ms:.5f} kernel_only_ms={kernel_only_ms:.5f} "
-        f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} ({nbytes} bytes, "
-        f"{flops} flops, bound by {bound_by})")
-    return dict(max_abs_err=err, ms=ms, kernel_only_ms=kernel_only_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if not timed:
+        log(head)
+        return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+    out = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain)
+    warm = ""
+    if nbytes > L2_BYTES // 4:
+        out.update(warm_ms=ms, warm_plain_ms=plain_ms)
+        warm = (f" (cold L2; back to back warm_ms={ms:.5f} warm_plain_ms="
+                f"{plain_ms:.5f} warm_share={bound_ms / ms:.3f})")
+        ms = time_ms_cold(torch, kernel, args, nbytes)
+        plain_ms = time_ms_cold(torch, plain, args, nbytes)
+    log(f"{head} ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
+        f"share={bound_ms / ms:.3f}{warm} ({nbytes} bytes, {flops} flops, "
+        f"bound by {bound_by})")
+    out.update(ms=ms, plain_ms=plain_ms, share=bound_ms / ms)
+    return out
 
 
 # Phase 3's K1/K2 sweep: (label, n, ring cells, F (None: CIFAR10Net's
@@ -2306,7 +2313,7 @@ def variant_timed(torch, merge, label: str, sets: dict) -> dict:
 def variants_phase(torch, merge, rate) -> tuple:
     """Phase 10: (a) each configuration on the card against the CPU at
     its check size; K1 against its plain version, timed, at Giaretta's
-    shape, K3 and K4 (bf16) at the token north star's; (b) each timed at
+    shape, K3 and K4 (bf16, int8) at the token north star's; (b) each timed at
     full width. Returns the launches per (kernel, ring) and run, and the
     kernels' numbers at those shapes."""
     t0 = time.perf_counter()
@@ -2329,10 +2336,10 @@ def variants_phase(torch, merge, rate) -> tuple:
     probe, state = variant_sim(torch, "tokenized-float32", sets, True, "cpu")
     layout = probe.handler.layout
     starts = [layout.offsets[leaf] for leaf, _ in layout.leaves]
-    for seed, wire in enumerate(("float32", "bfloat16"), start=52):
+    for seed, wire in enumerate(("float32", "bfloat16", "int8"), start=52):
         shapes[("tokenized", wire)] = check_flat(
             torch, merge, wire, probe.n_nodes, state.history_ages.shape[0],
-            layout.stride, starts, seed, rate)
+            layout.stride, starts, seed, rate, "token north star")
     del probe, state
     for label, _, _ in VARIANTS:
         out = variant_timed(torch, merge, label, sets)
@@ -7189,11 +7196,19 @@ def main() -> int:
             torch, merge, "phase 4", wire, N_NODES, 2, stride, SLOTS, 11,
             rate, starts)
         numbers[("single", wire)] = check_flat(
-            torch, merge, wire, N_NODES, 2, stride, starts, 11, rate)
+            torch, merge, wire, N_NODES, 2, stride, starts, 11, rate,
+            "phase 4")
         for seed, (n, f, st) in enumerate(ragged, start=12):
             check_multi(torch, merge, "ragged", wire, n, 2, f, 3, seed, rate,
                         st)
-            check_flat(torch, merge, wire, n, 2, f, st, seed, rate)
+            check_flat(torch, merge, wire, n, 2, f, st, seed, rate,
+                       "ragged")
+        # K3/K4's route edges (the scalar form, narrow groups of 1 to 32
+        # lanes, the first wide row), bit-equality only.
+        for seed, f in enumerate(SWEEP_EDGE_F, start=200):
+            check_flat(torch, merge, wire, SWEEP_EDGE_N, 2, f,
+                       sorted({0, f // 3, 2 * f // 3}), seed, rate, "edge",
+                       timed=False)
     check_multi(torch, merge, "ragged", "float32", N_NODES, 2, stride - 2,
                 SLOTS, 2, rate)
     t0 = time.perf_counter()
@@ -7368,8 +7383,8 @@ def main() -> int:
                 "ms": nums["ms"], "plain_ms": nums["plain_ms"],
                 "bound_ms": nums["bound_ms"], "bound_by": nums["bound_by"],
                 "library_ms": None,
-                **({"kernel_only_ms": nums["kernel_only_ms"]}
-                   if "kernel_only_ms" in nums else {}),
+                **{k: nums[k] for k in ("warm_ms", "warm_plain_ms")
+                   if k in nums},
                 "launches_by_path": ns_paths.get((kernel, wire or "float32"),
                                                  {})}
 

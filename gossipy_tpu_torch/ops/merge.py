@@ -36,10 +36,12 @@ K4     ``_dq_kernel``              single, wire format     ``gather_merge_flat.c
 =====  ==========================  ======================  ======================
 
 "Wire format" means a bfloat16 ring, or any ring with a scale (an int8
-ring always has one). K1 and K2 read the ``[N, K]`` index table as the
-engine makes it, int64, so a call is one launch; :func:`launch_plan` maps
-their rows onto the card (a group of lanes a row for rows of up to 32
-words, a block per row tile for wider ones). Each
+ring always has one). Every kernel reads the index table as the engine
+makes it, int64 (``[N, K]`` for K1/K2, ``[N]`` for K3/K4; any other type
+raises on the card), so a call is one launch. :func:`launch_plan` maps
+K1/K2's rows onto the card and :func:`flat_plan` K3/K4's: a group of
+lanes a row for rows of up to 32 words, a block per row tile for wider
+ones. Each
 public function runs the plain PyTorch version (``*_reference``) on CPU
 tensors, and on CUDA tensors launches its kernel or raises: it never falls
 back from the card to the plain version. Every launch adds one to
@@ -83,7 +85,9 @@ MAX_SCALES = 8192  # K x L scales K2 stages for one row on the wide route
 WARP = 32
 BLOCK = 256
 TABLE_REGS = 2     # a lane holds 2 slots of its row's tables: K <= 2 group
-WIDE_WORDS = 2     # words a lane takes on the wide route for K <= 8
+WIDE_WORDS = 2     # words a lane takes on the wide route: K1/K2's for
+                   # K <= 8, K3/K4's always (kWideWords in
+                   # gather_merge_flat.cu)
 MAX_RING_ROWS = 2**31 - 1  # the kernels keep a ring row index in 32 bits
 MAX_GRID_X = 2**31 - 1
 MAX_GRID_Y = 65535
@@ -229,6 +233,26 @@ def _pow2_at_least(x: int) -> int:
     return 1 << max(0, int(x) - 1).bit_length()
 
 
+def _narrow_layout(n: int, group: int):
+    """The narrow route's rows a block, lanes a block and grid for ``n``
+    rows of ``group`` lanes each (K1-K4)."""
+    rows = BLOCK // group
+    return rows, BLOCK, (-(-n // rows), 1)
+
+
+def _check_grid(n: int, f: int, grid: tuple) -> None:
+    if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y:
+        raise ValueError(f"[{n}, {f}] needs grid {grid}, past the card's "
+                         f"({MAX_GRID_X}, {MAX_GRID_Y})")
+
+
+def _aligned(p: torch.Tensor, h: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the operands take the vector form: p and out aligned to 16
+    bytes, ring rows to 4 values."""
+    return (p.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+            and h.data_ptr() % (4 * h.element_size()) == 0)
+
+
 @functools.lru_cache(maxsize=1024)
 def launch_plan(n: int, f: int, k: int, ring_dtype=torch.float32,
                 aligned: bool = True, scaled: bool = False) -> MultiPlan:
@@ -261,12 +285,9 @@ def launch_plan(n: int, f: int, k: int, ring_dtype=torch.float32,
         # Enough lanes for the row's words and for its slots.
         group = max(_pow2_at_least(words),
                     _pow2_at_least(-(-k // TABLE_REGS)))
-        rows, per_lane, in_flight = BLOCK // group, 1, 4 if k <= 8 else 8
-        threads = rows * group
-        grid = (-(-n // rows), 1)
-    if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y:
-        raise ValueError(f"[{n}, {f}] needs grid {grid}, past the card's "
-                         f"({MAX_GRID_X}, {MAX_GRID_Y})")
+        rows, threads, grid = _narrow_layout(n, group)
+        per_lane, in_flight = 1, 4 if k <= 8 else 8
+    _check_grid(n, f, grid)
     return MultiPlan(vec, wide, group, threads, grid, words, rows, per_lane,
                      in_flight)
 
@@ -284,9 +305,8 @@ def _plan_for(p: torch.Tensor, h: torch.Tensor, out: torch.Tensor, k: int,
     if h.shape[0] > MAX_RING_ROWS:
         raise ValueError(f"at most {MAX_RING_ROWS} ring rows, got "
                          f"{h.shape[0]}")
-    aligned = (p.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-               and h.data_ptr() % (4 * h.element_size()) == 0)
-    return _plan_args(p.shape[0], p.shape[1], k, h.dtype, aligned, scaled)
+    return _plan_args(p.shape[0], p.shape[1], k, h.dtype,
+                      _aligned(p, h, out), scaled)
 
 
 def _index_table(idx: torch.Tensor) -> torch.Tensor:
@@ -465,37 +485,108 @@ def _check_flat(p, h, idx, w_self, w_peer):
     _check_devices(p, h, idx, w_self, w_peer)
 
 
-def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
-                           idx: torch.Tensor, w_self: torch.Tensor,
-                           w_peer: torch.Tensor,
-                           scale: Optional[torch.Tensor] = None,
-                           leaf_starts: LeafStarts = None) -> torch.Tensor:
-    """Launch K3 (float32 ring, no scale) or K4 (otherwise); returns a new
-    ``[N, F]`` tensor. Every index must lie in ``[0, M)``; the kernel reads
-    the named rows' scales from the ``[M, L]`` table."""
-    _check_flat(p, h, idx, w_self, w_peer)
-    kernel = KERNEL_FLAT if (h.dtype == torch.float32 and scale is None) \
-        else KERNEL_FLAT_DQ
+def _flat_kernel(h: torch.Tensor, scale) -> str:
+    """K3 for a float32 ring with no scale, K4 for any other."""
+    return (KERNEL_FLAT if h.dtype == torch.float32 and scale is None
+            else KERNEL_FLAT_DQ)
+
+
+class FlatPlan(NamedTuple):
+    """How K3/K4 map an ``[N, F]`` call onto the card.
+
+    A row is ``words`` words: 4 columns each in the vector form (``vec``:
+    F a multiple of 4 and the operands aligned), 1 in the scalar form. On
+    the narrow route a group of ``group`` lanes (the power of two at or
+    above ``words``, up to a warp) takes a row, one word a lane, and a
+    block of ``threads`` lanes holds ``rows_per_block`` rows; the grid is
+    ``(ceil(N / rows), 1)``. On the wide route (``wide``: more than 32
+    words) a block of ``threads`` lanes takes a tile of ``tile`` words of
+    one row, each lane up to ``words_per_lane`` (``WIDE_WORDS``) of them,
+    each warp a group; the grid is ``(N, tiles)``, and the tiles of a row
+    are of one size, so the last is not mostly empty (on the narrow route
+    ``tile`` is the group)."""
+    vec: bool
+    wide: bool
+    group: int
+    threads: int
+    grid: tuple
+    words: int
+    rows_per_block: int
+    words_per_lane: int
+    tile: int
+
+    def as_args(self):
+        """The eight int64 values the C entry points take."""
+        return (ctypes.c_int64 * 8)(int(self.vec), int(self.wide),
+                                    self.group, self.threads, *self.grid,
+                                    self.words_per_lane, self.tile)
+
+
+@functools.lru_cache(maxsize=1024)
+def flat_plan(n: int, f: int, ring_dtype=torch.float32, aligned: bool = True,
+              scaled: bool = False) -> FlatPlan:
+    """K3/K4's :class:`FlatPlan` for ``n`` rows of ``f`` columns, a ring
+    of ``ring_dtype`` (``scaled``: with a scale table) and operands
+    ``aligned`` for the vector form (p and out to 16 bytes, ring rows to
+    4 values). Every ring takes the same geometry: ``ring_dtype`` is
+    checked, and it and ``scaled`` key the cache as the wrapper's call
+    does. Raises where the kernel cannot run the call: a grid past the
+    card's limits."""
+    if ring_dtype not in WIRE_FORMATS:
+        raise TypeError(f"ring dtype {ring_dtype} is not a wire format")
+    if n < 1 or f < 1:
+        raise ValueError(f"no rows or columns: [{n}, {f}]")
+    vec = aligned and f % 4 == 0
+    words = f // 4 if vec else f
+    wide = words > WARP
+    if wide:
+        group, rows, per_lane = WARP, 1, WIDE_WORDS
+        tiles = -(-words // (BLOCK * per_lane))
+        tile = -(-words // tiles)
+        threads = min(BLOCK, WARP * -(-tile // (per_lane * WARP)))
+        grid = (n, tiles)
+    else:
+        group = _pow2_at_least(words)
+        rows, threads, grid = _narrow_layout(n, group)
+        per_lane, tile = 1, group
+    _check_grid(n, f, grid)
+    return FlatPlan(vec, wide, group, threads, grid, words, rows, per_lane,
+                    tile)
+
+
+@functools.lru_cache(maxsize=1024)
+def _flat_plan_args(n: int, f: int, ring_dtype, aligned: bool,
+                    scaled: bool):
+    return flat_plan(n, f, ring_dtype, aligned, scaled).as_args()
+
+
+def _launch_flat(kernel: str, p, h, idx, w_self, w_peer, scale,
+                 leaf_starts) -> torch.Tensor:
+    """Launch ``kernel`` (K3 or K4) on operands :func:`_check_flat` has
+    passed, on :func:`flat_plan`'s plan for the call."""
     _check_kernel_operands("gather_merge_flat_cuda", p, h)
+    tab = _index_table(idx)
+    if kernel == KERNEL_FLAT_DQ:
+        _check_wire_scale("gather_merge_flat_cuda", h, scale)
     scale, leaf_starts = _scale_table(scale, leaf_starts, h.shape[0],
                                       p.shape[1])
     _check_devices(p, scale)
     n, f = p.shape
-    idx32 = idx.to(torch.int32).contiguous()
     ws = w_self.to(torch.float32).contiguous()
     wp = w_peer.to(torch.float32).contiguous()
     out = torch.empty_like(p)
+    args = _flat_plan_args(n, f, h.dtype, _aligned(p, h, out),
+                           scale is not None)
     stream = _build.stream(p)
     if kernel == KERNEL_FLAT:
         fn = _build.function(SOURCES[KERNEL_FLAT], "gather_merge_flat",
                              [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
-                             + [ctypes.c_void_p])
+                             + [ctypes.c_void_p] * 2)
         with torch.cuda.device(p.device):
-            rc = fn(p.data_ptr(), h.data_ptr(), idx32.data_ptr(),
+            rc = fn(p.data_ptr(), h.data_ptr(), tab.data_ptr(),
                     ws.data_ptr(), wp.data_ptr(), out.data_ptr(), n, f,
-                    stream)
+                    args, stream)
     else:
-        _check_wire_scale("gather_merge_flat_cuda", h, scale)
         starts = None
         n_leaves = 0
         if scale is not None:
@@ -510,16 +601,30 @@ def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
                              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                              + [ctypes.c_void_p] * 5
                              + [ctypes.c_int64, ctypes.c_void_p]
-                             + [ctypes.c_int64] * 2 + [ctypes.c_void_p])
+                             + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2)
         with torch.cuda.device(p.device):
             rc = fn(p.data_ptr(), h.data_ptr(), WIRE_FORMATS[h.dtype],
-                    idx32.data_ptr(), ws.data_ptr(), wp.data_ptr(),
+                    tab.data_ptr(), ws.data_ptr(), wp.data_ptr(),
                     None if scale is None else scale.data_ptr(),
                     None if starts is None else starts.data_ptr(), n_leaves,
-                    out.data_ptr(), n, f, stream)
+                    out.data_ptr(), n, f, args, stream)
     _build.raise_if_failed(kernel, rc)
     LAUNCHES[kernel] += 1
     return out
+
+
+def gather_merge_flat_cuda(p: torch.Tensor, h: torch.Tensor,
+                           idx: torch.Tensor, w_self: torch.Tensor,
+                           w_peer: torch.Tensor,
+                           scale: Optional[torch.Tensor] = None,
+                           leaf_starts: LeafStarts = None) -> torch.Tensor:
+    """Launch K3 (float32 ring, no scale) or K4 (otherwise); returns a new
+    ``[N, F]`` tensor. ``idx`` is int64, as the engine makes it (any other
+    type raises), each index in ``[0, M)``; the kernel reads the named
+    rows' scales from the ``[M, L]`` table."""
+    _check_flat(p, h, idx, w_self, w_peer)
+    return _launch_flat(_flat_kernel(h, scale), p, h, idx, w_self, w_peer,
+                        scale, leaf_starts)
 
 
 def gather_merge_flat(p: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
@@ -528,17 +633,18 @@ def gather_merge_flat(p: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
                       leaf_starts: LeafStarts = None) -> torch.Tensor:
     """``out[i] = w_self[i] * p[i] + w_peer[i] * peer(idx[i])``: on CUDA
     tensors K3 (float32 ring, no scale) or K4 (otherwise), on CPU tensors
-    the plain version. ``idx`` is ``[N]``, the weights ``[N]``."""
+    the plain version. ``idx`` is ``[N]`` (int64 on the card; any integer
+    type on the CPU), the weights ``[N]``."""
     _check_flat(p, h, idx, w_self, w_peer)
-    _build.kernel_entry(KERNEL_FLAT if h.dtype == torch.float32
-                        and scale is None else KERNEL_FLAT_DQ)
+    kernel = _flat_kernel(h, scale)
+    _build.kernel_entry(kernel)
     if p.device.type == "cpu":
         return gather_merge_reference(p, h, idx, w_self, w_peer, scale,
                                       leaf_starts)
     if p.device.type != "cuda":
         raise ValueError(f"no gather_merge_flat for device {p.device}")
-    return gather_merge_flat_cuda(p, h, idx, w_self, w_peer, scale,
-                                  leaf_starts)
+    return _launch_flat(kernel, p, h, idx, w_self, w_peer, scale,
+                        leaf_starts)
 
 
 # -- pytree forms ------------------------------------------------------------
