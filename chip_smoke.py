@@ -506,7 +506,27 @@ Phases, each printed as it runs; any failure exits non-zero:
    dense, RANK_A2A_ROUNDS rounds; (g) the north star with probes,
    sentinels, a chaos scenario (an outage of rank 0's every node, a
    partition across the ranks) and a live ``CallbackReceiver``, and the
-   same run without them, RANK_TEL_ROUNDS rounds. Then GRID_RANKS
+   same run without them, RANK_TEL_ROUNDS rounds; (h) the north star
+   saved by both ranks after RANK_CKPT_ROUNDS rounds (one file, written
+   by rank 0 after a gather), a fresh simulator on the ranks restoring
+   it, and the file the virtual mesh saved (a one-process checkpoint),
+   and running RANK_CKPT_ROUNDS more, and the same on an int8 ring at
+   RANK_CKPT_SHORT rounds: each file equal leaf for leaf and in its draw
+   state to the virtual mesh's, each resume bit-equal to the
+   uninterrupted virtual mesh run, the ranks' file restored unsharded in
+   the parent within REF_TOL of it (the ring sums in another order),
+   save and load ms and the bytes a rank; (i) the north star with
+   sentinels and a NaN written into a row of rank 1 before round
+   RANK_REC_NAN[1] under ``FlightRecorder(chunk=RANK_REC_CHUNK)``: one
+   bundle, its checkpoint and verdict equal to the virtual mesh run's,
+   ``replay_bundle`` of it in the parent finding the same first bad
+   round, and the recorder's start-state gathers timed; (j) the north
+   star with ``perf=``, ``metrics=``, ``ledger=`` and ``tracing=`` on and
+   all off, RANK_HOST_ROUNDS rounds each in two interleaved halves: the
+   analytic cost and the population counters equal to the virtual
+   mesh's, a ledger row a rank a ``start()``, the ranks' traces merged
+   under both pids, the manifest's process count and index, rounds/s on
+   against off (no bound). Then GRID_RANKS
    processes: (e) (b)'s clique on a 4 x 2 ``(dcn, nodes)`` mesh
    (``make_mesh_2d``, two positions a rank). Each is held against the
    same leg on a virtual mesh of its shape (for (d) and (e) one that
@@ -1755,9 +1775,10 @@ def flagship_phase(torch, merge, rate) -> tuple:
 PAPERS = ("ormandi", "berta", "hegedus", "danner")
 PAPER_CHECK_SIZE = {"ormandi": 64, "berta": 64, "hegedus": 64, "danner": 16}
 PAPER_CHECK_ROUNDS = 8
-# Timed rounds at full width: the reference's 100 for Ormandi and
-# Hegedus, 100 of Berta's 500 and 300 of Danner's 1000.
-PAPER_ROUNDS = {"ormandi": 100, "berta": 100, "hegedus": 100, "danner": 300}
+# Timed rounds at full width: the reference's 100 for Ormandi, 50 of
+# Hegedus's 100 (~22 s at 100), 100 of Berta's 500 and 300 of Danner's
+# 1000.
+PAPER_ROUNDS = {"ormandi": 100, "berta": 100, "hegedus": 50, "danner": 300}
 PAPER_METRIC = {"ormandi": ("accuracy", False), "berta": ("nmi", False),
                 "hegedus": ("rmse", True), "danner": ("accuracy", False)}
 
@@ -1971,8 +1992,10 @@ VARIANT_CHECK_SIZE = {"giaretta": 64, "hegedus2021": 32, "all2all": 32,
                       "onoszko": 3, "tokenized": NS_NODES}
 VARIANT_CHECK_ROUNDS = 8
 ONOSZKO_CHECK = dict(subsample=96, step1_rounds=3, rounds=5)
-# Timed rounds at full width: Giaretta's and All2All's reference 100,
-# 100 of Hegedus 2021's 1000, 100 of the tokenized north star. Onoszko's
+# Timed rounds at full width: 50 of Giaretta's and All2All's reference
+# 100, 50 of Hegedus 2021's 1000, 50 of the tokenized north star's (each
+# 100 until phase 21's checkpoint, recorder and host telemetry legs
+# needed the time). Onoszko's
 # window is cut to ONOSZKO_STEP1 phase-1 rounds (of 100): 3 local epochs
 # at batch 8 make 3,750 steps an update pass. Its phase-2 rounds (~20 s
 # each at full width) are left to the card-against-CPU run at 3 nodes
@@ -1983,8 +2006,8 @@ ONOSZKO_CHECK = dict(subsample=96, step1_rounds=3, rounds=5)
 # nodes than those that merged.
 # Its profile covers ONOSZKO_PROFILE_ROWS samples of each shard (30
 # local steps), not a round of ~7,500 steps and ~2 million kernels.
-VARIANT_ROUNDS = {"giaretta": 100, "hegedus2021": 100, "all2all": 100,
-                  "tokenized": 100}
+VARIANT_ROUNDS = {"giaretta": 50, "hegedus2021": 50, "all2all": 50,
+                  "tokenized": 50}
 ONOSZKO_STEP1 = 3
 ONOSZKO_ROUNDS = ONOSZKO_STEP1
 ONOSZKO_PROFILE_ROWS = 80
@@ -3343,9 +3366,10 @@ def load_config(name: str, **changes):
 
 
 @contextlib.contextmanager
-def images_once():
+def images_once(copies: bool = False):
     """The image stand-ins made once for the phase (each build of an image
-    config would make its 60,000 images again)."""
+    config would make its 60,000 images again); with ``copies`` each call
+    gets its own copy of them (phases that may write into their data)."""
     from gossipy_tpu_torch import data
     saved = data.get_CIFAR10, data.get_FashionMNIST
     cache = {}
@@ -3354,7 +3378,9 @@ def images_once():
         def get(allow_synthetic=True):
             if name not in cache:
                 cache[name] = fn(allow_synthetic)
-            return cache[name]
+            if not copies:
+                return cache[name]
+            return tuple((x.copy(), y.copy()) for x, y in cache[name])
         return get
     data.get_CIFAR10 = once("cifar10", saved[0])
     data.get_FashionMNIST = once("fmnist", saved[1])
@@ -3675,13 +3701,15 @@ def ckpt_sequential(torch, tmp: str) -> None:
 def poison(sim, node: int, at: int) -> None:
     """Write a NaN into ``node``'s first parameter before round ``at``'s
     snapshot (an instance hook: the round and the replay's per-phase
-    re-run both call it)."""
+    re-run both call it); on a mesh across ranks the rank holding the
+    node's row writes it."""
     pre_send = sim._pre_send
 
     def hook(state, r):
         pre_send(state, r)
-        if r == at:
-            state.model.params[node, 0] = float("nan")
+        rows = sim._rows or slice(0, sim.n_nodes)
+        if r == at and rows.start <= node < rows.stop:
+            state.model.params[node - rows.start, 0] = float("nan")
     sim._pre_send = hook
 
 
@@ -6559,6 +6587,12 @@ RANK_FLAG_ROUNDS = 3        # (b), (d), (e): the CIFAR10Net clique's rounds
 RANK_A2A_ROUNDS = 20        # (f): All2All's rounds, each form
 RANK_TEL_ROUNDS = 50        # (g): the north star with telemetry on and off
 RANK_RING_CALLS = 10        # (c): timed ring calls (host clock)
+RANK_CKPT_ROUNDS = 50       # (h): the north star's rounds before the save
+RANK_CKPT_SHORT = 10        # (h): the int8 ring's, and after it
+RANK_REC_CHUNK = 2          # (i): the flight recorder's chunk
+RANK_REC_ROUNDS = 8         # (i): its rounds (the NaN trips the second chunk)
+RANK_REC_NAN = (75, 3)      # (i): (node, round) of the NaN: a row of rank 1
+RANK_HOST_ROUNDS = 50       # (j): each leg's rounds, in two halves
 RANK_TIMEOUT_S = 420        # the ranks' whole run, reaped at the limit
 RANK_GROUP_TIMEOUT_S = 300  # a collective that waits longer fails
 
@@ -6699,6 +6733,167 @@ def telemetry_legs(torch, merge, mesh) -> dict:
     return out
 
 
+def state_bytes(torch, state) -> int:
+    """The bytes of a state's tensors (this rank's rows on a mesh across
+    ranks)."""
+    from gossipy_tpu_torch.parallel import rules
+    return sum(x.numel() * x.element_size()
+               for _, x in rules.named_leaves(state)
+               if isinstance(x, torch.Tensor))
+
+
+def ckpt_legs(torch, merge, mesh, workdir: str) -> dict:
+    """(h): the north star on ``mesh`` on a float32 ring (RANK_CKPT_ROUNDS
+    rounds, ``sim.save``, RANK_CKPT_ROUNDS more) and an int8 ring
+    (RANK_CKPT_SHORT each side): the save timed into ``workdir``
+    (``h-ranks-*`` across ranks, ``h-virtual-*`` in one process), then a
+    fresh simulator loads a file (timed) and runs the rounds after it,
+    counts set to 0 just before (:func:`rank_timed`): across ranks the
+    ranks' file and the one the virtual mesh saved (a one-process
+    checkpoint). In one process the saving simulator runs on instead
+    (the uninterrupted run). Returns, per ring, those runs, the save and
+    load ms, the file's bytes, this process's state bytes and the draw
+    state at the save."""
+    from gossipy_tpu_torch.checkpoint import draw_record
+    across = mesh.spans_ranks()
+    tag = "ranks" if across else "virtual"
+    out = {}
+    for ring, rounds in (("float32", RANK_CKPT_ROUNDS),
+                         ("int8", RANK_CKPT_SHORT)):
+        sim, state = northstar_sim(torch, "cuda", fused_merge="multi",
+                                   mesh=mesh, history_dtype=ring)
+        state, _ = sim.start(state, n_rounds=rounds)
+        path = os.path.join(workdir, f"h-{tag}-{ring}.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.save(path, state)
+        leg = dict(save_ms=(time.perf_counter() - t0) * 1e3,
+                   file_bytes=os.path.getsize(path),
+                   rank_bytes=state_bytes(torch, state),
+                   draws=draw_record(sim.draws))
+        if not across:
+            leg["straight"] = rank_timed(torch, merge, sim, state, rounds)
+            out[ring] = leg
+            continue
+        del sim, state
+        for src in ("ranks", "virtual"):
+            fresh, _ = northstar_sim(torch, "cuda", fused_merge="multi",
+                                     mesh=mesh, history_dtype=ring)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = fresh.load(os.path.join(workdir, f"h-{src}-{ring}.pt"))
+            torch.cuda.synchronize()
+            leg[f"load_ms_{src}"] = (time.perf_counter() - t0) * 1e3
+            leg[src] = rank_timed(torch, merge, fresh, st, rounds)
+            del fresh, st
+        out[ring] = leg
+        torch.cuda.empty_cache()
+    return out
+
+
+def recorder_leg(torch, merge, mesh, workdir: str) -> dict:
+    """(i): the north star on ``mesh`` with sentinels and a NaN written
+    into node RANK_REC_NAN[0] (a row of rank 1) before round
+    RANK_REC_NAN[1], under ``FlightRecorder(chunk=RANK_REC_CHUNK)`` for
+    RANK_REC_ROUNDS rounds (counts set to 0 just before): the bundle, the
+    chunks run, the recorder's gathers and their ms, the wall time, the
+    launches and the chunks' report."""
+    from gossipy_tpu_torch.simulation import SimulationReport
+    from gossipy_tpu_torch.telemetry import FlightRecorder
+    tag = "ranks" if mesh.spans_ranks() else "virtual"
+    sim, state = northstar_sim(torch, "cuda", fused_merge="multi",
+                               mesh=mesh, sentinels=True)
+    poison(sim, *RANK_REC_NAN)
+    rec = FlightRecorder(os.path.join(workdir, f"i-{tag}"),
+                         chunk=RANK_REC_CHUNK)
+    torch.cuda.synchronize()
+    merge.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, reports, bundle = rec.run(sim, state, RANK_REC_ROUNDS)
+    torch.cuda.synchronize()
+    return dict(bundle=bundle, chunks=len(reports), gathers=rec.gathers,
+                gather_ms=rec.gather_seconds * 1e3,
+                wall=time.perf_counter() - t0,
+                launches={k: v for k, v in merge.LAUNCHES.items() if v},
+                report=SimulationReport.concatenate(reports).to_dict())
+
+
+def host_legs(torch, merge, mesh, workdir: str) -> dict:
+    """(j): the north star on ``mesh`` with ``perf=``, ``metrics=`` (into
+    a registry of its own), ``ledger=`` (a file in ``workdir``) and
+    ``tracing=`` all on, and the same run with all four off, each
+    RANK_HOST_ROUNDS rounds in two halves, the legs in order and then in
+    reverse (as :func:`telemetry_timed` times them), the card
+    synchronised before each half's clock stops. Returns, per leg, the
+    wall time, the launches, this rank's rows, the report without its
+    timing rows; for ``on`` the perf summary, the engine counters, the
+    trace and the manifest's backend block."""
+    from gossipy_tpu_torch.simulation import SimulationReport
+    from gossipy_tpu_torch.telemetry import MetricsRegistry, Tracer, metrics
+    from gossipy_tpu_torch.parallel import rules
+    tag = "ranks" if mesh.spans_ranks() else "virtual"
+    prev = metrics.set_registry(MetricsRegistry())
+    try:
+        tracer = Tracer()
+        legs = {}
+        for label, kw in (("on", dict(
+                perf=True, metrics=True, tracing=tracer,
+                ledger=os.path.join(workdir, f"j-{tag}.jsonl"))),
+                          ("off", {})):
+            sim, state = northstar_sim(torch, "cuda", fused_merge="multi",
+                                       mesh=mesh, **kw)
+            legs[label] = dict(sim=sim, state=state, wall=0.0, launches={},
+                               reports=[])
+        half = RANK_HOST_ROUNDS // 2
+        for order in (("on", "off"), ("off", "on")):
+            for label in order:
+                leg = legs[label]
+                torch.cuda.synchronize()
+                merge.reset_launch_counts()
+                t0 = time.perf_counter()
+                leg["state"], rep = leg["sim"].start(leg["state"],
+                                                     n_rounds=half)
+                torch.cuda.synchronize()
+                leg["wall"] += time.perf_counter() - t0
+                leg["reports"].append(rep)
+                for k, v in merge.LAUNCHES.items():
+                    if v:
+                        leg["launches"][k] = leg["launches"].get(k, 0) + v
+        snap = metrics.get_registry().snapshot()["metrics"]
+    finally:
+        metrics.set_registry(prev)
+    out = {}
+    for label, leg in legs.items():
+        rep = SimulationReport.concatenate(leg["reports"]).to_dict()
+        out[label] = dict(
+            wall=leg["wall"], launches=leg["launches"],
+            report={k: v for k, v in rep.items()
+                    if not k.startswith("perf_")},
+            leaves={p: x.detach().cpu().clone() for p, x in
+                    rules.named_leaves(leg["state"])
+                    if isinstance(x, torch.Tensor)})
+    on = legs["on"]["sim"]
+    out["on"].update(
+        perf=on.perf_summary(), trace=tracer.snapshot(),
+        metrics={k: v for k, v in snap.items() if k.startswith("engine_")},
+        backend=on.run_manifest().to_dict()["backend"])
+    return out
+
+
+def persist_legs(torch, mesh, workdir: str) -> dict:
+    """Phase 21 (h)-(j) on ``mesh``, each leg's seconds beside it."""
+    from gossipy_tpu_torch.ops import merge
+    out, seconds = {}, {}
+    for key, fn in (("ckpt", ckpt_legs), ("recorder", recorder_leg),
+                    ("host", host_legs)):
+        t0 = time.perf_counter()
+        out[key] = fn(torch, merge, mesh, workdir)
+        seconds[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = seconds
+    return out
+
+
 def ranks_legs(torch, merge, mesh, split: bool = False) -> dict:
     """Phase 21's legs (a)-(c) on ``mesh`` (``None``: the unsharded north
     star alone): what this process holds after each (its rows of every
@@ -6750,9 +6945,11 @@ def rank_main(argv) -> int:
     SPAWN``): join the group on ``cuda:0`` and save what this rank holds
     after its legs. The ``pair`` spawn (RANKS processes) runs
     :func:`ranks_legs` on the mesh over every rank's positions, then (d)
-    on a 2 x 2 ``(nodes, model)`` mesh, (f) and (g); the ``grid`` spawn
+    on a 2 x 2 ``(nodes, model)`` mesh, (f), (g) and (h)-(j)
+    (:func:`persist_legs`, with the files in WORKDIR); the ``grid`` spawn
     (GRID_RANKS processes) runs (e) on a 4 x 2 ``(dcn, nodes)`` mesh, two
-    positions a rank."""
+    positions a rank; the ``persist`` spawn (RANKS processes) runs
+    (h)-(j) alone (:func:`persist_phase`)."""
     import datetime
 
     import torch
@@ -6762,7 +6959,7 @@ def rank_main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     backend = parallel.init_distributed(
-        f"localhost:{port}", RANKS if spawn == "pair" else GRID_RANKS, rank,
+        f"localhost:{port}", GRID_RANKS if spawn == "grid" else RANKS, rank,
         device="cuda:0",
         timeout=datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S))
     try:
@@ -6773,11 +6970,15 @@ def rank_main(argv) -> int:
                                      tp_mesh(rank_positions(2)))
             out["a2a"] = all2all_legs(torch, merge, mesh)
             out["telemetry"] = telemetry_legs(torch, merge, mesh)
+            out.update(persist_legs(torch, mesh, workdir))
+        elif spawn == "persist":
+            mesh = parallel.make_mesh(devices=parallel.devices("cuda:0"))
+            out = persist_legs(torch, mesh, workdir)
         else:
             mesh = grid_mesh(rank_positions(2))
             out = {"grid": flagship_leg(torch, merge, mesh)}
         out.update(backend=backend, mesh=repr(mesh),
-                   rows=str(mesh.node_rows(NS_NODES if spawn == "pair"
+                   rows=str(mesh.node_rows(NS_NODES if spawn != "grid"
                                            else N_NODES)))
         torch.save(out, os.path.join(workdir, f"{spawn}{rank}.pt"))
         torch.distributed.barrier()
@@ -6787,14 +6988,14 @@ def rank_main(argv) -> int:
 
 
 def start_ranks(workdir: str, spawn: str = "pair") -> list:
-    """The processes of one phase-21 spawn (``pair``: RANKS, ``grid``:
-    GRID_RANKS), on a free port of this host."""
+    """The processes of one phase-21 spawn (``pair`` and ``persist``:
+    RANKS, ``grid``: GRID_RANKS), on a free port of this host."""
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     here = os.path.abspath(__file__)
-    world = RANKS if spawn == "pair" else GRID_RANKS
+    world = GRID_RANKS if spawn == "grid" else RANKS
     return [subprocess.Popen(
         [sys.executable, here, "--rank", str(r), str(port), workdir, spawn],
         cwd=os.path.dirname(here), stdout=subprocess.PIPE,
@@ -6924,6 +7125,7 @@ def ranks_phase(torch, merge, smi) -> dict:
     import tempfile
 
     from gossipy_tpu_torch.ops import attention as attn
+    workdir = tempfile.mkdtemp(prefix="gossipy-ranks-")
     t_ref = time.perf_counter()
     want = ranks_legs(torch, merge, virtual_mesh("cuda", RANKS))
     flat = ranks_legs(torch, merge, None)["northstar"]
@@ -6953,15 +7155,27 @@ def ranks_phase(torch, merge, smi) -> dict:
             "a2a": all2all_legs(torch, merge, virtual_mesh("cuda", RANKS)),
             "telemetry": telemetry_legs(torch, merge,
                                         virtual_mesh("cuda", RANKS))}
-    log(f"[ranks] the parent's references took "
-        f"{time.perf_counter() - t_ref:.1f} s")
-    workdir = tempfile.mkdtemp(prefix="gossipy-ranks-")
+    # (h)-(j) on the 2-position virtual mesh, its files (the checkpoints
+    # a rank restores among them) in the spawn's directory.
     try:
+        more["persist"] = persist_legs(torch, virtual_mesh("cuda", RANKS),
+                                       workdir)
+        log(f"[ranks] the parent's references took "
+            f"{time.perf_counter() - t_ref:.1f} s ((h)-(j): "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in
+                        more["persist"]["seconds"].items()) + ")")
         got, ranks_s = run_spawn(torch, workdir, "pair")
         grid, grid_s = run_spawn(torch, workdir, "grid")
+        t0 = time.perf_counter()
+        paths = persist_checks(torch, merge, smi, got, more["persist"],
+                               workdir)
+        log(f"[ranks] (h)-(j) checks here took "
+            f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    paths = more_ranks_checks(torch, merge, smi, got, grid, more)
+    for key, by_leg in more_ranks_checks(torch, merge, smi, got, grid,
+                                         more).items():
+        paths.setdefault(key, {}).update(by_leg)
     route = attn.route(torch.float32, ATTN_D, ATTN_D)
     for r, mine in enumerate(got):
         log(f"[ranks] rank {r}: {mine['mesh']}, transport "
@@ -7039,6 +7253,210 @@ def ranks_phase(torch, merge, smi) -> dict:
             ring["launches"][route]
     log(f"[ranks] {RANKS} ranks started, ran and reaped in {ranks_s:.1f} s; "
         f"{GRID_RANKS} ranks of (e) in {grid_s:.1f} s")
+    return paths
+
+
+def same_checkpoint(torch, a: str, b: str) -> bool:
+    """Two checkpoint files hold equal leaves and draw states."""
+    x, y = (torch.load(p, map_location="cpu", weights_only=True)
+            for p in (a, b))
+    if sorted(x["state"]) != sorted(y["state"]):
+        return False
+    for k, v in y["state"].items():
+        u = x["state"][k]
+        if isinstance(v, torch.Tensor):
+            if not (isinstance(u, torch.Tensor) and u.dtype == v.dtype
+                    and torch.equal(u, v)):
+                return False
+        elif u != v:
+            return False
+    dx, dy = x.get("draws"), y.get("draws")
+    if (dx is None) != (dy is None):
+        return False
+    return dx is None or torch.equal(dx["state"]["generator"],
+                                     dy["state"]["generator"])
+
+
+def persist_checks(torch, merge, smi, pair, ref, workdir: str) -> dict:
+    """Phase 21 (h)-(j): each rank against the 2-position virtual mesh's
+    legs (``ref``, :func:`persist_legs`), the files they wrote in
+    ``workdir`` held here. Returns K1's launches by leg and rank."""
+    from gossipy_tpu_torch.telemetry import RunLedger, replay_bundle
+    from gossipy_tpu_torch.telemetry.tracing import merge_traces
+    k1: dict = {}
+    # (h) the files, and each rank's resumed runs
+    for ring, rounds in (("float32", RANK_CKPT_ROUNDS),
+                         ("int8", RANK_CKPT_SHORT)):
+        mine_f = os.path.join(workdir, f"h-ranks-{ring}.pt")
+        if not same_checkpoint(torch, mine_f,
+                               os.path.join(workdir, f"h-virtual-{ring}.pt")):
+            raise RuntimeError(f"ranks (h) {ring}: the ranks' checkpoint "
+                               "differs from the virtual mesh's")
+        straight = ref["ckpt"][ring]["straight"]
+        for r, mine in enumerate(pair):
+            leg = mine["ckpt"][ring]
+            if not torch.equal(leg["draws"]["state"]["generator"],
+                               ref["ckpt"][ring]["draws"]["state"][
+                                   "generator"]):
+                raise RuntimeError(f"ranks (h) {ring} rank {r}: the draw "
+                                   "state at the save differs")
+            for src in ("ranks", "virtual"):
+                rank_against(torch, f"ckpt-{ring}-{src}", r, leg[src],
+                             straight)
+                k1[f"ranks-ckpt-{ring}-{src}-rank{r}"] = k1_launches(
+                    merge, f"ckpt-{ring}", r, leg[src], straight, 2, 4)
+            log(f"[ranks] (h) north star, {ring} ring, rank {r}: "
+                f"{rounds} rounds, save {leg['save_ms']:.1f} ms (virtual "
+                f"mesh {ref['ckpt'][ring]['save_ms']:.1f}), one file of "
+                f"{leg['file_bytes']} B equal leaf for leaf and in its draw "
+                f"state to the virtual mesh's ({ref['ckpt'][ring]['file_bytes']}"
+                f" B); this rank's state {leg['rank_bytes']} B (virtual "
+                f"mesh {ref['ckpt'][ring]['rank_bytes']} B); a fresh "
+                f"simulator's load of the ranks' file "
+                f"{leg['load_ms_ranks']:.1f} ms, of the one-process file "
+                f"{leg['load_ms_virtual']:.1f} ms; {rounds} "
+                f"more rounds from each bit-equal to the uninterrupted "
+                f"virtual mesh run ({rounds / leg['ranks']['wall']:.2f} "
+                f"rounds/s); K1 launches {leg['ranks']['launches']} "
+                f"(virtual mesh {straight['launches']}); {smi}")
+        # ranks -> one process, unsharded: the ring sums in another order,
+        # so the run is held to the card/CPU tolerance.
+        sim, _ = northstar_sim(torch, "cuda", fused_merge="multi",
+                               history_dtype=ring)
+        st, _ = sim.load(mine_f)
+        flat = rank_timed(torch, merge, sim, st, rounds)
+        del sim, st
+        for key in ACCOUNTING:
+            if flat["report"].get(key) != straight["report"].get(key):
+                raise RuntimeError(f"ranks (h) {ring} unsharded resume: "
+                                   f"{key} differs")
+        a = flat["leaves"]["model/params"]
+        b = straight["leaves"]["model/params"]
+        diff = float((a - b).abs().max())
+        if not bool(((a - b).abs() <= REF_TOL + REF_TOL * b.abs()).all()):
+            raise RuntimeError(f"ranks (h) {ring} unsharded resume: params "
+                               f"off by {diff:.3e}")
+        log(f"[ranks] (h) {ring}: the ranks' file restored unsharded here, "
+            f"{rounds} rounds: accounting equal to the uninterrupted "
+            f"virtual mesh run, params max abs diff {diff:.3e} (the ring "
+            f"sums in another order; limit 1e-4 + 1e-4 of the value); K1 "
+            f"launches {flat['launches']}; {smi}")
+    # (i) one bundle, and its replay here
+    rec_ref = ref["recorder"]
+    bundle = pair[0]["recorder"]["bundle"]
+    listing = sorted(os.listdir(os.path.join(workdir, "i-ranks")))
+    if any(m["recorder"]["bundle"] != bundle for m in pair) or \
+            listing != [os.path.basename(bundle)] or not same_checkpoint(
+                torch, os.path.join(bundle, "checkpoint"),
+                os.path.join(rec_ref["bundle"], "checkpoint")):
+        raise RuntimeError(f"ranks (i): bundles {listing}, or its "
+                           "checkpoint differs from the virtual mesh's")
+    verdicts = [json.load(open(os.path.join(b, "verdict.json")))
+                for b in (bundle, rec_ref["bundle"])]
+    if verdicts[0] != verdicts[1]:
+        raise RuntimeError(f"ranks (i): verdict {verdicts[0]} against "
+                           f"{verdicts[1]}")
+    replays = []
+    for b in (bundle, rec_ref["bundle"]):
+        sim, _ = northstar_sim(torch, "cuda", fused_merge="multi",
+                               sentinels=True)
+        poison(sim, *RANK_REC_NAN)
+        replays.append(replay_bundle(b, sim))
+        del sim
+    keys = ("first_bad_round", "trip", "leaf", "nodes", "phase")
+    if replays[0]["first_bad_round"] != RANK_REC_NAN[1] or \
+            replays[0]["matches_recorded"] is not True or \
+            any(replays[0][k] != replays[1][k] for k in keys):
+        raise RuntimeError(f"ranks (i): replay {replays[0]} against the "
+                           f"virtual mesh bundle's {replays[1]}")
+    for r, mine in enumerate(pair):
+        leg = mine["recorder"]
+        off = same_fields(leg["report"], rec_ref["report"])
+        if off or leg["chunks"] != rec_ref["chunks"]:
+            raise RuntimeError(f"ranks (i) rank {r}: the chunks' report "
+                               f"differs from the virtual mesh's in {off}")
+        k1[f"ranks-recorder-rank{r}"] = k1_launches(
+            merge, "recorder", r, leg, rec_ref, 2, 4)
+        log(f"[ranks] (i) north star with sentinels, a NaN into node "
+            f"{RANK_REC_NAN[0]} (rank 1's row) before round "
+            f"{RANK_REC_NAN[1]}, FlightRecorder(chunk={RANK_REC_CHUNK}), "
+            f"rank {r}: {leg['chunks']} chunks in {leg['wall']:.3f} s, "
+            f"{leg['gathers']} start-state gathers of "
+            f"{leg['gather_ms'] / max(leg['gathers'], 1):.2f} ms each; one "
+            f"bundle {os.path.basename(bundle)}, its checkpoint and verdict "
+            f"equal to the virtual mesh run's; replayed here unsharded: "
+            f"first bad round {replays[0]['first_bad_round']}, leaf "
+            f"{replays[0]['leaf']}, phase {replays[0]['phase']} (the "
+            f"virtual mesh bundle's replay the same); K1 launches "
+            f"{leg['launches']} (virtual mesh {rec_ref['launches']}); {smi}")
+    # (j) host telemetry on against off
+    on_ref = ref["host"]["on"]
+    rows = RunLedger(os.path.join(workdir, "j-ranks.jsonl")).rows()
+    index = sorted(row["extra"]["process_index"] for row in rows)
+    if index != sorted(list(range(RANKS)) * 2) or any(
+            row["extra"]["process_count"] != RANKS for row in rows):
+        raise RuntimeError(f"ranks (j): ledger rows of ranks {index}")
+    traces = [mine["host"]["on"]["trace"] for mine in pair]
+    pids = sorted({e["pid"] for t in traces for e in t["traceEvents"]})
+    merged = merge_traces(*traces)
+    if merged["otherData"]["merged_pids"] != pids or len(pids) != RANKS:
+        raise RuntimeError(f"ranks (j): merged trace pids "
+                           f"{merged['otherData']['merged_pids']}")
+    for r, mine in enumerate(pair):
+        on, off = mine["host"]["on"], mine["host"]["off"]
+        rank_against(torch, "host-on", r, on, on_ref)
+        rank_against(torch, "host-off", r, off, ref["host"]["off"])
+        perf = on["perf"]
+        if perf["analytic"] != on_ref["perf"]["analytic"] or \
+                on["metrics"] != on_ref["metrics"] or \
+                on["backend"]["process_count"] != RANKS or \
+                on["backend"]["process_index"] != r or \
+                perf["last_run"]["mfu_est"] is None:
+            raise RuntimeError(f"ranks (j) rank {r}: analytic, counters or "
+                               f"manifest off the virtual mesh's: {perf}, "
+                               f"{on['metrics']}, {on['backend']}")
+        k1[f"ranks-host-rank{r}"] = k1_launches(merge, "host", r, on,
+                                                on_ref, 2, 4)
+        n = RANK_HOST_ROUNDS
+        log(f"[ranks] (j) north star with perf=, metrics=, ledger= and "
+            f"tracing= on, rank {r}: {n} rounds in two halves, "
+            f"{n / on['wall']:.2f} rounds/s against {n / off['wall']:.2f} "
+            f"with all four off, on {off['wall'] / on['wall']:.4f} of off "
+            f"(virtual mesh {n / on_ref['wall']:.2f} and "
+            f"{n / ref['host']['off']['wall']:.2f}); rows and report "
+            f"bit-equal to the virtual mesh's; analytic "
+            f"{perf['analytic']['flops_per_round']:.6g} FLOPs a round and "
+            f"the population counters equal to the virtual mesh's; last run "
+            f"{perf['last_run']['ms_per_round']:.3f} ms a round, mfu_est "
+            f"{perf['last_run']['mfu_est']:.4g}, hbm_peak_bytes "
+            f"{perf['hbm_peak_bytes']}; manifest process "
+            f"{on['backend']['process_index']} of "
+            f"{on['backend']['process_count']}; ledger rows {len(rows)} "
+            f"(a row a rank a start()); merged trace pids {pids}; K1 "
+            f"launches {on['launches']} (off {off['launches']}); {smi}")
+    for r, mine in enumerate(pair):
+        log(f"[ranks] (h)-(j) rank {r}: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in mine["seconds"].items()))
+    return {(merge.KERNEL, "float32"): k1}
+
+
+def persist_phase(torch, merge, smi) -> dict:
+    """Phase 21 (h)-(j) alone (the full phase runs them in its ``pair``
+    spawn): the legs on a 2-position virtual mesh of the card, then on
+    RANKS processes (the ``persist`` spawn), held by
+    :func:`persist_checks`. Returns K1's launches by leg and rank."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="gossipy-persist-")
+    try:
+        ref = persist_legs(torch, virtual_mesh("cuda", RANKS), workdir)
+        got, seconds = run_spawn(torch, workdir, "persist")
+        paths = persist_checks(torch, merge, smi, got, ref, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[ranks] (h)-(j): the virtual mesh's legs "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in ref["seconds"].items())
+        + f"; {RANKS} ranks started, ran and reaped in {seconds:.1f} s")
     return paths
 
 
@@ -7178,6 +7596,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or \
                     "Compiling entry" in line:
                 log(f"[build]   {src}: {line.strip()}")
+
+    # The image stand-ins (60,000 images, ~5.6 s to make) made once for
+    # every phase that reads them (phases 8, 10, 11 and 14); each call
+    # gets a copy of its own.
+    images = contextlib.ExitStack()
+    images.enter_context(images_once(copies=True))
 
     # 3. kernels against their plain versions
     at(3)
@@ -7374,6 +7798,7 @@ def main() -> int:
     for key, by_path in rank_paths.items():
         ns_paths.setdefault(key, {}).update(by_path)
     log(f"[ranks] phase 21 took {time.perf_counter() - t0:.1f} s")
+    images.close()
 
     def entry(kernel, wire, source, replaces, nums, launched):
         return {"name": kernel if wire is None else f"{kernel}[{wire}]",

@@ -43,6 +43,22 @@ A mesh restore (``restore_checkpoint(..., mesh=)``, which
 partition-rule registry (:func:`gossipy_tpu_torch.parallel.shard_state`):
 the placement is derived, never assembled here.
 
+On a mesh across ranks (``save_checkpoint(..., mesh=)``, which
+``GossipSimulator.save`` passes there) a checkpoint is still ONE file of
+the whole population, the file one process writes: every node-axis leaf
+is gathered whole on every rank (:func:`~gossipy_tpu_torch.parallel.
+gather_state`, one all-gather), the ranks' draw states are held equal
+(every rank draws the whole round), rank 0 writes the file through the
+temporary name and the rename, and every rank then waits on a barrier,
+so that no rank reads half a file. The path must lie on a file system
+every rank sees. A restore onto such a mesh reads the whole file on
+every rank and keeps this rank's rows of each node-axis leaf, checked
+against the template's leaf (which holds this rank's rows, as
+``init_nodes`` gives them there, or the whole population), so a
+checkpoint written on any layout (one process, unsharded or on a
+virtual mesh, or any mesh across ranks) restores onto any other, as in
+the JAX package.
+
 The file is the port's own format: a JAX (orbax) checkpoint is not
 readable here, nor the reverse.
 """
@@ -108,9 +124,16 @@ def _stored(leaf):
     return leaf
 
 
-def _restored(path: str, want, got):
+def _restored(path: str, want, got, sharding=None):
     """The saved ``got`` in the form of the template leaf ``want``;
-    ``ValueError`` naming ``path`` when they do not fit."""
+    ``ValueError`` naming ``path`` when they do not fit. With
+    ``sharding`` (a leaf of a mesh across ranks) a whole saved leaf
+    restores into a template of this rank's rows, cut to them and placed
+    (:func:`~gossipy_tpu_torch.parallel.shard_state`'s rule)."""
+    if sharding is not None and isinstance(want, torch.Tensor) \
+            and isinstance(got, torch.Tensor) and got.shape != want.shape:
+        from .parallel import _place_leaf
+        got = _place_leaf(got, sharding)
     if isinstance(want, (torch.Tensor, np.ndarray)):
         if not isinstance(got, torch.Tensor):
             raise ValueError(f"checkpoint leaf {path!r}: saved "
@@ -135,6 +158,35 @@ def _restored(path: str, want, got):
                          f"{type(got).__name__}, the template has "
                          f"{type(want).__name__}")
     return got
+
+
+def _ranks_mesh(sim) -> Optional[Any]:
+    """``sim``'s mesh when it spans ranks, else None."""
+    mesh = getattr(sim, "mesh", None)
+    return mesh if mesh is not None and mesh.spans_ranks() else None
+
+
+def _same_on_every_rank(value: Optional[str], what: str) -> None:
+    """Raise unless every rank of the process group holds ``value``."""
+    seen = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(seen, value)
+    if len(set(seen)) != 1:
+        raise RuntimeError(f"the ranks hold different {what}s: {seen} "
+                           "(every rank draws the whole round, so they "
+                           "must agree)")
+
+
+def _digest(rec: Optional[dict]) -> Optional[str]:
+    """A digest of a draw record (None for none)."""
+    if rec is None:
+        return None
+    import hashlib
+    h = hashlib.sha256(str(rec["kind"]).encode())
+    for k, v in sorted(flatten_state(rec["state"]).items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes()
+                 if isinstance(v, torch.Tensor) else repr(v).encode())
+    return h.hexdigest()
 
 
 def _rebuild(tree: Any, flat: dict, path: str = ""):
@@ -188,7 +240,7 @@ def draw_record(draws) -> Optional[dict]:
 # -- save and restore --------------------------------------------------------
 
 def save_checkpoint(path: str, state: Any, draws=None, force: bool = True,
-                    meta: Optional[dict] = None) -> str:
+                    meta: Optional[dict] = None, mesh=None) -> str:
     """Save a state (a ``SimState``, a ``SeqState`` or any nest of
     tensors) and the draw state of ``draws`` (a
     :class:`~gossipy_tpu_torch.random.DrawProvider`, or a record from
@@ -200,26 +252,38 @@ def save_checkpoint(path: str, state: Any, draws=None, force: bool = True,
     the flight recorder stamps its bundles through it. ``force=False``
     refuses to overwrite. The file is written to a temporary name and
     renamed, so a reader never sees half a checkpoint. Returns the
-    absolute path."""
+    absolute path.
+
+    ``mesh`` (a mesh across ranks whose rows ``state`` holds; every rank
+    calls): the whole state is gathered, the ranks' draw states checked
+    equal, rank 0 writes the one file, and every rank returns after a
+    barrier. Any other mesh changes nothing."""
+    from .parallel import gather_state, is_writer, rank_barrier
     from .telemetry.tracing import span
     path = os.path.abspath(path)
     if not force and os.path.exists(path):
         raise FileExistsError(f"checkpoint {path} exists (force=False)")
+    across = mesh is not None and mesh.spans_ranks()
     with span("checkpoint.save", cat="checkpoint", path=path):
-        payload = {"format": CHECKPOINT_FORMAT,
-                   "state": {k: _stored(v)
-                             for k, v in flatten_state(state).items()}}
         rec = draw_record(draws)
-        if rec is not None:
-            payload["draws"] = rec
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        if meta is not None:
-            with open(path + ".meta.json", "w") as fh:
-                json.dump(meta, fh, indent=2)
-                fh.write("\n")
+        if across:
+            state = gather_state(state, mesh)
+            _same_on_every_rank(_digest(rec), "draw state")
+        if is_writer(mesh):
+            payload = {"format": CHECKPOINT_FORMAT,
+                       "state": {k: _stored(v)
+                                 for k, v in flatten_state(state).items()}}
+            if rec is not None:
+                payload["draws"] = rec
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = path + ".tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            if meta is not None:
+                with open(path + ".meta.json", "w") as fh:
+                    json.dump(meta, fh, indent=2)
+                    fh.write("\n")
+        rank_barrier(mesh)
     return path
 
 
@@ -272,19 +336,21 @@ def restore_checkpoint(path: str, template_state: Any, template_draws=None,
     draw state (a stream) is refused then with ``ValueError``, since the
     resumed run would draw from its fresh stream. With ``mesh`` the
     restored state is placed per the rule registry (:func:`~gossipy_tpu_
-    torch.parallel.shard_state`); a mesh across ranks is refused."""
-    if mesh is not None and mesh.spans_ranks():
-        from .parallel import across_ranks_refusal
-        raise NotImplementedError(
-            across_ranks_refusal("a checkpoint", "checkpoints"))
-    state, draws = _restore(path, template_state, template_draws)
+    torch.parallel.shard_state`). On a mesh across ranks every rank reads
+    the whole file and keeps its rows: a template leaf holding this
+    rank's rows (``init_nodes`` there) must equal the saved leaf's rows
+    of this rank in shape and dtype, a whole template leaf the saved
+    leaf; no collective runs."""
+    state, draws = _restore(path, template_state, template_draws,
+                            mesh if mesh is not None and mesh.spans_ranks()
+                            else None)
     if mesh is not None:
         from .parallel import shard_state
         state = shard_state(state, mesh)
     return state, draws
 
 
-def _restore(path: str, template_state: Any, template_draws):
+def _restore(path: str, template_state: Any, template_draws, mesh=None):
     from .telemetry.tracing import span
     path = os.path.abspath(path)
     with span("checkpoint.restore", cat="checkpoint", path=path):
@@ -302,8 +368,15 @@ def _restore(path: str, template_state: Any, template_draws):
                 f"checkpoint {path} does not fit the template: leaves "
                 f"missing {missing}, unexpected {extra} (another simulator "
                 "configuration?)")
+        places = {}
+        if mesh is not None:
+            from .parallel import state_shardings
+            from .parallel.rules import named_leaves
+            places = {p.replace("/", "."): sh for p, sh in named_leaves(
+                state_shardings(template_state, mesh))}
         state = _rebuild(template_state, {
-            k: _restored(k, want[k], saved[k]) for k in want})
+            k: _restored(k, want[k], saved[k], places.get(k))
+            for k in want})
         rec = payload.get("draws")
         if rec is None:
             if template_draws is not None and \
@@ -385,13 +458,20 @@ class CheckpointManager:
         caller's own ``state`` is never updated: the first chunk runs on
         a copy (``start`` updates its state in place). Per-chunk reports
         are appended to ``reports`` when given.
+
+        On a mesh across ranks every rank calls it: each checkpoint is
+        one file (:func:`save_checkpoint` with the mesh), a restore keeps
+        each rank's rows, and only rank 0 deletes what retention drops,
+        after the write's barrier.
         """
+        from .parallel import is_writer
         if draws is not None:
             sim.draws = draws
+        mesh = _ranks_mesh(sim)
         newest = self.latest()
         if newest is not None:
             state, _ = restore_checkpoint(self._path(newest), state,
-                                          sim.draws)
+                                          sim.draws, mesh=mesh)
         else:
             state = clone_state(state)
         start_round = int(state.round)
@@ -404,6 +484,7 @@ class CheckpointManager:
                 reports.append(report)
             done += chunk
             save_checkpoint(self._path(start_round + done), state,
-                            draws=sim.draws)
-            self._retain()
+                            draws=sim.draws, mesh=mesh)
+            if is_writer(mesh):
+                self._retain()
         return state

@@ -15,6 +15,10 @@ naming:
   first non-finite value, found by re-running the offending round phase
   by phase.
 
+A bundle written on a mesh across ranks holds the whole population (its
+checkpoint is the file one process writes), so it replays here in one
+process, unsharded, and names the same first bad round.
+
 The bundle carries state, not code: the caller names a FACTORY that
 rebuilds the simulator with the recorded configuration (the bundle's
 ``manifest.json`` ``config`` block documents it):

@@ -82,19 +82,18 @@ __all__ = [
     "state_shardings", "shard_state", "shard_data",
     "Mesh", "Position", "PartitionSpec", "NamedSharding", "devices",
     "sharding_of", "ring_positions", "record_local_state",
-    "choose_transport", "ACROSS_RANKS_LEFT",
+    "choose_transport", "ACROSS_RANKS_LEFT", "gather_state", "is_writer",
+    "rank_barrier",
 ]
 
 # What is left of ROADMAP.md queue 1 item 13, in its order: each use
 # still refused on a mesh across ranks names the entry it waits for.
 ACROSS_RANKS_LEFT = {
-    "checkpoints": "1, checkpoints and the flight recorder",
-    "host telemetry": "2, perf=, metrics=, ledger= and tracing=",
-    "variants": "3, the token and PENS variants and other variant "
-                "simulators",
-    "cohort": "4, a cohort's start(mesh=)",
-    "service": "5, the service",
-    "cards": "6, NCCL ranks on cards of their own and one process on "
+    "variants": "1, the variant simulators the JAX package's mesh path "
+                "runs, other than All2All",
+    "cohort": "2, a cohort's start(mesh=)",
+    "service": "3, the service",
+    "cards": "4, NCCL ranks on cards of their own and one process on "
              "several cards",
 }
 
@@ -553,9 +552,10 @@ def _same_mesh(a, b) -> bool:
 def _place_leaf(x, sharding: NamedSharding):
     """One leaf where its placement says, its placement and global shape
     recorded: a whole tensor on the mesh's device (a virtual mesh), or on
-    a mesh across ranks this rank's rows of a node-axis leaf (a leaf
-    already placed on this mesh stays as it is) and a replicated leaf
-    whole, on this rank's device."""
+    a mesh across ranks this rank's rows of a node-axis leaf, in a
+    tensor of their own (the whole leaf is not kept alive; a leaf already
+    placed on this mesh stays as it is), and a replicated leaf whole, on
+    this rank's device."""
     mesh = sharding.mesh
     if not isinstance(x, torch.Tensor):
         if isinstance(x, (int, float, bool)):
@@ -569,7 +569,9 @@ def _place_leaf(x, sharding: NamedSharding):
     placed = sharding_of(x)
     if placed is not None and _same_mesh(placed.mesh, mesh):
         return x
-    out = rules.local_rows(x, sharding).to(mesh.local_device())
+    out = rules.local_rows(x, sharding).to(
+        mesh.local_device(), memory_format=torch.contiguous_format,
+        copy=True)
     _record(out, dataclasses.replace(sharding, global_shape=tuple(x.shape)))
     return out
 
@@ -645,3 +647,67 @@ def shard_data(data: dict, mesh: Mesh, axis_name=None,
                                       axis_name=axis_name,
                                       batch_dims=batch_dims)
     return {k: _place_leaf(arrs[k], shardings[k]) for k in arrs}
+
+
+# -- what a mesh across ranks writes once ------------------------------------
+
+def is_writer(mesh=None) -> bool:
+    """Whether this process writes what a mesh across ranks writes once (a
+    checkpoint, a flight-recorder bundle): rank 0 there, any process off
+    such a mesh."""
+    return mesh is None or not mesh.spans_ranks() or _rank() == 0
+
+
+def rank_barrier(mesh=None) -> None:
+    """Wait until every rank of a mesh across ranks arrives (after the
+    writer's file is whole); nothing off such a mesh."""
+    if mesh is not None and mesh.spans_ranks():
+        torch.distributed.barrier()
+
+
+_ALIGN = 8   # bytes: every leaf's piece of the gathered buffer starts here
+
+
+def gather_state(state, mesh: Mesh, axis_name=None):
+    """The whole population's state on every rank of a mesh across ranks:
+    each node-axis leaf as every rank's rows in node order, each
+    replicated tensor leaf copied, in new tensors on this rank's device.
+    The node-axis leaves cross in ONE all-gather of their bytes (a
+    collective every rank calls; under gloo a card's buffer is staged
+    through the host), whatever their dtypes (a bf16 or int8 ring and its
+    scales among them). Off a mesh across ranks ``state`` itself."""
+    if mesh is None or not mesh.spans_ranks():
+        return state
+    from .collectives import _rank_order, rank_all_gather
+    specs = dict(rules.named_leaves(state_shardings(state, mesh, axis_name)))
+    parts, cuts, offset = [], {}, 0
+    for path, x in rules.named_leaves(state):
+        if not isinstance(x, torch.Tensor):
+            continue
+        dim = rules.node_dim(specs[path].spec, mesh)
+        if dim is None:
+            continue
+        raw = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        pad = -raw.numel() % _ALIGN
+        parts.append(raw)
+        if pad:
+            parts.append(raw.new_zeros(pad))
+        cuts[path] = (offset, raw.numel(), dim)
+        offset += raw.numel() + pad
+    if not cuts:
+        return tree_map_with_path(
+            lambda _, x: x.clone() if isinstance(x, torch.Tensor) else x,
+            state)
+    ranks = len(_rank_order(mesh))
+    whole = rank_all_gather(torch.cat(parts), mesh).reshape(ranks, offset)
+
+    def leaf(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if path not in cuts:
+            return x.clone()
+        start, size, dim = cuts[path]
+        return torch.cat([whole[r, start:start + size].view(x.dtype)
+                          .reshape(x.shape) for r in range(ranks)], dim=dim)
+
+    return tree_map_with_path(leaf, state)

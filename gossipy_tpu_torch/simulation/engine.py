@@ -720,8 +720,7 @@ class GossipSimulator(SimulationEventSender):
     def _refuse_across_ranks(self) -> None:
         """The options a mesh across ranks does not run yet, each naming
         what it waits for in ROADMAP.md queue 1 item 13: variant
-        simulators other than All2All, cohort rounds, ``perf=``,
-        ``metrics=``, ``ledger=`` and ``tracing=``."""
+        simulators other than All2All, and cohort rounds."""
         if self._rows is None:
             return
         from ..parallel import across_ranks_refusal
@@ -729,10 +728,6 @@ class GossipSimulator(SimulationEventSender):
             f"a variant simulator ({type(self).__name__})": (
                 not type(self).__dict__.get("_across_ranks"), "variants"),
             "cohort=": (self.cohort is not None, "cohort"),
-            "perf=": (self.perf is not None, "host telemetry"),
-            "metrics=": (self.metrics_enabled, "host telemetry"),
-            "ledger=": (self.ledger is not None, "host telemetry"),
-            "tracing=": (self.tracer is not None, "host telemetry"),
         }
         for what, (on, left) in options.items():
             if on:
@@ -1213,15 +1208,16 @@ class GossipSimulator(SimulationEventSender):
         disk-backed cohort pool is checkpointed as hole-preserving copies
         of its files into the directory ``path``
         (:func:`~gossipy_tpu_torch.simulation.cohort.save_pool_store`).
-        A state on a mesh across ranks is refused."""
-        self._refuse_checkpoint(None)
+        On a mesh across ranks every rank calls it with its rows: the one
+        file holds the whole population, written by rank 0 after a
+        gather, and every rank returns once it is whole."""
         draws = self.draws if draws is None else draws
         if self.cohort is not None:
             from .cohort import is_mmap_pool, save_pool_store
             if is_mmap_pool(state):
                 return save_pool_store(self, state, path, draws)
         from ..checkpoint import save_checkpoint
-        return save_checkpoint(path, state, draws=draws)
+        return save_checkpoint(path, state, draws=draws, mesh=self.mesh)
 
     def load(self, path: str, mesh=None):
         """Restore ``(state, draws)`` saved by :meth:`save`, on a simulator
@@ -1232,14 +1228,14 @@ class GossipSimulator(SimulationEventSender):
         when the checkpoint kept none). ``mesh`` restores into the
         mesh's placement (:func:`~gossipy_tpu_torch.parallel.shard_state`
         of the template: on a virtual mesh the leaves stay whole on its
-        device, their placement recorded).
+        device, their placement recorded). On a mesh across ranks (the
+        simulator's own unless ``mesh`` names one) every rank reads the
+        file, whatever layout wrote it, and keeps its rows.
 
         In cohort mode the unit is the resident
         :class:`~gossipy_tpu_torch.simulation.cohort.CohortPool`, and the
         template a zero-filled pool (no init at restore); a pool-store
-        directory is copied into a work directory and opened there. A
-        mesh across ranks is refused."""
-        self._refuse_checkpoint(mesh)
+        directory is copied into a work directory and opened there."""
         from ..checkpoint import restore_checkpoint
         if self.cohort is not None:
             from .cohort import is_pool_store_dir, load_pool_checkpoint, \
@@ -1248,17 +1244,12 @@ class GossipSimulator(SimulationEventSender):
                 return load_pool_checkpoint(self, path)
             return restore_checkpoint(path, pool_template(self), self.draws)
         template = self.init_nodes(local_train=False)
+        if mesh is None and self._rows is not None:
+            mesh = self.mesh
         if mesh is not None:
             from ..parallel import shard_state
             template = shard_state(template, mesh)
         return restore_checkpoint(path, template, self.draws, mesh=mesh)
-
-    def _refuse_checkpoint(self, mesh) -> None:
-        if self._rows is not None or (mesh is not None
-                                      and mesh.spans_ranks()):
-            from ..parallel import across_ranks_refusal
-            raise NotImplementedError(
-                across_ranks_refusal("a checkpoint", "checkpoints"))
 
     def _one_node_terms(self) -> tuple:
         """``(age shape, optimizer bytes of one node, aux bytes)``, from a
@@ -2659,6 +2650,11 @@ class GossipSimulator(SimulationEventSender):
             extra = {"rounds": int(n_rounds)}
             if round_start is not None:
                 extra["round_start"] = int(round_start)
+            if self._rows is not None:
+                # One row a rank: which rank wrote it, of how many.
+                extra["process_index"] = torch.distributed.get_rank()
+                extra["process_count"] = \
+                    torch.distributed.get_world_size()
             row = ingest_manifest(
                 self.ledger, self.run_manifest(), kind="engine",
                 run_id=self._ledger_run_id, metrics=metrics, extra=extra)

@@ -52,6 +52,27 @@ Bundle directory schema (``BUNDLE_VERSION`` 1), the JAX package's files::
 When ``GOSSIPY_TPU_LEDGER`` names a run ledger, each bundle is appended
 to it as one failure row (:func:`~gossipy_tpu_torch.telemetry.ledger.
 ingest_bundle`), as in the JAX recorder.
+
+**On a mesh across ranks** every rank runs :meth:`FlightRecorder.run`
+with its rows, and the design keeps every bundle free of collectives:
+
+- The copy of a chunk's start state is the whole population's: one
+  all-gather of its node-axis leaves before each chunk, on every rank
+  (:func:`~gossipy_tpu_torch.parallel.gather_state`; its count and
+  seconds are :attr:`FlightRecorder.gathers` and
+  :attr:`FlightRecorder.gather_seconds`). Any bundle is then written
+  from the host alone, never inside a collective.
+- A sentinel trip is seen by every rank at the same round (each rank's
+  report holds the whole population's vitals), so every rank leaves the
+  chunk loop at the same chunk: rank 0 writes the ONE bundle (its
+  checkpoint is the file one process writes), and every rank waits on a
+  barrier before it returns the bundle's path.
+- An exception out of ``start`` or the watchdog (a timer thread, while
+  the main thread may wait in a collective) happens on one rank: that
+  rank writes a bundle of its own, ``..._rank<r>``, and an exception is
+  re-raised. Its peers, waiting in the round's next collective, fail
+  when the rank's process leaves the group or at the group's timeout,
+  each writing its own exception bundle in turn: no rank hangs.
 """
 
 from __future__ import annotations
@@ -350,22 +371,33 @@ class FlightRecorder:
         self.bundle_path: Optional[str] = None
         self._rounds_recorded = 0
         self._warned_truncated = False
+        # On a mesh across ranks: the start-state gathers, and their time.
+        self.gathers = 0
+        self.gather_seconds = 0.0
 
     # -- bundle writing ----------------------------------------------------
+
+    def _bundle_dir(self, kind: str, chunk_start_round: int,
+                    rank: Optional[int] = None) -> str:
+        name = f"bundle_r{chunk_start_round:06d}_{kind}"
+        if rank is not None:
+            name += f"_rank{rank}"
+        return os.path.join(self.out_dir, name)
 
     def _write_bundle(self, sim, state, draws, kind: str,
                       chunk_start_round: int,
                       first_bad_round: Optional[int] = None,
-                      detail: Optional[dict] = None) -> str:
+                      detail: Optional[dict] = None,
+                      rank: Optional[int] = None) -> str:
         """Write the repro bundle for ``state`` (the last HEALTHY state, at
         round ``chunk_start_round``, with ``draws`` the draw state taken
-        then). Returns the bundle path."""
+        then; on a mesh across ranks the whole population's). ``rank``
+        names a bundle one rank writes alone. Returns the bundle path."""
         from ..checkpoint import save_checkpoint
         from .sink import get_sink
         from .tracing import span
 
-        name = f"bundle_r{chunk_start_round:06d}_{kind}"
-        path = os.path.join(self.out_dir, name)
+        path = self._bundle_dir(kind, chunk_start_round, rank)
         with span("flight_recorder.write_bundle", cat="checkpoint",
                   kind=kind, round=int(chunk_start_round)):
             os.makedirs(path, exist_ok=True)
@@ -471,16 +503,22 @@ class FlightRecorder:
         bundle_path)``, ``bundle_path`` None for a clean run. ``draws`` is
         the run's provider, installed as ``sim.draws`` when given. On an
         exception out of ``sim.start`` the bundle is written first, then
-        the exception re-raised."""
+        the exception re-raised. On a mesh across ranks every rank calls
+        it (the module doc says how the bundles are written there)."""
         assert getattr(sim, "sentinels", None) is not None, \
             "FlightRecorder needs a sentinel-enabled simulator " \
             "(GossipSimulator(sentinels=True))"
-        from ..checkpoint import clone_state, draw_record
+        import time
+
+        from ..checkpoint import _ranks_mesh, clone_state, draw_record
+        from ..parallel import gather_state, is_writer, rank_barrier
         from ..simulation.events import CallbackReceiver
         from .sink import emit_event
 
         if draws is not None:
             sim.draws = draws
+        mesh = _ranks_mesh(sim)
+        rank = None if mesh is None else torch.distributed.get_rank()
         tap = CallbackReceiver(
             lambda row: emit_event("round", row), live=False)
         sim.add_receiver(tap)
@@ -490,7 +528,13 @@ class FlightRecorder:
             done = 0
             while done < n_rounds:
                 c = min(self.chunk, n_rounds - done)
-                start_state = clone_state(state)
+                if mesh is None:
+                    start_state = clone_state(state)
+                else:
+                    t0 = time.perf_counter()
+                    start_state = gather_state(state, mesh)
+                    self.gather_seconds += time.perf_counter() - t0
+                    self.gathers += 1
                 start_draws = draw_record(sim.draws)
                 start_round = int(state.round)
                 timer = None
@@ -500,7 +544,8 @@ class FlightRecorder:
                         args=(sim, start_state, start_draws, "watchdog",
                               start_round),
                         kwargs={"detail": {
-                            "watchdog_seconds": self.watchdog_seconds}})
+                            "watchdog_seconds": self.watchdog_seconds},
+                            "rank": rank})
                     timer.daemon = True
                     timer.start()
                 try:
@@ -511,7 +556,8 @@ class FlightRecorder:
                 except Exception as e:
                     bundle = self._write_bundle(
                         sim, start_state, start_draws, "exception",
-                        start_round, detail={"error": repr(e)[:500]})
+                        start_round, detail={"error": repr(e)[:500]},
+                        rank=rank)
                     raise
                 finally:
                     if timer is not None:
@@ -520,10 +566,15 @@ class FlightRecorder:
                 reports.append(report)
                 idx = _first_trip_index(report)
                 if idx is not None:
-                    bundle = self._write_bundle(
-                        sim, start_state, start_draws, "sentinel",
-                        start_round, first_bad_round=start_round + idx,
-                        detail=_trip_detail(sim, report, idx))
+                    if is_writer(mesh):
+                        bundle = self._write_bundle(
+                            sim, start_state, start_draws, "sentinel",
+                            start_round, first_bad_round=start_round + idx,
+                            detail=_trip_detail(sim, report, idx))
+                    else:
+                        bundle = self.bundle_path = self._bundle_dir(
+                            "sentinel", start_round)
+                    rank_barrier(mesh)
                     break
                 done += c
         finally:

@@ -92,7 +92,9 @@ def code_version_block() -> Optional[dict]:
 
 def _backend_info(device=None) -> dict:
     """The backend of ``device`` (default: the card when there is one):
-    ``"cuda"`` with the card's name and the device count, or ``"cpu"``."""
+    ``"cuda"`` with the card's name and the device count, or ``"cpu"``;
+    with the process count (the process group's world size, 1 without
+    one, as ``jax.process_count()``) and this process's index in it."""
     try:
         import torch
         dev = torch.device(device if device is not None else
@@ -101,9 +103,12 @@ def _backend_info(device=None) -> dict:
             else 0
         kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
+        dist = torch.distributed
+        group = dist.is_available() and dist.is_initialized()
         return {"backend": dev.type, "device_kind": kind,
                 "device_count": count if dev.type == "cuda" else 1,
-                "process_count": 1}
+                "process_count": dist.get_world_size() if group else 1,
+                "process_index": dist.get_rank() if group else 0}
     except Exception as e:  # a backend failure must not kill the record
         return {"backend": None, "error": repr(e)[:200]}
 

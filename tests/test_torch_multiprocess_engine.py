@@ -38,7 +38,11 @@ One spawn of two ranks serves every check; each rank runs these legs
   JAX engine's on a 2-device mesh (``torch_pairs.assert_same_telemetry``);
 - ``refusals``: every use still refused on a mesh across ranks raises
   ``NotImplementedError`` naming what it waits for in ROADMAP.md queue 1
-  item 13.
+  item 13; ``lifted``: the uses it no longer lists (a checkpoint's save,
+  load and ``restore_checkpoint(mesh=)``, ``perf=``, ``metrics=``,
+  ``ledger=`` and ``tracing=``) each run a round or a round trip
+  (``test_torch_multiprocess_persist.py`` holds them to the one-process
+  runs).
 
 The ranks reach each other on ``localhost`` at a free port; the spawn
 has TIMEOUT_S and is reaped whatever happens.
@@ -270,13 +274,9 @@ def gathered(state, mesh) -> dict:
 
 def refusals(mesh) -> dict:
     """Every use still refused across ranks: its exception and message."""
-    from gossipy_tpu_torch import checkpoint, core
+    from gossipy_tpu_torch import core
     from gossipy_tpu_torch.service import GossipService
     from gossipy_tpu_torch.simulation import All2AllGossipSimulator
-    from gossipy_tpu_torch.telemetry import Tracer
-
-    def sim_with(**kw):
-        return northstar(mesh, rounds=1, **kw)
 
     def cohort_start():
         sim = GossipSimulator(
@@ -297,13 +297,6 @@ def refusals(mesh) -> dict:
                            input_shape=(FEAT,)), core.Topology.clique(N),
                 dataset(), fused_merge="multi", mesh=mesh, device="cpu")
 
-    def save(path):
-        sim, state = sim_with()
-        sim.save(path, state)
-
-    def restore(path):
-        checkpoint.restore_checkpoint(path, None, mesh=mesh)
-
     class A2AVariant(All2AllGossipSimulator):
         """A user's subclass of All2All: refused as every variant is."""
 
@@ -320,23 +313,74 @@ def refusals(mesh) -> dict:
         "cohort start(mesh=)": cohort_start,
         "variant": variant,
         "all2all variant": a2a_variant,
-        "perf": lambda: sim_with(perf=True),
-        "metrics": lambda: sim_with(metrics=True),
-        "ledger": lambda: sim_with(ledger="ledger.jsonl"),
-        "tracing": lambda: sim_with(tracing=Tracer()),
-        "checkpoint save": lambda: save("unused.pt"),
-        "checkpoint load": lambda: sim_with()[0].load("unused.pt",
-                                                      mesh=mesh),
-        "restore_checkpoint(mesh=)": lambda: restore("unused.pt"),
     }
+    return outcomes(cases)
+
+
+def outcomes(cases: dict) -> dict:
+    """Each case's result, or its exception and message."""
     out = {}
     for name, fn in cases.items():
         try:
-            fn()
-            out[name] = "no error"
-        except Exception as e:     # every refusal is reported, not raised
+            out[name] = f"ok: {fn()}"
+        except Exception as e:     # every outcome is reported, not raised
             out[name] = f"{type(e).__name__}: {e}"
     return out
+
+
+LIFTED = ("checkpoint save", "checkpoint load", "restore_checkpoint(mesh=)",
+          "perf", "metrics", "ledger", "tracing")
+
+
+def lifted(mesh, workdir) -> dict:
+    """The uses the refusal list no longer holds, each on a round of the
+    north star across the ranks: what each gave, or its exception."""
+    from gossipy_tpu_torch import checkpoint
+    from gossipy_tpu_torch.telemetry import RunLedger, Tracer
+    path = f"{workdir}/lifted.pt"
+
+    def one_round(**kw):
+        sim, state = northstar(mesh, rounds=1, **kw)
+        sim.start(state, n_rounds=1)
+        return sim
+
+    def same_rows(state):
+        _, want = northstar(mesh)
+        got = dict(rules.named_leaves(state))
+        return all(torch.equal(got[p], x)
+                   for p, x in rules.named_leaves(want)
+                   if isinstance(x, torch.Tensor))
+
+    def save():
+        sim, state = northstar(mesh)
+        return sim.save(path, state) == path
+
+    def load():
+        state, _ = northstar(mesh)[0].load(path)
+        return same_rows(state)
+
+    def restore():
+        sim, template = northstar(mesh)
+        state, _ = checkpoint.restore_checkpoint(path, template, sim.draws,
+                                                 mesh=mesh)
+        return same_rows(state)
+
+    def ledger():
+        one_round(ledger=f"{workdir}/lifted.jsonl")
+        torch.distributed.barrier()
+        return len(RunLedger(f"{workdir}/lifted.jsonl").rows())
+
+    def tracing():
+        tracer = Tracer()
+        one_round(tracing=tracer)
+        return sum(e.get("name") == "engine.start"
+                   for e in tracer.snapshot()["traceEvents"])
+
+    return outcomes(dict(zip(LIFTED, (
+        save, load, restore,
+        lambda: one_round(perf=True).perf_summary()["last_run"]["rounds"],
+        lambda: one_round(metrics=True).metrics_enabled,
+        ledger, tracing))))
 
 
 def run_legs(mesh, workdir) -> dict:
@@ -368,6 +412,7 @@ def run_legs(mesh, workdir) -> dict:
         for flash in (True, False)}
     out["transfers"] = dict(TRANSFERS)
     out["refusals"] = refusals(mesh)
+    out["lifted"] = lifted(mesh, workdir)
     return out
 
 
@@ -642,19 +687,32 @@ def test_refusals_across_ranks(ranks):
     """Every use still refused on a mesh across ranks raises
     ``NotImplementedError`` naming what is missing and the entry of
     ROADMAP.md queue 1 item 13 it waits for."""
-    left = {"checkpoint": 1, "restore": 1, "perf": 2, "metrics": 2,
-            "ledger": 2, "tracing": 2, "variant": 3, "all2all variant": 3,
-            "cohort": 4, "service": 5}
+    left = {"variant": 1, "all2all variant": 1, "cohort": 2, "service": 3}
     got, _ = ranks
     for rank in (0, 1):
         refused = got[rank]["refusals"]
-        assert len(refused) == 11
+        assert len(refused) == 4
         for name, what in refused.items():
             assert what.startswith("NotImplementedError"), (name, what)
             item = next(v for k, v in sorted(left.items(),
                                              key=lambda kv: -len(kv[0]))
                         if name.startswith(k))
             assert f"queue 1 item 13, left {item}," in what, (name, what)
+
+
+@pytest.mark.parametrize("name", LIFTED)
+def test_lifted_refusals_run_across_ranks(ranks, name):
+    """What the refusal list held before checkpoints and host telemetry
+    were ported now runs on a mesh across ranks: a checkpoint saved by
+    both ranks loads back (``load`` and ``restore_checkpoint(mesh=)``)
+    into each rank's own rows, and a round runs with each host option
+    (the ledger then holds one row a rank, the tracer its span)."""
+    want = {"checkpoint save": "ok: True", "checkpoint load": "ok: True",
+            "restore_checkpoint(mesh=)": "ok: True", "perf": "ok: 1",
+            "metrics": "ok: True", "ledger": "ok: 2", "tracing": "ok: 1"}
+    got, _ = ranks
+    for rank in (0, 1):
+        assert got[rank]["lifted"][name] == want[name], rank
 
 
 def test_init_distributed_runs_on_the_card_unless_the_cpu_is_named(
