@@ -526,7 +526,20 @@ Phases, each printed as it runs; any failure exits non-zero:
    analytic cost and the population counters equal to the virtual
    mesh's, a ledger row a rank a ``start()``, the ranks' traces merged
    under both pids, the manifest's process count and index, rounds/s on
-   against off (no bound). Then GRID_RANKS
+   against off (no bound); (k) the north star through a user's subclass
+   of the engine (``quota_simulator``: ``_init_aux``, ``_pre_send`` and a
+   ``_send_gate`` that reads a per-node ``aux`` value),
+   RANK_VARIANT_ROUNDS rounds; (l) ``bench.py::bench_cohort``'s
+   configuration (nominal COHORT_NOMINAL, C = COHORT_SIZE, C/2 rows a
+   rank), serially and with ``prefetch=COHORT_PREFETCH``,
+   RANK_COHORT_ROUNDS rounds after RANK_COHORT_WARM, every round a
+   segment: pools and reports bit-equal, the streamed pool equal to the
+   serial one; (m) four ``spambase_100.json`` tenants in one service, one
+   submitted after the first slice (by rank 1 a slice later still) and
+   one poisoned: every tenant's status, rounds and report, the
+   admissions, the buckets and the eviction equal, rank 0 alone writing
+   the output directory (audit events), tenant-rounds/s a rank. Then
+   GRID_RANKS
    processes: (e) (b)'s clique on a 4 x 2 ``(dcn, nodes)`` mesh
    (``make_mesh_2d``, two positions a rank). Each is held against the
    same leg on a virtual mesh of its shape (for (d) and (e) one that
@@ -581,10 +594,10 @@ NS_NODES = 100
 NS_DEGREE = 20
 NS_CHECK_ROUNDS = 10
 NS_WARMUP_ROUNDS = 20
-# Timed rounds of each north-star leg (phases 7 and 11): bench.py times
-# 2000; 300 keep the whole script near half its time limit beside phases
-# 8 and 12.
-BENCH_ROUNDS = 300
+# Timed rounds of each phase-7 north-star leg: bench.py times 2000; 150
+# (300 until phase 21 (k)-(m) needed the time) keep the script inside its
+# time limit on a slow host.
+BENCH_ROUNDS = 150
 ATTN_S = 8192       # the JAX bench's flash-attention regime:
 ATTN_D = 128        # one head, head dim 128, causal (bench.py:1093)
 # The flagship (examples/main_cifar10_100nodes.py,
@@ -1304,19 +1317,21 @@ def northstar_parts():
     return stacked, topology, handler
 
 
-def northstar_sim(torch, device, seed: int = 42, **kw):
+def northstar_sim(torch, device, seed: int = 42, cls=None, **kw):
     """``bench.py::build_sim`` through the port's entry points, on
     ``device``, with the draws of ``TorchDraws(seed)`` and the initial
-    weights of a generator seeded with ``seed``; ``kw`` goes to the
-    simulator (the default deliver unless it names another)."""
+    weights of a generator seeded with ``seed``; ``cls`` the simulator
+    class (default ``GossipSimulator``); ``kw`` goes to the simulator (the
+    default deliver unless it names another)."""
     from gossipy_tpu_torch.core import AntiEntropyProtocol
     from gossipy_tpu_torch.random import TorchDraws
     from gossipy_tpu_torch.simulation import GossipSimulator
 
     stacked, topology, handler = northstar_parts()
     kw = {"fused_merge": False, "protocol": AntiEntropyProtocol.PUSH, **kw}
-    sim = GossipSimulator(handler, topology, stacked, delta=100,
-                          draws=TorchDraws(seed), device=device, **kw)
+    sim = (cls or GossipSimulator)(handler, topology, stacked, delta=100,
+                                   draws=TorchDraws(seed), device=device,
+                                   **kw)
     state = sim.init_nodes(torch.Generator().manual_seed(seed))
     return sim, state
 
@@ -1775,10 +1790,10 @@ def flagship_phase(torch, merge, rate) -> tuple:
 PAPERS = ("ormandi", "berta", "hegedus", "danner")
 PAPER_CHECK_SIZE = {"ormandi": 64, "berta": 64, "hegedus": 64, "danner": 16}
 PAPER_CHECK_ROUNDS = 8
-# Timed rounds at full width: the reference's 100 for Ormandi, 50 of
-# Hegedus's 100 (~22 s at 100), 100 of Berta's 500 and 300 of Danner's
-# 1000.
-PAPER_ROUNDS = {"ormandi": 100, "berta": 100, "hegedus": 50, "danner": 300}
+# Timed rounds at full width: 50 of the reference's 100 for Ormandi, 25
+# of Hegedus's 100, 50 of Berta's 500 and 150 of Danner's 1000 (each
+# halved when phase 21 (k)-(m) needed the time).
+PAPER_ROUNDS = {"ormandi": 50, "berta": 50, "hegedus": 25, "danner": 150}
 PAPER_METRIC = {"ormandi": ("accuracy", False), "berta": ("nmi", False),
                 "hegedus": ("rmse", True), "danner": ("accuracy", False)}
 
@@ -1992,10 +2007,10 @@ VARIANT_CHECK_SIZE = {"giaretta": 64, "hegedus2021": 32, "all2all": 32,
                       "onoszko": 3, "tokenized": NS_NODES}
 VARIANT_CHECK_ROUNDS = 8
 ONOSZKO_CHECK = dict(subsample=96, step1_rounds=3, rounds=5)
-# Timed rounds at full width: 50 of Giaretta's and All2All's reference
-# 100, 50 of Hegedus 2021's 1000, 50 of the tokenized north star's (each
+# Timed rounds at full width: 25 of Giaretta's and All2All's reference
+# 100, 25 of Hegedus 2021's 1000, 25 of the tokenized north star's (each
 # 100 until phase 21's checkpoint, recorder and host telemetry legs
-# needed the time). Onoszko's
+# needed the time, 50 until its (k)-(m) did). Onoszko's
 # window is cut to ONOSZKO_STEP1 phase-1 rounds (of 100): 3 local epochs
 # at batch 8 make 3,750 steps an update pass. Its phase-2 rounds (~20 s
 # each at full width) are left to the card-against-CPU run at 3 nodes
@@ -2006,8 +2021,8 @@ ONOSZKO_CHECK = dict(subsample=96, step1_rounds=3, rounds=5)
 # nodes than those that merged.
 # Its profile covers ONOSZKO_PROFILE_ROWS samples of each shard (30
 # local steps), not a round of ~7,500 steps and ~2 million kernels.
-VARIANT_ROUNDS = {"giaretta": 50, "hegedus2021": 50, "all2all": 50,
-                  "tokenized": 50}
+VARIANT_ROUNDS = {"giaretta": 25, "hegedus2021": 25, "all2all": 25,
+                  "tokenized": 25}
 ONOSZKO_STEP1 = 3
 ONOSZKO_ROUNDS = ONOSZKO_STEP1
 ONOSZKO_PROFILE_ROWS = 80
@@ -2383,9 +2398,9 @@ TEL_A2A_CHECK_NODES = 32
 TEL_NAN_CLEAN = 2           # clean rounds before the NaN is written
 TEL_NAN_ROUNDS = 3          # rounds after it
 TEL_NAN_AT = (7, 0)         # (node, column) the NaN is written to
-TEL_BENCH_ROUNDS = 150      # the interleaved legs' shares sit inside the
-                            # host's noise at 300 as at 150; 150 pays for
-                            # phase 16
+TEL_BENCH_ROUNDS = 100      # the interleaved legs' shares sit inside the
+                            # host's noise at 300 as at 150; 150 paid for
+                            # phase 16, 100 for phase 21 (k)-(m)
 
 
 def telemetry_kw(nodes: int, rounds: int) -> dict:
@@ -2652,11 +2667,10 @@ def telemetry_phase(torch, merge, flag_ms) -> dict:
     """Phase 11: (a) the north star (K1), the flagship at 16 nodes on a
     bf16 ring (K2, fp32 compute) and All2All at 32 nodes, with probes,
     sentinels and the demo chaos, on the card against the CPU; the north
-    star with a NaN written mid-run; (b) the north star's three
-    300-round legs (telemetry off, probes and sentinels, and the chaos
-    added) and the
-    full-width flagship on its bf16 ring with all three on. Returns the
-    launches per (kernel, ring) and path."""
+    star with a NaN written mid-run; (b) the north star's three legs of
+    TEL_BENCH_ROUNDS rounds (telemetry off, probes and sentinels, and the
+    chaos added) and the full-width flagship on its bf16 ring with all
+    three on. Returns the launches per (kernel, ring) and path."""
     from gossipy_tpu_torch.examples import main_all2all as all2all
     from gossipy_tpu_torch.examples import main_cifar10_100nodes as flag
     from gossipy_tpu_torch.random import TorchDraws
@@ -3053,7 +3067,7 @@ SEQ_CHECK_ROUNDS = 6
 # Phase 13 (a)'s configurations of the sequential engine.
 SEQ_CHECKS = ("push-drop-online", "push_pull-delay", "async", "tokenized",
               "passthrough", "cache_neigh", "chaos")
-SEQ_TARGET_S = 30.0         # the timed north-star run's aim (one round
+SEQ_TARGET_S = 15.0         # the timed north-star run's aim (one round
 SEQ_MAX_ROUNDS = 100        # measured first decides its rounds)
 
 
@@ -3341,7 +3355,7 @@ TRACE_HALF_ROUNDS = 50      # tracing's cost sits inside the host's noise
                             # at any length; 50 pays for phase 16
 CONFIG_TIMED_ROUNDS = 100   # (e): run_experiment's and start's timed
                             # rounds (300 until phase 21 needed the time:
-                            # the same config as phase 7's 300-round legs)
+                            # the same config as phase 7's legs)
 
 
 def config_names() -> list:
@@ -6894,6 +6908,397 @@ def persist_legs(torch, mesh, workdir: str) -> dict:
     return out
 
 
+# -- phase 21 (k)-(m): a user's subclass, a cohort and the service ----------
+
+RANK_VARIANT_ROUNDS = 50    # (k): the north star through a user's subclass
+RANK_COHORT_ROUNDS = 20     # (l): each leg's timed rounds (phase 16: 50)
+RANK_COHORT_WARM = 2        # (l): each leg's warm-up rounds
+RANK_SERVICE_LATE = 3       # (m): the tenant (an index of SERVICE_SEEDS)
+                            # submitted after the first slice
+RANK_SERVICE_POISON = 2     # (m): the poisoned tenant (an index)
+
+
+def quota_simulator():
+    """(k)'s user subclass of the engine, which keeps the base receive
+    path: a node earns a send credit each round, up to its cap ``1 + id %
+    3``, and sends only while it holds two, which a send costs; every
+    param decays by a factor 0.999 before the snapshot. ``_init_aux``
+    builds this rank's rows (``self._own``); ``_pre_send`` and
+    ``_send_gate`` see the whole population."""
+    import torch
+    from gossipy_tpu_torch.handlers import ModelState
+    from gossipy_tpu_torch.simulation import GossipSimulator
+
+    class Quota(GossipSimulator):
+        def _init_aux(self, model):
+            ids = torch.arange(self.n_nodes, device=model.params.device)
+            cap = self._own(1 + ids % 3).to(torch.int32)
+            return {"credit": torch.zeros_like(cap), "cap": cap}
+
+        def _pre_send(self, state, r):
+            credit = state.aux["credit"]
+            credit.add_(1)
+            torch.minimum(credit, state.aux["cap"], out=credit)
+            m = state.model
+            state.model = ModelState(m.params * 0.999, m.opt_state,
+                                     m.n_updates)
+
+        def _send_gate(self, state, active, peers, r, f):
+            send = active & (state.aux["credit"] >= 2)
+            state.aux["credit"] = state.aux["credit"] - 2 * send.to(
+                torch.int32)
+            return send
+
+    return Quota
+
+
+def variant_leg(torch, merge, mesh) -> dict:
+    """(k): ``bench.py``'s north star through :func:`quota_simulator` on
+    ``mesh`` (the multi deliver): a 2-round warm-up, a fresh init, then
+    RANK_VARIANT_ROUNDS rounds timed."""
+    sim, state = northstar_sim(torch, "cuda", fused_merge="multi", mesh=mesh,
+                               cls=quota_simulator())
+    sim.start(state, n_rounds=2)       # warm-up
+    state = sim.init_nodes(torch.Generator().manual_seed(42))
+    return rank_timed(torch, merge, sim, state, RANK_VARIANT_ROUNDS)
+
+
+def pool_digest(pool) -> str:
+    """One hash of every leaf of a cohort pool and its round."""
+    import hashlib
+    h = hashlib.sha256(str(int(pool.round)).encode())
+    for leaf in (pool.model.params, *pool.model.opt_state,
+                 pool.model.n_updates, pool.phase, pool.node_key,
+                 pool.touched):
+        h.update(memoryview(np.ascontiguousarray(leaf)).cast("B"))
+    return h.hexdigest()
+
+
+def cohort_rank_legs(torch, merge, mesh) -> dict:
+    """(l): ``bench.py::bench_cohort``'s configuration (phase 16's
+    :func:`cohort_sim`, nominal COHORT_NOMINAL, C = COHORT_SIZE) built on
+    ``mesh``, whose rounds run the ring deliver: a pool from one
+    generator, then serially and with ``prefetch=COHORT_PREFETCH`` from
+    it, each a warm-up of RANK_COHORT_WARM rounds and RANK_COHORT_ROUNDS
+    rounds timed (every round a segment). Each leg's report, final pool
+    digest, wall, launches and transfers."""
+    from gossipy_tpu_torch.parallel.collectives import TRANSFERS
+    torch.cuda.empty_cache()
+    sim = cohort_sim(torch, COHORT_NOMINAL, "cuda",
+                     rounds=RANK_COHORT_ROUNDS, mesh=mesh)
+    t0 = time.perf_counter()
+    pool0 = sim.init_cohort_pool(torch.Generator().manual_seed(42))
+    out = {"init_s": time.perf_counter() - t0}
+    draws0 = sim.draws.get_state()
+    for tag, prefetch in (("serial", 0), ("stream", COHORT_PREFETCH)):
+        s = sim if not prefetch else cohort_sim(
+            torch, COHORT_NOMINAL, "cuda", prefetch=prefetch,
+            rounds=RANK_COHORT_ROUNDS, draws=draws0, mesh=mesh)
+        warm, _ = s.start(pool0, n_rounds=RANK_COHORT_WARM)
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        TRANSFERS.clear()
+        t0 = time.perf_counter()
+        pool, rep = s.start(warm, n_rounds=RANK_COHORT_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[tag] = dict(report=rep.to_dict(), digest=pool_digest(pool),
+                        wall=wall, transfers=dict(TRANSFERS),
+                        launches={k: v for k, v in merge.LAUNCHES.items()
+                                  if v},
+                        finite=bool(np.isfinite(pool.model.params).all()))
+        del warm, pool
+    del pool0
+    return out
+
+
+class FileWrites:
+    """The files and directories this process creates, writes or renames
+    under ``root`` while ``on`` (Python's audit events)."""
+
+    def __init__(self, root: str):
+        self.root, self.seen, self.on = os.path.abspath(root), [], False
+        sys.addaudithook(self._hook)
+
+    def _hook(self, event, args):
+        if not self.on or event not in ("open", "os.mkdir", "os.rename"):
+            return
+        path = args[0]
+        if not isinstance(path, (str, bytes, os.PathLike)):
+            return
+        path = os.fsdecode(path)
+        if not path.startswith(self.root):
+            return
+        if event == "open" and not (
+                (isinstance(args[1], str) and set(args[1]) & set("wax+"))
+                or args[2] & (os.O_WRONLY | os.O_RDWR)):
+            return
+        self.seen.append(path)
+
+
+def service_requests() -> list:
+    """(m)'s tenants: ``spambase_100.json`` at SERVICE_SEEDS and
+    SERVICE_DROPS (phase 17 (b)'s), SERVICE_ROUNDS rounds each; the
+    tenant RANK_SERVICE_POISON's data has an eighth of its samples set to
+    inf."""
+    from gossipy_tpu_torch.data import load_classification_dataset
+    from gossipy_tpu_torch.service import RunRequest
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the offline stand-in's note
+        X, y = load_classification_dataset("spambase")
+    out = []
+    for i, (seed, p) in enumerate(zip(SERVICE_SEEDS, SERVICE_DROPS)):
+        data = None
+        if i == RANK_SERVICE_POISON:
+            Xp = np.array(X, copy=True)
+            Xp[: len(Xp) // 8] = np.inf
+            data = (Xp, y)
+        out.append(RunRequest(f"ns-{seed}", load_config(
+            "spambase_100", seed=seed, drop_prob=p, n_rounds=SERVICE_ROUNDS),
+            data=data))
+    return out
+
+
+def service_rank_leg(torch, merge, mesh, workdir: str) -> dict:
+    """(m): :func:`service_requests`' tenants served on ``mesh`` in slices
+    of SERVICE_SLICE, all but RANK_SERVICE_LATE submitted at the start and
+    that one after the first slice (so admission runs twice; rank 1 of a
+    mesh across ranks submits it a slice later still, and its queue runs
+    rank 0's request meanwhile), the counts set to 0 just before: each
+    tenant's status, rounds, report and the cycle that admitted it, the
+    buckets, the launches and the lane rounds with messages, the wall and
+    the slices' seconds, the summary, the status of the handle the late
+    submit returned, and the files this process wrote under its output
+    directory."""
+    from gossipy_tpu_torch.service import GossipService, RunQueue
+    from gossipy_tpu_torch.telemetry import MetricsRegistry
+    out_dir = os.path.join(workdir, "m-ranks" if mesh.spans_ranks()
+                           else "m-virtual")
+    writes = FileWrites(out_dir)
+    reg = MetricsRegistry()
+    reqs = service_requests()
+    late = reqs.pop(RANK_SERVICE_LATE)
+    q = RunQueue()
+    for req in reqs:
+        q.submit(req)
+    svc = GossipService(out_dir, slice_rounds=SERVICE_SLICE, registry=reg,
+                        mesh=mesh)
+    sess = svc.session(q)
+    admitted, cycle, late_status = {}, 0, None
+    lag = int(mesh.spans_ranks() and torch.distributed.get_rank() == 1)
+    with lane_rounds() as lanes, warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the offline stand-in's note
+        writes.on = True
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        t0 = time.perf_counter()
+        while True:
+            live = sess.poll()
+            for rt in sess.runtimes:
+                for t in rt.bucket.tenants:
+                    admitted.setdefault(t, cycle)
+            cycle += 1
+            if cycle == 1 + lag:
+                late_status = q.submit(late).status.value
+            if cycle == 1:
+                live = True
+            if not live:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in merge.LAUNCHES.items() if v}
+        summary = sess.finish()
+        writes.on = False
+    snap = reg.snapshot()["metrics"]
+    slices = sum(x["sum"] for x in snap["service_slice_seconds"]["series"])
+    handles = {h.tenant: dict(status=h.status.value,
+                              rounds=h.rounds_completed,
+                              report=None if h.report is None
+                              else h.report.to_dict(),
+                              bundle=h.bundle_path)
+               for h in q.handles()}
+    return dict(handles=handles, admitted=admitted,
+                buckets=[sorted(rt.bucket.tenants) for rt in sess.runtimes],
+                launches=launches, lanes=dict(lanes), wall=wall,
+                slices=slices, summary=summary, writes=writes.seen,
+                late_status=late_status, queued=len(q.handles()),
+                tenant_rounds=sum(h["rounds"] for h in handles.values()))
+
+
+def more_legs(torch, mesh, workdir: str) -> dict:
+    """Phase 21 (k)-(m) on ``mesh``, each leg's seconds beside it."""
+    from gossipy_tpu_torch.ops import merge
+    out, seconds = {}, {}
+    for key, fn in (("variant", lambda: variant_leg(torch, merge, mesh)),
+                    ("cohort", lambda: cohort_rank_legs(torch, merge, mesh)),
+                    ("service", lambda: service_rank_leg(torch, merge, mesh,
+                                                         workdir))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["more_seconds"] = seconds
+    return out
+
+
+def more_checks(torch, merge, smi, pair, ref) -> dict:
+    """Phase 21 (k)-(m): each rank against the 2-position virtual mesh's
+    legs (``ref``, :func:`more_legs`): bit-equal rows, reports, pools and
+    tenant reports, the same admissions and evictions, K1 on every rank,
+    only rank 0 writing the service's files. Returns K1's launches by leg
+    and rank."""
+    k1: dict = {}
+    # (k) a user's subclass
+    for r, mine in enumerate(pair):
+        leg, want = mine["variant"], ref["variant"]
+        diff = rank_against(torch, "variant", r, leg, want)
+        k1[f"ranks-variant-rank{r}"] = k1_launches(merge, "variant", r, leg,
+                                                   want, 2, 4)
+        sent = leg["report"]["sent_per_round"]
+        if max(sent) >= NS_NODES:
+            raise RuntimeError(f"ranks (k) rank {r}: the subclass's gate "
+                               f"did not hold back a send: {sent}")
+        log(f"[ranks] (k) north star through a user's subclass (_init_aux, "
+            f"_pre_send, a _send_gate that reads a per-node aux value), "
+            f"rank {r}: {RANK_VARIANT_ROUNDS} rounds, accounting, rows "
+            f"(aux among them) and report bit-equal to the 2-position "
+            f"virtual mesh (params max abs diff {diff:.3e}); "
+            f"{RANK_VARIANT_ROUNDS / leg['wall']:.2f} rounds/s on this rank "
+            f"(virtual mesh {RANK_VARIANT_ROUNDS / want['wall']:.2f}); sent "
+            f"{sum(sent)} ({min(sent)}-{max(sent)} a round of "
+            f"{NS_NODES} nodes); final accuracy "
+            f"{leg['report']['global_evals'][-1]}; K1 launches "
+            f"{leg['launches']} (virtual mesh {want['launches']}); "
+            f"{leg_line(leg, want, RANK_VARIANT_ROUNDS)}; {smi}")
+    # (l) the cohort
+    for r, mine in enumerate(pair):
+        leg, want = mine["cohort"], ref["cohort"]
+        for tag in ("serial", "stream"):
+            a, b = leg[tag], want[tag]
+            off = same_fields(a["report"], b["report"])
+            if off or a["digest"] != b["digest"] or not a["finite"]:
+                raise RuntimeError(f"ranks (l) {tag} rank {r}: report "
+                                   f"fields {sorted(set(off))} or the pool "
+                                   "differ from the virtual mesh's")
+            k1[f"ranks-cohort-{tag}-rank{r}"] = k1_launches(
+                merge, f"cohort-{tag}", r, a, b, 2, 4)
+        if leg["serial"]["digest"] != leg["stream"]["digest"]:
+            raise RuntimeError(f"ranks (l) rank {r}: the streamed pool is "
+                               "not bit-identical to the serial pool")
+        rate = {t: RANK_COHORT_ROUNDS / leg[t]["wall"]
+                for t in ("serial", "stream")}
+        ref_rate = {t: RANK_COHORT_ROUNDS / want[t]["wall"]
+                    for t in ("serial", "stream")}
+        log(f"[ranks] (l) cohort, nominal {COHORT_NOMINAL}, C "
+            f"{COHORT_SIZE} ({COHORT_SIZE // RANKS} rows a rank), K1, rank "
+            f"{r}: pool init {leg['init_s']:.3f} s (virtual mesh "
+            f"{want['init_s']:.3f}); {RANK_COHORT_ROUNDS} rounds after "
+            f"{RANK_COHORT_WARM} of warm-up (phase 16 times 50), every "
+            f"round a segment: serial {rate['serial']:.2f} rounds/s, "
+            f"prefetch={COHORT_PREFETCH} {rate['stream']:.2f} rounds/s on "
+            f"this rank (virtual mesh {ref_rate['serial']:.2f} and "
+            f"{ref_rate['stream']:.2f}; one process: this run's phase 16 "
+            f"line above); pools and "
+            f"reports bit-equal to the virtual mesh's, the streamed pool "
+            f"bit-identical to the serial one; coverage "
+            f"{leg['serial']['report']['cohort_coverage'][-1]}; final "
+            f"accuracy {leg['serial']['report']['global_evals'][-1]}; K1 "
+            f"launches serial {leg['serial']['launches']}, stream "
+            f"{leg['stream']['launches']} (virtual mesh "
+            f"{want['serial']['launches']}); "
+            f"{leg_line(leg['serial'], want['serial'], RANK_COHORT_ROUNDS)}"
+            f"; {smi}")
+    # (m) the service
+    want = ref["service"]
+    poison = f"ns-{SERVICE_SEEDS[RANK_SERVICE_POISON]}"
+    late = f"ns-{SERVICE_SEEDS[RANK_SERVICE_LATE]}"
+    if want["handles"][poison]["status"] != "evicted" or any(
+            h["status"] != "done" for t, h in want["handles"].items()
+            if t != poison) or want["admitted"][late] != 1:
+        raise RuntimeError(f"ranks (m): the virtual mesh service's "
+                           f"tenants {want['handles']}, admitted "
+                           f"{want['admitted']}")
+    if pair[1]["service"]["writes"] or not any(
+            p.endswith("service_summary.json")
+            for p in pair[0]["service"]["writes"]):
+        raise RuntimeError(f"ranks (m): rank 1 wrote "
+                           f"{pair[1]['service']['writes'][:5]}, rank 0 "
+                           f"{len(pair[0]['service']['writes'])} files")
+    if pair[0]["service"]["summary"] != pair[1]["service"]["summary"]:
+        raise RuntimeError("ranks (m): the ranks returned other summaries")
+    for r, mine in enumerate(pair):
+        leg = mine["service"]
+        for t, h in want["handles"].items():
+            got = leg["handles"][t]
+            off = same_fields(got["report"], h["report"])
+            if off or got["status"] != h["status"] or \
+                    got["rounds"] != h["rounds"]:
+                raise RuntimeError(f"ranks (m) rank {r} tenant {t}: "
+                                   f"{got['status']} after {got['rounds']} "
+                                   f"rounds, report fields "
+                                   f"{sorted(set(off))} off the virtual "
+                                   "mesh's")
+        if leg["admitted"] != want["admitted"] or \
+                leg["buckets"] != want["buckets"] or \
+                leg["queued"] != len(want["handles"]) or \
+                leg["late_status"] != ("running" if r else "queued"):
+            raise RuntimeError(f"ranks (m) rank {r}: admitted "
+                               f"{leg['admitted']} in {leg['buckets']}, "
+                               f"the virtual mesh {want['admitted']}; "
+                               f"{leg['queued']} handles, the late submit "
+                               f"returned one {leg['late_status']}")
+        rounds = leg["lanes"].get("float32", 0)
+        if not rounds or leg["launches"] != {merge.KERNEL: 2 * rounds} or \
+                want["launches"] != {merge.KERNEL: 4 * rounds}:
+            raise RuntimeError(f"ranks (m) rank {r}: launches "
+                               f"{leg['launches']} (virtual mesh "
+                               f"{want['launches']}) for {rounds} lane "
+                               "rounds with messages")
+        k1[f"ranks-service-rank{r}"] = leg["launches"][merge.KERNEL]
+        log(f"[ranks] (m) spambase_100.json x {len(want['handles'])} "
+            f"tenants (seeds {list(SERVICE_SEEDS)}, drop_prob "
+            f"{list(SERVICE_DROPS)}), {SERVICE_ROUNDS} rounds in slices of "
+            f"{SERVICE_SLICE}, {late} submitted after the first slice "
+            f"(rank 1: the second, its handle then "
+            f"{pair[1]['service']['late_status']}), {poison} poisoned, rank "
+            f"{r}: buckets {leg['buckets']}, "
+            f"admitted in cycles {leg['admitted']}, statuses "
+            f"{ {t: h['status'] for t, h in leg['handles'].items()} }, "
+            f"every tenant's report bit-equal to the virtual mesh "
+            f"service's; {leg['tenant_rounds']} tenant-rounds in "
+            f"{leg['slices']:.3f} s of slices = "
+            f"{leg['tenant_rounds'] / leg['slices']:.2f} tenant-rounds/s on "
+            f"this rank (virtual mesh "
+            f"{want['tenant_rounds'] / want['slices']:.2f}; four tenants "
+            f"on one process: this run's phase 17 (b) line above); whole "
+            f"run {leg['wall']:.3f} s; files written by this rank "
+            f"{len(leg['writes'])}; K1 launches {leg['launches']} for "
+            f"{rounds} lane rounds with messages (virtual mesh "
+            f"{want['launches']}); {smi}")
+    return {(merge.KERNEL, "float32"): k1}
+
+
+def more_phase(torch, merge, smi) -> dict:
+    """Phase 21 (k)-(m) alone (the full phase runs them in its ``pair``
+    spawn): the legs on a 2-position virtual mesh of the card, then on
+    RANKS processes (the ``more`` spawn), held by :func:`more_checks`.
+    Returns K1's launches by leg and rank."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="gossipy-more-")
+    try:
+        ref = more_legs(torch, virtual_mesh("cuda", RANKS), workdir)
+        got, seconds = run_spawn(torch, workdir, "more")
+        paths = more_checks(torch, merge, smi, got, ref)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[ranks] (k)-(m): the virtual mesh's legs "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in
+                    ref["more_seconds"].items())
+        + f"; {RANKS} ranks started, ran and reaped in {seconds:.1f} s")
+    return paths
+
+
 def ranks_legs(torch, merge, mesh, split: bool = False) -> dict:
     """Phase 21's legs (a)-(c) on ``mesh`` (``None``: the unsharded north
     star alone): what this process holds after each (its rows of every
@@ -6945,11 +7350,12 @@ def rank_main(argv) -> int:
     SPAWN``): join the group on ``cuda:0`` and save what this rank holds
     after its legs. The ``pair`` spawn (RANKS processes) runs
     :func:`ranks_legs` on the mesh over every rank's positions, then (d)
-    on a 2 x 2 ``(nodes, model)`` mesh, (f), (g) and (h)-(j)
-    (:func:`persist_legs`, with the files in WORKDIR); the ``grid`` spawn
-    (GRID_RANKS processes) runs (e) on a 4 x 2 ``(dcn, nodes)`` mesh, two
-    positions a rank; the ``persist`` spawn (RANKS processes) runs
-    (h)-(j) alone (:func:`persist_phase`)."""
+    on a 2 x 2 ``(nodes, model)`` mesh, (f), (g), (h)-(j)
+    (:func:`persist_legs`, with the files in WORKDIR) and (k)-(m)
+    (:func:`more_legs`); the ``grid`` spawn (GRID_RANKS processes) runs
+    (e) on a 4 x 2 ``(dcn, nodes)`` mesh, two positions a rank; the
+    ``persist`` and ``more`` spawns (RANKS processes) run (h)-(j) alone
+    (:func:`persist_phase`) and (k)-(m) alone (:func:`more_phase`)."""
     import datetime
 
     import torch
@@ -6971,9 +7377,13 @@ def rank_main(argv) -> int:
             out["a2a"] = all2all_legs(torch, merge, mesh)
             out["telemetry"] = telemetry_legs(torch, merge, mesh)
             out.update(persist_legs(torch, mesh, workdir))
+            out.update(more_legs(torch, mesh, workdir))
         elif spawn == "persist":
             mesh = parallel.make_mesh(devices=parallel.devices("cuda:0"))
             out = persist_legs(torch, mesh, workdir)
+        elif spawn == "more":
+            mesh = parallel.make_mesh(devices=parallel.devices("cuda:0"))
+            out = more_legs(torch, mesh, workdir)
         else:
             mesh = grid_mesh(rank_positions(2))
             out = {"grid": flagship_leg(torch, merge, mesh)}
@@ -6988,8 +7398,9 @@ def rank_main(argv) -> int:
 
 
 def start_ranks(workdir: str, spawn: str = "pair") -> list:
-    """The processes of one phase-21 spawn (``pair`` and ``persist``:
-    RANKS, ``grid``: GRID_RANKS), on a free port of this host."""
+    """The processes of one phase-21 spawn (``pair``, ``persist`` and
+    ``more``: RANKS, ``grid``: GRID_RANKS), on a free port of this
+    host."""
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -7119,8 +7530,10 @@ def ranks_phase(torch, merge, smi) -> dict:
     """Phase 21: the legs on RANKS processes of the card against the same
     legs on a 2-position virtual mesh here (and the unsharded north
     star), (d) against a 2 x 2 virtual TP mesh and (e), on GRID_RANKS
-    processes, against a 4 x 2 virtual ``(dcn, nodes)`` mesh; returns
-    K1's and K5's launches by rank and leg."""
+    processes, against a 4 x 2 virtual ``(dcn, nodes)`` mesh; (h)-(j)
+    (:func:`persist_checks`) and (k)-(m) (:func:`more_checks`) on the
+    RANKS processes too; returns K1's and K5's launches by rank and
+    leg."""
     import shutil
     import tempfile
 
@@ -7155,15 +7568,20 @@ def ranks_phase(torch, merge, smi) -> dict:
             "a2a": all2all_legs(torch, merge, virtual_mesh("cuda", RANKS)),
             "telemetry": telemetry_legs(torch, merge,
                                         virtual_mesh("cuda", RANKS))}
-    # (h)-(j) on the 2-position virtual mesh, its files (the checkpoints
-    # a rank restores among them) in the spawn's directory.
+    # (h)-(j) and (k)-(m) on the 2-position virtual mesh, their files
+    # (the checkpoints a rank restores among them) in the spawn's
+    # directory.
     try:
         more["persist"] = persist_legs(torch, virtual_mesh("cuda", RANKS),
                                        workdir)
+        more["more"] = more_legs(torch, virtual_mesh("cuda", RANKS),
+                                 workdir)
         log(f"[ranks] the parent's references took "
             f"{time.perf_counter() - t_ref:.1f} s ((h)-(j): "
             + ", ".join(f"{k} {v:.1f} s" for k, v in
-                        more["persist"]["seconds"].items()) + ")")
+                        more["persist"]["seconds"].items()) + "; (k)-(m): "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in
+                        more["more"]["more_seconds"].items()) + ")")
         got, ranks_s = run_spawn(torch, workdir, "pair")
         grid, grid_s = run_spawn(torch, workdir, "grid")
         t0 = time.perf_counter()
@@ -7173,9 +7591,13 @@ def ranks_phase(torch, merge, smi) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for key, by_leg in more_ranks_checks(torch, merge, smi, got, grid,
-                                         more).items():
-        paths.setdefault(key, {}).update(by_leg)
+    for checks in (more_ranks_checks(torch, merge, smi, got, grid, more),
+                   more_checks(torch, merge, smi, got, more["more"])):
+        for key, by_leg in checks.items():
+            paths.setdefault(key, {}).update(by_leg)
+    log("[ranks] the rank legs' seconds (rank 0): " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in {**got[0]["seconds"],
+                                       **got[0]["more_seconds"]}.items()))
     route = attn.route(torch.float32, ATTN_D, ATTN_D)
     for r, mine in enumerate(got):
         log(f"[ranks] rank {r}: {mine['mesh']}, transport "

@@ -83,18 +83,16 @@ __all__ = [
     "Mesh", "Position", "PartitionSpec", "NamedSharding", "devices",
     "sharding_of", "ring_positions", "record_local_state",
     "choose_transport", "ACROSS_RANKS_LEFT", "gather_state", "is_writer",
-    "rank_barrier",
+    "rank_barrier", "gather_rows", "local_state",
 ]
 
 # What is left of ROADMAP.md queue 1 item 13, in its order: each use
 # still refused on a mesh across ranks names the entry it waits for.
 ACROSS_RANKS_LEFT = {
-    "variants": "1, the variant simulators the JAX package's mesh path "
-                "runs, other than All2All",
-    "cohort": "2, a cohort's start(mesh=)",
-    "service": "3, the service",
     "cards": "4, NCCL ranks on cards of their own and one process on "
              "several cards",
+    "pool_dir": "5, a disk-backed cohort pool: every rank would write "
+                "the one store",
 }
 
 # What a mesh of one process on several devices waits for.
@@ -668,46 +666,70 @@ def rank_barrier(mesh=None) -> None:
 _ALIGN = 8   # bytes: every leaf's piece of the gathered buffer starts here
 
 
-def gather_state(state, mesh: Mesh, axis_name=None):
-    """The whole population's state on every rank of a mesh across ranks:
-    each node-axis leaf as every rank's rows in node order, each
-    replicated tensor leaf copied, in new tensors on this rank's device.
-    The node-axis leaves cross in ONE all-gather of their bytes (a
-    collective every rank calls; under gloo a card's buffer is staged
-    through the host), whatever their dtypes (a bf16 or int8 ring and its
-    scales among them). Off a mesh across ranks ``state`` itself."""
-    if mesh is None or not mesh.spans_ranks():
-        return state
+def gather_rows(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                dims: Optional[Sequence[int]] = None) -> list:
+    """Every rank's rows of each tensor (its node axis ``dims[i]``,
+    default 0), in node order, in new tensors on this rank's device:
+    ONE all-gather of their bytes, whatever their dtypes (a collective
+    every rank calls; under gloo a card's buffer is staged through the
+    host). Off a mesh across ranks, the tensors themselves."""
+    tensors = list(tensors)
+    if mesh is None or not mesh.spans_ranks() or not tensors:
+        return tensors
     from .collectives import _rank_order, rank_all_gather
-    specs = dict(rules.named_leaves(state_shardings(state, mesh, axis_name)))
-    parts, cuts, offset = [], {}, 0
-    for path, x in rules.named_leaves(state):
-        if not isinstance(x, torch.Tensor):
-            continue
-        dim = rules.node_dim(specs[path].spec, mesh)
-        if dim is None:
-            continue
+    dims = [0] * len(tensors) if dims is None else list(dims)
+    parts, cuts, offset = [], [], 0
+    for x in tensors:
         raw = x.detach().contiguous().reshape(-1).view(torch.uint8)
         pad = -raw.numel() % _ALIGN
         parts.append(raw)
         if pad:
             parts.append(raw.new_zeros(pad))
-        cuts[path] = (offset, raw.numel(), dim)
+        cuts.append((offset, raw.numel()))
         offset += raw.numel() + pad
-    if not cuts:
-        return tree_map_with_path(
-            lambda _, x: x.clone() if isinstance(x, torch.Tensor) else x,
-            state)
     ranks = len(_rank_order(mesh))
     whole = rank_all_gather(torch.cat(parts), mesh).reshape(ranks, offset)
+    return [torch.cat([whole[r, start:start + size].view(x.dtype)
+                       .reshape(x.shape) for r in range(ranks)], dim=dim)
+            for x, (start, size), dim in zip(tensors, cuts, dims)]
 
-    def leaf(path, x):
+
+def gather_state(state, mesh: Mesh, axis_name=None):
+    """The whole population's state on every rank of a mesh across ranks:
+    each node-axis leaf as every rank's rows in node order, each
+    replicated tensor leaf copied, in new tensors on this rank's device.
+    The node-axis leaves cross in ONE all-gather of their bytes
+    (:func:`gather_rows`), whatever their dtypes (a bf16 or int8 ring and
+    its scales among them). Off a mesh across ranks ``state`` itself."""
+    if mesh is None or not mesh.spans_ranks():
+        return state
+    specs = dict(rules.named_leaves(state_shardings(state, mesh, axis_name)))
+    node = {}
+    for path, x in rules.named_leaves(state):
+        if isinstance(x, torch.Tensor):
+            dim = rules.node_dim(specs[path].spec, mesh)
+            if dim is not None:
+                node[path] = (x, dim)
+    whole = dict(zip(node, gather_rows([x for x, _ in node.values()], mesh,
+                                       [d for _, d in node.values()])))
+    return tree_map_with_path(
+        lambda path, x: whole[path] if path in whole else
+        x.clone() if isinstance(x, torch.Tensor) else x, state)
+
+
+def local_state(state, mesh: Mesh, axis_name=None):
+    """This rank's rows of a whole-population state on a mesh across
+    ranks, the inverse of :func:`gather_state`: each node-axis leaf cut
+    along the dimension the rule registry gives it, in a tensor of its
+    own; every other leaf as it is. Off a mesh across ranks ``state``
+    itself."""
+    if mesh is None or not mesh.spans_ranks():
+        return state
+    specs = dict(rules.named_leaves(state_shardings(state, mesh, axis_name)))
+
+    def cut(path, x):
         if not isinstance(x, torch.Tensor):
             return x
-        if path not in cuts:
-            return x.clone()
-        start, size, dim = cuts[path]
-        return torch.cat([whole[r, start:start + size].view(x.dtype)
-                          .reshape(x.shape) for r in range(ranks)], dim=dim)
-
-    return tree_map_with_path(leaf, state)
+        mine = rules.local_rows(x, specs[path])
+        return x if mine is x else mine.clone()
+    return tree_map_with_path(cut, state)

@@ -47,6 +47,28 @@ runs the whole slice, its rows past the requested rounds dropped, as in
 the JAX service; an evicted lane is no longer stepped (the JAX lane keeps
 computing and nothing reads it).
 
+**Across ranks.** ``GossipService(mesh=)`` over a mesh across ranks
+(``parallel.init_distributed``, then a mesh over every rank's
+positions) runs the same service on every rank, each rank holding its
+rows of every lane (each lane's simulator built on the mesh). Every
+host decision that reads a clock or catches an exception is taken on
+rank 0 and sent to the other ranks before any collective follows from
+it: which queued tenants a cycle admits (rank 0's queue decides; a
+request a rank has not seen yet comes from rank 0, and that rank's
+caller submitting it later gets the same handle back,
+``RunQueue.supply``), which builds failed (every rank's outcome
+gathered and one rule applied on each: a tenant whose build failed on
+any rank fails on every rank), and whether a slice failed
+(``_fail_all``, the same gather). Evictions follow from the sentinels'
+values, which every rank computes on the whole population, so the ranks
+agree on them without a message. Rank 0 alone writes the output directory
+(tenant reports, manifests, event streams, ledger rows, metrics
+snapshots, eviction bundles from the lane's state gathered whole, the
+summary); every rank records the same artifact paths and returns rank
+0's summary. A rank whose lane raises before a collective the others
+wait in leaves them to the process group's timeout; they raise then
+too, and the bucket fails on every rank.
+
 Chunk-boundary note: as in every chunked runner, a slice's final round
 counts as a segment-final round, which under ``eval_every > 1``
 evaluates where one continuous run would not: tenant curves can carry
@@ -74,6 +96,38 @@ from ..telemetry.health import FlightRecorder
 from ..telemetry.metrics import MetricsRegistry, get_registry
 from .packer import Bucket, BuiltRun, build_request, pack
 from .spec import RunQueue, RunStatus
+
+
+def _across(mesh) -> bool:
+    return mesh is not None and mesh.spans_ranks()
+
+
+def _from_rank0(mesh, obj):
+    """``obj`` as rank 0 holds it, on every rank of a mesh across ranks
+    (``obj`` itself off one): a collective every rank calls."""
+    if not _across(mesh):
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class _RankError(RuntimeError):
+    """A slice's error, the same on every rank: its repr is the failing
+    lane's."""
+
+    def __repr__(self) -> str:
+        return self.args[0]
+
+
+def _every_rank(mesh, obj) -> list:
+    """Every rank's ``obj``, in rank order (``[obj]`` off a mesh across
+    ranks): a collective every rank calls."""
+    if not _across(mesh):
+        return [obj]
+    seen = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(seen, obj)
+    return seen
 
 
 def _service_metrics(reg: MetricsRegistry) -> dict:
@@ -150,6 +204,10 @@ class _BucketRuntime:
                  mesh=None, tracer=None, ledger=None):
         self.bucket = bucket
         self.mesh = mesh
+        # Whether this process writes the bucket's files (rank 0 on a
+        # mesh across ranks).
+        from ..parallel import is_writer
+        self.writer = is_writer(mesh)
         # The bucket's placement on the mesh (batch_dims=1: the node axis
         # past the lane axis), from the rule registry; None without one.
         self.placement = self.data_placement = None
@@ -194,14 +252,16 @@ class _BucketRuntime:
         self._receivers: list[Optional[JSONLinesReceiver]] = []
         for i, r in enumerate(runs):
             d = os.path.join(out_root, r.tenant)
-            os.makedirs(d, exist_ok=True)
+            if self.writer:
+                os.makedirs(d, exist_ok=True)
             self.out_dirs[i] = d
             sender = _TenantSender()
             rx = None
             if events_jsonl:
                 path = os.path.join(d, "events.jsonl")
-                rx = JSONLinesReceiver(path)
-                sender.add_receiver(rx)
+                if self.writer:
+                    rx = JSONLinesReceiver(path)
+                    sender.add_receiver(rx)
                 r.handle.artifacts["events"] = path
             self._senders.append(sender)
             self._receivers.append(rx)
@@ -259,8 +319,10 @@ class _BucketRuntime:
 
     def _place_on_mesh(self) -> None:
         """Each lane's state and data placed per the rule registry (whole
-        tensors on a virtual mesh's device, their placement recorded), and
-        the bucket's ``[T, ...]`` placement with ``batch_dims=1``."""
+        tensors on a virtual mesh's device, this rank's rows on a mesh
+        across ranks, as the lane's simulator left them; their placement
+        recorded), and the bucket's ``[T, ...]`` placement with
+        ``batch_dims=1``."""
         from .. import parallel
         from ..parallel import rules
 
@@ -314,11 +376,13 @@ class _BucketRuntime:
         with sp_slice:
             if self.keep_repro:
                 # Host copies of each lane's state and draw state: the
-                # bundle's checkpoint if this slice trips the lane.
+                # bundle's checkpoint if this slice trips the lane (on a
+                # mesh across ranks the state gathered whole, which rank
+                # 0 keeps).
                 with _tracing.span("service.snapshot_healthy",
                                    cat="service", tracer=self.tracer):
                     self._healthy = {
-                        i: (slice_lane(self.states, i),
+                        i: (self._healthy_state(i),
                             draw_record(self.bucket.runs[i].sim.draws))
                         for i in lanes}
                 self._healthy_round = self.rounds_done
@@ -327,11 +391,15 @@ class _BucketRuntime:
             # the window.
             sp_step = _tracing.span("service.step", cat=_tracing.WAIT_CAT,
                                     tracer=self.tracer)
+            error = None
             try:
                 with sp_step:
                     host = self._run_lanes(lanes)
             except Exception as e:  # a lane raised: the bucket fails
-                self._fail_all(e, chunk_start)
+                error = e
+            error = self._agreed_error(error)
+            if error is not None:
+                self._fail_all(error, chunk_start)
                 return
             if self.tracer is not None:
                 _tracing.attach_device_spans(
@@ -417,6 +485,26 @@ class _BucketRuntime:
                     value=round(frac * 100.0, 2))
         if not self._live_lanes():
             self.live = False
+
+    def _healthy_state(self, i: int):
+        """Lane ``i``'s state on the host (the whole population's, gathered,
+        on a mesh across ranks: rank 0 keeps it, every rank gathers)."""
+        if not _across(self.mesh):
+            return slice_lane(self.states, i)
+        from ..parallel import gather_state
+        whole = gather_state(self.states[i], self.mesh)
+        return slice_lane([whole], 0) if self.writer else None
+
+    def _agreed_error(self, error: Optional[Exception]):
+        """Whether the slice failed, the same on every rank: every rank's
+        outcome gathered and one rule applied to them on each (the lowest
+        failing rank's error); off a mesh across ranks ``error``."""
+        if not _across(self.mesh):
+            return error
+        seen = _every_rank(self.mesh, None if error is None
+                           else repr(error)[:500])
+        failed = [e for e in seen if e is not None]
+        return _RankError(failed[0]) if failed else None
 
     def _harvest_rows(self, i: int, rows: dict, chunk_start: int) -> None:
         """Keep one tenant's slice rows and stream them out: replay
@@ -526,13 +614,15 @@ class _BucketRuntime:
         out = self.out_dirs[i]
         if h.report is not None:
             path = os.path.join(out, "report.json")
-            h.report.save(path)
+            if self.writer:
+                h.report.save(path)
             h.artifacts["report"] = path
         path = os.path.join(out, "manifest.json")
-        manifest = self._tenant_manifest(i)
-        manifest.save(path)
+        if self.writer:
+            manifest = self._tenant_manifest(i)
+            manifest.save(path)
+            self._ledger_append(i, manifest)
         h.artifacts["manifest"] = path
-        self._ledger_append(i, manifest)
         self._senders[i]._notify_end()
         rx = self._receivers[i]
         if rx is not None:
@@ -599,12 +689,15 @@ class _BucketRuntime:
         if div is not None and len(div):
             detail["diverged_nodes"] = int((np.asarray(div[-1]) > 0).sum())
         if self.keep_repro and i in self._healthy:
-            state, draws = self._healthy[i]
-            rec = FlightRecorder(self.out_dirs[i])
-            h.bundle_path = rec.write_bundle(
-                run.sim, state, draws, "sentinel", self._healthy_round,
-                first_bad_round=bad_round, detail=detail,
-                rounds_recorded=h.rounds_completed)
+            path = None
+            if self.writer:
+                state, draws = self._healthy[i]
+                rec = FlightRecorder(self.out_dirs[i])
+                path = rec.write_bundle(
+                    run.sim, state, draws, "sentinel", self._healthy_round,
+                    first_bad_round=bad_round, detail=detail,
+                    rounds_recorded=h.rounds_completed)
+            h.bundle_path = _from_rank0(self.mesh, path)
         self._m["evictions"].labels(cause="sentinel").inc()
         emit_event("tenant_evicted", {
             "tenant": run.tenant,
@@ -626,16 +719,19 @@ class _BucketRuntime:
             h.error = repr(error)[:500]
             self._m["evictions"].labels(cause="exception").inc()
             if self.keep_repro and i in self._healthy:
-                state, draws = self._healthy[i]
-                rec = FlightRecorder(self.out_dirs[i])
-                try:
-                    h.bundle_path = rec.write_bundle(
-                        run.sim, state, draws, "exception",
-                        self._healthy_round,
-                        detail={"error": h.error, "tenant": run.tenant},
-                        rounds_recorded=h.rounds_completed)
-                except Exception:  # the bundle is best-effort forensics
-                    pass
+                path = None
+                if self.writer:
+                    state, draws = self._healthy[i]
+                    rec = FlightRecorder(self.out_dirs[i])
+                    try:
+                        path = rec.write_bundle(
+                            run.sim, state, draws, "exception",
+                            self._healthy_round,
+                            detail={"error": h.error, "tenant": run.tenant},
+                            rounds_recorded=h.rounds_completed)
+                    except Exception:  # the bundle is best-effort
+                        pass
+                h.bundle_path = _from_rank0(self.mesh, path)
             self._finalize(i, RunStatus.FAILED)
         emit_event("bucket_failed", {
             "bucket": self.bucket.signature.digest,
@@ -676,12 +772,15 @@ class GossipService:
     one slice at a time. ``keep_repro=False`` skips the per-slice host
     copies (faster slicing, but evictions lose their repro bundles).
     Every bucket runs on ``device`` (``cuda`` unless ``"cpu"`` is
-    given). ``mesh=`` (a virtual mesh on ``device``,
+    given). ``mesh=`` (a virtual mesh on ``device``, or a mesh across
+    ranks whose positions of this rank lie on ``device``,
     :mod:`gossipy_tpu_torch.parallel`) builds each lane's simulator with
     that mesh (its deliver a ring over the node axis), places each lane's
     state and data per the partition-rule registry, and records the
     bucket's placement with ``batch_dims=1`` (``_BucketRuntime.placement``
-    and ``data_placement``: the node axis past the lane axis).
+    and ``data_placement``: the node axis past the lane axis). Across
+    ranks every rank runs the service on the same queue (the module doc
+    says what rank 0 decides and writes).
     """
 
     def __init__(self, out_dir: str, slice_rounds: int = 25,
@@ -691,18 +790,23 @@ class GossipService:
                  registry: Optional[MetricsRegistry] = None,
                  mesh=None, tracing=None, ledger=None, device=None):
         self.device = resolve_device(device)
-        if mesh is not None:
-            from ..parallel import _ACROSS_CARDS, across_ranks_refusal, \
-                canonical_device
-            if mesh.spans_ranks():
-                raise NotImplementedError(across_ranks_refusal(
-                    "the gossip service", "service"))
-            if not mesh.is_virtual() or mesh.device() != canonical_device(
-                    self.device):
-                raise NotImplementedError(_ACROSS_CARDS)
+        from ..parallel import _ACROSS_CARDS, canonical_device, is_writer
+        if _across(mesh):
+            mesh.check_across_ranks()
+            if mesh.local_device() != canonical_device(self.device):
+                raise ValueError(f"this rank's positions lie on "
+                                 f"{mesh.local_device()}, the service on "
+                                 f"{self.device}")
+        elif mesh is not None and (not mesh.is_virtual() or mesh.device()
+                                   != canonical_device(self.device)):
+            raise NotImplementedError(_ACROSS_CARDS)
         self.mesh = mesh
+        # Whether this process writes the service's files (rank 0 on a
+        # mesh across ranks).
+        self.writer = is_writer(mesh)
         self.out_dir = os.path.abspath(out_dir)
-        os.makedirs(self.out_dir, exist_ok=True)
+        if self.writer:
+            os.makedirs(self.out_dir, exist_ok=True)
         self.slice_rounds = int(slice_rounds)
         if self.slice_rounds < 1:
             raise ValueError(f"slice_rounds must be >= 1, got "
@@ -778,26 +882,68 @@ class ServiceSession:
         self.queue = queue
         self.runtimes: list[_BucketRuntime] = []
         self.t0 = time.time()
-        if service.metrics_dir:
+        if service.metrics_dir and service.writer:
             os.makedirs(service.metrics_dir, exist_ok=True)
 
     # -- admission ---------------------------------------------------------
 
+    def _pending(self) -> list:
+        """The QUEUED handles this cycle admits: the queue's, or on a mesh
+        across ranks rank 0's (its tenants, in its order; a request that
+        has not reached this rank's queue yet is supplied to it from rank
+        0's, :meth:`RunQueue.supply`)."""
+        pending = self.queue.pending()
+        mesh = self.service.mesh
+        if not _across(mesh):
+            return pending
+        names = _every_rank(mesh, [h.tenant for h in pending])
+        mine = {h.tenant: h for h in pending}
+        late = sorted({t for t in names[0] for seen in names
+                       if t not in seen})
+        if late:
+            reqs = _from_rank0(mesh, {t: mine[t].request for t in late
+                                      if t in mine})
+            for t in late:
+                if t not in mine:
+                    mine[t] = self.queue.supply(reqs[t])
+        return [mine[t] for t in names[0]]
+
+    def _agreed_failures(self, failed: dict) -> dict:
+        """Tenant -> error of the builds that failed, the same on every
+        rank: every rank's failures gathered and one rule applied to
+        them on each (a build that failed on any rank fails, with the
+        lowest failing rank's error); off a mesh across ranks
+        ``failed``."""
+        decided: dict = {}
+        for seen in _every_rank(self.service.mesh, failed):
+            for t, e in seen.items():
+                decided.setdefault(t, e)
+        return decided
+
     def admit_pending(self) -> int:
         """Build and pack every QUEUED handle into new buckets and start
         them. Returns how many tenants were admitted. A spec that fails
-        to build fails alone, without disturbing anything running."""
+        to build fails alone, without disturbing anything running. On a
+        mesh across ranks rank 0 decides which handles a cycle admits and
+        which builds failed (the module doc)."""
         svc = self.service
-        built: list[BuiltRun] = []
-        for h in self.queue.pending():
+        tried: list = []
+        failed: dict = {}
+        for h in self._pending():
             try:
-                built.append(build_request(
+                tried.append(build_request(
                     h.request, handle=h,
                     sentinels_default=svc.sentinels_default,
                     device=svc.device, mesh=svc.mesh))
             except Exception as e:
+                failed[h.tenant] = repr(e)[:500]
+        failed = self._agreed_failures(failed)
+        for h in self.queue.pending():
+            if h.tenant in failed:
                 h.status = RunStatus.FAILED
-                h.error = repr(e)[:500]
+                h.error = failed[h.tenant]
+        built: list[BuiltRun] = [b for b in tried
+                                 if b.tenant not in failed]
         if not built:
             return 0
         buckets = pack(built)
@@ -833,7 +979,7 @@ class ServiceSession:
         return self.any_live()
 
     def _write_metrics(self) -> None:
-        if self.service.metrics_dir:
+        if self.service.metrics_dir and self.service.writer:
             self.service.registry.save(
                 os.path.join(self.service.metrics_dir, "metrics.json"))
             if self.service.tracer is not None:
@@ -860,16 +1006,20 @@ class ServiceSession:
             "tenants": [h.to_dict() for h in self.queue.handles()],
         }
         path = os.path.join(svc.out_dir, "service_summary.json")
-        with open(path, "w") as fh:
-            json.dump(summary, fh, indent=2, default=str)
-            fh.write("\n")
+        if svc.writer:
+            with open(path, "w") as fh:
+                json.dump(summary, fh, indent=2, default=str)
+                fh.write("\n")
         summary["summary_path"] = path
         if svc.metrics_dir:
-            self._write_metrics()
-            om = os.path.join(svc.metrics_dir, "metrics.prom")
-            with open(om, "w") as fh:
-                fh.write(svc.registry.to_openmetrics())
+            if svc.writer:
+                self._write_metrics()
+                om = os.path.join(svc.metrics_dir, "metrics.prom")
+                with open(om, "w") as fh:
+                    fh.write(svc.registry.to_openmetrics())
             summary["metrics_dir"] = svc.metrics_dir
+        # Every rank returns the summary rank 0 wrote (its clock's times).
+        summary = _from_rank0(svc.mesh, summary)
         emit_event("service_done", {
             "n_tenants": summary["n_tenants"],
             "n_buckets": summary["n_buckets"],

@@ -161,18 +161,42 @@ class RunHandle:
 class RunQueue:
     """FIFO submission queue: tenants submit :class:`RunRequest`\\ s, the
     scheduler takes whatever is pending when a service cycle starts.
-    Host side and single-process."""
+    Host side; a service across ranks keeps one queue a rank, and rank
+    0's decides what each cycle admits (``service.scheduler``): a request
+    that reaches rank 0's queue first is supplied to the others
+    (:meth:`supply`)."""
 
     def __init__(self):
         self._handles: list[RunHandle] = []
+        # Handles supply() added that this queue's caller has not
+        # submitted yet, oldest first.
+        self._supplied: list[RunHandle] = []
 
     def submit(self, request: RunRequest) -> RunHandle:
+        """Queue ``request``; where :meth:`supply` already queued this
+        tenant's request for this caller, that handle, whatever its
+        status by now."""
+        for h in self._supplied:
+            if h.tenant == request.tenant:
+                self._supplied.remove(h)
+                return h
         if any(h.tenant == request.tenant for h in self._handles
                if h.status in (RunStatus.QUEUED, RunStatus.RUNNING)):
             raise ValueError(f"tenant {request.tenant!r} already has a "
                              "queued or running request")
         handle = RunHandle(request=request)
         self._handles.append(handle)
+        return handle
+
+    def supply(self, request: RunRequest) -> RunHandle:
+        """Queue ``request`` ahead of this queue's caller: on a service
+        across ranks, a request rank 0's queue holds and this rank's does
+        not yet. The caller's own later :meth:`submit` of the tenant
+        returns this handle, so a rank whose caller lags neither queues
+        the tenant twice nor refuses it."""
+        handle = RunHandle(request=request)
+        self._handles.append(handle)
+        self._supplied.append(handle)
         return handle
 
     def pending(self) -> list[RunHandle]:

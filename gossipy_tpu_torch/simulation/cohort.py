@@ -832,12 +832,13 @@ def _local_neighbor_table(sim, idx: np.ndarray) -> np.ndarray:
 # -- the driver --------------------------------------------------------------
 
 class _Staged:
-    """One staged cohort: its ids, the slot of host buffers its pool rows
-    are gathered into, and the gather's job on the row worker (None once
-    waited for, or when it ran inline)."""
+    """One staged cohort: its ids (``whole``, and ``idx`` those of this
+    rank's rows), the slot of host buffers its pool rows are gathered
+    into, and the gather's job on the row worker (None once waited for,
+    or when it ran inline)."""
 
-    __slots__ = ("s", "r0", "seg", "idx", "idx_t", "slot", "host", "job",
-                 "base", "ts_us")
+    __slots__ = ("s", "r0", "seg", "whole", "idx", "idx_t", "slot", "host",
+                 "job", "base", "ts_us")
 
 
 class _Out:
@@ -938,6 +939,19 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
     state and data rows per the partition-rule registry
     (:func:`~gossipy_tpu_torch.parallel.shard_state`); C must divide its
     node axis.
+
+    On a mesh across ranks (the simulator's own: ``GossipSimulator(
+    cohort=..., mesh=)``, whose rounds then run the ring deliver) every
+    rank holds the whole pool, built from the same generator, and draws
+    the same schedule. A rank stages only its rows of each cohort
+    (``sim._rows`` of the ``[C]`` axis) and runs the segment's rounds on
+    them; the durable outputs are gathered whole in one all-gather
+    (:func:`~gossipy_tpu_torch.parallel.gather_rows`), and every rank
+    scatters the whole cohort into its own pool, so the pools stay
+    equal. The rows a staged cohort shares with the one in flight are
+    taken from those gathered outputs. Every collective is issued from
+    this thread, in the same order on every rank; the row worker issues
+    none.
     """
     from ..native import rows as native_rows
     from ..ops import _build
@@ -948,13 +962,21 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
             f"got {type(pool).__name__}")
     cfg: CohortConfig = sim.cohort
     c, n = cfg.size, sim.nominal_n
+    across = sim._rows is not None
+    if across or (mesh is not None and mesh.spans_ranks()):
+        from ..parallel import _same_mesh
+        if not across or (mesh is not None
+                          and not _same_mesh(mesh, sim.mesh)):
+            raise ValueError(
+                "a cohort's rounds across ranks run on the simulator's own "
+                "mesh: build it with GossipSimulator(cohort=..., mesh=) "
+                "and pass that mesh (or none) to start")
+        mesh = sim.mesh
     if mesh is not None:
-        if mesh.spans_ranks():
-            from ..parallel import across_ranks_refusal
-            raise NotImplementedError(across_ranks_refusal(
-                "start(mesh=) of a cohort", "cohort"))
         _validate_cohort_mesh(sim, mesh)
         from .. import parallel as _parallel
+    # This rank's rows of each cohort (every row off a mesh across ranks).
+    mine = sim._rows if across else slice(None)
     p_rows = _pool_data_rows(sim)
     first_round = int(pool.round)
     last_round = first_round + n_rounds - 1
@@ -1009,9 +1031,10 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
         schedule = [sample_cohort(material, r0, n, c) for r0, _ in plan]
     rows_c = schedule[0].size if schedule else 0
     # Host buffers a slot: the staged gathers (up to depth + 1 cohorts
-    # staged at once) and the outputs (kept until scattered and past the
-    # launch-time patches of the next depth + 1 segments).
-    stage_slots = _Slots(leaves, rows_c, depth + 2, cuda)
+    # staged at once; a rank's rows of each) and the outputs (the whole
+    # cohort; kept until scattered and past the launch-time patches of
+    # the next depth + 1 segments).
+    stage_slots = _Slots(leaves, len(range(rows_c)[mine]), depth + 2, cuda)
     out_slots = _Slots(leaves, rows_c, depth + 3, cuda)
     worker = native_rows.Worker() if depth > 0 else None
     if worker is not None and tr is not None:
@@ -1030,7 +1053,8 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
         st.s, (st.r0, st.seg) = s, plan[s]
         with span("cohort.sample", cat="cohort", tracer=tr,
                   window=st.r0) as sp_s:
-            st.idx = schedule[s]
+            st.whole = schedule[s]
+            st.idx = st.whole[mine]
             st.idx_t = torch.from_numpy(st.idx)
             if store is not None:
                 store.ensure_rows(sim, st.idx)
@@ -1050,9 +1074,10 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
         """Patch in the outputs ``newer`` than the gather (ascending, so
         the newest write wins, as in the serial loop), copy the rows to the
         card and build the [C] state and its data rows:
-        ``(state, data)``. ``carry``, ``(prev_state, prev_idx)``, is the
+        ``(state, data)``. ``carry``, ``(prev_leaves, prev_idx)``, is the
         cohort whose rounds are still in flight: the rows it shares with
-        this one are taken from its final state on the device, the rows a
+        this one are taken from its final durable leaves on the device
+        (the whole cohort's, gathered, on a mesh across ranks), the rows a
         serial gather would read from the pool after its scatter."""
         if st.job is not None:
             t0, t1, _ = worker.wait(st.job)
@@ -1062,7 +1087,7 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
             for out in newer:
                 native_rows.patch(st.host, st.idx, out.wait().host, out.idx)
             host = st.host + [st.idx_t] + (
-                [torch.from_numpy(_local_neighbor_table(sim, st.idx))]
+                [torch.from_numpy(_local_neighbor_table(sim, st.whole)[mine])]
                 if induced else [])
             vals = [t.to(dev, non_blocking=cuda) for t in host]
             if cuda:
@@ -1071,7 +1096,7 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
                 ev.record(torch.cuda.current_stream(dev))
                 stage_slots.events[st.slot] = ev
             if carry is not None:
-                prev, prev_idx = carry
+                prev_leaves, prev_idx = carry
                 # Host ids of the two cohorts (no tensor).
                 found = np.intersect1d(  # tracelint: disable=np-in-round
                     st.idx, prev_idx, assume_unique=True,
@@ -1080,8 +1105,7 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
                 if pos.size:
                     at = torch.from_numpy(pos.astype(np.int64)).to(dev)
                     src = torch.from_numpy(pos_prev.astype(np.int64)).to(dev)
-                    for v, t in zip(vals[:k + 1],
-                                    _leaves(prev.model) + [prev.phase]):
+                    for v, t in zip(vals[:k + 1], prev_leaves):
                         v.index_copy_(0, at, t.index_select(0, src).to(
                             v.dtype))
             state = sim.init_state(_unleaves(vals[:k]), vals[k])
@@ -1090,7 +1114,8 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
                 state.aux["cohort_nbr"] = vals[k + 2]
             data_c = dict(eval_data)
             data_c.update(data_rows(vals[k + 1]))
-            if mesh is not None:
+            if mesh is not None and not across:
+                # (Across ranks init_state records this rank's rows.)
                 state = _parallel.shard_state(state, mesh)
                 data_c = _parallel.shard_data(data_c, mesh)
         return state, data_c
@@ -1099,7 +1124,8 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
         """Run the segment's rounds and start the copy of the durable
         outputs off the card. ``on_run`` is called as the rounds start,
         ``ahead`` once they are launched, before the host waits for them
-        (where streaming stages the next cohort)."""
+        (where streaming stages the next cohort), with the durable leaves
+        of the whole cohort (gathered on a mesh across ranks)."""
         r0, seg = st.r0, st.seg
         if on_run is not None:
             on_run()
@@ -1111,8 +1137,13 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
                     rows_all.append(sim._run_round(state, last_round))
             finally:
                 sim.data = bank
+            final = _leaves(state.model) + [state.phase]
+            if across:
+                with span("cohort.gather_outputs", cat="cohort", tracer=tr,
+                          window=r0):
+                    final = _parallel.gather_rows(final, mesh)
             if ahead is not None:
-                ahead(state)
+                ahead(final)
             if tr is not None and cuda:
                 # The run span closes at the execution's end, not at
                 # the last launch.
@@ -1121,11 +1152,11 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
             attach_device_spans(tr, sp_r.ts_us, sp_r.dur_us,
                                 args={"segment_rounds": seg, "window": r0})
         out = _Out()
-        out.r0, out.seg, out.idx, out.ts_us = r0, seg, st.idx, st.ts_us
+        out.r0, out.seg, out.idx, out.ts_us = r0, seg, st.whole, st.ts_us
         out.job = out.event = None
         with span("cohort.fetch", cat="cohort", tracer=tr, window=r0):
             _, out.host = out_slots.take(st.s)
-            for b, t in zip(out.host, _leaves(state.model) + [state.phase]):
+            for b, t in zip(out.host, final):
                 b.copy_(t, non_blocking=cuda)
             if cuda:
                 out.event = torch.cuda.Event()
@@ -1194,7 +1225,8 @@ def _stream(plan, depth, worker, gather, prepare, run, count, leaves,
     cohort ``s + 1`` is staged: its gather waited for, the host outputs
     newer than its ``base`` patched in (newest last), its [C] state built,
     and the rows it shares with cohort ``s`` taken from ``s``'s final
-    state on the device (``prepare``'s ``carry``), so the staged state is
+    durable leaves on the device (``prepare``'s ``carry``; on a mesh
+    across ranks the whole cohort's, gathered), so the staged state is
     what a serial gather would build: the streaming ≡ serial bit-identity
     hinges on it. Scatters finish in order; each adds its coverage and
     closes its segment's trace window."""
@@ -1245,10 +1277,10 @@ def _stream(plan, depth, worker, gather, prepare, run, count, leaves,
     for s in range(n_seg):
         nxt = {}
 
-        def ahead(done_state, s=s, st=st, nxt=nxt):
+        def ahead(final, s=s, st=st, nxt=nxt):
             # Stage cohort s + 1 behind s's rounds.
             if s + 1 < n_seg:
-                st1, (state1, data1) = stage(s + 1, (done_state, st.idx))
+                st1, (state1, data1) = stage(s + 1, (final, st.whole))
                 nxt["staged"] = (st1, state1, data1)
 
         collect(s - len(out_slots.bufs))

@@ -150,6 +150,38 @@ largest of the ranks'. A mesh may be 1-D, a ``(nodes, model)`` mesh
 nodes)`` mesh (``make_mesh_2d``: the node ring is the flattened pair).
 The run equals the single-process run on a virtual mesh of the same
 shape.
+
+A subclass runs on a mesh across ranks by the JAX mesh path's rule: the
+multi deliver (``fused_merge="multi"``, which every mesh takes) with the
+base receive path, none of ``_apply_receive``, ``_receive_rows``,
+``_gather_peer``, ``_decode_extra``, ``_post_receive_slot`` or
+``_reply_extra`` overridden (:meth:`GossipSimulator._fused_refusal`
+refuses the others, on every mesh). A JAX hook sees global arrays; on a
+rank each hook a subclass may override sees a defined view, so that it
+computes what the JAX hook computes:
+
+- ``_init_aux(model)``: this rank's rows of the model; it returns this
+  rank's rows of ``aux`` (``self._rows`` says which, ``self._own(x)``
+  cuts them out of a whole-population tensor);
+- ``_pre_send``, ``_select_peers``, ``_send_gate``, ``_send_extra`` and
+  ``_post_deliver``, where overridden: a view of the state whose model,
+  phase and ``aux`` tensors hold the whole population (gathered in one
+  all-gather, once until a drain changes the node state), with this
+  rank's ring and mailboxes (the engine's helpers, as
+  ``_scatter_messages``, take a whole population's messages and write
+  this rank's receivers). What the hook writes into the view's model,
+  phase or ``aux``, in place or by replacing them, is taken back: this
+  rank's rows of each, copied into its state. Which leaves hold a node
+  axis, and on which dimension, the partition-rule registry says for
+  both the gather and the cut (``parallel.gather_state`` and
+  ``parallel.local_state``): every ``aux`` tensor of one dimension or
+  more is per node on its first;
+- ``_eval_phase``: this rank's rows and data; it returns the whole
+  population's metrics (the base gathers the per-node ones);
+- ``_metric_keys`` and ``_n_eval_nodes``: no state.
+
+All2All's subclasses follow the same views for the hooks its round
+calls (``_init_aux``, ``_eval_phase``, ``_metric_keys``).
 """
 
 from __future__ import annotations
@@ -679,6 +711,7 @@ class GossipSimulator(SimulationEventSender):
         self.mesh = mesh
         self._rows: Optional[slice] = None
         self._gathered: Optional[tuple] = None
+        self._view: Optional[SimState] = None
         if mesh is None:
             return
         from ..parallel import _ACROSS_CARDS, _node_axis_entry, \
@@ -713,25 +746,17 @@ class GossipSimulator(SimulationEventSender):
         self._fused_ring_axis = _node_axis_entry(mesh, None)
         self._rows = mesh.node_rows(self.n_nodes, self._fused_ring_axis)
 
-    # Whether this class runs its round on a mesh across ranks (set in
-    # the class's own body: a subclass that does not set it is refused).
-    _across_ranks = True
-
     def _refuse_across_ranks(self) -> None:
         """The options a mesh across ranks does not run yet, each naming
-        what it waits for in ROADMAP.md queue 1 item 13: variant
-        simulators other than All2All, and cohort rounds."""
+        what it waits for in ROADMAP.md queue 1 item 13: a disk-backed
+        cohort pool."""
         if self._rows is None:
             return
         from ..parallel import across_ranks_refusal
-        options = {
-            f"a variant simulator ({type(self).__name__})": (
-                not type(self).__dict__.get("_across_ranks"), "variants"),
-            "cohort=": (self.cohort is not None, "cohort"),
-        }
-        for what, (on, left) in options.items():
-            if on:
-                raise NotImplementedError(across_ranks_refusal(what, left))
+        if self.cohort is not None and self.cohort.pool_dir:
+            raise NotImplementedError(across_ranks_refusal(
+                "a disk-backed cohort pool (CohortConfig(pool_dir=))",
+                "pool_dir"))
 
     # -- a mesh across ranks: this rank's rows ------------------------------
 
@@ -764,6 +789,56 @@ class GossipSimulator(SimulationEventSender):
             hit = self._gathered = (params, self._everyone(params))
         return hit[1]
 
+    def _hook_state(self, state: SimState, *hooks: str) -> SimState:
+        """The state to call ``hooks`` with: on a mesh across ranks, where
+        a subclass overrides one of them, the whole-population view
+        (:meth:`_hook_view`), whose writes :meth:`_take_back` brings
+        home after the calls; else ``state`` itself (the base hooks read
+        either alike)."""
+        if self._rows is None or not self._overridden(hooks):
+            return state
+        return self._hook_view(state)
+
+    @staticmethod
+    def _node_tree(state: SimState) -> dict:
+        """The node state a hook's view holds whole (the model, the phase
+        and ``aux``), under the partition-rule registry's leaf paths."""
+        return {"model": state.model, "phase": state.phase, "aux": state.aux}
+
+    def _hook_view(self, state: SimState) -> SimState:
+        """The state a subclass's send hooks (``_pre_send``,
+        ``_select_peers``, ``_send_gate``, ``_send_extra``,
+        ``_post_deliver``) see on a mesh across ranks: the model, the
+        phase and ``aux`` of the whole population
+        (:func:`~gossipy_tpu_torch.parallel.gather_state`: one all-gather,
+        each leaf along the node dimension the rule registry gives it);
+        the ring and the mailboxes this rank's own (the engine's helpers,
+        as :meth:`_scatter_messages`, write a whole population's messages
+        into them). Made once and kept until the engine changes the node
+        state (a deliver or a reply drain)."""
+        if self._view is None:
+            from ..parallel import gather_state
+            whole = gather_state(self._node_tree(state), self.mesh,
+                                 self._fused_ring_axis)
+            self._view = dataclasses.replace(
+                state, model=whole["model"], phase=whole["phase"],
+                aux=whole["aux"])
+        return self._view
+
+    def _take_back(self, state: SimState, seen: SimState) -> None:
+        """This rank's rows of the view ``seen``'s model, phase and
+        ``aux`` (what a hook wrote there included), copied into ``state``
+        (:func:`~gossipy_tpu_torch.parallel.local_state`, by the rule
+        registry that :meth:`_hook_view` gathered by); nothing when the
+        hook saw ``state`` itself."""
+        if seen is state:
+            return
+        from ..parallel import local_state
+        mine = local_state(self._node_tree(seen), self.mesh,
+                           self._fused_ring_axis)
+        state.model, state.phase, state.aux = \
+            mine["model"], mine["phase"], mine["aux"]
+
     def _n_rows(self) -> int:
         """The node rows this process holds."""
         if self._rows is None:
@@ -773,8 +848,9 @@ class GossipSimulator(SimulationEventSender):
     def _place_data(self, data: dict) -> dict:
         """On a mesh across ranks, this rank's rows of the per-node data
         (the shared eval set whole; data placed by ``parallel.shard_data``
-        on this mesh stays as it is)."""
-        if self._rows is None:
+        on this mesh stays as it is). A cohort's data bank stays whole:
+        ``cohort_start`` stages each segment's rows a rank."""
+        if self._rows is None or self.cohort is not None:
             return data
         from ..parallel import shard_data
         placed = shard_data(data, self.mesh, self._fused_ring_axis)
@@ -1210,13 +1286,21 @@ class GossipSimulator(SimulationEventSender):
         (:func:`~gossipy_tpu_torch.simulation.cohort.save_pool_store`).
         On a mesh across ranks every rank calls it with its rows: the one
         file holds the whole population, written by rank 0 after a
-        gather, and every rank returns once it is whole."""
+        gather (a cohort's RAM pool, whole on every rank, without one),
+        and every rank returns once it is whole."""
         draws = self.draws if draws is None else draws
+        from ..checkpoint import save_checkpoint
         if self.cohort is not None:
             from .cohort import is_mmap_pool, save_pool_store
             if is_mmap_pool(state):
                 return save_pool_store(self, state, path, draws)
-        from ..checkpoint import save_checkpoint
+            if self._rows is not None:
+                # A RAM pool is whole on every rank: rank 0 writes it.
+                from ..parallel import is_writer, rank_barrier
+                if is_writer(self.mesh):
+                    save_checkpoint(path, state, draws=draws)
+                rank_barrier(self.mesh)
+                return os.path.abspath(path)
         return save_checkpoint(path, state, draws=draws, mesh=self.mesh)
 
     def load(self, path: str, mesh=None):
@@ -1431,6 +1515,8 @@ class GossipSimulator(SimulationEventSender):
         if self.cohort is not None:
             if self.cohort.peer_mode == "induced":
                 nbr = state.aux["cohort_nbr"]
+                if state is not self._view:      # this rank's rows
+                    nbr = self._everyone(nbr)
                 return self.draws.slot_peers(r, nbr, nbr >= 0, sub=f)
             return self.draws.cohort_peers(r, self.n_nodes, self.device,
                                            sub=f)
@@ -1544,16 +1630,19 @@ class GossipSimulator(SimulationEventSender):
         msg_type = int(_PROTO_TO_MSG[self.protocol])
         senders = torch.arange(n, device=dev)
         n_sent, fails = 0, FailureCounts()
-        # Every rank computes the whole population's sends.
+        # Every rank computes the whole population's sends; the hooks see
+        # the whole population (a subclass's, on a mesh across ranks).
         phase = self._everyone(state.phase)
+        seen = self._hook_state(state, "_select_peers", "_send_gate",
+                                "_send_extra")
         # A sync node fires once: sub-fires past the first send nothing.
         for f in range(1 if self.sync else self.F):
             fires, offset = self._fire_mask(state, r, f, phase)
             if self.chaos is not None:
                 # A forced-offline node neither sends nor receives.
                 fires = fires & ~self._chaos_forced_offline(r)
-            peers = self._select_peers(state, r, f)
-            active = self._send_gate(state, fires & (peers >= 0), peers, r,
+            peers = self._select_peers(seen, r, f)
+            active = self._send_gate(seen, fires & (peers >= 0), peers, r,
                                      f)
             dropped = self.draws.bernoulli(r, K_DROP,
                                            self._chaos_drop_prob(r), n, dev,
@@ -1566,9 +1655,10 @@ class GossipSimulator(SimulationEventSender):
             live = active & ~dropped
             n_overflow = self._scatter_messages(
                 state.mailbox, live, dr, peers, senders, r, msg_type,
-                self._send_extra(state, r, K_EXTRA, f), r, self.K)
+                self._send_extra(seen, r, K_EXTRA, f), r, self.K)
             fails = fails + FailureCounts(drop=(active & dropped).sum(),
                                           overflow=n_overflow)
+        self._take_back(state, seen)
         return n_sent, fails, n_sent * size
 
     # -- deliver: the ring ----------------------------------------------------
@@ -2001,7 +2091,10 @@ class GossipSimulator(SimulationEventSender):
                 state, r, self._everyone(sender_t), self._everyone(wants))
             fails = fails + fail_q
         box.clear_cell(b)
-        ex_sent, ex_fails, ex_size = self._post_deliver(state, r)
+        self._view = None
+        seen = self._hook_state(state, "_post_deliver")
+        ex_sent, ex_fails, ex_size = self._post_deliver(seen, r)
+        self._take_back(state, seen)
         diag = {"mailbox_hwm": hwm, "compact_slots": n_compact,
                 "wide_slots": n_wide, "probe_accum": tel.pa,
                 "first_bad_slot": tel.first_bad}
@@ -2061,6 +2154,7 @@ class GossipSimulator(SimulationEventSender):
         n_compact, n_wide = self._drain(state, r, sr_t, sender_t, apply_t,
                                         box.extra[b], K_CALL + 53, tel=tel)
         box.clear_cell(b)
+        self._view = None
         return fails, n_compact, n_wide, tel.pa
 
     # -- evaluation --------------------------------------------------------
@@ -2295,7 +2389,9 @@ class GossipSimulator(SimulationEventSender):
         # around the handler's update pass. A PUSH round has no reply.
         scope = _scopes.phase_scope
         with scope(_scopes.PHASE_SEND):
-            self._pre_send(state, r)
+            seen = self._hook_state(state, "_pre_send")
+            self._pre_send(seen, r)
+            self._take_back(state, seen)
             self._snapshot(state, r)
             n_sent, fail_s, size = self._send_phase(state, r)
         with scope(_scopes.PHASE_RECEIVE_MERGE):
@@ -2342,7 +2438,7 @@ class GossipSimulator(SimulationEventSender):
         """:meth:`_round`, then the sentinels' vitals against a copy of the
         round-start params (the round replaces the state's tensors; a copy
         keeps the delta right whatever a hook writes in place)."""
-        self._gathered = None
+        self._gathered = self._view = None
         if self.sentinels is None:
             return self._round(state, last_round)
         pre_params = state.model.params.clone()

@@ -217,7 +217,6 @@ class All2AllGossipSimulator(GossipSimulator):
     dense or sparse mixing), this rank's rows kept.
     """
 
-    _across_ranks = True
     # Every rank counts the whole population's edges: nothing to sum.
     _RECEIVER_COUNTS = ()
 
@@ -259,7 +258,6 @@ class All2AllGossipSimulator(GossipSimulator):
         if mesh is not None and mesh.spans_ranks():
             self._join_ranks(mesh)
             self.data = to_device(self._place_data(self.data), self.device)
-            self._refuse_across_ranks()
         elif mesh is not None:
             from ..parallel import _ACROSS_CARDS, canonical_device
             if not mesh.is_virtual() or mesh.device() != canonical_device(

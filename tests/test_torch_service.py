@@ -507,15 +507,26 @@ def test_tenant_tagged_sink_routing(served):
     assert any(e.data["tenant"] == "bad" for e in evs)
 
 
-def test_unported_mesh_raises(tmp_path):
-    """A mesh across processes (the state placed across cards, queue 1
-    item 13) is refused; a virtual mesh is the ported one."""
+@pytest.mark.parametrize("layout", ["across-ranks", "two-devices"])
+def test_unported_mesh_raises(tmp_path, layout):
+    """A mesh across processes builds the service on its ranks
+    (``tests/test_torch_multiprocess_service.py``); in one process with no
+    process group it asks for one. The positions of one process on two
+    devices (the state placed across cards, queue 1 item 13, left 4) are
+    refused; a virtual mesh is the ported one-process mesh."""
     from gossipy_tpu_torch import parallel
-    across = parallel.make_mesh(devices=[
-        parallel.Position(torch.device("cpu"), rank, rank)
-        for rank in (0, 1)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        tservice.GossipService(str(tmp_path), mesh=across, device="cpu")
+    if layout == "across-ranks":
+        mesh = parallel.make_mesh(devices=[
+            parallel.Position(torch.device("cpu"), rank, rank)
+            for rank in (0, 1)])
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            tservice.GossipService(str(tmp_path), mesh=mesh, device="cpu")
+        return
+    mesh = parallel.make_mesh(devices=[
+        parallel.Position(torch.device("cpu"), 0, 0),
+        parallel.Position(torch.device("cuda", 1), 0, 1)])
+    with pytest.raises(NotImplementedError, match="queue 1 item 13, left 4"):
+        tservice.GossipService(str(tmp_path), mesh=mesh, device="cpu")
 
 
 # -- 5. the SLO harness ------------------------------------------------------------
