@@ -538,7 +538,16 @@ Phases, each printed as it runs; any failure exits non-zero:
    submitted after the first slice (by rank 1 a slice later still) and
    one poisoned: every tenant's status, rounds and report, the
    admissions, the buckets and the eviction equal, rank 0 alone writing
-   the output directory (audit events), tenant-rounds/s a rank. Then
+   the output directory (audit events), tenant-rounds/s a rank; (n)
+   (l)'s configuration with ``CohortConfig(pool_dir=)``, each rank in
+   its own replica of the store (rank 0's the directory itself, rank 1's
+   ``<dir>.rank1``): the store created and RANK_POOL_ROUNDS rounds
+   serially, re-opened with ``prefetch=COHORT_PREFETCH`` and
+   RANK_POOL_ROUNDS more, saved across the ranks (rank 0 writes), loaded
+   into each rank's work directory and RANK_POOL_ROUNDS more: reports
+   and the digests of the written rows bit-equal after every segment,
+   the replicas equal, rows written, apparent and allocated bytes,
+   ``fs_keeps_holes``, peak RSS and rounds/s a rank beside (l)'s. Then
    GRID_RANKS
    processes: (e) (b)'s clique on a 4 x 2 ``(dcn, nodes)`` mesh
    (``make_mesh_2d``, two positions a rank). Each is held against the
@@ -3353,9 +3362,10 @@ REC_CHUNK = 5
 REC_ROUNDS = 15
 TRACE_HALF_ROUNDS = 50      # tracing's cost sits inside the host's noise
                             # at any length; 50 pays for phase 16
-CONFIG_TIMED_ROUNDS = 100   # (e): run_experiment's and start's timed
-                            # rounds (300 until phase 21 needed the time:
-                            # the same config as phase 7's legs)
+CONFIG_TIMED_ROUNDS = 50    # (e): run_experiment's and start's timed
+                            # rounds (300 until phase 21 needed the time,
+                            # 100 until its (n) did: the same config as
+                            # phase 7's legs)
 
 
 def config_names() -> list:
@@ -3935,7 +3945,10 @@ PERF_TURN_ROUNDS = 25       # reverse, and again), and the rounds of each
 PERF_NS_ROUNDS = 100        # (c): the north star's rounds with perf=
 PERF_FLAG_ROUNDS = 2        # (c): the flagship config's rounds
 PROFILE_ROUNDS = 3          # (d): the profiled north-star rounds
-ATTRIBUTION_ROUNDS = 100    # (d): each leg of profile_round's attribution
+ATTRIBUTION_ROUNDS = 50     # (d): each leg of profile_round's attribution
+                            # (100 until phase 21 (n) needed the time; the
+                            # exchange leg is the remainder, so the legs'
+                            # sum holds at any depth)
 PERF_AGREE = 0.05           # (c): perf's ms/round against the host clock;
                             # (d): the legs' sum against the whole round
 
@@ -4361,12 +4374,13 @@ def cohort_data() -> dict:
 
 def cohort_sim(torch, nominal: int, device, lr: float = 0.1,
                prefetch: int = 0, rounds: int = COHORT_ROUNDS, draws=None,
-               **kw):
+               pool_dir=None, **kw):
     """``bench.py::bench_cohort``'s simulator: ``NominalTopology``,
     ``CohortConfig(size=1024)``, LogReg(57, 2) under SGD ``lr``, batch
     4, one local epoch, MERGE_UPDATE, PUSH, ``delta=100``, a 1% sampled
     eval on the run's last round, an fp32 ring; ``TorchDraws(42)`` moved
-    to the state ``draws`` when given."""
+    to the state ``draws`` when given; the pool on disk under
+    ``pool_dir`` when given."""
     from gossipy_tpu_torch.handlers import SGDHandler, losses
     from gossipy_tpu_torch.models import LogisticRegression
     from gossipy_tpu_torch.random import TorchDraws
@@ -4379,7 +4393,8 @@ def cohort_sim(torch, nominal: int, device, lr: float = 0.1,
     sim = GossipSimulator(h, NominalTopology(nominal), cohort_data(),
                           delta=100, sampling_eval=0.01, eval_every=rounds,
                           cohort=CohortConfig(size=COHORT_SIZE,
-                                              prefetch=prefetch),
+                                              prefetch=prefetch,
+                                              pool_dir=pool_dir),
                           draws=TorchDraws(42), device=device, **kw)
     if draws is not None:
         sim.draws.set_state(draws)
@@ -6908,11 +6923,12 @@ def persist_legs(torch, mesh, workdir: str) -> dict:
     return out
 
 
-# -- phase 21 (k)-(m): a user's subclass, a cohort and the service ----------
+# -- phase 21 (k)-(n): a user's subclass, a cohort, the service, a disk pool -
 
 RANK_VARIANT_ROUNDS = 50    # (k): the north star through a user's subclass
 RANK_COHORT_ROUNDS = 20     # (l): each leg's timed rounds (phase 16: 50)
 RANK_COHORT_WARM = 2        # (l): each leg's warm-up rounds
+RANK_POOL_ROUNDS = 10       # (n): each of the disk pool's three segments
 RANK_SERVICE_LATE = 3       # (m): the tenant (an index of SERVICE_SEEDS)
                             # submitted after the first slice
 RANK_SERVICE_POISON = 2     # (m): the poisoned tenant (an index)
@@ -6984,11 +7000,12 @@ def cohort_rank_legs(torch, merge, mesh) -> dict:
     digest, wall, launches and transfers."""
     from gossipy_tpu_torch.parallel.collectives import TRANSFERS
     torch.cuda.empty_cache()
+    rss0 = rss_bytes()
     sim = cohort_sim(torch, COHORT_NOMINAL, "cuda",
                      rounds=RANK_COHORT_ROUNDS, mesh=mesh)
     t0 = time.perf_counter()
     pool0 = sim.init_cohort_pool(torch.Generator().manual_seed(42))
-    out = {"init_s": time.perf_counter() - t0}
+    out = {"init_s": time.perf_counter() - t0, "rss0": rss0}
     draws0 = sim.draws.get_state()
     for tag, prefetch in (("serial", 0), ("stream", COHORT_PREFETCH)):
         s = sim if not prefetch else cohort_sim(
@@ -7008,7 +7025,120 @@ def cohort_rank_legs(torch, merge, mesh) -> dict:
                                   if v},
                         finite=bool(np.isfinite(pool.model.params).all()))
         del warm, pool
+    out["rss"] = rss_bytes()
     del pool0
+    return out
+
+
+def rss_bytes() -> tuple:
+    """This process's resident set now (``VmRSS``) and its peak so far
+    (``ru_maxrss``), in bytes: on a 9p mount they count a disk pool's
+    mapped pages."""
+    import resource
+    now = 0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) * 1024
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def store_view(store) -> dict:
+    """A disk pool's store as (n) holds it: one hash of the manifest's
+    round on disk, the ``inited`` and ``touched`` masks and every leaf's
+    rows where ``inited`` is set (the rest are holes), whether those
+    params are finite, and how many rows that is."""
+    import hashlib
+    with open(os.path.join(store.path, "pool_manifest.json")) as f:
+        rnd = json.load(f)["round"]
+    on = np.flatnonzero(store.inited)
+    pool = store.pool()
+    h = hashlib.sha256(str(int(rnd)).encode())
+    for leaf in (store.inited, pool.touched):
+        h.update(memoryview(np.ascontiguousarray(leaf)).cast("B"))
+    params = np.asarray(pool.model.params[on])
+    for leaf in (params, *(l[on] for l in pool.model.opt_state),
+                 pool.model.n_updates[on], pool.phase[on],
+                 pool.node_key[on]):
+        h.update(memoryview(np.ascontiguousarray(leaf)).cast("B"))
+    return dict(digest=h.hexdigest(), rows=int(on.size), round=int(rnd),
+                finite=bool(np.isfinite(params).all()))
+
+
+def pool_rank_leg(torch, merge, mesh, workdir: str) -> dict:
+    """(n): :func:`cohort_rank_legs`' configuration with
+    ``CohortConfig(pool_dir=)`` on ``mesh``, each rank keeping its own
+    replica of the store (``cohort.rank_pool_dir``): the store created,
+    RANK_POOL_ROUNDS rounds serially; re-opened with
+    ``prefetch=COHORT_PREFETCH`` and RANK_POOL_ROUNDS more; saved across
+    the ranks, loaded into each rank's work directory and RANK_POOL_ROUNDS
+    more. Each segment's report, launches, transfers and wall (counts set
+    to 0 just before it) and the store after it (:func:`store_view`); the
+    seconds of the create, re-open, save and load; the live store's
+    paths, rows, apparent and allocated bytes, whether its filesystem
+    keeps holes, and this process's RSS (:func:`rss_bytes`) before the
+    leg and at its end."""
+    from gossipy_tpu_torch.parallel.collectives import TRANSFERS
+    from gossipy_tpu_torch.simulation.cohort import fs_keeps_holes
+    root = os.path.join(workdir, "n-ranks" if mesh.spans_ranks()
+                        else "n-virtual")
+    pool_dir = os.path.join(root, "pool")
+    torch.cuda.empty_cache()
+    out, seconds = {"rss0": rss_bytes()}, {}
+
+    def build(prefetch=0, draws=None):
+        return cohort_sim(torch, COHORT_NOMINAL, "cuda", prefetch=prefetch,
+                          rounds=RANK_POOL_ROUNDS, draws=draws, mesh=mesh,
+                          pool_dir=pool_dir)
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        seconds[key] = time.perf_counter() - t0
+        return got
+
+    def segment(tag, sim, pool):
+        torch.cuda.synchronize()
+        merge.reset_launch_counts()
+        TRANSFERS.clear()
+        t0 = time.perf_counter()
+        pool, rep = sim.start(pool, n_rounds=RANK_POOL_ROUNDS)
+        torch.cuda.synchronize()
+        out[tag] = dict(report=rep.to_dict(), wall=time.perf_counter() - t0,
+                        transfers=dict(TRANSFERS),
+                        launches={k: v for k, v in merge.LAUNCHES.items()
+                                  if v},
+                        **store_view(sim._pool_store))
+        return pool
+
+    sim = build()
+    pool = timed("create", lambda: sim.init_cohort_pool(
+        torch.Generator().manual_seed(42)))
+    replica = sim._pool_store.path
+    pool = segment("serial", sim, pool)
+    sim = build(COHORT_PREFETCH, sim.draws.get_state())
+    pool = timed("open", lambda: sim.init_cohort_pool(
+        torch.Generator().manual_seed(42)))
+    out["opened_round"] = int(pool.round)
+    pool = segment("reopen", sim, pool)
+    ckpt = timed("save", lambda: sim.save(os.path.join(root, "ckpt"),
+                                          pool))
+    sim = build(COHORT_PREFETCH)
+    pool, _ = timed("load", lambda: sim.load(ckpt))
+    out["loaded_round"] = int(pool.round)
+    pool = segment("loaded", sim, pool)
+    store = sim._pool_store
+    apparent = allocated = 0
+    for name in store.files():
+        st = os.stat(os.path.join(store.path, name))
+        apparent += st.st_size
+        allocated += st.st_blocks * 512
+    out.update(seconds=seconds, ckpt=ckpt, live=store.path,
+               replica=replica, rows=store.rows_written(),
+               row_bytes=store.row_bytes(), apparent=apparent,
+               allocated=allocated, holes=fs_keeps_holes(store.path),
+               rss=rss_bytes())
+    del sim, pool, store
     return out
 
 
@@ -7126,10 +7256,14 @@ def service_rank_leg(torch, merge, mesh, workdir: str) -> dict:
 
 
 def more_legs(torch, mesh, workdir: str) -> dict:
-    """Phase 21 (k)-(m) on ``mesh``, each leg's seconds beside it."""
+    """Phase 21 (k)-(n) on ``mesh``, each leg's seconds beside it ((n),
+    the disk pool, before (l), so that its peak RSS is not the RAM
+    pool's)."""
     from gossipy_tpu_torch.ops import merge
     out, seconds = {}, {}
     for key, fn in (("variant", lambda: variant_leg(torch, merge, mesh)),
+                    ("pool", lambda: pool_rank_leg(torch, merge, mesh,
+                                                   workdir)),
                     ("cohort", lambda: cohort_rank_legs(torch, merge, mesh)),
                     ("service", lambda: service_rank_leg(torch, merge, mesh,
                                                          workdir))):
@@ -7142,11 +7276,11 @@ def more_legs(torch, mesh, workdir: str) -> dict:
 
 
 def more_checks(torch, merge, smi, pair, ref) -> dict:
-    """Phase 21 (k)-(m): each rank against the 2-position virtual mesh's
-    legs (``ref``, :func:`more_legs`): bit-equal rows, reports, pools and
-    tenant reports, the same admissions and evictions, K1 on every rank,
-    only rank 0 writing the service's files. Returns K1's launches by leg
-    and rank."""
+    """Phase 21 (k)-(n): each rank against the 2-position virtual mesh's
+    legs (``ref``, :func:`more_legs`): bit-equal rows, reports, pools,
+    disk pool stores and tenant reports, the same admissions and
+    evictions, K1 on every rank, only rank 0 writing the service's files.
+    Returns K1's launches by leg and rank."""
     k1: dict = {}
     # (k) a user's subclass
     for r, mine in enumerate(pair):
@@ -7207,7 +7341,10 @@ def more_checks(torch, merge, smi, pair, ref) -> dict:
             f"{leg['stream']['launches']} (virtual mesh "
             f"{want['serial']['launches']}); "
             f"{leg_line(leg['serial'], want['serial'], RANK_COHORT_ROUNDS)}"
-            f"; {smi}")
+            f"; RSS {leg['rss0'][0] / 1e9:.3f} GB before the leg, "
+            f"{leg['rss'][0] / 1e9:.3f} with the pool held, peak "
+            f"{leg['rss'][1] / 1e9:.3f}; {smi}")
+    k1.update(pool_checks(merge, smi, pair, ref))
     # (m) the service
     want = ref["service"]
     poison = f"ns-{SERVICE_SEEDS[RANK_SERVICE_POISON]}"
@@ -7278,8 +7415,87 @@ def more_checks(torch, merge, smi, pair, ref) -> dict:
     return {(merge.KERNEL, "float32"): k1}
 
 
+POOL_SEGMENTS = ("serial", "reopen", "loaded")
+
+
+def pool_checks(merge, smi, pair, ref) -> dict:
+    """Phase 21 (n): each rank's segments against the virtual mesh's
+    (reports and store digests bit-equal, so the replicas are equal),
+    K1 twice a round with messages a rank (the virtual mesh four times),
+    the store re-opened and loaded at the rounds it was left at, each
+    rank in its own replica and work directory, the checkpoint one path.
+    Returns K1's launches by segment and rank."""
+    from gossipy_tpu_torch.simulation.cohort import rank_pool_dir
+    k1 = {}
+    want = ref["pool"]
+    ckpt = pair[0]["pool"]["ckpt"]
+    for r, mine in enumerate(pair):
+        leg = mine["pool"]
+        for tag in POOL_SEGMENTS:
+            a, b = leg[tag], want[tag]
+            off = same_fields(a["report"], b["report"])
+            if off or a["digest"] != b["digest"] or not a["finite"] \
+                    or a["rows"] != b["rows"]:
+                raise RuntimeError(f"ranks (n) {tag} rank {r}: report "
+                                   f"fields {sorted(set(off))} or the "
+                                   f"store ({a['rows']} rows) differ from "
+                                   f"the virtual mesh's ({b['rows']})")
+            if a["digest"] != pair[0]["pool"][tag]["digest"]:
+                raise RuntimeError(f"ranks (n) {tag}: the replicas differ")
+            k1[f"ranks-pool-{tag}-rank{r}"] = k1_launches(
+                merge, f"pool-{tag}", r, a, b, 2, 4)
+        base = pair[0]["pool"]["replica"]
+        if (leg["opened_round"], leg["loaded_round"]) != (
+                RANK_POOL_ROUNDS, 2 * RANK_POOL_ROUNDS) or \
+                leg["loaded"]["round"] != 3 * RANK_POOL_ROUNDS or \
+                leg["replica"] != rank_pool_dir(base, r) or \
+                leg["ckpt"] != ckpt or \
+                leg["live"] != rank_pool_dir(ckpt + ".live", r):
+            raise RuntimeError(
+                f"ranks (n) rank {r}: re-opened at round "
+                f"{leg['opened_round']}, loaded at {leg['loaded_round']}, "
+                f"replica {leg['replica']}, checkpoint {leg['ckpt']}, work "
+                f"directory {leg['live']}")
+        rate = {t: RANK_POOL_ROUNDS / leg[t]["wall"] for t in POOL_SEGMENTS}
+        ref_rate = {t: RANK_POOL_ROUNDS / want[t]["wall"]
+                    for t in POOL_SEGMENTS}
+        ram = mine["cohort"]
+        sec = leg["seconds"]
+        log(f"[ranks] (n) disk-backed cohort pool, nominal "
+            f"{COHORT_NOMINAL}, C {COHORT_SIZE} ({COHORT_SIZE // RANKS} rows "
+            f"a rank), K1, rank {r}, replica {leg['replica']}: created in "
+            f"{sec['create']:.3f} s, {RANK_POOL_ROUNDS} rounds serial "
+            f"{rate['serial']:.2f} rounds/s, re-opened in {sec['open']:.3f} s "
+            f"and {RANK_POOL_ROUNDS} rounds with prefetch={COHORT_PREFETCH} "
+            f"{rate['reopen']:.2f} rounds/s, saved in {sec['save']:.3f} s "
+            f"(rank 0 writes), loaded into {leg['live']} in "
+            f"{sec['load']:.3f} s and {RANK_POOL_ROUNDS} rounds "
+            f"{rate['loaded']:.2f} rounds/s on this rank (virtual mesh "
+            f"{ref_rate['serial']:.2f}, {ref_rate['reopen']:.2f}, "
+            f"{ref_rate['loaded']:.2f}; (l)'s RAM pool serial "
+            f"{RANK_COHORT_ROUNDS / ram['serial']['wall']:.2f}, prefetch="
+            f"{COHORT_PREFETCH} {RANK_COHORT_ROUNDS / ram['stream']['wall']:.2f}"
+            f"); reports and store digests bit-equal to the virtual mesh's "
+            f"after every segment, the replicas equal; rows written "
+            f"{leg['rows']} of {leg['row_bytes']} B each, files "
+            f"{leg['apparent']} B apparent, {leg['allocated']} B allocated, "
+            f"fs_keeps_holes {leg['holes']}; RSS "
+            f"{leg['rss0'][0] / 1e9:.3f} GB before the leg, "
+            f"{leg['rss'][0] / 1e9:.3f} at its end, peak "
+            f"{leg['rss'][1] / 1e9:.3f} by then ((l)'s RAM pool: "
+            f"{ram['rss0'][0] / 1e9:.3f} before, {ram['rss'][0] / 1e9:.3f} "
+            f"with the pool held, peak {ram['rss'][1] / 1e9:.3f}); "
+            f"coverage {leg['loaded']['report']['cohort_coverage'][-1]}; "
+            f"final accuracy {leg['loaded']['report']['global_evals'][-1]}; "
+            f"K1 launches {[leg[t]['launches'] for t in POOL_SEGMENTS]} "
+            f"(virtual mesh {[want[t]['launches'] for t in POOL_SEGMENTS]}); "
+            f"{leg_line(leg['serial'], want['serial'], RANK_POOL_ROUNDS)}"
+            f"; {smi}")
+    return k1
+
+
 def more_phase(torch, merge, smi) -> dict:
-    """Phase 21 (k)-(m) alone (the full phase runs them in its ``pair``
+    """Phase 21 (k)-(n) alone (the full phase runs them in its ``pair``
     spawn): the legs on a 2-position virtual mesh of the card, then on
     RANKS processes (the ``more`` spawn), held by :func:`more_checks`.
     Returns K1's launches by leg and rank."""
@@ -7292,10 +7508,13 @@ def more_phase(torch, merge, smi) -> dict:
         paths = more_checks(torch, merge, smi, got, ref)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    log(f"[ranks] (k)-(m): the virtual mesh's legs "
+    log(f"[ranks] (k)-(n): the virtual mesh's legs "
         + ", ".join(f"{k} {v:.1f} s" for k, v in
                     ref["more_seconds"].items())
-        + f"; {RANKS} ranks started, ran and reaped in {seconds:.1f} s")
+        + f"; {RANKS} ranks started, ran and reaped in {seconds:.1f} s "
+        "(rank 0's legs " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in got[0]["more_seconds"].items())
+        + ")")
     return paths
 
 
@@ -7351,11 +7570,11 @@ def rank_main(argv) -> int:
     after its legs. The ``pair`` spawn (RANKS processes) runs
     :func:`ranks_legs` on the mesh over every rank's positions, then (d)
     on a 2 x 2 ``(nodes, model)`` mesh, (f), (g), (h)-(j)
-    (:func:`persist_legs`, with the files in WORKDIR) and (k)-(m)
+    (:func:`persist_legs`, with the files in WORKDIR) and (k)-(n)
     (:func:`more_legs`); the ``grid`` spawn (GRID_RANKS processes) runs
     (e) on a 4 x 2 ``(dcn, nodes)`` mesh, two positions a rank; the
     ``persist`` and ``more`` spawns (RANKS processes) run (h)-(j) alone
-    (:func:`persist_phase`) and (k)-(m) alone (:func:`more_phase`)."""
+    (:func:`persist_phase`) and (k)-(n) alone (:func:`more_phase`)."""
     import datetime
 
     import torch
@@ -7531,7 +7750,7 @@ def ranks_phase(torch, merge, smi) -> dict:
     legs on a 2-position virtual mesh here (and the unsharded north
     star), (d) against a 2 x 2 virtual TP mesh and (e), on GRID_RANKS
     processes, against a 4 x 2 virtual ``(dcn, nodes)`` mesh; (h)-(j)
-    (:func:`persist_checks`) and (k)-(m) (:func:`more_checks`) on the
+    (:func:`persist_checks`) and (k)-(n) (:func:`more_checks`) on the
     RANKS processes too; returns K1's and K5's launches by rank and
     leg."""
     import shutil
@@ -7568,7 +7787,7 @@ def ranks_phase(torch, merge, smi) -> dict:
             "a2a": all2all_legs(torch, merge, virtual_mesh("cuda", RANKS)),
             "telemetry": telemetry_legs(torch, merge,
                                         virtual_mesh("cuda", RANKS))}
-    # (h)-(j) and (k)-(m) on the 2-position virtual mesh, their files
+    # (h)-(j) and (k)-(n) on the 2-position virtual mesh, their files
     # (the checkpoints a rank restores among them) in the spawn's
     # directory.
     try:
@@ -7579,7 +7798,7 @@ def ranks_phase(torch, merge, smi) -> dict:
         log(f"[ranks] the parent's references took "
             f"{time.perf_counter() - t_ref:.1f} s ((h)-(j): "
             + ", ".join(f"{k} {v:.1f} s" for k, v in
-                        more["persist"]["seconds"].items()) + "; (k)-(m): "
+                        more["persist"]["seconds"].items()) + "; (k)-(n): "
             + ", ".join(f"{k} {v:.1f} s" for k, v in
                         more["more"]["more_seconds"].items()) + ")")
         got, ranks_s = run_spawn(torch, workdir, "pair")

@@ -462,9 +462,9 @@ class CheckpointManager:
         On a mesh across ranks every rank calls it: each checkpoint is
         one file (:func:`save_checkpoint` with the mesh), a restore keeps
         each rank's rows, and only rank 0 deletes what retention drops,
-        after the write's barrier.
+        after the write's barrier; every rank returns once it has.
         """
-        from .parallel import is_writer
+        from .parallel import is_writer, rank_barrier
         if draws is not None:
             sim.draws = draws
         mesh = _ranks_mesh(sim)
@@ -487,4 +487,7 @@ class CheckpointManager:
                             draws=sim.draws, mesh=mesh)
             if is_writer(mesh):
                 self._retain()
+        # A rank that lists the directory next must not see a file rank 0
+        # is still removing.
+        rank_barrier(mesh)
         return state

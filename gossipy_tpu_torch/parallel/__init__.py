@@ -83,7 +83,7 @@ __all__ = [
     "Mesh", "Position", "PartitionSpec", "NamedSharding", "devices",
     "sharding_of", "ring_positions", "record_local_state",
     "choose_transport", "ACROSS_RANKS_LEFT", "gather_state", "is_writer",
-    "rank_barrier", "gather_rows", "local_state",
+    "rank_barrier", "every_rank", "gather_rows", "local_state",
 ]
 
 # What is left of ROADMAP.md queue 1 item 13, in its order: each use
@@ -91,8 +91,6 @@ __all__ = [
 ACROSS_RANKS_LEFT = {
     "cards": "4, NCCL ranks on cards of their own and one process on "
              "several cards",
-    "pool_dir": "5, a disk-backed cohort pool: every rank would write "
-                "the one store",
 }
 
 # What a mesh of one process on several devices waits for.
@@ -103,15 +101,6 @@ _ACROSS_CARDS = ("the positions of one process on several devices (or on "
                  "machine with several cards); use make_mesh(n, "
                  "devices=[dev] * n) in one process, or one device a rank "
                  "across processes")
-
-
-def across_ranks_refusal(what: str, left: str) -> str:
-    """The message of a use still refused on a mesh across ranks: ``left``
-    is its key in :data:`ACROSS_RANKS_LEFT`, the entry of ROADMAP.md queue
-    1 item 13 it waits for."""
-    return (f"{what} on a mesh across processes is not ported (ROADMAP.md "
-            f"queue 1 item 13, left {ACROSS_RANKS_LEFT[left]}); run it on a "
-            "mesh whose positions all name one device of this process")
 
 
 class Position(NamedTuple):
@@ -661,6 +650,17 @@ def rank_barrier(mesh=None) -> None:
     writer's file is whole); nothing off such a mesh."""
     if mesh is not None and mesh.spans_ranks():
         torch.distributed.barrier()
+
+
+def every_rank(obj, mesh=None) -> list:
+    """Every rank's ``obj`` (a picklable value), in rank order: a
+    collective every rank of a mesh across ranks calls (``[obj]`` off
+    such a mesh), so that each can apply one rule to the same list."""
+    if mesh is None or not mesh.spans_ranks():
+        return [obj]
+    seen = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(seen, obj)
+    return seen
 
 
 _ALIGN = 8   # bytes: every leaf's piece of the gathered buffer starts here

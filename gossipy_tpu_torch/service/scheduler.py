@@ -88,6 +88,7 @@ import torch
 
 from .. import resolve_device
 from ..checkpoint import draw_record, slice_lane
+from ..parallel import every_rank
 from ..simulation.events import JSONLinesReceiver, SimulationEventSender
 from ..telemetry import RunManifest, emit_event
 from ..telemetry import tracing as _tracing
@@ -118,16 +119,6 @@ class _RankError(RuntimeError):
 
     def __repr__(self) -> str:
         return self.args[0]
-
-
-def _every_rank(mesh, obj) -> list:
-    """Every rank's ``obj``, in rank order (``[obj]`` off a mesh across
-    ranks): a collective every rank calls."""
-    if not _across(mesh):
-        return [obj]
-    seen = [None] * torch.distributed.get_world_size()
-    torch.distributed.all_gather_object(seen, obj)
-    return seen
 
 
 def _service_metrics(reg: MetricsRegistry) -> dict:
@@ -501,8 +492,8 @@ class _BucketRuntime:
         failing rank's error); off a mesh across ranks ``error``."""
         if not _across(self.mesh):
             return error
-        seen = _every_rank(self.mesh, None if error is None
-                           else repr(error)[:500])
+        seen = every_rank(None if error is None else repr(error)[:500],
+                          self.mesh)
         failed = [e for e in seen if e is not None]
         return _RankError(failed[0]) if failed else None
 
@@ -896,7 +887,7 @@ class ServiceSession:
         mesh = self.service.mesh
         if not _across(mesh):
             return pending
-        names = _every_rank(mesh, [h.tenant for h in pending])
+        names = every_rank([h.tenant for h in pending], mesh)
         mine = {h.tenant: h for h in pending}
         late = sorted({t for t in names[0] for seen in names
                        if t not in seen})
@@ -915,7 +906,7 @@ class ServiceSession:
         lowest failing rank's error); off a mesh across ranks
         ``failed``."""
         decided: dict = {}
-        for seen in _every_rank(self.service.mesh, failed):
+        for seen in every_rank(failed, self.service.mesh):
             for t, e in seen.items():
                 decided.setdefault(t, e)
         return decided

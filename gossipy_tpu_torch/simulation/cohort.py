@@ -62,6 +62,20 @@ every pool leaf is an ``np.memmap`` over a sparse file, rows are
 initialized the first time they are sampled, deterministic per (store
 seed, node id), and a checkpoint is a hole-preserving copy of the files.
 The store's format is the port's own.
+
+A disk-backed pool on a mesh across ranks is one replica of the store a
+rank, kept equal as the ranks' RAM pools are: rank 0's store is
+``pool_dir`` itself (one process can resume it), rank ``r``'s is
+``<pool_dir>.rank<r>`` (:func:`rank_pool_dir`), so no two ranks write
+one file. Every rank initializes the lazy rows of the whole cohort in
+its replica and scatters the whole gathered cohort into it. A rank that
+lacks its replica while rank 0 holds a store (a store another layout
+wrote) copies rank 0's files, holes kept; the ranks' manifests must
+agree on ``round`` and ``seed_word``, or every rank raises
+``ValueError`` naming both paths. A checkpoint is rank 0's copy of its
+files (every rank flushes, the draw states are held equal, a barrier
+follows); a restore copies the one checkpoint into each rank's own work
+directory (``<path>.live`` on rank 0, ``<path>.live.rank<r>``).
 """
 
 from __future__ import annotations
@@ -356,7 +370,10 @@ def init_cohort_pool(sim, generator: Optional[torch.Generator] = None,
     With ``CohortConfig(pool_dir=...)`` no row is initialized here: the
     pool's leaves are sparse-file memmaps (:class:`PoolStore`), rows
     materialize the first time they are sampled, an existing store
-    directory is re-opened (resume), a missing one created."""
+    directory is re-opened (resume), a missing one created. On a mesh
+    across ranks every rank calls it with the same generator and opens
+    its own replica of the store (:func:`rank_pool_dir`, the module
+    doc)."""
     n = sim.nominal_n
     cfg = sim.cohort
     g = generator if generator is not None \
@@ -366,11 +383,14 @@ def init_cohort_pool(sim, generator: Optional[torch.Generator] = None,
             raise ValueError(
                 "local_train is not supported with pool_dir= (the lazy "
                 "per-row init has no blocked pre-training pass)")
-        if is_pool_store_dir(cfg.pool_dir):
+        material = _generator_material(g)
+        if _across(sim):
+            store = _replica_store(sim, cfg.pool_dir, material, common_init)
+        elif is_pool_store_dir(cfg.pool_dir):
             store = open_pool_store(sim, cfg.pool_dir)
         else:
-            store = create_pool_store(sim, _generator_material(g),
-                                      cfg.pool_dir, common_init=common_init)
+            store = create_pool_store(sim, material, cfg.pool_dir,
+                                      common_init=common_init)
         sim._pool_store = store
         return store.pool()
     block = int(block or max(cfg.size, 65536))
@@ -593,8 +613,7 @@ class PoolStore:
                          mode="r+", shape=shape)
 
     def files(self) -> list[str]:
-        return ([s["file"] for s in self.manifest["model_leaves"]]
-                + [name for name, _, _ in _POOL_FIXED_LEAVES])
+        return _store_files(self.manifest)
 
     def pool(self) -> CohortPool:
         return CohortPool(model=self.model, phase=self.phase,
@@ -725,35 +744,149 @@ def open_pool_store(sim, path: str) -> PoolStore:
     return PoolStore(sim, path, _read_manifest(path))
 
 
+def _store_files(manifest: dict) -> list[str]:
+    """The files of a store (or a checkpoint) beside its manifest."""
+    return ([s["file"] for s in manifest["model_leaves"]]
+            + [name for name, _, _ in _POOL_FIXED_LEAVES])
+
+
+def _copy_store(src: str, dst: str, manifest: dict) -> None:
+    """Hole-preserving copies of a store's files from ``src`` into
+    ``dst``, the manifest written last (a half copy is no store)."""
+    os.makedirs(dst, exist_ok=True)
+    for name in _store_files(manifest):
+        _sparse_copy(os.path.join(src, name), os.path.join(dst, name))
+    _write_manifest(dst, manifest)
+
+
+# -- a disk-backed pool on a mesh across ranks: one replica a rank -----------
+
+def rank_pool_dir(path: str, rank: int) -> str:
+    """Where rank ``rank`` of a mesh across ranks keeps its replica of the
+    pool store (or the restored work directory) ``path``: ``path`` itself
+    on rank 0, so that one process can resume it, and
+    ``<path>.rank<rank>`` on every other rank."""
+    path = os.path.abspath(path)
+    return path if rank == 0 else f"{path}.rank{rank}"
+
+
+def _across(sim) -> bool:
+    """Whether ``sim`` runs on a mesh across ranks (it holds its rows)."""
+    return getattr(sim, "_rows", None) is not None
+
+
+def _on_every_rank(fn, mesh):
+    """``fn()``, its failure made every rank's on a mesh across ranks:
+    when it raises ``OSError`` or ``ValueError`` on any rank, every rank
+    raises (that rank its own exception, the others a ``ValueError``
+    naming it), so no rank waits in a later collective for one that
+    left."""
+    from ..parallel import every_rank
+    try:
+        out, err = fn(), None
+    except (OSError, ValueError) as e:
+        out, err = None, e
+    seen = every_rank(None if err is None else
+                      f"{type(err).__name__}: {err}", mesh)
+    if err is not None:
+        raise err
+    for r, what in enumerate(seen):
+        if what is not None:
+            raise ValueError(f"the pool store failed on rank {r}: {what}")
+    return out
+
+
+def _rank0_is_store(sim, path: str) -> bool:
+    """:func:`is_pool_store_dir` as rank 0 sees ``path`` on a mesh across
+    ranks (every rank then takes the same restore path), as this process
+    sees it otherwise."""
+    from ..parallel import every_rank
+    return bool(every_rank(is_pool_store_dir(path), sim.mesh)[0])
+
+
+def _replica_store(sim, path: str, material, common_init: bool
+                   ) -> PoolStore:
+    """This rank's replica of the disk-backed pool ``path`` on a mesh
+    across ranks (:func:`rank_pool_dir`): opened where it exists; else,
+    when rank 0 holds a store, a hole-preserving copy of rank 0's files
+    (the first collective is the barrier before it); else created from
+    ``material``, as every rank creates its own. A rank that cannot see
+    rank 0's store raises ``ValueError`` on every rank, and so does a
+    replica whose manifest disagrees with rank 0's on ``round`` or
+    ``seed_word``: it is never used."""
+    from ..parallel import every_rank
+    rank = torch.distributed.get_rank()
+    mine, first = rank_pool_dir(path, rank), rank_pool_dir(path, 0)
+    held = every_rank(is_pool_store_dir(mine), sim.mesh)
+
+    def replica() -> PoolStore:
+        if held[rank]:
+            return open_pool_store(sim, mine)
+        if rank and held[0]:
+            if not is_pool_store_dir(first):
+                raise ValueError(
+                    f"rank {rank} cannot see rank 0's pool store {first!r} "
+                    f"to make its replica {mine!r} from it (ranks without "
+                    "a shared filesystem need their replicas in place)")
+            _copy_store(first, mine, _read_manifest(first))
+            return open_pool_store(sim, mine)
+        return create_pool_store(sim, material, mine,
+                                 common_init=common_init)
+
+    store = _on_every_rank(replica, sim.mesh)
+    seen = every_rank((store.path, int(store.manifest["round"]),
+                       int(store.manifest["seed_word"])), sim.mesh)
+    path0, round0, word0 = seen[0]
+    for r, (p, rnd, word) in enumerate(seen):
+        if (rnd, word) != (round0, word0):
+            raise ValueError(
+                f"the pool store replica {p!r} (rank {r}: round {rnd}, seed "
+                f"word {word}) disagrees with rank 0's {path0!r} (round "
+                f"{round0}, seed word {word0}); remove the stale replica, "
+                "and the rank copies rank 0's store when it opens the pool")
+    return store
+
+
 def save_pool_store(sim, pool: CohortPool, path: str, draws=None) -> str:
     """Checkpoint a disk-backed pool: flush the memmaps, hole-preserving
     copies of its files into ``path``, the manifest stamped with the
     pool's round, and the draw state of ``draws`` beside it
-    (``draws.pt``, as ``save_checkpoint`` keeps it)."""
-    from ..checkpoint import draw_record
+    (``draws.pt``, as ``save_checkpoint`` keeps it).
+
+    On a mesh across ranks every rank calls it: each flushes its replica,
+    the ranks' draw states and rounds are held equal, rank 0 alone copies
+    its files into ``path``, and every rank returns after a barrier."""
+    from ..checkpoint import _digest, _same_on_every_rank, draw_record
+    from ..parallel import is_writer, rank_barrier
     store: Optional[PoolStore] = getattr(sim, "_pool_store", None)
     if store is None:
         raise ValueError("no live PoolStore on this simulator; disk-"
                          "backed pools come from init_cohort_pool/load "
                          "with CohortConfig(pool_dir=...)")
     dst = os.path.abspath(path)
-    if dst == store.path:
-        raise ValueError("pool checkpoint dir must differ from the live "
-                         f"pool_dir {store.path!r}")
+    mesh = sim.mesh
+
+    def distinct():
+        if dst == store.path:
+            raise ValueError("pool checkpoint dir must differ from the "
+                             f"live pool_dir {store.path!r}")
+
+    _on_every_rank(distinct, mesh)
     with span("checkpoint.save", cat="checkpoint",
               tracer=getattr(sim, "tracer", None), path=str(path),
               pool_store=True):
         store.flush()
-        os.makedirs(dst, exist_ok=True)
-        for name in store.files():
-            _sparse_copy(os.path.join(store.path, name),
-                         os.path.join(dst, name))
         rec = draw_record(draws)
-        if rec is not None:
-            torch.save({"draws": rec}, os.path.join(dst, _POOL_DRAWS))
-        manifest = dict(store.manifest)
-        manifest["round"] = int(pool.round)
-        _write_manifest(dst, manifest)
+        if _across(sim):
+            _same_on_every_rank(f"{_digest(rec)} round {int(pool.round)}",
+                                "draw state and pool round")
+        if is_writer(mesh):
+            os.makedirs(dst, exist_ok=True)
+            if rec is not None:
+                torch.save({"draws": rec}, os.path.join(dst, _POOL_DRAWS))
+            _copy_store(store.path, dst,
+                        dict(store.manifest, round=int(pool.round)))
+        rank_barrier(mesh)
     return dst
 
 
@@ -764,21 +897,23 @@ def load_pool_checkpoint(sim, path: str, workdir: Optional[str] = None):
     ``<path>.live``, replaced if present) and the store opened there, so
     continuing the run never mutates the checkpoint. A saved draw state
     goes into the simulator's own provider, returned as ``draws`` (None
-    when the checkpoint kept none)."""
+    when the checkpoint kept none). On a mesh across ranks every rank
+    reads the one checkpoint into its own work directory
+    (:func:`rank_pool_dir` of ``workdir``); a rank that fails makes every
+    rank raise."""
     src = os.path.abspath(path)
-    manifest = _read_manifest(src)
-    dst = os.path.abspath(workdir or (src.rstrip("/\\") + ".live"))
-    if dst != src:
-        if os.path.isdir(dst):
-            shutil.rmtree(dst)
-        os.makedirs(dst)
-        files = ([s["file"] for s in manifest["model_leaves"]]
-                 + [name for name, _, _ in _POOL_FIXED_LEAVES])
-        for name in files:
-            _sparse_copy(os.path.join(src, name),
-                         os.path.join(dst, name))
-        _write_manifest(dst, manifest)
-    store = PoolStore(sim, dst, dict(manifest))
+    rank = torch.distributed.get_rank() if _across(sim) else 0
+
+    def restore() -> PoolStore:
+        manifest = _read_manifest(src)
+        dst = rank_pool_dir(workdir or (src.rstrip("/\\") + ".live"), rank)
+        if dst != src:
+            if os.path.isdir(dst):
+                shutil.rmtree(dst)
+            _copy_store(src, dst, manifest)
+        return PoolStore(sim, dst, dict(manifest))
+
+    store = _on_every_rank(restore, sim.mesh)
     sim._pool_store = store
     draws = None
     rec_path = os.path.join(src, _POOL_DRAWS)
@@ -942,8 +1077,10 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
 
     On a mesh across ranks (the simulator's own: ``GossipSimulator(
     cohort=..., mesh=)``, whose rounds then run the ring deliver) every
-    rank holds the whole pool, built from the same generator, and draws
-    the same schedule. A rank stages only its rows of each cohort
+    rank holds the whole pool, built from the same generator (a
+    disk-backed pool: its own replica of the store, whose lazy rows it
+    initializes for the whole cohort), and draws the same schedule. A
+    rank stages only its rows of each cohort
     (``sim._rows`` of the ``[C]`` axis) and runs the segment's rounds on
     them; the durable outputs are gathered whole in one all-gather
     (:func:`~gossipy_tpu_torch.parallel.gather_rows`), and every rank
@@ -1057,7 +1194,11 @@ def cohort_start(sim, pool: CohortPool, n_rounds: int, mesh=None):
             st.idx = st.whole[mine]
             st.idx_t = torch.from_numpy(st.idx)
             if store is not None:
-                store.ensure_rows(sim, st.idx)
+                # The whole cohort, not only this rank's rows: every rank
+                # scatters the whole cohort into its replica, and a row
+                # left uninitialized there would be initialized over its
+                # trained values when a later cohort gives it to this rank.
+                store.ensure_rows(sim, st.whole)
             # The slot's last upload must have read it.
             st.slot, st.host = stage_slots.take(s)
         st.ts_us = sp_s.ts_us

@@ -695,7 +695,6 @@ class GossipSimulator(SimulationEventSender):
             # The MFU numerator, counted once here (set-up), so that no
             # start() pays for it.
             self._analytic_cost()
-        self._refuse_across_ranks()
 
     def _init_mesh(self, mesh) -> None:
         """The mesh-sharded fused deliver (JAX engine.py:624-639, :681-684):
@@ -745,18 +744,6 @@ class GossipSimulator(SimulationEventSender):
                              f"{self.device}")
         self._fused_ring_axis = _node_axis_entry(mesh, None)
         self._rows = mesh.node_rows(self.n_nodes, self._fused_ring_axis)
-
-    def _refuse_across_ranks(self) -> None:
-        """The options a mesh across ranks does not run yet, each naming
-        what it waits for in ROADMAP.md queue 1 item 13: a disk-backed
-        cohort pool."""
-        if self._rows is None:
-            return
-        from ..parallel import across_ranks_refusal
-        if self.cohort is not None and self.cohort.pool_dir:
-            raise NotImplementedError(across_ranks_refusal(
-                "a disk-backed cohort pool (CohortConfig(pool_dir=))",
-                "pool_dir"))
 
     # -- a mesh across ranks: this rank's rows ------------------------------
 
@@ -1179,7 +1166,9 @@ class GossipSimulator(SimulationEventSender):
           ``cohort_size``, ``nominal_n``, ``cohort_pool_resident`` (the
           host pool's bytes), ``cohort_active_total``,
           ``cohort_materialized_prediction`` (the N-scaled terms
-          materialized) and ``cohort_pool_disk_backed`` are added.
+          materialized) and ``cohort_pool_disk_backed`` are added. On a
+          mesh across ranks every rank holds its own copy of the pool
+          (its RAM pool, or its replica of the store).
 
         The port's rows are ``stride`` wide (the layout pads each row to a
         multiple of 4 floats), so its params, optimizer and ring terms
@@ -1286,8 +1275,9 @@ class GossipSimulator(SimulationEventSender):
         (:func:`~gossipy_tpu_torch.simulation.cohort.save_pool_store`).
         On a mesh across ranks every rank calls it with its rows: the one
         file holds the whole population, written by rank 0 after a
-        gather (a cohort's RAM pool, whole on every rank, without one),
-        and every rank returns once it is whole."""
+        gather (a cohort's RAM pool, whole on every rank, without one;
+        a disk-backed pool, rank 0's replica of the store), and every
+        rank returns once it is whole."""
         draws = self.draws if draws is None else draws
         from ..checkpoint import save_checkpoint
         if self.cohort is not None:
@@ -1319,12 +1309,14 @@ class GossipSimulator(SimulationEventSender):
         In cohort mode the unit is the resident
         :class:`~gossipy_tpu_torch.simulation.cohort.CohortPool`, and the
         template a zero-filled pool (no init at restore); a pool-store
-        directory is copied into a work directory and opened there."""
+        directory is copied into a work directory and opened there (on a
+        mesh across ranks, into each rank's own: rank 0's view of
+        ``path`` decides which restore every rank takes)."""
         from ..checkpoint import restore_checkpoint
         if self.cohort is not None:
-            from .cohort import is_pool_store_dir, load_pool_checkpoint, \
+            from .cohort import _rank0_is_store, load_pool_checkpoint, \
                 pool_template
-            if is_pool_store_dir(path):
+            if _rank0_is_store(self, path):
                 return load_pool_checkpoint(self, path)
             return restore_checkpoint(path, pool_template(self), self.draws)
         template = self.init_nodes(local_train=False)

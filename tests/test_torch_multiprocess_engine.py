@@ -43,14 +43,14 @@ One spawn of two ranks serves every check; each rank runs these legs
   against its JAX twin (``JQuota``) on a 2-device mesh, ``aux`` included;
 - ``refusals``: what a mesh across ranks still refuses (a subclass that
   overrides a receive hook, as every mesh refuses it; one process's
-  positions on two devices; a disk-backed cohort pool) raises naming
-  why; ``lifted``: the uses the refusal list no longer holds (a
-  checkpoint's save, load and ``restore_checkpoint(mesh=)``, ``perf=``,
-  ``metrics=``, ``ledger=``, ``tracing=``, a user's subclass of the
-  engine and of All2All, a cohort's ``start(mesh=)`` and the service)
+  positions on two devices) raises naming why; ``lifted``: the uses the
+  refusal list no longer holds (a checkpoint's save, load and
+  ``restore_checkpoint(mesh=)``, ``perf=``, ``metrics=``, ``ledger=``,
+  ``tracing=``, a user's subclass of the engine and of All2All, a
+  cohort's ``start(mesh=)``, the service and a disk-backed cohort pool)
   each run a round or a round trip (``test_torch_multiprocess_persist.py``,
-  ``..._cohort.py`` and ``..._service.py`` hold them to the one-process
-  runs).
+  ``..._cohort.py``, ``..._service.py`` and ``..._pool.py`` hold them to
+  the one-process runs).
 
 The ranks reach each other on ``localhost`` at a free port; the spawn
 has TIMEOUT_S and is reaped whatever happens.
@@ -378,7 +378,6 @@ REFUSED = {
     "tokenized": ("ValueError", "is overridden by TokenizedGossip"),
     "one process on two devices": ("NotImplementedError",
                                    "positions of one process on several"),
-    "disk pool": ("NotImplementedError", "queue 1 item 13, left 5,"),
 }
 
 
@@ -407,11 +406,8 @@ def refusals(mesh, workdir) -> dict:
                          parallel.Position(torch.device("cuda", 1), me,
                                            1)]))
 
-    def disk_pool():
-        cohort_sim(mesh, pool_dir=f"{workdir}/pool")
-
-    return outcomes(dict(zip(REFUSED, (receive_hook, tokenized, two_devices,
-                                       disk_pool))))
+    return outcomes(dict(zip(REFUSED, (receive_hook, tokenized,
+                                       two_devices))))
 
 
 def outcomes(cases: dict) -> dict:
@@ -427,7 +423,7 @@ def outcomes(cases: dict) -> dict:
 
 LIFTED = ("checkpoint save", "checkpoint load", "restore_checkpoint(mesh=)",
           "perf", "metrics", "ledger", "tracing", "variant",
-          "all2all variant", "cohort start(mesh=)", "service")
+          "all2all variant", "cohort start(mesh=)", "service", "disk pool")
 
 
 def lifted(mesh, workdir) -> dict:
@@ -492,6 +488,11 @@ def lifted(mesh, workdir) -> dict:
         _, rep = sim.start(sim.init_cohort_pool(), n_rounds=1, mesh=mesh)
         return int(rep.sent_messages)
 
+    def disk_pool():
+        sim = cohort_sim(mesh, pool_dir=f"{workdir}/pool")
+        _, rep = sim.start(sim.init_cohort_pool(), n_rounds=1, mesh=mesh)
+        return int(rep.sent_messages)
+
     def service():
         from gossipy_tpu_torch.config import ExperimentConfig
         from gossipy_tpu_torch.service import GossipService, RunRequest
@@ -511,7 +512,8 @@ def lifted(mesh, workdir) -> dict:
         save, load, restore,
         lambda: one_round(perf=True).perf_summary()["last_run"]["rounds"],
         lambda: one_round(metrics=True).metrics_enabled,
-        ledger, tracing, variant, a2a_variant, cohort, service))))
+        ledger, tracing, variant, a2a_variant, cohort, service,
+        disk_pool))))
 
 
 def run_legs(mesh, workdir) -> dict:
@@ -868,9 +870,8 @@ def test_refusals_across_ranks(ranks, name):
     subclass that overrides a receive hook the multi deliver replaces
     (the package's token variant among them; every mesh refuses it, as
     the JAX package does) with ``ValueError``; one process's positions
-    on two devices, and a disk-backed cohort pool, with
-    ``NotImplementedError`` naming the entry of ROADMAP.md queue 1 item
-    13 each waits for."""
+    on two devices with ``NotImplementedError`` naming the entry of
+    ROADMAP.md queue 1 item 13 it waits for."""
     kind, what = REFUSED[name]
     got, _ = ranks
     for rank in (0, 1):
@@ -886,8 +887,8 @@ def test_lifted_refusals_run_across_ranks(ranks, name):
     ``restore_checkpoint(mesh=)``) into each rank's own rows, a round
     runs with each host option (the ledger then holds one row a rank, the
     tracer its span), a user's subclass of the engine and of All2All
-    sends, a cohort's ``start(mesh=)`` runs a round and the service
-    serves a tenant to the end."""
+    sends, a cohort's ``start(mesh=)`` runs a round, with its pool in RAM
+    and on disk, and the service serves a tenant to the end."""
     want = {"checkpoint save": "ok: True", "checkpoint load": "ok: True",
             "restore_checkpoint(mesh=)": "ok: True", "perf": "ok: 1",
             "metrics": "ok: True", "ledger": "ok: 2", "tracing": "ok: 1",
